@@ -6,13 +6,21 @@
 It needs a CUDA card and exits non-zero without one, and on any failed
 phase; it imports nothing of JAX or of the JAX package. Phases:
 
-1. device: the card's name and power limit (nvidia-smi); the build of the
-   CUDA kernels from `flink_ml_tpu_torch/csrc/`;
-2. each kernel against its plain PyTorch version at edge shapes and at
-   the main path's shapes, on seeded inputs with -1 padding and indices
-   >= d, with CUDA
-   event times of the kernel, the plain version and one PyTorch library
-   call, and the bound from the bytes moved;
+1. device: the card's name and power limit (nvidia-smi); the build of
+   `flink_ml_tpu_torch/csrc/sparse_kernels.cu` and of the floor probes
+   `csrc/probes.cu`, one nvcc each, started together; the registers of
+   each kernel (cuobjdump -res-usage) and a look at the SASS (the
+   gradient adds with RED);
+2. each kernel against its plain PyTorch version, on seeded inputs with
+   -1 padding and indices >= d: at edge shapes, on the index-convention
+   probe, at the main path's shapes (the fit batch, 100,000 x 39, and the
+   1M-row transform), on Zipf-skewed indices at the fit batch (values on
+   a grid of quarters, so the gradient must be exact), on a fit batch
+   sliced at an odd row offset (not 16-byte aligned) and on a wide row
+   (16 x 5000). Each case prints CUDA-event times of the kernel, the
+   plain version, one PyTorch library call and, where the batch is
+   aligned, the floor probes (a gather per slot; an atomic add per slot),
+   beside the bound from the bytes moved;
 3. the main path, with the launch counts reset just before it and read
    just after: LogisticRegression fit -> transform on dense data at the
    reference config (10M x 100, maxIter 20, globalBatchSize 100,000,
@@ -22,8 +30,9 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    epochs on the same rows, the sparse fit against the same fit on the
    plain loss on the card, the transforms against float64 references;
 5. warm times: the median of five warm fits and transforms of each
-   configuration, and a torch.profiler pass over one warm fit of each
-   (device time by kernel, the device's idle share);
+   configuration, and a torch.profiler pass over one warm fit of each and
+   one warm sparse transform (device time by kernel, the device's idle
+   share);
 6. a `kernels` JSON line, then the result line.
 """
 
@@ -32,6 +41,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -47,6 +57,9 @@ DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# above the H100's highest SM clock, so a spin of n cycles lasts at least n / this
+SPIN_CYCLES_PER_S = 2e9
+MIN_SPIN_S = 0.005
 # kernel vs plain version: float32 sums in another order (row dots: a warp
 # shuffle tree over <= 39 terms; gradient: atomics in run-dependent order)
 ROW_DOTS_TOL = dict(rtol=1e-5, atol=5e-5)
@@ -64,13 +77,25 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, arg_sets, iters=30, warmup=3):
+def cuda_ms(fn, arg_sets, iters=30, warmup=3, ahead=True):
     """Mean time of `fn` over `iters` calls between CUDA events, cycling
-    through `arg_sets` (several copies of the inputs keep them out of L2)."""
+    through `arg_sets` (several copies of the inputs keep them out of L2).
+    With `ahead`, the stream first spins for twice as long as the host
+    takes to enqueue the calls (and at least MIN_SPIN_S), so the events
+    time the calls back to back on the card. Without it (reported as
+    `enqueue_ms`), a call that the host enqueues more slowly than the card
+    runs it is timed at the host's rate."""
     for i in range(warmup):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warmup):
+        fn(*arg_sets[i % len(arg_sets)])
+    host_s = (time.perf_counter() - t0) / warmup
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if ahead:
+        torch.cuda._sleep(int(max(2 * iters * host_s, MIN_SPIN_S) * SPIN_CYCLES_PER_S))
     start.record()
     for i in range(iters):
         fn(*arg_sets[i % len(arg_sets)])
@@ -99,12 +124,14 @@ def sparse_batch(gen, rows, nnz, d, dev, mask_share, oor_share):
     return idx, vals
 
 
-EDGE_SHAPES = [(64, 5, 24), (200, 39, 64), (1, 3, 4), (33, 40, 50), (7, 0, 10)]
+EDGE_SHAPES = [(64, 5, 24), (200, 39, 64), (1, 3, 4), (33, 40, 50), (7, 0, 10),
+               (300, 64, 1000), (300, 65, 1000)]
 
 
 def edge_phase(sk, dev):
     """The kernels at the edges of their layout (one row, nnz above a warp
-    width, a tiny d, an empty row width) and on the index-convention probe:
+    width, a tiny d, an empty row width, the widest row of one pass of the
+    row dot and the narrowest of two) and on the index-convention probe:
     an index >= d is clamped in the dot and dropped in the gradient."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -128,80 +155,254 @@ def edge_phase(sk, dev):
     log(f"  edge shapes {EDGE_SHAPES} and the index probe agree")
 
 
-def kernel_phase(sk, dev):
-    """Each kernel against its plain version at the main path's shapes."""
+ZIPF_EXPONENT = 1.1
+MISALIGNED_OFFSET = 3  # rows: 3 * 39 * 4 bytes = 468, not a multiple of 16
+WIDE_SHAPE = (16, 5000, 4096)
+
+
+def zipf_batch(gen, rows, nnz, d, dev):
+    """Seeded skewed rows, as Criteo's categorical features are skewed:
+    rank k is drawn with weight k^-1.1 and the ranks are scattered over the
+    columns by a seeded permutation, as hashed features are; padding and
+    indices >= d as in `sparse_batch`. Values (and the caller's
+    multipliers) lie on a grid of quarters, so every partial sum of the
+    gradient is exact in float32 and any order of its adds gives the same,
+    exact result."""
+    weights = torch.arange(1, d + 1, device=dev, dtype=torch.float64) ** -ZIPF_EXPONENT
+    cdf = torch.cumsum(weights, 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand((rows, nnz), generator=gen, device=dev, dtype=torch.float64)
+    rank = torch.searchsorted(cdf, u).clamp(max=d - 1)
+    idx = torch.randperm(d, generator=gen, device=dev)[rank].to(torch.int32)
+    u = torch.rand((rows, nnz), generator=gen, device=dev)
+    idx = torch.where(u < DEFAULT_MASK_SHARE, -1, idx)
+    idx = torch.where(u > 1.0 - OUT_OF_RANGE_SHARE, d + idx % 5, idx).contiguous()
+    vals = torch.randint(0, 5, (rows, nnz), generator=gen, device=dev).to(torch.float32) / 4
+    return idx, vals
+
+
+def cuobjdump(cuda_build, name, flag):
+    """`cuobjdump <flag>` of the built library of csrc/<name>.cu."""
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    return subprocess.run([tool, flag, str(cuda_build._library_path(name))], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
+def resource_usage(cuda_build, name):
+    """Registers, stack and spills (LOCAL) of each kernel of the library, as
+    cuobjdump reads them from the binary, whether this run compiled it or
+    found it built."""
+    usage, kernel = {}, None
+    for line in cuobjdump(cuda_build, name, "-res-usage").splitlines():
+        match = re.match(r"\s*Function (\S+):", line)
+        if match:
+            kernel = match.group(1)
+        elif kernel is not None and "REG:" in line:
+            usage[kernel] = " ".join(f for f in line.split() if f.split(":")[0] in ("REG", "STACK", "LOCAL"))
+            kernel = None
+    check(bool(usage), f"cuobjdump found no kernel in {name}")
+    return usage
+
+
+def check_sass(cuda_build):
+    """What the compiler made of the gradient (cuobjdump -sass): its adds,
+    whose result is unused, must be RED (REDG on Hopper), not ATOMG, which
+    waits for the old value."""
+    sass = cuobjdump(cuda_build, "sparse_kernels", "-sass")
+    opcode = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
+    names = {"RED": "RED", "REDG": "RED", "ATOMG": "ATOMG"}
+    counts, seen, kernel = {}, {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip()
+            counts[kernel], seen[kernel] = {"RED": 0, "ATOMG": 0}, set()
+            continue
+        match = opcode.search(line)
+        if kernel is not None and match:
+            seen[kernel].add(match.group(1))
+            if match.group(1) in names:
+                counts[kernel][names[match.group(1)]] += 1
+    check(any("grad_kernel" in k for k in counts), "no gradient kernel in the SASS")
+    for kernel, ops in counts.items():
+        log(f"  sass {kernel}: {ops}")
+        if "grad_kernel" in kernel:
+            check(ops["RED"] > 0 and ops["ATOMG"] == 0,
+                  f"{kernel} adds with {ops}, not RED; opcodes {sorted(seen[kernel])}")
+
+
+def load_probes(cuda_build):
+    """csrc/probes.cu: the floors of random L2 access that the kernels meet."""
+    import ctypes
+
+    lib = cuda_build.load("probes")
+    lib.fmt_probe_gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+    lib.fmt_probe_red.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+    lib.fmt_probe_gather.restype = lib.fmt_probe_red.restype = ctypes.c_int
+
+    def gather(idx, coeff):
+        n = idx.numel()
+        out = torch.empty(-(-n // 1024) * 32, device=idx.device)
+        err = lib.fmt_probe_gather(idx.data_ptr(), coeff.data_ptr(), out.data_ptr(), n,
+                                   coeff.shape[0], torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"gather probe launch failed with CUDA error {err}")
+        return out
+
+    def red(idx, coeff):
+        counts = torch.zeros_like(coeff)
+        err = lib.fmt_probe_red(idx.data_ptr(), counts.data_ptr(), idx.numel(), coeff.shape[0],
+                                torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"RED probe launch failed with CUDA error {err}")
+        return counts
+
+    return gather, red
+
+
+def check_probes(gather, red, idx, coeff):
+    """The probes compute something checkable: a sum of the gathered
+    coefficients per lane, and a count per column."""
+    d = coeff.shape[0]
+    flat = idx.reshape(-1)
+    pad = torch.full((-flat.numel() % 1024,), -1, dtype=flat.dtype, device=flat.device)
+    lanes = torch.cat([flat, pad]).reshape(-1, 8, 32, 4)
+    want = torch.where(lanes >= 0, coeff[lanes.clamp(0, d - 1).long()], 0.0).sum(dim=(1, 3))
+    check(torch.allclose(gather(idx, coeff), want.reshape(-1), **ROW_DOTS_TOL),
+          "the gather probe's sums disagree")
+    keep = flat[(flat >= 0) & (flat < d)].long()
+    check(torch.equal(red(idx, coeff), torch.bincount(keep, minlength=d).to(torch.float32)),
+          "the RED probe's counts disagree")
+
+
+def measure_case(sk, probes, label, idx, vals, coeff, mult, sets, exact_grad=False):
+    """Both kernels on one batch: held against their plain versions, and
+    timed with the plain versions, one library call each and, where the
+    batch is aligned, the probes. `sets` are copies of (idx, vals) that
+    rotate through the timed calls."""
+    rows, nnz = idx.shape
+    d = coeff.shape[0]
+    valid = idx >= 0
+    safe = torch.where(valid, idx, 0).clamp(max=d - 1)
+    masked_vals = torch.where(valid, vals, 0.0)
+    keep = valid & (idx < d)
+    batch_bytes = idx.numel() * 4 + vals.numel() * 4
+    probe_ms = {}
+    if idx.data_ptr() % 16 == 0 and idx.numel() % 4 == 0 and probes is not None:
+        gather, red = probes
+        check_probes(gather, red, idx, coeff)
+        probe_ms["sparse_row_dots"] = cuda_ms(lambda i, v: gather(i, coeff), sets)
+        probe_ms["sparse_grad"] = cuda_ms(lambda i, v: red(i, coeff), sets)
+    results = {}
+
+    got = sk.sparse_row_dots(idx, vals, coeff)
+    want = sk.sparse_row_dots_plain(idx, vals, coeff)
+    err = (got - want).abs()
+    check(torch.allclose(got, want, **ROW_DOTS_TOL),
+          f"sparse_row_dots disagrees with its plain version on {label}: max abs {float(err.max())}")
+    lib_out = torch.nn.functional.embedding_bag(
+        safe, coeff[:, None], per_sample_weights=masked_vals, mode="sum")[:, 0]
+    check(torch.allclose(lib_out, want, **ROW_DOTS_TOL), "embedding_bag yardstick disagrees")
+    touched = int(torch.unique(safe[valid]).numel())
+    b_ms, b_by = bound_ms(batch_bytes + touched * 4 + rows * 4, 2.0 * int(valid.sum()))
+    results["sparse_row_dots"] = {
+        "max_abs_err": float(err.max()),
+        "max_rel_err": float((err / want.abs().clamp_min(1e-6)).max()),
+        "ms": cuda_ms(lambda i, v: sk.sparse_row_dots(i, v, coeff), sets),
+        "enqueue_ms": cuda_ms(lambda i, v: sk.sparse_row_dots(i, v, coeff), sets, ahead=False),
+        "plain_ms": cuda_ms(lambda i, v: sk.sparse_row_dots_plain(i, v, coeff), sets, iters=10),
+        "library_ms": cuda_ms(
+            lambda s, w: torch.nn.functional.embedding_bag(
+                s, coeff[:, None], per_sample_weights=w, mode="sum"),
+            [(safe, masked_vals)], iters=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+    got = sk.sparse_grad(idx, vals, mult, coeff)
+    want = sk.sparse_grad_plain(idx, vals, mult, coeff)
+    err = (got - want).abs()
+    check(torch.allclose(got, want, **GRAD_TOL),
+          f"sparse_grad disagrees with its plain version on {label}: max abs {float(err.max())}")
+    if exact_grad:
+        check(torch.equal(got, want), f"sparse_grad is not exact on {label}'s exact sums")
+    flat_idx = torch.where(keep, idx, 0).long().reshape(-1)
+    contrib = torch.where(keep, vals * mult[:, None], 0.0).reshape(-1)
+    b_ms, b_by = bound_ms(batch_bytes + rows * 4 + d * 4, 2.0 * int(keep.sum()))
+    msets = [(i, v, mult) for i, v in sets]
+    results["sparse_grad"] = {
+        "max_abs_err": float(err.max()),
+        "max_rel_err": float((err / want.abs().clamp_min(1e-6)).max()),
+        "ms": cuda_ms(lambda i, v, m: sk.sparse_grad(i, v, m, coeff), msets),
+        "enqueue_ms": cuda_ms(lambda i, v, m: sk.sparse_grad(i, v, m, coeff), msets, ahead=False),
+        "plain_ms": cuda_ms(lambda i, v, m: sk.sparse_grad_plain(i, v, m, coeff), msets, iters=10),
+        "library_ms": cuda_ms(lambda fi, c: torch.zeros_like(coeff).index_add_(0, fi, c),
+                              [(flat_idx, contrib)], iters=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    for name, r in results.items():
+        r.update(case=label, rows=rows, nnz=nnz, d=d, probe_ms=probe_ms.get(name))
+        probe = f", probe {r['probe_ms']:.4f} ms" if r["probe_ms"] is not None else ""
+        log(f"  {name} {label} ({rows} x {nnz}, d={d}): max_abs_err "
+            f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms (enqueue-bound {r['enqueue_ms']:.4f}), "
+            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){probe}")
+    return results
+
+
+def copies(idx, vals, offset=0):
+    """(idx, vals) and enough copies of it to exceed L2 several times; with
+    `offset`, each copy is the same row slice of a fresh copy of the larger
+    tensor, so its base keeps its alignment."""
+    n = copies_for(idx.numel() * 8)
+    return [(idx[offset:], vals[offset:])] + [
+        (idx.clone()[offset:], vals.clone()[offset:]) for _ in range(n - 1)]
+
+
+def kernel_phase(sk, probes, dev):
+    """Each kernel against its plain version at the main path's shapes
+    (the fit batch and the 1M-row transform), on skewed indices, on a
+    misaligned row slice and on a wide row; the floor probes beside them."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     coeff = torch.randn(SPARSE_DIM, generator=gen, device=dev)
     results = {"sparse_row_dots": [], "sparse_grad": []}
-    for rows in (BATCH, SPARSE_ROWS):
+
+    def run(label, idx, vals, c, mult, sets, exact_grad=False):
+        res = measure_case(sk, probes, label, idx, vals, c, mult, sets, exact_grad)
+        for name in results:
+            results[name].append(res[name])
+
+    for label, rows in (("fit batch", BATCH), ("transform", SPARSE_ROWS)):
         idx, vals = sparse_batch(gen, rows, NNZ, SPARSE_DIM, dev, DEFAULT_MASK_SHARE, OUT_OF_RANGE_SHARE)
         mult = torch.randn(rows, generator=gen, device=dev)
-        batch_bytes = idx.numel() * 4 + vals.numel() * 4
-        sets = [(idx, vals)] + [
-            (idx.clone(), vals.clone()) for _ in range(copies_for(batch_bytes) - 1)
-        ]
-        valid = idx >= 0
-        safe = torch.where(valid, idx, 0).clamp(max=SPARSE_DIM - 1)
-        masked_vals = torch.where(valid, vals, 0.0)
-        n_valid = int(valid.sum())
-        touched = int(torch.unique(safe[valid]).numel())
+        run(label, idx, vals, coeff, mult, copies(idx, vals))
+        del idx, vals
 
-        got = sk.sparse_row_dots(idx, vals, coeff)
-        want = sk.sparse_row_dots_plain(idx, vals, coeff)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        check(torch.allclose(got, want, **ROW_DOTS_TOL),
-              f"sparse_row_dots disagrees with its plain version at rows={rows}: max abs {float(err.max())}")
-        lib_out = torch.nn.functional.embedding_bag(
-            safe, coeff[:, None], per_sample_weights=masked_vals, mode="sum"
-        )[:, 0]
-        check(torch.allclose(lib_out, want, **ROW_DOTS_TOL), "embedding_bag yardstick disagrees")
-        nbytes = batch_bytes + touched * 4 + rows * 4
-        b_ms, b_by = bound_ms(nbytes, 2.0 * n_valid)
-        results["sparse_row_dots"].append({
-            "rows": rows, "nnz": NNZ, "d": SPARSE_DIM,
-            "max_abs_err": float(err.max()),
-            "max_rel_err": float((err / want.abs().clamp_min(1e-6)).max()),
-            "ms": cuda_ms(lambda i, v: sk.sparse_row_dots(i, v, coeff), sets),
-            "plain_ms": cuda_ms(lambda i, v: sk.sparse_row_dots_plain(i, v, coeff), sets, iters=10),
-            "library_ms": cuda_ms(
-                lambda s, w: torch.nn.functional.embedding_bag(
-                    s, coeff[:, None], per_sample_weights=w, mode="sum"),
-                [(safe, masked_vals)], iters=10),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-        })
+    idx, vals = zipf_batch(gen, BATCH, NNZ, SPARSE_DIM, dev)
+    mult = torch.randint(-4, 5, (BATCH,), generator=gen, device=dev).to(torch.float32) / 4
+    run("zipf", idx, vals, coeff, mult, copies(idx, vals), exact_grad=True)
+    # The same skewed columns with random float values, not a gate: how far
+    # float32 sums in any order stray from the float64 sum on hot columns.
+    rvals = torch.rand(idx.shape, generator=gen, device=dev)
+    rmult = torch.randn(BATCH, generator=gen, device=dev)
+    exact = sk.sparse_grad_plain(idx, rvals.double(), rmult.double(), coeff.double())
+    log(f"  zipf with float values (not a gate): max abs error against float64 "
+        f"{float((sk.sparse_grad(idx, rvals, rmult, coeff).double() - exact).abs().max()):.3g} "
+        f"(kernel), {float((sk.sparse_grad_plain(idx, rvals, rmult, coeff).double() - exact).abs().max()):.3g} "
+        f"(plain); largest |g| {float(exact.abs().max()):.4g}")
+    del idx, vals, rvals
 
-        got = sk.sparse_grad(idx, vals, mult, coeff)
-        want = sk.sparse_grad_plain(idx, vals, mult, coeff)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        check(torch.allclose(got, want, **GRAD_TOL),
-              f"sparse_grad disagrees with its plain version at rows={rows}: max abs {float(err.max())}")
-        keep = valid & (idx < SPARSE_DIM)
-        flat_idx = torch.where(keep, idx, 0).long().reshape(-1)
-        contrib = torch.where(keep, vals * mult[:, None], 0.0).reshape(-1)
-        nbytes = batch_bytes + rows * 4 + SPARSE_DIM * 4
-        b_ms, b_by = bound_ms(nbytes, 2.0 * int(keep.sum()))
-        results["sparse_grad"].append({
-            "rows": rows, "nnz": NNZ, "d": SPARSE_DIM,
-            "max_abs_err": float(err.max()),
-            "max_rel_err": float((err / want.abs().clamp_min(1e-6)).max()),
-            "ms": cuda_ms(lambda i, v, m: sk.sparse_grad(i, v, m, coeff),
-                          [(i, v, mult) for i, v in sets]),
-            "plain_ms": cuda_ms(lambda i, v, m: sk.sparse_grad_plain(i, v, m, coeff),
-                                [(i, v, mult) for i, v in sets], iters=10),
-            "library_ms": cuda_ms(
-                lambda fi, c: torch.zeros_like(coeff).index_add_(0, fi, c),
-                [(flat_idx, contrib)], iters=10),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-        })
-        del sets, safe, masked_vals, flat_idx, contrib
-        for name in results:
-            r = results[name][-1]
-            log(f"  {name} rows={rows}: max_abs_err {r['max_abs_err']:.3g} "
-                f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    big_idx, big_vals = sparse_batch(gen, BATCH + MISALIGNED_OFFSET, NNZ, SPARSE_DIM, dev,
+                                     DEFAULT_MASK_SHARE, OUT_OF_RANGE_SHARE)
+    idx, vals = big_idx[MISALIGNED_OFFSET:], big_vals[MISALIGNED_OFFSET:]
+    check(idx.data_ptr() % 16 != 0, "the misaligned slice is aligned")
+    mult = torch.randn(BATCH, generator=gen, device=dev)
+    run("misaligned slice", idx, vals, coeff, mult,
+        copies(big_idx, big_vals, MISALIGNED_OFFSET))
+    del big_idx, big_vals, idx, vals
+
+    rows, nnz, d = WIDE_SHAPE
+    idx, vals = sparse_batch(gen, rows, nnz, d, dev, 0.2, 0.05)
+    wide_coeff = torch.randn(d, generator=gen, device=dev)
+    mult = torch.randn(rows, generator=gen, device=dev)
+    run("wide row", idx, vals, wide_coeff, mult, copies(idx, vals))
     return results
 
 
@@ -284,17 +485,22 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
+    cuda_sources = ("sparse_kernels", "probes")
+    cuda_build.load_all(cuda_sources)
     sk.build()
     build_s = time.perf_counter() - t0
-    log(f"build: sparse_kernels.cu in {build_s:.2f} s")
-    for line in cuda_build.build_log.get("sparse_kernels", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"build: {', '.join(f'{n}.cu' for n in cuda_sources)} (one nvcc each, started "
+        f"together) in {build_s:.2f} s")
+    for name in cuda_sources:
+        for kernel, usage in resource_usage(cuda_build, name).items():
+            log(f"  registers {name} {kernel}: {usage}")
+    check_sass(cuda_build)
+    probes = load_probes(cuda_build)
 
     # -- 2. kernels against their plain versions ------------------------
     log("phase 2: kernels vs plain versions")
     edge_phase(sk, dev)
-    kernel_results = kernel_phase(sk, dev)
+    kernel_results = kernel_phase(sk, probes, dev)
 
     # -- 3. the main path -------------------------------------------------
     log("phase 3: main path (launch counts from here)")
@@ -414,7 +620,8 @@ def main() -> int:
         warm[name] = (float(np.median(fits)), float(np.median(transforms)))
         log(f"  {name}: fit median {warm[name][0]:.3f} ms (runs {[round(t, 3) for t in fits]}), "
             f"transform median {warm[name][1]:.3f} ms (runs {[round(t, 3) for t in transforms]})")
-        profile_fit(name, lambda: estimator(lr_module, weight).fit(table))
+        profile_run(f"{name} fit", lambda: estimator(lr_module, weight).fit(table))
+    profile_run("sparse transform", lambda: sparse_model.transform(sparse_table)[0])
 
     # -- 6. output -----------------------------------------------------------
     sources = {
@@ -434,6 +641,7 @@ def main() -> int:
             "tolerance": ROW_DOTS_TOL if name == "sparse_row_dots" else GRAD_TOL,
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "probe_ms": main["probe_ms"], "enqueue_ms": main["enqueue_ms"],
             "shape": [main["rows"], main["nnz"], main["d"]],
             "by_shape": rows,
         })
@@ -451,16 +659,17 @@ def main() -> int:
     return 0
 
 
-def profile_fit(name, fit):
-    """torch.profiler over one warm fit: the wall time, the device's busy
-    time (the sum of its kernels and copies) and the largest kernels."""
+def profile_run(name, run):
+    """torch.profiler over one warm call (a fit or a transform): the wall
+    time, the device's busy time (the sum of its kernels and copies) and
+    the largest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fit()
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -468,7 +677,7 @@ def profile_fit(name, fit):
         else "self_cuda_time_total"
     events.sort(key=lambda e: -getattr(e, attr))
     busy_ms = sum(getattr(e, attr) for e in events) / 1e3
-    log(f"  profile {name} fit: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+    log(f"  profile {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
         f"idle {100.0 * (1.0 - busy_ms / wall_ms):.1f}%")
     for e in events[:8]:
         log(f"    {getattr(e, attr) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")

@@ -16,20 +16,18 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-#: name -> nvcc's output (the ptxas register and spill report)
-build_log: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -52,30 +50,37 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def _build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless an up-to-date library exists.
-    Raises with the compiler's output if nvcc fails."""
-    out = _library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=False
-    )
-    build_log[name] = proc.stdout
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return out
+def load_all(names) -> List[ctypes.CDLL]:
+    """The loaded libraries for `csrc/<name>.cu`, one per name. The sources
+    without an up-to-date library compile at the same time, one nvcc each;
+    every nvcc is waited for before any failure is raised, with the
+    compiler's output."""
+    with _lock:
+        started = {}
+        for name in names:
+            out = _library_path(name)
+            if name in _libs or name in started or out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            started[name] = (proc, tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in started.items():
+            output = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for csrc/{name}.cu:\n{output}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(str(_library_path(name)))
+        return [_libs[name] for name in names]
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built first if needed."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(_build(name)))
-            _libs[name] = lib
-        return lib
+    return load_all([name])[0]

@@ -27,19 +27,50 @@ dropped in the gradient, so such a weight is read but never updated.
 The gradient kernel adds with atomics, so its order of additions changes
 from run to run: it agrees with the plain version to a tolerance, not
 bit for bit.
+
+How a batch is cut into blocks is decided here, by `_launch_plan`, a pure
+function of the batch's shape, and passed to the kernels: the CPU tests
+check it without a card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
 from . import cuda_build
 
 _SOURCE = "sparse_kernels"
+
+#: the row dot: warps a block, one row each
+ROW_WARPS = 8
+#: the gradient: threads a block, one slot each
+GRAD_THREADS = 256
+
+
+class LaunchPlan(NamedTuple):
+    """How one launch cuts a (rows, nnz) batch into blocks: block b takes
+    the rows [b * threads / 32, (b + 1) * threads / 32) in the row dot (a
+    warp a row), the slots [b * threads, (b + 1) * threads) of the
+    row-major batch in the gradient (a thread a slot)."""
+
+    threads: int  # a block
+    grid: int  # blocks
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(rows: int, nnz: int, grad: bool = False) -> LaunchPlan:
+    """The launch of the row dot (or, with `grad`, the gradient) for a
+    (rows, nnz) batch: a warp per row, ROW_WARPS rows a block; or a thread
+    per slot, GRAD_THREADS slots a block. The grid covers the batch.
+    Cached, so the epochs of a fit, whose batches share a shape, compute it
+    once."""
+    if grad:
+        return LaunchPlan(GRAD_THREADS, -(-rows * nnz // GRAD_THREADS))
+    return LaunchPlan(32 * ROW_WARPS, -(-rows // ROW_WARPS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,7 +79,8 @@ def _kernels():
     for fn in (lib.fmt_sparse_row_dots, lib.fmt_sparse_grad):
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return lib
@@ -57,6 +89,22 @@ def _kernels():
 def build() -> None:
     """Build and load the kernels now rather than at the first launch."""
     _kernels()
+
+
+def _launch(name, entry, indices, values, vector, out, d):
+    """Launch the C entry point `entry` on the batch with its plan, on the
+    current stream of the batch's device; raise if the launch failed."""
+    rows, nnz = indices.shape
+    plan = _launch_plan(rows, nnz, entry == "fmt_sparse_grad")
+    device = indices.device
+    with torch.cuda.device(device):
+        err = getattr(_kernels(), entry)(
+            indices.data_ptr(), values.data_ptr(), vector.data_ptr(), out.data_ptr(),
+            rows, nnz, d, plan.threads, plan.grid,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
 
 def _check_batch(name, indices, values, vector, vector_len, coeff):
@@ -84,11 +132,6 @@ def _check_batch(name, indices, values, vector, vector_len, coeff):
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {device}")
     return device
-
-
-def _raise_on_error(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
 
 def sparse_row_dots_plain(indices, values, coeff):
@@ -119,13 +162,8 @@ def sparse_row_dots(indices, values, coeff):
     out = torch.empty((rows,), dtype=torch.float32, device=device)
     if indices.numel() == 0:
         return out.zero_()
-    with torch.cuda.device(device):
-        err = _kernels().fmt_sparse_row_dots(
-            indices.data_ptr(), values.data_ptr(), coeff.data_ptr(), out.data_ptr(),
-            rows, indices.shape[1], coeff.shape[0],
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _raise_on_error("sparse_row_dots", err)
+    _launch("sparse_row_dots", "fmt_sparse_row_dots", indices, values, coeff, out,
+            coeff.shape[0])
     sparse_row_dots.launches += 1
     return out
 
@@ -141,13 +179,7 @@ def sparse_grad(indices, values, multiplier, coeff):
     grad = torch.zeros(coeff.shape, dtype=torch.float32, device=device)
     if indices.numel() == 0:
         return grad
-    with torch.cuda.device(device):
-        err = _kernels().fmt_sparse_grad(
-            indices.data_ptr(), values.data_ptr(), multiplier.data_ptr(), grad.data_ptr(),
-            rows, indices.shape[1], coeff.shape[0],
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _raise_on_error("sparse_grad", err)
+    _launch("sparse_grad", "fmt_sparse_grad", indices, values, multiplier, grad, coeff.shape[0])
     sparse_grad.launches += 1
     return grad
 

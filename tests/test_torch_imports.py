@@ -1,7 +1,8 @@
 """The port stands alone and does not hide the device.
 
 - `import flink_ml_tpu_torch` pulls in no JAX;
-- no module of the port, and not chip_smoke.py, imports jax or flink_ml_tpu;
+- no module of the port, and neither chip_smoke.py nor
+  scripts/torch_kernel_designs.py, imports jax or flink_ml_tpu;
 - an entry point that was not asked for the CPU raises without a card,
   rather than falling back to the CPU.
 """
@@ -23,7 +24,8 @@ from flink_ml_tpu_torch.models.classification.logisticregression import (
 from flink_ml_tpu_torch.table import StreamTable
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "flink_ml_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "flink_ml_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "scripts" / "torch_kernel_designs.py"]
 
 
 def test_import_leaves_jax_out():

@@ -4,8 +4,13 @@ The plain PyTorch versions (the CPU route of each wrapper) are held against
 the JAX Pallas kernels, run in interpret mode on the CPU as the JAX tests
 run them, and against the lax path of the default fit (`losses.sparse_dot`
 and the `mode="drop"` scatter). Inputs are made with seeded numpy and
-include -1 padding and indices >= d. The CUDA kernels themselves run only
-on the card: chip_smoke.py holds them against the plain versions there.
+include -1 padding and indices >= d, also at the edges of the kernels'
+layout: rows of one pass of the row dot and one slot more, a wide row and
+a batch sliced at an odd row offset. The CUDA kernels themselves run only
+on the card (chip_smoke.py holds them against the plain versions there);
+the launch plan that cuts a batch for them is pure Python and is checked
+here: threads per block and blocks within the launch limits, every row and
+slot covered once.
 """
 
 import numpy as np
@@ -46,7 +51,9 @@ def _lax_grad(indices, values, mult, d):
     return jnp.zeros((d,), jnp.float32).at[safe].add(vals * mult[:, None], mode="drop")
 
 
-SHAPES = [(7, 64, 5, 24), (11, 200, 39, 64), (13, 1, 3, 4), (17, 33, 40, 50)]
+# the last three: one full pass of the row dot (64 slots), one slot more, one slot
+SHAPES = [(7, 64, 5, 24), (11, 200, 39, 64), (13, 1, 3, 4), (17, 33, 40, 50),
+          (19, 20, 64, 100), (37, 20, 65, 100), (41, 30, 1, 7)]
 
 
 @pytest.mark.parametrize("seed,rows,nnz,d", SHAPES)
@@ -136,3 +143,106 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         else:
             sparsekernels.sparse_row_dots(indices, values, coeff)
             sparsekernels.sparse_grad(indices, values, mult, coeff)
+
+
+# -- the launch plan: a pure function of the batch's shape ---------------
+
+# gridDim.x's limit
+MAX_GRID = 2**31 - 1
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["row_dots", "grad"])
+def test_launch_plan_stays_within_the_launch_limits(grad):
+    for nnz in range(0, 10_001):
+        plan = sparsekernels._launch_plan(100_000, nnz, grad)
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024, (nnz, plan)
+        assert 0 <= plan.grid <= MAX_GRID
+    assert sparsekernels._launch_plan(2**31, 39, grad).grid <= MAX_GRID
+
+
+@pytest.mark.parametrize(
+    "rows,nnz",
+    [(1, 3), (7, 39), (8, 39), (9, 40), (1000, 39), (100_000, 39), (5_000, 1), (37, 5000),
+     (16, 5000)],
+)
+def test_tiles_cover_every_row_exactly_once(rows, nnz):
+    # the row dot: a warp per row, block b takes rows [b * per, (b + 1) * per)
+    # the gradient: a thread per slot, block b takes slots [b * per, (b + 1) * per)
+    for grad, items in ((False, rows), (True, rows * nnz)):
+        plan = sparsekernels._launch_plan(rows, nnz, grad)
+        per = plan.threads if grad else plan.threads // 32
+        counts = np.zeros(plan.grid * per, np.int64)
+        for b in range(plan.grid):
+            counts[b * per:(b + 1) * per] += 1
+        np.testing.assert_array_equal(counts[:items], 1)
+        assert (plan.grid - 1) * per < items, "a block with nothing to do"
+
+
+def test_a_fit_batch_at_an_odd_row_offset_is_not_aligned():
+    """The fit slices batches as rows [start, start + batch); with an odd
+    nnz and a batch size that is not a multiple of 4 the slice's base is
+    not 16-byte aligned (chip_smoke.py holds the kernels on such a slice).
+    The slice stays contiguous, so the wrappers take it as it is."""
+    indices, values, coeff, mult = _t(*_batch(23, 103, 39, 50))
+    sliced_i, sliced_v = indices[3:], values[3:]
+    assert sliced_i.is_contiguous() and sliced_i.data_ptr() % 16 != 0
+    torch.testing.assert_close(sparsekernels.sparse_row_dots(sliced_i, sliced_v, coeff),
+                               sparsekernels.sparse_row_dots(indices, values, coeff)[3:])
+    torch.testing.assert_close(
+        sparsekernels.sparse_grad(sliced_i, sliced_v, mult[3:], coeff),
+        sparsekernels.sparse_grad_plain(sliced_i.clone(), sliced_v.clone(), mult[3:], coeff))
+
+
+# -- the plain versions against JAX at more edges ------------------------
+
+def _edge_batch(case):
+    if case == "wide_row":
+        return _batch(29, 3, 600, 512)
+    # a batch sliced at an odd row offset of a larger one
+    indices, values, coeff, mult = _batch(31, 43, 39, 64)
+    return indices[3:], values[3:], coeff, mult[3:]
+
+
+@pytest.mark.parametrize("case", ["wide_row", "odd_offset_slice"])
+def test_row_dots_plain_matches_pallas_and_lax_at_new_edges(case):
+    indices, values, coeff, _ = _edge_batch(case)
+    got = sparsekernels.sparse_row_dots_plain(*_t(indices, values, coeff)).numpy()
+    ji, jv, jc = (jnp.asarray(np.ascontiguousarray(a)) for a in (indices, values, coeff))
+    np.testing.assert_allclose(got, np.asarray(jax_kernels.sparse_row_dots(ji, jv, jc)),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, np.asarray(jax_losses.sparse_dot(ji, jv, jc)[0]),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["wide_row", "odd_offset_slice"])
+def test_grad_plain_matches_pallas_and_lax_at_new_edges(case):
+    indices, values, coeff, mult = _edge_batch(case)
+    zeros = np.zeros_like(coeff)
+    got = sparsekernels.sparse_grad_plain(*_t(indices, values, mult, zeros)).numpy()
+    ji, jv, jm, jz = (jnp.asarray(np.ascontiguousarray(a)) for a in (indices, values, mult, zeros))
+    np.testing.assert_allclose(got, np.asarray(jax_kernels.sparse_grad(ji, jv, jm, jz)),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, np.asarray(_lax_grad(ji, jv, jm, coeff.shape[0])),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_quarter_grid_values_make_every_order_of_gradient_sums_exact():
+    """chip_smoke.py holds the gradient on skewed indices to exact equality:
+    with values and multipliers on a grid of quarters, each product is a
+    multiple of 1/16 and every partial sum is exact in float32, so the
+    order of the additions cannot change the result."""
+    rng = np.random.default_rng(7)
+    rows, nnz, d = 4000, 39, 50
+    weights = np.arange(1, d + 1, dtype=np.float64) ** -1.1
+    indices = rng.choice(d, size=(rows, nnz), p=weights / weights.sum()).astype(np.int32)
+    values = (rng.integers(0, 5, size=(rows, nnz)) / 4).astype(np.float32)
+    mult = (rng.integers(-4, 5, size=rows) / 4).astype(np.float32)
+    zeros = np.zeros(d, np.float32)
+    want = sparsekernels.sparse_grad_plain(*_t(indices, values, mult, zeros)).numpy()
+    exact = np.zeros(d)
+    np.add.at(exact, indices.reshape(-1), (values * mult[:, None]).astype(np.float64).reshape(-1))
+    np.testing.assert_array_equal(want, exact)
+    order = rng.permutation(rows * nnz)
+    shuffled = np.zeros(d, np.float32)
+    np.add.at(shuffled, indices.reshape(-1)[order], (values * mult[:, None]).reshape(-1)[order])
+    np.testing.assert_array_equal(shuffled, want)
