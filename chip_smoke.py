@@ -21,18 +21,29 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    plain version, one PyTorch library call and, where the batch is
    aligned, the floor probes (a gather per slot; an atomic add per slot),
    beside the bound from the bytes moved;
-3. the main path, with the launch counts reset just before it and read
-   just after: LogisticRegression fit -> transform on dense data at the
-   reference config (10M x 100, maxIter 20, globalBatchSize 100,000,
-   learningRate 0.1, tol 1e-6) and on wide sparse data (1M rows, dim 1e6,
-   39 non-zeros per row), then save -> load -> transform of both models;
-4. the results: the dense fit against a float64 numpy replay of the same
-   epochs on the same rows, the sparse fit against the same fit on the
-   plain loss on the card, the transforms against float64 references;
-5. warm times: the median of five warm fits and transforms of each
-   configuration, and a torch.profiler pass over one warm fit of each and
-   one warm sparse transform (device time by kernel, the device's idle
-   share);
+3. the main paths, each run as a user runs it (fit -> transform -> save ->
+   load -> transform), with the launch counts reset just before each and
+   read just after, at the conf/ configurations: LogisticRegression,
+   LinearSVC and LinearRegression on dense data (10M x 100, maxIter 20,
+   globalBatchSize 100,000, weighted) and on wide sparse data (1M rows,
+   dim 1e6, 39 non-zeros per row), each sparse path on both kernels;
+   KMeans (1M x 100 uniform, k 10, maxIter 10, seed 2); and the Pipeline
+   StandardScaler -> OneHotEncoder (arity 10) -> VectorAssembler ->
+   LogisticRegression on 1M rows of 100 features;
+4. the results: each dense fit against a float64 numpy replay of the same
+   epochs on the same rows and a refit bit for bit, each sparse fit
+   against the same fit on the plain loss on the card, the transforms
+   against float64 or plain references; KMeans against a float64 Lloyd
+   from the same init rows, its assignments against float64 distances
+   outside a 1e-4 relative margin, a refit bit for bit; the pipeline's
+   scaler against float64 statistics, its one-hot indices against
+   numpy's, its LogisticRegression against a float64 replay on the
+   assembled matrix; every reloaded model predicts identically;
+5. warm times: the median of five (LogisticRegression) or three warm fits
+   and transforms of each configuration, and a torch.profiler pass over
+   one warm dense and sparse LogisticRegression fit, a KMeans fit, a
+   sparse transform and a pipeline transform (device time by kernel, the
+   device's idle share);
 6. a `kernels` JSON line, then the result line.
 """
 
@@ -53,6 +64,9 @@ import torch
 DENSE_ROWS, DIM = 10_000_000, 100
 SPARSE_ROWS, SPARSE_DIM, NNZ = 1_000_000, 1_000_000, 39
 MAX_ITER, BATCH, LEARNING_RATE, TOL = 20, 100_000, 0.1, 1e-6
+LINREG_LEARNING_RATE = 0.01  # conf/linearregression-benchmark.json
+KMEANS_ROWS, KMEANS_K, KMEANS_ITER, KMEANS_SEED = 1_000_000, 10, 10, 2  # conf/kmeans-benchmark.json
+PIPELINE_ROWS, ARITY, PIPELINE_SEED = 1_000_000, 10, 7  # conf/standardscaler-, onehotencoder-benchmark.json
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -406,12 +420,31 @@ def kernel_phase(sk, probes, dev):
     return results
 
 
-def numpy_reference_sgd(batch_rows, num_batches, max_iter, lr, tol):
+def _logistic64(dot, y, w):
+    margin = dot * (2.0 * y - 1.0)
+    return w * np.logaddexp(0.0, -margin), w * (-(2.0 * y - 1.0) / (np.exp(margin) + 1.0))
+
+
+def _hinge64(dot, y, w):
+    margin = 1.0 - (2.0 * y - 1.0) * dot
+    return w * np.maximum(margin, 0.0), np.where(margin > 0.0, -(2.0 * y - 1.0) * w, 0.0)
+
+
+def _least_square64(dot, y, w):
+    diff = dot - y
+    return w * 0.5 * diff * diff, w * diff
+
+
+#: loss name -> its pointwise (dot, y, w) -> (per-row loss, multiplier), float64
+POINTWISE64 = {"binary_logistic": _logistic64, "hinge": _hinge64, "least_square": _least_square64}
+
+
+def numpy_reference_sgd(batch_rows, num_batches, max_iter, lr, tol, pointwise=_logistic64):
     """The reference's SGD semantics (SGD.java:82-292,
     TerminateOnMaxIterOrTol.java) in float64 numpy, on weighted batches
-    `batch_rows(k) -> (X, y, w)`: batch k = epoch mod num_batches, the first
-    epoch computes a gradient before any update, one extra update after
-    the loop. Returns (coeff, loss, epochs)."""
+    `batch_rows(k) -> (X, y, w)` and a pointwise loss: batch k = epoch mod
+    num_batches, the first epoch computes a gradient before any update, one
+    extra update after the loop. Returns (coeff, loss, epochs)."""
     coeff = grad = None
     wsum, loss, epoch = 0.0, np.inf, 0
     while epoch < max_iter and loss > tol:
@@ -421,11 +454,10 @@ def numpy_reference_sgd(batch_rows, num_batches, max_iter, lr, tol):
             grad = np.zeros(Xk.shape[1])
         if wsum > 0:
             coeff = coeff - (lr / wsum) * grad
-        margin = (Xk @ coeff) * (2.0 * yk - 1.0)
-        loss_sum = float(np.sum(wk * np.logaddexp(0.0, -margin)))
-        grad = Xk.T @ (wk * (-(2.0 * yk - 1.0) / (np.exp(margin) + 1.0)))
+        row_loss, mult = pointwise(Xk @ coeff, yk, wk)
+        grad = Xk.T @ mult
         wsum = float(np.sum(wk))
-        loss = loss_sum / max(wsum, 1e-30)
+        loss = float(np.sum(row_loss)) / max(wsum, 1e-30)
         epoch += 1
     if wsum > 0:
         coeff = coeff - (lr / wsum) * grad
@@ -436,11 +468,11 @@ def sigmoid64(z):
     return 1.0 - 1.0 / (1.0 + np.exp(z))
 
 
-def estimator(lr_module, weight_col=None):
+def estimator(cls, weight_col=None, learning_rate=LEARNING_RATE):
     est = (
-        lr_module.LogisticRegression()
+        cls()
         .set_max_iter(MAX_ITER)
-        .set_learning_rate(LEARNING_RATE)
+        .set_learning_rate(learning_rate)
         .set_global_batch_size(BATCH)
         .set_tol(TOL)
     )
@@ -455,6 +487,295 @@ def synced(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def drive(fit, table, tmp, name):
+    """One path as a user runs it: fit -> transform -> save -> load ->
+    transform. Returns what phase 4 checks and the first calls' times."""
+    model, fit_ms = synced(fit)
+    out, transform_ms = synced(lambda: model.transform(table)[0])
+    from flink_ml_tpu_torch.api import Stage
+
+    path = os.path.join(tmp, name)
+    model.save(path)
+    with open(os.path.join(path, "metadata")) as f:
+        class_name = json.load(f)["className"]
+    loaded = Stage.load(path)
+    again = loaded.transform(table)[0]
+    torch.cuda.synchronize()
+    return {"model": model, "out": out, "fit_ms": fit_ms, "transform_ms": transform_ms,
+            "class_name": class_name, "loaded": loaded, "again": again}
+
+
+def check_reload(name, run, java_class, columns):
+    check(run["class_name"] == java_class, f"{name} model saved as {run['class_name']}")
+    check(type(run["loaded"]) is type(run["model"]), f"{name} model reload type")
+    for col in columns:
+        a, b = run["again"].column(col), run["out"].column(col)
+        same = torch.equal(a, b) if isinstance(a, torch.Tensor) else np.array_equal(a, b)
+        check(same, f"{name} {col} differs after save/load")
+
+
+#: the linear paths: name -> (estimator module, class, loss, learning rate,
+#: the Java class name the model is saved as), at the conf/ configurations
+LINEAR_PATHS = {
+    "lr": ("classification.logisticregression", "LogisticRegression", "binary_logistic",
+           LEARNING_RATE, "org.apache.flink.ml.classification.logisticregression.LogisticRegressionModel"),
+    "svc": ("classification.linearsvc", "LinearSVC", "hinge", LEARNING_RATE,
+            "org.apache.flink.ml.classification.linearsvc.LinearSVCModel"),
+    "linreg": ("regression.linearregression", "LinearRegression", "least_square",
+               LINREG_LEARNING_RATE,
+               "org.apache.flink.ml.regression.linearregression.LinearRegressionModel"),
+}
+
+
+def linear_class(name):
+    import importlib
+
+    module, cls, *_ = LINEAR_PATHS[name]
+    return getattr(importlib.import_module("flink_ml_tpu_torch.models." + module), cls)
+
+
+def raw_dots(name, out):
+    """The raw dot a linear model's transform gives: LR's probability is
+    sigmoid(dot), LinearSVC's rawPrediction[:, 0] is dot, LinearRegression's
+    prediction is dot."""
+    if name == "lr":
+        return out.column("rawPrediction")[:, 1]
+    if name == "svc":
+        return out.column("rawPrediction")[:, 0]
+    return out.column("prediction")
+
+
+def check_dense_linear(name, run, dense_table, X64, y64, w64):
+    """A dense fit against a float64 numpy replay of the same epochs on the
+    same rows, a refit bit for bit, and the transform against float64."""
+    from flink_ml_tpu_torch.models import _linear
+    from flink_ml_tpu_torch.ops import losses
+
+    _, cls, loss_name, lr, _ = LINEAR_PATHS[name]
+    num_batches = DENSE_ROWS // BATCH
+    ref_coeff, ref_loss, ref_epochs = numpy_reference_sgd(
+        lambda k: (X64[k * BATCH:(k + 1) * BATCH], y64[k * BATCH:(k + 1) * BATCH],
+                   w64[k * BATCH:(k + 1) * BATCH]),
+        num_batches, MAX_ITER, lr, TOL, POINTWISE64[loss_name],
+    )
+    dense_loss = {"binary_logistic": losses.BINARY_LOGISTIC_LOSS, "hinge": losses.HINGE_LOSS,
+                  "least_square": losses.LEAST_SQUARE_LOSS}[loss_name]
+    coeff, loss, epochs = _linear.run_sgd(
+        estimator(linear_class(name), "weight", lr), dense_table, dense_loss, "weight",
+        validate_binomial=name != "linreg",
+    )
+    model = run["model"]
+    rel = abs(loss - ref_loss) / max(abs(ref_loss), 1e-30)
+    coeff_rel = float(np.max(np.abs(model.coefficient - ref_coeff)) / np.max(np.abs(ref_coeff)))
+    log(f"  dense {name} loss {loss:.8f} vs float64 replay {ref_loss:.8f}: relDiff {rel:.3g}; "
+        f"epochs {epochs} vs {ref_epochs}; coeff max rel {coeff_rel:.3g}")
+    check(rel < LOSS_REL_TOL, f"dense {name} loss relDiff {rel} >= {LOSS_REL_TOL}")
+    check(epochs == ref_epochs, f"dense {name} epoch count differs from the replay")
+    check(coeff_rel < 1e-3, f"dense {name} coefficients differ from the replay by {coeff_rel}")
+    check(np.array_equal(coeff, model.coefficient), f"dense {name} refit is not bit-identical")
+
+    out = run["out"]
+    pred = out.column("prediction")
+    check(pred.shape == (DENSE_ROWS,) and bool(torch.isfinite(pred).all()), f"dense {name} transform")
+    if name != "linreg":
+        check(out.column("rawPrediction").shape == (DENSE_ROWS, 2), f"dense {name} raw shape")
+    dot64 = X64[:BATCH] @ model.coefficient.astype(np.float64)
+    got = raw_dots(name, out)[:BATCH].double().cpu().numpy()
+    want = sigmoid64(dot64) if name == "lr" else dot64
+    err = float(np.max(np.abs(got - want)))
+    bound = 1e-5 * max(1.0, float(np.max(np.abs(want))))
+    clear = np.abs(dot64) > 1e-4
+    pred_ok = name == "linreg" or np.array_equal(
+        pred[:BATCH].cpu().numpy()[clear], (dot64 >= 0)[clear].astype(np.float32))
+    log(f"  dense {name} transform vs float64: max abs err {err:.3g} (bound {bound:.3g}), "
+        f"predictions agree {pred_ok}")
+    check(err < bound and pred_ok, f"dense {name} transform disagrees with the float64 reference")
+
+
+def check_sparse_linear(name, run, s_idx, s_vals, s_y):
+    """A sparse fit on the kernels against the same fit on the plain loss
+    on the card, and the transform against the plain row dots."""
+    from flink_ml_tpu_torch.models.classification import linearsvc
+    from flink_ml_tpu_torch.models.classification import logisticregression
+    from flink_ml_tpu_torch.ops import losses
+    from flink_ml_tpu_torch.ops import sparsekernels as sk
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+
+    _, _, loss_name, lr, _ = LINEAR_PATHS[name]
+    sgd = SGD(max_iter=MAX_ITER, learning_rate=lr, global_batch_size=BATCH, tol=TOL)
+    c_k, loss_k, ep_k = sgd.optimize(np.zeros(SPARSE_DIM), (s_idx, s_vals), s_y, None,
+                                     losses.SPARSE_VARIANTS[loss_name])
+    c_p, loss_p, ep_p = sgd.optimize(np.zeros(SPARSE_DIM), (s_idx, s_vals), s_y, None,
+                                     losses.PLAIN_SPARSE_VARIANTS[loss_name])
+    model = run["model"]
+    rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
+    scale = float(np.max(np.abs(c_p)))
+    coeff_err = float(np.max(np.abs(c_k - c_p)))
+    model_err = float(np.max(np.abs(model.coefficient - c_p)))
+    log(f"  sparse {name} loss {loss_k:.8f} (kernels) vs {loss_p:.8f} (plain): relDiff {rel:.3g}; "
+        f"coeff max abs diff {coeff_err:.3g} and {model_err:.3g} (fit) of max |coeff| {scale:.3g}")
+    check(rel < LOSS_REL_TOL, f"sparse {name} loss relDiff {rel} >= {LOSS_REL_TOL}")
+    check(ep_k == ep_p, f"sparse {name} epoch counts differ")
+    # atomics reorder float32 sums: hold coefficients to 1e-4 of their scale
+    check(coeff_err <= 1e-4 * scale and model_err <= 1e-4 * scale,
+          f"sparse {name} coefficients differ from the plain-loss fit")
+    coeff = torch.as_tensor(model.coefficient, device=s_idx.device)
+    plain = sk.sparse_row_dots_plain(s_idx, s_vals, coeff)
+    out = run["out"]
+    if name == "lr":
+        got, want, tol = out.column("rawPrediction"), logisticregression._predict_from_dot(plain)[1], \
+            dict(rtol=1e-5, atol=1e-6)
+    elif name == "svc":
+        got, want, tol = out.column("rawPrediction"), linearsvc._predict_from_dot(plain, 0.0)[1], \
+            ROW_DOTS_TOL
+    else:
+        got, want, tol = out.column("prediction"), plain, ROW_DOTS_TOL
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"sparse {name} transform shape")
+    check(torch.allclose(got, want, **tol), f"sparse {name} transform disagrees with plain")
+
+
+def kmeans_data(dev):
+    """conf/kmeans-benchmark.json's input: DenseVectorGenerator's uniform
+    [0, 1) vectors, 1M x 100, born on the card from a seeded generator."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(KMEANS_SEED)
+    return torch.rand((KMEANS_ROWS, DIM), generator=gen, device=dev)
+
+
+def kmeans_estimator():
+    from flink_ml_tpu_torch.models.clustering import kmeans
+
+    return kmeans.KMeans().set_k(KMEANS_K).set_max_iter(KMEANS_ITER).set_seed(KMEANS_SEED)
+
+
+def lloyd64(X64, init, max_iter):
+    """Lloyd's algorithm in float64, written apart from the port: direct
+    distances (cdist without the matmul form), a scatter-add of the cells'
+    sums. Returns (centroids, counts) on X64's device."""
+    centroids = init.clone()
+    k = init.shape[0]
+    counts = None
+    for _ in range(max_iter):
+        assign = torch.cat([
+            torch.argmin(torch.cdist(X64[i:i + 100_000], centroids,
+                                     compute_mode="donot_use_mm_for_euclid_dist"), dim=1)
+            for i in range(0, X64.shape[0], 100_000)])
+        counts = torch.bincount(assign, minlength=k).to(torch.float64)
+        sums = torch.zeros_like(centroids).index_add_(0, assign, X64)
+        centroids = torch.where(counts[:, None] > 0, sums / counts.clamp(min=1)[:, None], centroids)
+    return centroids, counts
+
+
+def check_kmeans(run, X):
+    """KMeans against a float64 Lloyd from the same init rows; the
+    transform's assignments against float64 distances outside a 1e-4
+    relative margin; a refit bit for bit."""
+    from flink_ml_tpu_torch.models.clustering import kmeans
+
+    model = run["model"]
+    X64 = X.double()
+    idx = torch.as_tensor(kmeans.init_rows(KMEANS_ROWS, KMEANS_K, KMEANS_SEED), device=X.device)
+    ref_c, ref_counts = lloyd64(X64, X64[idx], KMEANS_ITER)
+    ref_c_host = ref_c.cpu().numpy()
+    scale = float(np.max(np.abs(ref_c_host)))
+    c_err = float(np.max(np.abs(model.centroids - ref_c_host)))
+    count_diff = int(np.sum(np.abs(model.weights - ref_counts.cpu().numpy())))
+    log(f"  kmeans centroids vs float64 Lloyd: max abs diff {c_err:.3g} of scale {scale:.3g}; "
+        f"counts differ by {count_diff} points in all")
+    check(c_err <= 1e-3 * scale, f"kmeans centroids differ from the float64 Lloyd by {c_err}")
+    check(model.weights.sum() == KMEANS_ROWS, "kmeans weights do not count every point")
+
+    C64 = torch.as_tensor(model.centroids, dtype=torch.float64, device=X.device)
+    d64 = torch.cat([torch.cdist(X64[i:i + 100_000], C64, compute_mode="donot_use_mm_for_euclid_dist")
+                     for i in range(0, KMEANS_ROWS, 100_000)])
+    two = torch.topk(d64, 2, dim=1, largest=False)
+    clear = (two.values[:, 1] - two.values[:, 0]) > 1e-4 * two.values[:, 1]
+    assign = run["out"].column("prediction")
+    check(assign.shape == (KMEANS_ROWS,) and assign.dtype == torch.int32, "kmeans transform shape")
+    mismatched = int(((assign.long() != two.indices[:, 0]) & clear).sum())
+    inside = int((~clear).sum())
+    log(f"  kmeans transform vs float64 distances: {inside} points within the 1e-4 margin "
+        f"(not gated), {mismatched} mismatches outside it")
+    check(mismatched == 0, f"kmeans transform assigns {mismatched} clear points differently")
+    refit = kmeans_estimator().fit(run["table"])
+    check(np.array_equal(refit.centroids, model.centroids) and np.array_equal(refit.weights, model.weights),
+          "kmeans refit is not bit-identical")
+    del X64, d64
+    return inside
+
+
+def pipeline_data(dev):
+    """The BASELINE pipeline's input: 1M rows of 100 uniform features, a
+    categorical column of arity 10 (conf/onehotencoder-benchmark.json), and
+    binary labels from a seeded linear rule with noise."""
+    from flink_ml_tpu_torch import Table
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(PIPELINE_SEED)
+    X = torch.rand((PIPELINE_ROWS, DIM), generator=gen, device=dev)
+    cat = torch.randint(0, ARITY, (PIPELINE_ROWS,), generator=gen, device=dev).to(torch.float32)
+    noise = torch.randn(PIPELINE_ROWS, generator=gen, device=dev)
+    y = ((X[:, 0] + X[:, 1] - 1.0) + 0.2 * (cat - 4.5) / 4.5 + 0.3 * noise > 0).to(torch.float32)
+    return Table({"features": X, "cat": cat, "label": y})
+
+
+def pipeline():
+    from flink_ml_tpu_torch import Pipeline
+    from flink_ml_tpu_torch.models.classification import logisticregression
+    from flink_ml_tpu_torch.models.feature import onehotencoder, standardscaler, vectorassembler
+
+    # centred: uncentred scaled features (mean 1.7 in each of 100 columns)
+    # make LogisticRegression at learningRate 0.1 oscillate
+    return Pipeline([
+        standardscaler.StandardScaler().set_input_col("features").set_output_col("scaled")
+        .set_with_mean(True),
+        onehotencoder.OneHotEncoder().set_input_cols("cat").set_output_cols("cat_vec"),
+        vectorassembler.VectorAssembler().set_input_cols("scaled", "cat_vec")
+        .set_output_col("assembled"),
+        estimator(logisticregression.LogisticRegression).set_features_col("assembled"),
+    ])
+
+
+def check_pipeline(run, table):
+    """The scaler's stats against float64, the one-hot indices against
+    numpy's, the LR against a float64 replay on the assembled float64
+    matrix."""
+    scaler, encoder, _, lr_model = run["model"].stages
+    X64 = table.column("features").double()
+    mean64, std64 = X64.mean(0).cpu().numpy(), X64.std(0).cpu().numpy()
+    mean_rel = float(np.max(np.abs(scaler.mean - mean64) / np.abs(mean64)))
+    std_rel = float(np.max(np.abs(scaler.std - std64) / np.abs(std64)))
+    log(f"  pipeline scaler vs float64: mean max rel {mean_rel:.3g}, std max rel {std_rel:.3g}")
+    check(mean_rel < 1e-4 and std_rel < 1e-4, "pipeline scaler stats differ from float64")
+
+    cat = table.column("cat").cpu().numpy().astype(np.int64)
+    vec_size = int(encoder.category_sizes[0]) - 1
+    check(vec_size == ARITY - 1, f"one-hot vector size {vec_size}")
+    want_idx = np.where(cat < vec_size, cat, -1)
+    got_idx = run["out"].column("cat_vec").indices[:, 0].cpu().numpy()
+    check(np.array_equal(got_idx, want_idx), "one-hot indices differ from numpy's")
+
+    scale = np.where(scaler.std > 0, scaler.std, 1.0)
+    onehot = np.zeros((PIPELINE_ROWS, vec_size))
+    rows = np.nonzero(want_idx >= 0)[0]
+    onehot[rows, want_idx[rows]] = 1.0
+    A64 = np.hstack([(X64.cpu().numpy() - scaler.mean) / scale, onehot])
+    y64 = table.column("label").double().cpu().numpy()
+    ones = np.ones(BATCH)
+    ref_coeff, ref_loss, ref_epochs = numpy_reference_sgd(
+        lambda k: (A64[k * BATCH:(k + 1) * BATCH], y64[k * BATCH:(k + 1) * BATCH], ones),
+        PIPELINE_ROWS // BATCH, MAX_ITER, LEARNING_RATE, TOL,
+    )
+    coeff_rel = float(np.max(np.abs(lr_model.coefficient - ref_coeff)) / np.max(np.abs(ref_coeff)))
+    pred = run["out"].column("prediction").cpu().numpy()
+    accuracy = float(np.mean(pred == y64))
+    log(f"  pipeline LR vs float64 replay on the assembled matrix: coeff max rel {coeff_rel:.3g} "
+        f"({ref_epochs} epochs, loss {ref_loss:.6f}); training accuracy {accuracy:.4f}")
+    check(coeff_rel < 1e-3, f"pipeline LR coefficients differ from the replay by {coeff_rel}")
+    check(accuracy > 0.7, f"the pipeline's training accuracy {accuracy} is near chance")
+    check(run["out"].column("assembled").shape == (PIPELINE_ROWS, DIM + vec_size), "assembled width")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; the port's kernels run only on the card",
@@ -462,12 +783,8 @@ def main() -> int:
         return 2
 
     from flink_ml_tpu_torch import SparseBatch, Table
-    from flink_ml_tpu_torch.api import Stage
-    from flink_ml_tpu_torch.models import _linear
-    from flink_ml_tpu_torch.models.classification import logisticregression as lr_module
-    from flink_ml_tpu_torch.ops import cuda_build, losses
+    from flink_ml_tpu_torch.ops import cuda_build
     from flink_ml_tpu_torch.ops import sparsekernels as sk
-    from flink_ml_tpu_torch.ops.optimizer import SGD
 
     dev = torch.device(DEVICE)
     # parity checks cover every float32 matmul: keep TF32 off
@@ -503,7 +820,7 @@ def main() -> int:
     kernel_results = kernel_phase(sk, probes, dev)
 
     # -- 3. the main path -------------------------------------------------
-    log("phase 3: main path (launch counts from here)")
+    log("phase 3: main paths (launch counts reset before and read after each)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     X = torch.rand((DENSE_ROWS, DIM), generator=gen, device=dev)
@@ -516,112 +833,86 @@ def main() -> int:
     s_vals = torch.rand((SPARSE_ROWS, NNZ), generator=gen, device=dev)
     s_y = (torch.rand(SPARSE_ROWS, generator=gen, device=dev) > 0.5).to(torch.float32)
     sparse_table = Table({"features": SparseBatch(SPARSE_DIM, s_idx, s_vals), "label": s_y})
+    km_table = Table({"features": kmeans_data(dev)})
+    p_table = pipeline_data(dev)
     torch.cuda.synchronize()
 
-    sk.reset_launch_counts()
-    dense_model, dense_fit_ms = synced(lambda: estimator(lr_module, "weight").fit(dense_table))
-    dense_out, dense_transform_ms = synced(lambda: dense_model.transform(dense_table)[0])
-    sparse_model, sparse_fit_ms = synced(lambda: estimator(lr_module).fit(sparse_table))
-    sparse_out, sparse_transform_ms = synced(lambda: sparse_model.transform(sparse_table)[0])
-    reloaded = {}
+    # name -> (fit, table, launches expected of (sparse_row_dots, sparse_grad))
+    sparse_launches = {"sparse_row_dots": MAX_ITER + 2, "sparse_grad": MAX_ITER}
+    no_launches = {"sparse_row_dots": 0, "sparse_grad": 0}
+    paths = {}
+    for name, (_, _, _, lr, _) in LINEAR_PATHS.items():
+        cls = linear_class(name)
+        paths[f"dense {name}"] = (lambda c=cls, r=lr: estimator(c, "weight", r).fit(dense_table),
+                                  dense_table, no_launches)
+        paths[f"sparse {name}"] = (lambda c=cls, r=lr: estimator(c, None, r).fit(sparse_table),
+                                   sparse_table, sparse_launches)
+    paths["kmeans"] = (lambda: kmeans_estimator().fit(km_table), km_table, no_launches)
+    paths["pipeline"] = (lambda: pipeline().fit(p_table), p_table, no_launches)
+
+    runs, launches = {}, {"sparse_row_dots": 0, "sparse_grad": 0}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, model, table in (("dense", dense_model, dense_table),
-                                   ("sparse", sparse_model, sparse_table)):
-            path = os.path.join(tmp, name)
-            model.save(path)
-            with open(os.path.join(path, "metadata")) as f:
-                class_name = json.load(f)["className"]
-            loaded = Stage.load(path)
-            reloaded[name] = (class_name, loaded, loaded.transform(table)[0])
-    torch.cuda.synchronize()
-    launches = sk.launch_counts()
-    log(f"  dense fit {dense_fit_ms:.1f} ms, transform {dense_transform_ms:.1f} ms; "
-        f"sparse fit {sparse_fit_ms:.1f} ms, transform {sparse_transform_ms:.1f} ms")
-    log(f"  launches on the main path: {launches}")
-    check(launches["sparse_grad"] == MAX_ITER,
-          f"sparse_grad launched {launches['sparse_grad']} times, expected one per epoch ({MAX_ITER})")
-    check(launches["sparse_row_dots"] == MAX_ITER + 2,
-          f"sparse_row_dots launched {launches['sparse_row_dots']} times, expected "
-          f"{MAX_ITER + 2} (one per epoch, the transform, the transform after load)")
+        for name, (fit, table, expected) in paths.items():
+            sk.reset_launch_counts()
+            run = drive(fit, table, tmp, name.replace(" ", "_"))
+            counts = sk.launch_counts()
+            run.update(table=table, launches=counts)
+            runs[name] = run
+            log(f"  {name}: fit {run['fit_ms']:.1f} ms, transform {run['transform_ms']:.1f} ms "
+                f"(first calls); launches {counts}")
+            check(counts == expected, f"{name} launched {counts}, expected {expected} (one row "
+                  f"dot and one gradient per epoch, a row dot per transform)")
+            for kernel in launches:
+                launches[kernel] += counts[kernel]
+    log(f"  launches on the main paths: {launches}")
+    check(launches == {"sparse_row_dots": 3 * (MAX_ITER + 2), "sparse_grad": 3 * MAX_ITER},
+          f"launches over phase 3 {launches}")
 
     # -- 4. results against references ------------------------------------
     log("phase 4: results")
-    num_batches = DENSE_ROWS // BATCH
-    touched = min(MAX_ITER, num_batches) * BATCH
+    touched = min(MAX_ITER, DENSE_ROWS // BATCH) * BATCH
     X64 = X[:touched].double().cpu().numpy()
     y64, w64 = y[:touched].double().cpu().numpy(), w[:touched].double().cpu().numpy()
-    ref_coeff, ref_loss, ref_epochs = numpy_reference_sgd(
-        lambda k: (X64[k * BATCH:(k + 1) * BATCH], y64[k * BATCH:(k + 1) * BATCH],
-                   w64[k * BATCH:(k + 1) * BATCH]),
-        num_batches, MAX_ITER, LEARNING_RATE, TOL,
-    )
-    coeff, loss, epochs = _linear.run_sgd(
-        estimator(lr_module, "weight"), dense_table, losses.BINARY_LOGISTIC_LOSS, "weight",
-        validate_binomial=True,
-    )
-    rel = abs(loss - ref_loss) / max(abs(ref_loss), 1e-30)
-    coeff_rel = float(np.max(np.abs(dense_model.coefficient - ref_coeff)) / np.max(np.abs(ref_coeff)))
-    log(f"  dense loss {loss:.8f} vs float64 replay {ref_loss:.8f}: relDiff {rel:.3g}; "
-        f"epochs {epochs} vs {ref_epochs}; coeff max rel {coeff_rel:.3g}")
-    check(rel < LOSS_REL_TOL, f"dense loss relDiff {rel} >= {LOSS_REL_TOL}")
-    check(epochs == ref_epochs, "dense epoch count differs from the replay")
-    check(coeff_rel < 1e-3, f"dense coefficients differ from the replay by {coeff_rel}")
-    check(np.array_equal(coeff, dense_model.coefficient), "dense refit is not deterministic")
-
-    pred, raw = dense_out.column("prediction"), dense_out.column("rawPrediction")
-    check(pred.shape == (DENSE_ROWS,) and raw.shape == (DENSE_ROWS, 2), "dense transform shapes")
-    check(bool(torch.isfinite(raw).all()), "dense transform has non-finite values")
-    dot64 = X64[:BATCH] @ dense_model.coefficient.astype(np.float64)
-    raw_err = float(np.max(np.abs(raw[:BATCH, 1].double().cpu().numpy() - sigmoid64(dot64))))
-    clear = np.abs(dot64) > 1e-4
-    pred_ok = np.array_equal(pred[:BATCH].cpu().numpy()[clear], (dot64 >= 0)[clear].astype(np.float32))
-    log(f"  dense transform vs float64: max abs err {raw_err:.3g}, predictions agree {pred_ok}")
-    check(raw_err < 1e-5 and pred_ok, "dense transform disagrees with the float64 reference")
-
-    sgd = SGD(max_iter=MAX_ITER, learning_rate=LEARNING_RATE, global_batch_size=BATCH, tol=TOL)
-    c_k, loss_k, ep_k = sgd.optimize(np.zeros(SPARSE_DIM), (s_idx, s_vals), s_y, None,
-                                     losses.SPARSE_BINARY_LOGISTIC_LOSS)
-    c_p, loss_p, ep_p = sgd.optimize(np.zeros(SPARSE_DIM), (s_idx, s_vals), s_y, None,
-                                     losses.PLAIN_SPARSE_BINARY_LOGISTIC_LOSS)
-    rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
-    scale = float(np.max(np.abs(c_p)))
-    coeff_err = float(np.max(np.abs(c_k - c_p)))
-    model_err = float(np.max(np.abs(sparse_model.coefficient - c_p)))
-    log(f"  sparse loss {loss_k:.8f} (kernels) vs {loss_p:.8f} (plain): relDiff {rel:.3g}; "
-        f"coeff max abs diff {coeff_err:.3g} and {model_err:.3g} (fit) of max |coeff| {scale:.3g}")
-    check(rel < LOSS_REL_TOL, f"sparse loss relDiff {rel} >= {LOSS_REL_TOL}")
-    check(ep_k == ep_p, "sparse epoch counts differ")
-    # atomics reorder float32 sums: hold coefficients to 1e-4 of their scale
-    check(coeff_err <= 1e-4 * scale and model_err <= 1e-4 * scale,
-          "sparse coefficients differ from the plain-loss fit")
-    s_raw = sparse_out.column("rawPrediction")
-    s_coeff = torch.as_tensor(sparse_model.coefficient, device=dev)
-    want = lr_module._predict_from_dot(sk.sparse_row_dots_plain(s_idx, s_vals, s_coeff))[1]
-    check(s_raw.shape == (SPARSE_ROWS, 2) and bool(torch.isfinite(s_raw).all()), "sparse transform shape")
-    check(torch.allclose(s_raw, want, rtol=1e-5, atol=1e-6), "sparse transform disagrees with plain")
-
-    java = "org.apache.flink.ml.classification.logisticregression.LogisticRegressionModel"
-    for name, out in (("dense", dense_out), ("sparse", sparse_out)):
-        class_name, loaded, again = reloaded[name]
-        check(class_name == java, f"{name} model saved as {class_name}")
-        check(isinstance(loaded, lr_module.LogisticRegressionModel), f"{name} model reload type")
-        for col in ("prediction", "rawPrediction"):
-            check(torch.equal(again.column(col), out.column(col)),
-                  f"{name} {col} differs after save/load")
-    log("  save/load: both models reload and predict identically")
+    for name in LINEAR_PATHS:
+        check_dense_linear(name, runs[f"dense {name}"], dense_table, X64, y64, w64)
+        check_sparse_linear(name, runs[f"sparse {name}"], s_idx, s_vals, s_y)
+    del X64
+    for name, (*_, java_class) in LINEAR_PATHS.items():
+        columns = ("prediction",) if name == "linreg" else ("prediction", "rawPrediction")
+        for layout in ("dense", "sparse"):
+            check_reload(f"{layout} {name}", runs[f"{layout} {name}"], java_class, columns)
+    kmeans_margin = check_kmeans(runs["kmeans"], km_table.column("features"))
+    check_reload("kmeans", runs["kmeans"], "org.apache.flink.ml.clustering.kmeans.KMeansModel",
+                 ("prediction",))
+    check_pipeline(runs["pipeline"], p_table)
+    check_reload("pipeline", runs["pipeline"], "org.apache.flink.ml.builder.PipelineModel",
+                 ("prediction", "rawPrediction"))
+    log("  save/load: every model reloads and predicts identically")
 
     # -- 5. warm times --------------------------------------------------------
     log("phase 5: warm times")
     warm = {}
-    for name, table, weight, model in (("dense", dense_table, "weight", dense_model),
-                                       ("sparse", sparse_table, None, sparse_model)):
-        fits = [synced(lambda: estimator(lr_module, weight).fit(table))[1] for _ in range(5)]
-        transforms = [synced(lambda: model.transform(table)[0])[1] for _ in range(5)]
+    for name, (fit, table, _) in paths.items():
+        model = runs[name]["model"]
+        repeats = 5 if name.endswith(" lr") else 3
+        fits = [synced(fit)[1] for _ in range(repeats)]
+        transforms = [synced(lambda: model.transform(table)[0])[1] for _ in range(repeats)]
         warm[name] = (float(np.median(fits)), float(np.median(transforms)))
         log(f"  {name}: fit median {warm[name][0]:.3f} ms (runs {[round(t, 3) for t in fits]}), "
             f"transform median {warm[name][1]:.3f} ms (runs {[round(t, 3) for t in transforms]})")
-        profile_run(f"{name} fit", lambda: estimator(lr_module, weight).fit(table))
-    profile_run("sparse transform", lambda: sparse_model.transform(sparse_table)[0])
+    from flink_ml_tpu_torch.models.clustering import kmeans
+
+    draws = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        kmeans.init_rows(KMEANS_ROWS, KMEANS_K, KMEANS_SEED)
+        draws.append((time.perf_counter() - t0) * 1e3)
+    log(f"  kmeans init rows (host RandomState.choice, {KMEANS_K} of {KMEANS_ROWS}): median "
+        f"{float(np.median(draws)):.3f} ms (runs {[round(t, 3) for t in draws]})")
+    for name in ("dense lr", "sparse lr", "kmeans"):
+        profile_run(f"{name} fit", paths[name][0])
+    profile_run("sparse lr transform", lambda: runs["sparse lr"]["model"].transform(sparse_table)[0])
+    profile_run("pipeline transform", lambda: runs["pipeline"]["model"].transform(p_table)[0])
 
     # -- 6. output -----------------------------------------------------------
     sources = {
@@ -636,6 +927,8 @@ def main() -> int:
             "source": "flink_ml_tpu_torch/csrc/sparse_kernels.cu",
             "replaces": sources[name],
             "launches": launches[name],
+            "launches_by_path": {p: r["launches"][name] for p, r in runs.items()
+                                 if r["launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_rel_err": max(r["max_rel_err"] for r in rows),
             "tolerance": ROW_DOTS_TOL if name == "sparse_row_dots" else GRAD_TOL,
@@ -645,11 +938,12 @@ def main() -> int:
             "shape": [main["rows"], main["nnz"], main["d"]],
             "by_shape": rows,
         })
-    log(f"first calls: dense fit {dense_fit_ms:.3f} ms, transform {dense_transform_ms:.3f} ms, "
-        f"sparse fit {sparse_fit_ms:.3f} ms, transform {sparse_transform_ms:.3f} ms; "
-        f"warm medians: dense fit {warm['dense'][0]:.3f} ms, transform {warm['dense'][1]:.3f} ms, "
-        f"sparse fit {warm['sparse'][0]:.3f} ms, transform {warm['sparse'][1]:.3f} ms; "
-        f"build {build_s:.2f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+    log("first calls: " + "; ".join(
+        f"{n} fit {r['fit_ms']:.3f} ms, transform {r['transform_ms']:.3f} ms" for n, r in runs.items()))
+    log("warm medians: " + "; ".join(
+        f"{n} fit {f:.3f} ms, transform {t:.3f} ms" for n, (f, t) in warm.items()))
+    log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

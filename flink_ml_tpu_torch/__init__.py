@@ -7,12 +7,15 @@ points compute on the CUDA card unless the caller asks for the CPU with
 under `csrc/`, built at first use into `_build/`.
 
 Ported so far: the Stage API, params, Table/SparseBatch, save/load, the
-linear losses, one-device SGD and LogisticRegression (dense and sparse).
-ROADMAP.md lists what is left.
+linear losses, one-device SGD, LogisticRegression, LinearSVC and
+LinearRegression (dense and sparse), KMeans on a bounded Table,
+StandardScaler, OneHotEncoder, VectorAssembler and the eager
+Pipeline/PipelineModel. ROADMAP.md lists what is left.
 """
 
 from .api import AlgoOperator, Estimator, Model, Stage, Transformer
 from .linalg import DenseVector, SparseVector, Vectors
+from .pipeline import Pipeline, PipelineModel
 from .table import SparseBatch, StreamTable, Table
 
 __version__ = "0.1.0"
@@ -23,6 +26,8 @@ __all__ = [
     "Model",
     "Stage",
     "Transformer",
+    "Pipeline",
+    "PipelineModel",
     "Table",
     "StreamTable",
     "SparseBatch",

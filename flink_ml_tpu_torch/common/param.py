@@ -1,4 +1,4 @@
-"""The Has* param mixins LogisticRegression uses.
+"""The Has* param mixins of the ported stages.
 
 Port of the matching mixins of flink_ml_tpu/common/param.py (the
 reference's common/param/Has*.java): same param names, defaults and
@@ -7,7 +7,15 @@ validators, so saved param maps cross-load between the packages.
 
 from __future__ import annotations
 
-from ..param import IntParam, FloatParam, ParamValidators, StringParam, WithParams
+from ..param import (
+    FloatParam,
+    IntParam,
+    LongParam,
+    ParamValidators,
+    StringArrayParam,
+    StringParam,
+    WithParams,
+)
 
 
 class HasFeaturesCol(WithParams):
@@ -156,3 +164,94 @@ class HasMultiClass(WithParams):
 
     def set_multi_class(self, value: str):
         return self.set(self.MULTI_CLASS, value)
+
+
+class HasSeed(WithParams):
+    SEED = LongParam("seed", "The random seed.", None)
+
+    def get_seed(self) -> int:
+        """The seed, or 0 when it is unset."""
+        seed = self.get(self.SEED)
+        return seed if seed is not None else 0
+
+    def set_seed(self, value: int):
+        return self.set(self.SEED, value)
+
+
+class HasDistanceMeasure(WithParams):
+    DISTANCE_MEASURE = StringParam(
+        "distanceMeasure",
+        "Distance measure. Supported options: 'euclidean', 'manhattan' and 'cosine'.",
+        "euclidean",
+        ParamValidators.in_array(["euclidean", "manhattan", "cosine"]),
+    )
+
+    def get_distance_measure(self) -> str:
+        return self.get(self.DISTANCE_MEASURE)
+
+    def set_distance_measure(self, value: str):
+        return self.set(self.DISTANCE_MEASURE, value)
+
+
+class HasHandleInvalid(WithParams):
+    ERROR_INVALID = "error"
+    SKIP_INVALID = "skip"
+    KEEP_INVALID = "keep"
+    HANDLE_INVALID = StringParam(
+        "handleInvalid",
+        "Strategy to handle invalid entries.",
+        "error",
+        ParamValidators.in_array(["error", "skip", "keep"]),
+    )
+
+    def get_handle_invalid(self) -> str:
+        return self.get(self.HANDLE_INVALID)
+
+    def set_handle_invalid(self, value: str):
+        return self.set(self.HANDLE_INVALID, value)
+
+
+class HasInputCol(WithParams):
+    INPUT_COL = StringParam("inputCol", "Input column name.", "input", ParamValidators.not_null())
+
+    def get_input_col(self) -> str:
+        return self.get(self.INPUT_COL)
+
+    def set_input_col(self, value: str):
+        return self.set(self.INPUT_COL, value)
+
+
+class HasInputCols(WithParams):
+    INPUT_COLS = StringArrayParam(
+        "inputCols", "Input column names.", None, ParamValidators.non_empty_array()
+    )
+
+    def get_input_cols(self):
+        return self.get(self.INPUT_COLS)
+
+    def set_input_cols(self, *values: str):
+        return self.set(self.INPUT_COLS, list(values))
+
+
+class HasOutputCol(WithParams):
+    OUTPUT_COL = StringParam(
+        "outputCol", "Output column name.", "output", ParamValidators.not_null()
+    )
+
+    def get_output_col(self) -> str:
+        return self.get(self.OUTPUT_COL)
+
+    def set_output_col(self, value: str):
+        return self.set(self.OUTPUT_COL, value)
+
+
+class HasOutputCols(WithParams):
+    OUTPUT_COLS = StringArrayParam(
+        "outputCols", "Output column names.", None, ParamValidators.non_empty_array()
+    )
+
+    def get_output_cols(self):
+        return self.get(self.OUTPUT_COLS)
+
+    def set_output_cols(self, *values: str):
+        return self.set(self.OUTPUT_COLS, list(values))

@@ -1,5 +1,6 @@
 """Shared machinery for linear-model estimators: train-data extraction,
-SGD wiring and the batched predict path.
+SGD wiring, the batched predict path and the coefficient model data that
+LogisticRegression, LinearSVC and LinearRegression models share.
 
 Port of the bounded-Table half of flink_ml_tpu/models/_linear.py (the
 reference's LogisticRegression.java:70-114 and
@@ -16,9 +17,11 @@ import numpy as np
 import torch
 
 from .. import config
+from ..linalg import DenseVector
 from ..ops.losses import LossFunc, predict_raw, sparse_dot, sparse_variant
 from ..ops.optimizer import SGD, read_train_result
 from ..table import SparseBatch, Table, as_dense_matrix
+from ..utils import read_write
 
 
 def extract_train_data(
@@ -99,6 +102,18 @@ def column_device(col) -> torch.device:
     return col.device if isinstance(col, torch.Tensor) else config.device()
 
 
+def packed_to_host(*tensors):
+    """Read device tensors back in ONE transfer: each is flattened into one
+    packed vector of their common dtype, which comes back as float64 numpy
+    arrays of the original shapes."""
+    host = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy().astype(np.float64)
+    out, offset = [], 0
+    for t in tensors:
+        out.append(host[offset : offset + t.numel()].reshape(tuple(t.shape)))
+        offset += t.numel()
+    return out
+
+
 def sparse_raw_scores(indices, values, coeff):
     """Per-row dot of padded-CSR features with the coefficient, the sparse
     inference hot loop (LogisticRegressionModel.java:131)."""
@@ -129,3 +144,34 @@ def validate_binomial_labels(y) -> None:
     """The reference supports only {0, 1} labels for binary linear
     classifiers (LogisticRegression.java:78-87)."""
     _raise_if_invalid(bool(np.all((y == 0.0) | (y == 1.0))))
+
+
+class CoefficientModelData:
+    """The model data of a linear model: one coefficient vector, a float64
+    host array. As a one-row Table of a DenseVector (get/set_model_data),
+    and as `coefficient` in the `.npz` model data (save/load)."""
+
+    coefficient: np.ndarray = None
+
+    def set_model_data(self, *inputs: Table):
+        (model_data,) = inputs
+        rows = model_data.collect()
+        self.coefficient = np.asarray(rows[0]["coefficient"].to_array(), dtype=np.float64)
+        return self
+
+    def get_model_data(self):
+        return [Table({"coefficient": [DenseVector(self.coefficient)]})]
+
+    def _save_extra(self, path: str) -> None:
+        read_write.save_model_arrays(path, coefficient=self.coefficient)
+
+    def _load_extra(self, path: str) -> None:
+        self.coefficient = read_write.load_model_arrays(path)["coefficient"]
+
+    def _dot(self, col) -> torch.Tensor:
+        """The features column's dot with the coefficient, float32, on the
+        column's device (`config.device()` for a host column)."""
+        coeff = torch.as_tensor(
+            np.asarray(self.coefficient), dtype=torch.float32, device=column_device(col)
+        )
+        return raw_scores(col, coeff)

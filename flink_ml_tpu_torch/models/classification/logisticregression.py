@@ -15,7 +15,6 @@ from __future__ import annotations
 
 from typing import List
 
-import numpy as np
 import torch
 
 from ...api import Estimator, Model
@@ -33,10 +32,8 @@ from ...common.param import (
     HasTol,
     HasWeightCol,
 )
-from ...linalg import DenseVector
 from ...ops.losses import BINARY_LOGISTIC_LOSS
 from ...table import Table
-from ...utils import read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
 
@@ -71,44 +68,19 @@ def _predict_from_dot(dot):
     return pred, raw
 
 
-class LogisticRegressionModel(Model, LogisticRegressionModelParams):
-    def __init__(self):
-        self.coefficient: np.ndarray = None  # (d,) host array
-
-    def set_model_data(self, *inputs: Table) -> "LogisticRegressionModel":
-        (model_data,) = inputs
-        rows = model_data.collect()
-        self.coefficient = np.asarray(rows[0]["coefficient"].to_array(), dtype=np.float64)
-        return self
-
-    def get_model_data(self) -> List[Table]:
-        return [Table({"coefficient": [DenseVector(self.coefficient)]})]
-
+class LogisticRegressionModel(
+    _linear.CoefficientModelData, Model, LogisticRegressionModelParams
+):
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
         col = table.column(self.get_features_col())
-        coeff = torch.as_tensor(
-            np.asarray(self.coefficient), dtype=torch.float32,
-            device=_linear.column_device(col),
-        )
-        pred, raw = _predict_from_dot(_linear.raw_scores(col, coeff))
+        pred, raw = _predict_from_dot(self._dot(col))
         if _linear.is_device_column(col):
             cols = {self.get_prediction_col(): pred, self.get_raw_prediction_col(): raw}
         else:
-            # one packed readback: [pred | raw[:, 0] | raw[:, 1]]
-            host = torch.cat([pred, raw.T.reshape(-1)]).cpu().numpy().astype(np.float64)
-            n = pred.shape[0]
-            cols = {
-                self.get_prediction_col(): host[:n],
-                self.get_raw_prediction_col(): host[n:].reshape(2, n).T.copy(),
-            }
+            pred_h, raw_h = _linear.packed_to_host(pred, raw)
+            cols = {self.get_prediction_col(): pred_h, self.get_raw_prediction_col(): raw_h}
         return [table.with_columns(cols)]
-
-    def _save_extra(self, path: str) -> None:
-        read_write.save_model_arrays(path, coefficient=self.coefficient)
-
-    def _load_extra(self, path: str) -> None:
-        self.coefficient = read_write.load_model_arrays(path)["coefficient"]
 
 
 class LogisticRegression(Estimator, LogisticRegressionParams):

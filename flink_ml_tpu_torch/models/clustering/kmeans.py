@@ -1,0 +1,187 @@
+"""KMeans: Lloyd's algorithm on one device.
+
+Port of the bounded-Table half of flink_ml_tpu/models/clustering/kmeans.py
+(the reference's KMeans.java:87-310, KMeansModel.java and
+KMeansModelData.java:53-116):
+
+- init: selectRandomCentroids (KMeans.java:310) as the JAX package draws
+  it, `np.random.RandomState(seed % 2**32).choice(n, k, replace=False)`
+  on the host, so both packages start from the same rows;
+- the fit: maxIter epochs, each a pairwise distance, an argmin, a one-hot
+  count and the per-centroid sums `one_hot.T @ X`; an empty cluster keeps
+  its centroid. The epochs stay on the device with no host sync, and
+  (centroids, counts) come back in one packed readback. `weights` is the
+  last epoch's counts;
+- the transform: the closest centroid of each row.
+
+The sums are a matmul rather than the JAX package's reduce form
+`sum(one_hot[:, :, None] * X[:, None, :], 0)`: XLA fuses that, but eager
+PyTorch would materialise the (n, k, d) product (4 GB an epoch at the
+1M x 10 x 100 config). A matmul is deterministic for a given shape, so a
+refit gives the same bits; `index_add_` would not, its atomics reorder the
+sums. The reduce form existed for the JAX package's fleet contract
+(vmapped fits bit-identical to solo ones), which is not ported.
+
+Not ported yet, and raising NotImplementedError: the out-of-core
+StreamTable fit (ROADMAP A.8) and the fleet fit `_lloyd_fleet_train`
+(A.11). The JAX package's mesh, overlapped-collective, dispatch and
+tracing hooks have no counterpart here (A.10, A.14).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from ... import config
+from ...api import Estimator, Model
+from ...common.param import (
+    HasDistanceMeasure,
+    HasFeaturesCol,
+    HasMaxIter,
+    HasPredictionCol,
+    HasSeed,
+)
+from ...linalg import DenseVector
+from ...ops.distance import DistanceMeasure
+from ...param import IntParam, ParamValidators, StringParam
+from ...table import Table, as_dense_matrix
+from ...utils import read_write
+from ...utils.param_utils import update_existing_params
+from .. import _linear
+
+
+class KMeansModelParams(HasDistanceMeasure, HasFeaturesCol, HasPredictionCol):
+    K = IntParam("k", "The max number of clusters to create.", 2, ParamValidators.gt(1))
+
+    def get_k(self) -> int:
+        return self.get(self.K)
+
+    def set_k(self, value: int):
+        return self.set(self.K, value)
+
+
+class KMeansParams(KMeansModelParams, HasSeed, HasMaxIter):
+    INIT_MODE = StringParam(
+        "initMode",
+        "The initialization algorithm. Supported options: 'random'.",
+        "random",
+        ParamValidators.in_array(["random"]),
+    )
+
+    def get_init_mode(self) -> str:
+        return self.get(self.INIT_MODE)
+
+    def set_init_mode(self, value: str):
+        return self.set(self.INIT_MODE, value)
+
+
+def init_rows(n: int, k: int, seed: int) -> np.ndarray:
+    """The rows that start the fit: selectRandomCentroids (KMeans.java:310),
+    k of n without replacement, drawn on the host as the JAX package draws
+    them."""
+    return np.random.RandomState(seed % (2**32)).choice(n, size=k, replace=False)
+
+
+def _lloyd_train(X, init_centroids, max_iter: int, measure_name: str):
+    """maxIter Lloyd epochs on X's device with no host sync. Returns
+    (centroids, counts of the last epoch), on the device."""
+    measure = DistanceMeasure.get_instance(measure_name)
+    k = init_centroids.shape[0]
+    labels = torch.arange(k, device=X.device)
+    centroids = init_centroids
+    counts = X.new_zeros((k,))
+    for _ in range(max_iter):
+        assign = measure.find_closest(X, centroids)
+        one_hot = (assign[:, None] == labels).to(X.dtype)  # (n, k)
+        counts = torch.sum(one_hot, dim=0)
+        sums = one_hot.T @ X  # (k, d)
+        centroids = torch.where(
+            counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1e-30), centroids
+        )
+    return centroids, counts
+
+
+def _lloyd_fleet_train(*args, **kwargs):
+    """N Lloyd fits vmapped into one program (the JAX package's FitFleet)."""
+    raise NotImplementedError("fleet training is not ported yet (ROADMAP A.11)")
+
+
+class KMeansModel(Model, KMeansModelParams):
+    def __init__(self):
+        self.centroids: np.ndarray = None  # (k, d) host array
+        self.weights: np.ndarray = None  # (k,) host array
+
+    def set_model_data(self, *inputs: Table) -> "KMeansModel":
+        (model_data,) = inputs
+        row = model_data.collect()[0]
+        self.centroids = np.stack([
+            np.asarray(c.to_array() if hasattr(c, "to_array") else c, dtype=np.float64)
+            for c in row["centroids"]
+        ])
+        w = row["weights"]
+        self.weights = np.asarray(w.to_array() if hasattr(w, "to_array") else w, dtype=np.float64)
+        return self
+
+    def get_model_data(self) -> List[Table]:
+        return [Table({
+            "centroids": [[DenseVector(c) for c in self.centroids]],
+            "weights": [DenseVector(self.weights)],
+        })]
+
+    def transform(self, *inputs: Table) -> List[Table]:
+        """The closest centroid's index, int32: a tensor on the features'
+        device, or host int32 numpy for host features."""
+        (table,) = inputs
+        col = table.column(self.get_features_col())
+        X = as_dense_matrix(col, allow_device=True)
+        device = _linear.column_device(X)
+        X = torch.as_tensor(X, dtype=torch.float32, device=device)
+        centroids = torch.as_tensor(self.centroids, dtype=torch.float32, device=device)
+        assign = DistanceMeasure.get_instance(self.get_distance_measure()).find_closest(
+            X, centroids
+        )
+        if not _linear.is_device_column(col):
+            assign = assign.cpu().numpy()
+        return [table.with_columns({self.get_prediction_col(): assign})]
+
+    def _save_extra(self, path: str) -> None:
+        read_write.save_model_arrays(path, centroids=self.centroids, weights=self.weights)
+
+    def _load_extra(self, path: str) -> None:
+        arrays = read_write.load_model_arrays(path)
+        self.centroids, self.weights = arrays["centroids"], arrays["weights"]
+
+
+class KMeans(Estimator, KMeansParams):
+    """Estimator (KMeans.java:87)."""
+
+    def fit(self, *inputs) -> KMeansModel:
+        (table,) = inputs
+        if not isinstance(table, Table):
+            return self._fit_stream(table)
+        X = as_dense_matrix(table.column(self.get_features_col()), allow_device=True)
+        n, k = X.shape[0], self.get_k()
+        if n < k:
+            raise ValueError(f"Number of points ({n}) is less than k ({k})")
+        centroid_idx = init_rows(n, k, self.get_seed())
+        if not isinstance(X, torch.Tensor):
+            X = torch.as_tensor(np.asarray(X, dtype=np.float32), device=config.device())
+        X = X.to(torch.float32)
+        init = X[torch.as_tensor(centroid_idx, device=X.device)]
+        centroids, counts = _lloyd_train(
+            X, init, int(self.get_max_iter()), self.get_distance_measure()
+        )
+        model = KMeansModel()
+        model.centroids, model.weights = _linear.packed_to_host(centroids, counts)
+        update_existing_params(model, self)
+        return model
+
+    def _fit_stream(self, stream) -> KMeansModel:
+        """The out-of-core fit over a StreamTable (KMeans.java's unbounded
+        input)."""
+        raise NotImplementedError(
+            "KMeans on a StreamTable (out-of-core Lloyd) is not ported yet (ROADMAP A.8)"
+        )

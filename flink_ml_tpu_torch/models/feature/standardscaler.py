@@ -1,0 +1,120 @@
+"""StandardScaler: standardize features by mean removal and std scaling.
+
+Port of flink_ml_tpu/models/feature/standardscaler.py (the reference's
+StandardScaler.java:121-137 and StandardScalerModel.java:85-131). The fit
+is one pass of column sums in float32, as the JAX package computes it: the
+mean, and the sample std from the squared sums with n - 1. Model data holds
+both; withMean and withStd choose what the transform applies, and a zero
+std scales by 1.
+
+The transform keeps the JAX package's precision on each path: host
+features (staged to `config.device()` in float64) give float64 numpy, as
+the JAX package's host arithmetic does; a tensor column is scaled on its
+device in its own dtype and stays there.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from ... import config
+from ...api import Estimator, Model
+from ...common.param import HasInputCol, HasOutputCol
+from ...linalg import DenseVector
+from ...param import BooleanParam
+from ...table import Table, as_dense_matrix
+from ...utils import read_write
+from ...utils.param_utils import update_existing_params
+from .. import _linear
+
+
+class StandardScalerParams(HasInputCol, HasOutputCol):
+    WITH_MEAN = BooleanParam(
+        "withMean", "Whether centers the data with mean before scaling.", False
+    )
+    WITH_STD = BooleanParam(
+        "withStd", "Whether scales the data with standard deviation.", True
+    )
+
+    def get_with_mean(self) -> bool:
+        return self.get(self.WITH_MEAN)
+
+    def set_with_mean(self, value: bool):
+        return self.set(self.WITH_MEAN, value)
+
+    def get_with_std(self) -> bool:
+        return self.get(self.WITH_STD)
+
+    def set_with_std(self, value: bool):
+        return self.set(self.WITH_STD, value)
+
+
+def _fit_stats(X):
+    """(mean, sample std) of the columns of X, float32: one pass of sums,
+    var = (sum x^2 - n mean^2) / max(n - 1, 1) (StandardScaler.java:121-131)."""
+    n = X.shape[0]
+    mean = torch.mean(X, dim=0)
+    sq_sum = torch.sum(X * X, dim=0)
+    var = (sq_sum - n * mean * mean) / max(n - 1, 1)
+    return mean, torch.sqrt(torch.clamp(var, min=0.0))
+
+
+def _staged_matrix(col):
+    """The column as a dense tensor: a tensor column as it is, on its device
+    (a tensor SparseBatch densified there); a host column staged to
+    `config.device()` in float64."""
+    X = as_dense_matrix(col, allow_device=True)
+    if isinstance(X, torch.Tensor):
+        return X
+    return torch.as_tensor(np.asarray(X, dtype=np.float64), device=config.device())
+
+
+class StandardScalerModel(Model, StandardScalerParams):
+    def __init__(self):
+        self.mean: np.ndarray = None  # (d,) host array
+        self.std: np.ndarray = None  # (d,) host array
+
+    def set_model_data(self, *inputs: Table) -> "StandardScalerModel":
+        (model_data,) = inputs
+        row = model_data.collect()[0]
+        self.mean = np.asarray(row["mean"].to_array(), dtype=np.float64)
+        self.std = np.asarray(row["std"].to_array(), dtype=np.float64)
+        return self
+
+    def get_model_data(self) -> List[Table]:
+        return [Table({"mean": [DenseVector(self.mean)], "std": [DenseVector(self.std)]})]
+
+    def transform(self, *inputs: Table) -> List[Table]:
+        (table,) = inputs
+        col = table.column(self.get_input_col())
+        out = _staged_matrix(col)
+        if self.get_with_mean():
+            out = out - torch.as_tensor(self.mean, dtype=out.dtype, device=out.device)
+        if self.get_with_std():
+            scale = np.where(self.std > 0, self.std, 1.0)
+            out = out / torch.as_tensor(scale, dtype=out.dtype, device=out.device)
+        if not _linear.is_device_column(col):
+            out = out.cpu().numpy()
+        return [table.with_columns({self.get_output_col(): out})]
+
+    def _save_extra(self, path: str) -> None:
+        read_write.save_model_arrays(path, mean=self.mean, std=self.std)
+
+    def _load_extra(self, path: str) -> None:
+        arrays = read_write.load_model_arrays(path)
+        self.mean, self.std = arrays["mean"], arrays["std"]
+
+
+class StandardScaler(Estimator, StandardScalerParams):
+    def fit(self, *inputs: Table) -> StandardScalerModel:
+        (table,) = inputs
+        X = _staged_matrix(table.column(self.get_input_col())).to(torch.float32)
+        mean, std = _fit_stats(X)
+        host_mean, host_std = _linear.packed_to_host(mean, std)
+        model = StandardScalerModel()
+        model.mean, model.std = host_mean, host_std
+        update_existing_params(model, self)
+        return model

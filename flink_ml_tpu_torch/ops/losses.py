@@ -12,8 +12,8 @@ per-row multiplier)` and a layout:
 - sparse: X is the padded-CSR pair (indices (B, nnz) int32, values
   (B, nnz)); the row dot and the gradient segment sum go through
   `sparsekernels`, which runs the CUDA kernels on CUDA tensors and the
-  plain versions on CPU tensors. PLAIN_SPARSE_BINARY_LOGISTIC_LOSS calls the
-  plain versions on any device: `chip_smoke.py` holds a kernel fit against it.
+  plain versions on CPU tensors. PLAIN_SPARSE_VARIANTS call the plain
+  versions on any device: `chip_smoke.py` holds each kernel fit against one.
 """
 
 from __future__ import annotations
@@ -108,25 +108,20 @@ LEAST_SQUARE_LOSS = LossFunc(
 )
 
 
+def _sparse_variants(prefix, row_dots, grad):
+    return {
+        base.name: LossFunc(prefix + base.name, _sparse(base.pointwise, row_dots, grad),
+                            base.pointwise)
+        for base in (BINARY_LOGISTIC_LOSS, HINGE_LOSS, LEAST_SQUARE_LOSS)
+    }
+
+
 #: dense loss name -> its padded-CSR loss on the kernels (CPU: plain versions)
-SPARSE_VARIANTS = {
-    base.name: LossFunc(
-        "sparse_" + base.name,
-        _sparse(base.pointwise, sparse_dot, sparsekernels.sparse_grad),
-        base.pointwise,
-    )
-    for base in (BINARY_LOGISTIC_LOSS, HINGE_LOSS, LEAST_SQUARE_LOSS)
-}
+SPARSE_VARIANTS = _sparse_variants("sparse_", sparse_dot, sparsekernels.sparse_grad)
 SPARSE_BINARY_LOGISTIC_LOSS = SPARSE_VARIANTS[BINARY_LOGISTIC_LOSS.name]
-#: the sparse logistic loss on the plain versions, on any device
-PLAIN_SPARSE_BINARY_LOGISTIC_LOSS = LossFunc(
-    "plain_sparse_" + BINARY_LOGISTIC_LOSS.name,
-    _sparse(
-        _logistic_pointwise,
-        sparsekernels.sparse_row_dots_plain,
-        sparsekernels.sparse_grad_plain,
-    ),
-    _logistic_pointwise,
+#: dense loss name -> its padded-CSR loss on the plain versions, on any device
+PLAIN_SPARSE_VARIANTS = _sparse_variants(
+    "plain_sparse_", sparsekernels.sparse_row_dots_plain, sparsekernels.sparse_grad_plain
 )
 
 

@@ -66,6 +66,10 @@ class ParamValidators:
     def not_null() -> ParamValidator:
         return ParamValidator(lambda v: v is not None, "not null")
 
+    @staticmethod
+    def non_empty_array() -> ParamValidator:
+        return ParamValidator(lambda v: v is not None and len(v) > 0, "non-empty array")
+
 
 class Param(Generic[T]):
     """A parameter: name, description, default value, validator
@@ -105,9 +109,18 @@ class Param(Generic[T]):
         return f"Param<{self.name}>"
 
 
+class BooleanParam(Param[bool]):
+    def json_decode(self, json_value):
+        return None if json_value is None else bool(json_value)
+
+
 class IntParam(Param[int]):
     def json_decode(self, json_value):
         return None if json_value is None else int(json_value)
+
+
+class LongParam(IntParam):
+    pass
 
 
 class FloatParam(Param[float]):
@@ -117,6 +130,28 @@ class FloatParam(Param[float]):
 
 class StringParam(Param[str]):
     pass
+
+
+class _ArrayParam(Param[List]):
+    """A list-valued param, JSON-encoded as a list of its element type."""
+
+    _elem = staticmethod(lambda v: v)
+
+    def json_encode(self, value):
+        return None if value is None else list(value)
+
+    def json_decode(self, json_value):
+        if json_value is None:
+            return None
+        return [self._elem(v) for v in json_value]
+
+
+class IntArrayParam(_ArrayParam):
+    _elem = staticmethod(int)
+
+
+class StringArrayParam(_ArrayParam):
+    _elem = staticmethod(str)
 
 
 class WithParams:

@@ -161,6 +161,18 @@ class Table:
         data.update(updates)
         return Table(data)
 
+    def take(self, indices) -> "Table":
+        """The rows at `indices` (host integers), from every column; tensor
+        columns are indexed on their own device."""
+        out = {}
+        for name, col in self._columns.items():
+            if isinstance(col, SparseBatch):
+                out[name] = SparseBatch(col.size, _take(col.indices, indices),
+                                        _take(col.values, indices))
+            else:
+                out[name] = _take(col, indices)
+        return Table(out)
+
     def rows(self) -> Iterator[Dict[str, Any]]:
         """Row iterator for host-side consumption (tests, collect())."""
         host = {
@@ -186,12 +198,33 @@ class Table:
         return f"Table(rows={self._num_rows}, columns={self.column_names})"
 
 
+def _take(col, indices):
+    if isinstance(col, torch.Tensor):
+        return col[torch.as_tensor(indices, dtype=torch.long, device=col.device)]
+    return col[indices]
+
+
+def _densify_on_device(batch: SparseBatch) -> torch.Tensor:
+    """A tensor SparseBatch as a dense (n, size) tensor on its device, with
+    no host sync: padding (and any index out of [0, size)) scatters a zero
+    into a spare last column, which is cut off."""
+    idx, vals = batch.indices, batch.values
+    keep = (idx >= 0) & (idx < batch.size)
+    slot = torch.where(keep, idx, batch.size).long()
+    out = torch.zeros((batch.n, batch.size + 1), dtype=vals.dtype, device=vals.device)
+    out.scatter_(1, slot, torch.where(keep, vals, 0.0))
+    return out[:, : batch.size].contiguous()
+
+
 def as_dense_matrix(col, allow_device: bool = False):
     """Coerce a features column to a dense (n, d) float matrix. float32
     host input stays float32. With `allow_device`, a torch tensor column is
-    returned as a tensor on its own device (1-D becomes (n, 1)); without
-    it, the column is copied to a host numpy array."""
+    returned as a tensor on its own device (1-D becomes (n, 1)), and a
+    tensor SparseBatch is densified there; without it, the column is copied
+    to a host numpy array."""
     if isinstance(col, SparseBatch):
+        if allow_device and isinstance(col.indices, torch.Tensor):
+            return _densify_on_device(col)
         return col.to_dense()
     if isinstance(col, torch.Tensor):
         if allow_device:

@@ -10,7 +10,10 @@ the other:
   (`org.apache.flink.ml.classification.logisticregression.
   LogisticRegressionModel`), which the JAX package already resolves;
 - the port reads Java, pyflink and `flink_ml_tpu.` class names and maps
-  each to its own module, without importing the JAX package.
+  each to its own module, without importing the JAX package;
+- a Pipeline or PipelineModel is written as the reference's own class
+  (`org.apache.flink.ml.builder.Pipeline`), which the JAX package aliases
+  too, with its stages under `stages/{index}` (ReadWriteUtils.java:193-246).
 """
 
 from __future__ import annotations
@@ -28,11 +31,24 @@ _MODELS = _PACKAGE + "models."
 _JAX_PACKAGE = "flink_ml_tpu."
 _JAVA_PREFIX = "org.apache.flink.ml."
 _PYFLINK_PREFIX = "pyflink.ml.lib."
+#: the className the port writes for its pipeline stages: the reference's
+_WRITTEN_PIPELINE_NAMES = {
+    _PACKAGE + "pipeline.Pipeline": "org.apache.flink.ml.builder.Pipeline",
+    _PACKAGE + "pipeline.PipelineModel": "org.apache.flink.ml.builder.PipelineModel",
+}
+#: the reference's (Java and pyflink) pipeline class names -> the port's
+_PIPELINE_ALIASES = {java: port for port, java in _WRITTEN_PIPELINE_NAMES.items()}
+_PIPELINE_ALIASES.update({
+    "pyflink.ml.core.builder.Pipeline": _PACKAGE + "pipeline.Pipeline",
+    "pyflink.ml.core.builder.PipelineModel": _PACKAGE + "pipeline.PipelineModel",
+})
 
 
 def _port_class_name(class_name: str) -> str:
     """Map a class name written by the reference, the JAX package or the
     port to the port's fully qualified class name."""
+    if class_name in _PIPELINE_ALIASES:
+        return _PIPELINE_ALIASES[class_name]
     if class_name.startswith(_PACKAGE):
         return class_name
     if class_name.startswith(_JAX_PACKAGE):
@@ -47,11 +63,13 @@ def _port_class_name(class_name: str) -> str:
 
 def _written_class_name(stage) -> str:
     """The className the port writes: the reference's Java name for model
-    stages, so the reference's own loaders and the JAX package resolve it."""
+    stages and pipelines, so the reference's own loaders and the JAX
+    package resolve it."""
     module, cls = type(stage).__module__, type(stage).__qualname__
     if module.startswith(_MODELS):
         return _JAVA_PREFIX + module[len(_MODELS):] + "." + cls
-    return f"{module}.{cls}"
+    name = f"{module}.{cls}"
+    return _WRITTEN_PIPELINE_NAMES.get(name, name)
 
 
 def _resolve_class_name(class_name: str):
@@ -133,3 +151,22 @@ def load_model_arrays(path: str, name: str = "model_data") -> Dict[str, np.ndarr
         raise FileNotFoundError(f"No model data under {data_dir}")
     with np.load(npz, allow_pickle=False) as f:
         return {k: f[k] for k in f.files}
+
+
+def get_path_for_pipeline_stage(index: int, num_stages: int, path: str) -> str:
+    """`stages/{index}`, zero-padded to len(str(numStages)) as the reference
+    pads it (ReadWriteUtils.java:193-198), so directories cross-load."""
+    width = len(str(num_stages))
+    return os.path.join(path, "stages", str(index).zfill(width))
+
+
+def resolve_pipeline_stage_path(index: int, num_stages: int, path: str) -> str:
+    """The stage directory to load: the reference's width, else the 5-wide
+    padding that older JAX-package saves used."""
+    primary = get_path_for_pipeline_stage(index, num_stages, path)
+    if os.path.isdir(primary):
+        return primary
+    legacy = os.path.join(path, "stages", str(index).zfill(max(len(str(num_stages - 1)), 5)))
+    if os.path.isdir(legacy):
+        return legacy
+    return primary

@@ -180,11 +180,11 @@ def main() -> int:
     for rep in range(3):
         for pair in pairs:
             chosen.update(row_dots=pair[0], grad=pair[1])
-            cs.estimator(lr_module).fit(table)
+            cs.estimator(lr_module.LogisticRegression).fit(table)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(3):
-                    cs.estimator(lr_module).fit(table)
+                    cs.estimator(lr_module.LogisticRegression).fit(table)
                 torch.cuda.synchronize()
             events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
             attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
@@ -200,13 +200,13 @@ def main() -> int:
 
     # whole fits and 1M-row transforms on the first and on the shipped
     # kernels, interleaved, wall time with a synchronize on each side
-    model = cs.estimator(lr_module).fit(table)
+    model = cs.estimator(lr_module.LogisticRegression).fit(table)
     walls = {}
     for _ in range(WALL_ROUNDS):
         for pair in pairs[:2]:
             chosen.update(row_dots=pair[0], grad=pair[1])
             walls.setdefault(f"fit {'/'.join(pair)}", []).append(
-                cs.synced(lambda: cs.estimator(lr_module).fit(table))[1])
+                cs.synced(lambda: cs.estimator(lr_module.LogisticRegression).fit(table))[1])
             walls.setdefault(f"transform {'/'.join(pair)}", []).append(
                 cs.synced(lambda: model.transform(table)[0])[1])
     summary["wall_ms"] = {}

@@ -1,6 +1,6 @@
 """The port stands alone and does not hide the device.
 
-- `import flink_ml_tpu_torch` pulls in no JAX;
+- no module of the port pulls in JAX when imported, with or without a card;
 - no module of the port, and neither chip_smoke.py nor
   scripts/torch_kernel_designs.py, imports jax or flink_ml_tpu;
 - an entry point that was not asked for the CPU raises without a card,
@@ -28,10 +28,20 @@ PORT_FILES = sorted((REPO / "flink_ml_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "torch_kernel_designs.py"]
 
 
+PORT_MODULES = sorted(
+    "flink_ml_tpu_torch." + ".".join(p.relative_to(REPO / "flink_ml_tpu_torch").with_suffix("").parts)
+    for p in (REPO / "flink_ml_tpu_torch").rglob("*.py") if p.name != "__init__.py"
+)
+
+
 def test_import_leaves_jax_out():
+    """Every module of the port imports without JAX and without a card."""
     code = (
-        "import sys, flink_ml_tpu_torch\n"
-        "import flink_ml_tpu_torch.models.classification.logisticregression\n"
+        "import sys, importlib, torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "import flink_ml_tpu_torch\n"
+        f"for name in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'flink_ml_tpu' or m.startswith('flink_ml_tpu.'))\n"
         "print(bad)\n"
@@ -93,6 +103,66 @@ def test_transform_raises_without_card_or_cpu_request(no_card):
     sparse = SparseBatch(3, np.zeros((40, 2), np.int32), np.ones((40, 2)))
     with pytest.raises(RuntimeError, match="CUDA"):
         model.transform(Table({"features": sparse}))
+
+
+def _entry_points():
+    """name -> call of each entry point of the later slices, on host data."""
+    from flink_ml_tpu_torch import Pipeline
+    from flink_ml_tpu_torch.models.classification.linearsvc import LinearSVC, LinearSVCModel
+    from flink_ml_tpu_torch.models.clustering.kmeans import KMeans, KMeansModel
+    from flink_ml_tpu_torch.models.feature.onehotencoder import OneHotEncoder, OneHotEncoderModel
+    from flink_ml_tpu_torch.models.feature.standardscaler import StandardScaler, StandardScalerModel
+    from flink_ml_tpu_torch.models.feature.vectorassembler import VectorAssembler
+    from flink_ml_tpu_torch.models.regression.linearregression import (
+        LinearRegression, LinearRegressionModel)
+
+    X, y = _data()
+    table = Table({"features": X, "label": y, "cat": (y * 2).astype(np.float64)})
+    linear = {}
+    for cls in (LinearSVCModel, LinearRegressionModel):
+        linear[cls] = cls()
+        linear[cls].coefficient = np.ones(3)
+    kmeans = KMeansModel()
+    kmeans.centroids, kmeans.weights = np.eye(2, 3), np.ones(2)
+    scaler = StandardScalerModel().set_input_col("features")
+    scaler.mean, scaler.std = np.zeros(3), np.ones(3)
+    encoder = OneHotEncoderModel().set_input_cols("cat").set_output_cols("v")
+    encoder.category_sizes = np.array([3])
+    return dict([
+        ("LinearSVC.fit", lambda: LinearSVC().fit(table)),
+        ("LinearSVCModel.transform", lambda: linear[LinearSVCModel].transform(table)),
+        ("LinearRegression.fit", lambda: LinearRegression().fit(table)),
+        ("LinearRegressionModel.transform", lambda: linear[LinearRegressionModel].transform(table)),
+        ("KMeans.fit", lambda: KMeans().fit(table)),
+        ("KMeansModel.transform", lambda: kmeans.transform(table)),
+        ("StandardScaler.fit", lambda: StandardScaler().set_input_col("features").fit(table)),
+        ("StandardScalerModel.transform", lambda: scaler.transform(table)),
+        ("OneHotEncoder.fit",
+         lambda: OneHotEncoder().set_input_cols("cat").set_output_cols("v").fit(table)),
+        ("OneHotEncoderModel.transform", lambda: encoder.transform(table)),
+        ("VectorAssembler.transform",
+         lambda: VectorAssembler().set_input_cols("features", "cat").transform(table)),
+        ("Pipeline.fit", lambda: Pipeline([LinearSVC()]).fit(table)),
+    ])
+
+
+ENTRY_POINTS = [
+    "LinearSVC.fit", "LinearSVCModel.transform", "LinearRegression.fit",
+    "LinearRegressionModel.transform", "KMeans.fit", "KMeansModel.transform",
+    "StandardScaler.fit", "StandardScalerModel.transform", "OneHotEncoder.fit",
+    "OneHotEncoderModel.transform", "VectorAssembler.transform", "Pipeline.fit",
+]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_later_entry_points_raise_without_card_or_cpu_request(no_card, name):
+    calls = _entry_points()
+    assert sorted(calls) == sorted(ENTRY_POINTS)
+    call = calls[name]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    with config.use_device("cpu"):
+        call()
 
 
 def test_use_device_cuda_refuses_without_card(no_card):
