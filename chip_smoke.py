@@ -27,9 +27,16 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    LinearSVC and LinearRegression on dense data (10M x 100, maxIter 20,
    globalBatchSize 100,000, weighted) and on wide sparse data (1M rows,
    dim 1e6, 39 non-zeros per row), each sparse path on both kernels;
-   KMeans (1M x 100 uniform, k 10, maxIter 10, seed 2); and the Pipeline
+   KMeans (1M x 100 uniform, k 10, maxIter 10, seed 2); the Pipeline
    StandardScaler -> OneHotEncoder (arity 10) -> VectorAssembler ->
-   LogisticRegression on 1M rows of 100 features;
+   LogisticRegression on 1M rows of 100 features; and, on host data made
+   from seeded numpy generators, the stream and online paths:
+   LogisticRegression on a StreamTable of 10M x 100 rows in chunks of
+   65,536 (out of core through the native data cache, built from
+   native/src/datacache.cc at first use), KMeans on a StreamTable of its
+   1M rows, OnlineLogisticRegression (FTRL) over 10M rows of a planted
+   hyperplane (100 versions) and OnlineKMeans over the KMeans rows from
+   the KMeans model (10 versions);
 4. the results: each dense fit against a float64 numpy replay of the same
    epochs on the same rows and a refit bit for bit, each sparse fit
    against the same fit on the plain loss on the card, the transforms
@@ -38,12 +45,20 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    outside a 1e-4 relative margin, a refit bit for bit; the pipeline's
    scaler against float64 statistics, its one-hot indices against
    numpy's, its LogisticRegression against a float64 replay on the
-   assembled matrix; every reloaded model predicts identically;
+   assembled matrix; the stream LR against the bounded fit of the rows its
+   epochs train and a float64 replay, a fit that spills against its
+   in-memory twin bit for bit; the stream KMeans against the float64
+   Lloyd; every tenth FTRL version against a float64 replay; every
+   OnlineKMeans version against a float64 update; every reloaded model
+   predicts identically;
 5. warm times: the median of five (LogisticRegression) or three warm fits
    and transforms of each configuration, and a torch.profiler pass over
    one warm dense and sparse LogisticRegression fit, a KMeans fit, a
    sparse transform and a pipeline transform (device time by kernel, the
-   device's idle share);
+   device's idle share); two warm runs of each stream and online path
+   (ingest and fit; versions a second and the parts of a version timed
+   apart) and a profiler pass over each (idle share, upload overlap);
+   the seconds of each path and of the whole run;
 6. a `kernels` JSON line, then the result line.
 """
 
@@ -67,6 +82,20 @@ MAX_ITER, BATCH, LEARNING_RATE, TOL = 20, 100_000, 0.1, 1e-6
 LINREG_LEARNING_RATE = 0.01  # conf/linearregression-benchmark.json
 KMEANS_ROWS, KMEANS_K, KMEANS_ITER, KMEANS_SEED = 1_000_000, 10, 10, 2  # conf/kmeans-benchmark.json
 PIPELINE_ROWS, ARITY, PIPELINE_SEED = 1_000_000, 10, 7  # conf/standardscaler-, onehotencoder-benchmark.json
+# the stream and online paths: host chunks of this many rows (not a multiple
+# of the batch, so the remainder carries from chunk to chunk)
+STREAM_CHUNK, KMEANS_CHUNK = 65_536, 62_500
+STREAM_SEED, ONLINE_SEED, HELD_OUT_SEED = 13, 17, 19
+STREAM_CACHE_BUDGET = 8 << 30  # holds the stream LR's 100 packed segments, 4.08 GB
+SPILL_BATCHES = 8  # the spill twin: 8 segments against the default 64 MiB budget
+ONLINE_REG, ONLINE_ELASTIC_NET = 0.01, 0.5  # both FTRL's l1 and l2 terms act
+ONLINE_KMEANS_DECAY = 0.5
+# FTRL zeroes a coordinate when |z| <= l1: one whose float64 |z| lies within
+# this share of l1 from l1 may go either way in float32, and is not gated
+NEAR_L1_SHARE = 1e-3
+# KMeans near ties (the KMeans path's rule): points whose two nearest float64
+# distances differ by at most this share are not gated
+TIE_MARGIN = 1e-4
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -669,7 +698,8 @@ def lloyd64(X64, init, max_iter):
 def check_kmeans(run, X):
     """KMeans against a float64 Lloyd from the same init rows; the
     transform's assignments against float64 distances outside a 1e-4
-    relative margin; a refit bit for bit."""
+    relative margin; a refit bit for bit. Returns the points inside the
+    margin and the float64 Lloyd's (centroids, counts)."""
     from flink_ml_tpu_torch.models.clustering import kmeans
 
     model = run["model"]
@@ -686,22 +716,17 @@ def check_kmeans(run, X):
     check(model.weights.sum() == KMEANS_ROWS, "kmeans weights do not count every point")
 
     C64 = torch.as_tensor(model.centroids, dtype=torch.float64, device=X.device)
-    d64 = torch.cat([torch.cdist(X64[i:i + 100_000], C64, compute_mode="donot_use_mm_for_euclid_dist")
-                     for i in range(0, KMEANS_ROWS, 100_000)])
-    two = torch.topk(d64, 2, dim=1, largest=False)
-    clear = (two.values[:, 1] - two.values[:, 0]) > 1e-4 * two.values[:, 1]
     assign = run["out"].column("prediction")
     check(assign.shape == (KMEANS_ROWS,) and assign.dtype == torch.int32, "kmeans transform shape")
-    mismatched = int(((assign.long() != two.indices[:, 0]) & clear).sum())
-    inside = int((~clear).sum())
+    inside, mismatched, _ = kmeans_assignments64(X64, C64, assign)
     log(f"  kmeans transform vs float64 distances: {inside} points within the 1e-4 margin "
         f"(not gated), {mismatched} mismatches outside it")
     check(mismatched == 0, f"kmeans transform assigns {mismatched} clear points differently")
     refit = kmeans_estimator().fit(run["table"])
     check(np.array_equal(refit.centroids, model.centroids) and np.array_equal(refit.weights, model.weights),
           "kmeans refit is not bit-identical")
-    del X64, d64
-    return inside
+    del X64
+    return inside, (ref_c, ref_counts)
 
 
 def pipeline_data(dev):
@@ -776,6 +801,440 @@ def check_pipeline(run, table):
     check(run["out"].column("assembled").shape == (PIPELINE_ROWS, DIM + vec_size), "assembled width")
 
 
+def kmeans_assignments64(X64, C64, assign):
+    """Float64 nearest centroids of X64's rows against `assign`: (points
+    within the TIE_MARGIN, clear points assigned otherwise, the float64
+    assignment)."""
+    d64 = torch.cat([torch.cdist(X64[i:i + 100_000], C64, compute_mode="donot_use_mm_for_euclid_dist")
+                     for i in range(0, X64.shape[0], 100_000)])
+    two = torch.topk(d64, 2, dim=1, largest=False)
+    clear = (two.values[:, 1] - two.values[:, 0]) > TIE_MARGIN * two.values[:, 1]
+    mismatched = int(((assign.long() != two.indices[:, 0]) & clear).sum())
+    return int((~clear).sum()), mismatched, two.indices[:, 0]
+
+
+def host_columns(seed, rows, fill):
+    """Host columns of `rows` rows, made chunk by chunk: chunk i of
+    STREAM_CHUNK rows from np.random.default_rng([seed, i]), filled by
+    `fill(rng, start, stop)`."""
+    for i, start in enumerate(range(0, rows, STREAM_CHUNK)):
+        fill(np.random.default_rng([seed, i]), start, min(start + STREAM_CHUNK, rows))
+
+
+def stream_lr_data():
+    """conf/logisticregression-benchmark.json's table on the host, as the
+    stream paths get it: 10M x 100 uniform [0, 1) features, random 0/1
+    labels, uniform weights, float32."""
+    X = np.empty((DENSE_ROWS, DIM), np.float32)
+    y = np.empty(DENSE_ROWS, np.float32)
+    w = np.empty(DENSE_ROWS, np.float32)
+
+    def fill(rng, a, b):
+        rng.random((b - a, DIM), dtype=np.float32, out=X[a:b])
+        y[a:b] = rng.integers(0, 2, b - a)
+        rng.random(b - a, dtype=np.float32, out=w[a:b])
+
+    host_columns(STREAM_SEED, DENSE_ROWS, fill)
+    return {"features": X, "label": y, "weight": w}
+
+
+def planted_rows(seed, rows, truth):
+    """Uniform [-0.5, 0.5) features and the labels of the hyperplane
+    `truth` through the origin, float32."""
+    X = np.empty((rows, DIM), np.float32)
+
+    def fill(rng, a, b):
+        rng.random((b - a, DIM), dtype=np.float32, out=X[a:b])
+        X[a:b] -= 0.5
+
+    host_columns(seed, rows, fill)
+    return {"features": X, "label": (X @ truth > 0).astype(np.float32)}
+
+
+def stream_of(columns, rows, chunk):
+    """A one-shot StreamTable of host Tables of `chunk` rows (views)."""
+    from flink_ml_tpu_torch import StreamTable, Table
+
+    return StreamTable(Table({k: v[i:i + chunk] for k, v in columns.items()})
+                       for i in range(0, rows, chunk))
+
+
+def device_table(columns, rows, dev):
+    from flink_ml_tpu_torch import Table
+
+    return Table({k: torch.from_numpy(v[:rows]).to(dev) for k, v in columns.items()})
+
+
+def sgd_chunks(columns, rows):
+    """(X, y, w) host chunks of the first `rows` rows, for SGD.optimize_stream."""
+    X, y, w = columns["features"], columns["label"], columns["weight"]
+    return ((X[i:min(i + STREAM_CHUNK, rows)], y[i:min(i + STREAM_CHUNK, rows)],
+             w[i:min(i + STREAM_CHUNK, rows)]) for i in range(0, rows, STREAM_CHUNK))
+
+
+def stream_sgd():
+    from flink_ml_tpu_torch.ops.optimizer import SGD
+
+    return SGD(max_iter=MAX_ITER, learning_rate=LEARNING_RATE, global_batch_size=BATCH, tol=TOL)
+
+
+def check_stream_lr(run, columns, bounded_table, default_budget):
+    """The stream fit against the port's bounded fit of the rows its epochs
+    train (the first MAX_ITER batches) on the card, and against the float64
+    replay; a fit whose cache spills against its in-memory twin."""
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
+    from flink_ml_tpu_torch.ops import losses
+
+    model = run["model"]
+    bounded = estimator(LogisticRegression, "weight").fit(bounded_table).coefficient
+    rel = float(np.max(np.abs(model.coefficient - bounded)) / np.max(np.abs(bounded)))
+    bits = bool(np.array_equal(model.coefficient, bounded))
+    rows = MAX_ITER * BATCH
+    X64 = columns["features"][:rows].astype(np.float64)
+    y64, w64 = columns["label"][:rows].astype(np.float64), columns["weight"][:rows].astype(np.float64)
+    ref, ref_loss, ref_epochs = numpy_reference_sgd(
+        lambda k: (X64[k * BATCH:(k + 1) * BATCH], y64[k * BATCH:(k + 1) * BATCH],
+                   w64[k * BATCH:(k + 1) * BATCH]), MAX_ITER, MAX_ITER, LEARNING_RATE, TOL)
+    del X64
+    ref_rel = float(np.max(np.abs(model.coefficient - ref)) / np.max(np.abs(ref)))
+    log(f"  stream lr vs the bounded fit of its {rows} rows on the card: max rel {rel:.3g}, "
+        f"bit-identical {bits}; vs the float64 replay: max rel {ref_rel:.3g} ({ref_epochs} epochs)")
+    check(rel <= 1e-6, f"stream lr differs from the bounded fit by {rel}")
+    check(ref_rel < 1e-3, f"stream lr differs from the float64 replay by {ref_rel}")
+    spill_rows = SPILL_BATCHES * BATCH
+    twins = {}
+    for label, budget in (("spilled", default_budget), ("in memory", STREAM_CACHE_BUDGET)):
+        coeff, _, epochs, stats = stream_sgd().optimize_stream(
+            None, sgd_chunks(columns, spill_rows), losses.BINARY_LOGISTIC_LOSS,
+            memory_budget_bytes=budget)
+        twins[label] = coeff
+        log(f"  stream lr on {SPILL_BATCHES} batches, {label} (budget {budget} bytes): {stats}")
+        check((stats["spilledSegments"] > 0) == (label == "spilled"), f"{label} twin's cache {stats}")
+    check(np.array_equal(twins["spilled"], twins["in memory"]),
+          "the spilled stream fit differs from its in-memory twin")
+    log("  stream lr: the spilled fit equals its in-memory twin bit for bit")
+    pred = run["out"].column("prediction")
+    check(pred.shape == (rows,) and bool(torch.isfinite(pred).all()), "stream lr transform")
+
+
+def check_stream_kmeans(run, X, columns, lloyd, bounded_model):
+    """The stream fit from the bounded fit's init rows, against the float64
+    Lloyd (the bounded KMeans path's gate); its difference from the bounded fit."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.models.clustering import kmeans
+
+    model = run["model"]
+    drawn = kmeans._sample_without_replacement(
+        np.random.RandomState(KMEANS_SEED % 2**32), KMEANS_ROWS, KMEANS_K)
+    check(np.array_equal(drawn, kmeans.init_rows(KMEANS_ROWS, KMEANS_K, KMEANS_SEED)),
+          "the stream fit draws other init rows")
+    one = kmeans_estimator().set_max_iter(1)
+    first_stream = one.fit(stream_of(columns, KMEANS_ROWS, KMEANS_CHUNK)).centroids
+    first_bounded = one.fit(Table({"features": X})).centroids
+    first_rel = float(np.max(np.abs(first_stream - first_bounded)) / np.max(np.abs(first_bounded)))
+    check(first_rel < 1e-5, f"one stream epoch differs from one bounded epoch by {first_rel}")
+    ref_c, ref_counts = (t.cpu().numpy() for t in lloyd)
+    scale = float(np.max(np.abs(ref_c)))
+    c_err = float(np.max(np.abs(model.centroids - ref_c)))
+    count_diff = int(np.sum(np.abs(model.weights - ref_counts)))
+    b_err = float(np.max(np.abs(model.centroids - bounded_model.centroids)))
+    b_counts = int(np.sum(np.abs(model.weights - bounded_model.weights)))
+    log(f"  stream kmeans: init rows are the bounded fit's (one epoch apart by {first_rel:.3g}); "
+        f"vs float64 Lloyd max abs {c_err:.3g} of scale {scale:.3g}, counts differ by {count_diff}; "
+        f"vs the bounded fit max abs {b_err:.3g}, counts differ by {b_counts}")
+    check(c_err <= 1e-3 * scale, f"stream kmeans centroids differ from the float64 Lloyd by {c_err}")
+    check(model.weights.sum() == KMEANS_ROWS, "stream kmeans weights do not count every point")
+    C64 = torch.as_tensor(model.centroids, dtype=torch.float64, device=X.device)
+    inside, mismatched, _ = kmeans_assignments64(X.double(), C64, run["out"].column("prediction"))
+    log(f"  stream kmeans transform: {inside} points within the margin, {mismatched} clear mismatches")
+    check(mismatched == 0, f"stream kmeans transform assigns {mismatched} clear points differently")
+
+
+def online_lr_estimator():
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.linalg import DenseVector
+    from flink_ml_tpu_torch.models.classification import onlinelogisticregression as olr
+
+    return (olr.OnlineLogisticRegression().set_global_batch_size(BATCH)
+            .set_reg(ONLINE_REG).set_elastic_net(ONLINE_ELASTIC_NET)
+            .set_initial_model_data(Table({"coefficient": [DenseVector(np.zeros(DIM))]})))
+
+
+def online_lr_fit(columns, trace=None):
+    """The online fit as a user drives it: fit, then train every version
+    (ten at a time, recording each tenth coefficient into `trace`)."""
+    model = online_lr_estimator().fit(stream_of(columns, DENSE_ROWS, STREAM_CHUNK))
+    while True:
+        version = model.model_version
+        if model.process_updates(10) == version:
+            return model
+        if trace is not None:
+            trace[model.model_version] = model.coefficient.copy()
+
+
+def ftrl64_replay(columns, versions):
+    """FTRL-Proximal in float64 numpy, written apart from the port: returns
+    {version: (coefficient, |z| - l1)} at `versions`."""
+    X, y = columns["features"], columns["label"]
+    l1, l2 = ONLINE_ELASTIC_NET * ONLINE_REG, (1.0 - ONLINE_ELASTIC_NET) * ONLINE_REG
+    alpha = beta = 0.1
+    coeff, z, n = np.zeros(DIM), np.zeros(DIM), np.zeros(DIM)
+    out = {}
+    for v in range(1, max(versions) + 1):
+        Xb = X[(v - 1) * BATCH:v * BATCH].astype(np.float64)
+        yb = y[(v - 1) * BATCH:v * BATCH].astype(np.float64)
+        p = 1.0 / (1.0 + np.exp(-(Xb @ coeff)))
+        count = np.count_nonzero(Xb, axis=0)
+        g = np.where(count > 0, (Xb.T @ (p - yb)) / np.maximum(count, 1), 0.0)
+        sigma = (np.sqrt(n + g * g) - np.sqrt(n)) / alpha
+        z = z + g - sigma * coeff
+        n = n + g * g
+        coeff = np.where(np.abs(z) <= l1, 0.0,
+                         (np.sign(z) * l1 - z) / ((beta + np.sqrt(n)) / alpha + l2))
+        if v in versions:
+            out[v] = (coeff, np.abs(z) - l1)
+    return out
+
+
+def check_online_lr(run, columns, trace, held):
+    """Every tenth version and the last against the float64 FTRL replay,
+    near-threshold coordinates counted and left out; the version stamp;
+    accuracy on a held-out batch."""
+    model, out = run["model"], run["out"]
+    versions = DENSE_ROWS // BATCH
+    check(model.model_version == versions, f"online lr ends at version {model.model_version}")
+    check(sorted(trace) == list(range(10, versions + 1, 10)), f"online lr versions {sorted(trace)}")
+    l1 = ONLINE_ELASTIC_NET * ONLINE_REG
+    worst, near_total = 0.0, 0
+    for v, (ref, margin) in ftrl64_replay(columns, set(trace)).items():
+        clear = np.abs(margin) > NEAR_L1_SHARE * l1
+        near_total += int(np.sum(~clear))
+        rel = float(np.max(np.abs(trace[v] - ref)[clear]) / np.max(np.abs(ref)))
+        worst = max(worst, rel)
+        check(rel < 1e-3, f"online lr version {v} differs from the float64 replay by {rel}")
+    zeros = int(np.sum(model.coefficient == 0.0))
+    log(f"  online lr: {len(trace)} versions vs the float64 FTRL replay, worst max rel {worst:.3g}; "
+        f"{near_total} near-threshold coordinates left out in all; {zeros} of {DIM} coefficients are 0")
+    stamp = out.column("modelVersion")
+    check(stamp.dtype == torch.int32 and bool((stamp == versions).all()), "online lr modelVersion column")
+    accuracy = float((out.column("prediction") == held.column("label")).float().mean())
+    log(f"  online lr held-out accuracy {accuracy:.4f} at version {model.model_version}")
+    check(accuracy > 0.9, f"online lr held-out accuracy {accuracy}")
+
+
+def online_kmeans_fit(columns, init_model, trace=None):
+    """OnlineKMeans from a KMeans model (its centroids, its counts as
+    weights) over the KMeans rows, trained one version at a time, each
+    recorded into `trace` as (version, centroids, weights)."""
+    from flink_ml_tpu_torch.models.clustering import onlinekmeans
+
+    est = (onlinekmeans.OnlineKMeans().set_k(KMEANS_K).set_global_batch_size(BATCH)
+           .set_decay_factor(ONLINE_KMEANS_DECAY)
+           .set_initial_model_data(init_model.get_model_data()[0]))
+    model = est.fit(stream_of(columns, KMEANS_ROWS, KMEANS_CHUNK))
+    while True:
+        version = model.model_version
+        if model.process_updates(1) == version:
+            return model
+        if trace is not None:
+            trace.append((model.model_version, model.centroids.copy(), model.weights.copy()))
+
+
+def check_online_kmeans(run, X, init_model, trace):
+    """Every version against a float64 replay of its decayed update from the
+    version before, under the KMeans path's near-tie rule: points outside the margin
+    are assigned as float64 assigns them, and the weights differ by at most
+    two for each point inside it."""
+    from flink_ml_tpu_torch.ops.distance import DistanceMeasure
+
+    model = run["model"]
+    versions = KMEANS_ROWS // BATCH
+    check(model.model_version == versions, f"online kmeans ends at version {model.model_version}")
+    check([v for v, _, _ in trace] == list(range(1, versions + 1)), "online kmeans versions")
+    measure = DistanceMeasure.get_instance("euclidean")
+    prev_c, prev_w = init_model.centroids, init_model.weights
+    worst, inside_total, flips = 0.0, 0, 0.0
+    for v, c32, w32 in trace:
+        Xb = X[(v - 1) * BATCH:v * BATCH]
+        assign = measure.find_closest(Xb, torch.as_tensor(prev_c, dtype=torch.float32, device=X.device))
+        C64 = torch.as_tensor(prev_c, dtype=torch.float64, device=X.device)
+        X64 = Xb.double()
+        inside, mismatched, assign64 = kmeans_assignments64(X64, C64, assign)
+        check(mismatched == 0, f"online kmeans version {v}: {mismatched} clear points assigned otherwise")
+        counts = torch.bincount(assign64, minlength=KMEANS_K).double()
+        sums = torch.zeros_like(C64).index_add_(0, assign64, X64)
+        means = torch.where(counts[:, None] > 0, sums / counts.clamp(min=1)[:, None], C64)
+        decayed = torch.as_tensor(prev_w, dtype=torch.float64, device=X.device) * ONLINE_KMEANS_DECAY
+        c64 = ((C64 * decayed[:, None] + means * counts[:, None])
+               / (decayed + counts).clamp(min=1e-16)[:, None]).cpu().numpy()
+        w64 = (decayed + counts).cpu().numpy()
+        rel = float(np.max(np.abs(c32 - c64)) / np.max(np.abs(c64)))
+        w_diff = float(np.sum(np.abs(w32 - w64)))
+        check(rel <= 1e-3, f"online kmeans version {v} differs from the float64 update by {rel}")
+        check(w_diff <= 2 * inside, f"online kmeans version {v} weights differ by {w_diff}")
+        worst, inside_total, flips = max(worst, rel), inside_total + inside, flips + w_diff
+        prev_c, prev_w = c32, w32
+    C64 = torch.as_tensor(model.centroids, dtype=torch.float64, device=X.device)
+    inside, mismatched, _ = kmeans_assignments64(X.double(), C64, run["out"].column("prediction"))
+    log(f"  online kmeans: {versions} versions vs float64 updates, worst max rel {worst:.3g}; "
+        f"{inside_total} batch points within the margin, weights apart by {flips:g} in all; "
+        f"transform: {inside} points within the margin, {mismatched} clear mismatches")
+    check(mismatched == 0, f"online kmeans transform assigns {mismatched} clear points differently")
+
+
+def online_lr_split(columns, dev):
+    """The parts of an online LR version, each timed apart: the rebatch
+    generator alone, the staging of every batch (copy into a pinned buffer
+    and the upload, waited for), the upload alone (CUDA events), the FTRL
+    step (CUDA events) and the publication of a coefficient (host clock)."""
+    from flink_ml_tpu_torch.models.classification import onlinelogisticregression as olr
+    from flink_ml_tpu_torch.parallel.prefetch import DeviceStager
+    from flink_ml_tpu_torch.table import global_batches
+
+    versions = DENSE_ROWS // BATCH
+    t0 = time.perf_counter()
+    batches = list(global_batches(stream_of(columns, DENSE_ROWS, STREAM_CHUNK), (
+        lambda t: t.column("features"), lambda t: t.column("label").astype(np.float64)), BATCH))
+    rebatch_ms = (time.perf_counter() - t0) * 1e3 / versions
+    stager = DeviceStager(dev, torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        staged = stager(b).wait()
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3 / versions
+    del batches
+    X, y = staged
+    pinned = torch.empty(X.numel() * 4 + y.numel() * 4, dtype=torch.uint8, pin_memory=True)
+    target = torch.empty_like(pinned, device=dev)
+    upload_ms = cuda_ms(lambda: target.copy_(pinned, non_blocking=True), [()], iters=10)
+    state = tuple(torch.zeros(DIM, device=dev) for _ in range(3))
+    l1, l2 = ONLINE_ELASTIC_NET * ONLINE_REG, (1.0 - ONLINE_ELASTIC_NET) * ONLINE_REG
+    step_ms = cuda_ms(lambda: olr._ftrl_step(*state, X, y, 0.1, 0.1, l1, l2), [()])
+    coeff = state[0] + 1.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(versions):
+        coeff.cpu().numpy()
+    publish_ms = (time.perf_counter() - t0) * 1e3 / versions
+    log(f"  online lr per version, timed apart: rebatch {rebatch_ms:.4f} ms, staging (pinned copy + "
+        f"upload) {stage_ms:.3f} ms, upload alone {upload_ms:.3f} ms "
+        f"({pinned.numel() / upload_ms / 1e6:.2f} GB/s), FTRL step {step_ms:.4f} ms, publish {publish_ms:.4f} ms")
+    return {"rebatch_ms": rebatch_ms, "stage_ms": stage_ms, "upload_ms": upload_ms,
+            "step_ms": step_ms, "publish_ms": publish_ms}
+
+
+def profile_overlap(name, run):
+    """torch.profiler over one call: wall, device busy and idle share, and
+    how much of the host-to-device copy time runs under kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    copies = [(a, b) for n, a, b in spans if "HtoD" in n]
+    kernels = sorted((a, b) for n, a, b in spans if "Memcpy" not in n and "Memset" not in n)
+    merged = []
+    for a, b in kernels:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    overlap = sum(max(0.0, min(b, mb) - max(a, ma)) for a, b in copies for ma, mb in merged)
+    busy = []
+    for a, b in sorted((a, b) for _, a, b in spans):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    busy_ms = sum(b - a for a, b in busy) / 1e3
+    copy_ms = sum(b - a for a, b in copies) / 1e3
+    kernel_ms = sum(b - a for a, b in merged) / 1e3
+    log(f"  profile {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+        f"(idle {100.0 * (1.0 - busy_ms / wall_ms):.1f}%); {len(copies)} uploads {copy_ms:.3f} ms, "
+        f"kernels {kernel_ms:.3f} ms, uploads under kernels {overlap / 1e3:.3f} ms "
+        f"({100.0 * overlap / max(copy_ms * 1e3, 1e-9):.1f}% of upload time)")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "upload_ms": copy_ms, "kernel_ms": kernel_ms,
+            "overlap_ms": overlap / 1e3}
+
+def stream_and_online_times(stream_cols, km_cols, online_cols, kmeans_model, dev, path_s):
+    """Phase 5 for the stream and online paths: two warm runs of each, the
+    stream fits split into ingest (rows a second into the data cache) and
+    fit, the online fits in versions a second with the parts of a version
+    timed apart, and a torch.profiler pass over one more run of each."""
+    from flink_ml_tpu_torch.native.datacache import ReplayableStreamTable
+    from flink_ml_tpu_torch.ops import losses
+
+    def stream_fit():
+        return stream_sgd().optimize_stream(
+            None, sgd_chunks(stream_cols, DENSE_ROWS), losses.BINARY_LOGISTIC_LOSS)
+
+    out = {}
+    t0 = time.perf_counter()
+    runs = []
+    for _ in range(2):
+        (_, _, _, stats), ms = synced(stream_fit)
+        ingest_ms = stats["ingestSeconds"] * 1e3
+        runs.append((ms, ingest_ms, ms - ingest_ms))
+        log(f"  stream lr: {ms:.1f} ms = ingest {ingest_ms:.1f} ms ({DENSE_ROWS / ingest_ms * 1e3:.4g} "
+            f"rows/s into the cache) + fit {ms - ingest_ms:.1f} ms; {stats}")
+    out["stream lr"] = {"wall_ms": [r[0] for r in runs], "ingest_ms": [r[1] for r in runs],
+                        "fit_ms": [r[2] for r in runs],
+                        "profile": profile_overlap("stream lr fit (ingest included)", stream_fit)}
+    path_s["stream lr"] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    runs = []
+    for _ in range(3):  # two timed runs, then one profiled
+        t1 = time.perf_counter()
+        replay = ReplayableStreamTable(stream_of(km_cols, KMEANS_ROWS, KMEANS_CHUNK), STREAM_CACHE_BUDGET)
+        for _ in replay:  # the first pass caches every batch
+            pass
+        ingest_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        for _ in replay:  # a pass that replays from the cache, as the fit's pass 0 does
+            pass
+        replay_ms = (time.perf_counter() - t1) * 1e3
+        if len(runs) == 2:
+            profile = profile_overlap("stream kmeans fit", lambda: kmeans_estimator().fit(replay))
+        else:
+            _, fit_ms = synced(lambda: kmeans_estimator().fit(replay))
+            runs.append((ingest_ms, replay_ms, fit_ms))
+            log(f"  stream kmeans: ingest {ingest_ms:.1f} ms ({KMEANS_ROWS / ingest_ms * 1e3:.4g} rows/s), "
+                f"a replay pass {replay_ms:.1f} ms, fit {fit_ms:.1f} ms")
+        replay.close()
+    out["stream kmeans"] = {"ingest_ms": [r[0] for r in runs], "replay_ms": [r[1] for r in runs],
+                            "fit_ms": [r[2] for r in runs], "profile": profile}
+    path_s["stream kmeans"] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    versions = DENSE_ROWS // BATCH
+    walls = [synced(lambda: online_lr_fit(online_cols))[1] for _ in range(2)]
+    for ms in walls:
+        log(f"  online lr: {ms:.1f} ms for {versions} versions, {versions / ms * 1e3:.2f} versions/s, "
+            f"{ms / versions:.3f} ms a version")
+    out["online lr"] = {"wall_ms": walls, "split": online_lr_split(online_cols, dev),
+                        "profile": profile_overlap("online lr fit", lambda: online_lr_fit(online_cols))}
+    path_s["online lr"] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    versions = KMEANS_ROWS // BATCH
+    walls = [synced(lambda: online_kmeans_fit(km_cols, kmeans_model))[1] for _ in range(2)]
+    for ms in walls:
+        log(f"  online kmeans: {ms:.1f} ms for {versions} versions, {versions / ms * 1e3:.2f} "
+            f"versions/s, {ms / versions:.3f} ms a version")
+    out["online kmeans"] = {"wall_ms": walls, "profile": profile_overlap(
+        "online kmeans fit", lambda: online_kmeans_fit(km_cols, kmeans_model))}
+    path_s["online kmeans"] += time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; the port's kernels run only on the card",
@@ -783,6 +1242,8 @@ def main() -> int:
         return 2
 
     from flink_ml_tpu_torch import SparseBatch, Table
+    from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.models.classification import logisticregression
     from flink_ml_tpu_torch.ops import cuda_build
     from flink_ml_tpu_torch.ops import sparsekernels as sk
 
@@ -835,7 +1296,17 @@ def main() -> int:
     sparse_table = Table({"features": SparseBatch(SPARSE_DIM, s_idx, s_vals), "label": s_y})
     km_table = Table({"features": kmeans_data(dev)})
     p_table = pipeline_data(dev)
+    t0 = time.perf_counter()
+    stream_cols = stream_lr_data()
+    bounded_table = device_table(stream_cols, MAX_ITER * BATCH, dev)
+    km_cols = {"features": km_table.column("features").cpu().numpy()}
+    truth = np.random.default_rng(ONLINE_SEED).standard_normal(DIM).astype(np.float32)
+    online_cols = planted_rows(ONLINE_SEED, DENSE_ROWS, truth)
+    held_table = device_table(planted_rows(HELD_OUT_SEED, BATCH, truth), BATCH, dev)
     torch.cuda.synchronize()
+    log(f"  host data of the stream and online paths made in {time.perf_counter() - t0:.2f} s")
+    default_budget = port_config.datacache_memory_budget_bytes
+    port_config.datacache_memory_budget_bytes = STREAM_CACHE_BUDGET
 
     # name -> (fit, table, launches expected of (sparse_row_dots, sparse_grad))
     sparse_launches = {"sparse_row_dots": MAX_ITER + 2, "sparse_grad": MAX_ITER}
@@ -849,10 +1320,23 @@ def main() -> int:
                                    sparse_table, sparse_launches)
     paths["kmeans"] = (lambda: kmeans_estimator().fit(km_table), km_table, no_launches)
     paths["pipeline"] = (lambda: pipeline().fit(p_table), p_table, no_launches)
+    # the stream and online paths, each run once here with its checks'
+    # traces, and timed apart in phase 5
+    traces = {"online lr": {}, "online kmeans": []}
+    new_paths = {
+        "stream lr": (lambda: estimator(logisticregression.LogisticRegression, "weight").fit(
+            stream_of(stream_cols, DENSE_ROWS, STREAM_CHUNK)), bounded_table, no_launches),
+        "stream kmeans": (lambda: kmeans_estimator().fit(stream_of(km_cols, KMEANS_ROWS, KMEANS_CHUNK)),
+                          km_table, no_launches),
+        "online lr": (lambda: online_lr_fit(online_cols, traces["online lr"]), held_table, no_launches),
+        "online kmeans": (lambda: online_kmeans_fit(km_cols, runs["kmeans"]["model"],
+                                                    traces["online kmeans"]), km_table, no_launches),
+    }
 
-    runs, launches = {}, {"sparse_row_dots": 0, "sparse_grad": 0}
+    runs, launches, path_s = {}, {"sparse_row_dots": 0, "sparse_grad": 0}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (fit, table, expected) in paths.items():
+        for name, (fit, table, expected) in {**paths, **new_paths}.items():
+            t0 = time.perf_counter()
             sk.reset_launch_counts()
             run = drive(fit, table, tmp, name.replace(" ", "_"))
             counts = sk.launch_counts()
@@ -864,6 +1348,7 @@ def main() -> int:
                   f"dot and one gradient per epoch, a row dot per transform)")
             for kernel in launches:
                 launches[kernel] += counts[kernel]
+            path_s[name] = time.perf_counter() - t0
     log(f"  launches on the main paths: {launches}")
     check(launches == {"sparse_row_dots": 3 * (MAX_ITER + 2), "sparse_grad": 3 * MAX_ITER},
           f"launches over phase 3 {launches}")
@@ -881,12 +1366,34 @@ def main() -> int:
         columns = ("prediction",) if name == "linreg" else ("prediction", "rawPrediction")
         for layout in ("dense", "sparse"):
             check_reload(f"{layout} {name}", runs[f"{layout} {name}"], java_class, columns)
-    kmeans_margin = check_kmeans(runs["kmeans"], km_table.column("features"))
+    kmeans_margin, lloyd = check_kmeans(runs["kmeans"], km_table.column("features"))
     check_reload("kmeans", runs["kmeans"], "org.apache.flink.ml.clustering.kmeans.KMeansModel",
                  ("prediction",))
     check_pipeline(runs["pipeline"], p_table)
     check_reload("pipeline", runs["pipeline"], "org.apache.flink.ml.builder.PipelineModel",
                  ("prediction", "rawPrediction"))
+    km_X = km_table.column("features")
+    new_checks = {
+        "stream lr": (lambda: check_stream_lr(runs["stream lr"], stream_cols, bounded_table,
+                                              default_budget),
+                      LINEAR_PATHS["lr"][4], ("prediction", "rawPrediction")),
+        "stream kmeans": (lambda: check_stream_kmeans(runs["stream kmeans"], km_X, km_cols, lloyd,
+                                                      runs["kmeans"]["model"]),
+                          "org.apache.flink.ml.clustering.kmeans.KMeansModel", ("prediction",)),
+        "online lr": (lambda: check_online_lr(runs["online lr"], online_cols, traces["online lr"],
+                                              held_table),
+                      "org.apache.flink.ml.classification.onlinelogisticregression."
+                      "OnlineLogisticRegressionModel", ("prediction", "rawPrediction", "modelVersion")),
+        "online kmeans": (lambda: check_online_kmeans(runs["online kmeans"], km_X, runs["kmeans"]["model"],
+                                                      traces["online kmeans"]),
+                          "org.apache.flink.ml.clustering.onlinekmeans.OnlineKMeansModel",
+                          ("prediction",)),
+    }
+    for name, (run_check, java_class, columns) in new_checks.items():
+        t0 = time.perf_counter()
+        run_check()
+        check_reload(name, runs[name], java_class, columns)
+        path_s[name] += time.perf_counter() - t0
     log("  save/load: every model reloads and predicts identically")
 
     # -- 5. warm times --------------------------------------------------------
@@ -913,6 +1420,8 @@ def main() -> int:
         profile_run(f"{name} fit", paths[name][0])
     profile_run("sparse lr transform", lambda: runs["sparse lr"]["model"].transform(sparse_table)[0])
     profile_run("pipeline transform", lambda: runs["pipeline"]["model"].transform(p_table)[0])
+    new_warm = stream_and_online_times(stream_cols, km_cols, online_cols, runs["kmeans"]["model"], dev,
+                                       path_s)
 
     # -- 6. output -----------------------------------------------------------
     sources = {
@@ -942,6 +1451,8 @@ def main() -> int:
         f"{n} fit {r['fit_ms']:.3f} ms, transform {r['transform_ms']:.3f} ms" for n, r in runs.items()))
     log("warm medians: " + "; ".join(
         f"{n} fit {f:.3f} ms, transform {t:.3f} ms" for n, (f, t) in warm.items()))
+    log("stream and online, warm: " + json.dumps(new_warm))
+    log("seconds by path (phases 3-5): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")

@@ -6,10 +6,12 @@ points compute on the CUDA card unless the caller asks for the CPU with
 `config.use_device("cpu")`; the TPU's Pallas kernels are hand-written CUDA
 under `csrc/`, built at first use into `_build/`.
 
-Ported so far: the Stage API, params, Table/SparseBatch, save/load, the
-linear losses, one-device SGD, LogisticRegression, LinearSVC and
-LinearRegression (dense and sparse), KMeans on a bounded Table,
-StandardScaler, OneHotEncoder, VectorAssembler and the eager
+Ported so far: the Stage API, params, Table/SparseBatch/StreamTable,
+save/load, the linear losses, one-device SGD (bounded and out of core over
+the native spillable data cache), LogisticRegression, LinearSVC and
+LinearRegression (dense and sparse), KMeans (bounded and out of core),
+OnlineLogisticRegression (FTRL) and OnlineKMeans with the iteration
+runtime, StandardScaler, OneHotEncoder, VectorAssembler and the eager
 Pipeline/PipelineModel. ROADMAP.md lists what is left.
 """
 

@@ -178,6 +178,42 @@ class HasSeed(WithParams):
         return self.set(self.SEED, value)
 
 
+class HasBatchStrategy(WithParams):
+    COUNT_STRATEGY = "count"
+    BATCH_STRATEGY = StringParam(
+        "batchStrategy", "Strategy to create mini batch from online train data.", "count",
+        ParamValidators.in_array(["count"]),
+    )
+
+    def get_batch_strategy(self) -> str:
+        return self.get(self.BATCH_STRATEGY)
+
+
+class HasDecayFactor(WithParams):
+    DECAY_FACTOR = FloatParam(
+        "decayFactor", "The forgetfulness of the previous centroids.", 0.0,
+        ParamValidators.in_range(0.0, 1.0),
+    )
+
+    def get_decay_factor(self) -> float:
+        return self.get(self.DECAY_FACTOR)
+
+    def set_decay_factor(self, value: float):
+        return self.set(self.DECAY_FACTOR, value)
+
+
+class HasModelVersionCol(WithParams):
+    MODEL_VERSION_COL = StringParam(
+        "modelVersionCol", "Model version column name.", "modelVersion"
+    )
+
+    def get_model_version_col(self):
+        return self.get(self.MODEL_VERSION_COL)
+
+    def set_model_version_col(self, value: str):
+        return self.set(self.MODEL_VERSION_COL, value)
+
+
 class HasDistanceMeasure(WithParams):
     DISTANCE_MEASURE = StringParam(
         "distanceMeasure",

@@ -1,12 +1,13 @@
-"""Device selection for the PyTorch port.
+"""Device selection and the knobs of the port.
 
 The port runs on the CUDA card unless the caller asks for the CPU. With no
 card and no explicit request it raises: nothing falls back to the CPU
 quietly. Host (numpy) columns are staged to `device()`; torch tensor
 columns stay on the device they already live on.
 
-The JAX package's TPU knobs (whole-fit, fleet, collectives, serving,
-compile bank) have no counterpart here yet.
+The stream and online knobs keep the JAX package's names and defaults
+(flink_ml_tpu/config.py). Its other TPU knobs (whole-fit, fleet,
+collectives, serving, compile bank) have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -17,6 +18,42 @@ from typing import Iterator, Optional, Union
 import torch
 
 _override: Optional[torch.device] = None
+
+#: host memory the spillable data cache of a stream fit may hold before
+#: it spills segments to a file (native/datacache.py)
+datacache_memory_budget_bytes: int = 64 << 20
+#: where that file goes; None is the temporary directory
+datacache_spill_dir: Optional[str] = None
+#: device memory the epoch cache of a stream fit may hold (data/
+#: devicecache.py); None is unbounded, 0 re-stages every batch
+device_cache_bytes: Optional[int] = None
+#: batches the staging worker runs ahead of the training loop
+#: (parallel/prefetch.py)
+input_prefetch_depth: int = 2
+#: what the online estimators' ingest does when the stream outruns the
+#: training step: "block" (lossless backpressure) is the only policy ported
+online_overload_policy: str = "block"
+#: checkpointed iteration is not ported (ROADMAP A.13); set, it raises
+iteration_checkpoint_dir: Optional[str] = None
+
+OVERLOAD_POLICIES = ("block", "shed_oldest", "sample")
+
+
+def check_overload_policy(policy: str) -> None:
+    """Accept "block"; the JAX package's lossy policies need its flow
+    control layer, which lands with serving."""
+    if policy not in OVERLOAD_POLICIES:
+        raise ValueError(f"unknown overload policy {policy!r}; one of {OVERLOAD_POLICIES}")
+    if policy != "block":
+        raise NotImplementedError(
+            f"overload policy {policy!r} is not ported yet (ROADMAP A.12, with flow.py)"
+        )
+
+
+def check_no_checkpoint(checkpoint_dir: Optional[str] = None) -> None:
+    """Raise for a checkpoint directory, given or from the config."""
+    if checkpoint_dir is not None or iteration_checkpoint_dir is not None:
+        raise NotImplementedError("checkpointed training is not ported yet (ROADMAP A.13)")
 
 
 def device() -> torch.device:

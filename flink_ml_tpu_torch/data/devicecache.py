@@ -1,0 +1,120 @@
+"""The device-resident epoch cache over the host data cache.
+
+Port of flink_ml_tpu/data/devicecache.py (`:134`, `:231`). A bounded
+iteration over a stream replays its batches every epoch; this keeps the
+staged batches on the device, so a batch crosses to the device once:
+
+- `DeviceEpochCache`: a keyed LRU of staged batches under
+  `config.device_cache_bytes` (None is unbounded, 0 caches nothing). An
+  evicted batch stays in the host cache and is staged again when next
+  asked for, so every budget computes the same result;
+- `CachedEpochLoader`: the cache behind the one-worker `Prefetcher`. The
+  worker resolves each key, a hit from the cache or a miss by
+  `stage(key)`, up to `config.input_prefetch_depth` keys ahead, so batch
+  b+1's cache read and copy run while batch b trains; results come in key
+  order. A key that repeats the one before reuses its batch without a
+  lookup or a copy, whatever the budget.
+
+The JAX package's HBM-ledger accounting (ROADMAP A.14) and its snapshot
+of the cache's contents (A.13) are not ported.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Dict, Hashable, Iterable, Iterator, Optional
+
+from .. import config
+from ..parallel.prefetch import Prefetcher, Staged
+
+__all__ = ["DeviceEpochCache", "CachedEpochLoader"]
+
+_UNSET = object()
+
+
+class DeviceEpochCache:
+    """Keyed LRU of staged batches (`Staged`) under a byte budget."""
+
+    def __init__(self, budget_bytes=_UNSET):
+        if budget_bytes is _UNSET:
+            budget_bytes = config.device_cache_bytes
+        self.budget_bytes: Optional[int] = None if budget_bytes is None else max(0, int(budget_bytes))
+        self._entries: "OrderedDict[Hashable, Staged]" = OrderedDict()
+        self._used = 0
+        self.hits = self.misses = self.evictions = 0
+
+    @property
+    def enabled(self) -> bool:
+        return self.budget_bytes is None or self.budget_bytes > 0
+
+    def get(self, key: Hashable) -> Optional[Staged]:
+        entry = self._entries.get(key)
+        if entry is None:
+            self.misses += 1
+            return None
+        self._entries.move_to_end(key)
+        self.hits += 1
+        return entry
+
+    def put(self, key: Hashable, staged: Staged) -> bool:
+        """Cache `staged`, evicting the least recently used entries while
+        over budget; False when the budget cannot hold it at all."""
+        nbytes = staged.nbytes
+        if self.budget_bytes is not None and nbytes > self.budget_bytes:
+            return False
+        old = self._entries.pop(key, None)
+        if old is not None:
+            self._used -= old.nbytes
+        self._entries[key] = staged
+        self._used += nbytes
+        while self.budget_bytes is not None and self._used > self.budget_bytes:
+            _, evicted = self._entries.popitem(last=False)
+            self._used -= evicted.nbytes
+            self.evictions += 1
+        return True
+
+    def clear(self) -> None:
+        self._entries.clear()
+        self._used = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def stats(self) -> Dict[str, int]:
+        return {
+            "entries": len(self._entries),
+            "residentBytes": self._used,
+            "budgetBytes": -1 if self.budget_bytes is None else self.budget_bytes,
+            "hits": self.hits,
+            "misses": self.misses,
+            "evictions": self.evictions,
+        }
+
+
+class CachedEpochLoader:
+    """Serve keyed batches from the device cache; misses are staged by
+    `stage(key) -> Staged` on the prefetch worker, the only thread that
+    touches the cache and the stager during an epoch."""
+
+    def __init__(self, stage: Callable[[Hashable], Staged],
+                 cache: Optional[DeviceEpochCache] = None, depth: Optional[int] = None):
+        self.stage = stage
+        self.cache = cache if cache is not None else DeviceEpochCache()
+        self.depth = depth
+        self._last: Optional[tuple] = None  # (key, staged) resolved last
+
+    def _resolve(self, key: Hashable) -> Staged:
+        if self._last is not None and self._last[0] == key:
+            return self._last[1]
+        staged = self.cache.get(key) if self.cache.enabled else None
+        if staged is None:
+            staged = self.stage(key)
+            self.cache.put(key, staged)
+        self._last = (key, staged)
+        return staged
+
+    def epoch(self, keys: Iterable[Hashable]) -> Iterator:
+        """The device batch of each key, in order. Closing the generator
+        early stops the staging worker; a stage error re-raises here."""
+        return Prefetcher(self._resolve, self.depth, policy="block").iterate(keys)

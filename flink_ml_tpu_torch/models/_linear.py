@@ -2,7 +2,7 @@
 SGD wiring, the batched predict path and the coefficient model data that
 LogisticRegression, LinearSVC and LinearRegression models share.
 
-Port of the bounded-Table half of flink_ml_tpu/models/_linear.py (the
+Port of flink_ml_tpu/models/_linear.py (the
 reference's LogisticRegression.java:70-114 and
 LogisticRegressionModel.java:64,131). Tensor columns stay on their device;
 host columns become float64 numpy and the SGD engine casts them once to
@@ -20,7 +20,7 @@ from .. import config
 from ..linalg import DenseVector
 from ..ops.losses import LossFunc, predict_raw, sparse_dot, sparse_variant
 from ..ops.optimizer import SGD, read_train_result
-from ..table import SparseBatch, Table, as_dense_matrix
+from ..table import SparseBatch, StreamTable, Table, as_dense_matrix
 from ..utils import read_write
 
 
@@ -48,12 +48,16 @@ def _as_host_or_device_vector(col):
     return np.asarray(col, dtype=np.float64)
 
 
-def run_sgd(params, table: Table, loss_func: LossFunc, weight_col: Optional[str],
+def run_sgd(params, table, loss_func: LossFunc, weight_col: Optional[str],
             validate_binomial: bool = False):
     """Wire a Has*-param stage into the SGD optimizer; returns
     (coefficient, final_loss, num_epochs). Host labels are validated on the
     host before training; tensor labels inside the fit, read back with its
-    packed result."""
+    packed result.
+
+    A bounded `Table` trains on the device; a `StreamTable` trains out of
+    core (`SGD.optimize_stream`) on the same batch schedule, so both give
+    the same coefficients for the same rows."""
     optimizer = SGD(
         max_iter=params.get_max_iter(),
         learning_rate=params.get_learning_rate(),
@@ -62,6 +66,11 @@ def run_sgd(params, table: Table, loss_func: LossFunc, weight_col: Optional[str]
         reg=params.get_reg(),
         elastic_net=params.get_elastic_net(),
     )
+    if isinstance(table, StreamTable):
+        chunks = _stream_chunks(table, params.get_features_col(), params.get_label_col(),
+                                weight_col, validate_binomial)
+        coeff, loss, epochs, _ = optimizer.optimize_stream(None, chunks, loss_func)
+        return coeff, loss, epochs
     X, y, w = extract_train_data(
         table, params.get_features_col(), params.get_label_col(), weight_col
     )
@@ -84,6 +93,23 @@ def run_sgd(params, table: Table, loss_func: LossFunc, weight_col: Optional[str]
     flag, coeff, criteria, epochs = read_train_result(result)
     _raise_if_invalid(flag)
     return coeff, criteria, epochs
+
+
+def _stream_chunks(stream, features_col, label_col, weight_col, validate_binomial):
+    """Host (X, y, w) chunks from a StreamTable's Tables, dense (a sparse
+    column is densified, as the JAX package's stream path does); labels are
+    validated chunk by chunk when asked."""
+    for batch in stream:
+        X = _host(as_dense_matrix(batch.column(features_col), allow_device=True))
+        y = _host(batch.column(label_col)).astype(np.float64, copy=False)
+        w = None if weight_col is None else _host(batch.column(weight_col))
+        if validate_binomial:
+            validate_binomial_labels(y)
+        yield X, y, w
+
+
+def _host(col) -> np.ndarray:
+    return col.detach().cpu().numpy() if isinstance(col, torch.Tensor) else np.asarray(col)
 
 
 def is_device_column(col) -> bool:

@@ -1,6 +1,6 @@
 """KMeans: Lloyd's algorithm on one device.
 
-Port of the bounded-Table half of flink_ml_tpu/models/clustering/kmeans.py
+Port of flink_ml_tpu/models/clustering/kmeans.py
 (the reference's KMeans.java:87-310, KMeansModel.java and
 KMeansModelData.java:53-116):
 
@@ -22,10 +22,12 @@ refit gives the same bits; `index_add_` would not, its atomics reorder the
 sums. The reduce form existed for the JAX package's fleet contract
 (vmapped fits bit-identical to solo ones), which is not ported.
 
-Not ported yet, and raising NotImplementedError: the out-of-core
-StreamTable fit (ROADMAP A.8) and the fleet fit `_lloyd_fleet_train`
-(A.11). The JAX package's mesh, overlapped-collective, dispatch and
-tracing hooks have no counterpart here (A.10, A.14).
+A StreamTable fits out of core (`_fit_stream`): the batches are cached
+once in the native data cache and replay every epoch through the device
+epoch cache. Not ported yet, and raising NotImplementedError: the fleet
+fit `_lloyd_fleet_train` (A.11). The JAX package's mesh,
+overlapped-collective, dispatch and tracing hooks have no counterpart here
+(A.10, A.14).
 """
 
 from __future__ import annotations
@@ -44,9 +46,12 @@ from ...common.param import (
     HasPredictionCol,
     HasSeed,
 )
+from ...data.devicecache import CachedEpochLoader
 from ...linalg import DenseVector
+from ...native.datacache import ReplayableStreamTable
 from ...ops.distance import DistanceMeasure
 from ...param import IntParam, ParamValidators, StringParam
+from ...parallel.prefetch import DeviceStager
 from ...table import Table, as_dense_matrix
 from ...utils import read_write
 from ...utils.param_utils import update_existing_params
@@ -83,6 +88,21 @@ def init_rows(n: int, k: int, seed: int) -> np.ndarray:
     k of n without replacement, drawn on the host as the JAX package draws
     them."""
     return np.random.RandomState(seed % (2**32)).choice(n, size=k, replace=False)
+
+
+def _sample_without_replacement(rng: np.random.RandomState, n: int, k: int) -> np.ndarray:
+    """Seeded k-of-n sample, the JAX package's (kmeans.py:281): up to 1e7
+    rows the bounded fit's `rng.choice` draw, above it rejection sampling,
+    which skips RandomState.choice's permutation of all n rows."""
+    if n <= 10_000_000:
+        return rng.choice(n, size=k, replace=False)
+    seen, out = set(), []
+    while len(out) < k:
+        v = int(rng.randint(0, n))
+        if v not in seen:
+            seen.add(v)
+            out.append(v)
+    return np.asarray(out, dtype=np.int64)
 
 
 def _lloyd_train(X, init_centroids, max_iter: int, measure_name: str):
@@ -180,8 +200,74 @@ class KMeans(Estimator, KMeansParams):
         return model
 
     def _fit_stream(self, stream) -> KMeansModel:
-        """The out-of-core fit over a StreamTable (KMeans.java's unbounded
-        input)."""
-        raise NotImplementedError(
-            "KMeans on a StreamTable (out-of-core Lloyd) is not ported yet (ROADMAP A.8)"
-        )
+        """Out-of-core Lloyd over a StreamTable (or a ReplayableStreamTable).
+        Pass 0 caches the batches in the native data cache and counts the
+        rows; the init rows are the bounded fit's, drawn over the global row
+        index and read back from the cache, from the batches that hold them. Each epoch sums per-batch
+        partials of (cell sums, counts), `one_hot.T @ X` as the bounded
+        Lloyd sums, and updates once at its end; the batches replay through
+        the device epoch cache, staged by the prefetch worker.
+
+        The JAX package pads each batch to a power-of-two row count by
+        repeating its last row at weight 0 (`next_bucket`), which only
+        bounds XLA recompiles. Eager PyTorch does not recompile for a new
+        shape, so a batch goes to the device at its own row count, with no
+        pad and no weight column."""
+        config.check_no_checkpoint()
+        device = config.device()
+        replay = stream if isinstance(stream, ReplayableStreamTable) else ReplayableStreamTable(
+            stream, config.datacache_memory_budget_bytes, config.datacache_spill_dir)
+        try:
+            return self._lloyd_stream(replay, device)
+        finally:
+            if replay is not stream:
+                replay.close()
+
+    def _lloyd_stream(self, replay, device) -> KMeansModel:
+        col, k = self.get_features_col(), self.get_k()
+        batch_rows = replay.batch_rows()  # pass 0: cache and count
+        n = int(np.sum(batch_rows, dtype=np.int64))
+        if n < k:
+            raise ValueError(f"Number of points ({n}) is less than k ({k})")
+        centroid_idx = _sample_without_replacement(
+            np.random.RandomState(self.get_seed() % (2**32)), n, k)
+        bounds = np.cumsum([0] + batch_rows)
+        batch_of = np.searchsorted(bounds, centroid_idx, side="right") - 1
+        picked = {}
+        for bi in np.unique(batch_of):  # only the batches that hold init rows
+            X = np.asarray(as_dense_matrix(replay.batch(bi, [col]).column(col)), dtype=np.float32)
+            for i in centroid_idx[batch_of == bi]:
+                picked[int(i)] = X[i - bounds[bi]]
+        init = np.stack([picked[int(i)] for i in centroid_idx])
+
+        stager = DeviceStager(device, torch.float32)
+
+        def stage(bi):
+            return stager(as_dense_matrix(replay.batch(bi, [col]).column(col)))
+
+        measure = DistanceMeasure.get_instance(self.get_distance_measure())
+        labels = torch.arange(k, device=device)
+        centroids = torch.as_tensor(init, device=device)
+        counts = centroids.new_zeros((k,))
+        nb, max_iter = len(batch_rows), int(self.get_max_iter())
+        loader = CachedEpochLoader(stage)
+        batches = loader.epoch(bi for _ in range(max_iter) for bi in range(nb))
+        try:
+            for _ in range(max_iter):
+                sums = centroids.new_zeros(centroids.shape)
+                counts = centroids.new_zeros((k,))
+                for _ in range(nb):
+                    X = next(batches)
+                    one_hot = (measure.find_closest(X, centroids)[:, None] == labels).to(X.dtype)
+                    sums = sums + one_hot.T @ X
+                    counts = counts + torch.sum(one_hot, dim=0)
+                centroids = torch.where(
+                    counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1e-30), centroids
+                )
+        finally:
+            batches.close()
+        model = KMeansModel()
+        model.centroids, model.weights = _linear.packed_to_host(centroids, counts)
+        model.cache_stats = {**replay.stats, "deviceCache": loader.cache.stats}
+        update_existing_params(model, self)
+        return model

@@ -21,14 +21,20 @@ epoch count are `torch.where`'d away, so nothing is read back until the
 packed result. Hyperparameters are host floats; they enter float32 device
 arithmetic as scalars, as the JAX package's packed f32 hyper vector does.
 
+`SGD.optimize_stream` trains on a stream of host chunks, out of core: it
+caches the stream once in the native data cache and replays one batch an
+epoch through the device epoch cache, with the same epoch arithmetic
+(`_masked_epoch`), so it equals the bounded fit of the same rows.
+
 Checkpointing, feature sharding, overlapped collectives and more than one
 device are later ROADMAP items and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,6 +117,34 @@ def _pack_train_result(coeff, criteria, epochs, flag=None):
     return torch.cat(parts)
 
 
+def _init_state(init_coeff):
+    """(coeff, grad, wsum, epochs, criteria) before the first epoch."""
+    device = init_coeff.device
+    return (
+        init_coeff,
+        torch.zeros_like(init_coeff),
+        torch.zeros((), dtype=init_coeff.dtype, device=device),
+        torch.zeros((), dtype=torch.int32, device=device),
+        torch.full((), float("inf"), dtype=torch.float32, device=device),
+    )
+
+
+def _masked_epoch(Xk, yk, wk, state, tol, loss_func, lr, reg, elastic_net):
+    """`_epoch_step` under the device-side tol mask: once the criteria are
+    <= tol, the state is kept as it was. While the fit is live, the device
+    epoch count equals the host's epoch index, so the host knows the batch."""
+    live = state[4] > tol
+    carry, criteria = _epoch_step(Xk, yk, wk, state[:4], loss_func, lr, reg, elastic_net)
+    return tuple(torch.where(live, new, old) for new, old in zip((*carry, criteria), state))
+
+
+def _finish(state, lr, reg, elastic_net, flag=None):
+    """The update after the loop, packed with the criteria and epochs."""
+    coeff, grad, wsum, epochs, criteria = state
+    coeff = _update_model(coeff, grad, wsum, lr, reg, elastic_net)
+    return _pack_train_result(coeff, criteria, epochs, flag)
+
+
 def _sgd_train_flat(X, y, w, init_coeff, loss_func, batch, n, max_iter, tol,
                     lr, reg, elastic_net, check_labels):
     """The whole bounded fit on flat, batch-padded device tensors; each
@@ -118,34 +152,89 @@ def _sgd_train_flat(X, y, w, init_coeff, loss_func, batch, n, max_iter, tol,
     Returns the packed result tensor, on the device."""
     num_batches = y.shape[0] // batch
     device = y.device
-    dtype = init_coeff.dtype
-    coeff = init_coeff
-    grad = torch.zeros_like(init_coeff)
-    wsum = torch.zeros((), dtype=dtype, device=device)
-    epochs = torch.zeros((), dtype=torch.int32, device=device)
-    criteria = torch.full((), float("inf"), dtype=torch.float32, device=device)
+    state = _init_state(init_coeff)
     for e in range(max_iter):
-        # while the fit is live, the device epoch count equals e, so the
-        # batch index is known on the host
-        live = criteria > tol
         start = (e % num_batches) * batch
         Xk = _slice_rows(X, start, batch)
         yk = y[start : start + batch]
         if w is not None:
             wk = w[start : start + batch]
         else:
-            wk = (torch.arange(start, start + batch, device=device) < n).to(dtype)
-        (c1, g1, ws1, ep1), crit1 = _epoch_step(
-            Xk, yk, wk, (coeff, grad, wsum, epochs), loss_func, lr, reg, elastic_net
-        )
-        coeff = torch.where(live, c1, coeff)
-        grad = torch.where(live, g1, grad)
-        wsum = torch.where(live, ws1, wsum)
-        epochs = torch.where(live, ep1, epochs)
-        criteria = torch.where(live, crit1, criteria)
-    coeff = _update_model(coeff, grad, wsum, lr, reg, elastic_net)
+            wk = (torch.arange(start, start + batch, device=device) < n).to(init_coeff.dtype)
+        state = _masked_epoch(Xk, yk, wk, state, tol, loss_func, lr, reg, elastic_net)
     flag = _binomial_labels_ok(y) if check_labels else None
-    return _pack_train_result(coeff, criteria, epochs, flag)
+    return _finish(state, lr, reg, elastic_net, flag)
+
+
+class StreamLayout(NamedTuple):
+    """Where one packed stream segment keeps its parts: a flat float32
+    array of the blocks X (batch x d, row-major), y (batch) and w (batch),
+    each starting at a multiple of BLOCK_ALIGN elements, so every part is a
+    contiguous, aligned view of the segment on the device too."""
+
+    batch: int
+    d: int
+
+    @property
+    def y_offset(self) -> int:
+        return _round_up(self.batch * self.d)
+
+    @property
+    def w_offset(self) -> int:
+        return self.y_offset + _round_up(self.batch)
+
+    @property
+    def size(self) -> int:
+        return self.w_offset + self.batch
+
+    def views(self, flat):
+        """(X, y, w) views of a flat segment (numpy or torch)."""
+        B, d = self.batch, self.d
+        return (flat[: B * d].reshape(B, d), flat[self.y_offset : self.y_offset + B],
+                flat[self.w_offset : self.w_offset + B])
+
+
+BLOCK_ALIGN = 64
+
+
+def _round_up(n: int) -> int:
+    return -(-n // BLOCK_ALIGN) * BLOCK_ALIGN
+
+
+def ingest_stream(chunks: Iterable, batch: int, cache) -> Tuple[List[int], StreamLayout]:
+    """One pass over host (X, y, w) chunks into `cache`: rows are re-cut
+    into `batch`-row batches, the remainder carried from chunk to chunk, and
+    each batch is appended as one packed float32 segment (`StreamLayout`).
+    A missing w is 1; the last partial batch is padded with weight-0 rows.
+    Returns (segment ids, layout)."""
+    segs: List[int] = []
+    layout = flat = None
+    filled = 0
+    for X, y, w in chunks:
+        X = np.asarray(X)
+        if layout is None:
+            layout = StreamLayout(int(batch), int(X.shape[1]))
+            flat = np.zeros(layout.size, np.float32)
+            Xb, yb, wb = layout.views(flat)
+        elif X.shape[1] != layout.d:
+            raise ValueError(f"stream chunk has {X.shape[1]} features, expected {layout.d}")
+        n, off = X.shape[0], 0
+        while off < n:
+            take = min(batch - filled, n - off)
+            Xb[filled : filled + take] = X[off : off + take]
+            yb[filled : filled + take] = y[off : off + take]
+            wb[filled : filled + take] = 1.0 if w is None else w[off : off + take]
+            filled += take
+            off += take
+            if filled == batch:
+                segs.append(cache.append_array(flat))
+                filled = 0
+    if filled:
+        Xb[filled:], yb[filled:], wb[filled:] = 0.0, 0.0, 0.0
+        segs.append(cache.append_array(flat))
+    if not segs:
+        raise ValueError("optimize_stream received an empty stream")
+    return segs, layout
 
 
 def unpack_train_result(host: np.ndarray, d: int, has_flag: bool = False):
@@ -207,17 +296,79 @@ class SGD:
         X is a dense (n, d) matrix or the sparse (indices, values) pair.
         Host arrays are staged to `config.device()`; tensors stay on their
         device, and all tensor inputs must share one."""
+        self._check_single_device(mesh)
+        d = int(np.shape(init_coeff)[0])
+        packed = self._optimize_flat_async(init_coeff, X, y, weights, loss_func, validate_labels)
+        return ("packed", packed, d, validate_labels)
+
+    def optimize_stream(self, init_coeff, chunks, loss_func: LossFunc, mesh=None,
+                        memory_budget_bytes: Optional[int] = None,
+                        spill_dir: Optional[str] = None):
+        """Out-of-core SGD over a one-shot stream of host (X, y, w) chunks
+        (the reference's ReplayOperator.java:125-246 over its spillable
+        DataCache). `ingest_stream` caches the stream once, as packed
+        globalBatchSize segments in the native `DataCache`; epoch p then
+        replays segment p mod nb through the device epoch cache
+        (`CachedEpochLoader`, whose worker stages epoch p+1's segment while
+        epoch p trains) and runs the bounded fit's `_masked_epoch`, and the
+        result comes back in one packed readback. Batch schedule and
+        padding are the bounded fit's, so a stream fit equals the bounded
+        fit of the concatenated rows.
+
+        Only the min(nb, maxIter) segments that the epochs replay are
+        staged to the device, one at a time as the epochs reach them (the
+        JAX package's whole-fit arm stacks all nb first; the arithmetic is
+        the same). Returns (coefficient, final_loss, num_epochs, stats)."""
+        from ..data.devicecache import CachedEpochLoader
+        from ..native.datacache import DataCache
+        from ..parallel.prefetch import DeviceStager
+
+        self._check_single_device(mesh)
+        device = config.device()
+        cache = DataCache(
+            config.datacache_memory_budget_bytes if memory_budget_bytes is None
+            else memory_budget_bytes,
+            config.datacache_spill_dir if spill_dir is None else spill_dir,
+        )
+        try:
+            t0 = time.perf_counter()
+            segs, layout = ingest_stream(chunks, int(self.global_batch_size), cache)
+            ingest_s = time.perf_counter() - t0
+            d, nb = layout.d, len(segs)
+            stager = DeviceStager(device)
+            seg_bytes = layout.size * 4
+
+            def fetch(k):
+                staged = stager.stage(seg_bytes, lambda host: cache.read_into(segs[k], host.numpy()))
+                staged.value = layout.views(staged.value.view(torch.float32))
+                return staged
+
+            init = np.zeros(d) if init_coeff is None else init_coeff
+            state = _init_state(_stage(init, COMPUTE_DTYPE, device))
+            lr, reg, en = float(self.learning_rate), float(self.reg), float(self.elastic_net)
+            loader = CachedEpochLoader(fetch)
+            batches = loader.epoch(p % nb for p in range(int(self.max_iter)))
+            try:
+                for Xk, yk, wk in batches:
+                    state = _masked_epoch(Xk, yk, wk, state, float(self.tol), loss_func, lr, reg, en)
+            finally:
+                batches.close()
+            host = _finish(state, lr, reg, en).cpu().numpy()
+            stats = {**cache.stats, "ingestSeconds": ingest_s,
+                     "deviceCache": loader.cache.stats}
+        finally:
+            cache.close()
+        _, coeff, criteria, epochs = unpack_train_result(host, d)
+        return coeff, criteria, epochs, stats
+
+    def _check_single_device(self, mesh) -> None:
         if mesh is not None:
             raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A.10)")
-        if self.checkpoint_dir is not None:
-            raise NotImplementedError("checkpointed training is not ported yet (ROADMAP A.13)")
+        config.check_no_checkpoint(self.checkpoint_dir)
         if self.shard_features or self.collective_overlap:
             raise NotImplementedError(
                 "feature sharding and overlapped collectives are not ported yet (ROADMAP A.10)"
             )
-        d = int(np.shape(init_coeff)[0])
-        packed = self._optimize_flat_async(init_coeff, X, y, weights, loss_func, validate_labels)
-        return ("packed", packed, d, validate_labels)
 
     def _optimize_flat_async(self, init_coeff, X, y, weights, loss_func, validate_labels):
         """Stage the inputs, pad rows to a batch multiple (the only case

@@ -128,6 +128,10 @@ class FloatParam(Param[float]):
         return None if json_value is None else float(json_value)
 
 
+class DoubleParam(FloatParam):
+    pass
+
+
 class StringParam(Param[str]):
     pass
 

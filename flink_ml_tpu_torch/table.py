@@ -6,20 +6,21 @@ tensors; a tensor column stays on the device it lives on, and stages
 return their outputs there (device in, device out). A SparseBatch holds
 padded-CSR rows: (n, k) int32 indices with -1 padding and (n, k) values.
 
-Unbounded data (`StreamTable`) and dictionary-encoded token columns are
-later ROADMAP items.
+A StreamTable is an iterable of bounded Tables, the input of the online
+and out-of-core fits. Dictionary-encoded token columns are a later
+ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Sequence
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Sequence
 
 import numpy as np
 import torch
 
 from .linalg import DenseVector, SparseVector, Vector
 
-__all__ = ["Table", "SparseBatch", "StreamTable", "as_dense_matrix"]
+__all__ = ["Table", "SparseBatch", "StreamTable", "as_dense_matrix", "global_batches"]
 
 
 class SparseBatch:
@@ -67,13 +68,45 @@ class SparseBatch:
 
 
 class StreamTable:
-    """Unbounded input (online training) is not ported yet."""
+    """An unbounded table: an iterable of bounded mini-batch Tables.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "StreamTable and online/stream training are not ported yet "
-            "(ROADMAP A.8)"
-        )
+    The input of the online estimators and of the out-of-core fits (the
+    reference's unbounded DataStream, OnlineKMeans.java:44-60). A
+    StreamTable over a one-shot iterable may be iterated once; one made by
+    `from_batches` holds a list and replays."""
+
+    def __init__(self, batches: Iterable[Table]):
+        self._batches = batches
+
+    def __iter__(self) -> Iterator[Table]:
+        return iter(self._batches)
+
+    @staticmethod
+    def from_batches(batches: Sequence[Table]) -> "StreamTable":
+        return StreamTable(list(batches))
+
+
+def global_batches(stream, columns: Sequence[Callable], batch_size: int) -> Iterator[tuple]:
+    """Exact global batches of `batch_size` rows, in arrival order (the
+    reference's countWindowAll); rows left at the end of the stream are
+    dropped. `columns` map a Table to one array each; a batch holds, per
+    column, the list of row slices of the incoming Tables that make it up,
+    so no batch is concatenated on the host (the stager copies the slices
+    into one buffer)."""
+    pieces: List[List] = [[] for _ in columns]
+    buffered = 0
+    for table in stream:
+        arrays = [column(table) for column in columns]
+        n, off = len(arrays[0]), 0
+        while off < n:
+            take = min(batch_size - buffered, n - off)
+            for parts, array in zip(pieces, arrays):
+                parts.append(array[off:off + take])
+            buffered += take
+            off += take
+            if buffered == batch_size:
+                yield tuple(pieces)
+                pieces, buffered = [[] for _ in columns], 0
 
 
 def _to_numpy(x) -> np.ndarray:

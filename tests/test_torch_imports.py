@@ -16,12 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from flink_ml_tpu_torch import SparseBatch, Table, config
+from flink_ml_tpu_torch import DenseVector, SparseBatch, StreamTable, Table, config
 from flink_ml_tpu_torch.models.classification.logisticregression import (
     LogisticRegression,
     LogisticRegressionModel,
 )
-from flink_ml_tpu_torch.table import StreamTable
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "flink_ml_tpu_torch").rglob("*.py")) + [
@@ -109,7 +108,11 @@ def _entry_points():
     """name -> call of each entry point of the later slices, on host data."""
     from flink_ml_tpu_torch import Pipeline
     from flink_ml_tpu_torch.models.classification.linearsvc import LinearSVC, LinearSVCModel
+    from flink_ml_tpu_torch.models.classification.onlinelogisticregression import (
+        OnlineLogisticRegression)
     from flink_ml_tpu_torch.models.clustering.kmeans import KMeans, KMeansModel
+    from flink_ml_tpu_torch.models.clustering.onlinekmeans import (
+        OnlineKMeans, OnlineKMeansModel, generate_random_model_data)
     from flink_ml_tpu_torch.models.feature.onehotencoder import OneHotEncoder, OneHotEncoderModel
     from flink_ml_tpu_torch.models.feature.standardscaler import StandardScaler, StandardScalerModel
     from flink_ml_tpu_torch.models.feature.vectorassembler import VectorAssembler
@@ -124,6 +127,12 @@ def _entry_points():
         linear[cls].coefficient = np.ones(3)
     kmeans = KMeansModel()
     kmeans.centroids, kmeans.weights = np.eye(2, 3), np.ones(2)
+    online_kmeans = OnlineKMeansModel()
+    online_kmeans.centroids, online_kmeans.weights = np.eye(2, 3), np.ones(2)
+    stream = StreamTable.from_batches([table.take(np.arange(20)), table.take(np.arange(20, 40))])
+    online_lr = OnlineLogisticRegression().set_initial_model_data(
+        Table({"coefficient": [DenseVector(np.zeros(3))]}))
+    online_km = OnlineKMeans().set_initial_model_data(generate_random_model_data(2, 3, 1.0))
     scaler = StandardScalerModel().set_input_col("features")
     scaler.mean, scaler.std = np.zeros(3), np.ones(3)
     encoder = OneHotEncoderModel().set_input_cols("cat").set_output_cols("v")
@@ -143,6 +152,11 @@ def _entry_points():
         ("VectorAssembler.transform",
          lambda: VectorAssembler().set_input_cols("features", "cat").transform(table)),
         ("Pipeline.fit", lambda: Pipeline([LinearSVC()]).fit(table)),
+        ("LogisticRegression.fit on a StreamTable", lambda: LogisticRegression().fit(stream)),
+        ("KMeans.fit on a StreamTable", lambda: KMeans().fit(stream)),
+        ("OnlineLogisticRegression.fit", lambda: online_lr.fit(stream).process_updates()),
+        ("OnlineKMeans.fit", lambda: online_km.fit(stream).process_updates()),
+        ("OnlineKMeansModel.transform", lambda: online_kmeans.transform(table)),
     ])
 
 
@@ -151,6 +165,8 @@ ENTRY_POINTS = [
     "LinearRegressionModel.transform", "KMeans.fit", "KMeansModel.transform",
     "StandardScaler.fit", "StandardScalerModel.transform", "OneHotEncoder.fit",
     "OneHotEncoderModel.transform", "VectorAssembler.transform", "Pipeline.fit",
+    "LogisticRegression.fit on a StreamTable", "KMeans.fit on a StreamTable",
+    "OnlineLogisticRegression.fit", "OnlineKMeans.fit", "OnlineKMeansModel.transform",
 ]
 
 
@@ -169,11 +185,6 @@ def test_use_device_cuda_refuses_without_card(no_card):
     with pytest.raises(RuntimeError, match="CUDA"):
         with config.use_device("cuda"):
             pass
-
-
-def test_stream_table_is_a_later_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamTable([])
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -209,8 +209,6 @@ def test_model_data_round_trip(both_on_one_device, tmp_path):
     np.testing.assert_array_equal(reloaded.weights, model.weights)
 
 
-def test_stream_and_fleet_fits_are_later_items(both_on_one_device):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        port_kmeans.KMeans().fit(iter([Table({"features": np.zeros((4, 2))})]))
+def test_fleet_fit_is_a_later_item(both_on_one_device):
     with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
         port_kmeans._lloyd_fleet_train(None, None, None, None, "euclidean")
