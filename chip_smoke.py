@@ -59,7 +59,23 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    (ingest and fit; versions a second and the parts of a version timed
    apart) and a profiler pass over each (idle share, upload overlap);
    the seconds of each path and of the whole run;
-6. a `kernels` JSON line, then the result line.
+6. the fifteen numeric feature stages at their conf/ shapes, on data born
+   on the card (10M rows; 1M for MinMaxScaler and Bucketizer): each
+   fit -> transform -> save -> load -> transform bit for bit, three warm
+   fits and transforms, its peak memory and launch counts (0), then a
+   float64 replay on the card: exact for the comparisons, selections and
+   order statistics (Binarizer, VectorSlicer, Bucketizer, KBins bins and
+   edges, VectorIndexer, the MaxAbs and MinMax extremes, the quantiles'
+   order statistics, the Imputer median and mode), within 1e-6 of the
+   largest replay value for the elementwise and affine stages, within 1e-5
+   for DCT, the variances and the Imputer mean. Twins: Imputer median and
+   most_frequent on 1% NaN, KBins quantile and kmeans, Bucketizer with NaN
+   and out-of-range values under keep and skip, VectorIndexer with three
+   categorical columns and unseen values; and the StreamTable fits of
+   RobustScaler, KBins quantile and Imputer median on 1M x 10 seeded numpy
+   host chunks, each within relativeError x n ranks of the exact
+   quantiles. A profiler pass over a few of them;
+7. a `kernels` JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -1235,6 +1251,593 @@ def stream_and_online_times(stream_cols, km_cols, online_cols, kmeans_model, dev
     return out
 
 
+# -- 6. the numeric feature stages ------------------------------------------------
+
+#: rows of the conf/ tables: 10M for most stages, 1M for MinMaxScaler and
+#: Bucketizer; the stream fits read 1M x 10 host rows in chunks
+FEATURE_ROWS, FEATURE_SMALL_ROWS = 10_000_000, 1_000_000
+FEATURE_STREAM_ROWS, FEATURE_STREAM_CHUNK = 1_000_000, 65_536
+FEATURE_SEED, FEATURE_STREAM_SEED = 2, 23  # the conf/ generators' seed 2
+FEATURE_REPEATS = 3
+NAN_SHARE = 0.01  # the Imputer twins' missing entries
+# max |port - float64 replay| over max |float64 replay|: the elementwise and
+# affine stages; float32 sums of up to 10M terms (DCT at d = 100, the
+# variances, the Imputer mean)
+AFFINE_REL_TOL, SUM_REL_TOL = 1e-6, 1e-5
+# the kmeans strategy's edges against a float64 Lloyd on the same rows:
+# float32 and float64 Lloyd may stop an iteration apart
+KMEANS_EDGE_TOL = 1e-3
+FEATURE_JAVA = "org.apache.flink.ml.feature."
+NO_LAUNCHES = {"sparse_row_dots": 0, "sparse_grad": 0}
+
+
+def feature_module(name):
+    import importlib
+
+    return importlib.import_module(f"flink_ml_tpu_torch.models.feature.{name}")
+
+
+def seeded(seed, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def rel_err(got, want64):
+    """max |got - want| over max |want|, in float64."""
+    diff = (got.double() - want64).abs().max()
+    return float(diff / want64.abs().max().clamp(min=torch.finfo(torch.float64).tiny))
+
+
+def order_statistics64(X, rows):
+    """Rows `rows` (0-based) of each column of X in sorted order, found in
+    float64 by torch.kthvalue (a selection, not the port's sort)."""
+    X64 = X.double()
+    return torch.stack([torch.kthvalue(X64, int(r) + 1, dim=0).values for r in rows])
+
+
+def jnp_quantile64(X, qs):
+    """jnp.quantile's float32 linear quantile replayed from float64 order
+    statistics: the same rows and weights, the product high * w rounded to
+    float32 and the fused multiply-add done in float64, rounded once.
+    Returns the quantiles and the floor rows."""
+    n = X.shape[0]
+    q = np.asarray(qs, np.float32) * (np.float32(n) - np.float32(1))
+    low, high = np.floor(q), np.ceil(q)
+    w_high = q - low
+    w_low = np.float32(1) - w_high
+    lo = order_statistics64(X, np.clip(low, 0, n - 1).astype(np.int64))
+    hi = order_statistics64(X, np.clip(high, 0, n - 1).astype(np.int64))
+    w_low = torch.as_tensor(w_low, dtype=torch.float64, device=X.device)[:, None]
+    w_high = torch.as_tensor(w_high, dtype=torch.float64, device=X.device)[:, None]
+    return (lo * w_low + (hi * w_high).float().double()).float(), lo
+
+
+def bins64(X, edges_list):
+    """Each feature's bin in float64 by counting: the edges (cast to
+    float32, as the transform casts them) at or below x, minus one, clamped;
+    NaN on top; a feature of <= 2 edges in bin 0."""
+    out = torch.zeros(X.shape, dtype=torch.float64, device=X.device)
+    for j, edges in enumerate(edges_list):
+        top = max(edges.size - 2, 0)
+        if top == 0:
+            continue
+        x = X[:, j].double()
+        e = torch.as_tensor(edges.astype(np.float32).astype(np.float64), device=X.device)
+        count = (x[:, None] >= e[None, :]).sum(dim=1) - 1
+        out[:, j] = torch.where(torch.isnan(x), top, count.clamp(0, top)).double()
+    return out
+
+
+def poly_exponents(d, degree):
+    """The exponent tuples of the monomials in the reference's order
+    (PolynomialExpansion.java:103-117), the constant term left out."""
+    def expand(last, deg):
+        if deg == 0 or last < 0:
+            yield (0,) * d
+            return
+        for i in range(deg + 1):
+            for e in expand(last - 1, deg - i):
+                yield e[:last] + (i,) + e[last + 1:]
+    return list(expand(d - 1, degree))[1:]
+
+
+def rank_window(sorted_col, value, p, eps):
+    """True when `value` is within eps * n ranks of the p-quantile's rank
+    ceil(p * n) in `sorted_col` (ties give a window of ranks)."""
+    n = sorted_col.size
+    below = np.searchsorted(sorted_col, value, side="left")
+    upto = np.searchsorted(sorted_col, value, side="right")
+    target = np.ceil(p * n)
+    return below - eps * n - 1 <= target <= upto + eps * n + 1
+
+
+def drive_feature(sk, name, stage, fit_table, table, tmp, out_cols, java):
+    """One stage as a user runs it (`drive`: fit an estimator, transform,
+    save, load, transform; `check_reload`: bit for bit), then
+    FEATURE_REPEATS warm fits and transforms. The launch counts are reset
+    before and read after; the peak is the card's high-water mark over the
+    run above what it held before."""
+    from flink_ml_tpu_torch.api import Estimator
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    estimator = isinstance(stage, Estimator)
+    fit = (lambda: stage.fit(fit_table)) if estimator else (lambda: stage)
+    run = drive(fit, table, tmp, name.replace(" ", "_"))
+    fits = [synced(fit)[1] for _ in range(FEATURE_REPEATS)] if estimator else []
+    transforms = [synced(lambda: run["model"].transform(table)[0])[1] for _ in range(FEATURE_REPEATS)]
+    counts = sk.launch_counts()
+    high = torch.cuda.max_memory_allocated()
+    check(counts == NO_LAUNCHES, f"{name} launched {counts}")
+    check_reload(name, run, java, out_cols)
+    del run["loaded"], run["again"]
+    run.update(fit_ms=run["fit_ms"] if estimator else None,
+               warm_fit_ms=float(np.median(fits)) if fits else None,
+               warm_transform_ms=float(np.median(transforms)), fit_runs=fits,
+               transform_runs=transforms, peak_gib=(high - held) / 2**30,
+               high_water_gib=high / 2**30, launches=counts)
+    first = f"fit {run['fit_ms']:.1f} ms, " if estimator else ""
+    warm = f"fit {run['warm_fit_ms']:.3f} ms (runs {[round(t, 3) for t in fits]}), " if fits else ""
+    log(f"  {name}: first {first}transform {run['transform_ms']:.1f} ms; warm median {warm}transform "
+        f"{run['warm_transform_ms']:.3f} ms (runs {[round(t, 3) for t in transforms]}); peak "
+        f"{run['peak_gib']:.3f} GiB above the {held / 2**30:.2f} GiB held; launches {counts}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    return run
+
+
+def feature_specs(dev):
+    """name -> a function that makes (stage, fit table, transform table,
+    output columns, the Java class it saves as, the check of its run) at
+    the stage's conf/ shape, on data born on the card from seeded
+    generators (uniform [0, 1), as the conf/ generators make it) or, for the
+    stream fits, host chunks from seeded numpy. They are made one at a time,
+    so each stage's data is freed before the next is made."""
+    from flink_ml_tpu_torch import StreamTable, Table, Vectors
+    from flink_ml_tpu_torch.ops import quantile
+
+    def uniform(rows, cols, seed=FEATURE_SEED):
+        return torch.rand((rows, cols), generator=seeded(seed, dev), device=dev)
+
+    def columns(X):
+        return {f"f{j}": X[:, j].contiguous() for j in range(X.shape[1])}
+
+    def binarizer():
+        X = uniform(FEATURE_ROWS, 5)
+        thresholds = [0.5, 0.3, 0.3, 0.6, 0.8]
+        outs = [f"o{j}" for j in range(5)]
+        stage = feature_module("binarizer").Binarizer().set_input_cols(*columns(X)) \
+            .set_output_cols(*outs).set_thresholds(*thresholds)
+
+        def verify(run):
+            for j, thr in enumerate(thresholds):
+                # against the threshold as a float32, as the stage casts it
+                want = (X[:, j].double() > float(np.float32(thr))).float()
+                check(torch.equal(run["out"].column(outs[j]), want), f"binarizer {outs[j]}")
+            return {"exact": True}
+        table = Table(columns(X))
+        return stage, table, table, outs, FEATURE_JAVA + "binarizer.Binarizer", verify
+
+    def bucketizer(handle, plant):
+        def make():
+            x = uniform(FEATURE_SMALL_ROWS, 1)[:, 0].contiguous()
+            if plant:  # NaN, below and above the splits, and the splits themselves
+                x[:1000] = float("nan")
+                x[1000:2000] = -0.5
+                x[2000:3000] = 1.5
+                x[3000:3005] = torch.tensor([0.0, 0.25, 0.5, 0.75, 1.0], device=dev)
+            splits = [0.0, 0.25, 0.5, 0.75, 1.0]
+            stage = feature_module("bucketizer").Bucketizer().set_input_cols("f0") \
+                .set_output_cols("o0").set_splits_array([splits]).set_handle_invalid(handle)
+
+            def verify(run):
+                x64 = x.double()
+                s = torch.tensor(splits, dtype=torch.float64, device=dev)
+                idx = (x64[:, None] >= s[None, :]).sum(dim=1) - 1
+                idx = torch.where(x64 == s[-1], len(splits) - 2, idx)
+                bad = (x64 < s[0]) | (x64 > s[-1]) | torch.isnan(x64)
+                want = torch.where(bad, len(splits) - 1, idx) if handle == "keep" else idx[~bad]
+                check(torch.equal(run["out"].column("o0"), want.float()), f"bucketizer {handle}")
+                return {"exact": True, "invalid": int(bad.sum()), "rows_out": run["out"].num_rows}
+            table = Table({"f0": x})
+            return stage, table, table, ["o0"], FEATURE_JAVA + "bucketizer.Bucketizer", verify
+        return make
+
+    def dct():
+        X = uniform(FEATURE_ROWS, DIM)
+        stage = feature_module("dct").DCT().set_input_col("input").set_output_col("o")
+
+        def verify(run):
+            B = torch.as_tensor(feature_module("dct").dct_basis(DIM), device=dev)
+            err = rel_err(run["out"].column("o"), X.double() @ B.T)
+            check(err <= SUM_REL_TOL, f"dct relative error {err:.3e}")
+            return {"rel_err": err, "tol": SUM_REL_TOL}
+        table = Table({"input": X})
+        return stage, table, table, ["o"], FEATURE_JAVA + "dct.DCT", verify
+
+    def elementwiseproduct():
+        X = uniform(FEATURE_ROWS, 5)
+        scaling = [1.0, 2.0, 3.0, 4.0, 5.0]
+        stage = feature_module("elementwiseproduct").ElementwiseProduct().set_input_col("features") \
+            .set_output_col("o").set_scaling_vec(Vectors.dense(*scaling))
+
+        def verify(run):
+            want = X.double() * torch.tensor(scaling, dtype=torch.float64, device=dev)
+            err = rel_err(run["out"].column("o"), want)
+            check(err <= AFFINE_REL_TOL, f"elementwiseproduct relative error {err:.3e}")
+            return {"rel_err": err, "tol": AFFINE_REL_TOL}
+        table = Table({"features": X})
+        return stage, table, table, ["o"], FEATURE_JAVA + "elementwiseproduct.ElementwiseProduct", verify
+
+    def interaction():
+        X = uniform(FEATURE_ROWS, 5)
+        stage = feature_module("interaction").Interaction().set_input_cols(*columns(X)).set_output_col("o")
+
+        def verify(run):
+            err = rel_err(run["out"].column("o"), X.double().prod(dim=1, keepdim=True))
+            check(err <= AFFINE_REL_TOL, f"interaction relative error {err:.3e}")
+            return {"rel_err": err, "tol": AFFINE_REL_TOL}
+        table = Table(columns(X))
+        return stage, table, table, ["o"], FEATURE_JAVA + "interaction.Interaction", verify
+
+    def kbins(strategy):
+        def make():
+            kb = feature_module("kbinsdiscretizer")
+            X = uniform(FEATURE_ROWS, 10)
+            stage = kb.KBinsDiscretizer().set_input_col("input").set_output_col("o") \
+                .set_strategy(strategy).set_num_bins(5)
+
+            def verify(run):
+                edges = run["model"].bin_edges
+                sub = stage.get_sub_samples()
+                S = X if FEATURE_ROWS <= sub else \
+                    X[kb.subsample_rows(FEATURE_ROWS, sub).to(dev)]
+                out = {"exact": True}
+                if strategy == "uniform":
+                    lo_hi = torch.stack(torch.aminmax(S.double(), dim=0)).cpu().numpy()
+                    want = [np.unique(np.linspace(lo_hi[0, j], lo_hi[1, j], 6)) for j in range(10)]
+                    check(all(np.array_equal(a, b) for a, b in zip(edges, want)), "kbins uniform edges")
+                elif strategy == "quantile":
+                    qs = np.linspace(0.0, 1.0, 6)
+                    q32, lo = jnp_quantile64(S, qs)
+                    low = np.floor(np.float32(qs) * (np.float32(S.shape[0]) - np.float32(1)))
+                    port_lo = quantile.sorted_rows(S, low.astype(np.int64))
+                    check(torch.equal(port_lo.double(), lo), "kbins quantile order statistics")
+                    want = q32.double().cpu().numpy()
+                    check(all(np.array_equal(a, np.unique(want[:, j])) for j, a in enumerate(edges)),
+                          "kbins quantile edges")
+                else:  # the port's host Lloyd against a float64 one on the same rows
+                    S64 = S.double().cpu().numpy()
+                    want = [kb.kmeans_1d_edges(S64[:, j], 5) for j in range(10)]
+                    sizes = all(a.size == b.size for a, b in zip(edges, want))
+                    err = max(float(np.max(np.abs(a - b))) for a, b in zip(edges, want)) if sizes else 1.0
+                    check(err <= KMEANS_EDGE_TOL, f"kbins kmeans edges {err:.3e} from a float64 Lloyd")
+                    out = {"exact_bins": True, "edge_err": err, "tol": KMEANS_EDGE_TOL}
+                check(torch.equal(run["out"].column("o").double(), bins64(X, edges)),
+                      f"kbins {strategy} bins")
+                return out
+            table = Table({"input": X})
+            return stage, table, table, ["o"], FEATURE_JAVA + "kbinsdiscretizer.KBinsDiscretizerModel", verify
+        return make
+
+    def maxabsscaler():
+        X = uniform(FEATURE_ROWS, DIM) * 2 - 1
+        stage = feature_module("maxabsscaler").MaxAbsScaler().set_input_col("features").set_output_col("o")
+
+        def verify(run):
+            m64 = X.double().abs().amax(dim=0)
+            check(np.array_equal(run["model"].max_abs, m64.cpu().numpy()), "maxabsscaler max")
+            err = rel_err(run["out"].column("o"), X.double() / m64)
+            check(err <= AFFINE_REL_TOL, f"maxabsscaler relative error {err:.3e}")
+            return {"exact_max": True, "rel_err": err, "tol": AFFINE_REL_TOL}
+        table = Table({"features": X})
+        return stage, table, table, ["o"], FEATURE_JAVA + "maxabsscaler.MaxAbsScalerModel", verify
+
+    def minmaxscaler():
+        X = uniform(FEATURE_SMALL_ROWS, DIM)
+        stage = feature_module("minmaxscaler").MinMaxScaler().set_input_col("features") \
+            .set_output_col("output")
+
+        def verify(run):
+            mn, mx = torch.aminmax(X.double(), dim=0)
+            model = run["model"]
+            check(np.array_equal(model.min_vector, mn.cpu().numpy())
+                  and np.array_equal(model.max_vector, mx.cpu().numpy()), "minmaxscaler min and max")
+            err = rel_err(run["out"].column("output"), (X.double() - mn) / (mx - mn))
+            check(err <= AFFINE_REL_TOL, f"minmaxscaler relative error {err:.3e}")
+            return {"exact_min_max": True, "rel_err": err, "tol": AFFINE_REL_TOL}
+        table = Table({"features": X})
+        return stage, table, table, ["output"], FEATURE_JAVA + "minmaxscaler.MinMaxScalerModel", verify
+
+    def normalizer():
+        X = uniform(FEATURE_ROWS, 5)
+        stage = feature_module("normalizer").Normalizer().set_input_col("features") \
+            .set_output_col("o").set_p(2.0)
+
+        def verify(run):
+            X64 = X.double()
+            err = rel_err(run["out"].column("o"), X64 / X64.norm(dim=1, keepdim=True))
+            check(err <= AFFINE_REL_TOL, f"normalizer relative error {err:.3e}")
+            return {"rel_err": err, "tol": AFFINE_REL_TOL}
+        table = Table({"features": X})
+        return stage, table, table, ["o"], FEATURE_JAVA + "normalizer.Normalizer", verify
+
+    def polynomialexpansion():
+        X = uniform(FEATURE_ROWS, 5)
+        stage = feature_module("polynomialexpansion").PolynomialExpansion().set_input_col("features") \
+            .set_output_col("o").set_degree(2)
+
+        def verify(run):
+            X64 = X.double()
+            exps = poly_exponents(5, 2)
+            want = torch.stack([torch.prod(X64 ** torch.tensor(e, dtype=torch.float64, device=dev), dim=1)
+                                for e in exps], dim=1)
+            got = run["out"].column("o")
+            check(tuple(got.shape) == (FEATURE_ROWS, 20), f"polynomialexpansion shape {tuple(got.shape)}")
+            err = rel_err(got, want)
+            check(err <= AFFINE_REL_TOL, f"polynomialexpansion relative error {err:.3e}")
+            return {"rel_err": err, "tol": AFFINE_REL_TOL}
+        table = Table({"features": X})
+        return stage, table, table, ["o"], FEATURE_JAVA + "polynomialexpansion.PolynomialExpansion", verify
+
+    def robustscaler():
+        X = uniform(FEATURE_ROWS, DIM)
+        stage = feature_module("robustscaler").RobustScaler().set_input_col("input").set_output_col("o") \
+            .set_with_centering(True).set_with_scaling(True)
+
+        def verify(run):
+            q32, lo = jnp_quantile64(X, [0.5, 0.25, 0.75])
+            n = FEATURE_ROWS
+            low = np.floor(np.float32([0.5, 0.25, 0.75]) * (np.float32(n) - np.float32(1)))
+            port_lo = quantile.sorted_rows(X, low.astype(np.int64))
+            check(torch.equal(port_lo.double(), lo), "robustscaler order statistics")
+            q = q32.double().cpu().numpy()
+            model = run["model"]
+            check(np.array_equal(model.medians, q[0]) and np.array_equal(model.ranges, q[2] - q[1]),
+                  "robustscaler medians and ranges")
+            med = torch.as_tensor(model.medians, device=dev)
+            rng = torch.as_tensor(np.where(model.ranges > 0, model.ranges, 1.0), device=dev)
+            err = rel_err(run["out"].column("o"), (X.double() - med) / rng)
+            check(err <= AFFINE_REL_TOL, f"robustscaler relative error {err:.3e}")
+            return {"exact_quantiles": True, "rel_err": err, "tol": AFFINE_REL_TOL}
+        table = Table({"input": X})
+        return stage, table, table, ["o"], FEATURE_JAVA + "robustscaler.RobustScalerModel", verify
+
+    def imputer(strategy, with_nan):
+        def make():
+            names = [f"f{j}" for j in range(15)]
+            outs = [f"o{j}" for j in range(15)]
+            gen = seeded(FEATURE_SEED, dev)
+            X = torch.randint(0, 100, (FEATURE_ROWS, 15), generator=gen, device=dev).float()
+            if with_nan:
+                X[torch.rand(X.shape, generator=gen, device=dev) < NAN_SHARE] = float("nan")
+            stage = feature_module("imputer").Imputer().set_input_cols(*names) \
+                .set_output_cols(*outs).set_strategy(strategy)
+
+            def verify(run):
+                got = np.array([run["model"].surrogates[c] for c in names])
+                want = np.empty(15)
+                for j in range(15):
+                    x = X[:, j].double()
+                    valid = x[~torch.isnan(x)]
+                    k = valid.numel()
+                    if strategy == "mean":
+                        want[j] = float(valid.sum() / k)
+                    elif strategy == "median":
+                        lo = torch.kthvalue(valid, (k - 1) // 2 + 1).values
+                        hi = torch.kthvalue(valid, k // 2 + 1).values
+                        want[j] = float((lo + hi) / 2)
+                    else:  # the smallest of the most frequent integers
+                        want[j] = float(torch.argmax(torch.bincount(valid.long(), minlength=100)))
+                if strategy == "mean":
+                    err = float(np.max(np.abs(got - want) / np.abs(want)))
+                    check(err <= SUM_REL_TOL, f"imputer mean relative error {err:.3e}")
+                    result = {"rel_err": err, "tol": SUM_REL_TOL}
+                else:
+                    check(np.array_equal(got, want), f"imputer {strategy} surrogates {got} vs {want}")
+                    result = {"exact": True}
+                for j in range(15):
+                    fill = torch.tensor(got[j], dtype=torch.float32, device=dev)
+                    want_col = torch.where(torch.isnan(X[:, j]), fill, X[:, j])
+                    check(torch.equal(run["out"].column(outs[j]), want_col), f"imputer {strategy} {outs[j]}")
+                result["filled"] = int(torch.isnan(X).sum())
+                return result
+            table = Table(columns(X))
+            return stage, table, table, outs, FEATURE_JAVA + "imputer.ImputerModel", verify
+        return make
+
+    def variancethresholdselector():
+        X = uniform(FEATURE_ROWS, DIM)
+        vts = feature_module("variancethresholdselector")
+        stage = vts.VarianceThresholdSelector().set_input_col("input").set_output_col("o")
+
+        def verify(run):
+            X64 = X.double()
+            var64 = ((X64 - X64.mean(dim=0)) ** 2).sum(dim=0) / (FEATURE_ROWS - 1)
+            err = rel_err(vts.sample_variance(X), var64)
+            check(err <= SUM_REL_TOL, f"variance relative error {err:.3e}")
+            kept = torch.nonzero(var64 > stage.get_variance_threshold()).flatten().cpu().numpy()
+            check(np.array_equal(run["model"].indices, kept), "variancethresholdselector indices")
+            check(torch.equal(run["out"].column("o"), X[:, kept]), "variancethresholdselector output")
+            return {"var_rel_err": err, "tol": SUM_REL_TOL, "kept": int(kept.size)}
+        table = Table({"input": X})
+        return (stage, table, table, ["o"],
+                FEATURE_JAVA + "variancethresholdselector.VarianceThresholdSelectorModel", verify)
+
+    def vectorslicer():
+        X = uniform(FEATURE_ROWS, 10)
+        stage = feature_module("vectorslicer").VectorSlicer().set_input_col("features") \
+            .set_output_col("o").set_indices(1, 3, 5, 7)
+
+        def verify(run):
+            check(torch.equal(run["out"].column("o"), X[:, [1, 3, 5, 7]]), "vectorslicer")
+            return {"exact": True}
+        table = Table({"features": X})
+        return stage, table, table, ["o"], FEATURE_JAVA + "vectorslicer.VectorSlicer", verify
+
+    def vectorindexer(categorical):
+        def make():
+            X = uniform(FEATURE_ROWS, 10)
+            Xt = X
+            if categorical:  # three columns of 3, 7 and 20 integer categories
+                gen = seeded(FEATURE_SEED + 1, dev)
+                for j, k in enumerate((3, 7, 20)):
+                    X[:, j] = torch.randint(0, k, (FEATURE_ROWS,), generator=gen, device=dev).float()
+                Xt = X.clone()
+                Xt[:1000, 1] = 50.0  # unseen: the rows go under skip
+            stage = feature_module("vectorindexer").VectorIndexer().set_input_col("input") \
+                .set_output_col("o").set_max_categories(20).set_handle_invalid("skip")
+
+            def verify(run):
+                counts = [torch.unique(X[:, j].double()).numel() for j in range(10)]
+                want_cols = [j for j, c in enumerate(counts) if c <= 20]
+                maps = run["model"].category_maps
+                check(sorted(maps) == want_cols, f"vectorindexer categorical columns {sorted(maps)}")
+                for j in want_cols:  # integer categories from 0: each maps to itself
+                    check(maps[j] == {float(v): v for v in range(counts[j])}, f"vectorindexer map {j}")
+                keep = ~(Xt[:, 1] == 50.0) if categorical else slice(None)
+                check(torch.equal(run["out"].column("o"), Xt[keep]), "vectorindexer output")
+                return {"exact": True, "categorical": want_cols, "rows_out": run["out"].num_rows}
+            return (stage, Table({"input": X}), Table({"input": Xt}), ["o"],
+                    FEATURE_JAVA + "vectorindexer.VectorIndexerModel", verify)
+        return make
+
+    def stream_data(integers):
+        """1M x 10 host rows from seeded numpy, in chunks: uniform [0, 1), or
+        integers in [0, 100) with NAN_SHARE of them NaN."""
+        rng = np.random.default_rng(FEATURE_STREAM_SEED)
+        if integers:
+            X = rng.integers(0, 100, (FEATURE_STREAM_ROWS, 10)).astype(np.float64)
+            X[rng.random(X.shape) < NAN_SHARE] = np.nan
+        else:
+            X = rng.random((FEATURE_STREAM_ROWS, 10))
+        return X, [X[i:i + FEATURE_STREAM_CHUNK] for i in range(0, FEATURE_STREAM_ROWS, FEATURE_STREAM_CHUNK)]
+
+    def stream_robustscaler():
+        X, chunks = stream_data(False)
+        stream = StreamTable.from_batches([Table({"input": c}) for c in chunks])
+        stage = feature_module("robustscaler").RobustScaler().set_input_col("input").set_output_col("o") \
+            .set_with_centering(True)
+        Xd = torch.from_numpy(X).float().to(dev)
+
+        def verify(run):
+            model, eps = run["model"], stage.get_relative_error()
+            med, lo, hi = stage._fit_stream(stream)
+            check(np.array_equal(med, model.medians) and np.array_equal(hi - lo, model.ranges),
+                  "stream robustscaler refit")
+            for j in range(10):
+                col = np.sort(X[:, j])
+                for p, v in ((0.5, med[j]), (0.25, lo[j]), (0.75, hi[j])):
+                    check(rank_window(col, v, p, eps), f"stream robustscaler {p} of column {j}")
+            want = (Xd.double() - torch.as_tensor(med, device=dev)) / torch.as_tensor(hi - lo, device=dev)
+            err = rel_err(run["out"].column("o"), want)
+            check(err <= AFFINE_REL_TOL, f"stream robustscaler relative error {err:.3e}")
+            return {"rank_error_within": eps, "rel_err": err, "tol": AFFINE_REL_TOL}
+        return (stage, stream, Table({"input": Xd}), ["o"],
+                FEATURE_JAVA + "robustscaler.RobustScalerModel", verify)
+
+    def stream_kbins():
+        kb = feature_module("kbinsdiscretizer")
+        X, chunks = stream_data(False)
+        stream = StreamTable.from_batches([Table({"input": c}) for c in chunks])
+        stage = kb.KBinsDiscretizer().set_input_col("input").set_output_col("o") \
+            .set_strategy("quantile").set_num_bins(5)
+        Xd = torch.from_numpy(X).float().to(dev)
+
+        def verify(run):
+            edges, qs = run["model"].bin_edges, np.linspace(0.0, 1.0, 6)
+            for j, e in enumerate(edges):
+                col = np.sort(X[:, j])
+                check(e.size == 6 and all(rank_window(col, v, p, kb.STREAM_RELATIVE_ERROR)
+                                          for p, v in zip(qs, e)), f"stream kbins edges of column {j}")
+            check(torch.equal(run["out"].column("o").double(), bins64(Xd, edges)), "stream kbins bins")
+            return {"rank_error_within": kb.STREAM_RELATIVE_ERROR, "exact_bins": True}
+        return (stage, stream, Table({"input": Xd}), ["o"],
+                FEATURE_JAVA + "kbinsdiscretizer.KBinsDiscretizerModel", verify)
+
+    def stream_imputer():
+        X, chunks = stream_data(True)
+        names, outs = [f"f{j}" for j in range(10)], [f"o{j}" for j in range(10)]
+        stream = StreamTable.from_batches([Table({n: c[:, j] for j, n in enumerate(names)}) for c in chunks])
+        stage = feature_module("imputer").Imputer().set_input_cols(*names).set_output_cols(*outs) \
+            .set_strategy("median")
+        Xd = torch.from_numpy(X).float().to(dev)
+
+        def verify(run):
+            eps = stage.get_relative_error()
+            for j, name in enumerate(names):
+                col = np.sort(X[:, j][~np.isnan(X[:, j])])
+                v = run["model"].surrogates[name]
+                check(rank_window(col, v, 0.5, eps), f"stream imputer median of {name}")
+                fill = torch.tensor(v, dtype=torch.float32, device=dev)
+                check(torch.equal(run["out"].column(outs[j]), torch.where(torch.isnan(Xd[:, j]), fill,
+                                                                          Xd[:, j])), f"stream imputer {name}")
+            return {"rank_error_within": eps, "exact_fill": True}
+        return (stage, stream, Table({n: Xd[:, j].contiguous() for j, n in enumerate(names)}), outs,
+                FEATURE_JAVA + "imputer.ImputerModel", verify)
+
+    return {
+        "binarizer": binarizer,
+        "bucketizer": bucketizer("keep", False),
+        "bucketizer invalid keep": bucketizer("keep", True),
+        "bucketizer invalid skip": bucketizer("skip", True),
+        "dct": dct,
+        "elementwiseproduct": elementwiseproduct,
+        "interaction": interaction,
+        "kbinsdiscretizer": kbins("uniform"),
+        "kbinsdiscretizer quantile": kbins("quantile"),
+        "kbinsdiscretizer kmeans": kbins("kmeans"),
+        "maxabsscaler": maxabsscaler,
+        "minmaxscaler": minmaxscaler,
+        "normalizer": normalizer,
+        "polynomialexpansion": polynomialexpansion,
+        "robustscaler": robustscaler,
+        "imputer": imputer("mean", False),
+        "imputer median": imputer("median", True),
+        "imputer most_frequent": imputer("most_frequent", True),
+        "variancethresholdselector": variancethresholdselector,
+        "vectorslicer": vectorslicer,
+        "vectorindexer": vectorindexer(False),
+        "vectorindexer categorical": vectorindexer(True),
+        "stream robustscaler": stream_robustscaler,
+        "stream kbinsdiscretizer quantile": stream_kbins,
+        "stream imputer median": stream_imputer,
+    }
+
+
+#: the feature paths given a torch.profiler pass, and the call profiled
+FEATURE_PROFILES = {"dct": "transform", "polynomialexpansion": "transform",
+                    "kbinsdiscretizer": "fit", "robustscaler": "fit", "imputer median": "fit",
+                    "imputer most_frequent": "fit", "stream robustscaler": "fit"}
+
+
+def feature_phase(sk, dev, tmp):
+    """Phase 6: every numeric feature stage at its conf/ shape, one path
+    each (drive_feature), then its checks against a float64 replay; a
+    profiler pass over one more call of the paths in FEATURE_PROFILES."""
+    results = {}
+    for name, make in feature_specs(dev).items():
+        t0 = time.perf_counter()
+        stage, fit_table, table, out_cols, java, verify = make()
+        run = drive_feature(sk, name, stage, fit_table, table, tmp, out_cols, java)
+        checks = verify(run)
+        if name in FEATURE_PROFILES:
+            call = FEATURE_PROFILES[name]
+            profile_run(f"{name} {call}", (lambda: stage.fit(fit_table)) if call == "fit"
+                        else (lambda: run["model"].transform(table)[0]))
+        seconds = time.perf_counter() - t0
+        log(f"    {name} checks: {checks}; {seconds:.2f} s")
+        results[name] = {k: run[k] for k in ("fit_ms", "transform_ms", "warm_fit_ms", "warm_transform_ms",
+                                              "fit_runs", "transform_runs", "peak_gib", "high_water_gib",
+                                              "launches")}
+        results[name].update(checks=checks, seconds=seconds)
+        del stage, fit_table, table, verify, run
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; the port's kernels run only on the card",
@@ -1423,7 +2026,17 @@ def main() -> int:
     new_warm = stream_and_online_times(stream_cols, km_cols, online_cols, runs["kmeans"]["model"], dev,
                                        path_s)
 
-    # -- 6. output -----------------------------------------------------------
+    # -- 6. the numeric feature stages ------------------------------------------
+    log("phase 6: numeric feature stages at the conf/ shapes (launch counts reset before and "
+        "read after each)")
+    high_water = torch.cuda.max_memory_allocated()  # phase 6 resets the mark per stage
+    with tempfile.TemporaryDirectory() as tmp:
+        features = feature_phase(sk, dev, tmp)
+    high_water = max([high_water / 2**30] + [r["high_water_gib"] for r in features.values()])
+    for name, r in features.items():
+        path_s[name] = r["seconds"]
+
+    # -- 7. output -----------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
         "sparse_grad": "flink_ml_tpu/ops/sparsekernels.py:107",
@@ -1438,6 +2051,7 @@ def main() -> int:
             "launches": launches[name],
             "launches_by_path": {p: r["launches"][name] for p, r in runs.items()
                                  if r["launches"][name]},
+            "launches_by_feature_path": {p: r["launches"][name] for p, r in features.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_rel_err": max(r["max_rel_err"] for r in rows),
             "tolerance": ROW_DOTS_TOL if name == "sparse_row_dots" else GRAD_TOL,
@@ -1452,9 +2066,10 @@ def main() -> int:
     log("warm medians: " + "; ".join(
         f"{n} fit {f:.3f} ms, transform {t:.3f} ms" for n, (f, t) in warm.items()))
     log("stream and online, warm: " + json.dumps(new_warm))
+    log("feature stages: " + json.dumps(features))
     log("seconds by path (phases 3-5): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

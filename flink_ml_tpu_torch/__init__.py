@@ -11,8 +11,11 @@ save/load, the linear losses, one-device SGD (bounded and out of core over
 the native spillable data cache), LogisticRegression, LinearSVC and
 LinearRegression (dense and sparse), KMeans (bounded and out of core),
 OnlineLogisticRegression (FTRL) and OnlineKMeans with the iteration
-runtime, StandardScaler, OneHotEncoder, VectorAssembler and the eager
-Pipeline/PipelineModel. ROADMAP.md lists what is left.
+runtime, StandardScaler, OneHotEncoder, VectorAssembler, the eager
+Pipeline/PipelineModel, and the fifteen numeric feature stages (scalers,
+discretizers, Imputer, selectors, vector transforms; RobustScaler,
+KBinsDiscretizer and Imputer also on a StreamTable). ROADMAP.md lists what
+is left.
 """
 
 from .api import AlgoOperator, Estimator, Model, Stage, Transformer

@@ -18,6 +18,33 @@ from ..param import (
 )
 
 
+class HasRelativeError(WithParams):
+    RELATIVE_ERROR = FloatParam(
+        "relativeError",
+        "The relative target precision for the approximate quantile algorithm.",
+        0.001,
+        ParamValidators.in_range(0.0, 1.0),
+    )
+
+    def get_relative_error(self) -> float:
+        return self.get(self.RELATIVE_ERROR)
+
+    def set_relative_error(self, value: float):
+        return self.set(self.RELATIVE_ERROR, value)
+
+
+class HasMissingValue(WithParams):
+    MISSING_VALUE = FloatParam(
+        "missingValue", "The placeholder for the missing values.", float("nan")
+    )
+
+    def get_missing_value(self) -> float:
+        return self.get(self.MISSING_VALUE)
+
+    def set_missing_value(self, value: float):
+        return self.set(self.MISSING_VALUE, value)
+
+
 class HasFeaturesCol(WithParams):
     FEATURES_COL = StringParam(
         "featuresCol", "Features column name.", "features", ParamValidators.not_null()

@@ -20,15 +20,15 @@ from typing import List
 import numpy as np
 import torch
 
-from ... import config
 from ...api import Estimator, Model
 from ...common.param import HasInputCol, HasOutputCol
 from ...linalg import DenseVector
 from ...param import BooleanParam
-from ...table import Table, as_dense_matrix
+from ...table import Table
 from ...utils import read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
+from . import _columns
 
 
 class StandardScalerParams(HasInputCol, HasOutputCol):
@@ -62,16 +62,6 @@ def _fit_stats(X):
     return mean, torch.sqrt(torch.clamp(var, min=0.0))
 
 
-def _staged_matrix(col):
-    """The column as a dense tensor: a tensor column as it is, on its device
-    (a tensor SparseBatch densified there); a host column staged to
-    `config.device()` in float64."""
-    X = as_dense_matrix(col, allow_device=True)
-    if isinstance(X, torch.Tensor):
-        return X
-    return torch.as_tensor(np.asarray(X, dtype=np.float64), device=config.device())
-
-
 class StandardScalerModel(Model, StandardScalerParams):
     def __init__(self):
         self.mean: np.ndarray = None  # (d,) host array
@@ -90,7 +80,7 @@ class StandardScalerModel(Model, StandardScalerParams):
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
         col = table.column(self.get_input_col())
-        out = _staged_matrix(col)
+        out = _columns.staged_matrix(col, torch.float64)
         if self.get_with_mean():
             out = out - torch.as_tensor(self.mean, dtype=out.dtype, device=out.device)
         if self.get_with_std():
@@ -111,7 +101,7 @@ class StandardScalerModel(Model, StandardScalerParams):
 class StandardScaler(Estimator, StandardScalerParams):
     def fit(self, *inputs: Table) -> StandardScalerModel:
         (table,) = inputs
-        X = _staged_matrix(table.column(self.get_input_col())).to(torch.float32)
+        X = _columns.staged_matrix(table.column(self.get_input_col()), torch.float64).to(torch.float32)
         mean, std = _fit_stats(X)
         host_mean, host_std = _linear.packed_to_host(mean, std)
         model = StandardScalerModel()

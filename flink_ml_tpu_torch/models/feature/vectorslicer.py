@@ -1,0 +1,69 @@
+"""VectorSlicer: selects a sub-vector of features by index.
+
+Port of flink_ml_tpu/models/feature/vectorslicer.py (the reference's
+VectorSlicer.java: `indices` non-negative and unique). One gather of the
+chosen columns on the column's device, in the column's dtype; a host
+column gives host numpy.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from ...api import Transformer
+from ...common.param import HasInputCol, HasOutputCol
+from ...param import IntArrayParam, ParamValidator
+from ...table import Table
+from . import _columns
+
+
+def _indices_validator() -> ParamValidator:
+    def check(v):
+        if v is None or len(v) == 0:
+            return False
+        vals = list(v)
+        return all(i >= 0 for i in vals) and len(set(vals)) == len(vals)
+
+    return ParamValidator(check, "non-empty, unique, non-negative indices")
+
+
+class VectorSlicerParams(HasInputCol, HasOutputCol):
+    INDICES = IntArrayParam(
+        "indices",
+        "An array of indices to select features from a vector column.",
+        None,
+        _indices_validator(),
+    )
+
+    def get_indices(self):
+        return self.get(self.INDICES)
+
+    def set_indices(self, *values: int):
+        return self.set(self.INDICES, list(values))
+
+
+def select_columns(X: torch.Tensor, indices) -> torch.Tensor:
+    """Columns `indices` of X, in order, exactly, on X's device. A run of
+    neighbouring columns is a slice made contiguous (X itself when it is
+    every column); other indices are one gather over the output rows
+    (index_select along columns would read X once per chosen column)."""
+    idx = np.asarray(indices, dtype=np.int64)
+    if idx.size and np.array_equal(idx, np.arange(idx[0], idx[0] + idx.size)):
+        return X[:, int(idx[0]):int(idx[0]) + idx.size].contiguous()
+    return X[:, torch.as_tensor(idx, device=X.device)]
+
+
+class VectorSlicer(Transformer, VectorSlicerParams):
+    def transform(self, *inputs: Table) -> List[Table]:
+        (table,) = inputs
+        indices = self.get_indices()
+        if indices is None:
+            raise ValueError("Parameter indices must be set")
+        col = table.column(self.get_input_col())
+        X = _columns.staged_matrix(col)
+        if max(indices) >= X.shape[1]:
+            raise ValueError(f"Index {max(indices)} out of range for vector size {X.shape[1]}")
+        return [table.with_columns({self.get_output_col(): _columns.output(select_columns(X, indices), col)})]

@@ -47,6 +47,14 @@ class ParamValidators:
         return ParamValidator(lambda v: v is not None and v >= lower, f">= {lower}")
 
     @staticmethod
+    def lt(upper) -> ParamValidator:
+        return ParamValidator(lambda v: v is not None and v < upper, f"< {upper}")
+
+    @staticmethod
+    def lt_eq(upper) -> ParamValidator:
+        return ParamValidator(lambda v: v is not None and v <= upper, f"<= {upper}")
+
+    @staticmethod
     def in_range(lower, upper, lower_inclusive=True, upper_inclusive=True) -> ParamValidator:
         def check(v):
             if v is None:
@@ -69,6 +77,14 @@ class ParamValidators:
     @staticmethod
     def non_empty_array() -> ParamValidator:
         return ParamValidator(lambda v: v is not None and len(v) > 0, "non-empty array")
+
+    @staticmethod
+    def is_sub_set(allowed: Sequence) -> ParamValidator:
+        allowed_set = set(allowed)
+        return ParamValidator(
+            lambda v: v is not None and set(v).issubset(allowed_set),
+            f"subset of {sorted(allowed_set)}",
+        )
 
 
 class Param(Generic[T]):
@@ -154,8 +170,63 @@ class IntArrayParam(_ArrayParam):
     _elem = staticmethod(int)
 
 
+class LongArrayParam(IntArrayParam):
+    pass
+
+
+class FloatArrayParam(_ArrayParam):
+    _elem = staticmethod(float)
+
+
+class DoubleArrayParam(FloatArrayParam):
+    pass
+
+
 class StringArrayParam(_ArrayParam):
     _elem = staticmethod(str)
+
+
+class DoubleArrayArrayParam(Param[List[List[float]]]):
+    """A list of float lists, e.g. one array of split points per column."""
+
+    def json_encode(self, value):
+        return None if value is None else [list(map(float, row)) for row in value]
+
+    def json_decode(self, json_value):
+        if json_value is None:
+            return None
+        return [[float(v) for v in row] for row in json_value]
+
+
+class VectorParam(Param):
+    """A DenseVector or SparseVector value (param/VectorParam.java), JSON
+    as {"type": "dense", "values": [...]} or {"type": "sparse", "size",
+    "indices", "values"}; a JSON object without a type is dense."""
+
+    def json_encode(self, value):
+        if value is None:
+            return None
+        from .linalg import DenseVector, SparseVector
+
+        if isinstance(value, SparseVector):
+            return {
+                "type": "sparse",
+                "size": int(value.size()),
+                "indices": [int(i) for i in value.indices],
+                "values": [float(v) for v in value.values],
+            }
+        if isinstance(value, DenseVector):
+            return {"type": "dense", "values": [float(v) for v in value.values]}
+        raise TypeError(f"Unsupported vector value {value!r}")
+
+    def json_decode(self, json_value):
+        if json_value is None:
+            return None
+        from .linalg import Vectors
+
+        if json_value.get("type") == "sparse":
+            return Vectors.sparse(json_value["size"], json_value["indices"], json_value["values"])
+        return Vectors.dense(*json_value["values"])
 
 
 class WithParams:

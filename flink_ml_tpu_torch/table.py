@@ -195,8 +195,9 @@ class Table:
         return Table(data)
 
     def take(self, indices) -> "Table":
-        """The rows at `indices` (host integers), from every column; tensor
-        columns are indexed on their own device."""
+        """The rows at `indices` (host integers or an integer tensor), from
+        every column; tensor columns are indexed on their own device, so a
+        device index tensor gathers a device table with no readback."""
         out = {}
         for name, col in self._columns.items():
             if isinstance(col, SparseBatch):
@@ -204,6 +205,25 @@ class Table:
                                         _take(col.values, indices))
             else:
                 out[name] = _take(col, indices)
+        return Table(out)
+
+    def concat(self, other: "Table") -> "Table":
+        """The rows of `self`, then those of `other`, column by column. A
+        column that is a tensor on either side is joined on that tensor's
+        device (device in, device out); host columns join on the host. Sparse
+        columns pad the narrower side's slots with -1."""
+        out = {}
+        for name, a in self._columns.items():
+            b = other.column(name)
+            if isinstance(a, SparseBatch):
+                if not isinstance(b, SparseBatch) or a.size != b.size:
+                    raise ValueError(f"Column {name}: SparseBatch size mismatch in concat")
+                k = max(a.indices.shape[1], b.indices.shape[1])
+                parts = [_pad_slots(sb, k) for sb in (a, b)]
+                out[name] = SparseBatch(a.size, _cat([p[0] for p in parts]),
+                                        _cat([p[1] for p in parts]))
+            else:
+                out[name] = _cat([a, b])
         return Table(out)
 
     def rows(self) -> Iterator[Dict[str, Any]]:
@@ -234,7 +254,32 @@ class Table:
 def _take(col, indices):
     if isinstance(col, torch.Tensor):
         return col[torch.as_tensor(indices, dtype=torch.long, device=col.device)]
+    if isinstance(indices, torch.Tensor):
+        indices = indices.cpu().numpy()
     return col[indices]
+
+
+def _cat(parts):
+    """Concatenate along rows: on the device of the first tensor part when
+    there is one, else with numpy."""
+    tensors = [p for p in parts if isinstance(p, torch.Tensor)]
+    if not tensors:
+        return np.concatenate(parts)
+    device = tensors[0].device
+    return torch.cat([torch.as_tensor(p, device=device) for p in parts])
+
+
+def _pad_slots(batch: SparseBatch, k: int):
+    """(indices, values) of a SparseBatch widened to k slots with -1 padding."""
+    pad = k - batch.indices.shape[1]
+    indices, values = batch.indices, batch.values
+    if pad == 0:
+        return indices, values
+    if isinstance(indices, torch.Tensor):
+        return (torch.nn.functional.pad(indices, (0, pad), value=-1),
+                torch.nn.functional.pad(values, (0, pad)))
+    return (np.pad(indices, ((0, 0), (0, pad)), constant_values=-1),
+            np.pad(values, ((0, 0), (0, pad))))
 
 
 def _densify_on_device(batch: SparseBatch) -> torch.Tensor:

@@ -137,9 +137,13 @@ def save_model_arrays(path: str, name: str = "model_data", **arrays) -> None:
     })
 
 
-def load_model_arrays(path: str, name: str = "model_data") -> Dict[str, np.ndarray]:
+def load_model_arrays(path: str, name: str = "model_data",
+                      allow_pickle: bool = False) -> Dict[str, np.ndarray]:
     """Restore arrays saved by `save_model_arrays` (ReadWriteUtils.loadModelData:460).
-    Model data in the reference's binary format is not read yet."""
+    Model data in the reference's binary format is not read yet.
+    `allow_pickle` reads object arrays (ragged bin edges, column names, key
+    lists), which the container can only hold pickled; only a stage whose
+    model data has such arrays asks for it."""
     npz = os.path.join(get_data_path(path), name + ".npz")
     if not os.path.exists(npz):
         data_dir = get_data_path(path)
@@ -149,7 +153,7 @@ def load_model_arrays(path: str, name: str = "model_data") -> Dict[str, np.ndarr
                 "model-data format is not ported yet (ROADMAP A.15)"
             )
         raise FileNotFoundError(f"No model data under {data_dir}")
-    with np.load(npz, allow_pickle=False) as f:
+    with np.load(npz, allow_pickle=allow_pickle) as f:
         return {k: f[k] for k in f.files}
 
 

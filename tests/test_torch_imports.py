@@ -2,7 +2,9 @@
 
 - no module of the port pulls in JAX when imported, with or without a card;
 - no module of the port, and neither chip_smoke.py nor
-  scripts/torch_kernel_designs.py, imports jax or flink_ml_tpu;
+  scripts/torch_kernel_designs.py nor scripts/rehearse_chip_smoke.py,
+  imports jax or flink_ml_tpu;
+- chip_smoke.py fails without a card, and its CPU rehearsal runs through;
 - an entry point that was not asked for the CPU raises without a card,
   rather than falling back to the CPU.
 """
@@ -24,7 +26,8 @@ from flink_ml_tpu_torch.models.classification.logisticregression import (
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "flink_ml_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "scripts" / "torch_kernel_designs.py"]
+    REPO / "chip_smoke.py", REPO / "scripts" / "torch_kernel_designs.py",
+    REPO / "scripts" / "rehearse_chip_smoke.py"]
 
 
 PORT_MODULES = sorted(
@@ -157,7 +160,61 @@ def _entry_points():
         ("OnlineLogisticRegression.fit", lambda: online_lr.fit(stream).process_updates()),
         ("OnlineKMeans.fit", lambda: online_km.fit(stream).process_updates()),
         ("OnlineKMeansModel.transform", lambda: online_kmeans.transform(table)),
+        *_feature_entry_points(table, stream),
     ])
+
+
+def _feature_entry_points(table, stream):
+    """(name, call) of each numeric feature stage's fit and transform, and
+    of the three stream fits; the models are fitted on the CPU first."""
+    import importlib
+
+    def stage(module, cls, **params):
+        obj = getattr(importlib.import_module(f"flink_ml_tpu_torch.models.feature.{module}"), cls)()
+        for name, value in params.items():
+            getattr(obj, f"set_{name}")(*value if isinstance(value, tuple) else (value,))
+        return obj
+
+    vec = dict(input_col="features", output_col="o")
+    transformers = {
+        "Binarizer": stage("binarizer", "Binarizer", input_cols=("label",), output_cols=("o",),
+                           thresholds=(0.5,)),
+        "VectorSlicer": stage("vectorslicer", "VectorSlicer", indices=(0, 2), **vec),
+        "ElementwiseProduct": stage("elementwiseproduct", "ElementwiseProduct",
+                                    scaling_vec=DenseVector(np.ones(3)), **vec),
+        "Normalizer": stage("normalizer", "Normalizer", **vec),
+        "Interaction": stage("interaction", "Interaction", input_cols=("features", "label"),
+                             output_col="o"),
+        "PolynomialExpansion": stage("polynomialexpansion", "PolynomialExpansion", **vec),
+        "DCT": stage("dct", "DCT", **vec),
+        "Bucketizer": stage("bucketizer", "Bucketizer", input_cols=("label",), output_cols=("o",),
+                            splits_array=[[0.0, 0.5, 1.0]]),
+    }
+    estimators = {
+        "MaxAbsScaler": stage("maxabsscaler", "MaxAbsScaler", **vec),
+        "MinMaxScaler": stage("minmaxscaler", "MinMaxScaler", **vec),
+        "VarianceThresholdSelector": stage("variancethresholdselector",
+                                           "VarianceThresholdSelector", **vec),
+        "VectorIndexer": stage("vectorindexer", "VectorIndexer", **vec),
+        "KBinsDiscretizer": stage("kbinsdiscretizer", "KBinsDiscretizer", **vec),
+        "RobustScaler": stage("robustscaler", "RobustScaler", **vec),
+        "Imputer": stage("imputer", "Imputer", input_cols=("label",), output_cols=("o",)),
+    }
+    with config.use_device("cpu"):
+        models = {name: est.fit(table) for name, est in estimators.items()}
+    calls = [(f"{name}.transform", lambda s=s: s.transform(table)) for name, s in transformers.items()]
+    for name, est in estimators.items():
+        calls.append((f"{name}.fit", lambda e=est: e.fit(table)))
+        calls.append((f"{name}Model.transform", lambda m=models[name]: m.transform(table)))
+    for name in ("KBinsDiscretizer", "RobustScaler", "Imputer"):
+        calls.append((f"{name}.fit on a StreamTable", lambda e=estimators[name]: e.fit(stream)))
+    return calls
+
+
+FEATURE_STAGES = ["Binarizer", "VectorSlicer", "ElementwiseProduct", "Normalizer", "Interaction",
+                  "PolynomialExpansion", "DCT", "Bucketizer"]
+FEATURE_ESTIMATORS = ["MaxAbsScaler", "MinMaxScaler", "VarianceThresholdSelector", "VectorIndexer",
+                      "KBinsDiscretizer", "RobustScaler", "Imputer"]
 
 
 ENTRY_POINTS = [
@@ -167,6 +224,9 @@ ENTRY_POINTS = [
     "OneHotEncoderModel.transform", "VectorAssembler.transform", "Pipeline.fit",
     "LogisticRegression.fit on a StreamTable", "KMeans.fit on a StreamTable",
     "OnlineLogisticRegression.fit", "OnlineKMeans.fit", "OnlineKMeansModel.transform",
+    *[f"{name}.transform" for name in FEATURE_STAGES],
+    *[f"{name}{kind}" for name in FEATURE_ESTIMATORS for kind in (".fit", "Model.transform")],
+    *[f"{name}.fit on a StreamTable" for name in ("KBinsDiscretizer", "RobustScaler", "Imputer")],
 ]
 
 
@@ -198,3 +258,17 @@ def test_chip_smoke_fails_without_a_card():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_rehearses_on_the_cpu():
+    """scripts/rehearse_chip_smoke.py runs every phase and gate of
+    chip_smoke.py on the CPU at small sizes (torch.cuda stubbed) and ends
+    with the result line."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "scripts" / "rehearse_chip_smoke.py")],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1].startswith('{"ok": true')
+    assert lines[-2].startswith('{"kernels"')
