@@ -16,8 +16,8 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    probe, at the main path's shapes (the fit batch, 100,000 x 39, and the
    1M-row transform), on Zipf-skewed indices at the fit batch (values on
    a grid of quarters, so the gradient must be exact), on a fit batch
-   sliced at an odd row offset (not 16-byte aligned) and on a wide row
-   (16 x 5000). Each case prints CUDA-event times of the kernel, the
+   sliced at an odd row offset (not 16-byte aligned), on a wide row
+   (16 x 5000) and at the text path's fit batch (phase 7). Each case prints CUDA-event times of the kernel, the
    plain version, one PyTorch library call and, where the batch is
    aligned, the floor probes (a gather per slot; an atomic add per slot),
    beside the bound from the bytes moved;
@@ -75,7 +75,26 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    RobustScaler, KBins quantile and Imputer median on 1M x 10 seeded numpy
    host chunks, each within relativeError x n ranks of the exact
    quantiles. A profiler pass over a few of them;
-7. a `kernels` JSON line, then the result line.
+7. the text path, StopWordsRemover -> HashingTF (2^18 features) -> IDF ->
+   LogisticRegression (the conf/ LR params) on a DictTokenMatrix of
+   1M x 100 ids born on the card over 1,000 terms (the first 100 English
+   stop words) with planted labels: fit -> transform -> save -> load ->
+   transform bit for bit, its launch counts equal to the sparse LR path's
+   (22 row dots, 20 gradients); StopWordsRemover and HashingTF against
+   numpy replays and the IDF values against float32(v) * float32(idf),
+   exactly; the fit against the same fit on the plain loss (1e-4);
+   accuracy above 0.7; warm times and a profiler pass. Phase 2 holds both
+   kernels at its fit batch (100,000 x 100, d = 2^18; the gradient, whose
+   ~900 hashed columns each sum ~10,000 float terms, within the float32
+   summation bound). Then the nine string and token stages at their conf/
+   shapes (CountVectorizer, NGram, StopWordsRemover, HashingTF on token
+   matrices born on the card; IDF on 10M x 10 dense; FeatureHasher,
+   RegexTokenizer, Tokenizer, StringIndexer on seeded numpy host columns,
+   FeatureHasher through native/src/hashkernels.cc built at first use):
+   fit -> transform -> save -> load -> transform bit for bit, three warm
+   calls, peak memory, launch counts (0), an exact replay (numpy on the
+   host, or on the card in integers or float64);
+8. a `kernels` JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -331,11 +350,26 @@ def check_probes(gather, red, idx, coeff):
           "the RED probe's counts disagree")
 
 
-def measure_case(sk, probes, label, idx, vals, coeff, mult, sets, exact_grad=False):
+def summation_bound(idx, vals, mult, d):
+    """Per column c, 2 * n_c * 2^-24 * sum |vals * mult| over its n_c slots:
+    twice the worst-case error of a float32 sum of the same n_c products
+    in any order, so the largest gap two orders may show."""
+    keep = (idx >= 0) & (idx < d)
+    flat = torch.where(keep, idx, 0).long().reshape(-1)
+    mag = torch.where(keep, (vals * mult[:, None]).abs(), 0.0).double().reshape(-1)
+    total = torch.zeros(d, dtype=torch.float64, device=idx.device).index_add_(0, flat, mag)
+    count = torch.bincount(flat[keep.reshape(-1)], minlength=d).double()
+    return 2.0 * count * 2.0**-24 * total
+
+
+def measure_case(sk, probes, label, idx, vals, coeff, mult, sets, exact_grad=False,
+                 grad_bound=False):
     """Both kernels on one batch: held against their plain versions, and
     timed with the plain versions, one library call each and, where the
     batch is aligned, the probes. `sets` are copies of (idx, vals) that
-    rotate through the timed calls."""
+    rotate through the timed calls. With `grad_bound`, the gradient is held
+    to `summation_bound` instead of GRAD_TOL: on columns that sum thousands
+    of float values, cancellation leaves GRAD_TOL's rtol no scale."""
     rows, nnz = idx.shape
     d = coeff.shape[0]
     valid = idx >= 0
@@ -377,8 +411,14 @@ def measure_case(sk, probes, label, idx, vals, coeff, mult, sets, exact_grad=Fal
     got = sk.sparse_grad(idx, vals, mult, coeff)
     want = sk.sparse_grad_plain(idx, vals, mult, coeff)
     err = (got - want).abs()
-    check(torch.allclose(got, want, **GRAD_TOL),
-          f"sparse_grad disagrees with its plain version on {label}: max abs {float(err.max())}")
+    if grad_bound:
+        bound = summation_bound(idx, vals, mult, d)
+        check(bool((err.double() <= bound).all()),
+              f"sparse_grad exceeds the summation bound on {label}: max abs {float(err.max())}, "
+              f"largest share of the bound {float((err.double() / bound.clamp_min(1e-300)).max())}")
+    else:
+        check(torch.allclose(got, want, **GRAD_TOL),
+              f"sparse_grad disagrees with its plain version on {label}: max abs {float(err.max())}")
     if exact_grad:
         check(torch.equal(got, want), f"sparse_grad is not exact on {label}'s exact sums")
     flat_idx = torch.where(keep, idx, 0).long().reshape(-1)
@@ -395,6 +435,9 @@ def measure_case(sk, probes, label, idx, vals, coeff, mult, sets, exact_grad=Fal
                               [(flat_idx, contrib)], iters=10),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    results["sparse_row_dots"]["tolerance"] = ROW_DOTS_TOL
+    results["sparse_grad"]["tolerance"] = (
+        "per column 2 n_c 2^-24 sum |v m| (summation_bound)" if grad_bound else GRAD_TOL)
     for name, r in results.items():
         r.update(case=label, rows=rows, nnz=nnz, d=d, probe_ms=probe_ms.get(name))
         probe = f", probe {r['probe_ms']:.4f} ms" if r["probe_ms"] is not None else ""
@@ -423,8 +466,8 @@ def kernel_phase(sk, probes, dev):
     coeff = torch.randn(SPARSE_DIM, generator=gen, device=dev)
     results = {"sparse_row_dots": [], "sparse_grad": []}
 
-    def run(label, idx, vals, c, mult, sets, exact_grad=False):
-        res = measure_case(sk, probes, label, idx, vals, c, mult, sets, exact_grad)
+    def run(label, idx, vals, c, mult, sets, exact_grad=False, grad_bound=False):
+        res = measure_case(sk, probes, label, idx, vals, c, mult, sets, exact_grad, grad_bound)
         for name in results:
             results[name].append(res[name])
 
@@ -462,6 +505,21 @@ def kernel_phase(sk, probes, dev):
     wide_coeff = torch.randn(d, generator=gen, device=dev)
     mult = torch.randn(rows, generator=gen, device=dev)
     run("wide row", idx, vals, wide_coeff, mult, copies(idx, vals))
+    del idx, vals
+
+    # the text path's fit batch: its own features (HashingTF -> IDF of the
+    # corpus' first BATCH rows, d = 2^18, so the coefficients fit in L2).
+    # Its ~90 slots a row fall on ~900 hashed columns, ~10,000 float terms
+    # a column: the gradient is held to the summation bound
+    idx, vals, d = text_fit_batch(dev)
+    text_coeff = torch.randn(d, generator=gen, device=dev)
+    mult = torch.randn(idx.shape[0], generator=gen, device=dev)
+    run("text fit batch", idx, vals, text_coeff, mult, copies(idx, vals), grad_bound=True)
+    exact = sk.sparse_grad_plain(idx, vals.double(), mult.double(), text_coeff.double())
+    log(f"  text fit batch (not a gate): gradient max abs error against float64 "
+        f"{float((sk.sparse_grad(idx, vals, mult, text_coeff).double() - exact).abs().max()):.3g} "
+        f"(kernel), {float((sk.sparse_grad_plain(idx, vals, mult, text_coeff).double() - exact).abs().max()):.3g} "
+        f"(plain); largest |g| {float(exact.abs().max()):.4g}")
     return results
 
 
@@ -550,13 +608,31 @@ def drive(fit, table, tmp, name):
             "class_name": class_name, "loaded": loaded, "again": again}
 
 
+def same_column(a, b) -> bool:
+    """Bit for bit: tensors, host arrays, object columns of token lists,
+    SparseBatches (indices, values, size) and DictTokenMatrix columns
+    (vocabulary and ids)."""
+    from flink_ml_tpu_torch.table import DictTokenMatrix, SparseBatch
+
+    if isinstance(a, SparseBatch):
+        return (isinstance(b, SparseBatch) and a.size == b.size
+                and same_column(a.indices, b.indices) and same_column(a.values, b.values))
+    if isinstance(a, DictTokenMatrix):
+        return (isinstance(b, DictTokenMatrix) and np.array_equal(a.vocab, b.vocab)
+                and same_column(a.ids, b.ids))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, np.ndarray) and a.dtype == object:
+        return len(a) == len(b) and all(list(x) == list(y) for x, y in zip(a, b))
+    return np.array_equal(a, b)
+
+
 def check_reload(name, run, java_class, columns):
     check(run["class_name"] == java_class, f"{name} model saved as {run['class_name']}")
     check(type(run["loaded"]) is type(run["model"]), f"{name} model reload type")
     for col in columns:
-        a, b = run["again"].column(col), run["out"].column(col)
-        same = torch.equal(a, b) if isinstance(a, torch.Tensor) else np.array_equal(a, b)
-        check(same, f"{name} {col} differs after save/load")
+        check(same_column(run["again"].column(col), run["out"].column(col)),
+              f"{name} {col} differs after save/load")
 
 
 #: the linear paths: name -> (estimator module, class, loss, learning rate,
@@ -637,9 +713,10 @@ def check_dense_linear(name, run, dense_table, X64, y64, w64):
     check(err < bound and pred_ok, f"dense {name} transform disagrees with the float64 reference")
 
 
-def check_sparse_linear(name, run, s_idx, s_vals, s_y):
+def check_sparse_linear(name, run, s_idx, s_vals, s_y, dim=None):
     """A sparse fit on the kernels against the same fit on the plain loss
-    on the card, and the transform against the plain row dots."""
+    on the card, and the transform against the plain row dots; `dim` is
+    the feature count (SPARSE_DIM unless given)."""
     from flink_ml_tpu_torch.models.classification import linearsvc
     from flink_ml_tpu_torch.models.classification import logisticregression
     from flink_ml_tpu_torch.ops import losses
@@ -648,9 +725,10 @@ def check_sparse_linear(name, run, s_idx, s_vals, s_y):
 
     _, _, loss_name, lr, _ = LINEAR_PATHS[name]
     sgd = SGD(max_iter=MAX_ITER, learning_rate=lr, global_batch_size=BATCH, tol=TOL)
-    c_k, loss_k, ep_k = sgd.optimize(np.zeros(SPARSE_DIM), (s_idx, s_vals), s_y, None,
+    dim = SPARSE_DIM if dim is None else dim
+    c_k, loss_k, ep_k = sgd.optimize(np.zeros(dim), (s_idx, s_vals), s_y, None,
                                      losses.SPARSE_VARIANTS[loss_name])
-    c_p, loss_p, ep_p = sgd.optimize(np.zeros(SPARSE_DIM), (s_idx, s_vals), s_y, None,
+    c_p, loss_p, ep_p = sgd.optimize(np.zeros(dim), (s_idx, s_vals), s_y, None,
                                      losses.PLAIN_SPARSE_VARIANTS[loss_name])
     model = run["model"]
     rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
@@ -1838,6 +1916,431 @@ def feature_phase(sk, dev, tmp):
     return results
 
 
+# -- 7. the string and token stages and the text path --------------------------------
+
+#: the text path: a DictTokenMatrix of the shape of conf/stopwordsremover-
+#: benchmark.json (1M x 100) over the vocabulary size of conf/hashingtf-
+#: benchmark.json (1,000 terms), the first TEXT_STOPS of them English stop
+#: words; HashingTF at its default 2^18 features; the conf/ LR params
+TEXT_ROWS, TEXT_TOKENS, TEXT_TERMS, TEXT_STOPS = 1_000_000, 100, 1_000, 100
+TEXT_SEED, TEXT_WEIGHT_SEED = 29, 31
+TEXT_ACCURACY = 0.7
+TEXT_REPEATS = 3
+TEXT_LAUNCHES = {"sparse_row_dots": MAX_ITER + 2, "sparse_grad": MAX_ITER}
+TEXT_JAVA = "org.apache.flink.ml.builder.PipelineModel"
+#: the nine stages at their conf/ shapes (rows, tokens a row, distinct values)
+CV_SHAPE = (10_000_000, 100, 100)  # countvectorizer, seed 2
+NGRAM_SHAPE = (10_000_000, 10, 10)  # ngram (numDistinctValues defaults to 10), n 2
+SWR_SHAPE = (1_000_000, 100, 100)  # stopwordsremover
+HTF_SHAPE = (100_000, 20, 1_000)  # hashingtf
+IDF_SHAPE = (10_000_000, 10)  # idf, dense, minDocFreq 0
+HASHER_ROWS, HASHER_FEATURES = 10_000_000, 1000  # featurehasher: f0-f4, f0-f2 categorical
+REGEX_ROWS, REGEX_DISTINCT = 10_000_000, 100  # regextokenizer, pattern 1+
+TOKENIZER_ROWS, TOKENIZER_DISTINCT = 100_000, 100
+INDEXER_ROWS, INDEXER_DISTINCT = 1_000_000, 1_000  # stringindexer, frequencyDesc
+CONF_SEED = 2
+#: host replays of the host stages (FeatureHasher, RegexTokenizer) check the
+#: first rows only: a Python loop over 10M rows would take minutes
+HOST_REPLAY_ROWS = 200_000
+_BIG = 2**31 - 1
+
+
+def string_vocab(m):
+    """The conf/ generators' vocabulary: decimal strings at their minimal
+    unicode width."""
+    return np.arange(m).astype(str).astype(f"<U{len(str(max(m - 1, 1)))}")
+
+
+def term_runs_replay(mapped, width):
+    """numpy replay of a padded-CSR term count: each row's distinct
+    non-negative terms ascending with their counts as float32, -1 and 0
+    padding, `width` slots."""
+    n, k = mapped.shape
+    S = np.sort(np.where(mapped >= 0, mapped, _BIG), axis=1).ravel()
+    starts = np.flatnonzero(np.concatenate([[True], S[1:] != S[:-1]]) |
+                            (np.arange(n * k) % k == 0))
+    counts = np.diff(np.append(starts, n * k))
+    rows, terms = starts // k, S[starts]
+    keep = terms != _BIG
+    rows, terms, counts = rows[keep], terms[keep], counts[keep]
+    slot = np.arange(rows.size) - np.searchsorted(rows, rows, side="left")
+    indices = np.full((n, width), -1, np.int32)
+    values = np.zeros((n, width), np.float32)
+    indices[rows, slot] = terms
+    values[rows, slot] = counts
+    return indices, values
+
+
+def filter_replay(ids, keep_vocab):
+    """numpy replay of StopWordsRemover on ids: kept ids left in order, -1 right."""
+    keep = (ids >= 0) & keep_vocab[np.maximum(ids, 0)]
+    order = np.argsort(~keep, axis=1, kind="stable")
+    return np.take_along_axis(np.where(keep, ids, -1), order, axis=1)
+
+
+def text_corpus(rows, dev):
+    """The text path's table: ids from a seeded generator on the card over
+    TEXT_TERMS terms (the first TEXT_STOPS English stop words), and labels
+    planted on the other terms: 1 when a row's sum of seeded term weights
+    is above the median."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.models.feature._stopwords import STOP_WORDS
+    from flink_ml_tpu_torch.ops import tokens
+    from flink_ml_tpu_torch.table import DictTokenMatrix
+
+    vocab = np.asarray(list(STOP_WORDS["english"][:TEXT_STOPS])
+                       + [f"term{i}" for i in range(TEXT_TERMS - TEXT_STOPS)])
+    ids = tokens.random_token_ids(TEXT_SEED, rows, TEXT_TOKENS, TEXT_TERMS, dev)
+    weight = torch.randn(TEXT_TERMS, generator=seeded(TEXT_WEIGHT_SEED, dev), device=dev)
+    weight[:TEXT_STOPS] = 0.0
+    score = weight[ids.long()].sum(dim=1)
+    label = (score > score.median()).to(torch.float32)
+    return Table({"tokens": DictTokenMatrix(vocab, ids), "label": label})
+
+
+def text_pipeline():
+    from flink_ml_tpu_torch import Pipeline
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
+
+    f = feature_module
+    return Pipeline([
+        f("stopwordsremover").StopWordsRemover().set_input_cols("tokens").set_output_cols("words"),
+        f("hashingtf").HashingTF().set_input_col("words").set_output_col("tf"),
+        f("idf").IDF().set_input_col("tf").set_output_col("features"),
+        estimator(LogisticRegression),
+    ])
+
+
+def text_features(model, table):
+    """The tables after each stage of a fitted text PipelineModel but the LR."""
+    out = {}
+    for stage, col in zip(model.stages[:3], ("words", "tf", "features")):
+        table = stage.transform(table)[0]
+        out[col] = table.column(col)
+    return out
+
+
+def text_fit_batch(dev):
+    """The text path's fit batch (BATCH rows of its features, d = 2^18),
+    for phase 2: StopWordsRemover -> HashingTF -> IDF on the first BATCH
+    rows of its corpus."""
+    remover, hashing_tf, idf, _ = text_pipeline().stages
+    tf = hashing_tf.transform(remover.transform(text_corpus(BATCH, dev))[0])[0]
+    feats = idf.fit(tf).transform(tf)[0].column("features")
+    return feats.indices, feats.values, feats.size
+
+
+def text_path(sk, dev, tmp):
+    """The text path, fit -> transform -> save -> load -> transform with
+    the launch counts reset before and read after; its gates; warm times
+    and a profiler pass over one fit."""
+    from flink_ml_tpu_torch.models.feature.hashingtf import bucket_lut
+
+    t0 = time.perf_counter()
+    table = text_corpus(TEXT_ROWS, dev)
+    torch.cuda.synchronize()
+    log(f"  text corpus on the card: {TEXT_ROWS} x {TEXT_TOKENS} ids over {TEXT_TERMS} terms in "
+        f"{time.perf_counter() - t0:.2f} s")
+    fit = lambda: text_pipeline().fit(table)  # noqa: E731
+    sk.reset_launch_counts()
+    run = drive(fit, table, tmp, "text")
+    counts = sk.launch_counts()
+    log(f"  text path: fit {run['fit_ms']:.1f} ms, transform {run['transform_ms']:.1f} ms (first "
+        f"calls); launches {counts}")
+    check(counts == TEXT_LAUNCHES, f"text path launched {counts}, expected {TEXT_LAUNCHES}")
+    check_reload("text", run, TEXT_JAVA, ("prediction", "rawPrediction"))
+    model = run["model"]
+    feats = text_features(model, table)
+    tokens = table.column("tokens")
+    ids = tokens.ids.cpu().numpy()
+    keep_vocab = ~np.isin(tokens.vocab, [w.lower() for w in model.stages[0].get_stop_words()])
+    words = filter_replay(ids, keep_vocab)
+    check(np.array_equal(feats["words"].ids.cpu().numpy(), words),
+          "text StopWordsRemover differs from its numpy replay")
+    dropped = int((ids >= 0).sum() - (words >= 0).sum())
+    check(dropped > 0, "the text path's StopWordsRemover dropped nothing")
+    tf = feats["tf"]
+    lut = bucket_lut(tokens.vocab, tf.size)
+    want_i, want_v = term_runs_replay(np.where(words >= 0, lut[np.maximum(words, 0)], -1),
+                                      tf.indices.shape[1])
+    check(tf.indices.shape == (TEXT_ROWS, TEXT_TOKENS) and tf.size == 1 << 18,
+          f"text HashingTF shape {tuple(tf.indices.shape)}, size {tf.size}")
+    check(np.array_equal(tf.indices.cpu().numpy(), want_i)
+          and np.array_equal(tf.values.cpu().numpy(), want_v),
+          "text HashingTF differs from its numpy replay")
+    idf_model = model.stages[2]
+    present = want_i[(want_i >= 0) & (want_v != 0)]
+    df = np.bincount(present, minlength=tf.size).astype(np.float64)
+    idf64 = np.log((TEXT_ROWS + 1.0) / (df + 1.0))
+    check(np.array_equal(idf_model.doc_freq, df) and np.array_equal(idf_model.idf, idf64),
+          "text IDF model differs from its numpy replay")
+    idf32 = torch.as_tensor(idf64.astype(np.float32), device=dev)
+    f = feats["features"]
+    want = torch.where(tf.indices >= 0, tf.values * idf32[tf.indices.clamp(min=0).long()], 0.0)
+    check(torch.equal(f.indices, tf.indices) and torch.equal(f.values, want),
+          "text IDF values differ from float32(v) * float32(idf)")
+    label = table.column("label")
+    check_sparse_linear("lr", {"model": model.stages[-1], "out": run["out"]}, f.indices, f.values,
+                        label, dim=f.size)
+    accuracy = float((run["out"].column("prediction") == label).float().mean())
+    log(f"  text path: {dropped} stop words dropped; HashingTF and StopWordsRemover equal their "
+        f"numpy replays, IDF its float32 product; accuracy {accuracy:.4f}")
+    check(accuracy > TEXT_ACCURACY, f"text path accuracy {accuracy} <= {TEXT_ACCURACY}")
+    fits = [synced(fit)[1] for _ in range(TEXT_REPEATS)]
+    transforms = [synced(lambda: model.transform(table)[0])[1] for _ in range(TEXT_REPEATS)]
+    log(f"  text path warm: fit median {float(np.median(fits)):.3f} ms (runs "
+        f"{[round(t, 3) for t in fits]}), transform median {float(np.median(transforms)):.3f} ms "
+        f"(runs {[round(t, 3) for t in transforms]})")
+    profile_run("text fit", fit)
+    profile_run("text transform", lambda: model.transform(table)[0])
+    return {"fit_ms": run["fit_ms"], "transform_ms": run["transform_ms"],
+            "warm_fit_ms": float(np.median(fits)), "warm_transform_ms": float(np.median(transforms)),
+            "fit_runs": fits, "transform_runs": transforms, "launches": counts,
+            "accuracy": accuracy, "dropped_tokens": dropped,
+            "seconds": time.perf_counter() - t0}
+
+
+def text_specs(dev):
+    """name -> a function that makes (stage, fit table, transform table,
+    output columns, the Java class it saves as, the check of its run) for
+    each of the nine stages at its conf/ shape: token matrices born on the
+    card, string and number columns made by seeded numpy on the host."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.ops import tokens
+    from flink_ml_tpu_torch.table import DictTokenMatrix
+
+    def token_table(shape, seed=CONF_SEED):
+        rows, k, m = shape
+        return Table({"input": DictTokenMatrix(string_vocab(m),
+                                               tokens.random_token_ids(seed, rows, k, m, dev))})
+
+    def countvectorizer():
+        table = token_table(CV_SHAPE)
+        ids = table.column("input").ids
+        vocab = table.column("input").vocab
+        stage = feature_module("countvectorizer").CountVectorizer().set_input_col("input") \
+            .set_output_col("output")
+
+        def verify(run):
+            m = vocab.size
+            tf = torch.bincount(ids.reshape(-1).long(), minlength=m)
+            df = torch.zeros(m, dtype=torch.int64, device=dev)
+            for s in range(0, ids.shape[0], 1_000_000):
+                seen = torch.zeros((min(1_000_000, ids.shape[0] - s), m), dtype=torch.bool, device=dev)
+                seen.scatter_(1, ids[s:s + 1_000_000].long(), True)
+                df += seen.sum(dim=0)
+            tf, df = tf.cpu().numpy(), df.cpu().numpy()
+            order = np.lexsort((vocab, -tf))
+            want_vocab = [str(vocab[i]) for i in order if df[i] > 0]
+            check(run["model"].vocabulary == want_vocab, "countvectorizer vocabulary")
+            out = run["out"].column("output")
+            lut = torch.as_tensor(np.argsort(order).astype(np.int64), device=dev)
+            check(out.indices.shape == (CV_SHAPE[0], min(CV_SHAPE[1], m)), "countvectorizer width")
+            for s in range(0, ids.shape[0], 1_000_000):
+                e = min(ids.shape[0], s + 1_000_000)
+                want = torch.zeros((e - s, m), dtype=torch.float32, device=dev)
+                want.scatter_add_(1, lut[ids[s:e].long()], torch.ones((e - s, ids.shape[1]), device=dev))
+                idx, val = out.indices[s:e], out.values[s:e]
+                got = torch.zeros((e - s, m + 1), dtype=torch.float32, device=dev)
+                got.scatter_(1, torch.where(idx >= 0, idx, m).long(), val)
+                check(torch.equal(got[:, :m], want), f"countvectorizer counts, rows {s}-{e}")
+                nnz = (idx >= 0).sum(dim=1)
+                check(torch.equal(nnz, (want > 0).sum(dim=1))
+                      and bool((idx[:, 1:] > idx[:, :-1]).logical_or(idx[:, 1:] < 0).all()),
+                      f"countvectorizer layout, rows {s}-{e}")
+            return {"exact": True, "vocabulary": len(want_vocab)}
+        return stage, table, table, ("output",), FEATURE_JAVA + "countvectorizer.CountVectorizerModel", \
+            verify
+
+    def ngram():
+        table = token_table(NGRAM_SHAPE)
+        ids = table.column("input").ids
+        vocab = table.column("input").vocab
+        stage = feature_module("ngram").NGram().set_input_col("input").set_output_col("output")
+
+        def verify(run):
+            out = run["out"].column("output")
+            m = vocab.size
+            check(torch.equal(out.ids, ids[:, :-1] * m + ids[:, 1:]), "ngram codes")
+            want = [f"{a} {b}" for a in vocab for b in vocab]
+            check(out.vocab.tolist() == want, "ngram vocabulary")
+            return {"exact": True, "vocabulary": len(want)}
+        return stage, table, table, ("output",), FEATURE_JAVA + "ngram.NGram", verify
+
+    def stopwordsremover():
+        table = token_table(SWR_SHAPE)
+        ids = table.column("input").ids
+        stage = feature_module("stopwordsremover").StopWordsRemover().set_input_cols("input") \
+            .set_output_cols("output")
+
+        def verify(run):
+            # no decimal term is an English stop word: the ids come back as they are
+            check(run["out"].column("output").ids is ids, "stopwordsremover copied its ids")
+            return {"exact": True, "dropped": 0}
+        return stage, table, table, ("output",), FEATURE_JAVA + "stopwordsremover.StopWordsRemover", \
+            verify
+
+    def hashingtf():
+        from flink_ml_tpu_torch.models.feature.hashingtf import bucket_lut
+
+        table = token_table(HTF_SHAPE)
+        col = table.column("input")
+        stage = feature_module("hashingtf").HashingTF().set_input_col("input").set_output_col("output")
+
+        def verify(run):
+            out = run["out"].column("output")
+            lut = bucket_lut(col.vocab, out.size)
+            want_i, want_v = term_runs_replay(lut[col.ids.cpu().numpy()], HTF_SHAPE[1])
+            check(np.array_equal(out.indices.cpu().numpy(), want_i)
+                  and np.array_equal(out.values.cpu().numpy(), want_v), "hashingtf replay")
+            return {"exact": True}
+        return stage, table, table, ("output",), FEATURE_JAVA + "hashingtf.HashingTF", verify
+
+    def idf():
+        rows, d = IDF_SHAPE
+        X = torch.rand((rows, d), generator=seeded(CONF_SEED, dev), device=dev)
+        table = Table({"input": X})
+        stage = feature_module("idf").IDF().set_input_col("input").set_output_col("output") \
+            .set_min_doc_freq(0)
+
+        def verify(run):
+            df = (X != 0).sum(dim=0).double().cpu().numpy()
+            idf64 = np.log((rows + 1.0) / (df + 1.0))
+            model = run["model"]
+            check(np.array_equal(model.doc_freq, df) and np.array_equal(model.idf, idf64),
+                  "idf model")
+            want = (X.double() * torch.as_tensor(idf64.astype(np.float32), device=dev).double()).float()
+            check(torch.equal(run["out"].column("output"), want), "idf transform")
+            return {"exact": True}
+        return stage, table, table, ("output",), FEATURE_JAVA + "idf.IDFModel", verify
+
+    def featurehasher():
+        from flink_ml_tpu_torch.models.feature.featurehasher import _hash_index
+        from flink_ml_tpu_torch.models.feature.stringindexer import _java_double_to_string
+
+        rng = np.random.default_rng(CONF_SEED)
+        names = [f"f{j}" for j in range(5)]
+        cols = {name: rng.random(HASHER_ROWS) for name in names}
+        table = Table(cols)
+        stage = feature_module("featurehasher").FeatureHasher().set_input_cols(*names) \
+            .set_categorical_cols("f0", "f1", "f2").set_num_features(HASHER_FEATURES) \
+            .set_output_col("output")
+
+        def verify(run):
+            out = run["out"].column("output")
+            check(out.indices.shape == (HASHER_ROWS, 5), "featurehasher width")
+            idx, val = out.indices[:HOST_REPLAY_ROWS], out.values[:HOST_REPLAY_ROWS]
+            for r in range(HOST_REPLAY_ROWS):
+                feats = {}
+                for name in ("f3", "f4"):
+                    b = _hash_index(name, HASHER_FEATURES)
+                    feats[b] = feats.get(b, 0.0) + float(cols[name][r])
+                for name in ("f0", "f1", "f2"):
+                    b = _hash_index(f"{name}={_java_double_to_string(float(cols[name][r]))}",
+                                    HASHER_FEATURES)
+                    feats[b] = feats.get(b, 0.0) + 1.0
+                keys = sorted(feats)
+                n = len(keys)
+                if (idx[r, :n].tolist() != keys or (idx[r, n:] != -1).any()
+                        or val[r, :n].tolist() != [feats[k] for k in keys]):
+                    check(False, f"featurehasher row {r} differs from its replay")
+            return {"exact": True, "replayed_rows": HOST_REPLAY_ROWS}
+        return stage, table, table, ("output",), FEATURE_JAVA + "featurehasher.FeatureHasher", verify
+
+    def strings(rows, distinct, seed=CONF_SEED):
+        vocab = string_vocab(distinct)
+        return vocab[np.random.default_rng(seed).integers(0, distinct, rows)]
+
+    def regextokenizer():
+        import re
+
+        S = strings(REGEX_ROWS, REGEX_DISTINCT)
+        table = Table({"input": S})
+        stage = feature_module("regextokenizer").RegexTokenizer().set_input_col("input") \
+            .set_output_col("output").set_pattern("1+")
+
+        def verify(run):
+            out = run["out"].column("output")
+            check(len(out) == REGEX_ROWS, "regextokenizer rows")
+            for r in range(HOST_REPLAY_ROWS):
+                want = [t for t in re.split("1+", str(S[r]).lower()) if len(t) >= 1]
+                check(list(out[r]) == want, f"regextokenizer row {r}")
+            return {"exact": True, "replayed_rows": HOST_REPLAY_ROWS}
+        return stage, table, table, ("output",), FEATURE_JAVA + "regextokenizer.RegexTokenizer", \
+            verify
+
+    def tokenizer():
+        S = strings(TOKENIZER_ROWS, TOKENIZER_DISTINCT)
+        table = Table({"input": S})
+        stage = feature_module("tokenizer").Tokenizer().set_input_col("input").set_output_col("output")
+
+        def verify(run):
+            out = run["out"].column("output")
+            check([list(t) for t in out] == [str(s).lower().split(" ") for s in S], "tokenizer")
+            return {"exact": True, "replayed_rows": TOKENIZER_ROWS}
+        return stage, table, table, ("output",), FEATURE_JAVA + "tokenizer.Tokenizer", verify
+
+    def stringindexer():
+        S = strings(INDEXER_ROWS, INDEXER_DISTINCT)
+        table = Table({"input": S})
+        stage = feature_module("stringindexer").StringIndexer().set_input_cols("input") \
+            .set_output_cols("output").set_string_order_type("frequencyDesc")
+
+        def verify(run):
+            uniq, inv, cnt = np.unique(S, return_inverse=True, return_counts=True)
+            order = sorted(range(uniq.size), key=lambda i: (-cnt[i], str(uniq[i])))
+            check(run["model"].string_arrays == [[str(uniq[i]) for i in order]],
+                  "stringindexer order")
+            rank = np.empty(uniq.size, np.float64)
+            rank[order] = np.arange(uniq.size)
+            check(np.array_equal(run["out"].column("output"), rank[inv.reshape(-1)]),
+                  "stringindexer transform")
+            return {"exact": True}
+        return stage, table, table, ("output",), FEATURE_JAVA + "stringindexer.StringIndexerModel", \
+            verify
+
+    return {
+        "countvectorizer": countvectorizer,
+        "featurehasher": featurehasher,
+        "hashingtf": hashingtf,
+        "idf": idf,
+        "ngram": ngram,
+        "regextokenizer": regextokenizer,
+        "stopwordsremover": stopwordsremover,
+        "stringindexer": stringindexer,
+        "tokenizer": tokenizer,
+    }
+
+
+#: the text stages given a torch.profiler pass, and the call profiled
+TEXT_PROFILES = {"countvectorizer": "fit", "ngram": "transform", "hashingtf": "transform"}
+
+
+def text_phase(sk, dev, tmp):
+    """Phase 7: the text path (text_path), then each of the nine string and
+    token stages at its conf/ shape (drive_feature, then its replay)."""
+    results = {"text path": text_path(sk, dev, tmp)}
+    torch.cuda.empty_cache()
+    for name, make in text_specs(dev).items():
+        t0 = time.perf_counter()
+        stage, fit_table, table, out_cols, java, verify = make()
+        run = drive_feature(sk, name, stage, fit_table, table, tmp, out_cols, java)
+        checks = verify(run)
+        if name in TEXT_PROFILES:
+            call = TEXT_PROFILES[name]
+            profile_run(f"{name} {call}", (lambda: stage.fit(fit_table)) if call == "fit"
+                        else (lambda: run["model"].transform(table)[0]))
+        seconds = time.perf_counter() - t0
+        log(f"    {name} checks: {checks}; {seconds:.2f} s")
+        results[name] = {k: run[k] for k in ("fit_ms", "transform_ms", "warm_fit_ms", "warm_transform_ms",
+                                              "fit_runs", "transform_runs", "peak_gib", "high_water_gib",
+                                              "launches")}
+        results[name].update(checks=checks, seconds=seconds)
+        del stage, fit_table, table, verify, run
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; the port's kernels run only on the card",
@@ -2036,7 +2539,22 @@ def main() -> int:
     for name, r in features.items():
         path_s[name] = r["seconds"]
 
-    # -- 7. output -----------------------------------------------------------
+    # -- 7. the string and token stages and the text path ----------------------------
+    log("phase 7: the text path StopWordsRemover -> HashingTF -> IDF -> LogisticRegression, then "
+        "the string and token stages at the conf/ shapes (launch counts reset before and read "
+        "after each)")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        texts = text_phase(sk, dev, tmp)
+    text_run = texts.pop("text path")
+    high_water = max([high_water] + [r["high_water_gib"] for r in texts.values()])
+    path_s["text path"] = text_run["seconds"]
+    for name, r in texts.items():
+        path_s[name] = r["seconds"]
+    for kernel in launches:
+        launches[kernel] += text_run["launches"][kernel]
+
+    # -- 8. output -----------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
         "sparse_grad": "flink_ml_tpu/ops/sparsekernels.py:107",
@@ -2049,9 +2567,11 @@ def main() -> int:
             "source": "flink_ml_tpu_torch/csrc/sparse_kernels.cu",
             "replaces": sources[name],
             "launches": launches[name],
-            "launches_by_path": {p: r["launches"][name] for p, r in runs.items()
-                                 if r["launches"][name]},
-            "launches_by_feature_path": {p: r["launches"][name] for p, r in features.items()},
+            "launches_by_path": {**{p: r["launches"][name] for p, r in runs.items()
+                                    if r["launches"][name]},
+                                 "text": text_run["launches"][name]},
+            "launches_by_feature_path": {p: r["launches"][name]
+                                         for p, r in {**features, **texts}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_rel_err": max(r["max_rel_err"] for r in rows),
             "tolerance": ROW_DOTS_TOL if name == "sparse_row_dots" else GRAD_TOL,
@@ -2067,7 +2587,9 @@ def main() -> int:
         f"{n} fit {f:.3f} ms, transform {t:.3f} ms" for n, (f, t) in warm.items()))
     log("stream and online, warm: " + json.dumps(new_warm))
     log("feature stages: " + json.dumps(features))
-    log("seconds by path (phases 3-5): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("text path: " + json.dumps(text_run))
+    log("text stages: " + json.dumps(texts))
+    log("seconds by path (phases 3-7): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")

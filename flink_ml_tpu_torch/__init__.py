@@ -12,16 +12,19 @@ the native spillable data cache), LogisticRegression, LinearSVC and
 LinearRegression (dense and sparse), KMeans (bounded and out of core),
 OnlineLogisticRegression (FTRL) and OnlineKMeans with the iteration
 runtime, StandardScaler, OneHotEncoder, VectorAssembler, the eager
-Pipeline/PipelineModel, and the fifteen numeric feature stages (scalers,
+Pipeline/PipelineModel, the fifteen numeric feature stages (scalers,
 discretizers, Imputer, selectors, vector transforms; RobustScaler,
-KBinsDiscretizer and Imputer also on a StreamTable). ROADMAP.md lists what
+KBinsDiscretizer and Imputer also on a StreamTable), and the nine string
+and token stages (Tokenizer, RegexTokenizer, StopWordsRemover, NGram,
+HashingTF, CountVectorizer, IDF, StringIndexer, FeatureHasher) on
+dictionary-encoded token columns (DictTokenMatrix). ROADMAP.md lists what
 is left.
 """
 
 from .api import AlgoOperator, Estimator, Model, Stage, Transformer
 from .linalg import DenseVector, SparseVector, Vectors
 from .pipeline import Pipeline, PipelineModel
-from .table import SparseBatch, StreamTable, Table
+from .table import DictTokenMatrix, SparseBatch, StreamTable, Table
 
 __version__ = "0.1.0"
 
@@ -36,6 +39,7 @@ __all__ = [
     "Table",
     "StreamTable",
     "SparseBatch",
+    "DictTokenMatrix",
     "DenseVector",
     "SparseVector",
     "Vectors",

@@ -318,3 +318,27 @@ class HasOutputCols(WithParams):
 
     def set_output_cols(self, *values: str):
         return self.set(self.OUTPUT_COLS, list(values))
+
+
+class HasNumFeatures(WithParams):
+    NUM_FEATURES = IntParam(
+        "numFeatures", "Number of features.", 262144, ParamValidators.gt(0)
+    )
+
+    def get_num_features(self) -> int:
+        return self.get(self.NUM_FEATURES)
+
+    def set_num_features(self, value: int):
+        return self.set(self.NUM_FEATURES, value)
+
+
+class HasCategoricalCols(WithParams):
+    CATEGORICAL_COLS = StringArrayParam(
+        "categoricalCols", "Categorical column names.", []
+    )
+
+    def get_categorical_cols(self):
+        return self.get(self.CATEGORICAL_COLS) or []
+
+    def set_categorical_cols(self, *values: str):
+        return self.set(self.CATEGORICAL_COLS, list(values))

@@ -186,9 +186,13 @@ class Imputer(Estimator, ImputerParams):
         host = _linear.packed_to_host(*packed)
         surrogates: Dict[str, float] = {}
         for name, col, (num, den) in zip(names, (table.column(n) for n in names), host):
-            device_mean = _columns.is_device_column(col) and strategy == MEAN
-            if den == 0 or not np.isfinite(num):
+            on_device = _columns.is_device_column(col)
+            # each JAX path's own rule: the device path takes a non-finite
+            # sum for an empty column too, the host path only a zero count
+            # (a host column holding inf imputes inf)
+            if den == 0 or (on_device and not np.isfinite(num)):
                 raise ValueError(f"Column {name} has no valid values to impute from")
+            device_mean = on_device and strategy == MEAN
             surrogates[name] = float(num / den) if device_mean else float(num)
         model = ImputerModel()
         model.surrogates = surrogates

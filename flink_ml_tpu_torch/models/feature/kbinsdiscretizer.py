@@ -121,14 +121,17 @@ def bin_all(X: torch.Tensor, bin_edges: List[np.ndarray]) -> torch.Tensor:
     """Each feature's bin on X's device, in X's dtype: #edges <= x minus
     one, clamped to [0, edges - 2]; NaN to the top bin; a feature with at
     most 2 edges to bin 0. The edges are cast to X's dtype, as the JAX
-    device path casts them."""
+    device path casts them. A NaN edge (a quantile fit over a column with
+    +inf interpolates inf - inf) never counts as <= x, as in both JAX paths
+    (np.searchsorted sorts NaN last, the compare-sum finds it false), so
+    only the other edges are searched; the top bin still counts it."""
     out = torch.empty_like(X)
     for j, edges in enumerate(bin_edges):
         top = max(edges.size - 2, 0)
         if top == 0:
             out[:, j] = 0
             continue
-        e = torch.as_tensor(edges, dtype=X.dtype, device=X.device)
+        e = torch.as_tensor(edges[~np.isnan(edges)], dtype=X.dtype, device=X.device)
         idx = torch.searchsorted(e, X[:, j].contiguous(), right=True) - 1
         idx = torch.where(torch.isnan(X[:, j]), top, idx.clamp(0, top))
         out[:, j] = idx.to(X.dtype)

@@ -7,8 +7,11 @@ return their outputs there (device in, device out). A SparseBatch holds
 padded-CSR rows: (n, k) int32 indices with -1 padding and (n, k) values.
 
 A StreamTable is an iterable of bounded Tables, the input of the online
-and out-of-core fits. Dictionary-encoded token columns are a later
-ROADMAP item.
+and out-of-core fits. A DictTokenMatrix is a dictionary-encoded token
+column: a host vocabulary and an (n, k) int32 id matrix, a tensor on the
+card or a numpy array, -1 marking an absent token. A token column may also
+be a 2-D unicode numpy matrix (one row per token array) or an object
+column of token lists.
 """
 
 from __future__ import annotations
@@ -20,7 +23,50 @@ import torch
 
 from .linalg import DenseVector, SparseVector, Vector
 
-__all__ = ["Table", "SparseBatch", "StreamTable", "as_dense_matrix", "global_batches"]
+__all__ = ["Table", "SparseBatch", "StreamTable", "DictTokenMatrix", "as_dense_matrix",
+           "global_batches", "rows_to_sparse_batch"]
+
+
+class DictTokenMatrix:
+    """Dictionary-encoded token-array column (flink_ml_tpu/table.py:68-118):
+    a host unicode `vocab` and an (n, k) integer `ids` matrix, a tensor on
+    its device or a numpy array. id -1 is the absent token, so rows may be
+    ragged (StopWordsRemover emits it). The string stages compute on the id
+    matrix and touch the strings only through the vocabulary."""
+
+    __slots__ = ("vocab", "ids")
+
+    def __init__(self, vocab, ids):
+        self.vocab = np.asarray(vocab)
+        self.ids = ids
+
+    @property
+    def n(self) -> int:
+        return int(self.ids.shape[0])
+
+    @property
+    def k(self) -> int:
+        return int(self.ids.shape[1])
+
+    def __len__(self):
+        return self.n
+
+    def host_ids(self) -> np.ndarray:
+        return _to_numpy(self.ids)
+
+    def row(self, i: int) -> list:
+        return [str(self.vocab[j]) for j in _to_numpy(self.ids[i]) if j >= 0]
+
+    def to_object_column(self) -> np.ndarray:
+        """Per-row token lists, on the host."""
+        ids = self.host_ids()
+        out = np.empty(ids.shape[0], dtype=object)
+        for i in range(ids.shape[0]):
+            out[i] = [str(self.vocab[j]) for j in ids[i] if j >= 0]
+        return out
+
+    def __repr__(self):
+        return f"DictTokenMatrix(n={self.n}, k={self.k}, vocab={len(self.vocab)})"
 
 
 class SparseBatch:
@@ -117,7 +163,7 @@ def _to_numpy(x) -> np.ndarray:
 
 def _normalize_column(values: Any):
     """Normalize a user-provided column into an internal representation."""
-    if isinstance(values, (np.ndarray, SparseBatch, torch.Tensor)):
+    if isinstance(values, (np.ndarray, SparseBatch, DictTokenMatrix, torch.Tensor)):
         return values
     values = list(values)
     if values and isinstance(values[0], Vector):
@@ -154,6 +200,70 @@ def _sparse_vectors_to_batch(vectors: Sequence[SparseVector]) -> SparseBatch:
     return SparseBatch(size, indices, values)
 
 
+def rows_to_sparse_batch(size: int, row_indices, row_values) -> SparseBatch:
+    """Per-row (indices, values) lists as a host SparseBatch, as wide as
+    its widest row (at least one slot)."""
+    n = len(row_indices)
+    width = max((len(ia) for ia in row_indices), default=0) or 1
+    indices = np.full((n, width), -1, dtype=np.int32)
+    values = np.zeros((n, width), dtype=np.float64)
+    for i, (ia, va) in enumerate(zip(row_indices, row_values)):
+        indices[i, : len(ia)] = ia
+        values[i, : len(va)] = va
+    return SparseBatch(size, indices, values)
+
+
+def _is_unicode_matrix(col) -> bool:
+    return isinstance(col, np.ndarray) and col.ndim == 2 and col.dtype.kind in "US"
+
+
+def _is_token_col(col) -> bool:
+    return isinstance(col, DictTokenMatrix) or _is_unicode_matrix(col)
+
+
+def _as_dict_tokens(col) -> DictTokenMatrix:
+    """A token column of any layout as a DictTokenMatrix."""
+    if isinstance(col, DictTokenMatrix):
+        return col
+    A = np.asarray(col)
+    if _is_unicode_matrix(A):
+        uniq, inv = np.unique(A, return_inverse=True)
+        return DictTokenMatrix(uniq, inv.reshape(A.shape).astype(np.int32))
+    if A.ndim == 1 and A.dtype == object:
+        rows = [[str(t) for t in r] for r in A]
+        vocab = np.unique(np.asarray(sorted({t for r in rows for t in r}) or [""]))
+        index = {t: i for i, t in enumerate(vocab)}
+        k = max((len(r) for r in rows), default=1) or 1
+        ids = np.full((len(rows), k), -1, np.int32)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)] = [index[t] for t in r]
+        return DictTokenMatrix(vocab, ids)
+    raise ValueError(
+        f"Cannot concatenate token column with incompatible column {type(col).__name__}")
+
+
+def _concat_token_columns(a, b) -> DictTokenMatrix:
+    """Two token columns of any layouts as one DictTokenMatrix: the union
+    of the vocabularies, each side's ids remapped on the host, the narrower
+    side padded with -1. The ids go to the device of a tensor side."""
+    da, db = _as_dict_tokens(a), _as_dict_tokens(b)
+    vocab = np.union1d(da.vocab.astype(str), db.vocab.astype(str))
+
+    def remap(d: DictTokenMatrix) -> np.ndarray:
+        lut = np.searchsorted(vocab, d.vocab.astype(str)).astype(np.int32)
+        ids = d.host_ids()
+        return np.where(ids >= 0, lut[np.where(ids >= 0, ids, 0)], -1).astype(np.int32)
+
+    ia, ib = remap(da), remap(db)
+    k = max(ia.shape[1], ib.shape[1])
+    ids = np.concatenate([np.pad(i, ((0, 0), (0, k - i.shape[1])), constant_values=-1)
+                          for i in (ia, ib)])
+    tensors = [d.ids for d in (da, db) if isinstance(d.ids, torch.Tensor)]
+    if tensors:
+        ids = torch.as_tensor(ids, device=tensors[0].device)
+    return DictTokenMatrix(vocab, ids)
+
+
 class Table:
     """A bounded, named-column table."""
 
@@ -162,7 +272,8 @@ class Table:
         n = None
         for name, values in data.items():
             col = _normalize_column(values)
-            rows = len(col) if isinstance(col, SparseBatch) else int(col.shape[0])
+            rows = (len(col) if isinstance(col, (SparseBatch, DictTokenMatrix))
+                    else int(col.shape[0]))
             if n is None:
                 n = rows
             elif rows != n:
@@ -203,6 +314,8 @@ class Table:
             if isinstance(col, SparseBatch):
                 out[name] = SparseBatch(col.size, _take(col.indices, indices),
                                         _take(col.values, indices))
+            elif isinstance(col, DictTokenMatrix):
+                out[name] = DictTokenMatrix(col.vocab, _take(col.ids, indices))
             else:
                 out[name] = _take(col, indices)
         return Table(out)
@@ -211,11 +324,16 @@ class Table:
         """The rows of `self`, then those of `other`, column by column. A
         column that is a tensor on either side is joined on that tensor's
         device (device in, device out); host columns join on the host. Sparse
-        columns pad the narrower side's slots with -1."""
+        columns pad the narrower side's slots with -1. Token columns of any
+        mix of layouts (but two unicode matrices of one width) join as one
+        DictTokenMatrix."""
         out = {}
         for name, a in self._columns.items():
             b = other.column(name)
-            if isinstance(a, SparseBatch):
+            if (_is_token_col(a) or _is_token_col(b)) and not (
+                    _is_unicode_matrix(a) and _is_unicode_matrix(b) and a.shape[1] == b.shape[1]):
+                out[name] = _concat_token_columns(a, b)
+            elif isinstance(a, SparseBatch):
                 if not isinstance(b, SparseBatch) or a.size != b.size:
                     raise ValueError(f"Column {name}: SparseBatch size mismatch in concat")
                 k = max(a.indices.shape[1], b.indices.shape[1])
@@ -228,19 +346,23 @@ class Table:
 
     def rows(self) -> Iterator[Dict[str, Any]]:
         """Row iterator for host-side consumption (tests, collect())."""
-        host = {
-            name: col if isinstance(col, SparseBatch) else _to_numpy(col)
-            for name, col in self._columns.items()
-        }
+        host = {}
+        for name, col in self._columns.items():
+            if isinstance(col, DictTokenMatrix):
+                col = DictTokenMatrix(col.vocab, col.host_ids())
+            host[name] = col if isinstance(col, (SparseBatch, DictTokenMatrix)) else _to_numpy(col)
         for i in range(self._num_rows):
             row = {}
             for name, col in host.items():
-                if isinstance(col, SparseBatch):
+                if isinstance(col, (SparseBatch, DictTokenMatrix)):
                     row[name] = col.row(i)
                 else:
                     v = col[i]
-                    if isinstance(v, np.ndarray) and v.ndim == 1 and v.dtype.kind in "fiu":
-                        v = DenseVector(v)
+                    if isinstance(v, np.ndarray) and v.ndim == 1:
+                        if v.dtype.kind in "US":  # a token matrix row: its token list
+                            v = v.tolist()
+                        elif v.dtype.kind in "fiu":
+                            v = DenseVector(v)
                     row[name] = v
             yield row
 

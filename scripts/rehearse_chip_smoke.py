@@ -35,7 +35,10 @@ SIZES = dict(
     DEVICE="cpu", DENSE_ROWS=40_000, DIM=8, SPARSE_ROWS=4_000, SPARSE_DIM=5_000, BATCH=1_000,
     KMEANS_ROWS=4_000, PIPELINE_ROWS=4_000, WIDE_SHAPE=(4, 50, 64), STREAM_CHUNK=3_000,
     KMEANS_CHUNK=500, STREAM_CACHE_BUDGET=1 << 30, FEATURE_ROWS=20_000, FEATURE_SMALL_ROWS=10_000,
-    FEATURE_STREAM_ROWS=20_000, FEATURE_STREAM_CHUNK=3_000,
+    FEATURE_STREAM_ROWS=20_000, FEATURE_STREAM_CHUNK=3_000, TEXT_ROWS=4_000,
+    CV_SHAPE=(20_000, 100, 100), NGRAM_SHAPE=(20_000, 10, 10), SWR_SHAPE=(5_000, 100, 100),
+    HTF_SHAPE=(2_000, 20, 1_000), IDF_SHAPE=(20_000, 10), HASHER_ROWS=20_000, REGEX_ROWS=20_000,
+    TOKENIZER_ROWS=2_000, INDEXER_ROWS=20_000, HOST_REPLAY_ROWS=2_000,
 )
 #: below 8 of the small stream segments, so the spill twin spills
 CACHE_BUDGET = 200 << 10
@@ -89,7 +92,7 @@ def stub() -> None:
     torch.cuda.is_available = lambda: True
     torch.cuda.get_device_name = lambda *args: "CPU rehearsal"
     torch.cuda.device_count = lambda: 1
-    for name in ("synchronize", "reset_peak_memory_stats", "_sleep"):
+    for name in ("synchronize", "reset_peak_memory_stats", "_sleep", "empty_cache"):
         setattr(torch.cuda, name, lambda *args, **kwargs: None)
     torch.cuda.memory_allocated = lambda *args, **kwargs: 0
     torch.cuda.max_memory_allocated = lambda *args, **kwargs: 0

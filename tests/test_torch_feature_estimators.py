@@ -275,6 +275,33 @@ def test_kbins_nan_goes_to_the_top_bin(both_on_one_device, form):
     np.testing.assert_array_equal(got[:, 0], [0, 1, 1, 1, 0])
 
 
+def test_kbins_nan_edge_never_counts_below_a_value():
+    """ROADMAP C.8: a NaN edge is not <= x, whatever the search path; the
+    top bin still counts it (np.searchsorted sorts NaN last)."""
+    edges = np.array([0.0, 0.25, 0.5, 0.75, np.nan])
+    x = np.array([0.1, 0.3, 0.6, 0.8, 5.0])
+    got = port_kb.bin_all(torch.from_numpy(x[:, None]), [edges])[:, 0].numpy()
+    np.testing.assert_array_equal(got, [0, 1, 2, 3, 3])
+    want = np.clip(np.searchsorted(edges, x, side="right") - 1, 0, edges.size - 2)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_kbins_quantile_fit_over_an_infinite_value_bins_as_jax(both_on_one_device, form):
+    """ROADMAP C.8: a quantile fit over a column holding +inf gives a NaN
+    last edge (inf - inf), on both sides; the bins still agree."""
+    X = _data(31, n=200, d=4)
+    X[17, 2] = np.inf
+    jm, pm, jt, pt = _fit_both(_pair(jax_kb, port_kb, "KBinsDiscretizer", input_col="v",
+                                     output_col="o", strategy="quantile", num_bins=4),
+                               form, {"v": X})
+    for got_e, want_e in zip(pm.bin_edges, jm.bin_edges):
+        np.testing.assert_array_equal(got_e, np.asarray(want_e))
+    assert np.isnan(pm.bin_edges[2][-1])
+    want, got = _transform_both(jm, pm, jt, pt, form)
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("strategy", ["uniform", "quantile", "kmeans"])
 def test_kbins_constant_column_collapses_to_bin_0(both_on_one_device, form, strategy):
@@ -369,6 +396,50 @@ def test_imputer_column_with_no_valid_value_raises(both_on_one_device, form, str
         jt, pt = _tables(form, columns)
         with pytest.raises(ValueError, match="Column b has no valid values"):
             est.fit(jt if module is jax_imp else pt)
+
+
+def test_imputer_host_mean_over_an_infinite_value_is_infinite(both_on_one_device):
+    """ROADMAP C.9: the JAX host path raises only on a column with no valid
+    value, so a host column holding +inf imputes inf."""
+    a = np.array([1.0, np.inf, np.nan, 2.0])
+    pair = _pair(jax_imp, port_imp, "Imputer", input_cols=("a",), output_cols=("o",))
+    jm, pm, jt, pt = _fit_both(pair, "host64", {"a": a})
+    assert jm.surrogates["a"] == pm.surrogates["a"] == np.inf
+    want, got = _transform_both(jm, pm, jt, pt, "host64")
+    np.testing.assert_array_equal(got, want)
+
+
+def test_imputer_device_mean_over_an_infinite_value_raises(both_on_one_device):
+    """ROADMAP C.9: a float32 tensor holding +inf raises, as the jax.Array
+    does (the device path reads a non-finite sum as no valid value)."""
+    a = np.array([1.0, np.inf, np.nan, 2.0])
+    jt, pt = _tables("device32", {"a": a})
+    for module, table in ((jax_imp, jt), (port_imp, pt)):
+        est = module.Imputer().set_input_cols("a").set_output_cols("o")
+        with pytest.raises(ValueError, match="Column a has no valid values"):
+            est.fit(table)
+
+
+def test_selector_gathers_where_the_jax_device_matmul_spreads_nan(both_on_one_device):
+    """ROADMAP C.10: the JAX device selection is a 0/1 matmul, so a NaN in
+    a dropped column reaches every output column of its row; the port
+    gathers the kept columns and returns their values."""
+    X = _data(41, n=300, d=5)
+    X[:, 1] = 0.5  # constant: dropped by its zero variance
+    jt, pt = _tables("device32", {"v": X})
+    jm, pm = (est.fit(t) for est, t in zip(
+        _pair(jax_vts, port_vts, "VarianceThresholdSelector", input_col="v",
+              output_col="o", variance_threshold=0.01), (jt, pt)))
+    kept = list(pm.indices)
+    assert kept == [int(i) for i in jm.indices] and 1 not in kept
+    test = X[:4].astype(np.float32)
+    test[2, 1] = np.nan
+    jt, pt = _tables("device32", {"v": test})
+    want_jax = np.asarray(jm.transform(jt)[0].column("o"))
+    got = pm.transform(pt)[0].column("o").numpy()
+    np.testing.assert_array_equal(got, test[:, kept])
+    assert np.isnan(want_jax[2]).all()
+    np.testing.assert_array_equal(np.delete(want_jax, 2, axis=0), np.delete(got, 2, axis=0))
 
 
 # -- save and load across packages ----------------------------------------------------

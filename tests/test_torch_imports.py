@@ -161,6 +161,7 @@ def _entry_points():
         ("OnlineKMeans.fit", lambda: online_km.fit(stream).process_updates()),
         ("OnlineKMeansModel.transform", lambda: online_kmeans.transform(table)),
         *_feature_entry_points(table, stream),
+        *_text_entry_points(),
     ])
 
 
@@ -211,6 +212,46 @@ def _feature_entry_points(table, stream):
     return calls
 
 
+def _text_entry_points():
+    """(name, call) of each string and token stage's fit and transform, on
+    a dictionary-encoded token column, strings and numbers; the models are
+    fitted on the CPU first."""
+    from flink_ml_tpu_torch.models.feature import (
+        countvectorizer, featurehasher, hashingtf, idf, ngram, regextokenizer, stopwordsremover,
+        stringindexer, tokenizer)
+    from flink_ml_tpu_torch.table import DictTokenMatrix
+
+    ids = np.random.default_rng(1).integers(-1, 4, (40, 5)).astype(np.int32)
+    table = Table({"tok": DictTokenMatrix(np.asarray(["a", "b", "the", "d"]), ids),
+                   "s": np.asarray(["x y", "z"] * 20), "x": np.arange(40.0)})
+    cv = countvectorizer.CountVectorizer().set_input_col("tok")
+    idf_est = idf.IDF().set_input_col("x")
+    indexer = stringindexer.StringIndexer().set_input_cols("s").set_output_cols("i")
+    with config.use_device("cpu"):
+        models = {"CountVectorizer": cv.fit(table), "IDF": idf_est.fit(table),
+                  "StringIndexer": indexer.fit(table)}
+    back = stringindexer.IndexToStringModel().set_input_cols("x").set_output_cols("r")
+    back.string_arrays = [[str(i) for i in range(40)]]
+    transformers = {
+        "FeatureHasher": featurehasher.FeatureHasher().set_input_cols("x", "s"),
+        "HashingTF": hashingtf.HashingTF().set_input_col("tok"),
+        "NGram": ngram.NGram().set_input_col("tok"),
+        "RegexTokenizer": regextokenizer.RegexTokenizer().set_input_col("s"),
+        "StopWordsRemover": stopwordsremover.StopWordsRemover().set_input_cols("tok")
+        .set_output_cols("o"),
+        "Tokenizer": tokenizer.Tokenizer().set_input_col("s"),
+        "IndexToStringModel": back,
+    }
+    calls = [(f"{name}.transform", lambda s=s: s.transform(table)) for name, s in transformers.items()]
+    for name, est in (("CountVectorizer", cv), ("IDF", idf_est), ("StringIndexer", indexer)):
+        calls.append((f"{name}.fit", lambda e=est: e.fit(table)))
+        calls.append((f"{name}Model.transform", lambda m=models[name]: m.transform(table)))
+    return calls
+
+
+TEXT_TRANSFORMERS = ["FeatureHasher", "HashingTF", "NGram", "RegexTokenizer", "StopWordsRemover",
+                     "Tokenizer", "IndexToStringModel"]
+TEXT_ESTIMATORS = ["CountVectorizer", "IDF", "StringIndexer"]
 FEATURE_STAGES = ["Binarizer", "VectorSlicer", "ElementwiseProduct", "Normalizer", "Interaction",
                   "PolynomialExpansion", "DCT", "Bucketizer"]
 FEATURE_ESTIMATORS = ["MaxAbsScaler", "MinMaxScaler", "VarianceThresholdSelector", "VectorIndexer",
@@ -227,6 +268,8 @@ ENTRY_POINTS = [
     *[f"{name}.transform" for name in FEATURE_STAGES],
     *[f"{name}{kind}" for name in FEATURE_ESTIMATORS for kind in (".fit", "Model.transform")],
     *[f"{name}.fit on a StreamTable" for name in ("KBinsDiscretizer", "RobustScaler", "Imputer")],
+    *[f"{name}.transform" for name in TEXT_TRANSFORMERS],
+    *[f"{name}{kind}" for name in TEXT_ESTIMATORS for kind in (".fit", "Model.transform")],
 ]
 
 
