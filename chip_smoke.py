@@ -94,7 +94,29 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    fit -> transform -> save -> load -> transform bit for bit, three warm
    calls, peak memory, launch counts (0), an exact replay (numpy on the
    host, or on the card in integers or float64);
-8. a `kernels` JSON line, then the result line.
+8. the evaluation path: the text path's table split by RandomSplitter
+   (0.8, 0.2), the text pipeline fitted on the first part, the second part
+   transformed and scored by BinaryClassificationEvaluator (all four
+   metrics), then save -> load -> transform -> evaluate bit for bit; its
+   launch counts equal to the sparse LR path's (22 row dots, 20
+   gradients), the split equal to a numpy replay of the draw row for row,
+   the fit within 1e-4 of the plain-loss fit, the metrics within 1e-9 of
+   the float64 numpy oracle on the same scores, a held-out AUC above 0.9;
+   warm times and a profiler pass. Then the statistics slice at its
+   shapes on data born on the card: NaiveBayes (1M x 10, arity 5, labels
+   2; model data equal to an integer replay, predictions to the float64
+   argmax), UnivariateFeatureSelector (10M x 100, labels 10, ANOVA;
+   F-statistics within 1e-4 of a float64 replay, the selection equal but
+   for features within 1e-6 of the cut's p-value), Knn (20,000 x 50,
+   labels 2, k 5; predictions equal to float64 neighbours outside a 1e-4
+   margin), ChiSqTest, ANOVATest and FValueTest (1M x 10, both flatten
+   forms; against float64 replays, statistics within 1e-6 relative and
+   p-values within 1e-6 of the largest, chi-square counts exact) and RandomSplitter on a dense, a SparseBatch and a
+   DictTokenMatrix column (1M rows): each through fit -> transform ->
+   save -> load -> transform bit for bit, three warm calls, peak memory,
+   launch counts (0), the host paths taken; then functions.py's round
+   trips;
+9. a `kernels` JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -2341,6 +2363,462 @@ def text_phase(sk, dev, tmp):
     return results
 
 
+# -- 8. the statistics slice and the evaluation path --------------------------------
+
+#: the evaluation path: the text path's table split by RandomSplitter, the
+#: text pipeline fitted on the first part, the second part scored
+EVAL_WEIGHTS, EVAL_SEED = (0.8, 0.2), 37
+EVAL_METRICS = ("areaUnderROC", "areaUnderPR", "ks", "areaUnderLorenz")
+EVAL_AUC = 0.9
+#: the evaluator's metrics against the float64 numpy oracle (its sums are
+#: float64 on the card, ROADMAP C.11)
+METRIC_TOL = 1e-9
+EVAL_REPEATS = 3
+#: the new stages at their conf/ shapes
+NB_SHAPE = (1_000_000, 10, 5, 2)  # naivebayes: rows, vectorDim, featureArity, labelArity
+UFS_SHAPE = (10_000_000, 100, 10)  # univariatefeatureselector: rows, vectorDim, labelArity
+KNN_SHAPE = (20_000, 50, 2, 5)  # knn: rows, vectorDim, labelArity, k (its default)
+#: the three stats stages and RandomSplitter have no conf/ file: 1M rows
+STATS_SHAPE = (1_000_000, 10)
+CHISQ_ARITY, CHISQ_LABELS, ANOVA_LABELS = 5, 2, 10
+SPLIT_ROWS = 1_000_000
+#: a statistic against its float64 replay, each relative to itself; a
+#: p-value as max |error| over the largest replayed p-value (a p-value
+#: far below 1 moves by exp(-F/2) and is not held relative to itself)
+STAT_REL_TOL = 1e-6
+#: UnivariateFeatureSelector: its float32 F-statistics against the float64
+#: replay, and the p-value margin around the cut inside which a swap of
+#: two features is rounding, not a fault
+UFS_F_TOL, UFS_CUT_MARGIN = 1e-4, 1e-6
+STATS_JAVA = "org.apache.flink.ml.stats."
+#: the stages of phase 8 given a torch.profiler pass, and the call profiled
+STATS_PROFILES = {"univariatefeatureselector": "fit"}
+
+
+def host_counts():
+    """The host paths the JAX package itself takes, counted where the port
+    takes them (NaiveBayes' conditions and gap rescore, the chi-square
+    test)."""
+    from collections import Counter
+
+    from flink_ml_tpu_torch.models.classification import naivebayes
+    from flink_ml_tpu_torch.ops import stats
+
+    return Counter(naivebayes.HOST_COUNTS) + Counter(stats.HOST_COUNTS)
+
+
+def counts_since(before):
+    after = host_counts()
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+
+
+def split_replay(rows, weights, seed):
+    """numpy replay of RandomSplitter's draw: each part's row indices."""
+    fractions = np.cumsum(weights) / np.sum(weights)
+    draws = np.random.RandomState(seed % 2**32).random_sample(rows)
+    lower = 0.0
+    parts = []
+    for upper in fractions:
+        parts.append(np.nonzero((draws >= lower) & (draws < upper))[0])
+        lower = upper
+    return parts
+
+
+def eval_path(sk, dev, tmp):
+    """Phase 8's main path: RandomSplitter -> the text pipeline fitted on
+    the train part -> transform of the test part ->
+    BinaryClassificationEvaluator -> save -> load -> transform -> evaluate,
+    with the launch counts reset before and read after; its gates, warm
+    times and a profiler pass."""
+    from flink_ml_tpu_torch import PipelineModel, Table
+    from flink_ml_tpu_torch.models.evaluation.binaryclassification import (
+        BinaryClassificationEvaluator, binary_metrics)
+    from flink_ml_tpu_torch.models.feature.randomsplitter import RandomSplitter
+
+    t0 = time.perf_counter()
+    table = text_corpus(TEXT_ROWS, dev)
+    splitter = RandomSplitter().set_weights(*EVAL_WEIGHTS).set_seed(EVAL_SEED)
+    evaluator = BinaryClassificationEvaluator().set_metrics_names(*EVAL_METRICS)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    (train, test), split_ms = synced(lambda: splitter.transform(table))
+    model, fit_ms = synced(lambda: text_pipeline().fit(train))
+    out, transform_ms = synced(lambda: model.transform(test)[0])
+    metrics, evaluate_ms = synced(lambda: evaluator.transform(out)[0].collect()[0])
+    path = os.path.join(tmp, "eval")
+    model.save(path)
+    loaded = PipelineModel.load(path)
+    again = loaded.transform(test)[0]
+    metrics_again = evaluator.transform(again)[0].collect()[0]
+    torch.cuda.synchronize()
+    counts = sk.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    log(f"  eval path: split {split_ms:.1f} ms ({train.num_rows} / {test.num_rows} rows), fit "
+        f"{fit_ms:.1f} ms, transform {transform_ms:.1f} ms, evaluate {evaluate_ms:.1f} ms (first "
+        f"calls); launches {counts}; peak {peak:.3f} GiB above the {held / 2**30:.2f} GiB held")
+    check(counts == TEXT_LAUNCHES, f"eval path launched {counts}, expected {TEXT_LAUNCHES} (20 "
+          f"epochs of the fit on the train part, a row dot a transform of the test part)")
+    for col in ("prediction", "rawPrediction"):
+        check(same_column(again.column(col), out.column(col)), f"eval path {col} differs after save/load")
+    metrics = {k: float(v) for k, v in metrics.items()}
+    check({k: float(v) for k, v in metrics_again.items()} == metrics,
+          "eval path metrics differ after save/load")
+    # the split, row for row, against the numpy replay of the draw
+    ids, label = table.column("tokens").ids, table.column("label")
+    for name, part, rows in zip(("train", "test"), (train, test),
+                                split_replay(TEXT_ROWS, EVAL_WEIGHTS, EVAL_SEED)):
+        sel = torch.as_tensor(rows, device=dev)
+        check(part.num_rows == rows.size and torch.equal(part.column("tokens").ids, ids[sel])
+              and torch.equal(part.column("label"), label[sel]),
+              f"eval path {name} split differs from the numpy replay")
+    # the fit on the train part against the same fit on the plain loss
+    feats = text_features(model, train)["features"]
+    lr = model.stages[-1]
+    train_out = lr.transform(Table({"features": feats}))[0]
+    check_sparse_linear("lr", {"model": lr, "out": train_out}, feats.indices, feats.values,
+                        train.column("label"), dim=feats.size)
+    # the metrics against the float64 numpy oracle on the same scores
+    scores = out.column("rawPrediction")[:, 1].double().cpu().numpy()
+    labels = test.column("label").double().cpu().numpy()
+    oracle = binary_metrics(scores, labels, np.ones_like(labels))
+    metric_err = max(abs(metrics[k] - oracle[k]) for k in EVAL_METRICS)
+    log(f"  eval path metrics {json.dumps(metrics)}; max |port - float64 oracle| {metric_err:.3g}")
+    check(metric_err <= METRIC_TOL, f"eval path metrics differ from the float64 oracle by {metric_err}")
+    check(metrics["areaUnderROC"] > EVAL_AUC, f"held-out AUC {metrics['areaUnderROC']} <= {EVAL_AUC}")
+    warm = {}
+    for name, call in (("split", lambda: splitter.transform(table)),
+                       ("fit", lambda: text_pipeline().fit(train)),
+                       ("transform", lambda: model.transform(test)[0]),
+                       ("evaluate", lambda: evaluator.transform(out)[0])):
+        runs = [synced(call)[1] for _ in range(EVAL_REPEATS)]
+        warm[name] = {"median_ms": float(np.median(runs)), "runs": runs}
+    log("  eval path warm medians: " + "; ".join(
+        f"{k} {v['median_ms']:.3f} ms (runs {[round(t, 3) for t in v['runs']]})" for k, v in warm.items()))
+
+    def whole():
+        tr, te = splitter.transform(table)
+        return evaluator.transform(text_pipeline().fit(tr).transform(te)[0])[0]
+    profile_run("eval path (split, fit, transform, evaluate)", whole)
+    return {"split_ms": split_ms, "fit_ms": fit_ms, "transform_ms": transform_ms,
+            "evaluate_ms": evaluate_ms, "warm": warm, "launches": counts, "metrics": metrics,
+            "metric_err": metric_err, "peak_gib": peak, "train_rows": train.num_rows,
+            "test_rows": test.num_rows, "seconds": time.perf_counter() - t0}
+
+
+def anova64(X, y, k):
+    """float64 one-way ANOVA on the card (two passes: the exact mean, then
+    the centred class sums), labels 0..k-1: (F, p)."""
+    from flink_ml_tpu_torch.ops.stats import f_sf
+
+    n, d = X.shape
+    mean = sum(X[s:s + 1_000_000].double().sum(dim=0) for s in range(0, n, 1_000_000)) / n
+    sums = torch.zeros((k, d), dtype=torch.float64, device=X.device)
+    ss_tot = torch.zeros(d, dtype=torch.float64, device=X.device)
+    for s in range(0, n, 1_000_000):
+        Xc = X[s:s + 1_000_000].double() - mean
+        sums += torch.nn.functional.one_hot(y[s:s + 1_000_000].long(), k).double().T @ Xc
+        ss_tot += (Xc * Xc).sum(dim=0)
+    counts = torch.bincount(y.long(), minlength=k).double()
+    ss_between = (sums**2 / counts[:, None]).sum(dim=0) - sums.sum(dim=0) ** 2 / n
+    f = ((ss_between / (k - 1)) / ((ss_tot - ss_between) / (n - k))).cpu().numpy()
+    return f, f_sf(f, float(k - 1), float(n - k))
+
+
+def fvalue64(X, y):
+    """float64 univariate regression F-test on the card: (F, p)."""
+    from flink_ml_tpu_torch.ops.stats import f_sf
+
+    n = X.shape[0]
+    X64, y64 = X.double(), y.double()
+    Xc, yc = X64 - X64.mean(dim=0), y64 - y64.mean()
+    corr = ((Xc * yc[:, None]).sum(dim=0) / torch.sqrt((Xc**2).sum(dim=0) * (yc**2).sum())).cpu().numpy()
+    f = corr**2 / (1 - corr**2) * (n - 2)
+    return f, f_sf(f, 1.0, float(n - 2))
+
+
+def chisq64(X, y, arity, labels):
+    """Integer contingency counts on the card (feature arity x label arity
+    a column) and the float64 statistics from them: (counts, stat, p, dof)."""
+    from flink_ml_tpu_torch.ops.stats import chi2_sf
+
+    n, d = X.shape
+    counts = [torch.bincount(X[:, j].long() * labels + y.long(), minlength=arity * labels)
+              .reshape(arity, labels).cpu().numpy() for j in range(d)]
+    stat = []
+    for observed in counts:
+        o = observed.astype(np.float64)
+        expected = o.sum(axis=1, keepdims=True) * o.sum(axis=0, keepdims=True) / n
+        stat.append(float(np.sum((o - expected) ** 2 / expected)))
+    dof = (arity - 1) * (labels - 1)
+    stat = np.asarray(stat)
+    return counts, stat, chi2_sf(stat, float(dof)), dof
+
+
+def stat_errors(stat, stat64, p, p64):
+    """(max relative error of the statistics, max |p - p64| / max p64)."""
+    rel = float(np.max(np.abs(stat - stat64) / np.maximum(np.abs(stat64), 1e-300)))
+    return rel, float(np.max(np.abs(p - p64)) / max(float(np.max(np.abs(p64))), 1e-300))
+
+
+def stats_specs(dev):
+    """name -> a function that makes (stage, fit table, transform table,
+    output columns, the Java class it saves as, the check of its run) for
+    each stage of phase 8 at its shape, on data born on the card."""
+    from flink_ml_tpu_torch import SparseBatch, Table
+    from flink_ml_tpu_torch.models.classification import knn, naivebayes
+    from flink_ml_tpu_torch.models.feature import randomsplitter
+    from flink_ml_tpu_torch.models.feature import univariatefeatureselector as ufs
+    from flink_ml_tpu_torch.models.stats import anovatest, chisqtest, fvaluetest
+    from flink_ml_tpu_torch.ops import stats, tokens
+    from flink_ml_tpu_torch.table import DictTokenMatrix
+
+    def naivebayes_spec():
+        rows, d, arity, num_labels = NB_SHAPE
+        gen = seeded(CONF_SEED, dev)
+        X = torch.randint(0, arity, (rows, d), generator=gen, device=dev).float()
+        y = torch.randint(0, num_labels, (rows,), generator=gen, device=dev).float()
+        table = Table({"features": X, "label": y})
+        stage = naivebayes.NaiveBayes()
+        before = host_counts()
+
+        def verify(run):
+            model, s = run["model"], stage.get_smoothing()
+            labels = torch.unique(y)
+            cats = [torch.unique(X[:, j]) for j in range(d)]
+            label_counts = [int((y == l).sum()) for l in labels]
+            theta = []
+            for i, l in enumerate(labels):
+                rows_l = X[y == l]
+                theta.append([{float(v): math.log(int((rows_l[:, j] == v).sum()) + s)
+                               - math.log(label_counts[i] + s * cats[j].numel())
+                               for v in cats[j]} for j in range(d)])
+            pi = [math.log(c * d + s) - math.log(rows * d + labels.numel() * s) for c in label_counts]
+            check(model.theta == theta and model.pi.tolist() == pi
+                  and model.labels.tolist() == labels.double().cpu().tolist(),
+                  "naivebayes model data differs from its integer replay")
+            # the float64 argmax on the card
+            scores = torch.as_tensor(pi, dtype=torch.float64, device=dev).repeat(rows, 1)
+            for j in range(d):
+                logp = torch.as_tensor([[theta[i][j][float(v)] for i in range(labels.numel())]
+                                        for v in cats[j]], dtype=torch.float64, device=dev)
+                scores += logp[torch.searchsorted(cats[j], X[:, j].contiguous())]
+            want = labels[torch.argmax(scores, dim=1)]
+            pred = run["out"].column("prediction")
+            check(torch.equal(pred, want), "naivebayes predictions differ from the float64 argmax")
+            host = counts_since(before)
+            log(f"    naivebayes host paths over its runs: {host}")
+            return {"exact": True, "host_paths": host}
+        return stage, table, table, ("prediction",), \
+            "org.apache.flink.ml.classification.naivebayes.NaiveBayesModel", verify
+
+    def univariatefeatureselector_spec():
+        rows, d, k = UFS_SHAPE
+        gen = seeded(CONF_SEED, dev)
+        X = torch.rand((rows, d), generator=gen, device=dev)
+        y = torch.randint(0, k, (rows,), generator=gen, device=dev).float()
+        table = Table({"features": X, "label": y})
+        stage = ufs.UnivariateFeatureSelector().set_feature_type("continuous") \
+            .set_label_type("categorical")
+
+        def verify(run):
+            _, _, f = stats.anova_f_test(X, y)  # the fit's statistics
+            f64, p64 = anova64(X, y, k)
+            f_err = float(np.max(np.abs(f - f64) / np.abs(f64)))
+            top = int(ufs._DEFAULT_THRESHOLDS[ufs.NUM_TOP_FEATURES])
+            cut = np.sort(p64)[top - 1]
+            near = set(np.nonzero(np.abs(p64 - cut) <= UFS_CUT_MARGIN * cut)[0].tolist())
+            want = set(np.argsort(p64, kind="stable")[:top].tolist())
+            got = set(run["model"].indices.tolist())
+            swapped = got ^ want
+            log(f"    univariatefeatureselector: F max rel err {f_err:.3g}; {len(near)} features "
+                f"within {UFS_CUT_MARGIN} of the cut p-value {cut:.6g}; {len(swapped)} swapped")
+            check(f_err <= UFS_F_TOL, f"univariatefeatureselector F rel err {f_err}")
+            check(len(got) == top and swapped <= near, "univariatefeatureselector selection")
+            sel = torch.as_tensor(run["model"].indices, device=dev)
+            check(torch.equal(run["out"].column("output"), X[:, sel]), "univariatefeatureselector gather")
+            return {"f_rel_err": f_err, "near_cut": len(near), "swapped": len(swapped)}
+        return stage, table, table, ("output",), \
+            FEATURE_JAVA + "univariatefeatureselector.UnivariateFeatureSelectorModel", verify
+
+    def knn_spec():
+        rows, d, num_labels, k = KNN_SHAPE
+        gen = seeded(CONF_SEED, dev)
+        X = torch.rand((rows, d), generator=gen, device=dev)
+        y = torch.randint(0, num_labels, (rows,), generator=gen, device=dev).float()
+        table = Table({"features": X, "label": y})
+        stage = knn.Knn().set_k(k)
+
+        def verify(run):
+            pred = run["out"].column("prediction")
+            X64 = X.double()
+            sq = (X64 * X64).sum(dim=1)
+            margin = 0
+            for s in range(0, rows, 2_000):
+                D = sq[s:s + 2_000, None] - 2.0 * (X64[s:s + 2_000] @ X64.T) + sq[None, :]
+                vals, idx = torch.topk(D, k + 1, dim=1, largest=False, sorted=True)
+                tie = ((vals[:, k] - vals[:, k - 1]) <= TIE_MARGIN * vals[:, k].abs()).cpu().numpy()
+                want = knn._majority_vote(y[idx[:, :k]].double().cpu().numpy())
+                margin += int(tie.sum())
+                check(np.array_equal(pred[s:s + 2_000][~tie], want[~tie]),
+                      f"knn predictions differ from the float64 neighbours, rows {s}-{s + 2_000}")
+            log(f"    knn: {margin} rows with their k-th and (k+1)-th float64 distances within "
+                f"{TIE_MARGIN} left out")
+            return {"margin_rows": margin}
+        return stage, table, table, ("prediction",), \
+            "org.apache.flink.ml.classification.knn.KnnModel", verify
+
+    def stats_spec(kind, flatten):
+        rows, d = STATS_SHAPE
+        gen = seeded(CONF_SEED, dev)
+        if kind == "chisq":
+            X = torch.randint(0, CHISQ_ARITY, (rows, d), generator=gen, device=dev).float()
+            y = torch.randint(0, CHISQ_LABELS, (rows,), generator=gen, device=dev).float()
+            stage, stat_col = chisqtest.ChiSqTest(), "statistic"
+        elif kind == "anova":
+            X = torch.rand((rows, d), generator=gen, device=dev)
+            y = torch.randint(0, ANOVA_LABELS, (rows,), generator=gen, device=dev).float()
+            stage, stat_col = anovatest.ANOVATest(), "fValue"
+        else:  # every column tied to the label, some weakly: every F large
+            X = torch.rand((rows, d), generator=gen, device=dev)
+            w = torch.linspace(0.02, 0.3, d, device=dev)
+            y = X @ w + torch.rand(rows, generator=gen, device=dev)
+            stage, stat_col = fvaluetest.FValueTest(), "fValue"
+        stage.set_flatten(flatten)
+        table = Table({"features": X, "label": y})
+        cols = (("featureIndex", "pValue", "degreeOfFreedom", stat_col) if flatten
+                else ("pValues", "degreesOfFreedom", stat_col + "s"))
+        before = host_counts()
+
+        def verify(run):
+            out = run["out"]
+            if flatten:
+                p, stat, dof = (np.asarray(out.column(c), np.float64) for c in
+                                ("pValue", stat_col, "degreeOfFreedom"))
+            else:
+                p, stat, dof = (np.asarray(out.column(c)[0], np.float64) for c in
+                                ("pValues", stat_col + "s", "degreesOfFreedom"))
+            result = {}
+            if kind == "chisq":
+                counts, stat64, p64, dof64 = chisq64(X, y, CHISQ_ARITY, CHISQ_LABELS)
+                port_counts = list(stats.contingency_tables(X, y))
+                check(all(np.array_equal(a, b) for a, b in zip(port_counts, counts)),
+                      "chisqtest counts differ from the integer replay")
+                result["host_paths"] = counts_since(before)
+                log(f"    chisqtest host paths over its runs: {result['host_paths']}")
+            elif kind == "anova":
+                stat64, p64 = anova64(X, y, ANOVA_LABELS)
+                dof64 = rows - 1
+            else:
+                stat64, p64 = fvalue64(X, y)
+                dof64 = rows - 2
+            stat_err, p_err = stat_errors(stat, stat64, p, p64)
+            check(np.array_equal(dof, np.full(d, dof64)), f"{kind} degrees of freedom {dof}")
+            check(stat_err <= STAT_REL_TOL and p_err <= STAT_REL_TOL,
+                  f"{kind} statistics rel err {stat_err}, p-values {p_err}")
+            result.update(stat_rel_err=stat_err, p_err=p_err)
+            return result
+        name = {"chisq": "chisqtest.ChiSqTest", "anova": "anovatest.ANOVATest",
+                "fvalue": "fvaluetest.FValueTest"}[kind]
+        return stage, table, table, cols, STATS_JAVA + name, verify
+
+    def randomsplitter_spec():
+        rows = SPLIT_ROWS
+        gen = seeded(CONF_SEED, dev)
+        table = Table({
+            "dense": torch.rand((rows, DIM), generator=gen, device=dev),
+            "sparse": SparseBatch(SPARSE_DIM, torch.randint(0, SPARSE_DIM, (rows, NNZ), generator=gen,
+                                                             device=dev, dtype=torch.int32),
+                                  torch.rand((rows, NNZ), generator=gen, device=dev)),
+            "tokens": DictTokenMatrix(string_vocab(TEXT_TERMS),
+                                      tokens.random_token_ids(CONF_SEED, rows, TEXT_TOKENS, TEXT_TERMS, dev)),
+            "label": torch.arange(rows, device=dev, dtype=torch.float64)})
+        stage = randomsplitter.RandomSplitter().set_weights(*EVAL_WEIGHTS).set_seed(EVAL_SEED)
+
+        def verify(run):
+            parts = stage.transform(table)
+            for part, rows_i in zip(parts, split_replay(rows, EVAL_WEIGHTS, EVAL_SEED)):
+                sel = torch.as_tensor(rows_i, device=dev)
+                sparse = table.column("sparse")
+                check(part.num_rows == rows_i.size
+                      and torch.equal(part.column("dense"), table.column("dense")[sel])
+                      and torch.equal(part.column("sparse").indices, sparse.indices[sel])
+                      and torch.equal(part.column("sparse").values, sparse.values[sel])
+                      and torch.equal(part.column("tokens").ids, table.column("tokens").ids[sel])
+                      and torch.equal(part.column("label"), table.column("label")[sel]),
+                      "randomsplitter parts differ from the numpy replay")
+            return {"exact": True, "rows": [p.num_rows for p in parts]}
+        return stage, table, table, ("dense", "sparse", "tokens", "label"), \
+            FEATURE_JAVA + "randomsplitter.RandomSplitter", verify
+
+    specs = {"naivebayes": naivebayes_spec,
+             "univariatefeatureselector": univariatefeatureselector_spec,
+             "knn": knn_spec}
+    for kind, stage_name in (("chisq", "chisqtest"), ("anova", "anovatest"), ("fvalue", "fvaluetest")):
+        for flatten in (False, True):
+            specs[stage_name + (" flatten" if flatten else "")] = \
+                lambda k=kind, f=flatten: stats_spec(k, f)
+    specs["randomsplitter"] = randomsplitter_spec
+    return specs
+
+
+def functions_check(dev):
+    """vector_to_array / array_to_vector on the card's layouts: a tensor
+    passes through, a SparseBatch densifies to its scatter, ragged rows
+    round-trip."""
+    from flink_ml_tpu_torch import DenseVector, SparseBatch, array_to_vector, vector_to_array
+
+    X = torch.rand((STATS_SHAPE[0], DIM), generator=seeded(CONF_SEED, dev), device=dev)
+    check(vector_to_array(X) is X and array_to_vector(X) is X, "functions moved a tensor column")
+    gen = seeded(CONF_SEED + 1, dev)
+    # distinct indices a row (a repeated index would leave the scatter's
+    # winner to the card's order), about a tenth of them padding
+    idx = torch.argsort(torch.rand((10_000, 500), generator=gen, device=dev), dim=1)[:, :NNZ]
+    pad = torch.rand((10_000, NNZ), generator=gen, device=dev) < 0.1
+    idx = torch.where(pad, -1, idx).to(torch.int32)
+    vals = torch.rand((10_000, NNZ), generator=gen, device=dev)
+    dense = vector_to_array(SparseBatch(500, idx, vals))
+    keep = idx >= 0
+    want = torch.zeros((10_000, 501), dtype=torch.float64, device=dev)
+    want.scatter_(1, torch.where(keep, idx, 500).long(), torch.where(keep, vals, 0.0).double())
+    check(np.array_equal(dense, want[:, :500].cpu().numpy()), "vector_to_array of a SparseBatch")
+    ragged = np.empty(3, dtype=object)
+    ragged[:] = [DenseVector([1.0, 2.0]), DenseVector([3.0]), DenseVector([4.0, 5.0, 6.0])]
+    back = array_to_vector(vector_to_array(ragged))
+    check([list(v.to_array()) for v in back] == [[1.0, 2.0], [3.0], [4.0, 5.0, 6.0]],
+          "functions ragged round trip")
+    log("  functions.py: a tensor passes through both ways, a SparseBatch densifies to its "
+        "scatter, ragged vectors round-trip")
+    return {"exact": True}
+
+
+def stats_phase(sk, dev, tmp):
+    """Phase 8: the evaluation path (eval_path), then each new stage at its
+    shape (drive_feature, then its replay), then the functions."""
+    results = {"eval path": eval_path(sk, dev, tmp)}
+    torch.cuda.empty_cache()
+    for name, make in stats_specs(dev).items():
+        t0 = time.perf_counter()
+        stage, fit_table, table, out_cols, java, verify = make()
+        run = drive_feature(sk, name, stage, fit_table, table, tmp, out_cols, java)
+        checks = verify(run)
+        if name in STATS_PROFILES:
+            call = STATS_PROFILES[name]
+            profile_run(f"{name} {call}", (lambda: stage.fit(fit_table)) if call == "fit"
+                        else (lambda: run["model"].transform(table)[0]))
+        seconds = time.perf_counter() - t0
+        log(f"    {name} checks: {checks}; {seconds:.2f} s")
+        results[name] = {k: run[k] for k in ("fit_ms", "transform_ms", "warm_fit_ms", "warm_transform_ms",
+                                              "fit_runs", "transform_runs", "peak_gib", "high_water_gib",
+                                              "launches")}
+        results[name].update(checks=checks, seconds=seconds)
+        del stage, fit_table, table, verify, run
+        torch.cuda.empty_cache()
+    results["functions"] = functions_check(dev)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; the port's kernels run only on the card",
@@ -2367,7 +2845,7 @@ def main() -> int:
     check(bool(smi), "nvidia-smi reported no card")
     card = smi[0].strip()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}, allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+        f"{torch.cuda.get_device_name(0)} ({card}), allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
     cuda_sources = ("sparse_kernels", "probes")
     cuda_build.load_all(cuda_sources)
@@ -2554,7 +3032,24 @@ def main() -> int:
     for kernel in launches:
         launches[kernel] += text_run["launches"][kernel]
 
-    # -- 8. output -----------------------------------------------------------
+    # -- 8. the statistics slice and the evaluation path ------------------------------
+    log("phase 8: the evaluation path RandomSplitter -> text pipeline -> "
+        "BinaryClassificationEvaluator, then NaiveBayes, UnivariateFeatureSelector, Knn, the "
+        "three stats tests and RandomSplitter at their shapes (launch counts reset before and "
+        "read after each)")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        stat_stages = stats_phase(sk, dev, tmp)
+    eval_run = stat_stages.pop("eval path")
+    functions = stat_stages.pop("functions")
+    high_water = max([high_water] + [r["high_water_gib"] for r in stat_stages.values()])
+    path_s["eval path"] = eval_run["seconds"]
+    for name, r in stat_stages.items():
+        path_s[name] = r["seconds"]
+    for kernel in launches:
+        launches[kernel] += eval_run["launches"][kernel]
+
+    # -- 9. output -----------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
         "sparse_grad": "flink_ml_tpu/ops/sparsekernels.py:107",
@@ -2569,9 +3064,10 @@ def main() -> int:
             "launches": launches[name],
             "launches_by_path": {**{p: r["launches"][name] for p, r in runs.items()
                                     if r["launches"][name]},
-                                 "text": text_run["launches"][name]},
+                                 "text": text_run["launches"][name],
+                                 "eval": eval_run["launches"][name]},
             "launches_by_feature_path": {p: r["launches"][name]
-                                         for p, r in {**features, **texts}.items()},
+                                         for p, r in {**features, **texts, **stat_stages}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_rel_err": max(r["max_rel_err"] for r in rows),
             "tolerance": ROW_DOTS_TOL if name == "sparse_row_dots" else GRAD_TOL,
@@ -2589,7 +3085,9 @@ def main() -> int:
     log("feature stages: " + json.dumps(features))
     log("text path: " + json.dumps(text_run))
     log("text stages: " + json.dumps(texts))
-    log("seconds by path (phases 3-7): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("eval path: " + json.dumps(eval_run))
+    log("stats stages: " + json.dumps(stat_stages) + "; functions: " + json.dumps(functions))
+    log("seconds by path (phases 3-8): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")

@@ -17,11 +17,14 @@ discretizers, Imputer, selectors, vector transforms; RobustScaler,
 KBinsDiscretizer and Imputer also on a StreamTable), and the nine string
 and token stages (Tokenizer, RegexTokenizer, StopWordsRemover, NGram,
 HashingTF, CountVectorizer, IDF, StringIndexer, FeatureHasher) on
-dictionary-encoded token columns (DictTokenMatrix). ROADMAP.md lists what
-is left.
+dictionary-encoded token columns (DictTokenMatrix), the statistics
+slice (ChiSqTest, ANOVATest, FValueTest, UnivariateFeatureSelector,
+NaiveBayes, BinaryClassificationEvaluator), RandomSplitter, Knn and the
+vector/array column functions. ROADMAP.md lists what is left.
 """
 
 from .api import AlgoOperator, Estimator, Model, Stage, Transformer
+from .functions import array_to_vector, vector_to_array
 from .linalg import DenseVector, SparseVector, Vectors
 from .pipeline import Pipeline, PipelineModel
 from .table import DictTokenMatrix, SparseBatch, StreamTable, Table
@@ -43,4 +46,6 @@ __all__ = [
     "DenseVector",
     "SparseVector",
     "Vectors",
+    "vector_to_array",
+    "array_to_vector",
 ]

@@ -8,6 +8,7 @@ validators, so saved param maps cross-load between the packages.
 from __future__ import annotations
 
 from ..param import (
+    BooleanParam,
     FloatParam,
     IntParam,
     LongParam,
@@ -342,3 +343,18 @@ class HasCategoricalCols(WithParams):
 
     def set_categorical_cols(self, *values: str):
         return self.set(self.CATEGORICAL_COLS, list(values))
+
+
+class HasFlatten(WithParams):
+    FLATTEN = BooleanParam(
+        "flatten",
+        "If false, the returned table contains only a single row of aggregate data; "
+        "otherwise one row per item.",
+        False,
+    )
+
+    def get_flatten(self) -> bool:
+        return self.get(self.FLATTEN)
+
+    def set_flatten(self, value: bool):
+        return self.set(self.FLATTEN, value)

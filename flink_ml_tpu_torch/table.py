@@ -307,17 +307,19 @@ class Table:
 
     def take(self, indices) -> "Table":
         """The rows at `indices` (host integers or an integer tensor), from
-        every column; tensor columns are indexed on their own device, so a
-        device index tensor gathers a device table with no readback."""
+        every column; tensor columns are gathered on their own device
+        (`index_select`, the indices staged there once a device), so a
+        device table is never read back."""
+        staged: Dict[Any, Any] = {}  # the indices on each device
         out = {}
         for name, col in self._columns.items():
             if isinstance(col, SparseBatch):
-                out[name] = SparseBatch(col.size, _take(col.indices, indices),
-                                        _take(col.values, indices))
+                out[name] = SparseBatch(col.size, _take(col.indices, indices, staged),
+                                        _take(col.values, indices, staged))
             elif isinstance(col, DictTokenMatrix):
-                out[name] = DictTokenMatrix(col.vocab, _take(col.ids, indices))
+                out[name] = DictTokenMatrix(col.vocab, _take(col.ids, indices, staged))
             else:
-                out[name] = _take(col, indices)
+                out[name] = _take(col, indices, staged)
         return Table(out)
 
     def concat(self, other: "Table") -> "Table":
@@ -373,12 +375,14 @@ class Table:
         return f"Table(rows={self._num_rows}, columns={self.column_names})"
 
 
-def _take(col, indices):
-    if isinstance(col, torch.Tensor):
-        return col[torch.as_tensor(indices, dtype=torch.long, device=col.device)]
-    if isinstance(indices, torch.Tensor):
-        indices = indices.cpu().numpy()
-    return col[indices]
+def _take(col, indices, staged):
+    """Rows `indices` of one column; `staged` keeps the indices by device
+    (None: the host) across the columns of one take."""
+    device = col.device if isinstance(col, torch.Tensor) else None
+    if device not in staged:
+        staged[device] = (_to_numpy(indices) if device is None else
+                          torch.as_tensor(indices, dtype=torch.long, device=device).reshape(-1))
+    return col[staged[device]] if device is None else col.index_select(0, staged[device])
 
 
 def _cat(parts):

@@ -35,10 +35,12 @@ SIZES = dict(
     DEVICE="cpu", DENSE_ROWS=40_000, DIM=8, SPARSE_ROWS=4_000, SPARSE_DIM=5_000, BATCH=1_000,
     KMEANS_ROWS=4_000, PIPELINE_ROWS=4_000, WIDE_SHAPE=(4, 50, 64), STREAM_CHUNK=3_000,
     KMEANS_CHUNK=500, STREAM_CACHE_BUDGET=1 << 30, FEATURE_ROWS=20_000, FEATURE_SMALL_ROWS=10_000,
-    FEATURE_STREAM_ROWS=20_000, FEATURE_STREAM_CHUNK=3_000, TEXT_ROWS=4_000,
+    FEATURE_STREAM_ROWS=20_000, FEATURE_STREAM_CHUNK=3_000, TEXT_ROWS=20_000,
     CV_SHAPE=(20_000, 100, 100), NGRAM_SHAPE=(20_000, 10, 10), SWR_SHAPE=(5_000, 100, 100),
     HTF_SHAPE=(2_000, 20, 1_000), IDF_SHAPE=(20_000, 10), HASHER_ROWS=20_000, REGEX_ROWS=20_000,
     TOKENIZER_ROWS=2_000, INDEXER_ROWS=20_000, HOST_REPLAY_ROWS=2_000,
+    NB_SHAPE=(20_000, 10, 5, 2), UFS_SHAPE=(40_000, 100, 10), KNN_SHAPE=(2_000, 50, 2, 5),
+    STATS_SHAPE=(20_000, 10), SPLIT_ROWS=20_000,
 )
 #: below 8 of the small stream segments, so the spill twin spills
 CACHE_BUDGET = 200 << 10

@@ -6,7 +6,10 @@
   imports jax or flink_ml_tpu;
 - chip_smoke.py fails without a card, and its CPU rehearsal runs through;
 - an entry point that was not asked for the CPU raises without a card,
-  rather than falling back to the CPU.
+  rather than falling back to the CPU; that holds for the stages whose work
+  is host work in both packages too (the chi-square test, RandomSplitter's
+  draw, NaiveBayes' host paths). `functions.py` only converts columns and
+  needs no device.
 """
 
 import ast
@@ -162,6 +165,7 @@ def _entry_points():
         ("OnlineKMeansModel.transform", lambda: online_kmeans.transform(table)),
         *_feature_entry_points(table, stream),
         *_text_entry_points(),
+        *_stats_entry_points(),
     ])
 
 
@@ -249,6 +253,42 @@ def _text_entry_points():
     return calls
 
 
+def _stats_entry_points():
+    """(name, call) of each entry point of the statistics slice, RandomSplitter
+    and Knn, on host columns; the models are fitted on the CPU first."""
+    from flink_ml_tpu_torch.models.classification.knn import Knn
+    from flink_ml_tpu_torch.models.classification.naivebayes import NaiveBayes
+    from flink_ml_tpu_torch.models.evaluation.binaryclassification import (
+        BinaryClassificationEvaluator)
+    from flink_ml_tpu_torch.models.feature.randomsplitter import RandomSplitter
+    from flink_ml_tpu_torch.models.feature.univariatefeatureselector import (
+        UnivariateFeatureSelector)
+    from flink_ml_tpu_torch.models.stats.anovatest import ANOVATest
+    from flink_ml_tpu_torch.models.stats.chisqtest import ChiSqTest
+    from flink_ml_tpu_torch.models.stats.fvaluetest import FValueTest
+
+    rng = np.random.default_rng(2)
+    table = Table({"features": rng.integers(0, 3, (40, 3)).astype(np.float64),
+                   "label": (rng.random(40) > 0.5).astype(np.float64),
+                   "rawPrediction": rng.random((40, 2))})
+    selector = UnivariateFeatureSelector().set_feature_type("continuous") \
+        .set_label_type("categorical").set_selection_threshold(2)
+    estimators = {"UnivariateFeatureSelector": selector, "NaiveBayes": NaiveBayes(), "Knn": Knn()}
+    with config.use_device("cpu"):
+        models = {name: est.fit(table) for name, est in estimators.items()}
+    transformers = {"ChiSqTest": ChiSqTest(), "ANOVATest": ANOVATest(), "FValueTest": FValueTest(),
+                    "BinaryClassificationEvaluator": BinaryClassificationEvaluator(),
+                    "RandomSplitter": RandomSplitter()}
+    calls = [(f"{name}.transform", lambda s=s: s.transform(table)) for name, s in transformers.items()]
+    for name, est in estimators.items():
+        calls.append((f"{name}.fit", lambda e=est: e.fit(table)))
+        calls.append((f"{name}Model.transform", lambda m=models[name]: m.transform(table)))
+    return calls
+
+
+STATS_TRANSFORMERS = ["ChiSqTest", "ANOVATest", "FValueTest", "BinaryClassificationEvaluator",
+                      "RandomSplitter"]
+STATS_ESTIMATORS = ["UnivariateFeatureSelector", "NaiveBayes", "Knn"]
 TEXT_TRANSFORMERS = ["FeatureHasher", "HashingTF", "NGram", "RegexTokenizer", "StopWordsRemover",
                      "Tokenizer", "IndexToStringModel"]
 TEXT_ESTIMATORS = ["CountVectorizer", "IDF", "StringIndexer"]
@@ -270,6 +310,8 @@ ENTRY_POINTS = [
     *[f"{name}.fit on a StreamTable" for name in ("KBinsDiscretizer", "RobustScaler", "Imputer")],
     *[f"{name}.transform" for name in TEXT_TRANSFORMERS],
     *[f"{name}{kind}" for name in TEXT_ESTIMATORS for kind in (".fit", "Model.transform")],
+    *[f"{name}.transform" for name in STATS_TRANSFORMERS],
+    *[f"{name}{kind}" for name in STATS_ESTIMATORS for kind in (".fit", "Model.transform")],
 ]
 
 
