@@ -116,7 +116,37 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    save -> load -> transform bit for bit, three warm calls, peak memory,
    launch counts (0), the host paths taken; then functions.py's round
    trips;
-9. a `kernels` JSON line, then the result line.
+8b. the evaluation Graph: RandomSplitter (0.8, 0.2) as a node with two
+   outputs, StopWordsRemover and HashingTF on each part, IDF fitted on the
+   train part transforming the test part, LogisticRegression (conf/
+   params) fitted on the train features transforming the test features,
+   BinaryClassificationEvaluator, and a model-data edge from the LR to a
+   twin LogisticRegressionModel on the test features, on phase 7's 1M x 100
+   ids: Graph.fit -> GraphModel.transform -> save -> load -> transform bit
+   for bit; the fit launches 22 row dots and 20 gradients, a transform 2 row
+   dots; the LR within 1e-4 of the plain-loss fit, the metrics within 1e-9
+   of the float64 oracle and 1e-6 of phase 8's, the twin's predictions
+   equal to the LR node's; warm times and a profiler pass;
+9. AgglomerativeClustering at conf/ (1000 x 100 uniform, ward, 10
+   clusters; the merge loop native/src/agglomerative.cc built at first use)
+   with twins (complete, single and average linkage, cosine, a distance
+   threshold, the full tree, count and event-time windows, a 10,000-row
+   ward run), each against the numpy merge loop exactly (but the
+   10,000-row one) and, for the four linkages, against scipy's linkage
+   (merge distances 1e-9, the flat partition); SQLTransformer at conf/
+   (100M float64 rows, ABS, exact on the card and in a numpy replay of a
+   sample) with a WHERE twin (10M rows, 1% NaN, a 100-wide vector column
+   passed through; a numpy replay of SQL's three-valued logic) and a
+   GROUP BY twin on the sqlite path (against sqlite3); MinHashLSH (5 tables
+   x 3 functions, seed 2022) on phase 3's sparse shape with 1% planted
+   near-duplicates: the coefficients against a java.util.Random replay, the
+   hashes against an int64 numpy replay, the neighbours of 10 planted keys
+   and a 10,000 x 10,000 similarity join against set replays; each through
+   fit -> transform -> save -> load -> transform bit for bit, warm calls,
+   peak memory, launch counts (0); then window_all_and_process over 1M rows
+   (count, event-time tumbling and session windows) against numpy
+   groupings;
+10. a `kernels` JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -645,6 +675,9 @@ def same_column(a, b) -> bool:
     if isinstance(a, torch.Tensor):
         return isinstance(b, torch.Tensor) and torch.equal(a, b)
     if isinstance(a, np.ndarray) and a.dtype == object:
+        if len(a) and isinstance(a[0], list) and a[0] and isinstance(a[0][0], np.ndarray):
+            # per-row lists of equal-length arrays (MinHashLSH's hashes)
+            return len(a) == len(b) and np.array_equal(np.array(a.tolist()), np.array(b.tolist()))
         return len(a) == len(b) and all(list(x) == list(y) for x, y in zip(a, b))
     return np.array_equal(a, b)
 
@@ -1452,12 +1485,12 @@ def rank_window(sorted_col, value, p, eps):
     return below - eps * n - 1 <= target <= upto + eps * n + 1
 
 
-def drive_feature(sk, name, stage, fit_table, table, tmp, out_cols, java):
+def drive_feature(sk, name, stage, fit_table, table, tmp, out_cols, java, repeats=None):
     """One stage as a user runs it (`drive`: fit an estimator, transform,
-    save, load, transform; `check_reload`: bit for bit), then
-    FEATURE_REPEATS warm fits and transforms. The launch counts are reset
-    before and read after; the peak is the card's high-water mark over the
-    run above what it held before."""
+    save, load, transform; `check_reload`: bit for bit), then `repeats`
+    (FEATURE_REPEATS unless given) warm fits and transforms. The launch
+    counts are reset before and read after; the peak is the card's
+    high-water mark over the run above what it held before."""
     from flink_ml_tpu_torch.api import Estimator
 
     t0 = time.perf_counter()
@@ -1468,8 +1501,9 @@ def drive_feature(sk, name, stage, fit_table, table, tmp, out_cols, java):
     estimator = isinstance(stage, Estimator)
     fit = (lambda: stage.fit(fit_table)) if estimator else (lambda: stage)
     run = drive(fit, table, tmp, name.replace(" ", "_"))
-    fits = [synced(fit)[1] for _ in range(FEATURE_REPEATS)] if estimator else []
-    transforms = [synced(lambda: run["model"].transform(table)[0])[1] for _ in range(FEATURE_REPEATS)]
+    repeats = FEATURE_REPEATS if repeats is None else repeats
+    fits = [synced(fit)[1] for _ in range(repeats)] if estimator else []
+    transforms = [synced(lambda: run["model"].transform(table)[0])[1] for _ in range(repeats)]
     counts = sk.launch_counts()
     high = torch.cuda.max_memory_allocated()
     check(counts == NO_LAUNCHES, f"{name} launched {counts}")
@@ -2819,6 +2853,559 @@ def stats_phase(sk, dev, tmp):
     return results
 
 
+# -- 8b. the evaluation Graph -------------------------------------------------------------
+
+GRAPH_JAVA = "org.apache.flink.ml.builder.GraphModel"
+#: a GraphModel transform scores the test features twice: the LR node and its
+#: model-data twin, one row dot each
+GRAPH_TRANSFORM_LAUNCHES = {"sparse_row_dots": 2, "sparse_grad": 0}
+#: the Graph's metrics against phase 8's evaluation path in the same run: the
+#: same split and fit, but the gradient's atomics order its float32 sums anew
+GRAPH_EVAL_TOL = 1e-6
+
+
+def eval_graph():
+    """Phase 8b's Graph: RandomSplitter (0.8, 0.2) with two outputs ->
+    StopWordsRemover and HashingTF on each part -> IDF fitted on the train
+    part, transforming the test part (a twin IDF node carries the train
+    features) -> LogisticRegression (the conf/ params) fitted on the train
+    features, transforming the test features -> BinaryClassificationEvaluator;
+    the LR's model data feeds a twin LogisticRegressionModel that scores the
+    test features again. Outputs: metrics, predictions, the twin's
+    predictions, the train features."""
+    from flink_ml_tpu_torch.graph import GraphBuilder
+    from flink_ml_tpu_torch.models.classification.logisticregression import (
+        LogisticRegression, LogisticRegressionModel)
+    from flink_ml_tpu_torch.models.evaluation.binaryclassification import (
+        BinaryClassificationEvaluator)
+    from flink_ml_tpu_torch.models.feature.randomsplitter import RandomSplitter
+
+    f = feature_module
+    b = GraphBuilder()
+    source = b.create_table_id()
+    train, test = b.add_algo_operator(
+        RandomSplitter().set_weights(*EVAL_WEIGHTS).set_seed(EVAL_SEED), source)[:2]
+
+    def term_frequencies(part):
+        words = b.add_algo_operator(f("stopwordsremover").StopWordsRemover().set_input_cols("tokens")
+                                    .set_output_cols("words"), part)[0]
+        return b.add_algo_operator(f("hashingtf").HashingTF().set_input_col("words")
+                                   .set_output_col("tf"), words)[0]
+
+    tf_train, tf_test = term_frequencies(train), term_frequencies(test)
+    feats_test = b.add_estimator(f("idf").IDF().set_input_col("tf").set_output_col("features"),
+                                 [tf_train], [tf_test])[0]
+    feats_train = b.add_estimator(f("idf").IDF().set_input_col("tf").set_output_col("features"),
+                                  [tf_train], [tf_train])[0]
+    lr = estimator(LogisticRegression)
+    pred = b.add_estimator(lr, [feats_train], [feats_test])[0]
+    twin = LogisticRegressionModel()
+    b.set_model_data_on_model(twin, b.get_model_data_from_estimator(lr)[0])
+    twin_pred = b.add_algo_operator(twin, feats_test)[0]
+    metrics = b.add_algo_operator(
+        BinaryClassificationEvaluator().set_metrics_names(*EVAL_METRICS), pred)[0]
+    return b.build_estimator([source], [metrics, pred, twin_pred, feats_train])
+
+
+def graph_lr(model):
+    """The fitted LR of the evaluation GraphModel (the estimator node's)."""
+    return next(n.stage for n in model.nodes
+                if n.estimator_input_ids is not None and hasattr(n.stage, "coefficient"))
+
+
+def graph_path(sk, dev, tmp, eval_metrics):
+    """Phase 8b: the evaluation Graph, Graph.fit -> GraphModel.transform ->
+    save -> load -> transform, with the launch counts reset before the fit
+    and read after it, and again around one transform; its gates, warm
+    times and a profiler pass."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.graph import GraphModel
+    from flink_ml_tpu_torch.models.evaluation.binaryclassification import binary_metrics
+
+    t0 = time.perf_counter()
+    table = text_corpus(TEXT_ROWS, dev)
+    graph = eval_graph()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    model, fit_ms = synced(lambda: graph.fit(table))
+    counts = sk.launch_counts()
+    sk.reset_launch_counts()
+    (metrics_t, pred, twin, feats), transform_ms = synced(lambda: model.transform(table))
+    transform_counts = sk.launch_counts()
+    path = os.path.join(tmp, "graph")
+    model.save(path)
+    with open(os.path.join(path, "metadata")) as fh:
+        class_name = json.load(fh)["className"]
+    again = GraphModel.load(path).transform(table)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    metrics = {k: float(v) for k, v in metrics_t.collect()[0].items()}
+    log(f"  graph path: fit {fit_ms:.1f} ms, transform {transform_ms:.1f} ms (first calls; "
+        f"{pred.num_rows} test rows); launches: fit {counts}, a transform {transform_counts}; "
+        f"peak {peak:.3f} GiB above the {held / 2**30:.2f} GiB held")
+    check(counts == TEXT_LAUNCHES, f"graph fit launched {counts}, expected {TEXT_LAUNCHES} (20 epochs, "
+          f"a row dot for the LR node's transform and one for its model-data twin's)")
+    check(transform_counts == GRAPH_TRANSFORM_LAUNCHES,
+          f"a GraphModel transform launched {transform_counts}, expected {GRAPH_TRANSFORM_LAUNCHES}")
+    check(class_name == GRAPH_JAVA, f"graph model saved as {class_name}")
+    for name in ("prediction", "rawPrediction"):
+        check(same_column(twin.column(name), pred.column(name)),
+              f"graph twin {name} differs from the LR node's")
+        check(same_column(again[1].column(name), pred.column(name))
+              and same_column(again[2].column(name), twin.column(name)),
+              f"graph {name} differs after save/load")
+    check({k: float(v) for k, v in again[0].collect()[0].items()} == metrics,
+          "graph metrics differ after save/load")
+    # the LR on the train features against the same fit on the plain loss
+    lr = graph_lr(model)
+    f = feats.column("features")
+    train_out = lr.transform(Table({"features": f}))[0]
+    check_sparse_linear("lr", {"model": lr, "out": train_out}, f.indices, f.values,
+                        feats.column("label"), dim=f.size)
+    scores = pred.column("rawPrediction")[:, 1].double().cpu().numpy()
+    labels = pred.column("label").double().cpu().numpy()
+    oracle = binary_metrics(scores, labels, np.ones_like(labels))
+    metric_err = max(abs(metrics[k] - oracle[k]) for k in EVAL_METRICS)
+    eval_err = max(abs(metrics[k] - eval_metrics[k]) for k in EVAL_METRICS)
+    log(f"  graph metrics {json.dumps(metrics)}; max |port - float64 oracle| {metric_err:.3g}; max "
+        f"|graph - phase 8 eval path| {eval_err:.3g}")
+    check(metric_err <= METRIC_TOL, f"graph metrics differ from the float64 oracle by {metric_err}")
+    check(eval_err <= GRAPH_EVAL_TOL, f"graph metrics differ from the eval path's by {eval_err}")
+    check(metrics["areaUnderROC"] > EVAL_AUC, f"graph held-out AUC {metrics['areaUnderROC']}")
+    fits = [synced(lambda: graph.fit(table))[1] for _ in range(EVAL_REPEATS)]
+    transforms = [synced(lambda: model.transform(table))[1] for _ in range(EVAL_REPEATS)]
+    log(f"  graph path warm: fit median {float(np.median(fits)):.3f} ms (runs "
+        f"{[round(t, 3) for t in fits]}), transform median {float(np.median(transforms)):.3f} ms "
+        f"(runs {[round(t, 3) for t in transforms]})")
+    profile_run("graph fit", lambda: graph.fit(table))
+    profile_run("graph transform", lambda: model.transform(table))
+    return {"fit_ms": fit_ms, "transform_ms": transform_ms, "warm_fit_ms": float(np.median(fits)),
+            "warm_transform_ms": float(np.median(transforms)), "fit_runs": fits,
+            "transform_runs": transforms, "launches": counts, "transform_launches": transform_counts,
+            "metrics": metrics, "metric_err": metric_err, "eval_path_err": eval_err,
+            "peak_gib": peak, "test_rows": pred.num_rows, "seconds": time.perf_counter() - t0}
+
+
+# -- 9. AgglomerativeClustering, SQLTransformer, MinHashLSH and the windows ------------------
+
+AGG_SHAPE = (1_000, 100, 10)  # conf/agglomerativeclustering: rows, vectorDim, numClusters; seed 2
+#: the ward twin that shows the host scale; 5,000 rows, not 10,000: at
+#: 10,000 a transform took 19.9 s on the host of an H100 machine (PERF.md)
+AGG_BIG_ROWS = 5_000
+AGG_COUNT_WINDOW = 100
+AGG_EVENT_SPAN_MS, AGG_EVENT_WINDOW_MS = 10_000, 1_000  # timestamps in [0, span), 10 windows
+AGG_THRESHOLD = 3.5  # the distanceThreshold twin (average linkage)
+AGG_JAVA = "org.apache.flink.ml.clustering.agglomerativeclustering.AgglomerativeClustering"
+#: the merge distances against scipy's linkage, relative to the largest
+SCIPY_REL_TOL = 1e-9
+SQL_ROWS = 100_000_000  # conf/sqltransformer: one float64 column, seed 2
+SQL_STATEMENT = "SELECT *, ABS(v1) AS v2 FROM __THIS__"  # conf/sqltransformer
+SQL_WHERE_SHAPE = (10_000_000, 100)  # the WHERE twin: rows, width of the vector column passed through
+SQL_WHERE = "SELECT vec, v1, ABS(v1) * 2 AS a FROM __THIS__ WHERE v1 > -0.25 AND NOT v1 > 0.4"
+SQL_GROUP_ROWS, SQL_GROUPS = 100_000, 100
+SQL_GROUP_BY = "SELECT g, SUM(v) AS s, COUNT(*) AS c FROM __THIS__ GROUP BY g"
+SQL_SAMPLE_ROWS = 200_000  # the numpy replay of the conf/ statement: a strided sample
+#: MinHashLSH: the reference's own test params (MinHashLSHTest.java), phase
+#: 3's sparse shape, 1% of the rows planted as near-duplicates of others
+LSH_TABLES, LSH_FUNCTIONS, LSH_SEED = 5, 3, 2022
+LSH_ROWS, LSH_CHANGED = 1_000_000, 3  # rows; slots of a planted twin drawn anew
+LSH_KEYS, LSH_K = 10, 10
+LSH_JOIN_ROWS, LSH_THRESHOLD = 10_000, 0.6
+HASH_PRIME = 2038074743
+#: window_all_and_process over a 1M-row table: timestamps in [0, 10 x rows) ms
+WINDOW_ROWS = 1_000_000
+WINDOW_COUNT, WINDOW_TUMBLE_MS, WINDOW_GAP_MS = 1_000, 10_000, 60
+
+
+def java_random_ints(seed, bound, count):
+    """`count` draws of java.util.Random(seed).nextInt(bound) (the 48-bit
+    LCG of its specification; bound not a power of two)."""
+    mult, mask = 0x5DEECE66D, (1 << 48) - 1
+    state, out = (seed ^ mult) & mask, []
+    while len(out) < count:
+        state = (state * mult + 0xB) & mask
+        bits = state >> 17
+        val = bits % bound
+        if bits - val + (bound - 1) < (1 << 31):
+            out.append(val)
+    return out
+
+
+def min_hash64(idx, a, b):
+    """int64 numpy min-hash of padded index rows: min over a row's indices of
+    ((1 + index) * a + b) % HASH_PRIME, HASH_PRIME for a row of padding."""
+    idx = idx.astype(np.int64)[:, :, None]
+    vals = ((1 + idx) * a + b) % HASH_PRIME
+    return np.where(idx >= 0, vals, HASH_PRIME).min(axis=1)
+
+
+def min_hash_per_function(idx, a, b):
+    """The same hash on the card, one function at a time (the plain version
+    of the port's broadcast over functions), in int64."""
+    idx = idx.long()
+    cols = [torch.where(idx >= 0, ((1 + idx) * int(ai) + int(bi)) % HASH_PRIME, HASH_PRIME).amin(dim=1)
+            for ai, bi in zip(a, b)]
+    return torch.stack(cols, dim=1)
+
+
+def jaccard(a, b):
+    a, b = set(a.tolist()), set(b.tolist())
+    return 1.0 - len(a & b) / len(a | b)
+
+
+def agg_against_plain(stage, table):
+    """The stage's transform with each native merge loop's input kept, then
+    the numpy merge loop (the plain version) on each kept input. Returns
+    the transform's output, the number of loops run and the first that
+    disagrees (None when all agree)."""
+    from flink_ml_tpu_torch.models.clustering import agglomerativeclustering as agg
+
+    native, calls = agg.cluster_block_native, []
+
+    def keeping(dist, *args):
+        kept = dist.copy()
+        result = native(dist, *args)
+        calls.append((kept, args, result))
+        return result
+
+    agg.cluster_block_native = keeping
+    try:
+        out = stage.transform(table)
+    finally:
+        agg.cluster_block_native = native
+    for c, (kept, args, (pred, merges)) in enumerate(calls):
+        want_pred, want_merges = agg.cluster_block_plain(kept, *args)
+        if not np.array_equal(pred, want_pred) or merges != want_merges:
+            first = next((m for m, (a, b) in enumerate(zip(merges, want_merges)) if a != b), None)
+            return out, len(calls), {"loop": c, "merge": first, "native": merges[first:first + 2]
+                                     if first is not None else None,
+                                     "plain": want_merges[first:first + 2] if first is not None
+                                     else None, "predictions_equal": bool(np.array_equal(
+                                         pred, want_pred))}
+    return out, len(calls), None
+
+
+def merge_log(merges):
+    return [tuple(np.asarray(merges.column(c)).tolist()) for c in merges.column_names]
+
+
+def scipy_check(X64, linkage, k, distances, pred):
+    """The merge distances against scipy.cluster.hierarchy.linkage (sorted,
+    relative to the largest) and the flat partition at k clusters (equal up
+    to relabelling)."""
+    from scipy.cluster.hierarchy import fcluster
+    from scipy.cluster.hierarchy import linkage as scipy_linkage
+
+    n = X64.shape[0]
+    Z = scipy_linkage(X64, method=linkage, metric="euclidean")
+    got = np.sort(np.asarray(distances, np.float64))
+    want = np.sort(Z[: got.size, 2])  # the first merges: numClusters, or the full tree
+    rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want))) if n > k else 0.0
+    labels = fcluster(Z, k, criterion="maxclust")
+    pred = np.asarray(pred)
+    pairs = set(zip(pred.tolist(), labels.tolist()))
+    same = len(pairs) == len(set(pred.tolist())) == len(set(labels.tolist()))
+    check(got.size in (n - k, n - 1) and rel <= SCIPY_REL_TOL,
+          f"{linkage} merge distances differ from scipy's by {rel}")
+    check(same, f"{linkage} partition at {k} clusters differs from scipy's fcluster")
+    return rel
+
+
+def slice8_specs(dev):
+    """name -> a function that makes (stage, fit table, transform table,
+    output columns, the Java class it saves as, the check of its run, the
+    warm repeats) for each stage of phase 9, on data born on the card."""
+    from flink_ml_tpu_torch import SparseBatch, Table
+    from flink_ml_tpu_torch.common import window
+    from flink_ml_tpu_torch.models.clustering import agglomerativeclustering as agg
+    from flink_ml_tpu_torch.models.feature import lsh, sqltransformer
+
+    def agg_spec(linkage="ward", measure="euclidean", rows=None, threshold=None, full_tree=False,
+                 windows=None, plain=True):
+        def make():
+            n, d, k = AGG_SHAPE
+            n = rows or n
+            X = torch.rand((n, d), generator=seeded(CONF_SEED, dev), device=dev, dtype=torch.float64)
+            cols = {"features": X}
+            if isinstance(windows, window.EventTimeTumblingWindows):
+                cols["timestamp"] = torch.randint(0, AGG_EVENT_SPAN_MS, (n,),
+                                                  generator=seeded(CONF_SEED + 1, dev), device=dev)
+            table = Table(cols)
+            stage = agg.AgglomerativeClustering().set_linkage(linkage).set_distance_measure(measure) \
+                .set_num_clusters(k).set_compute_full_tree(full_tree)
+            if threshold is not None:
+                stage.set_distance_threshold(threshold)
+            if windows is not None:
+                stage.set_windows(windows)
+
+            def verify(run):
+                Xh = X.cpu().numpy()
+                if plain:
+                    (out, merges), loops, differs = agg_against_plain(stage, table)
+                    check(differs is None, "agglomerativeclustering's native merge loop differs "
+                          f"from the numpy loop on the same distances: {differs}")
+                    again = stage.transform(table)
+                    pred, distances = out.column("prediction").cpu().numpy(), merges.column("distance")
+                    result = {"plain_exact": True, "loops": loops, "merges": merges.num_rows,
+                              "repeats": torch.equal(again[0].column("prediction"), out.column(
+                                  "prediction")) and merge_log(again[1]) == merge_log(merges)}
+                else:  # the transform's two host parts, timed apart
+                    t0 = time.perf_counter()
+                    dist = agg.distance_matrix(Xh, measure)
+                    t1 = time.perf_counter()
+                    pred, log_rows = agg.cluster_block_native(dist, linkage, k, None, False)
+                    t2 = time.perf_counter()
+                    check(np.array_equal(pred, run["out"].column("prediction").cpu().numpy()),
+                          "agglomerativeclustering predictions differ from its merge loop's")
+                    distances = [m[2] for m in log_rows]
+                    result = {"merges": len(log_rows), "pairwise_ms": (t1 - t0) * 1e3,
+                              "loop_ms": (t2 - t1) * 1e3}
+                result["clusters"] = int(np.unique(pred).size)
+                if windows is None and threshold is None and measure == "euclidean":
+                    result["scipy_rel_err"] = scipy_check(Xh, linkage, k, distances, pred)
+                log(f"    agglomerativeclustering {linkage}/{measure}: {result}")
+                return result
+            return stage, table, table, ("prediction",), AGG_JAVA, verify, \
+                1 if rows else FEATURE_REPEATS
+        return make
+
+    def sql_conf():
+        v1 = torch.rand(SQL_ROWS, generator=seeded(CONF_SEED, dev), device=dev, dtype=torch.float64)
+        table = Table({"v1": v1})
+        stage = sqltransformer.SQLTransformer().set_statement(SQL_STATEMENT)
+
+        def verify(run):
+            v2 = run["out"].column("v2")
+            check(run["out"].column_names == ["v1", "v2"] and run["out"].column("v1") is v1,
+                  "sqltransformer output columns")
+            check(torch.equal(v2, v1.abs()), "sqltransformer v2 differs from |v1| on the card")
+            rows = torch.arange(0, SQL_ROWS, max(1, SQL_ROWS // SQL_SAMPLE_ROWS), device=dev)
+            check(np.array_equal(v2[rows].cpu().numpy(), np.abs(v1[rows].cpu().numpy())),
+                  "sqltransformer v2 differs from the numpy replay")
+            return {"exact": True, "sample_rows": int(rows.numel())}
+        return stage, table, table, ("v1", "v2"), FEATURE_JAVA + "sqltransformer.SQLTransformer", \
+            verify, FEATURE_REPEATS
+
+    def sql_where():
+        rows, width = SQL_WHERE_SHAPE
+        gen = seeded(CONF_SEED, dev)
+        v1 = torch.rand(rows, generator=gen, device=dev, dtype=torch.float64) - 0.5
+        v1[torch.rand(rows, generator=gen, device=dev) < NAN_SHARE] = float("nan")
+        vec = torch.rand((rows, width), generator=gen, device=dev)
+        table = Table({"vec": vec, "v1": v1})
+        stage = sqltransformer.SQLTransformer().set_statement(SQL_WHERE)
+
+        def verify(run):
+            out = run["out"]
+            x = v1.cpu().numpy()
+            with np.errstate(invalid="ignore"):
+                keep = (x > -0.25) & ~(x > 0.4) & ~np.isnan(x)  # SQL's NULL: a NaN row drops
+            sel = torch.as_tensor(np.flatnonzero(keep), device=dev)
+            check(out.num_rows == int(keep.sum()), f"sqltransformer WHERE kept {out.num_rows} rows")
+            check(np.array_equal(out.column("v1").cpu().numpy(), x[keep])
+                  and np.array_equal(out.column("a").cpu().numpy(), np.abs(x[keep]) * 2)
+                  and torch.equal(out.column("vec"), vec[sel]),
+                  "sqltransformer WHERE differs from the numpy Kleene replay")
+            return {"exact": True, "kept": out.num_rows, "nan_rows": int(np.isnan(x).sum())}
+        return stage, table, table, ("vec", "v1", "a"), \
+            FEATURE_JAVA + "sqltransformer.SQLTransformer", verify, FEATURE_REPEATS
+
+    def sql_group_by():
+        import sqlite3
+
+        gen = seeded(CONF_SEED, dev)
+        g = torch.randint(0, SQL_GROUPS, (SQL_GROUP_ROWS,), generator=gen, device=dev)
+        v = torch.rand(SQL_GROUP_ROWS, generator=gen, device=dev, dtype=torch.float64)
+        table = Table({"g": g, "v": v})
+        stage = sqltransformer.SQLTransformer().set_statement(SQL_GROUP_BY)
+
+        def verify(run):
+            conn = sqlite3.connect(":memory:")
+            conn.execute('CREATE TABLE __this__ ("g", "v")')
+            conn.executemany('INSERT INTO __this__ ("g", "v") VALUES (?, ?)',
+                             zip(g.cpu().tolist(), v.cpu().tolist()))
+            want = conn.execute(SQL_GROUP_BY.replace("__THIS__", "__this__")).fetchall()
+            conn.close()
+            out = run["out"]
+            got = list(zip(*[np.asarray(out.column(c)).tolist() for c in ("g", "s", "c")]))
+            check(got == [tuple(r) for r in want], "sqltransformer GROUP BY differs from sqlite3's")
+            return {"exact": True, "groups": len(got)}
+        return stage, table, table, ("g", "s", "c"), FEATURE_JAVA + "sqltransformer.SQLTransformer", \
+            verify, FEATURE_REPEATS
+
+    def minhash():
+        from flink_ml_tpu_torch import Vectors
+
+        rows = LSH_ROWS
+        planted = rows // 100
+        gen = seeded(5, dev)  # phase 3's sparse rows
+        idx = torch.randint(0, SPARSE_DIM, (rows, NNZ), generator=gen, device=dev, dtype=torch.int32)
+        vals = torch.rand((rows, NNZ), generator=gen, device=dev)
+        # the last 1% of the rows: twins of the first 1% with LSH_CHANGED slots drawn anew
+        twins = idx[:planted].clone()
+        twins[:, :LSH_CHANGED] = torch.randint(0, SPARSE_DIM, (planted, LSH_CHANGED), generator=gen,
+                                               device=dev, dtype=torch.int32)
+        idx[rows - planted:] = twins
+        table = Table({"id": torch.arange(rows, device=dev), "features": SparseBatch(SPARSE_DIM, idx, vals)})
+        stage = lsh.MinHashLSH().set_input_col("features").set_output_col("hashes") \
+            .set_num_hash_tables(LSH_TABLES).set_num_hash_functions_per_table(LSH_FUNCTIONS) \
+            .set_seed(LSH_SEED)
+
+        def verify(run):
+            model = run["model"]
+            fns = LSH_TABLES * LSH_FUNCTIONS
+            draws = java_random_ints(LSH_SEED, HASH_PRIME - 1, 2 * fns)
+            a, b = np.asarray(draws[0::2], np.int64) + 1, np.asarray(draws[1::2], np.int64)
+            check(np.array_equal(model.rand_coefficient_a, a)
+                  and np.array_equal(model.rand_coefficient_b, b),
+                  "minhashlsh coefficients differ from the java.util.Random replay")
+            replay_rows = min(HOST_REPLAY_ROWS, rows)
+            host_idx = idx[:replay_rows].cpu().numpy()
+            got = np.array(run["out"].column("hashes")[:replay_rows].tolist())
+            want = min_hash64(host_idx, a, b).reshape(replay_rows, LSH_TABLES, LSH_FUNCTIONS)
+            check(got.dtype == np.float64 and np.array_equal(got, want.astype(np.float64)),
+                  "minhashlsh hashes differ from the int64 numpy replay")
+            # nearest neighbours of planted keys: candidates by the per-function
+            # hash on the card, distances by sets, the stable order
+            every = min_hash_per_function(idx, a, b).reshape(rows, LSH_TABLES, LSH_FUNCTIONS)
+            found_twins, neighbours = 0, []
+            for r in range(LSH_KEYS):
+                keep = np.unique(host_idx[r][host_idx[r] >= 0])
+                key = Vectors.sparse(SPARSE_DIM, keep, np.ones(keep.size))
+                res = model.approx_nearest_neighbors(table, key, LSH_K)
+                kh = torch.as_tensor(min_hash64(keep[None, :], a, b), device=dev).reshape(
+                    1, LSH_TABLES, LSH_FUNCTIONS)
+                cand = torch.nonzero((every == kh).all(dim=2).any(dim=1)).flatten().cpu().numpy()
+                cand_idx = idx[torch.as_tensor(cand, device=dev)].cpu().numpy()
+                dists = [jaccard(row[row >= 0], keep) for row in cand_idx]
+                order = np.argsort(dists, kind="stable")[:LSH_K]
+                check(np.array_equal(res.column("id").cpu().numpy(), cand[order])
+                      and np.array_equal(res.column("distCol"), np.asarray(dists)[order]),
+                      f"minhashlsh neighbours of row {r} differ from the replay")
+                found_twins += int(rows - planted + r in cand[order].tolist())
+                neighbours.append(len(cand))
+            # the similarity join of the first rows with their planted twins
+            m = min(LSH_JOIN_ROWS, planted)
+            A = table.take(np.arange(m))
+            B = table.take(np.arange(rows - planted, rows - planted + m))
+            joined = model.approx_similarity_join(A, B, LSH_THRESHOLD, "id")
+            a_idx = idx[:m].cpu().numpy()
+            b_idx = idx[rows - planted: rows - planted + m].cpu().numpy()
+            ha, hb = min_hash64(a_idx, a, b), min_hash64(b_idx, a, b)
+            buckets, pairs = {}, set()
+            for i in range(m):
+                for t in range(LSH_TABLES):
+                    buckets.setdefault((t, tuple(ha[i, t * LSH_FUNCTIONS:(t + 1) * LSH_FUNCTIONS])),
+                                       []).append(i)
+            for j in range(m):
+                for t in range(LSH_TABLES):
+                    for i in buckets.get((t, tuple(hb[j, t * LSH_FUNCTIONS:(t + 1) * LSH_FUNCTIONS])), ()):
+                        pairs.add((i, j))
+            want_rows = []
+            for i, j in sorted(pairs):
+                d = jaccard(a_idx[i][a_idx[i] >= 0], b_idx[j][b_idx[j] >= 0])
+                if d <= LSH_THRESHOLD:
+                    want_rows.append((i, rows - planted + j, d))
+            got_rows = list(zip(np.asarray(joined.column("idA")).tolist(),
+                                np.asarray(joined.column("idB")).tolist(),
+                                np.asarray(joined.column("distCol")).tolist()))
+            check(got_rows == want_rows, "minhashlsh similarity join differs from the set replay")
+            twins_joined = sum(1 for i, j, _ in got_rows if j - (rows - planted) == i)
+            log(f"    minhashlsh: coefficients and {replay_rows} rows of hashes exact; {LSH_KEYS} keys "
+                f"with {neighbours} candidates, {found_twins} planted twins among their neighbours; "
+                f"join of {m} x {m} rows: {len(got_rows)} pairs, {twins_joined} planted twins")
+            check(twins_joined >= 0.9 * m, f"minhashlsh join found {twins_joined} of {m} planted twins")
+            return {"exact": True, "candidates": neighbours, "twins_found": found_twins,
+                    "join_pairs": len(got_rows), "twins_joined": twins_joined}
+        return stage, table, table, ("hashes",), FEATURE_JAVA + "lsh.MinHashLSHModel", verify, 1
+
+    return {
+        "agglomerativeclustering": agg_spec(),
+        "agglomerativeclustering complete": agg_spec("complete"),
+        "agglomerativeclustering single": agg_spec("single"),
+        "agglomerativeclustering average": agg_spec("average"),
+        "agglomerativeclustering cosine average": agg_spec("average", "cosine"),
+        "agglomerativeclustering distanceThreshold": agg_spec("average", threshold=AGG_THRESHOLD),
+        "agglomerativeclustering computeFullTree": agg_spec(full_tree=True),
+        "agglomerativeclustering count windows": agg_spec(
+            windows=window.CountTumblingWindows.of(AGG_COUNT_WINDOW)),
+        "agglomerativeclustering event-time windows": agg_spec(
+            windows=window.EventTimeTumblingWindows.of(AGG_EVENT_WINDOW_MS)),
+        "agglomerativeclustering ward big": agg_spec(rows=AGG_BIG_ROWS, plain=False),
+        "sqltransformer": sql_conf,
+        "sqltransformer where": sql_where,
+        "sqltransformer group by": sql_group_by,
+        "minhashlsh": minhash,
+    }
+
+
+def windows_check(dev):
+    """window_all_and_process over a WINDOW_ROWS-row table on the card with
+    count, event-time tumbling and session windows, each window's row count
+    and first and last row ids against numpy groupings of the timestamps."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.common import window
+    from flink_ml_tpu_torch.utils.datastream import window_all_and_process
+
+    rows = WINDOW_ROWS
+    gen = seeded(CONF_SEED, dev)
+    ts = torch.randint(0, 10 * rows, (rows,), generator=gen, device=dev)
+    table = Table({"id": torch.arange(rows, device=dev), "timestamp": ts,
+                   "x": torch.rand(rows, generator=gen, device=dev)})
+
+    def summary(w):
+        ids = w.column("id")
+        return Table({"n": np.array([w.num_rows]), "first": ids[:1], "last": ids[-1:]})
+
+    host_ts = ts.cpu().numpy()
+    starts = host_ts - host_ts % WINDOW_TUMBLE_MS
+    order = np.argsort(starts, kind="stable")
+    bounds = np.flatnonzero(np.diff(starts[order])) + 1
+    tumbling = np.split(order, bounds)
+    order = np.argsort(host_ts, kind="stable")
+    sessions = [np.sort(g) for g in np.split(order, np.flatnonzero(np.diff(host_ts[order]) >
+                                                                  WINDOW_GAP_MS) + 1)]
+    count = [np.arange(s, s + WINDOW_COUNT) for s in range(0, rows - WINDOW_COUNT + 1, WINDOW_COUNT)]
+    result = {}
+    for name, windows, groups in (
+            ("count", window.CountTumblingWindows.of(WINDOW_COUNT), count),
+            ("event tumbling", window.EventTimeTumblingWindows.of(WINDOW_TUMBLE_MS), tumbling),
+            ("event session", window.EventTimeSessionWindows.with_gap(WINDOW_GAP_MS), sessions)):
+        out, ms = synced(lambda: window_all_and_process(table, windows, summary))
+        got = (np.asarray(out.column("n")).tolist(), out.column("first").cpu().tolist(),
+               out.column("last").cpu().tolist())
+        want = ([g.size for g in groups], [int(g[0]) for g in groups], [int(g[-1]) for g in groups])
+        check(got == want, f"window_all_and_process {name} windows differ from the numpy groupings")
+        result[name] = {"windows": len(groups), "ms": ms}
+    log(f"  window_all_and_process over {rows} rows: {json.dumps(result)}")
+    return result
+
+
+def slice8_phase(sk, dev, tmp):
+    """Phase 9: each stage at its shape (drive_feature, then its replay),
+    then window_all_and_process."""
+    results = {}
+    for name, make in slice8_specs(dev).items():
+        t0 = time.perf_counter()
+        stage, fit_table, table, out_cols, java, verify, repeats = make()
+        run = drive_feature(sk, name, stage, fit_table, table, tmp, out_cols, java, repeats)
+        checks = verify(run)
+        seconds = time.perf_counter() - t0
+        log(f"    {name} checks: {checks}; {seconds:.2f} s")
+        results[name] = {k: run[k] for k in ("fit_ms", "transform_ms", "warm_fit_ms", "warm_transform_ms",
+                                              "fit_runs", "transform_runs", "peak_gib", "high_water_gib",
+                                              "launches")}
+        results[name].update(checks=checks, seconds=seconds)
+        del stage, fit_table, table, verify, run
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results["window_all_and_process"] = windows_check(dev)
+    results["window_all_and_process"]["seconds"] = time.perf_counter() - t0
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; the port's kernels run only on the card",
@@ -3049,7 +3636,34 @@ def main() -> int:
     for kernel in launches:
         launches[kernel] += eval_run["launches"][kernel]
 
-    # -- 9. output -----------------------------------------------------------
+    # -- 8b. the evaluation Graph ---------------------------------------------------------
+    log("phase 8b: the evaluation Graph: RandomSplitter -> StopWordsRemover -> HashingTF -> IDF "
+        "(fitted on the train part, transforming the test part) -> LogisticRegression -> "
+        "BinaryClassificationEvaluator, with a model-data twin (launch counts reset before and "
+        "read after the fit, and around one transform)")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        graph_run = graph_path(sk, dev, tmp, eval_run["metrics"])
+    path_s["graph path"] = graph_run["seconds"]
+    for kernel in launches:
+        launches[kernel] += graph_run["launches"][kernel]
+
+    # -- 9. AgglomerativeClustering, SQLTransformer, MinHashLSH, the windows ---------------
+    log("phase 9: AgglomerativeClustering, SQLTransformer and MinHashLSH at their shapes, then "
+        "window_all_and_process (launch counts reset before and read after each)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        slice8 = slice8_phase(sk, dev, tmp)
+    phase9_s = time.perf_counter() - t0
+    windows_run = slice8.pop("window_all_and_process")
+    high_water = max([high_water] + [r["high_water_gib"] for r in slice8.values()])
+    for name, r in slice8.items():
+        path_s[name] = r["seconds"]
+    path_s["window_all_and_process"] = windows_run["seconds"]
+    log(f"  phase 9 took {phase9_s:.2f} s")
+
+    # -- 10. output -----------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
         "sparse_grad": "flink_ml_tpu/ops/sparsekernels.py:107",
@@ -3065,9 +3679,11 @@ def main() -> int:
             "launches_by_path": {**{p: r["launches"][name] for p, r in runs.items()
                                     if r["launches"][name]},
                                  "text": text_run["launches"][name],
-                                 "eval": eval_run["launches"][name]},
-            "launches_by_feature_path": {p: r["launches"][name]
-                                         for p, r in {**features, **texts, **stat_stages}.items()},
+                                 "eval": eval_run["launches"][name],
+                                 "graph": graph_run["launches"][name],
+                                 "graph transform": graph_run["transform_launches"][name]},
+            "launches_by_feature_path": {p: r["launches"][name] for p, r in
+                                         {**features, **texts, **stat_stages, **slice8}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_rel_err": max(r["max_rel_err"] for r in rows),
             "tolerance": ROW_DOTS_TOL if name == "sparse_row_dots" else GRAD_TOL,
@@ -3087,7 +3703,9 @@ def main() -> int:
     log("text stages: " + json.dumps(texts))
     log("eval path: " + json.dumps(eval_run))
     log("stats stages: " + json.dumps(stat_stages) + "; functions: " + json.dumps(functions))
-    log("seconds by path (phases 3-8): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("graph path: " + json.dumps(graph_run))
+    log("phase 9 stages: " + json.dumps(slice8) + "; window_all_and_process: " + json.dumps(windows_run))
+    log("seconds by path (phases 3-9): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")

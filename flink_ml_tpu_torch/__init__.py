@@ -19,13 +19,15 @@ and token stages (Tokenizer, RegexTokenizer, StopWordsRemover, NGram,
 HashingTF, CountVectorizer, IDF, StringIndexer, FeatureHasher) on
 dictionary-encoded token columns (DictTokenMatrix), the statistics
 slice (ChiSqTest, ANOVATest, FValueTest, UnivariateFeatureSelector,
-NaiveBayes, BinaryClassificationEvaluator), RandomSplitter, Knn and the
-vector/array column functions. ROADMAP.md lists what is left.
+NaiveBayes, BinaryClassificationEvaluator), RandomSplitter, Knn, the
+vector/array column functions, AgglomerativeClustering (with the window
+descriptors and the windowed stream helpers), MinHashLSH, SQLTransformer
+and Graph/GraphModel (`graph.py`). ROADMAP.md lists what is left.
 """
 
 from .api import AlgoOperator, Estimator, Model, Stage, Transformer
 from .functions import array_to_vector, vector_to_array
-from .linalg import DenseVector, SparseVector, Vectors
+from .linalg import DenseMatrix, DenseVector, SparseVector, Vectors
 from .pipeline import Pipeline, PipelineModel
 from .table import DictTokenMatrix, SparseBatch, StreamTable, Table
 
@@ -43,6 +45,7 @@ __all__ = [
     "StreamTable",
     "SparseBatch",
     "DictTokenMatrix",
+    "DenseMatrix",
     "DenseVector",
     "SparseVector",
     "Vectors",

@@ -15,8 +15,10 @@ from ..param import (
     ParamValidators,
     StringArrayParam,
     StringParam,
+    WindowsParam,
     WithParams,
 )
+from .window import GlobalWindows
 
 
 class HasRelativeError(WithParams):
@@ -358,3 +360,17 @@ class HasFlatten(WithParams):
 
     def set_flatten(self, value: bool):
         return self.set(self.FLATTEN, value)
+
+
+class HasWindows(WithParams):
+    WINDOWS = WindowsParam(
+        "windows",
+        "Windowing strategy that determines how to create mini-batches from input data.",
+        GlobalWindows(),
+    )
+
+    def get_windows(self):
+        return self.get(self.WINDOWS)
+
+    def set_windows(self, value):
+        return self.set(self.WINDOWS, value)

@@ -12,10 +12,15 @@ at first use, and rebuilt when the source is newer than the library:
   defines it, so without it a compiler that has `std::to_chars` for
   doubles still takes the fallback that probes `snprintf` at up to 17
   precisions a value (both give the shortest round-trip digits; the
-  fallback is about 50 times slower).
+  fallback is about 50 times slower);
+- `agglomerative.cc`, AgglomerativeClustering's merge loop
+  (`load_agglomerative`), built with `-ffp-contract=off` as the JAX
+  package builds it: a fused multiply-add would move a Lance-Williams
+  distance by an ulp and reorder ties, and the loop must repeat the numpy
+  loop's arithmetic.
 
 A failed build raises with the compiler's output: the port has no silent
-pure-Python fallback. `agglomerative.cc` comes with the stage that uses it.
+pure-Python fallback.
 """
 
 from __future__ import annotations
@@ -34,6 +39,9 @@ GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 HASH_SOURCE = _PKG.parent / "native" / "src" / "hashkernels.cc"
 HASH_LIBRARY = _PKG / "_build" / "libhashkernels.so"
 HASH_GXX_FLAGS = GXX_FLAGS + ("-ffp-contract=off", "-include", "version")
+AGG_SOURCE = _PKG.parent / "native" / "src" / "agglomerative.cc"
+AGG_LIBRARY = _PKG / "_build" / "libagglomerative.so"
+AGG_GXX_FLAGS = GXX_FLAGS + ("-ffp-contract=off",)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -93,6 +101,12 @@ def _declare_hashkernels(lib: ctypes.CDLL) -> None:
     lib.fh_combine.argtypes = [p, p, long_, long_, p, p]
 
 
+def _declare_agglomerative(lib: ctypes.CDLL) -> None:
+    p, long_, int_ = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+    lib.agg_cluster.restype = long_
+    lib.agg_cluster.argtypes = [p, long_, int_, ctypes.c_double, int_, long_, int_, p, p]
+
+
 def load() -> ctypes.CDLL:
     """The data cache library, built first if it is missing or older than
     its source."""
@@ -114,4 +128,16 @@ def load_hashkernels() -> ctypes.CDLL:
             lib = _open(HASH_SOURCE, HASH_LIBRARY, HASH_GXX_FLAGS)
             _declare_hashkernels(lib)
             _libs[HASH_LIBRARY] = lib
+        return lib
+
+
+def load_agglomerative() -> ctypes.CDLL:
+    """The agglomerative merge-loop library, built first if it is missing
+    or older than its source."""
+    with _lock:
+        lib = _libs.get(AGG_LIBRARY)
+        if lib is None:
+            lib = _open(AGG_SOURCE, AGG_LIBRARY, AGG_GXX_FLAGS)
+            _declare_agglomerative(lib)
+            _libs[AGG_LIBRARY] = lib
         return lib

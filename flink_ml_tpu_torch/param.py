@@ -229,6 +229,23 @@ class VectorParam(Param):
         return Vectors.dense(*json_value["values"])
 
 
+class WindowsParam(Param):
+    """A window descriptor (param/WindowsParam.java), JSON as the
+    descriptor's own encoding (common/window.py)."""
+
+    def json_encode(self, value):
+        if value is None:
+            return None
+        return value.json_encode()
+
+    def json_decode(self, json_value):
+        if json_value is None:
+            return None
+        from .common.window import Windows
+
+        return Windows.json_decode(json_value)
+
+
 class WithParams:
     """Mixin giving get/set access to params declared as class attributes
     (param/WithParams.java)."""

@@ -11,9 +11,11 @@ the other:
   LogisticRegressionModel`), which the JAX package already resolves;
 - the port reads Java, pyflink and `flink_ml_tpu.` class names and maps
   each to its own module, without importing the JAX package;
-- a Pipeline or PipelineModel is written as the reference's own class
-  (`org.apache.flink.ml.builder.Pipeline`), which the JAX package aliases
-  too, with its stages under `stages/{index}` (ReadWriteUtils.java:193-246).
+- a Pipeline, PipelineModel, Graph or GraphModel is written as the
+  reference's own class (`org.apache.flink.ml.builder.Pipeline`), which
+  the JAX package aliases too; a pipeline's stages go under
+  `stages/{index}` (ReadWriteUtils.java:193-246), a graph's under
+  `stages/{nodeId}`.
 """
 
 from __future__ import annotations
@@ -31,12 +33,14 @@ _MODELS = _PACKAGE + "models."
 _JAX_PACKAGE = "flink_ml_tpu."
 _JAVA_PREFIX = "org.apache.flink.ml."
 _PYFLINK_PREFIX = "pyflink.ml.lib."
-#: the className the port writes for its pipeline stages: the reference's
+#: the className the port writes for its pipelines and graphs: the reference's
 _WRITTEN_PIPELINE_NAMES = {
     _PACKAGE + "pipeline.Pipeline": "org.apache.flink.ml.builder.Pipeline",
     _PACKAGE + "pipeline.PipelineModel": "org.apache.flink.ml.builder.PipelineModel",
+    _PACKAGE + "graph.Graph": "org.apache.flink.ml.builder.Graph",
+    _PACKAGE + "graph.GraphModel": "org.apache.flink.ml.builder.GraphModel",
 }
-#: the reference's (Java and pyflink) pipeline class names -> the port's
+#: the reference's (Java and pyflink) pipeline and graph class names -> the port's
 _PIPELINE_ALIASES = {java: port for port, java in _WRITTEN_PIPELINE_NAMES.items()}
 _PIPELINE_ALIASES.update({
     "pyflink.ml.core.builder.Pipeline": _PACKAGE + "pipeline.Pipeline",

@@ -40,7 +40,9 @@ SIZES = dict(
     HTF_SHAPE=(2_000, 20, 1_000), IDF_SHAPE=(20_000, 10), HASHER_ROWS=20_000, REGEX_ROWS=20_000,
     TOKENIZER_ROWS=2_000, INDEXER_ROWS=20_000, HOST_REPLAY_ROWS=2_000,
     NB_SHAPE=(20_000, 10, 5, 2), UFS_SHAPE=(40_000, 100, 10), KNN_SHAPE=(2_000, 50, 2, 5),
-    STATS_SHAPE=(20_000, 10), SPLIT_ROWS=20_000,
+    STATS_SHAPE=(20_000, 10), SPLIT_ROWS=20_000, AGG_SHAPE=(300, 100, 10), AGG_BIG_ROWS=600,
+    AGG_COUNT_WINDOW=50, SQL_ROWS=200_000, SQL_WHERE_SHAPE=(50_000, 100), SQL_GROUP_ROWS=5_000,
+    SQL_SAMPLE_ROWS=2_000, LSH_ROWS=40_000, LSH_JOIN_ROWS=300, WINDOW_ROWS=40_000, WINDOW_COUNT=500,
 )
 #: below 8 of the small stream segments, so the spill twin spills
 CACHE_BUDGET = 200 << 10

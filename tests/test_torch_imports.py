@@ -8,7 +8,8 @@
 - an entry point that was not asked for the CPU raises without a card,
   rather than falling back to the CPU; that holds for the stages whose work
   is host work in both packages too (the chi-square test, RandomSplitter's
-  draw, NaiveBayes' host paths). `functions.py` only converts columns and
+  draw, NaiveBayes' host paths, AgglomerativeClustering's merge loop, the
+  SQL statements, a Graph's own wiring). `functions.py` only converts columns and
   needs no device.
 """
 
@@ -166,6 +167,7 @@ def _entry_points():
         *_feature_entry_points(table, stream),
         *_text_entry_points(),
         *_stats_entry_points(),
+        *_slice8_entry_points(),
     ])
 
 
@@ -286,6 +288,38 @@ def _stats_entry_points():
     return calls
 
 
+def _slice8_entry_points():
+    """(name, call) of AgglomerativeClustering, MinHashLSH, SQLTransformer
+    and Graph/GraphModel on host columns; the models are fitted on the CPU
+    first."""
+    from flink_ml_tpu_torch.graph import GraphBuilder
+    from flink_ml_tpu_torch.models.clustering.agglomerativeclustering import (
+        AgglomerativeClustering)
+    from flink_ml_tpu_torch.models.feature.lsh import MinHashLSH
+    from flink_ml_tpu_torch.models.feature.sqltransformer import SQLTransformer
+    from flink_ml_tpu_torch.models.feature.standardscaler import StandardScaler
+
+    X, y = _data()
+    table = Table({"features": X, "label": y})
+    lsh = MinHashLSH().set_input_col("features").set_output_col("hashes")
+    builder = GraphBuilder()
+    source = builder.create_table_id()
+    out = builder.add_estimator(StandardScaler().set_input_col("features"), [source])
+    graph = builder.build_estimator([source], [out[0]])
+    with config.use_device("cpu"):
+        models = {"MinHashLSH": lsh.fit(table), "Graph": graph.fit(table)}
+    return [
+        ("AgglomerativeClustering.transform", lambda: AgglomerativeClustering().transform(table)),
+        ("MinHashLSH.fit", lambda: lsh.fit(table)),
+        ("MinHashLSHModel.transform", lambda: models["MinHashLSH"].transform(table)),
+        ("SQLTransformer.transform",
+         lambda: SQLTransformer().set_statement("SELECT *, label + 1 AS l FROM __THIS__")
+         .transform(table)),
+        ("Graph.fit", lambda: graph.fit(table)),
+        ("GraphModel.transform", lambda: models["Graph"].transform(table)),
+    ]
+
+
 STATS_TRANSFORMERS = ["ChiSqTest", "ANOVATest", "FValueTest", "BinaryClassificationEvaluator",
                       "RandomSplitter"]
 STATS_ESTIMATORS = ["UnivariateFeatureSelector", "NaiveBayes", "Knn"]
@@ -312,6 +346,8 @@ ENTRY_POINTS = [
     *[f"{name}{kind}" for name in TEXT_ESTIMATORS for kind in (".fit", "Model.transform")],
     *[f"{name}.transform" for name in STATS_TRANSFORMERS],
     *[f"{name}{kind}" for name in STATS_ESTIMATORS for kind in (".fit", "Model.transform")],
+    "AgglomerativeClustering.transform", "MinHashLSH.fit", "MinHashLSHModel.transform",
+    "SQLTransformer.transform", "Graph.fit", "GraphModel.transform",
 ]
 
 
