@@ -20,7 +20,13 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    (16 x 5000) and at the text path's fit batch (phase 7). Each case prints CUDA-event times of the kernel, the
    plain version, one PyTorch library call and, where the batch is
    aligned, the floor probes (a gather per slot; an atomic add per slot),
-   beside the bound from the bytes moved;
+   beside the bound from the bytes moved. Then the member-batched (fleet)
+   kernels: at edge shapes (one member, a tile of 8 and one more) in both
+   layouts of the (N, d) operand, and at the sparse fleet fit's batch
+   (N = 8, 100,000 x 39, d = 1e6), where the row dot must equal N launches
+   of the solo kernel bit for bit; their times in both layouts, of N solo
+   launches, of the plain version and of one library call each
+   (embedding_bag over a (d, N) table, index_add_ of (B * nnz, N) rows);
 3. the main paths, each run as a user runs it (fit -> transform -> save ->
    load -> transform), with the launch counts reset just before each and
    read just after, at the conf/ configurations: LogisticRegression,
@@ -146,7 +152,31 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    peak memory, launch counts (0); then window_all_and_process over 1M rows
    (count, event-time tumbling and session windows) against numpy
    groupings;
-10. a `kernels` JSON line, then the result line.
+10. FitFleet and the reference-format loader: a sparse LR fleet of 8
+   members (learningRate {0.1, 0.05} x reg {0, 1e-3} x elasticNet
+   {0, 0.5}, the last at maxIter 10; conf/ LR params) on phase 3's sparse
+   table, which must launch 20 fleet row dots and 20 fleet gradients and
+   no solo kernel, each member held against the same fleet on the plain
+   versions on the card (1e-4 of its coefficients' scale, plus one L1 step
+   on each side of 0 where elasticNet * reg > 0; its loss within 1e-3,
+   its epochs equal), its gap from its solo kernel fit printed; a dense LR
+   fleet of the same 8 members on phase 3's weighted 10M x 100 table, each
+   member within 1e-3 of a float64 replay of its own epochs (with its
+   proximal steps) and a refit bit for bit; a KMeans fleet (1M x 100,
+   k 10, seeds 2-5, the last at maxIter 5), each member within 1e-3 of a
+   float64 Lloyd from its init rows; a stream LR fleet of 4 members on the
+   stream LR's 10M x 100 host rows in 100,000-row chunks, against the dense
+   fleet on the rows its epochs train (bits expected, gate 1e-6); warm
+   medians of three fleet fits beside the members' solo fits, peak memory
+   and a profiler pass over a sparse fleet fit. Then the reference format:
+   the sparse fleet's members scored by areaUnderROC, the winner and the
+   KMeans fleet's first member written in the reference's binary layout
+   with the port's encoders, loaded through load_stage and applied to the
+   full tables (the winner on one solo row dot), bit for bit as the same
+   model saved and loaded as npz; every committed tests/fixtures/
+   reference_* directory loaded and applied on the card to the values the
+   tests expect, and round-tripped through npz bit for bit;
+11. a `kernels` JSON line (four kernels), then the result line.
 """
 
 from __future__ import annotations
@@ -196,6 +226,13 @@ ROW_DOTS_TOL = dict(rtol=1e-5, atol=5e-5)
 GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
 LOSS_REL_TOL = 1e-3
 DEFAULT_MASK_SHARE, OUT_OF_RANGE_SHARE = 0.05, 0.001
+#: the kernels whose launches the paths count (flink_ml_tpu_torch/ops/sparsekernels.py KERNELS)
+KERNEL_NAMES = ("sparse_row_dots", "sparse_grad", "fleet_row_dots", "fleet_grad")
+
+
+def launch_dict(**counts):
+    """Launch counts of every kernel: the ones given, 0 for the rest."""
+    return {name: counts.get(name, 0) for name in KERNEL_NAMES}
 
 
 def log(msg: str) -> None:
@@ -594,12 +631,22 @@ def _least_square64(dot, y, w):
 POINTWISE64 = {"binary_logistic": _logistic64, "hinge": _hinge64, "least_square": _least_square64}
 
 
-def numpy_reference_sgd(batch_rows, num_batches, max_iter, lr, tol, pointwise=_logistic64):
+def numpy_reference_sgd(batch_rows, num_batches, max_iter, lr, tol, pointwise=_logistic64,
+                        reg=0.0, elastic_net=0.0):
     """The reference's SGD semantics (SGD.java:82-292,
-    TerminateOnMaxIterOrTol.java) in float64 numpy, on weighted batches
-    `batch_rows(k) -> (X, y, w)` and a pointwise loss: batch k = epoch mod
-    num_batches, the first epoch computes a gradient before any update, one
-    extra update after the loop. Returns (coeff, loss, epochs)."""
+    TerminateOnMaxIterOrTol.java, RegularizationUtils.java) in float64
+    numpy, on weighted batches `batch_rows(k) -> (X, y, w)` and a pointwise
+    loss: batch k = epoch mod num_batches, the first epoch computes a
+    gradient before any update, each update followed by the proximal step
+    where reg > 0, one extra update after the loop. Returns (coeff, loss,
+    epochs)."""
+    def update(coeff, grad):
+        coeff = coeff - (lr / wsum) * grad
+        if reg > 0:
+            coeff = coeff - lr * (elastic_net * reg * np.sign(coeff)
+                                  + (1.0 - elastic_net) * reg * coeff)
+        return coeff
+
     coeff = grad = None
     wsum, loss, epoch = 0.0, np.inf, 0
     while epoch < max_iter and loss > tol:
@@ -608,14 +655,14 @@ def numpy_reference_sgd(batch_rows, num_batches, max_iter, lr, tol, pointwise=_l
             coeff = np.zeros(Xk.shape[1])
             grad = np.zeros(Xk.shape[1])
         if wsum > 0:
-            coeff = coeff - (lr / wsum) * grad
+            coeff = update(coeff, grad)
         row_loss, mult = pointwise(Xk @ coeff, yk, wk)
         grad = Xk.T @ mult
         wsum = float(np.sum(wk))
         loss = float(np.sum(row_loss)) / max(wsum, 1e-30)
         epoch += 1
     if wsum > 0:
-        coeff = coeff - (lr / wsum) * grad
+        coeff = update(coeff, grad)
     return coeff, loss, epoch
 
 
@@ -1401,7 +1448,7 @@ AFFINE_REL_TOL, SUM_REL_TOL = 1e-6, 1e-5
 # float32 and float64 Lloyd may stop an iteration apart
 KMEANS_EDGE_TOL = 1e-3
 FEATURE_JAVA = "org.apache.flink.ml.feature."
-NO_LAUNCHES = {"sparse_row_dots": 0, "sparse_grad": 0}
+NO_LAUNCHES = launch_dict()
 
 
 def feature_module(name):
@@ -1982,7 +2029,7 @@ TEXT_ROWS, TEXT_TOKENS, TEXT_TERMS, TEXT_STOPS = 1_000_000, 100, 1_000, 100
 TEXT_SEED, TEXT_WEIGHT_SEED = 29, 31
 TEXT_ACCURACY = 0.7
 TEXT_REPEATS = 3
-TEXT_LAUNCHES = {"sparse_row_dots": MAX_ITER + 2, "sparse_grad": MAX_ITER}
+TEXT_LAUNCHES = launch_dict(sparse_row_dots=MAX_ITER + 2, sparse_grad=MAX_ITER)
 TEXT_JAVA = "org.apache.flink.ml.builder.PipelineModel"
 #: the nine stages at their conf/ shapes (rows, tokens a row, distinct values)
 CV_SHAPE = (10_000_000, 100, 100)  # countvectorizer, seed 2
@@ -2858,7 +2905,7 @@ def stats_phase(sk, dev, tmp):
 GRAPH_JAVA = "org.apache.flink.ml.builder.GraphModel"
 #: a GraphModel transform scores the test features twice: the LR node and its
 #: model-data twin, one row dot each
-GRAPH_TRANSFORM_LAUNCHES = {"sparse_row_dots": 2, "sparse_grad": 0}
+GRAPH_TRANSFORM_LAUNCHES = launch_dict(sparse_row_dots=2)
 #: the Graph's metrics against phase 8's evaluation path in the same run: the
 #: same split and fit, but the gradient's atomics order its float32 sums anew
 GRAPH_EVAL_TOL = 1e-6
@@ -3406,6 +3453,493 @@ def slice8_phase(sk, dev, tmp):
     return results
 
 
+# -- the fleet (FitFleet) and the reference-format loader ------------------
+
+FLEET_MEMBERS = 8
+# the sparse and dense fleets' members: learningRate x reg x elasticNet,
+# every other param conf/'s LR; the last member stops at FLEET_SHORT_ITER
+FLEET_GRID = [(lr, reg, en) for lr in (0.1, 0.05) for reg in (0.0, 1e-3) for en in (0.0, 0.5)]
+FLEET_SHORT_ITER = 10
+STREAM_FLEET_MEMBERS = 4
+KMEANS_FLEET_SEEDS = (2, 3, 4, 5)
+KMEANS_FLEET_SHORT_ITER = 5
+FLEET_REPEATS = 3
+# (rows, nnz, d, members): edges of the fleet kernels' layout (a member
+# tile of 8 and one member more, an empty row width, one member; 4 and 12
+# members take the gradient's float4 REDs when member-minor, 3 and 9 not)
+FLEET_EDGE_SHAPES = [(64, 5, 24, 8), (200, 39, 64, 8), (1, 3, 4, 1), (33, 40, 50, 3),
+                     (33, 40, 50, 4), (7, 0, 10, 2), (300, 64, 1000, 9), (300, 65, 1000, 12),
+                     (300, 65, 1000, 17)]
+FLEET_SOURCES = {"fleet_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96 (under jax.vmap)",
+                 "fleet_grad": "flink_ml_tpu/ops/sparsekernels.py:107 (under jax.vmap)"}
+REFERENCE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+
+
+def fleet_kernel_phase(sk, dev):
+    """The member-batched kernels against their plain versions: at edge
+    shapes, in both layouts of the (N, d) operand, and at the sparse fleet
+    fit's batch (N = 8, BATCH x NNZ, d = SPARSE_DIM), where the row dot must
+    also equal N launches of the solo kernel bit for bit (it adds in the
+    solo kernel's order). CUDA-event times of each kernel in both layouts,
+    of N solo launches, of the plain version and of one library call
+    (embedding_bag over a (d, N) table; index_add_ of (B * nnz, N) rows
+    into (d, N)), beside the bound from the bytes moved."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    for rows, nnz, d, members in FLEET_EDGE_SHAPES:
+        idx, vals = sparse_batch(gen, rows, nnz, d, dev, 0.2, 0.05)
+        C = torch.randn(members, d, generator=gen, device=dev)
+        M = torch.randn(members, rows, generator=gen, device=dev)
+        for layout, c in (("member-major", C), ("member-minor", C.T.contiguous().T)):
+            check(torch.allclose(sk.fleet_row_dots(idx, vals, c), sk.fleet_row_dots_plain(idx, vals, C),
+                                 **ROW_DOTS_TOL),
+                  f"fleet_row_dots disagrees at {(rows, nnz, d, members)} {layout}")
+            g = sk.fleet_grad(idx, vals, M, c)
+            check(g.is_contiguous() == c.is_contiguous(), f"fleet_grad's layout {g.stride()} is not coeff's")
+            check(torch.allclose(g, sk.fleet_grad_plain(idx, vals, M, C), **GRAD_TOL),
+                  f"fleet_grad disagrees at {(rows, nnz, d, members)} {layout}")
+    log(f"  fleet kernels: edge shapes (rows, nnz, d, members) {FLEET_EDGE_SHAPES} agree in both layouts")
+
+    N = FLEET_MEMBERS
+    idx, vals = sparse_batch(gen, BATCH, NNZ, SPARSE_DIM, dev, DEFAULT_MASK_SHARE, OUT_OF_RANGE_SHARE)
+    C = torch.randn(N, SPARSE_DIM, generator=gen, device=dev)
+    Cm = C.T.contiguous().T  # the fit's layout: member-minor
+    M = torch.randn(N, BATCH, generator=gen, device=dev)
+    sets = copies(idx, vals)
+    valid = idx >= 0
+    keep = valid & (idx < SPARSE_DIM)
+    safe = torch.where(valid, idx, 0).clamp(max=SPARSE_DIM - 1)
+    masked_vals = torch.where(valid, vals, 0.0)
+    batch_bytes = idx.numel() * 8
+    results = {}
+
+    got = sk.fleet_row_dots(idx, vals, Cm)
+    want = sk.fleet_row_dots_plain(idx, vals, C)
+    solo = torch.stack([sk.sparse_row_dots(idx, vals, C[m].contiguous()) for m in range(N)])
+    err = (got - want).abs()
+    check(torch.allclose(got, want, **ROW_DOTS_TOL),
+          f"fleet_row_dots disagrees with its plain version: max abs {float(err.max())}")
+    bits = bool(torch.equal(got, solo) and torch.equal(sk.fleet_row_dots(idx, vals, C), solo))
+    check(bits, "fleet_row_dots is not bit-identical to N launches of sparse_row_dots")
+    table = Cm.T  # (d, N), contiguous
+    lib = torch.nn.functional.embedding_bag(safe, table, per_sample_weights=masked_vals, mode="sum")
+    check(torch.allclose(lib.T, want, **ROW_DOTS_TOL), "embedding_bag yardstick disagrees")
+    touched = int(torch.unique(safe[valid]).numel())
+    b_ms, b_by = bound_ms(batch_bytes + touched * N * 4 + N * BATCH * 4, 2.0 * N * int(valid.sum()))
+    results["fleet_row_dots"] = {
+        "max_abs_err": float(err.max()),
+        "max_rel_err": float((err / want.abs().clamp_min(1e-6)).max()),
+        "bit_identical_to_solo": bits,
+        "ms": cuda_ms(lambda i, v: sk.fleet_row_dots(i, v, Cm), sets),
+        "member_major_ms": cuda_ms(lambda i, v: sk.fleet_row_dots(i, v, C), sets),
+        "solo_n_ms": cuda_ms(lambda i, v: [sk.sparse_row_dots(i, v, C[m]) for m in range(N)], sets),
+        "plain_ms": cuda_ms(lambda i, v: sk.fleet_row_dots_plain(i, v, C), sets, iters=10),
+        "library_ms": cuda_ms(
+            lambda sf, w: torch.nn.functional.embedding_bag(sf, table, per_sample_weights=w, mode="sum"),
+            [(safe, masked_vals)], iters=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    del got, want, solo, lib
+
+    got = sk.fleet_grad(idx, vals, M, Cm)
+    want = sk.fleet_grad_plain(idx, vals, M, C)
+    err = (got - want).abs()
+    check(not got.is_contiguous(), "fleet_grad's layout is not coeff's")
+    check(torch.allclose(got, want, **GRAD_TOL),
+          f"fleet_grad disagrees with its plain version: max abs {float(err.max())}")
+    flat_idx = torch.where(keep, idx, 0).long().reshape(-1)
+    contrib = torch.where(keep[None], vals[None] * M[:, :, None], 0.0).permute(1, 2, 0).reshape(-1, N)
+    lib = torch.zeros((SPARSE_DIM, N), device=dev).index_add_(0, flat_idx, contrib)
+    check(torch.allclose(lib.T, want, **GRAD_TOL), "index_add_ yardstick disagrees")
+    b_ms, b_by = bound_ms(batch_bytes + N * BATCH * 4 + N * SPARSE_DIM * 4, 2.0 * N * int(keep.sum()))
+    msets = [(i, v, M) for i, v in sets]
+    results["fleet_grad"] = {
+        "max_abs_err": float(err.max()),
+        "max_rel_err": float((err / want.abs().clamp_min(1e-6)).max()),
+        "ms": cuda_ms(lambda i, v, m: sk.fleet_grad(i, v, m, Cm), msets),
+        "member_major_ms": cuda_ms(lambda i, v, m: sk.fleet_grad(i, v, m, C), msets),
+        "solo_n_ms": cuda_ms(lambda i, v, m: [sk.sparse_grad(i, v, m[j], C[j]) for j in range(N)], msets),
+        "plain_ms": cuda_ms(lambda i, v, m: sk.fleet_grad_plain(i, v, m, C), msets, iters=5),
+        "library_ms": cuda_ms(
+            lambda fi, c: torch.zeros((SPARSE_DIM, N), device=dev).index_add_(0, fi, c),
+            [(flat_idx, contrib)], iters=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    # Zipf-skewed indices with quarter-grid values: every partial sum is
+    # exact, so the float4 and scalar REDs in any order give the plain bits
+    zidx, zvals = zipf_batch(gen, BATCH, NNZ, SPARSE_DIM, dev)
+    zmult = torch.randint(-4, 5, (N, BATCH), generator=gen, device=dev).to(torch.float32) / 4
+    for c in (Cm, C):
+        check(torch.equal(sk.fleet_grad(zidx, zvals, zmult, c), sk.fleet_grad_plain(zidx, zvals, zmult, C)),
+              "fleet_grad is not exact on the Zipf batch's exact sums")
+    del zidx, zvals
+    for name, r in results.items():
+        r.update(rows=BATCH, nnz=NNZ, d=SPARSE_DIM, members=N,
+                 tolerance=ROW_DOTS_TOL if name == "fleet_row_dots" else GRAD_TOL)
+        log(f"  {name} fit batch ({N} x {BATCH} x {NNZ}, d={SPARSE_DIM}): max_abs_err "
+            f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms member-minor, "
+            f"{r['member_major_ms']:.4f} ms member-major; {N} solo launches {r['solo_n_ms']:.4f} ms; "
+            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"  fleet_row_dots equals {N} launches of sparse_row_dots bit for bit: {bits}; fleet_grad "
+        f"exact on Zipf-skewed quarter-grid sums in both layouts")
+    return results
+
+
+def fleet_members(cls, weight_col=None, count=FLEET_MEMBERS):
+    """conf/'s LR params on `count` members of FLEET_GRID; the last stops
+    at FLEET_SHORT_ITER."""
+    members = []
+    for i, (lr, reg, en) in enumerate(FLEET_GRID[:count]):
+        est = estimator(cls, weight_col, lr).set_reg(reg).set_elastic_net(en)
+        members.append(est.set_max_iter(FLEET_SHORT_ITER) if i == count - 1 else est)
+    return members
+
+
+def kmeans_fleet_members():
+    return [kmeans_estimator().set_seed(seed).set_max_iter(
+        KMEANS_FLEET_SHORT_ITER if i == len(KMEANS_FLEET_SEEDS) - 1 else KMEANS_ITER)
+        for i, seed in enumerate(KMEANS_FLEET_SEEDS)]
+
+
+def fleet_timing(name, fleet_fit, members, table, result):
+    """Warm medians of FLEET_REPEATS fleet fits and of as many rounds of
+    the members' solo fits, timed the same way."""
+    fleets = [synced(fleet_fit)[1] for _ in range(FLEET_REPEATS)]
+    solos = [synced(lambda: [m.fit(table) for m in members])[1] for _ in range(FLEET_REPEATS)]
+    result.update(fleet_ms=float(np.median(fleets)), solo_fits_ms=float(np.median(solos)),
+                  fleet_runs=fleets, solo_runs=solos)
+    log(f"  {name}: fleet fit median {result['fleet_ms']:.3f} ms (runs "
+        f"{[round(t, 3) for t in fleets]}), {len(members)} solo fits median "
+        f"{result['solo_fits_ms']:.3f} ms (runs {[round(t, 3) for t in solos]})")
+
+
+def max_gap(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+
+
+def sparse_fleet(sk, sparse_table):
+    """The sparse LR fleet on phase 3's table: its launches (only the fleet
+    kernels, one each an epoch), each member against the same fleet on the
+    plain versions on the card (1e-4 of the coefficients' scale, its loss
+    within LOSS_REL_TOL, the same epochs), each member's gap from its solo
+    kernel fit, times, peak memory and a profiler pass."""
+    from flink_ml_tpu_torch.fleet import FitFleet
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
+    from flink_ml_tpu_torch.ops import losses
+
+    members = lambda: fleet_members(LogisticRegression)  # noqa: E731
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    (models, crit, epochs), fit_ms = synced(lambda: FitFleet(members())._fit_linear(sparse_table))
+    counts = sk.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    expected = launch_dict(fleet_row_dots=MAX_ITER, fleet_grad=MAX_ITER)
+    log(f"  sparse lr fleet ({FLEET_MEMBERS} members): fit {fit_ms:.1f} ms (first call); launches "
+        f"{counts}; epochs {epochs.tolist()}; peak {peak:.3f} GiB above the {held / 2**30:.2f} GiB held")
+    check(counts == expected, f"sparse lr fleet launched {counts}, expected {expected}")
+    check(epochs.tolist() == [MAX_ITER] * (FLEET_MEMBERS - 1) + [FLEET_SHORT_ITER],
+          f"sparse lr fleet epochs {epochs.tolist()}")
+    plain, plain_crit, plain_epochs = FitFleet(members())._fit_linear(
+        sparse_table, losses.fleet_loss("binary_logistic", plain=True))
+    solo = [m.fit(sparse_table) for m in members()]
+    gaps, solo_gaps, scales = [], [], []
+    for i, (got, ref, one, est) in enumerate(zip(models, plain, solo, members())):
+        scale = float(np.max(np.abs(ref.coefficient)))
+        gap = max_gap(got.coefficient, ref.coefficient)
+        rel = abs(crit[i] - plain_crit[i]) / max(abs(plain_crit[i]), 1e-30)
+        gaps.append(gap)
+        scales.append(scale)
+        solo_gaps.append(max_gap(got.coefficient, one.coefficient))
+        # atomics reorder float32 sums: 1e-4 of the coefficients' scale, as
+        # the solo sparse fits are held; plus, under an L1 term, one step of
+        # it on each side: the proximal step moves a coefficient by
+        # lr * elasticNet * reg * sign(coeff), so one that rounding leaves
+        # on the other side of 0 lands 2 * lr * elasticNet * reg away
+        l1_step = est.get_learning_rate() * est.get_elastic_net() * est.get_reg()
+        check(np.isfinite(got.coefficient).all() and gap <= 1e-4 * scale + 2.0 * l1_step,
+              f"sparse fleet member {i} differs from the plain-version fleet by {gap} (scale "
+              f"{scale}, L1 step {l1_step})")
+        check(rel < LOSS_REL_TOL and epochs[i] == plain_epochs[i],
+              f"sparse fleet member {i} loss {crit[i]} vs plain {plain_crit[i]}")
+    log(f"  sparse lr fleet vs the plain-version fleet: max abs gap by member "
+        f"{[f'{g:.3g}' for g in gaps]} of max |coeff| {[f'{c:.3g}' for c in scales]}; losses "
+        f"{[round(float(c), 6) for c in crit]}")
+    log(f"  sparse lr fleet vs each member's solo kernel fit (not gated; atomics): max abs gap by "
+        f"member {[f'{g:.3g}' for g in solo_gaps]}")
+    result = {"launches": counts, "fit_ms": fit_ms, "peak_gib": peak, "epochs": epochs.tolist(),
+              "gap_plain": gaps, "gap_solo": solo_gaps}
+    fleet_timing("sparse lr fleet", lambda: FitFleet(members()).fit(sparse_table), members(),
+                 sparse_table, result)
+    profile_run("sparse lr fleet fit", lambda: FitFleet(members()).fit(sparse_table))
+    return models, result
+
+
+def dense_fleet(dense_table, X64, y64, w64):
+    """The dense LR fleet (weighted, 10M x 100): each member against a
+    float64 replay of its own epochs (1e-3 of the coefficients' scale, the
+    same epochs), a refit bit for bit, each member's gap from its solo fit."""
+    from flink_ml_tpu_torch.fleet import FitFleet
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
+
+    members = lambda: fleet_members(LogisticRegression, "weight")  # noqa: E731
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (models, _, epochs), fit_ms = synced(lambda: FitFleet(members())._fit_linear(dense_table))
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    log(f"  dense lr fleet ({FLEET_MEMBERS} members): fit {fit_ms:.1f} ms (first call); epochs "
+        f"{epochs.tolist()}; peak {peak:.3f} GiB above the {held / 2**30:.2f} GiB held")
+    rels = []
+    for i, (model, est) in enumerate(zip(models, members())):
+        ref, _, ref_epochs = numpy_reference_sgd(
+            lambda k: (X64[k * BATCH:(k + 1) * BATCH], y64[k * BATCH:(k + 1) * BATCH],
+                       w64[k * BATCH:(k + 1) * BATCH]),
+            DENSE_ROWS // BATCH, est.get_max_iter(), est.get_learning_rate(), TOL, _logistic64,
+            est.get_reg(), est.get_elastic_net())
+        rel = max_gap(model.coefficient, ref) / float(np.max(np.abs(ref)))
+        rels.append(rel)
+        check(rel < 1e-3 and epochs[i] == ref_epochs,
+              f"dense fleet member {i} differs from its float64 replay by {rel} ({epochs[i]} vs "
+              f"{ref_epochs} epochs)")
+    refit = FitFleet(members()).fit(dense_table)
+    check(all(np.array_equal(a.coefficient, b.coefficient) for a, b in zip(refit, models)),
+          "dense lr fleet refit is not bit-identical")
+    solo = [m.fit(dense_table) for m in members()]
+    solo_gaps = [max_gap(a.coefficient, b.coefficient) for a, b in zip(models, solo)]
+    same = [bool(np.array_equal(a.coefficient, b.coefficient)) for a, b in zip(models, solo)]
+    log(f"  dense lr fleet vs float64 replays: max rel by member {[f'{r:.3g}' for r in rels]}; "
+        f"refit bit for bit; vs solo fits (not gated): max abs gap {[f'{g:.3g}' for g in solo_gaps]}, "
+        f"bit-identical {same}")
+    result = {"fit_ms": fit_ms, "peak_gib": peak, "epochs": epochs.tolist(), "rel_replay": rels,
+              "gap_solo": solo_gaps, "bits_solo": same}
+    fleet_timing("dense lr fleet", lambda: FitFleet(members()).fit(dense_table), members(),
+                 dense_table, result)
+    return models, result
+
+
+def kmeans_fleet(km_table):
+    """The KMeans fleet (1M x 100, k 10; seeds 2-5, the last at maxIter 5):
+    each member against a float64 Lloyd from its init rows (1e-3 of the
+    centroids' scale), each member's gap from its solo fit."""
+    from flink_ml_tpu_torch.fleet import FitFleet
+    from flink_ml_tpu_torch.models.clustering import kmeans
+
+    X = km_table.column("features")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    models, fit_ms = synced(lambda: FitFleet(kmeans_fleet_members()).fit(km_table))
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    X64 = X.double()
+    errs, solo_gaps, same = [], [], []
+    for model, est in zip(models, kmeans_fleet_members()):
+        idx = torch.as_tensor(kmeans.init_rows(KMEANS_ROWS, KMEANS_K, est.get_seed()), device=X.device)
+        ref_c, ref_counts = lloyd64(X64, X64[idx], est.get_max_iter())
+        ref = ref_c.cpu().numpy()
+        err = max_gap(model.centroids, ref)
+        errs.append(err)
+        check(err <= 1e-3 * float(np.max(np.abs(ref))) and model.weights.sum() == KMEANS_ROWS,
+              f"kmeans fleet member (seed {est.get_seed()}) differs from its float64 Lloyd by {err}")
+        one = est.fit(km_table)
+        solo_gaps.append(max_gap(model.centroids, one.centroids))
+        same.append(bool(np.array_equal(model.centroids, one.centroids)
+                         and np.array_equal(model.weights, one.weights)))
+    del X64
+    log(f"  kmeans fleet (seeds {list(KMEANS_FLEET_SEEDS)}): fit {fit_ms:.1f} ms (first call); "
+        f"peak {peak:.3f} GiB; vs float64 Lloyd max abs {[f'{e:.3g}' for e in errs]}; vs solo fits "
+        f"(not gated) max abs gap {[f'{g:.3g}' for g in solo_gaps]}, bit-identical {same}")
+    result = {"fit_ms": fit_ms, "peak_gib": peak, "err_lloyd64": errs, "gap_solo": solo_gaps,
+              "bits_solo": same}
+    fleet_timing("kmeans fleet", lambda: FitFleet(kmeans_fleet_members()).fit(km_table),
+                 kmeans_fleet_members(), km_table, result)
+    return models, result
+
+
+def stream_fleet(stream_cols, bounded_table):
+    """The stream LR fleet: the stream LR's host rows in uniform chunks of
+    BATCH rows, STREAM_FLEET_MEMBERS members, each against the dense fleet's
+    member on the rows its epochs train (bits expected, gate 1e-6)."""
+    from flink_ml_tpu_torch.fleet import FitFleet
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
+
+    members = lambda: fleet_members(LogisticRegression, "weight", STREAM_FLEET_MEMBERS)  # noqa: E731
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    models, fit_ms = synced(lambda: FitFleet(members()).fit(stream_of(stream_cols, DENSE_ROWS, BATCH)))
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    bounded = FitFleet(members()).fit(bounded_table)
+    rels = [max_gap(a.coefficient, b.coefficient) / float(np.max(np.abs(b.coefficient)))
+            for a, b in zip(models, bounded)]
+    bits = [bool(np.array_equal(a.coefficient, b.coefficient)) for a, b in zip(models, bounded)]
+    log(f"  stream lr fleet ({STREAM_FLEET_MEMBERS} members, {DENSE_ROWS} rows in chunks of {BATCH}, "
+        f"stacked on the card once): fit {fit_ms:.1f} ms with the chunks' staging; peak "
+        f"{peak:.3f} GiB; vs the dense fleet on its rows: max rel {[f'{r:.3g}' for r in rels]}, "
+        f"bit-identical {bits}")
+    check(all(r <= 1e-6 for r in rels), f"stream lr fleet differs from the dense fleet by {rels}")
+    return {"fit_ms": fit_ms, "peak_gib": peak, "rel_dense": rels, "bits_dense": bits}
+
+
+#: the committed reference-format fixtures: name -> (input columns, output
+#: column, expected values), as tests/test_reference_codecs_all.py and
+#: tests/test_reference_format.py expect them; a string column stays on the host
+REFERENCE_CASES = {
+    "reference_standardscaler_model": ({"input": [[3.0, 6.0]]}, "output", [[1.0, 1.0]]),
+    "reference_minmaxscaler_model": ({"input": [[5.0, 20.0]]}, "output", [[0.5, 0.5]]),
+    "reference_maxabsscaler_model": ({"input": [[2.0, -4.0]]}, "output", [[0.5, -0.5]]),
+    "reference_robustscaler_model": ({"input": [[3.0, 6.0]]}, "output", [[1.0, 1.0]]),
+    "reference_idf_model": ({"input": [[2.0, 1.0]]}, "output", [[2.0 * 0.405465, 1.098612]]),
+    "reference_imputer_model": ({"a": [float("nan"), 2.0], "b": [3.0, float("nan")]}, "ao",
+                                [1.5, 2.0]),
+    "reference_kbinsdiscretizer_model": ({"input": [[0.5], [1.5]]}, "output", [[0.0], [1.0]]),
+    "reference_stringindexer_model": ({"c": np.array(["a", "b"])}, "ci", [1.0, 0.0]),
+    "reference_onehotencoder_model": ({"c": [0.0, 2.0]}, "v", None),
+    "reference_vectorindexer_model": ({"input": [[7.0], [5.0]]}, "output", [[1.0], [0.0]]),
+    "reference_countvectorizer_model": (None, "output", None),
+    "reference_minhashlsh_model": (None, "hashes", None),
+    "reference_univariatefeatureselector_model": ({"features": [[1.0, 2.0, 3.0]]}, "output", [[2.0]]),
+    "reference_variancethresholdselector_model": ({"input": [[1.0, 2.0, 3.0]]}, "output",
+                                                  [[1.0, 3.0]]),
+    "reference_naivebayes_model": ({"features": [[0.0], [1.0]]}, "prediction", [10.0, 20.0]),
+    "reference_knn_model": ({"features": [[1.0, 1.0], [9.0, 9.0]]}, "prediction", [1.0, 2.0]),
+    "reference_kmeans_model": ({"features": [[1.0, 1.0], [9.0, 9.0]]}, "prediction", [0, 1]),
+    "reference_lr_pipelinemodel": ({"features": [[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0]]},
+                                   "prediction", [1.0, 0.0]),
+}
+
+
+def host_values(col):
+    if isinstance(col, torch.Tensor):
+        return col.detach().cpu().numpy()
+    return np.asarray(col)
+
+
+def reference_fixture_check(dev, tmp):
+    """Every committed tests/fixtures/reference_* directory loads through
+    load_stage and transforms a small table on the card to the expected
+    values; the loaded model saved as npz and loaded again transforms the
+    same, bit for bit."""
+    from flink_ml_tpu_torch import SparseBatch, Table
+    from flink_ml_tpu_torch.utils import read_write
+
+    dirs = sorted(d for d in os.listdir(REFERENCE_FIXTURES) if d.startswith("reference_"))
+    check(sorted(REFERENCE_CASES) == dirs, f"reference fixtures {dirs} vs the cases here")
+    for name in dirs:
+        cols, out_col, expected = REFERENCE_CASES[name]
+        model = read_write.load_stage(os.path.join(REFERENCE_FIXTURES, name))
+        if name == "reference_countvectorizer_model":
+            tokens = np.empty(1, dtype=object)
+            tokens[0] = ["pear", "apple", "pear"]
+            table = Table({"input": tokens})
+        elif name == "reference_minhashlsh_model":
+            check(list(model.rand_coefficient_a) == [1, 2, 3, 4, 5, 6]
+                  and list(model.rand_coefficient_b) == [11, 12, 13, 14, 15, 16],
+                  "the MinHashLSH fixture's coefficients")
+            table = Table({"vec": SparseBatch(10, torch.tensor([[0, 3]], dtype=torch.int32, device=dev),
+                                              torch.ones((1, 2), device=dev))})
+        else:
+            table = Table({k: v if isinstance(v, np.ndarray) else
+                           torch.tensor(v, dtype=torch.float32, device=dev) for k, v in cols.items()})
+        out = model.transform(table)[0]
+        got = out.column(out_col)
+        if name == "reference_onehotencoder_model":
+            rows = [got.row(i) for i in range(2)]
+            ok = (list(rows[0].indices) == [0] and list(rows[0].values) == [1.0]
+                  and list(rows[1].indices) == [])
+        elif name == "reference_countvectorizer_model":
+            row = got.row(0)
+            ok = list(row.indices) == [0, 1] and list(row.values) == [1.0, 2.0]
+        elif name == "reference_minhashlsh_model":
+            ok = len(got) == 1
+        else:
+            ok = np.allclose(host_values(got).astype(np.float64), np.asarray(expected, np.float64),
+                             rtol=1e-6, atol=0)
+        if name == "reference_imputer_model":
+            ok = ok and np.allclose(host_values(out.column("bo")), [3.0, 9.0])
+        check(ok, f"{name} transforms to {host_values(got) if expected is not None else got}")
+        path = os.path.join(tmp, name + "_npz")
+        model.save(path)
+        again = read_write.load_stage(path).transform(table)[0]
+        check(same_column(again.column(out_col), got), f"{name} differs after an npz round trip")
+    log(f"  {len(dirs)} committed reference-format fixtures load, transform on the card as the "
+        f"tests expect, and round-trip through npz bit for bit")
+    return len(dirs)
+
+
+def reference_format_check(sk, dev, tmp, sparse_models, km_models, sparse_table, km_table):
+    """A.15 on the card: score the sparse fleet's members by areaUnderROC,
+    write the winner and the KMeans fleet's first member in the reference's
+    binary layout with the port's encoders, load both through load_stage
+    and transform the full tables (the winner on the solo row-dot kernel);
+    the predictions equal those of the same model saved and loaded as npz
+    bit for bit. Then the committed fixtures."""
+    from flink_ml_tpu_torch.models.evaluation.binaryclassification import (
+        BinaryClassificationEvaluator)
+    from flink_ml_tpu_torch.utils import javacodec, read_write
+
+    evaluator = BinaryClassificationEvaluator().set_metrics_names("areaUnderROC")
+    aucs = [float(evaluator.transform(m.transform(sparse_table)[0])[0].collect()[0]["areaUnderROC"])
+            for m in sparse_models]
+    check(all(np.isfinite(aucs)), f"fleet AUCs {aucs}")
+    winner = int(np.argmax(aucs))
+    log(f"  sparse fleet areaUnderROC by member {[round(a, 6) for a in aucs]}: winner {winner}")
+    written = {}
+    for name, model, payload, table, cols in (
+            ("winner", sparse_models[winner],
+             javacodec.encode_logisticregression_model_data(sparse_models[winner].coefficient, 0),
+             sparse_table, ("prediction", "rawPrediction")),
+            ("kmeans member 0", km_models[0],
+             javacodec.encode_kmeans_model_data(km_models[0].centroids, km_models[0].weights),
+             km_table, ("prediction",))):
+        ref_path = os.path.join(tmp, name.replace(" ", "_") + "_reference")
+        read_write.save_metadata(model, ref_path)
+        javacodec.write_reference_data_file(ref_path, payload)
+        check(not read_write.model_data_exists(ref_path), "the reference layout holds an npz")
+        npz_path = os.path.join(tmp, name.replace(" ", "_") + "_npz")
+        model.save(npz_path)
+        loaded = read_write.load_stage(ref_path)
+        sk.reset_launch_counts()
+        out = loaded.transform(table)[0]
+        torch.cuda.synchronize()
+        counts = sk.launch_counts()
+        want = read_write.load_stage(npz_path).transform(table)[0]
+        for col in cols:
+            check(same_column(out.column(col), want.column(col)),
+                  f"{name} from the reference layout predicts {col} unlike its npz twin")
+        expected = launch_dict(sparse_row_dots=1) if name == "winner" else launch_dict()
+        check(counts == expected, f"{name} transform launched {counts}, expected {expected}")
+        written[name] = counts
+        log(f"  {name}: reference-layout directory (metadata + data/part-0-0) loads through "
+            f"load_stage and transforms {table.num_rows} rows as its npz twin, bit for bit; "
+            f"launches {counts}")
+    fixtures = reference_fixture_check(dev, tmp)
+    return {"aucs": aucs, "winner": winner, "launches": written, "fixtures": fixtures}
+
+
+def fleet_phase(sk, dev, tmp, tables):
+    """Phase 10: the four fleets and the reference-format loader."""
+    t0 = time.perf_counter()
+    out = {}
+    sparse_models, out["sparse lr fleet"] = sparse_fleet(sk, tables["sparse"])
+    touched = min(MAX_ITER, DENSE_ROWS // BATCH) * BATCH
+    X = tables["dense"].column("features")
+    X64 = X[:touched].double().cpu().numpy()
+    y64 = tables["dense"].column("label")[:touched].double().cpu().numpy()
+    w64 = tables["dense"].column("weight")[:touched].double().cpu().numpy()
+    _, out["dense lr fleet"] = dense_fleet(tables["dense"], X64, y64, w64)
+    del X64
+    km_models, out["kmeans fleet"] = kmeans_fleet(tables["kmeans"])
+    out["stream lr fleet"] = stream_fleet(tables["stream_cols"], tables["bounded"])
+    out["reference format"] = reference_format_check(
+        sk, dev, tmp, sparse_models, km_models, tables["sparse"], tables["kmeans"])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 10 took {out['seconds']:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; the port's kernels run only on the card",
@@ -3450,6 +3984,7 @@ def main() -> int:
     log("phase 2: kernels vs plain versions")
     edge_phase(sk, dev)
     kernel_results = kernel_phase(sk, probes, dev)
+    fleet_kernel_results = fleet_kernel_phase(sk, dev)
 
     # -- 3. the main path -------------------------------------------------
     log("phase 3: main paths (launch counts reset before and read after each)")
@@ -3480,8 +4015,8 @@ def main() -> int:
     port_config.datacache_memory_budget_bytes = STREAM_CACHE_BUDGET
 
     # name -> (fit, table, launches expected of (sparse_row_dots, sparse_grad))
-    sparse_launches = {"sparse_row_dots": MAX_ITER + 2, "sparse_grad": MAX_ITER}
-    no_launches = {"sparse_row_dots": 0, "sparse_grad": 0}
+    sparse_launches = launch_dict(sparse_row_dots=MAX_ITER + 2, sparse_grad=MAX_ITER)
+    no_launches = launch_dict()
     paths = {}
     for name, (_, _, _, lr, _) in LINEAR_PATHS.items():
         cls = linear_class(name)
@@ -3504,7 +4039,7 @@ def main() -> int:
                                                     traces["online kmeans"]), km_table, no_launches),
     }
 
-    runs, launches, path_s = {}, {"sparse_row_dots": 0, "sparse_grad": 0}, {}
+    runs, launches, path_s = {}, launch_dict(), {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, (fit, table, expected) in {**paths, **new_paths}.items():
             t0 = time.perf_counter()
@@ -3521,7 +4056,7 @@ def main() -> int:
                 launches[kernel] += counts[kernel]
             path_s[name] = time.perf_counter() - t0
     log(f"  launches on the main paths: {launches}")
-    check(launches == {"sparse_row_dots": 3 * (MAX_ITER + 2), "sparse_grad": 3 * MAX_ITER},
+    check(launches == launch_dict(sparse_row_dots=3 * (MAX_ITER + 2), sparse_grad=3 * MAX_ITER),
           f"launches over phase 3 {launches}")
 
     # -- 4. results against references ------------------------------------
@@ -3663,7 +4198,22 @@ def main() -> int:
     path_s["window_all_and_process"] = windows_run["seconds"]
     log(f"  phase 9 took {phase9_s:.2f} s")
 
-    # -- 10. output -----------------------------------------------------------
+    # -- 10. the fleet and the reference-format loader ----------------------
+    log("phase 10: FitFleet (sparse, dense, KMeans and stream fleets) and the reference-format "
+        "loader (launch counts reset before and read after each)")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        fleets = fleet_phase(sk, dev, tmp, {
+            "sparse": sparse_table, "dense": dense_table, "kmeans": km_table,
+            "stream_cols": stream_cols, "bounded": bounded_table})
+    high_water = max([high_water] + [r["peak_gib"] for r in fleets.values()
+                                     if isinstance(r, dict) and "peak_gib" in r])
+    path_s["fleets and reference format"] = fleets["seconds"]
+    for kernel in launches:
+        launches[kernel] += fleets["sparse lr fleet"]["launches"][kernel]
+        launches[kernel] += fleets["reference format"]["launches"]["winner"][kernel]
+
+    # -- output -----------------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
         "sparse_grad": "flink_ml_tpu/ops/sparsekernels.py:107",
@@ -3681,7 +4231,9 @@ def main() -> int:
                                  "text": text_run["launches"][name],
                                  "eval": eval_run["launches"][name],
                                  "graph": graph_run["launches"][name],
-                                 "graph transform": graph_run["transform_launches"][name]},
+                                 "graph transform": graph_run["transform_launches"][name],
+                                 "reference-format transform":
+                                     fleets["reference format"]["launches"]["winner"][name]},
             "launches_by_feature_path": {p: r["launches"][name] for p, r in
                                          {**features, **texts, **stat_stages, **slice8}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -3692,6 +4244,20 @@ def main() -> int:
             "probe_ms": main["probe_ms"], "enqueue_ms": main["enqueue_ms"],
             "shape": [main["rows"], main["nnz"], main["d"]],
             "by_shape": rows,
+        })
+    for name, r in fleet_kernel_results.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "flink_ml_tpu_torch/csrc/sparse_kernels.cu",
+            "replaces": FLEET_SOURCES[name],
+            "launches": launches[name],
+            "launches_by_path": {"sparse lr fleet": fleets["sparse lr fleet"]["launches"][name]},
+            "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
+            "tolerance": r["tolerance"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "member_major_ms": r["member_major_ms"], "solo_n_ms": r["solo_n_ms"],
+            "shape": [r["members"], r["rows"], r["nnz"], r["d"]],
         })
     log("first calls: " + "; ".join(
         f"{n} fit {r['fit_ms']:.3f} ms, transform {r['transform_ms']:.3f} ms" for n, r in runs.items()))
@@ -3705,7 +4271,8 @@ def main() -> int:
     log("stats stages: " + json.dumps(stat_stages) + "; functions: " + json.dumps(functions))
     log("graph path: " + json.dumps(graph_run))
     log("phase 9 stages: " + json.dumps(slice8) + "; window_all_and_process: " + json.dumps(windows_run))
-    log("seconds by path (phases 3-9): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("fleets and reference format: " + json.dumps(fleets))
+    log("seconds by path (phases 3-10): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")

@@ -5,8 +5,8 @@ card and no explicit request it raises: nothing falls back to the CPU
 quietly. Host (numpy) columns are staged to `device()`; torch tensor
 columns stay on the device they already live on.
 
-The stream and online knobs keep the JAX package's names and defaults
-(flink_ml_tpu/config.py). Its other TPU knobs (whole-fit, fleet,
+The stream, online and fleet knobs keep the JAX package's names and
+defaults (flink_ml_tpu/config.py). Its other TPU knobs (whole-fit,
 collectives, serving, compile bank) have no counterpart here yet.
 """
 
@@ -35,6 +35,12 @@ input_prefetch_depth: int = 2
 online_overload_policy: str = "block"
 #: checkpointed iteration is not ported (ROADMAP A.13); set, it raises
 iteration_checkpoint_dir: Optional[str] = None
+
+#: a fleet whose member state (coeff and grad, N x d x 8 bytes; KMeans
+#: N x k x d x 8) exceeds this would shard its member axis over the data
+#: shards; None never decides so by itself. One device is one data shard,
+#: so a fleet here is always replicated (fleet.py)
+fleet_shard_state_bytes: Optional[int] = 256 << 20
 
 OVERLOAD_POLICIES = ("block", "shed_oldest", "sample")
 

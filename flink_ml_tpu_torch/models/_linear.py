@@ -21,7 +21,7 @@ from ..linalg import DenseVector
 from ..ops.losses import LossFunc, predict_raw, sparse_dot, sparse_variant
 from ..ops.optimizer import SGD, read_train_result
 from ..table import SparseBatch, StreamTable, Table, as_dense_matrix
-from ..utils import read_write
+from ..utils import javacodec, read_write
 
 
 def extract_train_data(
@@ -175,9 +175,13 @@ def validate_binomial_labels(y) -> None:
 class CoefficientModelData:
     """The model data of a linear model: one coefficient vector, a float64
     host array. As a one-row Table of a DenseVector (get/set_model_data),
-    and as `coefficient` in the `.npz` model data (save/load)."""
+    and as `coefficient` in the `.npz` model data (save/load); a directory
+    the reference wrote loads through `_load_reference`."""
 
     coefficient: np.ndarray = None
+    #: decodes a reference-written model directory to the coefficient
+    #: (LinearSVCModelData and LinearRegressionModelData: one DenseVector)
+    _load_reference = staticmethod(javacodec.load_reference_coefficient)
 
     def set_model_data(self, *inputs: Table):
         (model_data,) = inputs
@@ -192,7 +196,8 @@ class CoefficientModelData:
         read_write.save_model_arrays(path, coefficient=self.coefficient)
 
     def _load_extra(self, path: str) -> None:
-        self.coefficient = read_write.load_model_arrays(path)["coefficient"]
+        loaded = read_write.load_arrays_or_reference(path, self._load_reference)
+        self.coefficient = loaded["coefficient"] if isinstance(loaded, dict) else loaded
 
     def _dot(self, col) -> torch.Tensor:
         """The features column's dot with the coefficient, float32, on the

@@ -25,7 +25,7 @@ from ...api import Estimator, Model
 from ...common.param import HasFeaturesCol, HasLabelCol, HasPredictionCol
 from ...param import IntParam, ParamValidators
 from ...table import Table, _to_numpy, as_dense_matrix
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from .._linear import is_device_column
 
@@ -128,7 +128,7 @@ class KnnModel(Model, KnnModelParams):
                                      labels=_to_numpy(self.labels))
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path)
+        arrays = read_write.load_arrays_or_reference(path, javacodec.load_reference_knn)
         self.features, self.labels = arrays["features"], arrays["labels"]
 
 

@@ -34,6 +34,7 @@ from ...common.param import (
 )
 from ...ops.losses import BINARY_LOGISTIC_LOSS
 from ...table import Table
+from ...utils import javacodec
 from ...utils.param_utils import update_existing_params
 from .. import _linear
 
@@ -68,9 +69,19 @@ def _predict_from_dot(dot):
     return pred, raw
 
 
+def _load_reference(path: str):
+    """The coefficient of a reference-written LogisticRegressionModelData
+    (its modelVersion is dropped, as the JAX package drops it); None
+    without part files."""
+    loaded = javacodec.load_reference_logisticregression(path)
+    return None if loaded is None else loaded[0]
+
+
 class LogisticRegressionModel(
     _linear.CoefficientModelData, Model, LogisticRegressionModelParams
 ):
+    _load_reference = staticmethod(_load_reference)
+
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
         col = table.column(self.get_features_col())

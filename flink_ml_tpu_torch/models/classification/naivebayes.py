@@ -43,7 +43,7 @@ from ...api import Estimator, Model
 from ...common.param import HasFeaturesCol, HasLabelCol, HasPredictionCol
 from ...param import DoubleParam, ParamValidators, StringParam
 from ...table import Table, _to_numpy, as_dense_matrix
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from .._linear import packed_to_host
 
@@ -274,7 +274,8 @@ class NaiveBayesModel(Model, NaiveBayesModelParams):
         )
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path, allow_pickle=True)
+        arrays = read_write.load_arrays_or_reference(
+            path, javacodec.load_reference_naivebayes, allow_pickle=True)
         self.theta = [list(row) for row in arrays["theta"]]
         self.pi = arrays["piArray"]
         self.labels = arrays["labels"]

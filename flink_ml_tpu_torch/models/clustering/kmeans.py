@@ -20,14 +20,19 @@ PyTorch would materialise the (n, k, d) product (4 GB an epoch at the
 1M x 10 x 100 config). A matmul is deterministic for a given shape, so a
 refit gives the same bits; `index_add_` would not, its atomics reorder the
 sums. The reduce form existed for the JAX package's fleet contract
-(vmapped fits bit-identical to solo ones), which is not ported.
+(vmapped fits bit-identical to solo ones).
+
+The fleet fit `_lloyd_fleet_train` (fleet.py) runs N Lloyd fits over one
+shared X with each member's init rows and maxIter, and stacks the
+members' centroids so that each epoch is two matmuls over X for all of
+them: the distances to the N * k centroids and the N * k cells' sums.
+Whether a stacked matmul adds in the solo one's order is the matmul
+library's choice (on the CPU it does, bit for bit; PERF.md has the card).
 
 A StreamTable fits out of core (`_fit_stream`): the batches are cached
 once in the native data cache and replay every epoch through the device
-epoch cache. Not ported yet, and raising NotImplementedError: the fleet
-fit `_lloyd_fleet_train` (A.11). The JAX package's mesh,
-overlapped-collective, dispatch and tracing hooks have no counterpart here
-(A.10, A.14).
+epoch cache. The JAX package's mesh, overlapped-collective, dispatch and
+tracing hooks have no counterpart here (A.10, A.14).
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from ...ops.distance import DistanceMeasure
 from ...param import IntParam, ParamValidators, StringParam
 from ...parallel.prefetch import DeviceStager
 from ...table import Table, as_dense_matrix
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
 
@@ -124,9 +129,34 @@ def _lloyd_train(X, init_centroids, max_iter: int, measure_name: str):
     return centroids, counts
 
 
-def _lloyd_fleet_train(*args, **kwargs):
-    """N Lloyd fits vmapped into one program (the JAX package's FitFleet)."""
-    raise NotImplementedError("fleet training is not ported yet (ROADMAP A.11)")
+def _lloyd_fleet_train(X, init_centroids, max_iters, measure_name: str):
+    """N Lloyd fits over one shared X (n, d), the member axis written out
+    (the JAX package's `_lloyd_fleet_train_impl` vmaps `_lloyd_train_impl`):
+    `init_centroids` (N, k, d) holds each member's init rows, `max_iters`
+    its maxIter (host ints). The loop runs the largest; a member past its
+    own maxIter keeps its centroids and counts, so each member ends where
+    its solo fit ends. Returns ONE packed (N, k * d + k) tensor
+    ([centroids.ravel | counts] per member), on the device."""
+    measure = DistanceMeasure.get_instance(measure_name)
+    members, k, d = init_centroids.shape
+    n = X.shape[0]
+    labels = torch.arange(k, device=X.device)
+    limits = torch.as_tensor(list(max_iters), dtype=torch.int32, device=X.device)
+    centroids = init_centroids
+    counts = X.new_zeros((members, k))
+    for e in range(max(max_iters, default=0)):
+        stacked = centroids.reshape(members * k, d)
+        assign = torch.argmin(measure.pairwise(X, stacked).reshape(n, members, k), dim=2)
+        one_hot = (assign[:, :, None] == labels).to(X.dtype)  # (n, N, k)
+        new_counts = torch.sum(one_hot, dim=0)  # (N, k)
+        sums = (one_hot.reshape(n, members * k).T @ X).reshape(members, k, d)
+        new_centroids = torch.where(
+            new_counts[..., None] > 0, sums / torch.clamp(new_counts[..., None], min=1e-30),
+            centroids)
+        live = e < limits
+        centroids = torch.where(live[:, None, None], new_centroids, centroids)
+        counts = torch.where(live[:, None], new_counts, counts)
+    return torch.cat([centroids.reshape(members, k * d), counts], dim=1)
 
 
 class KMeansModel(Model, KMeansModelParams):
@@ -171,8 +201,11 @@ class KMeansModel(Model, KMeansModelParams):
         read_write.save_model_arrays(path, centroids=self.centroids, weights=self.weights)
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path)
-        self.centroids, self.weights = arrays["centroids"], arrays["weights"]
+        loaded = read_write.load_arrays_or_reference(path, javacodec.load_reference_kmeans)
+        if isinstance(loaded, dict):
+            self.centroids, self.weights = loaded["centroids"], loaded["weights"]
+        else:  # the reference's binary KMeansModelData
+            self.centroids, self.weights = loaded
 
 
 class KMeans(Estimator, KMeansParams):

@@ -33,7 +33,7 @@ from ...common.param import HasInputCol, HasOutputCol
 from ...ops import tokens as tokens_ops
 from ...param import BooleanParam, DoubleParam, IntParam, ParamValidators
 from ...table import DictTokenMatrix, SparseBatch, Table, rows_to_sparse_batch
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from . import _tokens
 
@@ -167,7 +167,8 @@ class CountVectorizerModel(Model, CountVectorizerModelParams):
         read_write.save_model_arrays(path, vocabulary=np.asarray(self.vocabulary, dtype=object))
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path, allow_pickle=True)
+        arrays = read_write.load_arrays_or_reference(
+            path, javacodec.load_reference_countvectorizer, allow_pickle=True)
         self.vocabulary = [str(v) for v in arrays["vocabulary"]]
 
 

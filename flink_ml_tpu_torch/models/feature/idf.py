@@ -28,7 +28,7 @@ from ...common.param import HasInputCol, HasOutputCol
 from ...linalg import DenseVector
 from ...param import IntParam, ParamValidators
 from ...table import SparseBatch, Table
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
 from . import _columns
@@ -110,7 +110,7 @@ class IDFModel(Model, IDFModelParams):
                                      numDocs=np.int64(self.num_docs))
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path)
+        arrays = read_write.load_arrays_or_reference(path, javacodec.load_reference_idf)
         self.idf = arrays["idf"]
         self.doc_freq = arrays["docFreq"]
         self.num_docs = int(arrays["numDocs"])

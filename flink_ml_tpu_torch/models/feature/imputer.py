@@ -37,7 +37,7 @@ from ...common.quantilesummary import QuantileSummary
 from ...linalg import DenseVector
 from ...param import ParamValidators, StringParam
 from ...table import StreamTable, Table
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
 from . import _columns
@@ -160,7 +160,8 @@ class ImputerModel(Model, ImputerModelParams):
         )
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path, allow_pickle=True)
+        arrays = read_write.load_arrays_or_reference(
+            path, javacodec.load_reference_imputer, allow_pickle=True)
         self.surrogates = {str(k): float(v) for k, v in zip(arrays["columnNames"], arrays["values"])}
 
 

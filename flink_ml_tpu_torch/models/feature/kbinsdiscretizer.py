@@ -46,7 +46,7 @@ from ...common.quantilesummary import column_sketches, update_column_sketches
 from ...ops.quantile import jnp_quantile, numpy_quantile
 from ...param import IntParam, ParamValidators, StringParam
 from ...table import StreamTable, Table, as_dense_matrix
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.datastream import sample as reservoir_sample
 from ...utils.param_utils import update_existing_params
 from .. import _linear
@@ -162,7 +162,8 @@ class KBinsDiscretizerModel(Model, KBinsDiscretizerModelParams):
             path, binEdges=np.asarray([np.asarray(e) for e in self.bin_edges], dtype=object))
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path, allow_pickle=True)
+        arrays = read_write.load_arrays_or_reference(
+            path, javacodec.load_reference_kbinsdiscretizer, allow_pickle=True)
         self.bin_edges = [np.asarray(e, dtype=np.float64) for e in arrays["binEdges"]]
 
 

@@ -33,7 +33,7 @@ from ...api import Estimator, Model
 from ...common.param import HasInputCol, HasOutputCol, HasSeed
 from ...param import IntParam, ParamValidators
 from ...table import SparseBatch, Table, _sparse_vectors_to_batch, _to_numpy, as_dense_matrix
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.javarandom import JavaRandom
 from ...utils.param_utils import update_existing_params
 
@@ -218,7 +218,7 @@ class MinHashLSHModel(Model, LSHParams):
                                      randCoefficientB=self.rand_coefficient_b)
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path)
+        arrays = read_write.load_arrays_or_reference(path, javacodec.load_reference_minhashlsh)
         self.rand_coefficient_a = arrays["randCoefficientA"]
         self.rand_coefficient_b = arrays["randCoefficientB"]
 

@@ -20,7 +20,7 @@ from ...api import Estimator, Model
 from ...common.param import HasInputCol, HasOutputCol
 from ...linalg import DenseVector
 from ...table import Table
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
 from . import _columns
@@ -54,7 +54,8 @@ class MaxAbsScalerModel(Model, MaxAbsScalerParams):
         read_write.save_model_arrays(path, maxVector=self.max_abs)
 
     def _load_extra(self, path: str) -> None:
-        self.max_abs = read_write.load_model_arrays(path)["maxVector"]
+        self.max_abs = read_write.load_arrays_or_reference(
+            path, javacodec.load_reference_maxabsscaler)["maxVector"]
 
 
 class MaxAbsScaler(Estimator, MaxAbsScalerParams):

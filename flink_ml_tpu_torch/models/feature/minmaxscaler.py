@@ -25,7 +25,7 @@ from ...common.param import HasInputCol, HasOutputCol
 from ...linalg import DenseVector
 from ...param import DoubleParam, ParamValidators
 from ...table import Table
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
 from . import _columns
@@ -92,7 +92,7 @@ class MinMaxScalerModel(Model, MinMaxScalerParams):
         read_write.save_model_arrays(path, minVector=self.min_vector, maxVector=self.max_vector)
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path)
+        arrays = read_write.load_arrays_or_reference(path, javacodec.load_reference_minmaxscaler)
         self.min_vector, self.max_vector = arrays["minVector"], arrays["maxVector"]
 
 

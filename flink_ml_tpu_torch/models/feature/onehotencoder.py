@@ -26,7 +26,7 @@ from ...api import Estimator, Model
 from ...common.param import HasHandleInvalid, HasInputCols, HasOutputCols
 from ...param import BooleanParam
 from ...table import SparseBatch, Table, _to_numpy
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
 
@@ -111,7 +111,8 @@ class OneHotEncoderModel(Model, OneHotEncoderModelParams):
         read_write.save_model_arrays(path, categorySizes=self.category_sizes)
 
     def _load_extra(self, path: str) -> None:
-        self.category_sizes = read_write.load_model_arrays(path)["categorySizes"]
+        self.category_sizes = read_write.load_arrays_or_reference(
+            path, javacodec.load_reference_onehotencoder)["categorySizes"]
 
 
 class OneHotEncoder(Estimator, OneHotEncoderParams):

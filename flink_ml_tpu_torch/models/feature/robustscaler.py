@@ -30,7 +30,7 @@ from ...linalg import DenseVector
 from ...ops.quantile import jnp_quantile
 from ...param import BooleanParam, DoubleParam, ParamValidators
 from ...table import StreamTable, Table, as_dense_matrix
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
 from . import _columns
@@ -115,7 +115,7 @@ class RobustScalerModel(Model, RobustScalerModelParams):
         read_write.save_model_arrays(path, medians=self.medians, ranges=self.ranges)
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path)
+        arrays = read_write.load_arrays_or_reference(path, javacodec.load_reference_robustscaler)
         self.medians, self.ranges = arrays["medians"], arrays["ranges"]
 
 

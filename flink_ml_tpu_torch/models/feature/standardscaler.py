@@ -25,7 +25,7 @@ from ...common.param import HasInputCol, HasOutputCol
 from ...linalg import DenseVector
 from ...param import BooleanParam
 from ...table import Table
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
 from . import _columns
@@ -94,7 +94,7 @@ class StandardScalerModel(Model, StandardScalerParams):
         read_write.save_model_arrays(path, mean=self.mean, std=self.std)
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path)
+        arrays = read_write.load_arrays_or_reference(path, javacodec.load_reference_standardscaler)
         self.mean, self.std = arrays["mean"], arrays["std"]
 
 

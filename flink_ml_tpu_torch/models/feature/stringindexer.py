@@ -27,7 +27,7 @@ from ...api import Estimator, Model
 from ...common.param import HasHandleInvalid, HasInputCols, HasOutputCols
 from ...param import ParamValidators, StringParam
 from ...table import Table, _to_numpy
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from . import _tokens
 
@@ -204,7 +204,8 @@ class StringIndexerModel(Model, StringIndexerModelParams):
         )
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path, allow_pickle=True)
+        arrays = read_write.load_arrays_or_reference(
+            path, javacodec.load_reference_stringindexer, allow_pickle=True)
         self.string_arrays = [list(a) for a in arrays["stringArrays"]]
 
 
@@ -254,7 +255,8 @@ class IndexToStringModel(Model, IndexToStringModelParams):
         )
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path, allow_pickle=True)
+        arrays = read_write.load_arrays_or_reference(
+            path, javacodec.load_reference_stringindexer, allow_pickle=True)
         self.string_arrays = [list(a) for a in arrays["stringArrays"]]
 
 

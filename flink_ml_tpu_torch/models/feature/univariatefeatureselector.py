@@ -25,7 +25,7 @@ from ...common.param import HasFeaturesCol, HasLabelCol, HasOutputCol
 from ...ops import stats
 from ...param import DoubleParam, ParamValidators, StringParam
 from ...table import Table, as_dense_matrix
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from . import _columns
 from .vectorslicer import select_columns
@@ -153,7 +153,9 @@ class UnivariateFeatureSelectorModel(Model, UnivariateFeatureSelectorModelParams
         read_write.save_model_arrays(path, indices=self.indices)
 
     def _load_extra(self, path: str) -> None:
-        self.indices = np.asarray(read_write.load_model_arrays(path)["indices"], dtype=np.int64)
+        arrays = read_write.load_arrays_or_reference(
+            path, javacodec.load_reference_univariatefeatureselector)
+        self.indices = np.asarray(arrays["indices"], dtype=np.int64)
 
 
 class UnivariateFeatureSelector(Estimator, UnivariateFeatureSelectorParams):

@@ -23,7 +23,7 @@ from ...api import Estimator, Model
 from ...common.param import HasInputCol, HasOutputCol
 from ...param import DoubleParam, ParamValidators
 from ...table import Table
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from . import _columns
 from .vectorslicer import select_columns
@@ -80,7 +80,8 @@ class VarianceThresholdSelectorModel(Model, VarianceThresholdSelectorModelParams
         read_write.save_model_arrays(path, indices=self.indices)
 
     def _load_extra(self, path: str) -> None:
-        self.indices = read_write.load_model_arrays(path)["indices"]
+        self.indices = read_write.load_arrays_or_reference(
+            path, javacodec.load_reference_variancethresholdselector)["indices"]
 
 
 class VarianceThresholdSelector(Estimator, VarianceThresholdSelectorParams):

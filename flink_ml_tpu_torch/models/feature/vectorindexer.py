@@ -29,7 +29,7 @@ from ...common.param import HasHandleInvalid, HasInputCol, HasOutputCol
 from ...param import IntParam, ParamValidators
 from ...table import Table
 from ...ops.quantile import count_distinct
-from ...utils import read_write
+from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from . import _columns
 
@@ -127,7 +127,8 @@ class VectorIndexerModel(Model, VectorIndexerModelParams):
         )
 
     def _load_extra(self, path: str) -> None:
-        arrays = read_write.load_model_arrays(path, allow_pickle=True)
+        arrays = read_write.load_arrays_or_reference(
+            path, javacodec.load_reference_vectorindexer, allow_pickle=True)
         self.category_maps = {
             int(c): {float(v): i for i, v in enumerate(keys)}
             for c, keys in zip(arrays["columns"], arrays["keys"])

@@ -14,6 +14,15 @@ per-row multiplier)` and a layout:
   `sparsekernels`, which runs the CUDA kernels on CUDA tensors and the
   plain versions on CPU tensors. PLAIN_SPARSE_VARIANTS call the plain
   versions on any device: `chip_smoke.py` holds each kernel fit against one.
+
+A fleet fit (fleet.py) trains N members on one shared batch: its losses
+(`fleet_loss`) take coeff (N, d) and return (loss_sum [N], grad_sum
+[N, d], weight_sum), the member axis leading as under the JAX package's
+vmap. The batch is broadcast, never copied N times: dense, the reduce
+forms over X[None] (`fleet_dense_dot`, `fleet_dense_grad`); sparse, the
+member-batched kernels `fleet_row_dots` and `fleet_grad`, which read each
+slot once for all members. The pointwise forms broadcast over the member
+axis as they are.
 """
 
 from __future__ import annotations
@@ -128,6 +137,56 @@ PLAIN_SPARSE_VARIANTS = _sparse_variants(
 def sparse_variant(name: str) -> LossFunc:
     """The padded-CSR LossFunc for the dense loss `name`."""
     return SPARSE_VARIANTS[name]
+
+
+def fleet_dense_dot(X, coeff):
+    """Per-member row dots X[B, d] . coeff[N, d] -> [N, B]: `dense_dot`'s
+    reduce form with a leading member axis."""
+    return torch.sum(X * coeff[:, None, :], dim=-1)
+
+
+def fleet_dense_grad(X, multiplier):
+    """sum_B multiplier[N, B] * X[B, d] -> [N, d]: `dense_grad` with a
+    leading member axis."""
+    return torch.sum(X * multiplier[:, :, None], dim=-2)
+
+
+def _fleet(pointwise, row_dots, grad):
+    """A fleet loss: (X, y, w, coeff [N, d]) -> (loss_sum [N], grad [N, d],
+    weight_sum), X dense (B, d) or the padded-CSR pair."""
+
+    def fn(X, y, w, coeff) -> LossOut:
+        if isinstance(X, tuple):
+            indices, values = X
+            loss, multiplier = pointwise(row_dots(indices, values, coeff), y, w)
+            return torch.sum(loss, dim=-1), grad(indices, values, multiplier, coeff), torch.sum(w)
+        loss, multiplier = pointwise(fleet_dense_dot(X, coeff), y, w)
+        return torch.sum(loss, dim=-1), fleet_dense_grad(X, multiplier), torch.sum(w)
+
+    return fn
+
+
+def _fleet_variants(prefix, row_dots, grad):
+    return {
+        base.name: LossFunc(prefix + base.name, _fleet(base.pointwise, row_dots, grad),
+                            base.pointwise)
+        for base in (BINARY_LOGISTIC_LOSS, HINGE_LOSS, LEAST_SQUARE_LOSS)
+    }
+
+
+#: dense loss name -> its fleet loss, dense or sparse on the fleet kernels
+#: (CPU: their plain versions)
+FLEET_VARIANTS = _fleet_variants("fleet_", sparsekernels.fleet_row_dots, sparsekernels.fleet_grad)
+#: dense loss name -> its fleet loss on the plain versions, on any device
+PLAIN_FLEET_VARIANTS = _fleet_variants(
+    "plain_fleet_", sparsekernels.fleet_row_dots_plain, sparsekernels.fleet_grad_plain
+)
+
+
+def fleet_loss(name: str, plain: bool = False) -> LossFunc:
+    """The fleet LossFunc for the dense loss `name`; `plain` runs sparse
+    batches on the plain versions of the fleet kernels."""
+    return (PLAIN_FLEET_VARIANTS if plain else FLEET_VARIANTS)[name]
 
 
 def predict_raw(X, coeff):

@@ -26,6 +26,10 @@ caches the stream once in the native data cache and replays one batch an
 epoch through the device epoch cache, with the same epoch arithmetic
 (`_masked_epoch`), so it equals the bounded fit of the same rows.
 
+The fleet programs (`_sgd_fleet_whole_fit`, `_sgd_fleet_stream_whole_fit`)
+train N members over one staged input for `fleet.FitFleet`, each member
+with the solo fit's arithmetic, its own hyperparameters and its own stop.
+
 Checkpointing, feature sharding, overlapped collectives and more than one
 device are later ROADMAP items and raise NotImplementedError.
 """
@@ -371,41 +375,211 @@ class SGD:
             )
 
     def _optimize_flat_async(self, init_coeff, X, y, weights, loss_func, validate_labels):
-        """Stage the inputs, pad rows to a batch multiple (the only case
-        that copies a device input) and run `_sgd_train_flat`."""
-        first = X[0] if isinstance(X, tuple) else X
-        device = first.device if isinstance(first, torch.Tensor) else config.device()
-        n = int(first.shape[0])
+        """Stage the inputs (`stage_flat`) and run `_sgd_train_flat`."""
         B = int(self.global_batch_size)
-        num_batches = max(1, -(-n // B))
-        n_pad = num_batches * B
-        if isinstance(X, tuple):
-            X_f = (_stage(X[0], torch.int32, device), _stage(X[1], COMPUTE_DTYPE, device))
-        else:
-            X_f = _stage(X, COMPUTE_DTYPE, device)
-        y_f = (
-            _stage(y, COMPUTE_DTYPE, device)
-            if y is not None
-            else torch.zeros((n,), dtype=COMPUTE_DTYPE, device=device)
-        )
-        w_f = None if weights is None else _stage(weights, COMPUTE_DTYPE, device)
-        if n_pad != n:
-            pad = n_pad - n
-            if isinstance(X_f, tuple):
-                X_f = (
-                    torch.nn.functional.pad(X_f[0], (0, 0, 0, pad), value=-1),
-                    torch.nn.functional.pad(X_f[1], (0, 0, 0, pad)),
-                )
-            else:
-                X_f = torch.nn.functional.pad(X_f, (0, 0, 0, pad))
-            y_f = torch.nn.functional.pad(y_f, (0, pad))
-            if w_f is not None:
-                w_f = torch.nn.functional.pad(w_f, (0, pad))
-        if isinstance(X_f, tuple):
-            X_f = tuple(leaf.contiguous() for leaf in X_f)
-        init = _stage(init_coeff, COMPUTE_DTYPE, device)
+        X_f, y_f, w_f, n = stage_flat(X, y, weights, B)
+        init = _stage(init_coeff, COMPUTE_DTYPE, y_f.device)
         return _sgd_train_flat(
             X_f, y_f, w_f, init, loss_func, B, n, int(self.max_iter), float(self.tol),
             float(self.learning_rate), float(self.reg), float(self.elastic_net),
             validate_labels,
         )
+
+
+def stage_flat(X, y, weights, batch: int):
+    """The flat fit's inputs on one device: host arrays staged to
+    `config.device()`, tensors kept on theirs; rows padded to a multiple
+    of `batch` (the only case that copies a device input), sparse padding
+    rows with index -1. Returns (X, y, w or None, true row count)."""
+    first = X[0] if isinstance(X, tuple) else X
+    device = first.device if isinstance(first, torch.Tensor) else config.device()
+    n = int(first.shape[0])
+    num_batches = max(1, -(-n // batch))
+    n_pad = num_batches * batch
+    if isinstance(X, tuple):
+        X_f = (_stage(X[0], torch.int32, device), _stage(X[1], COMPUTE_DTYPE, device))
+    else:
+        X_f = _stage(X, COMPUTE_DTYPE, device)
+    y_f = (
+        _stage(y, COMPUTE_DTYPE, device)
+        if y is not None
+        else torch.zeros((n,), dtype=COMPUTE_DTYPE, device=device)
+    )
+    w_f = None if weights is None else _stage(weights, COMPUTE_DTYPE, device)
+    if n_pad != n:
+        pad = n_pad - n
+        if isinstance(X_f, tuple):
+            X_f = (
+                torch.nn.functional.pad(X_f[0], (0, 0, 0, pad), value=-1),
+                torch.nn.functional.pad(X_f[1], (0, 0, 0, pad)),
+            )
+        else:
+            X_f = torch.nn.functional.pad(X_f, (0, 0, 0, pad))
+        y_f = torch.nn.functional.pad(y_f, (0, pad))
+        if w_f is not None:
+            w_f = torch.nn.functional.pad(w_f, (0, pad))
+    if isinstance(X_f, tuple):
+        X_f = tuple(leaf.contiguous() for leaf in X_f)
+    return X_f, y_f, w_f, n
+
+
+# ---------------------------------------------------------------------------
+# fleet programs: N fits over one shared batch (fleet.py)
+# ---------------------------------------------------------------------------
+#
+# Port of the fleet programs of flink_ml_tpu/ops/optimizer.py:457-650. The
+# JAX package vmaps the member fit over a leading axis; here the axis is
+# written out. The batch is shared and never copied N times: the carry
+# (coeff, grad, wsum, epochs, criteria), the [N, 5] hyperparameters and
+# the outputs carry the member axis, the data does not. The Python loop
+# runs the fleet's largest maxIter; a member is live while its criteria
+# are above its tol and its epoch count below its own maxIter, and a
+# member that is not live keeps its state (the vmapped while_loop's
+# select-freeze). While live, a member's epoch count equals the loop
+# index, so every member sees its solo batch sequence. Each member's
+# arithmetic is the solo fit's, op for op (the proximal factors are
+# formed in float64 as the solo `_prox_step` forms them), and a member
+# with reg 0 keeps its coefficients exactly (`where(reg > 0, ...)`, as the
+# JAX package's `regularize` selects).
+
+
+class FleetHyper(NamedTuple):
+    """A fleet's per-member hyperparameters on the device: `packed` the
+    float32 [N, 5] (maxIter, tol, learningRate, reg, elasticNet) rows of
+    fleet.py, `prox` the float32 [N, 2] (elasticNet * reg,
+    (1 - elasticNet) * reg), formed in float64 as the solo `_prox_step`
+    forms them before they scale a tensor."""
+
+    packed: torch.Tensor
+    prox: torch.Tensor
+
+    @property
+    def max_iter(self) -> torch.Tensor:
+        return self.packed[:, 0].to(torch.int32)
+
+
+def fleet_hyper(rows, device) -> FleetHyper:
+    """FleetHyper from host rows [maxIter, tol, lr, reg, elasticNet]."""
+    rows = np.asarray(rows, np.float64).reshape(-1, 5)
+    reg, en = rows[:, 3], rows[:, 4]
+    prox = np.stack([en * reg, (1.0 - en) * reg], axis=1)
+    return FleetHyper(torch.as_tensor(rows.astype(np.float32), device=device),
+                      torch.as_tensor(prox.astype(np.float32), device=device))
+
+
+def fleet_init_state(members: int, d: int, device, member_minor: bool = False):
+    """The fleet carry before the first epoch: (coeff [N, d], grad [N, d],
+    wsum [N], epochs [N] int32, criteria [N] = inf). `member_minor` lays
+    coeff and grad out as the transpose of a contiguous (d, N), the layout
+    in which the fleet kernels read a slot's N coefficients together."""
+    def matrix():
+        if member_minor:
+            return torch.zeros((d, members), dtype=COMPUTE_DTYPE, device=device).T
+        return torch.zeros((members, d), dtype=COMPUTE_DTYPE, device=device)
+
+    return (
+        matrix(),
+        matrix(),
+        torch.zeros((members,), dtype=COMPUTE_DTYPE, device=device),
+        torch.zeros((members,), dtype=torch.int32, device=device),
+        torch.full((members,), float("inf"), dtype=torch.float32, device=device),
+    )
+
+
+def _fleet_update(coeff, grad, wsum, hyper: FleetHyper):
+    """`_update_model` for every member at once: coeff -= lr / wsum * grad,
+    then the proximal step where reg > 0, only where wsum > 0."""
+    lr, reg = hyper.packed[:, 2:3], hyper.packed[:, 3:4]
+    # lr / t is t.reciprocal() * lr for a Python lr: the solo form's bits
+    updated = coeff - (torch.reciprocal(torch.clamp(wsum, min=1e-30))[:, None] * lr) * grad
+    step = lr * (hyper.prox[:, 0:1] * torch.sign(updated) + hyper.prox[:, 1:2] * updated)
+    updated = torch.where(reg > 0.0, updated - step, updated)
+    return torch.where((wsum > 0)[:, None], updated, coeff)
+
+
+def _fleet_masked_epoch(Xk, yk, wk, state, loss_func, hyper: FleetHyper, max_iter):
+    """`_masked_epoch` for every member: the epoch runs for all, and a
+    member that is not live (criteria <= tol, or its own maxIter reached)
+    keeps its state."""
+    coeff, grad, wsum, epochs, criteria = state
+    live = (criteria > hyper.packed[:, 1]) & (epochs < max_iter)
+    new_coeff = _fleet_update(coeff, grad, wsum, hyper)
+    lsum, new_grad, new_wsum = loss_func(Xk, yk, wk, new_coeff)
+    new_criteria = (lsum / torch.clamp(new_wsum, min=1e-30)).to(torch.float32)
+    rows = live[:, None]
+    return (
+        torch.where(rows, new_coeff, coeff),
+        torch.where(rows, new_grad, grad),
+        torch.where(live, new_wsum, wsum),
+        torch.where(live, epochs + 1, epochs),
+        torch.where(live, new_criteria, criteria),
+    )
+
+
+def _fleet_member_finish(state, hyper: FleetHyper, flag=None):
+    """Every member's post-loop tail: the one extra update and its result
+    row [flag?, coeff, criteria, epochs] -> [N, flag? + d + 2] float32,
+    one packed tensor for one readback. `flag` (the label check, computed
+    once for the shared labels) goes into every row."""
+    coeff, grad, wsum, epochs, criteria = state
+    coeff = _fleet_update(coeff, grad, wsum, hyper)
+    parts = [coeff, criteria[:, None], epochs[:, None].to(COMPUTE_DTYPE)]
+    if flag is not None:
+        parts.insert(0, flag.reshape(1, 1).expand(coeff.shape[0], 1))
+    return torch.cat(parts, dim=1)
+
+
+def _sgd_fleet_whole_fit(X, y, w, state, loss_func, hyper: FleetHyper, gmax: int, batch: int,
+                         n: int, check_labels: bool):
+    """N whole bounded fits over the flat, batch-padded data of one fit
+    (`stage_flat`): `gmax` (the largest maxIter, a host int) epochs, every
+    member to its own maxIter or tol, then the packed
+    [N, flag? + d + 2] result, on the device. The {0,1} label flag is
+    computed once, for the shared labels."""
+    num_batches = y.shape[0] // batch
+    max_iter = hyper.max_iter
+    for e in range(gmax):
+        start = (e % num_batches) * batch
+        Xk = _slice_rows(X, start, batch)
+        yk = y[start : start + batch]
+        if w is not None:
+            wk = w[start : start + batch]
+        else:
+            wk = (torch.arange(start, start + batch, device=y.device) < n).to(COMPUTE_DTYPE)
+        state = _fleet_masked_epoch(Xk, yk, wk, state, loss_func, hyper, max_iter)
+    flag = _binomial_labels_ok(y) if check_labels else None
+    return _fleet_member_finish(state, hyper, flag)
+
+
+def _sgd_fleet_final(state, hyper: FleetHyper):
+    """The fleet's finish without a label flag -> [N, d + 2]."""
+    return _fleet_member_finish(state, hyper)
+
+
+def _sgd_fleet_stream_whole_fit(segments, layout: StreamLayout, state, loss_func,
+                                hyper: FleetHyper, gmax: int):
+    """N out-of-core fits over the stream's segments stacked once on the
+    device (`segments` [nb, layout.size], each a packed [X | y | w] batch):
+    epoch e trains on segment e mod nb for `gmax` epochs, every member to
+    its own maxIter or tol. Returns the packed [N, d + 2] result."""
+    nb = segments.shape[0]
+    max_iter = hyper.max_iter
+    for e in range(gmax):
+        Xk, yk, wk = layout.views(segments[e % nb])
+        state = _fleet_masked_epoch(Xk, yk, wk, state, loss_func, hyper, max_iter)
+    return _sgd_fleet_final(state, hyper)
+
+
+def _sgd_fleet_chunk(*args, **kwargs):
+    """The JAX package's fleet chunk serves only its checkpointed fit."""
+    raise NotImplementedError("checkpointed training is not ported yet (ROADMAP A.13)")
+
+
+def unpack_fleet_train_result(host: np.ndarray, d: int, has_flag: bool = False):
+    """Host-side inverse of the fleet result pack ([N, flag? + d + 2],
+    `_fleet_member_finish` rows): returns (flags_or_None, coeff [N, d],
+    criteria [N], epochs [N])."""
+    host = np.asarray(host)
+    off = 1 if has_flag else 0
+    flags = host[:, 0] if has_flag else None
+    return flags, host[:, off : off + d], host[:, -2], host[:, -1].astype(np.int64)

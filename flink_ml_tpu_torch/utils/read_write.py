@@ -3,7 +3,10 @@
 Port of flink_ml_tpu/utils/read_write.py, on the same on-disk layout
 (the reference's util/ReadWriteUtils.java): `{path}/metadata` is a JSON
 object with `className`, `timestamp` and `paramMap`; model arrays live in
-`{path}/data/model_data.npz`. A stage saved by either package loads in
+`{path}/data/model_data.npz`. A model directory that the reference (Flink
+ML) wrote keeps its model data as binary part files under `{path}/data`
+instead; `load_arrays_or_reference` reads either, through the stage's
+decoder in `utils/javacodec.py`. A stage saved by either package loads in
 the other:
 
 - the port writes the reference's Java class name for its model stages
@@ -144,21 +147,33 @@ def save_model_arrays(path: str, name: str = "model_data", **arrays) -> None:
 def load_model_arrays(path: str, name: str = "model_data",
                       allow_pickle: bool = False) -> Dict[str, np.ndarray]:
     """Restore arrays saved by `save_model_arrays` (ReadWriteUtils.loadModelData:460).
-    Model data in the reference's binary format is not read yet.
     `allow_pickle` reads object arrays (ragged bin edges, column names, key
     lists), which the container can only hold pickled; only a stage whose
     model data has such arrays asks for it."""
-    npz = os.path.join(get_data_path(path), name + ".npz")
-    if not os.path.exists(npz):
-        data_dir = get_data_path(path)
-        if os.path.isdir(data_dir) and os.listdir(data_dir):
-            raise NotImplementedError(
-                f"{data_dir} holds no {name}.npz; reading the reference's binary "
-                "model-data format is not ported yet (ROADMAP A.15)"
-            )
-        raise FileNotFoundError(f"No model data under {data_dir}")
-    with np.load(npz, allow_pickle=allow_pickle) as f:
+    with np.load(os.path.join(get_data_path(path), name + ".npz"), allow_pickle=allow_pickle) as f:
         return {k: f[k] for k in f.files}
+
+
+def load_arrays_or_reference(path: str, reference_decoder, name: str = "model_data",
+                             allow_pickle: bool = False):
+    """Model-data loading shared by every model's `_load_extra`: the npz
+    container when present, else `reference_decoder(path)` for a
+    reference-written binary directory (utils/javacodec.py), else a
+    FileNotFoundError naming both accepted formats. A part file cut short
+    or corrupt raises the decoder's IOError."""
+    if model_data_exists(path, name):
+        return load_model_arrays(path, name, allow_pickle)
+    decoded = reference_decoder(path)
+    if decoded is None:
+        raise FileNotFoundError(
+            f"No model data under {get_data_path(path)}: neither the native "
+            "npz container nor reference-format binary part files"
+        )
+    return decoded
+
+
+def model_data_exists(path: str, name: str = "model_data") -> bool:
+    return os.path.exists(os.path.join(get_data_path(path), name + ".npz"))
 
 
 def get_path_for_pipeline_stage(index: int, num_stages: int, path: str) -> str:

@@ -112,6 +112,8 @@ def stub() -> None:
     cs.profile_overlap = lambda name, run: (run(), {})[1]
     sk.sparse_row_dots_plain = _counted(sk.sparse_row_dots, sk.sparse_row_dots_plain)
     sk.sparse_grad_plain = _counted(sk.sparse_grad, sk.sparse_grad_plain)
+    sk.fleet_row_dots_plain = _counted(sk.fleet_row_dots, sk.fleet_row_dots_plain)
+    sk.fleet_grad_plain = _counted(sk.fleet_grad, sk.fleet_grad_plain)
     cs.subprocess = types.SimpleNamespace(run=lambda *args, **kwargs: types.SimpleNamespace(
         stdout="CPU rehearsal, 0.00 W\n"))
 

@@ -69,6 +69,15 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+def test_the_slice_modules_are_checked():
+    """The fleet and the reference-format codecs are port modules like the
+    rest: imported without JAX above and parsed below."""
+    for name in ("flink_ml_tpu_torch.fleet", "flink_ml_tpu_torch.utils.javacodec"):
+        assert name in PORT_MODULES
+    assert {REPO / "flink_ml_tpu_torch" / "fleet.py",
+            REPO / "flink_ml_tpu_torch" / "utils" / "javacodec.py"} <= set(PORT_FILES)
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_jax_package_import(path):
     roots = set(_imported_roots(path))
@@ -168,6 +177,7 @@ def _entry_points():
         *_text_entry_points(),
         *_stats_entry_points(),
         *_slice8_entry_points(),
+        *_slice9_entry_points(),
     ])
 
 
@@ -288,6 +298,25 @@ def _stats_entry_points():
     return calls
 
 
+def _slice9_entry_points():
+    """(name, call) of FitFleet (linear and KMeans) and of a model loaded
+    from the reference's binary layout, on host columns."""
+    from flink_ml_tpu_torch.fleet import FitFleet
+    from flink_ml_tpu_torch.models.clustering.kmeans import KMeans
+    from flink_ml_tpu_torch.utils import read_write
+
+    X, y = _data()
+    table = Table({"features": X, "label": y})
+    fixture = REPO / "tests" / "fixtures" / "reference_lr_pipelinemodel"
+    reference = read_write.load_stage(str(fixture))  # host work: loads without a card
+    wide = Table({"features": np.ones((4, 4))})
+    return [
+        ("FitFleet.fit", lambda: FitFleet([LogisticRegression().set_max_iter(2)] * 2).fit(table)),
+        ("FitFleet.fit of KMeans", lambda: FitFleet([KMeans().set_seed(s) for s in (1, 2)]).fit(table)),
+        ("reference-format PipelineModel.transform", lambda: reference.transform(wide)),
+    ]
+
+
 def _slice8_entry_points():
     """(name, call) of AgglomerativeClustering, MinHashLSH, SQLTransformer
     and Graph/GraphModel on host columns; the models are fitted on the CPU
@@ -348,6 +377,7 @@ ENTRY_POINTS = [
     *[f"{name}{kind}" for name in STATS_ESTIMATORS for kind in (".fit", "Model.transform")],
     "AgglomerativeClustering.transform", "MinHashLSH.fit", "MinHashLSHModel.transform",
     "SQLTransformer.transform", "Graph.fit", "GraphModel.transform",
+    "FitFleet.fit", "FitFleet.fit of KMeans", "reference-format PipelineModel.transform",
 ]
 
 

@@ -210,5 +210,15 @@ def test_model_data_round_trip(both_on_one_device, tmp_path):
 
 
 def test_fleet_fit_is_a_later_item(both_on_one_device):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        port_kmeans._lloyd_fleet_train(None, None, None, None, "euclidean")
+    """The fleet fit is ported now (A.11, tests/test_torch_fleet.py): one
+    call trains every member, each as its solo Lloyd from its init rows to
+    its own maxIter, in one packed (N, k * d + k) result."""
+    X = torch.from_numpy(_blobs(seed=12))
+    inits = torch.stack([X[torch.as_tensor(port_kmeans.init_rows(X.shape[0], 4, seed))]
+                         for seed in (1, 2)])
+    packed = port_kmeans._lloyd_fleet_train(X, inits, [6, 2], "euclidean")
+    assert packed.shape == (2, 4 * 5 + 4)
+    for m, max_iter in enumerate((6, 2)):
+        centroids, counts = port_kmeans._lloyd_train(X, inits[m], max_iter, "euclidean")
+        torch.testing.assert_close(packed[m, :20].reshape(4, 5), centroids, rtol=0, atol=0)
+        torch.testing.assert_close(packed[m, 20:], counts, rtol=0, atol=0)

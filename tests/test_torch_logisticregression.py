@@ -186,10 +186,14 @@ def test_port_round_trip_and_model_data(both_on_one_device, tmp_path):
 
 
 def test_reference_binary_model_data_is_a_later_item(tmp_path):
+    """The reference's binary model data is read now (utils/javacodec.py,
+    tests/test_torch_javacodec.py): a part file cut short is corrupt, in
+    both packages."""
     stage_dir = tmp_path / "m"
     (stage_dir / "data").mkdir(parents=True)
     (stage_dir / "data" / "part-0").write_bytes(b"\x00")
     with open(stage_dir / "metadata", "w") as f:
         json.dump({"className": JAVA_MODEL, "paramMap": {}}, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Stage.load(str(stage_dir))
+    for load in (Stage.load, JaxStage.load):
+        with pytest.raises(IOError, match="Corrupt reference model data file"):
+            load(str(stage_dir))

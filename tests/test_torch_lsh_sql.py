@@ -312,8 +312,11 @@ def test_a_reference_format_directory_raises_naming_a15(tmp_path):
     port_model.save(str(path))
     os.remove(path / "data" / "model_data.npz")
     (path / "data" / "part-0").write_bytes(b"\x00")
-    with pytest.raises(NotImplementedError, match="A.15"):
+    # the reference's binary model data is read now (A.15): a part cut short is corrupt
+    with pytest.raises(IOError, match="Corrupt reference model data file"):
         Stage.load(str(path))
+    with pytest.raises(IOError, match="Corrupt reference model data file"):
+        jax_lsh.MinHashLSHModel.load(str(path))
 
 
 # -- SQLTransformer -------------------------------------------------------------------

@@ -25,6 +25,7 @@ import torch
 import jax
 
 from flink_ml_tpu import Table as JaxTable
+from flink_ml_tpu.api import Stage as JaxStage
 from flink_ml_tpu.linalg import DenseVector as JaxDenseVector
 from flink_ml_tpu.models.evaluation import binaryclassification as jax_bce
 from flink_ml_tpu.models.feature import univariatefeatureselector as jax_ufs
@@ -384,5 +385,8 @@ def test_selector_load_without_the_npz_container_names_a15(tmp_path):
     _selectors("continuous", "categorical", "fwe", 0.05)[1].fit(port_table).save(str(tmp_path / "m"))
     data = tmp_path / "m" / "data"
     (data / "model_data.npz").rename(data / "part-0")
-    with pytest.raises(NotImplementedError, match="A.15"):
+    # the reference's binary model data is read now (A.15): an npz is no such part file
+    with pytest.raises(IOError, match="Corrupt reference model data file"):
         Stage.load(str(tmp_path / "m"))
+    with pytest.raises(IOError, match="Corrupt reference model data file"):
+        JaxStage.load(str(tmp_path / "m"))

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from flink_ml_tpu.ops import losses as jax_losses
@@ -118,7 +119,8 @@ def test_cpu_tensors_take_the_plain_route_without_counting():
         sparsekernels.sparse_grad_plain(indices, values, mult, coeff),
         rtol=0, atol=0,
     )
-    assert sparsekernels.launch_counts() == {"sparse_row_dots": 0, "sparse_grad": 0}
+    assert sparsekernels.launch_counts() == {"sparse_row_dots": 0, "sparse_grad": 0,
+                                             "fleet_row_dots": 0, "fleet_grad": 0}
 
 
 @pytest.mark.parametrize(
@@ -246,3 +248,109 @@ def test_quarter_grid_values_make_every_order_of_gradient_sums_exact():
     shuffled = np.zeros(d, np.float32)
     np.add.at(shuffled, indices.reshape(-1)[order], (values * mult[:, None]).reshape(-1)[order])
     np.testing.assert_array_equal(shuffled, want)
+
+
+# -- the member-batched (fleet) forms ------------------------------------
+
+# (seed, rows, nnz, d, members): one member, a tile of 8 and one more, an
+# empty batch, an empty row width
+FLEET_SHAPES = [(43, 50, 6, 16, 1), (47, 64, 39, 100, 8), (53, 33, 40, 50, 9),
+                (59, 0, 5, 10, 3), (61, 7, 0, 10, 2)]
+
+
+def _fleet_batch(seed, rows, nnz, d, members):
+    indices, values, _, _ = _batch(seed, rows, nnz, d)
+    rng = np.random.default_rng(seed + 1)
+    coeff = rng.standard_normal((members, d)).astype(np.float32)
+    mult = rng.standard_normal((members, rows)).astype(np.float32)
+    return indices, values, coeff, mult
+
+
+@pytest.mark.parametrize("seed,rows,nnz,d,members", FLEET_SHAPES)
+def test_fleet_plain_versions_are_n_solo_plain_calls(seed, rows, nnz, d, members):
+    """Row m of each fleet form equals the solo plain version on member m,
+    bit for bit: the same masking (padding, the clamp in the dot, the drop
+    in the gradient) and the same order of each member's additions."""
+    ti, tv, tc, tm = _t(*_fleet_batch(seed, rows, nnz, d, members))
+    dots = sparsekernels.fleet_row_dots_plain(ti, tv, tc)
+    grad = sparsekernels.fleet_grad_plain(ti, tv, tm, tc)
+    assert dots.shape == (members, rows) and grad.shape == (members, d)
+    for m in range(members):
+        torch.testing.assert_close(dots[m], sparsekernels.sparse_row_dots_plain(ti, tv, tc[m]),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(grad[m], sparsekernels.sparse_grad_plain(ti, tv, tm[m], tc[m]),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed,rows,nnz,d,members", FLEET_SHAPES[:3])
+def test_fleet_plain_versions_match_pallas_under_vmap(seed, rows, nnz, d, members):
+    """The JAX package reaches the Pallas kernels through jax.vmap over the
+    member axis (coeff and multiplier batched, the batch not)."""
+    indices, values, coeff, mult = _fleet_batch(seed, rows, nnz, d, members)
+    ji, jv, jc, jm = (jnp.asarray(a) for a in (indices, values, coeff, mult))
+    want_dots = jax.vmap(jax_kernels.sparse_row_dots, in_axes=(None, None, 0))(ji, jv, jc)
+    want_grad = jax.vmap(jax_kernels.sparse_grad, in_axes=(None, None, 0, 0))(ji, jv, jm, jc)
+    ti, tv, tc, tm = _t(indices, values, coeff, mult)
+    np.testing.assert_allclose(sparsekernels.fleet_row_dots_plain(ti, tv, tc).numpy(),
+                               np.asarray(want_dots), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(sparsekernels.fleet_grad_plain(ti, tv, tm, tc).numpy(),
+                               np.asarray(want_grad), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("layout", ["member-major", "member-minor"])
+def test_fleet_wrappers_take_both_layouts_on_the_cpu_without_counting(layout):
+    indices, values, coeff, mult = _t(*_fleet_batch(67, 40, 7, 30, 4))
+    if layout == "member-minor":
+        coeff = coeff.T.contiguous().T
+        assert not coeff.is_contiguous()
+    sparsekernels.reset_launch_counts()
+    dots = sparsekernels.fleet_row_dots(indices, values, coeff)
+    grad = sparsekernels.fleet_grad(indices, values, mult, coeff)
+    assert grad.is_contiguous() == coeff.is_contiguous()  # the gradient keeps coeff's layout
+    torch.testing.assert_close(dots, sparsekernels.fleet_row_dots_plain(indices, values, coeff),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(grad, sparsekernels.fleet_grad_plain(indices, values, mult, coeff),
+                               rtol=0, atol=0)
+    assert set(sparsekernels.launch_counts().values()) == {0}
+
+
+def test_fleet_index_asymmetry_clamp_in_dot_drop_in_grad():
+    indices = torch.tensor([[0, 5, -1], [7, 1, 2]], dtype=torch.int32)
+    values = torch.ones((2, 3))
+    coeff = torch.tensor([[1.0, 10.0, 100.0, 1000.0], [2.0, 20.0, 200.0, 2000.0]])
+    mult = torch.tensor([[1.0, 1.0], [1.0, 2.0]])
+    torch.testing.assert_close(sparsekernels.fleet_row_dots(indices, values, coeff),
+                               torch.tensor([[1001.0, 1110.0], [2002.0, 2220.0]]), rtol=0, atol=0)
+    torch.testing.assert_close(sparsekernels.fleet_grad(indices, values, mult, coeff),
+                               torch.tensor([[1.0, 1.0, 1.0, 0.0], [1.0, 2.0, 2.0, 0.0]]),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["int64_indices", "float64_coeff", "vector_coeff", "no_members", "strided_coeff",
+     "multiplier_shape", "multiplier_strided", "multiplier_float64"],
+)
+def test_fleet_wrappers_reject_what_the_kernels_do_not_take(bad):
+    indices, values, coeff, mult = _t(*_fleet_batch(71, 20, 4, 8, 3))
+    if bad == "int64_indices":
+        indices = indices.long()
+    elif bad == "float64_coeff":
+        coeff = coeff.double()
+    elif bad == "vector_coeff":
+        coeff = coeff[0]
+    elif bad == "no_members":
+        coeff = coeff[:0]
+    elif bad == "strided_coeff":
+        coeff = coeff[:, ::2]
+    elif bad == "multiplier_shape":
+        mult = mult[:2]
+    elif bad == "multiplier_strided":
+        mult = mult.T.contiguous().T
+    else:
+        mult = mult.double()
+    with pytest.raises((TypeError, ValueError)):
+        if bad.startswith("multiplier"):
+            sparsekernels.fleet_grad(indices, values, mult, coeff)
+        else:
+            sparsekernels.fleet_row_dots(indices, values, coeff)
