@@ -7,26 +7,44 @@ It needs a CUDA card and exits non-zero without one, and on any failed
 phase; it imports nothing of JAX or of the JAX package. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); the build of
-   `flink_ml_tpu_torch/csrc/sparse_kernels.cu` and of the floor probes
-   `csrc/probes.cu`, one nvcc each, started together; the registers of
-   each kernel (cuobjdump -res-usage) and a look at the SASS (the
-   gradient adds with RED);
+   `flink_ml_tpu_torch/csrc/sparse_kernels.cu`, of the floor probes
+   `csrc/probes.cu` and of the replaced designs `csrc/designs.cu`, one
+   nvcc each, started together; the registers of each kernel (cuobjdump
+   -res-usage) and a look at the SASS: both gradients add to device memory
+   with RED and never ATOMG, sparse_grad adds in shared memory (ATOMS; its
+   forms are printed), fleet_row_dots loads with 128-bit global loads;
 2. each kernel against its plain PyTorch version, on seeded inputs with
    -1 padding and indices >= d: at edge shapes, on the index-convention
    probe, at the main path's shapes (the fit batch, 100,000 x 39, and the
    1M-row transform), on Zipf-skewed indices at the fit batch (values on
    a grid of quarters, so the gradient must be exact), on a fit batch
    sliced at an odd row offset (not 16-byte aligned), on a wide row
-   (16 x 5000) and at the text path's fit batch (phase 7). Each case prints CUDA-event times of the kernel, the
-   plain version, one PyTorch library call and, where the batch is
-   aligned, the floor probes (a gather per slot; an atomic add per slot),
-   beside the bound from the bytes moved. Then the member-batched (fleet)
-   kernels: at edge shapes (one member, a tile of 8 and one more) in both
-   layouts of the (N, d) operand, and at the sparse fleet fit's batch
-   (N = 8, 100,000 x 39, d = 1e6), where the row dot must equal N launches
-   of the solo kernel bit for bit; their times in both layouts, of N solo
-   launches, of the plain version and of one library call each
-   (embedding_bag over a (d, N) table, index_add_ of (B * nnz, N) rows);
+   (16 x 5000), on a fit batch that overflows the gradient's table (35%
+   of its slots on 128 hot columns, so each block's chunks repeat enough
+   columns to stay on the table; 15% on the ~1,000 columns that hash into
+   8 of its entries, so they find no entry and add with RED; half uniform,
+   so each block claims past its flush threshold every two or three
+   chunks and adds into the reset table after; quarter-grid values,
+   exact; the kernel's own counters must show mid-walk flushes and probe
+   overflows and no chunk added without the table), on a tiny d (7 columns
+   for the whole fit batch; quarter-grid values, exact) and at the text
+   path's fit batch (phase 7). Each gradient case also prints the walk's
+   counters (`sparse_grad_walk`: mid-walk flushes, probe overflows, chunks
+   added with direct REDs). Each case prints CUDA-event times of the
+   kernel, the plain version, one PyTorch library call, the gradient's
+   replaced design (the thread-per-slot RED kernel, `csrc/designs.cu`, held
+   to the same gate) and, where the batch is aligned, the floor probes (a gather
+   per slot; an atomic add per slot), beside the bound from the bytes
+   moved. Then the member-batched (fleet) kernels: at edge shapes (one
+   member, a tile of 8 and one more) in both layouts of the (N, d)
+   operand and member-minor off 16-byte alignment, and at the sparse fleet
+   fit's batch (N = 8, 100,000 x 39, d = 1e6), where the row dot must equal
+   solo launches bit for bit at N = 1, 8 and 9 in both layouts; their
+   times in both layouts, of the row dot's replaced design (the scalar
+   loads) in both, of N solo launches, of the plain version, of one
+   library call each (embedding_bag over a (d, N) table, index_add_ of
+   (B * nnz, N) rows) and of the row dot's probe (two 16-byte loads a slot
+   from a (d, 8) table);
 3. the main paths, each run as a user runs it (fit -> transform -> save ->
    load -> transform), with the launch counts reset just before each and
    read just after, at the conf/ configurations: LogisticRegression,
@@ -325,6 +343,12 @@ def edge_phase(sk, dev):
 ZIPF_EXPONENT = 1.1
 MISALIGNED_OFFSET = 3  # rows: 3 * 39 * 4 bytes = 468, not a multiple of 16
 WIDE_SHAPE = (16, 5000, 4096)
+TINY_D = 7  # the tiny-d case: every slot of the fit batch on one of 7 columns
+# the table-overflow case: HOT_SHARE of the slots on HOT_COLUMNS columns,
+# CROWD_SHARE on the columns whose hashed table entry is one of the first
+# CROWDED_ENTRIES, the rest uniform
+HOT_SHARE, HOT_COLUMNS = 0.35, 128
+CROWD_SHARE, CROWDED_ENTRIES = 0.15, 8
 
 
 def zipf_batch(gen, rows, nnz, d, dev):
@@ -341,11 +365,49 @@ def zipf_batch(gen, rows, nnz, d, dev):
     u = torch.rand((rows, nnz), generator=gen, device=dev, dtype=torch.float64)
     rank = torch.searchsorted(cdf, u).clamp(max=d - 1)
     idx = torch.randperm(d, generator=gen, device=dev)[rank].to(torch.int32)
-    u = torch.rand((rows, nnz), generator=gen, device=dev)
+    return mask_slots(gen, idx, d), quarter_grid(gen, (rows, nnz), dev)
+
+
+def quarter_grid(gen, shape, dev, signed=False):
+    """Values on a grid of quarters (0..1, or -1..1 with `signed`): every
+    partial sum of their products is exact in float32 below 2^20."""
+    low = -4 if signed else 0
+    return torch.randint(low, 5, shape, generator=gen, device=dev).to(torch.float32) / 4
+
+
+def mask_slots(gen, idx, d):
+    """`sparse_batch`'s padding and indices >= d on given columns."""
+    u = torch.rand(idx.shape, generator=gen, device=idx.device)
     idx = torch.where(u < DEFAULT_MASK_SHARE, -1, idx)
-    idx = torch.where(u > 1.0 - OUT_OF_RANGE_SHARE, d + idx % 5, idx).contiguous()
-    vals = torch.randint(0, 5, (rows, nnz), generator=gen, device=dev).to(torch.float32) / 4
-    return idx, vals
+    return torch.where(u > 1.0 - OUT_OF_RANGE_SHARE, d + idx % 5, idx).to(torch.int32).contiguous()
+
+
+def crowded_batch(gen, rows, nnz, d, table, dev):
+    """sparse_grad's table overflowing both ways while its blocks stay on
+    it. HOT_SHARE of the slots on HOT_COLUMNS random columns: after a
+    chunk's first, their slots find their entry, a quarter of every chunk,
+    above the 1/8 of repeats below which a block leaves the table.
+    CROWD_SHARE on the ~d * CROWDED_ENTRIES / table columns whose hashed
+    entry (the kernel's multiplicative hash into `table` entries) is one of
+    the first CROWDED_ENTRIES: all but the few that claim an entry within
+    reach find none and add with their own RED. The rest uniform over d:
+    about half of a chunk's slots claim a new entry, so at the fit batch's
+    plan (chunks of 1856 slots, flush at 2048 claims) a block flushes
+    every two or three chunks and then adds into the reset table. Values
+    on the quarter grid: the sums are exact. Returns (idx, vals, the
+    number of crowded columns)."""
+    cols = torch.arange(d, device=dev, dtype=torch.int64)
+    home = ((cols * 2654435761) & 0xFFFFFFFF) >> (32 - (table.bit_length() - 1))
+    crowd = cols[home < CROWDED_ENTRIES]
+    hot = torch.randperm(d, generator=gen, device=dev)[:HOT_COLUMNS]
+    shape = (rows, nnz)
+    pick_hot = hot[torch.randint(0, HOT_COLUMNS, shape, generator=gen, device=dev)]
+    pick_crowd = crowd[torch.randint(0, crowd.numel(), shape, generator=gen, device=dev)]
+    spread = torch.randint(0, d, shape, generator=gen, device=dev)
+    u = torch.rand(shape, generator=gen, device=dev)
+    mixed = torch.where(u < HOT_SHARE, pick_hot,
+                        torch.where(u < HOT_SHARE + CROWD_SHARE, pick_crowd, spread))
+    return mask_slots(gen, mixed, d), quarter_grid(gen, shape, dev), int(crowd.numel())
 
 
 def cuobjdump(cuda_build, name, flag):
@@ -371,48 +433,79 @@ def resource_usage(cuda_build, name):
     return usage
 
 
+SASS_KERNEL = re.compile(r"\d(sparse_grad|fleet_grad|fleet_row_dots|row_dots)_kernel")
+
+
 def check_sass(cuda_build):
-    """What the compiler made of the gradient (cuobjdump -sass): its adds,
-    whose result is unused, must be RED (REDG on Hopper), not ATOMG, which
-    waits for the old value."""
+    """What the compiler made of the kernels (cuobjdump -sass): every
+    global add of the gradients must be RED (REDG on Hopper), not ATOMG,
+    which waits for the old value; sparse_grad must add in shared memory
+    (ATOMS: its claims and its table's float adds, whose form is printed);
+    fleet_row_dots must load with 128-bit global loads (its float4 member
+    loads). Returns the ATOMS forms of sparse_grad."""
     sass = cuobjdump(cuda_build, "sparse_kernels", "-sass")
-    opcode = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
-    names = {"RED": "RED", "REDG": "RED", "ATOMG": "ATOMG"}
-    counts, seen, kernel = {}, {}, None
+    opcode = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)((?:\.[A-Z0-9_]+)*)")
+    counts, kernel = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            kernel = line.split("Function :")[1].strip()
-            counts[kernel], seen[kernel] = {"RED": 0, "ATOMG": 0}, set()
+            mangled = line.split("Function :")[1].strip()
+            match = SASS_KERNEL.search(mangled)
+            kernel = f"{match.group(1)}_kernel {mangled}" if match else mangled
+            counts[kernel] = {"RED": 0, "ATOMG": 0, "ATOMS": 0, "LDG128": 0, "atoms_forms": set()}
             continue
         match = opcode.search(line)
-        if kernel is not None and match:
-            seen[kernel].add(match.group(1))
-            if match.group(1) in names:
-                counts[kernel][names[match.group(1)]] += 1
-    check(any("grad_kernel" in k for k in counts), "no gradient kernel in the SASS")
+        if kernel is None or not match:
+            continue
+        op, mods = match.groups()
+        ops = counts[kernel]
+        if op in ("RED", "REDG", "ATOMG"):
+            ops["ATOMG" if op == "ATOMG" else "RED"] += 1
+        elif op == "ATOMS":
+            ops["ATOMS"] += 1
+            ops["atoms_forms"].add(op + mods)
+        elif op == "LDG" and ".128" in mods:
+            ops["LDG128"] += 1
+    forms = set()
     for kernel, ops in counts.items():
+        ops["atoms_forms"] = sorted(ops["atoms_forms"])
         log(f"  sass {kernel}: {ops}")
-        if "grad_kernel" in kernel:
+        name = kernel.split()[0]
+        if name in ("sparse_grad_kernel", "fleet_grad_kernel"):
             check(ops["RED"] > 0 and ops["ATOMG"] == 0,
-                  f"{kernel} adds with {ops}, not RED; opcodes {sorted(seen[kernel])}")
+                  f"{kernel} adds to device memory with {ops}, not RED")
+        if name == "sparse_grad_kernel":
+            check(ops["ATOMS"] > 0, f"{kernel} has no shared atomics: {ops}")
+            forms.update(ops["atoms_forms"])
+        if name == "fleet_row_dots_kernel":
+            check(ops["LDG128"] > 0, f"{kernel} has no 128-bit global loads: {ops}")
+    names = {k.split()[0] for k in counts}
+    check({"sparse_grad_kernel", "fleet_grad_kernel", "fleet_row_dots_kernel"} <= names,
+          f"kernels missing from the SASS: {sorted(names)}")
+    log(f"  sparse_grad's shared atomics: {sorted(forms)}")
+    return sorted(forms)
 
 
 def load_probes(cuda_build):
-    """csrc/probes.cu: the floors of random L2 access that the kernels meet."""
+    """csrc/probes.cu: the floors of random L2 access that the kernels meet:
+    (gather, red, gather8)."""
     import ctypes
 
     lib = cuda_build.load("probes")
-    lib.fmt_probe_gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+    for fn in (lib.fmt_probe_gather, lib.fmt_probe_gather8):
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.fmt_probe_red.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-    lib.fmt_probe_gather.restype = lib.fmt_probe_red.restype = ctypes.c_int
+    lib.fmt_probe_red.restype = ctypes.c_int
 
-    def gather(idx, coeff):
-        n = idx.numel()
-        out = torch.empty(-(-n // 1024) * 32, device=idx.device)
-        err = lib.fmt_probe_gather(idx.data_ptr(), coeff.data_ptr(), out.data_ptr(), n,
-                                   coeff.shape[0], torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"gather probe launch failed with CUDA error {err}")
-        return out
+    def gather_with(fn, what):
+        def gather(idx, coeff):
+            n = idx.numel()
+            out = torch.empty(-(-n // 1024) * 32, device=idx.device)
+            err = fn(idx.data_ptr(), coeff.data_ptr(), out.data_ptr(), n, coeff.shape[0],
+                     torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"{what} probe launch failed with CUDA error {err}")
+            return out
+        return gather
 
     def red(idx, coeff):
         counts = torch.zeros_like(coeff)
@@ -421,12 +514,46 @@ def load_probes(cuda_build):
         check(err == 0, f"RED probe launch failed with CUDA error {err}")
         return counts
 
-    return gather, red
+    return gather_with(lib.fmt_probe_gather, "gather"), red, gather_with(lib.fmt_probe_gather8, "gather8")
+
+
+def load_designs(cuda_build, sk):
+    """csrc/designs.cu: the designs that this port's kernels replaced, on
+    the plans they ran with: (red_grad, scalar_fleet_row_dots), called as
+    sparse_grad and fleet_row_dots are."""
+    import ctypes
+
+    lib = cuda_build.load("designs")
+    vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.fmt_red_grad.argtypes = [vp] * 4 + [ll, i32, ll, i32, i32, vp]
+    lib.fmt_scalar_fleet_row_dots.argtypes = [vp] * 4 + [ll, i32, ll, i32, ll, ll, i32, i32, vp]
+    lib.fmt_red_grad.restype = lib.fmt_scalar_fleet_row_dots.restype = i32
+
+    def red_grad(idx, vals, mult, coeff):
+        grad = torch.zeros_like(coeff)
+        plan = sk._launch_plan(*idx.shape, True)
+        err = lib.fmt_red_grad(idx.data_ptr(), vals.data_ptr(), mult.data_ptr(), grad.data_ptr(),
+                               *idx.shape, coeff.shape[0], *plan, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"fmt_red_grad launch failed with CUDA error {err}")
+        return grad
+
+    def scalar_fleet_row_dots(idx, vals, coeff):
+        out = torch.empty((coeff.shape[0], idx.shape[0]), device=idx.device)
+        plan = sk._launch_plan(*idx.shape)
+        err = lib.fmt_scalar_fleet_row_dots(
+            idx.data_ptr(), vals.data_ptr(), coeff.data_ptr(), out.data_ptr(), *idx.shape,
+            coeff.shape[1], coeff.shape[0], *sk._fleet_strides(coeff), *plan,
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"fmt_scalar_fleet_row_dots launch failed with CUDA error {err}")
+        return out
+
+    return red_grad, scalar_fleet_row_dots
 
 
 def check_probes(gather, red, idx, coeff):
     """The probes compute something checkable: a sum of the gathered
-    coefficients per lane, and a count per column."""
+    coefficients per lane, and a count per column (gather8: see
+    `check_gather8`)."""
     d = coeff.shape[0]
     flat = idx.reshape(-1)
     pad = torch.full((-flat.numel() % 1024,), -1, dtype=flat.dtype, device=flat.device)
@@ -437,6 +564,19 @@ def check_probes(gather, red, idx, coeff):
     keep = flat[(flat >= 0) & (flat < d)].long()
     check(torch.equal(red(idx, coeff), torch.bincount(keep, minlength=d).to(torch.float32)),
           "the RED probe's counts disagree")
+
+
+def check_gather8(gather8, idx, table):
+    """The gather8 probe sums the 8 values of each gathered row of a (d, 8)
+    table per lane."""
+    d = table.shape[0]
+    flat = idx.reshape(-1)
+    pad = torch.full((-flat.numel() % 1024,), -1, dtype=flat.dtype, device=flat.device)
+    lanes = torch.cat([flat, pad]).reshape(-1, 8, 32, 4)
+    rows = table.sum(dim=1)[lanes.clamp(0, d - 1).long()]
+    want = torch.where(lanes >= 0, rows, 0.0).sum(dim=(1, 3))
+    check(torch.allclose(gather8(idx, table), want.reshape(-1), **ROW_DOTS_TOL),
+          "the gather8 probe's sums disagree")
 
 
 def summation_bound(idx, vals, mult, d):
@@ -451,10 +591,11 @@ def summation_bound(idx, vals, mult, d):
     return 2.0 * count * 2.0**-24 * total
 
 
-def measure_case(sk, probes, label, idx, vals, coeff, mult, sets, exact_grad=False,
+def measure_case(sk, probes, designs, label, idx, vals, coeff, mult, sets, exact_grad=False,
                  grad_bound=False):
     """Both kernels on one batch: held against their plain versions, and
-    timed with the plain versions, one library call each and, where the
+    timed with the plain versions, one library call each, the gradient's
+    replaced design (`fmt_red_grad`, held to the same gate) and, where the
     batch is aligned, the probes. `sets` are copies of (idx, vals) that
     rotate through the timed calls. With `grad_bound`, the gradient is held
     to `summation_bound` instead of GRAD_TOL: on columns that sum thousands
@@ -468,7 +609,7 @@ def measure_case(sk, probes, label, idx, vals, coeff, mult, sets, exact_grad=Fal
     batch_bytes = idx.numel() * 4 + vals.numel() * 4
     probe_ms = {}
     if idx.data_ptr() % 16 == 0 and idx.numel() % 4 == 0 and probes is not None:
-        gather, red = probes
+        gather, red, _ = probes
         check_probes(gather, red, idx, coeff)
         probe_ms["sparse_row_dots"] = cuda_ms(lambda i, v: gather(i, coeff), sets)
         probe_ms["sparse_grad"] = cuda_ms(lambda i, v: red(i, coeff), sets)
@@ -497,19 +638,32 @@ def measure_case(sk, probes, label, idx, vals, coeff, mult, sets, exact_grad=Fal
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
-    got = sk.sparse_grad(idx, vals, mult, coeff)
+    red_grad = designs[0]
     want = sk.sparse_grad_plain(idx, vals, mult, coeff)
-    err = (got - want).abs()
+    bound = summation_bound(idx, vals, mult, d) if grad_bound else None
+    errs = {}
+    for name, fn in (("sparse_grad", sk.sparse_grad), ("fmt_red_grad", red_grad)):
+        got = fn(idx, vals, mult, coeff)
+        err = errs[name] = (got - want).abs()
+        if grad_bound:
+            check(bool((err.double() <= bound).all()),
+                  f"{name} exceeds the summation bound on {label}: max abs {float(err.max())}, "
+                  f"largest share of the bound {float((err.double() / bound.clamp_min(1e-300)).max())}")
+        else:
+            check(torch.allclose(got, want, **GRAD_TOL),
+                  f"{name} disagrees with its plain version on {label}: max abs {float(err.max())}")
+        if exact_grad:
+            check(torch.equal(got, want), f"{name} is not exact on {label}'s exact sums")
+    got, walk = sk.sparse_grad_walk(idx, vals, mult, coeff)
     if grad_bound:
-        bound = summation_bound(idx, vals, mult, d)
-        check(bool((err.double() <= bound).all()),
-              f"sparse_grad exceeds the summation bound on {label}: max abs {float(err.max())}, "
-              f"largest share of the bound {float((err.double() / bound.clamp_min(1e-300)).max())}")
+        check(bool(((got - want).abs().double() <= bound).all()),
+              f"sparse_grad_walk exceeds the summation bound on {label}")
     else:
         check(torch.allclose(got, want, **GRAD_TOL),
-              f"sparse_grad disagrees with its plain version on {label}: max abs {float(err.max())}")
+              f"sparse_grad_walk disagrees with its plain version on {label}")
     if exact_grad:
-        check(torch.equal(got, want), f"sparse_grad is not exact on {label}'s exact sums")
+        check(torch.equal(got, want), f"sparse_grad_walk is not exact on {label}'s exact sums")
+    err = errs["sparse_grad"]
     flat_idx = torch.where(keep, idx, 0).long().reshape(-1)
     contrib = torch.where(keep, vals * mult[:, None], 0.0).reshape(-1)
     b_ms, b_by = bound_ms(batch_bytes + rows * 4 + d * 4, 2.0 * int(keep.sum()))
@@ -518,11 +672,12 @@ def measure_case(sk, probes, label, idx, vals, coeff, mult, sets, exact_grad=Fal
         "max_abs_err": float(err.max()),
         "max_rel_err": float((err / want.abs().clamp_min(1e-6)).max()),
         "ms": cuda_ms(lambda i, v, m: sk.sparse_grad(i, v, m, coeff), msets),
+        "replaced_ms": cuda_ms(lambda i, v, m: red_grad(i, v, m, coeff), msets),
         "enqueue_ms": cuda_ms(lambda i, v, m: sk.sparse_grad(i, v, m, coeff), msets, ahead=False),
         "plain_ms": cuda_ms(lambda i, v, m: sk.sparse_grad_plain(i, v, m, coeff), msets, iters=10),
         "library_ms": cuda_ms(lambda fi, c: torch.zeros_like(coeff).index_add_(0, fi, c),
                               [(flat_idx, contrib)], iters=10),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": b_ms, "bound_by": b_by, "walk": walk,
     }
     results["sparse_row_dots"]["tolerance"] = ROW_DOTS_TOL
     results["sparse_grad"]["tolerance"] = (
@@ -530,10 +685,13 @@ def measure_case(sk, probes, label, idx, vals, coeff, mult, sets, exact_grad=Fal
     for name, r in results.items():
         r.update(case=label, rows=rows, nnz=nnz, d=d, probe_ms=probe_ms.get(name))
         probe = f", probe {r['probe_ms']:.4f} ms" if r["probe_ms"] is not None else ""
+        replaced = f", replaced design {r['replaced_ms']:.4f} ms" if "replaced_ms" in r else ""
         log(f"  {name} {label} ({rows} x {nnz}, d={d}): max_abs_err "
-            f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms (enqueue-bound {r['enqueue_ms']:.4f}), "
+            f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms (enqueue-bound {r['enqueue_ms']:.4f})"
+            f"{replaced}, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){probe}")
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){probe}"
+            + (f"; walk {r['walk']}" if "walk" in r else ""))
     return results
 
 
@@ -546,19 +704,23 @@ def copies(idx, vals, offset=0):
         (idx.clone()[offset:], vals.clone()[offset:]) for _ in range(n - 1)]
 
 
-def kernel_phase(sk, probes, dev):
+def kernel_phase(sk, probes, designs, dev):
     """Each kernel against its plain version at the main path's shapes
     (the fit batch and the 1M-row transform), on skewed indices, on a
-    misaligned row slice and on a wide row; the floor probes beside them."""
+    misaligned row slice, on a wide row, on a batch that overflows the
+    gradient's table, on a tiny d and at the text path's fit batch; the
+    floor probes and the gradient's replaced design beside them."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     coeff = torch.randn(SPARSE_DIM, generator=gen, device=dev)
     results = {"sparse_row_dots": [], "sparse_grad": []}
 
     def run(label, idx, vals, c, mult, sets, exact_grad=False, grad_bound=False):
-        res = measure_case(sk, probes, label, idx, vals, c, mult, sets, exact_grad, grad_bound)
+        res = measure_case(sk, probes, designs, label, idx, vals, c, mult, sets, exact_grad,
+                           grad_bound)
         for name in results:
             results[name].append(res[name])
+        return res
 
     for label, rows in (("fit batch", BATCH), ("transform", SPARSE_ROWS)):
         idx, vals = sparse_batch(gen, rows, NNZ, SPARSE_DIM, dev, DEFAULT_MASK_SHARE, OUT_OF_RANGE_SHARE)
@@ -567,7 +729,7 @@ def kernel_phase(sk, probes, dev):
         del idx, vals
 
     idx, vals = zipf_batch(gen, BATCH, NNZ, SPARSE_DIM, dev)
-    mult = torch.randint(-4, 5, (BATCH,), generator=gen, device=dev).to(torch.float32) / 4
+    mult = quarter_grid(gen, (BATCH,), dev, signed=True)
     run("zipf", idx, vals, coeff, mult, copies(idx, vals), exact_grad=True)
     # The same skewed columns with random float values, not a gate: how far
     # float32 sums in any order stray from the float64 sum on hot columns.
@@ -594,6 +756,24 @@ def kernel_phase(sk, probes, dev):
     wide_coeff = torch.randn(d, generator=gen, device=dev)
     mult = torch.randn(rows, generator=gen, device=dev)
     run("wide row", idx, vals, wide_coeff, mult, copies(idx, vals))
+    del idx, vals
+
+    plan = sk._grad_plan(BATCH, NNZ, sk._sm_count(dev.index or 0))
+    idx, vals, crowd = crowded_batch(gen, BATCH, NNZ, SPARSE_DIM, plan.table, dev)
+    log(f"  table overflow: {HOT_SHARE} of the slots on {HOT_COLUMNS} hot columns, "
+        f"{CROWD_SHARE} on the {crowd} columns hashed to {CROWDED_ENTRIES} of {plan.table} "
+        f"entries, the rest uniform; {plan.grid} blocks")
+    mult = quarter_grid(gen, (BATCH,), dev, signed=True)
+    walk = run("table overflow", idx, vals, coeff, mult, copies(idx, vals),
+               exact_grad=True)["sparse_grad"]["walk"]
+    check(walk["mid_walk_flushes"] > 0 and walk["overflows"] > 0 and walk["direct_chunks"] == 0,
+          f"the table-overflow case does not run the table's flush and overflow paths: {walk}")
+    del idx, vals
+
+    idx = mask_slots(gen, torch.randint(0, TINY_D, (BATCH, NNZ), generator=gen, device=dev), TINY_D)
+    vals = quarter_grid(gen, (BATCH, NNZ), dev)
+    mult = quarter_grid(gen, (BATCH,), dev, signed=True)
+    run("tiny d", idx, vals, coeff[:TINY_D].contiguous(), mult, copies(idx, vals), exact_grad=True)
     del idx, vals
 
     # the text path's fit batch: its own features (HashingTF -> IDF of the
@@ -3470,39 +3650,70 @@ FLEET_REPEATS = 3
 FLEET_EDGE_SHAPES = [(64, 5, 24, 8), (200, 39, 64, 8), (1, 3, 4, 1), (33, 40, 50, 3),
                      (33, 40, 50, 4), (7, 0, 10, 2), (300, 64, 1000, 9), (300, 65, 1000, 12),
                      (300, 65, 1000, 17)]
+#: the designs of csrc/designs.cu that this port's kernels replaced (timed in phase 2)
+REPLACED_DESIGNS = {"sparse_grad": "fmt_red_grad (csrc/designs.cu)",
+                    "fleet_row_dots": "fmt_scalar_fleet_row_dots (csrc/designs.cu)"}
 FLEET_SOURCES = {"fleet_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96 (under jax.vmap)",
                  "fleet_grad": "flink_ml_tpu/ops/sparsekernels.py:107 (under jax.vmap)"}
 REFERENCE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
 
 
-def fleet_kernel_phase(sk, dev):
+def fleet_layouts(C):
+    """C (N, d) as member-major, member-minor and, where N is a multiple
+    of 4, member-minor with a base 4 bytes past 16-byte alignment (which
+    takes the scalar loads and REDs)."""
+    members, d = C.shape
+    layouts = {"member-major": C, "member-minor": C.T.contiguous().T}
+    if members % 4 == 0:
+        buf = torch.empty(d * members + 1, device=C.device)
+        shifted = buf[1:].view(d, members)
+        shifted.copy_(C.T)
+        layouts["member-minor misaligned"] = shifted.T
+    return layouts
+
+
+def fleet_kernel_phase(sk, probes, designs, dev):
     """The member-batched kernels against their plain versions: at edge
-    shapes, in both layouts of the (N, d) operand, and at the sparse fleet
-    fit's batch (N = 8, BATCH x NNZ, d = SPARSE_DIM), where the row dot must
-    also equal N launches of the solo kernel bit for bit (it adds in the
-    solo kernel's order). CUDA-event times of each kernel in both layouts,
-    of N solo launches, of the plain version and of one library call
+    shapes, in both layouts of the (N, d) operand (and member-minor off
+    16-byte alignment), and at the sparse fleet fit's batch (N = 8, BATCH x
+    NNZ, d = SPARSE_DIM), where the row dot must also equal N launches of
+    the solo kernel bit for bit at N = 1, 8 and 9 in both layouts (it adds
+    in the solo kernel's order). CUDA-event times of each kernel in both
+    layouts, of the row dot's replaced design (`fmt_scalar_fleet_row_dots`)
+    in both, of N solo launches, of the plain version, of one library call
     (embedding_bag over a (d, N) table; index_add_ of (B * nnz, N) rows
-    into (d, N)), beside the bound from the bytes moved."""
+    into (d, N)) and of the row dot's probe (two 16-byte loads a slot from
+    a (d, 8) table), beside the bound from the bytes moved."""
+    scalar_row_dots = designs[1]
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     for rows, nnz, d, members in FLEET_EDGE_SHAPES:
         idx, vals = sparse_batch(gen, rows, nnz, d, dev, 0.2, 0.05)
         C = torch.randn(members, d, generator=gen, device=dev)
         M = torch.randn(members, rows, generator=gen, device=dev)
-        for layout, c in (("member-major", C), ("member-minor", C.T.contiguous().T)):
-            check(torch.allclose(sk.fleet_row_dots(idx, vals, c), sk.fleet_row_dots_plain(idx, vals, C),
-                                 **ROW_DOTS_TOL),
-                  f"fleet_row_dots disagrees at {(rows, nnz, d, members)} {layout}")
+        want_dots, want_grad = sk.fleet_row_dots_plain(idx, vals, C), sk.fleet_grad_plain(idx, vals, M, C)
+        for layout, c in fleet_layouts(C).items():
+            for name, fn in (("fleet_row_dots", sk.fleet_row_dots),
+                             ("fmt_scalar_fleet_row_dots", scalar_row_dots)):
+                check(torch.allclose(fn(idx, vals, c), want_dots, **ROW_DOTS_TOL),
+                      f"{name} disagrees at {(rows, nnz, d, members)} {layout}")
             g = sk.fleet_grad(idx, vals, M, c)
             check(g.is_contiguous() == c.is_contiguous(), f"fleet_grad's layout {g.stride()} is not coeff's")
-            check(torch.allclose(g, sk.fleet_grad_plain(idx, vals, M, C), **GRAD_TOL),
+            check(torch.allclose(g, want_grad, **GRAD_TOL),
                   f"fleet_grad disagrees at {(rows, nnz, d, members)} {layout}")
-    log(f"  fleet kernels: edge shapes (rows, nnz, d, members) {FLEET_EDGE_SHAPES} agree in both layouts")
+    log(f"  fleet kernels: edge shapes (rows, nnz, d, members) {FLEET_EDGE_SHAPES} agree in both "
+        f"layouts and member-minor off 16-byte alignment")
 
     N = FLEET_MEMBERS
     idx, vals = sparse_batch(gen, BATCH, NNZ, SPARSE_DIM, dev, DEFAULT_MASK_SHARE, OUT_OF_RANGE_SHARE)
-    C = torch.randn(N, SPARSE_DIM, generator=gen, device=dev)
+    C = torch.randn(max(N, 9), SPARSE_DIM, generator=gen, device=dev)
+    solo = torch.stack([sk.sparse_row_dots(idx, vals, C[m].contiguous()) for m in range(C.shape[0])])
+    bits = {}
+    for members in (1, N, 9):
+        for layout, c in fleet_layouts(C[:members]).items():
+            bits[f"N={members} {layout}"] = bool(torch.equal(sk.fleet_row_dots(idx, vals, c), solo[:members]))
+    check(all(bits.values()), f"fleet_row_dots is not bit-identical to solo sparse_row_dots launches: {bits}")
+    C = C[:N].contiguous()
     Cm = C.T.contiguous().T  # the fit's layout: member-minor
     M = torch.randn(N, BATCH, generator=gen, device=dev)
     sets = copies(idx, vals)
@@ -3515,13 +3726,13 @@ def fleet_kernel_phase(sk, dev):
 
     got = sk.fleet_row_dots(idx, vals, Cm)
     want = sk.fleet_row_dots_plain(idx, vals, C)
-    solo = torch.stack([sk.sparse_row_dots(idx, vals, C[m].contiguous()) for m in range(N)])
     err = (got - want).abs()
     check(torch.allclose(got, want, **ROW_DOTS_TOL),
           f"fleet_row_dots disagrees with its plain version: max abs {float(err.max())}")
-    bits = bool(torch.equal(got, solo) and torch.equal(sk.fleet_row_dots(idx, vals, C), solo))
-    check(bits, "fleet_row_dots is not bit-identical to N launches of sparse_row_dots")
+    check(torch.equal(scalar_row_dots(idx, vals, Cm), got), "the replaced fleet row dot's bits differ")
     table = Cm.T  # (d, N), contiguous
+    gather8 = probes[2]
+    check_gather8(gather8, idx, table)
     lib = torch.nn.functional.embedding_bag(safe, table, per_sample_weights=masked_vals, mode="sum")
     check(torch.allclose(lib.T, want, **ROW_DOTS_TOL), "embedding_bag yardstick disagrees")
     touched = int(torch.unique(safe[valid]).numel())
@@ -3531,12 +3742,15 @@ def fleet_kernel_phase(sk, dev):
         "max_rel_err": float((err / want.abs().clamp_min(1e-6)).max()),
         "bit_identical_to_solo": bits,
         "ms": cuda_ms(lambda i, v: sk.fleet_row_dots(i, v, Cm), sets),
+        "replaced_ms": cuda_ms(lambda i, v: scalar_row_dots(i, v, Cm), sets),
         "member_major_ms": cuda_ms(lambda i, v: sk.fleet_row_dots(i, v, C), sets),
+        "replaced_member_major_ms": cuda_ms(lambda i, v: scalar_row_dots(i, v, C), sets),
         "solo_n_ms": cuda_ms(lambda i, v: [sk.sparse_row_dots(i, v, C[m]) for m in range(N)], sets),
         "plain_ms": cuda_ms(lambda i, v: sk.fleet_row_dots_plain(i, v, C), sets, iters=10),
         "library_ms": cuda_ms(
             lambda sf, w: torch.nn.functional.embedding_bag(sf, table, per_sample_weights=w, mode="sum"),
             [(safe, masked_vals)], iters=10),
+        "probe_ms": cuda_ms(lambda i, v: gather8(i, table), sets),
         "bound_ms": b_ms, "bound_by": b_by,
     }
     del got, want, solo, lib
@@ -3576,12 +3790,15 @@ def fleet_kernel_phase(sk, dev):
     for name, r in results.items():
         r.update(rows=BATCH, nnz=NNZ, d=SPARSE_DIM, members=N,
                  tolerance=ROW_DOTS_TOL if name == "fleet_row_dots" else GRAD_TOL)
+        extra = (f"; replaced design {r['replaced_ms']:.4f} ms member-minor, "
+                 f"{r['replaced_member_major_ms']:.4f} ms member-major; probe {r['probe_ms']:.4f} ms"
+                 if "replaced_ms" in r else "")
         log(f"  {name} fit batch ({N} x {BATCH} x {NNZ}, d={SPARSE_DIM}): max_abs_err "
             f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms member-minor, "
-            f"{r['member_major_ms']:.4f} ms member-major; {N} solo launches {r['solo_n_ms']:.4f} ms; "
-            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"{r['member_major_ms']:.4f} ms member-major{extra}; {N} solo launches "
+            f"{r['solo_n_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    log(f"  fleet_row_dots equals {N} launches of sparse_row_dots bit for bit: {bits}; fleet_grad "
+    log(f"  fleet_row_dots equals solo launches of sparse_row_dots bit for bit: {bits}; fleet_grad "
         f"exact on Zipf-skewed quarter-grid sums in both layouts")
     return results
 
@@ -3968,7 +4185,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} ({card}), allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
-    cuda_sources = ("sparse_kernels", "probes")
+    cuda_sources = ("sparse_kernels", "probes", "designs")
     cuda_build.load_all(cuda_sources)
     sk.build()
     build_s = time.perf_counter() - t0
@@ -3977,14 +4194,15 @@ def main() -> int:
     for name in cuda_sources:
         for kernel, usage in resource_usage(cuda_build, name).items():
             log(f"  registers {name} {kernel}: {usage}")
-    check_sass(cuda_build)
+    shared_atomics = check_sass(cuda_build)
     probes = load_probes(cuda_build)
+    designs = load_designs(cuda_build, sk)
 
     # -- 2. kernels against their plain versions ------------------------
     log("phase 2: kernels vs plain versions")
     edge_phase(sk, dev)
-    kernel_results = kernel_phase(sk, probes, dev)
-    fleet_kernel_results = fleet_kernel_phase(sk, dev)
+    kernel_results = kernel_phase(sk, probes, designs, dev)
+    fleet_kernel_results = fleet_kernel_phase(sk, probes, designs, dev)
 
     # -- 3. the main path -------------------------------------------------
     log("phase 3: main paths (launch counts reset before and read after each)")
@@ -4242,6 +4460,8 @@ def main() -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "probe_ms": main["probe_ms"], "enqueue_ms": main["enqueue_ms"],
+            **({"replaced_design": REPLACED_DESIGNS[name], "replaced_ms": main["replaced_ms"],
+                "shared_atomics": shared_atomics} if name in REPLACED_DESIGNS else {}),
             "shape": [main["rows"], main["nnz"], main["d"]],
             "by_shape": rows,
         })
@@ -4257,6 +4477,10 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "member_major_ms": r["member_major_ms"], "solo_n_ms": r["solo_n_ms"],
+            **({"replaced_design": REPLACED_DESIGNS[name], "replaced_ms": r["replaced_ms"],
+                "replaced_member_major_ms": r["replaced_member_major_ms"], "probe_ms": r["probe_ms"],
+                "bit_identical_to_solo": r["bit_identical_to_solo"]}
+               if name in REPLACED_DESIGNS else {}),
             "shape": [r["members"], r["rows"], r["nnz"], r["d"]],
         })
     log("first calls: " + "; ".join(

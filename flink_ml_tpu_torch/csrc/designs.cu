@@ -1,6 +1,9 @@
-// Other designs of the sparse row dot and gradient, for comparison with
-// csrc/sparse_kernels.cu on the card. They are built and run by
-// scripts/torch_kernel_designs.py only; nothing in the package loads them.
+// Other designs of the sparse kernels, for comparison with
+// csrc/sparse_kernels.cu on the card: the designs that the shipped kernels
+// replaced, and other layouts of the row dot. They are built and run by
+// chip_smoke.py (phase 2 times each replaced design beside its successor)
+// and scripts/torch_kernel_designs.py only; nothing in the package loads
+// them.
 //
 //   fmt_first_row_dots: the port's first row dot, kept as it was: a warp
 //     per row whose lanes take one slot at a time (the gather waits for its
@@ -10,13 +13,17 @@
 //     (2, 4 or 8) with all of their loads and gathers in flight, and an
 //     optional grid-stride walk over fewer blocks. lanes = 32, k = 2 and a
 //     grid that covers the rows is the layout of sparse_kernels.cu.
-//   fmt_table_grad: a gradient for skewed indices. A block of 256 threads
-//     takes a chunk of 1024 consecutive slots, 4 a thread, and keeps a
-//     table of 1024 columns in shared memory: a column claims its hashed
-//     entry the first time it lands there, later adds to it stay in the
-//     block, and the block flushes each claimed entry with one atomic. Hot
-//     columns then reach device memory about once a block instead of once
-//     a slot. It launches with 8 KB of dynamic shared memory a block.
+//   fmt_red_grad: the port's first gradient, replaced in
+//     sparse_kernels.cu by the shared-memory column table: a thread per
+//     slot, one atomic add into the zeroed gradient, whose unused result
+//     compiles to RED. It runs at the RED probe's floor on uniform indices,
+//     and its REDs to a hot column serialise in the L2 on skewed ones.
+//     Its plan is the thread-per-slot one (ops/sparsekernels.py
+//     `_launch_plan(rows, nnz, grad=True)`).
+//   fmt_scalar_fleet_row_dots: the first member-batched row dot, replaced in
+//     sparse_kernels.cu by the one that loads member-minor coefficients as
+//     float4s: the same layout and arithmetic, with a slot's members always
+//     loaded by N scalar __ldg's (a warp-wide gather over 32 sectors each).
 //
 // Same batch layout and index convention as sparse_kernels.cu; each plain C
 // entry launches on the given stream and returns a cudaError_t.
@@ -97,66 +104,72 @@ __global__ void lanes_row_dots_kernel(const int32_t* __restrict__ idx,
   }
 }
 
-constexpr int kSlotThreads = 256;
-constexpr int kSlotsPerThread = 4;
-constexpr int kChunk = kSlotThreads * kSlotsPerThread;
-constexpr int kTableBits = 10;
-constexpr int kTableSize = 1 << kTableBits;
-constexpr int32_t kEmpty = -1;
-
-// One probe at a hashed entry; a claimed entry keeps its column's adds in
-// shared memory, any other column goes straight to device memory.
-__device__ __forceinline__ void add_to_grad(int32_t* keys, float* sums, float* __restrict__ grad,
-                                            int32_t c, float x) {
-  const uint32_t h = (static_cast<uint32_t>(c) * 2654435761u) >> (32 - kTableBits);
-  int32_t k = reinterpret_cast<volatile int32_t*>(keys)[h];
-  if (k == kEmpty) {
-    k = atomicCAS(keys + h, kEmpty, c);
-    if (k == kEmpty) k = c;
-  }
-  if (k == c) {
-    atomicAdd(sums + h, x);
-    return;
-  }
-  atomicAdd(grad + c, x);
+__global__ void red_grad_kernel(const int32_t* __restrict__ idx, const float* __restrict__ vals,
+                                const float* __restrict__ mult, float* __restrict__ grad,
+                                int64_t slots, int nnz, int64_t d) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= slots) return;
+  const int32_t c = idx[t];
+  if (c < 0 || c >= d) return;
+  atomicAdd(grad + c, vals[t] * mult[t / nnz]);  // result unused: compiles to RED
 }
 
-// Block b takes slots [b * kChunk, (b + 1) * kChunk), thread t the slots
-// t, t + kSlotThreads, .... Its loads are issued first and are in flight
-// while the block resets its table.
-__global__ void table_grad_kernel(const int32_t* __restrict__ idx, const float* __restrict__ vals,
-                                  const float* __restrict__ mult, float* __restrict__ grad,
-                                  int64_t rows, int nnz, int64_t d) {
-  extern __shared__ __align__(16) int32_t smem[];
-  int32_t* keys = smem;
-  float* sums = reinterpret_cast<float*>(smem + kTableSize);
-  const int64_t slots = rows * nnz;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kChunk;
-  const int64_t row0 = first / nnz;  // once a block: no 64-bit division per slot
-  const uint32_t rem0 = static_cast<uint32_t>(first - row0 * nnz);
-  int32_t c[kSlotsPerThread];
-  float v[kSlotsPerThread];
-  float m[kSlotsPerThread];
+constexpr int kSlotsPerLane = 2;
+constexpr int kMemberTile = 8;
+
+__global__ void scalar_fleet_row_dots_kernel(const int32_t* __restrict__ idx,
+                                             const float* __restrict__ vals,
+                                             const float* __restrict__ coeff,
+                                             float* __restrict__ out, int64_t rows, int nnz,
+                                             int64_t d, int members, int64_t ms, int64_t cs) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x / kWarp) + threadIdx.x / kWarp;
+  if (row >= rows) return;
+  const int32_t* ri = idx + row * nnz;
+  const float* rv = vals + row * nnz;
+  for (int m0 = 0; m0 < members; m0 += kMemberTile) {
+    const int tile = members - m0 < kMemberTile ? members - m0 : kMemberTile;
+    const float* tile_coeff = coeff + static_cast<int64_t>(m0) * ms;
+    float acc[kMemberTile];
 #pragma unroll
-  for (int u = 0; u < kSlotsPerThread; ++u) {
-    const uint32_t off = u * kSlotThreads + threadIdx.x;
-    const bool in = first + off < slots;
-    c[u] = in ? idx[first + off] : kEmpty;
-    v[u] = in ? vals[first + off] : 0.0f;
-    m[u] = in ? __ldg(mult + row0 + (rem0 + off) / static_cast<uint32_t>(nnz)) : 0.0f;
-  }
-  for (int e = threadIdx.x; e < kTableSize; e += blockDim.x) {
-    keys[e] = kEmpty;
-    sums[e] = 0.0f;
-  }
-  __syncthreads();
+    for (int m = 0; m < kMemberTile; ++m) acc[m] = 0.0f;
+    for (int j0 = lane; j0 < nnz; j0 += kWarp * kSlotsPerLane) {
+      int32_t c[kSlotsPerLane];
+      float v[kSlotsPerLane];
+      float g[kSlotsPerLane][kMemberTile];
 #pragma unroll
-  for (int u = 0; u < kSlotsPerThread; ++u) {
-    if (c[u] >= 0 && c[u] < d) add_to_grad(keys, sums, grad, c[u], v[u] * m[u]);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kTableSize; e += blockDim.x) {
-    if (keys[e] != kEmpty) atomicAdd(grad + keys[e], sums[e]);
+      for (int u = 0; u < kSlotsPerLane; ++u) {
+        const int j = j0 + u * kWarp;
+        c[u] = j < nnz ? ri[j] : -1;
+        v[u] = j < nnz ? rv[j] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kSlotsPerLane; ++u) {
+        const float* col = tile_coeff + (c[u] < d ? static_cast<int64_t>(c[u]) : d - 1) * cs;
+#pragma unroll
+        for (int m = 0; m < kMemberTile; ++m) {
+          g[u][m] = (c[u] >= 0 && m < tile) ? __ldg(col + m * ms) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSlotsPerLane; ++u) {
+        if (c[u] >= 0) {
+#pragma unroll
+          for (int m = 0; m < kMemberTile; ++m) acc[m] += v[u] * g[u][m];
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kMemberTile; ++m) {
+      if (m < tile) {
+        float a = acc[m];
+#pragma unroll
+        for (int offset = kWarp / 2; offset > 0; offset /= 2) {
+          a += __shfl_down_sync(0xffffffffu, a, offset);
+        }
+        if (lane == 0) out[static_cast<int64_t>(m0 + m) * rows + row] = a;
+      }
+    }
   }
 }
 
@@ -192,13 +205,35 @@ extern "C" int fmt_lanes_row_dots(const void* idx, const void* vals, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int fmt_table_grad(const void* idx, const void* vals, const void* mult, void* grad,
-                              long long rows, int nnz, long long d, void* stream) {
-  const long long slots = rows * nnz;
-  if (slots <= 0) return 0;
-  table_grad_kernel<<<(slots + kChunk - 1) / kChunk, kSlotThreads, 8 * kTableSize,
-                      static_cast<cudaStream_t>(stream)>>>(
+// The first gradient: a thread a slot, `grid` blocks of `threads` covering
+// the slots.
+extern "C" int fmt_red_grad(const void* idx, const void* vals, const void* mult, void* grad,
+                            long long rows, int nnz, long long d, int threads, int grid,
+                            void* stream) {
+  if (rows <= 0 || nnz <= 0) return 0;
+  if (d <= 0 || threads <= 0 || threads % kWarp != 0 || grid <= 0 ||
+      static_cast<long long>(grid) * threads < rows * nnz) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  red_grad_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(idx), static_cast<const float*>(vals),
-      static_cast<const float*>(mult), static_cast<float*>(grad), rows, nnz, d);
+      static_cast<const float*>(mult), static_cast<float*>(grad), rows * nnz, nnz, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first fleet row dot: the row dot's plan (a warp a row) and the (N, d)
+// coeff's member and column strides.
+extern "C" int fmt_scalar_fleet_row_dots(const void* idx, const void* vals, const void* coeff,
+                                         void* out, long long rows, int nnz, long long d,
+                                         int members, long long ms, long long cs, int threads,
+                                         int grid, void* stream) {
+  if (rows <= 0 || nnz <= 0) return 0;
+  if (d <= 0 || members <= 0 || ms <= 0 || cs <= 0 || threads <= 0 || threads % kWarp != 0 ||
+      grid <= 0 || static_cast<long long>(grid) * (threads / kWarp) < rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  scalar_fleet_row_dots_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(idx), static_cast<const float*>(vals),
+      static_cast<const float*>(coeff), static_cast<float*>(out), rows, nnz, d, members, ms, cs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,13 +42,17 @@ indexing wraps -1 to the last element, so every gather and scatter masks
 first. Padding contributes 0; an index >= d is clamped in the dot and
 dropped in the gradient, so such a weight is read but never updated.
 
-The gradient kernel adds with atomics, so its order of additions changes
-from run to run: it agrees with the plain version to a tolerance, not
-bit for bit.
+The gradient kernels add with atomics (the solo one through a table of
+columns in shared memory, flushed with atomics), so their order of
+additions changes from run to run: they agree with the plain version to a
+tolerance, not bit for bit.
 
-How a batch is cut into blocks is decided here, by `_launch_plan`, a pure
-function of the batch's shape, and passed to the kernels: the CPU tests
-check it without a card.
+How a batch is cut into blocks is decided here and passed to the kernels:
+`_launch_plan` (the row dots and `fleet_grad`, a pure function of the
+batch's shape), `_grad_plan` (`sparse_grad`'s persistent grid, chunks,
+table and shared memory, a pure function of the shape and the card's SM
+count) and `_float4_members` (whether `fleet_row_dots` loads a slot's
+members as float4s). The CPU tests check them without a card.
 """
 
 from __future__ import annotations
@@ -65,8 +69,23 @@ _SOURCE = "sparse_kernels"
 
 #: the row dot: warps a block, one row each
 ROW_WARPS = 8
-#: the gradient: threads a block, one slot each
+#: fleet_grad (and the first gradient, csrc/designs.cu): threads a block, one slot each
 GRAD_THREADS = 256
+
+# sparse_grad's plan (csrc/sparse_kernels.cu): a persistent grid of
+# TABLE_BLOCKS_PER_SM blocks of TABLE_THREADS on each SM, each walking
+# chunks of at most TABLE_MAX_CHUNK slots (at least TABLE_MIN_CHUNK, so a
+# small batch takes fewer blocks) through the kernel's shared-memory ring,
+# into a table of 4 * chunk entries (TABLE_MIN to TABLE_MAX), which it
+# flushes once a quarter of it is claimed: with a chunk's new columns on
+# top the table stays at most half full.
+TABLE_THREADS = 512
+TABLE_BLOCKS_PER_SM = 2
+TABLE_MAX_CHUNK = 2048
+TABLE_MIN_CHUNK = 256
+TABLE_MIN, TABLE_MAX = 1024, 8192
+#: what `sparse_grad_walk` counts (csrc/sparse_kernels.cu `WalkStat`)
+WALK_STATS = ("mid_walk_flushes", "overflows", "direct_chunks")
 
 
 class LaunchPlan(NamedTuple):
@@ -91,23 +110,71 @@ def _launch_plan(rows: int, nnz: int, grad: bool = False) -> LaunchPlan:
     return LaunchPlan(32 * ROW_WARPS, -(-rows // ROW_WARPS))
 
 
+class GradPlan(NamedTuple):
+    """sparse_grad's launch (the order of the C entry's arguments): `grid`
+    blocks of `threads`; block b walks the chunks b, b + grid, ... of
+    `chunk` slots of the row-major batch through the kernel's ring,
+    adding into a table of `table` entries that it flushes once `flush_at`
+    are claimed; `row_cap` multipliers a ring stage (the most rows a chunk
+    can span). The kernel's entry lays out its shared memory from these
+    and refuses a plan that passes a block's 227 KB."""
+
+    threads: int
+    grid: int
+    chunk: int
+    table: int
+    flush_at: int
+    row_cap: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=256)
+def _grad_plan(rows: int, nnz: int, sms: int) -> GradPlan:
+    """sparse_grad's launch for a (rows, nnz) batch on a card of `sms`
+    SMs: TABLE_BLOCKS_PER_SM blocks an SM (fewer if the batch has fewer
+    chunks of TABLE_MIN_CHUNK slots), each walking the same number of
+    chunks, give or take one."""
+    slots = max(rows * nnz, 1)
+    blocks = max(1, min(sms * TABLE_BLOCKS_PER_SM, -(-slots // TABLE_MIN_CHUNK)))
+    per_block = -(-slots // blocks)
+    walks = -(-per_block // TABLE_MAX_CHUNK)
+    chunk = _round_up(-(-per_block // walks), 32)
+    table = min(TABLE_MAX, max(TABLE_MIN, 1 << (4 * chunk - 1).bit_length()))
+    row_cap = (nnz + chunk - 2) // max(nnz, 1) + 1
+    grid = min(blocks, -(-slots // chunk))
+    return GradPlan(TABLE_THREADS, grid, chunk, table, table // 4, row_cap)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _float4_members(members: int, member_stride: int, column_stride: int, data_ptr: int) -> bool:
+    """Whether fleet_row_dots loads a slot's members as float4s: coeff
+    member-minor (member stride 1, column stride N), N a multiple of 4 and
+    its base 16-byte aligned, so every column's tile of 4 or 8 members is
+    whole aligned float4s."""
+    return (member_stride == 1 and column_stride == members and members % 4 == 0
+            and data_ptr % 16 == 0)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels():
     lib = cuda_build.load(_SOURCE)
-    for fn in (lib.fmt_sparse_row_dots, lib.fmt_sparse_grad):
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    for fn in (lib.fmt_fleet_row_dots, lib.fmt_fleet_grad):
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+    batch = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+    fleet = [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+    entries = [
+        (lib.fmt_sparse_row_dots, batch + [ctypes.c_int] * 2),
+        (lib.fmt_sparse_grad, batch + [ctypes.c_void_p] + [ctypes.c_int] * len(GradPlan._fields)),
+        (lib.fmt_fleet_row_dots, batch + fleet + [ctypes.c_int] * 3),  # vec4, threads, grid
+        (lib.fmt_fleet_grad, batch + fleet + [ctypes.c_int] * 2),
+    ]
+    for fn, args in entries:
+        fn.argtypes = args + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -117,19 +184,19 @@ def build() -> None:
     _kernels()
 
 
-def _launch(name, entry, indices, values, vector, out, d, fleet=None):
-    """Launch the C entry point `entry` on the batch with its plan, on the
-    current stream of the batch's device; raise if the launch failed.
-    `fleet` is (members, member stride, column stride) of the fleet
-    kernels' (N, d) operand."""
+def _launch(name, entry, indices, values, vector, out, d, extra=(), plan=None):
+    """Launch the C entry point `entry` on the batch with `plan` (by
+    default `_launch_plan`'s), on the current stream of the batch's device;
+    raise if the launch failed. `extra` are the entry's arguments between
+    the batch's and the plan's (the fleet kernels' members and strides, the
+    gradient's counters)."""
     rows, nnz = indices.shape
-    plan = _launch_plan(rows, nnz, entry.endswith("_grad"))
+    plan = plan or _launch_plan(rows, nnz, entry.endswith("_grad"))
     device = indices.device
     with torch.cuda.device(device):
         err = getattr(_kernels(), entry)(
             indices.data_ptr(), values.data_ptr(), vector.data_ptr(), out.data_ptr(),
-            rows, nnz, d, *(fleet or ()), plan.threads, plan.grid,
-            torch.cuda.current_stream(device).cuda_stream,
+            rows, nnz, d, *extra, *plan, torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
@@ -237,9 +304,36 @@ def sparse_grad(indices, values, multiplier, coeff):
     grad = torch.zeros(coeff.shape, dtype=torch.float32, device=device)
     if indices.numel() == 0:
         return grad
-    _launch("sparse_grad", "fmt_sparse_grad", indices, values, multiplier, grad, coeff.shape[0])
+    _launch_grad(indices, values, multiplier, grad)
     sparse_grad.launches += 1
     return grad
+
+
+def _launch_grad(indices, values, multiplier, grad, stats=None):
+    """sparse_grad's kernel into the zeroed `grad`, with its plan for the
+    batch's card; `stats`, if given, the address of WALK_STATS' zeroed
+    int32 counters."""
+    plan = _grad_plan(*indices.shape, _sm_count(indices.device.index))
+    _launch("sparse_grad", "fmt_sparse_grad", indices, values, multiplier, grad, grad.shape[0],
+            (stats,), plan)
+
+
+def sparse_grad_walk(indices, values, multiplier, coeff):
+    """sparse_grad's kernel with its walk counted, to check on the card
+    which of its paths a batch runs: returns the gradient and, summed over
+    the blocks, WALK_STATS: the table flushes with chunks still to come,
+    the slots that found no table entry within reach, and the chunks added
+    with direct REDs. CUDA tensors only; not counted in
+    `sparse_grad.launches`."""
+    rows = indices.shape[0] if indices.ndim == 2 else -1
+    device = _check_batch("sparse_grad_walk", indices, values, multiplier, rows, coeff)
+    if device.type != "cuda":
+        raise ValueError("sparse_grad_walk: the walk's counters exist only in the CUDA kernel")
+    grad = torch.zeros(coeff.shape, dtype=torch.float32, device=device)
+    stats = torch.zeros(len(WALK_STATS), dtype=torch.int32, device=device)
+    if indices.numel() != 0:
+        _launch_grad(indices, values, multiplier, grad, stats.data_ptr())
+    return grad, dict(zip(WALK_STATS, stats.tolist()))
 
 
 def _check_fleet(name, indices, values, coeff, multiplier=None):
@@ -294,8 +388,10 @@ def fleet_row_dots(indices, values, coeff):
     out = torch.empty((members, indices.shape[0]), dtype=torch.float32, device=device)
     if indices.numel() == 0:
         return out.zero_()
+    strides = _fleet_strides(coeff)
+    vec4 = _float4_members(members, *strides, coeff.data_ptr())
     _launch("fleet_row_dots", "fmt_fleet_row_dots", indices, values, coeff, out,
-            coeff.shape[1], (members, *_fleet_strides(coeff)))
+            coeff.shape[1], (members, *strides, int(vec4)))
     fleet_row_dots.launches += 1
     return out
 

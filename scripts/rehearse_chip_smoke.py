@@ -7,8 +7,12 @@ It runs every phase and gate of chip_smoke.py with the port on the CPU
 (`config.use_device("cpu")`) and `torch.cuda` stubbed: the card is
 reported present, CUDA events time with the host clock, the builds, the
 SASS and register reads, the profiler passes and `nvidia-smi` are skipped,
-the floor probes are emulated in torch, and each call of a kernel's plain
-version counts as a launch, as the kernel's does on the card. It catches
+the floor probes are emulated in torch, the replaced designs of
+`csrc/designs.cu` are the plain versions, the card has 132 SMs, the
+gradient's walk counters (`sparse_grad_walk`) are the plain gradient
+with the counts the table-overflow case asks for (the CPU has no walk),
+and each call of a kernel's plain version counts as a launch, as the
+kernel's does on the card. It catches
 a broken path, check or output line before a chip run; every number it
 prints is a CPU number and none stands for the card's.
 """
@@ -66,7 +70,8 @@ class _HostEvent:
 
 def _probes(_cuda_build):
     """The floor probes of csrc/probes.cu, in torch: a sum of the gathered
-    coefficients per lane, and a count per column."""
+    coefficients (or of the gathered rows of a (d, 8) table) per lane, and
+    a count per column."""
     def gather(idx, coeff):
         flat = idx.reshape(-1)
         pad = torch.full((-flat.numel() % 1024,), -1, dtype=flat.dtype)
@@ -78,7 +83,21 @@ def _probes(_cuda_build):
         flat = idx.reshape(-1)
         keep = flat[(flat >= 0) & (flat < coeff.shape[0])].long()
         return torch.bincount(keep, minlength=coeff.shape[0]).to(torch.float32)
-    return gather, red
+
+    def gather8(idx, table):
+        return gather(idx, table.sum(dim=1))
+    return gather, red, gather8
+
+
+def _designs(plain):
+    """The replaced designs of csrc/designs.cu: their plain versions."""
+    return lambda _cuda_build, _sk: (plain["sparse_grad"], plain["fleet_row_dots"])
+
+
+def _walk(indices, values, multiplier, coeff):
+    """sparse_grad_walk: the plain gradient, and stand-in counts."""
+    grad = sk.sparse_grad_plain(indices, values, multiplier, coeff)
+    return grad, {"mid_walk_flushes": 1, "overflows": 1, "direct_chunks": 0}
 
 
 def _counted(kernel, plain):
@@ -105,9 +124,13 @@ def stub() -> None:
     torch.empty = lambda *args, pin_memory=False, **kwargs: empty(*args, **kwargs)
     cuda_build.load_all = lambda names: None
     sk.build = lambda: None
+    sk._sm_count = lambda index: 132
+    sk.sparse_grad_walk = _walk
     cs.resource_usage = lambda *args: {}
-    cs.check_sass = lambda *args: None
+    cs.check_sass = lambda *args: []
     cs.load_probes = _probes
+    cs.load_designs = _designs({"sparse_grad": sk.sparse_grad_plain,
+                                "fleet_row_dots": sk.fleet_row_dots_plain})
     cs.profile_run = lambda name, run: run()
     cs.profile_overlap = lambda name, run: (run(), {})[1]
     sk.sparse_row_dots_plain = _counted(sk.sparse_row_dots, sk.sparse_row_dots_plain)

@@ -12,24 +12,32 @@ Designs (`flink_ml_tpu_torch/csrc/designs.cu`, beside the shipped
   `lanesL_kK` (L lanes a row, K slots a lane in flight, a grid that covers
   the rows); `lanes32_k2_walk` (the shipped layout walked by 8 blocks an
   SM);
-- gradient: `shipped` (a thread per slot, an atomic add each, the port's
-  first design); `table` (a block per 1024 slots with a shared-memory
-  table that keeps the adds of hot columns in the block).
+- gradient: `shipped` (the persistent grid with a shared-memory column
+  table, on `ops/sparsekernels.py`'s `_grad_plan`); `red` (the first
+  gradient: a thread per slot, a RED each); and the shipped kernel on other
+  plans: `flush_each_chunk` (the table flushed after every chunk),
+  `threads256`, `threads1024`, `one_block_per_sm` (chunks up to 4096),
+  `four_blocks_per_sm` (tables of 4096 entries, chunks up to 1024) and
+  `chunk1024`;
+- fleet row dot at N = 8: `shipped` (float4 member loads where coeff is
+  member-minor) and `scalar` (the first fleet row dot, 8 scalar loads a slot), each
+  on member-minor and member-major coefficients.
 
 Every design is first held against the plain PyTorch version at edge shapes
 and at the fit batch. Then, on the fit batch (100,000 x 39, d = 1e6), the
-1M-row transform batch and Zipf(1.1) indices at the fit batch, each design
-is timed in five interleaved rounds with chip_smoke.py's `cuda_ms` (CUDA
-events around 30 launches after the stream spins, so device time), and the
-median, min and max are printed. Last, the sparse LogisticRegression fit
-(1M x 1e6 x 39, 20 epochs) runs with the wrappers' launches swapped for
-the port's first pair of kernels (`first` row dot, `shipped` gradient),
-for the shipped pair, and for the shipped row dot with the `table`
-gradient, three fits each in three rounds, and torch.profiler gives each
-kernel's device time per launch inside the fit. Then whole fits and
-1M-row transforms on the first and on the shipped pair alternate, 15 of
-each, timed on the host's clock with a synchronize on each side.
-The card's name and power limit come first; a JSON summary comes last.
+1M-row transform batch, Zipf(1.1) indices at the fit batch and the text
+path's fit batch (100,000 x 100, d = 2^18), each design is timed in five
+interleaved rounds with chip_smoke.py's `cuda_ms` (CUDA events around 30
+launches after the stream spins, so device time), and the median, min and
+max are printed. Last, the sparse LogisticRegression fit (1M x 1e6 x 39,
+20 epochs) runs with the wrappers' launches swapped for the port's first
+pair of kernels (`first` row dot, `red` gradient), for the row dot with the
+`red` gradient, and for the shipped pair, three fits each in three rounds,
+and torch.profiler gives each kernel's device time per launch inside the
+fit. Then whole fits and 1M-row transforms on the first and on the shipped
+pair alternate, 15 of each, timed on the host's clock with a synchronize on
+each side. The card's name and power limit come first; a JSON summary
+comes last.
 """
 
 from __future__ import annotations
@@ -53,6 +61,32 @@ WALL_ROUNDS = 15
 LANES = {"lanes32_k2": (2, 5), "lanes16_k4": (4, 4), "lanes16_k2": (2, 4), "lanes8_k8": (8, 3),
          "lanes8_k4": (4, 3), "lanes4_k8": (8, 2), "lanes1_k8": (8, 0)}
 EDGE_SHAPES = cs.EDGE_SHAPES + [cs.WIDE_SHAPE]
+# the shipped gradient on other plans: module constants of ops/sparsekernels.py
+# for `_grad_plan`, and fields of its plan replaced after
+GRAD_PLANS = {
+    "shipped": ({}, {}),
+    "flush_each_chunk": ({}, {"flush_at": 0}),
+    "threads256": ({"TABLE_THREADS": 256}, {}),
+    "threads1024": ({"TABLE_THREADS": 1024}, {}),
+    "one_block_per_sm": ({"TABLE_BLOCKS_PER_SM": 1, "TABLE_MAX_CHUNK": 4096}, {}),
+    "four_blocks_per_sm": ({"TABLE_BLOCKS_PER_SM": 4, "TABLE_MAX": 4096, "TABLE_MAX_CHUNK": 1024},
+                           {}),
+    "chunk1024": ({"TABLE_MAX_CHUNK": 1024}, {}),
+}
+
+
+def grad_plan(sk, design, rows, nnz, sms):
+    """`_grad_plan` with GRAD_PLANS[design]'s constants, then its fields."""
+    consts, fields = GRAD_PLANS[design]
+    saved = {k: getattr(sk, k) for k in consts}
+    try:
+        for k, v in consts.items():
+            setattr(sk, k, v)
+        plan = sk._grad_plan.__wrapped__(rows, nnz, sms)
+    finally:
+        for k, v in saved.items():
+            setattr(sk, k, v)
+    return plan._replace(**fields)
 
 
 def main() -> int:
@@ -72,9 +106,10 @@ def main() -> int:
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     designs.fmt_first_row_dots.argtypes = [vp] * 4 + [ll, i32, ll, vp]
     designs.fmt_lanes_row_dots.argtypes = [vp] * 4 + [ll, i32, ll, i32, i32, i32, vp]
-    designs.fmt_table_grad.argtypes = [vp] * 4 + [ll, i32, ll, vp]
+    red_grad, scalar_fleet_row_dots = cs.load_designs(cuda_build, sk)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     dev = torch.device("cuda")
+    shipped_launch = sk._launch
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -101,18 +136,17 @@ def main() -> int:
         return out
 
     def grad(design, idx, vals, mult, d, out=None):
+        coeff = torch.empty(d, device=dev)
+        if design == "red":
+            return red_grad(idx, vals, mult, coeff) if out is None else out.copy_(
+                red_grad(idx, vals, mult, coeff))
         out = torch.zeros(d, device=dev) if out is None else out
-        rows, nnz = idx.shape
-        ptrs = (idx.data_ptr(), vals.data_ptr(), mult.data_ptr(), out.data_ptr(), rows, nnz, d)
-        if design == "shipped":
-            p = sk._launch_plan(rows, nnz, grad=True)
-            ok(lib.fmt_sparse_grad(*ptrs, p.threads, p.grid, stream()), design)
-        else:
-            ok(designs.fmt_table_grad(*ptrs, stream()), design)
+        plan = grad_plan(sk, design, *idx.shape, sms)
+        shipped_launch(design, "fmt_sparse_grad", idx, vals, mult, out, d, (None,), plan)
         return out
 
     dot_designs = ["shipped", "first", *LANES, "lanes32_k2_walk"]
-    grad_designs = ["shipped", "table"]
+    grad_designs = ["red", *GRAD_PLANS]
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
@@ -132,31 +166,57 @@ def main() -> int:
           flush=True)
 
     coeff = torch.randn(cs.SPARSE_DIM, generator=gen, device=dev)
-    summary = {"card": card, "device_ms": {}, "in_fit_ms_per_launch": {}}
-    for label, rows, zipf in (("fit batch", cs.BATCH, False), ("transform", cs.SPARSE_ROWS, False),
-                              ("zipf", cs.BATCH, True)):
-        if zipf:
-            idx, vals = cs.zipf_batch(gen, rows, cs.NNZ, cs.SPARSE_DIM, dev)
+    summary = {"card": card, "device_ms": {}, "in_fit_ms_per_launch": {},
+               "grad_plans": {name: grad_plan(sk, name, cs.BATCH, cs.NNZ, sms)._asdict()
+                              for name in GRAD_PLANS}}
+    for label in ("fit batch", "transform", "zipf", "text fit batch"):
+        c = coeff
+        if label == "zipf":
+            idx, vals = cs.zipf_batch(gen, cs.BATCH, cs.NNZ, cs.SPARSE_DIM, dev)
+        elif label == "text fit batch":
+            idx, vals, d = cs.text_fit_batch(dev)
+            c = torch.randn(d, generator=gen, device=dev)
         else:
+            rows = cs.BATCH if label == "fit batch" else cs.SPARSE_ROWS
             idx, vals = cs.sparse_batch(gen, rows, cs.NNZ, cs.SPARSE_DIM, dev,
                                         cs.DEFAULT_MASK_SHARE, cs.OUT_OF_RANGE_SHARE)
-        mult = torch.randn(rows, generator=gen, device=dev)
+        mult = torch.randn(idx.shape[0], generator=gen, device=dev)
         sets = cs.copies(idx, vals)
         times = {}
         for _ in range(ROUNDS):
             for design in dot_designs:
                 times.setdefault(("row_dots", design), []).append(
-                    cs.cuda_ms(lambda i, v: row_dots(design, i, v, coeff), sets))
+                    cs.cuda_ms(lambda i, v: row_dots(design, i, v, c), sets))
             for design in grad_designs:
                 times.setdefault(("grad", design), []).append(
-                    cs.cuda_ms(lambda i, v: grad(design, i, v, mult, cs.SPARSE_DIM), sets))
-        del idx, vals, sets
+                    cs.cuda_ms(lambda i, v: grad(design, i, v, mult, c.shape[0]), sets))
         for (kernel, design), ts in times.items():
             stats = {"median": statistics.median(ts), "min": min(ts), "max": max(ts)}
             summary["device_ms"][f"{kernel} {design} {label}"] = stats
-            print(f"{kernel:8s} {design:16s} {label:9s} ({rows} x {cs.NNZ}): median "
+            print(f"{kernel:8s} {design:18s} {label:14s} {tuple(idx.shape)}: median "
                   f"{stats['median']:.4f} ms, min {stats['min']:.4f}, max {stats['max']:.4f}",
                   flush=True)
+        del idx, vals, sets
+
+    # the fleet row dot at the sparse fleet's batch, both designs, both layouts
+    idx, vals = cs.sparse_batch(gen, cs.BATCH, cs.NNZ, cs.SPARSE_DIM, dev, cs.DEFAULT_MASK_SHARE,
+                                cs.OUT_OF_RANGE_SHARE)
+    C = torch.randn(cs.FLEET_MEMBERS, cs.SPARSE_DIM, generator=gen, device=dev)
+    layouts = {"member-minor": C.T.contiguous().T, "member-major": C}
+    fleet_designs = {"shipped": sk.fleet_row_dots, "scalar": scalar_fleet_row_dots}
+    sets = cs.copies(idx, vals)
+    times = {}
+    for _ in range(ROUNDS):
+        for design, fn in fleet_designs.items():
+            for layout, c in layouts.items():
+                times.setdefault(f"fleet_row_dots {design} {layout}", []).append(
+                    cs.cuda_ms(lambda i, v: fn(i, v, c), sets))
+    for key, ts in times.items():
+        stats = {"median": statistics.median(ts), "min": min(ts), "max": max(ts)}
+        summary["device_ms"][key] = stats
+        print(f"{key:36s} N={cs.FLEET_MEMBERS} {tuple(idx.shape)}: median {stats['median']:.4f} ms, "
+              f"min {stats['min']:.4f}, max {stats['max']:.4f}", flush=True)
+    del idx, vals, sets
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -169,14 +229,17 @@ def main() -> int:
     table = Table({"features": SparseBatch(cs.SPARSE_DIM, s_idx, s_vals), "label": s_y})
     chosen = {}
 
-    def launch(name, entry, indices, values, vector, out, d):
+    def launch(name, entry, indices, values, vector, out, d, extra=(), plan=None):
         if entry == "fmt_sparse_grad":
             grad(chosen["grad"], indices, values, vector, d, out)
-        else:
+        elif entry == "fmt_sparse_row_dots":
             row_dots(chosen["row_dots"], indices, values, vector, out)
+        else:
+            shipped_launch(name, entry, indices, values, vector, out, d, extra, plan)
 
     sk._launch = launch
-    pairs = [("first", "shipped"), ("shipped", "shipped"), ("shipped", "table")]
+    pairs = [("first", "red"), ("shipped", "red"), ("shipped", "shipped")]
+    kernel_names = {"row_dots": ("row_dots_kernel",), "grad": ("grad_kernel",)}
     for rep in range(3):
         for pair in pairs:
             chosen.update(row_dots=pair[0], grad=pair[1])
@@ -190,8 +253,8 @@ def main() -> int:
             attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
                 else "self_cuda_time_total"
             for e in events:
-                for kernel in ("row_dots", "grad"):
-                    if f"{kernel}_kernel" in e.key:
+                for kernel, marks in kernel_names.items():
+                    if any(m in e.key for m in marks):
                         per = getattr(e, attr) / 1e3 / e.count
                         key = f"{kernel} {chosen[kernel]}"
                         summary["in_fit_ms_per_launch"].setdefault(key, []).append(per)
@@ -203,12 +266,13 @@ def main() -> int:
     model = cs.estimator(lr_module.LogisticRegression).fit(table)
     walls = {}
     for _ in range(WALL_ROUNDS):
-        for pair in pairs[:2]:
+        for pair in (pairs[0], pairs[2]):
             chosen.update(row_dots=pair[0], grad=pair[1])
             walls.setdefault(f"fit {'/'.join(pair)}", []).append(
                 cs.synced(lambda: cs.estimator(lr_module.LogisticRegression).fit(table))[1])
             walls.setdefault(f"transform {'/'.join(pair)}", []).append(
                 cs.synced(lambda: model.transform(table)[0])[1])
+    sk._launch = shipped_launch
     summary["wall_ms"] = {}
     for key, ts in walls.items():
         stats = {"median": statistics.median(ts), "min": min(ts), "max": max(ts)}

@@ -8,9 +8,13 @@ include -1 padding and indices >= d, also at the edges of the kernels'
 layout: rows of one pass of the row dot and one slot more, a wide row and
 a batch sliced at an odd row offset. The CUDA kernels themselves run only
 on the card (chip_smoke.py holds them against the plain versions there);
-the launch plan that cuts a batch for them is pure Python and is checked
+the launch plans that cut a batch for them are pure Python and are checked
 here: threads per block and blocks within the launch limits, every row and
-slot covered once.
+slot covered once; the gradient's persistent plan (chunks walked by each
+block, its table, ring and shared memory) at several SM counts; the
+reciprocal division and the running row of the gradient's chunks, in
+numpy as the kernel computes them; and the fleet row dot's float4
+predicate.
 """
 
 import numpy as np
@@ -123,6 +127,14 @@ def test_cpu_tensors_take_the_plain_route_without_counting():
                                              "fleet_row_dots": 0, "fleet_grad": 0}
 
 
+def test_grad_walk_counters_need_the_card():
+    # the walk's counters are the CUDA kernel's; a CPU batch has no walk
+    indices, values, coeff, mult = _t(*_batch(3, 50, 6, 16))
+    with pytest.raises(ValueError, match="only in the CUDA kernel"):
+        sparsekernels.sparse_grad_walk(indices, values, mult, coeff)
+    assert sparsekernels.WALK_STATS == ("mid_walk_flushes", "overflows", "direct_chunks")
+
+
 @pytest.mark.parametrize(
     "bad",
     ["int64_indices", "float64_values", "shape_mismatch", "short_multiplier", "non_contiguous"],
@@ -147,14 +159,57 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
             sparsekernels.sparse_grad(indices, values, mult, coeff)
 
 
-# -- the launch plan: a pure function of the batch's shape ---------------
+# -- the launch plans: pure functions of the batch's shape (and SM count)
 
 # gridDim.x's limit
 MAX_GRID = 2**31 - 1
+# SM counts: the H100 SXM's, the H100 PCIe's, a smaller card's, one SM
+SM_COUNTS = (132, 114, 78, 1)
 
 
-@pytest.mark.parametrize("grad", [False, True], ids=["row_dots", "grad"])
-def test_launch_plan_stays_within_the_launch_limits(grad):
+# shared memory of an H100 SM, of one block, and what the card keeps back a block
+SM_SHARED_BYTES, BLOCK_SHARED_BYTES, BLOCK_RESERVED_BYTES = 233_472, 232_448, 1024
+
+
+def _grad_smem_bytes(plan):
+    """The dynamic shared memory sparse_grad's entry lays out for a plan
+    (csrc/sparse_kernels.cu `grad_smem_bytes`): keys and sums, two ring
+    stages of idx and vals (chunk + 4 words each) and multipliers (row_cap
+    + 4 words, whole 16 bytes), and 8 counters."""
+    stage_words = 2 * (plan.chunk + 4) + -(-(plan.row_cap + 4) // 4) * 4
+    return 4 * (2 * plan.table + 2 * stage_words + 8)
+
+
+def _check_grad_plan(plan, rows, nnz, sms):
+    """sparse_grad's plan against the limits of the card and the kernel."""
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024, plan
+    assert 1 <= plan.grid <= min(MAX_GRID, sms * sparsekernels.TABLE_BLOCKS_PER_SM), plan
+    assert plan.table & (plan.table - 1) == 0 and 32 <= plan.table <= 2**16, plan
+    assert plan.chunk % 4 == 0 and 0 < plan.chunk <= 2**16, plan
+    # a flush leaves room for one chunk of new columns: at most half full
+    assert plan.flush_at + plan.chunk <= plan.table // 2, plan
+    # the stage holds the multipliers of every row a chunk can span
+    assert plan.row_cap >= (max(nnz, 1) - 1 + plan.chunk - 1) // max(nnz, 1) + 1, plan
+    # within a block's 227 KB, and two blocks share an SM
+    smem = _grad_smem_bytes(plan)
+    assert smem <= BLOCK_SHARED_BYTES, plan
+    blocks_per_sm = SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES)
+    assert blocks_per_sm >= sparsekernels.TABLE_BLOCKS_PER_SM, plan
+
+
+@pytest.mark.parametrize(
+    "kind,sms",
+    [pytest.param("row_dots", None, id="row_dots"), pytest.param("grad", None, id="grad")]
+    + [pytest.param("table_grad", sms, id=f"table_grad-{sms}") for sms in SM_COUNTS],
+)
+def test_launch_plan_stays_within_the_launch_limits(kind, sms):
+    if kind == "table_grad":
+        for nnz in range(1, 10_001):
+            _check_grad_plan(sparsekernels._grad_plan(100_000, nnz, sms), 100_000, nnz, sms)
+        for rows, nnz in ((2**31, 39), (1, 1), (100_000, 2**20 + 1)):
+            _check_grad_plan(sparsekernels._grad_plan(rows, nnz, sms), rows, nnz, sms)
+        return
+    grad = kind == "grad"
     for nnz in range(0, 10_001):
         plan = sparsekernels._launch_plan(100_000, nnz, grad)
         assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024, (nnz, plan)
@@ -162,14 +217,45 @@ def test_launch_plan_stays_within_the_launch_limits(grad):
     assert sparsekernels._launch_plan(2**31, 39, grad).grid <= MAX_GRID
 
 
+def _walks(plan, slots):
+    """The chunks block b walks: b, b + grid, ... below the chunk count."""
+    chunks = -(-slots // plan.chunk)
+    return [list(range(b, chunks, plan.grid)) for b in range(plan.grid)], chunks
+
+
+def _check_grad_walk(rows, nnz, sms):
+    """The persistent blocks' chunks cover the slots once, every block
+    walks at least one and they differ by at most one; a block's running
+    row and remainder (advanced by grid * chunk slots a step, as the
+    kernel advances them) give each chunk's first row and slot."""
+    plan = sparsekernels._grad_plan(rows, nnz, sms)
+    slots = rows * nnz
+    walks, chunks = _walks(plan, slots)
+    assert sorted(k for walk in walks for k in walk) == list(range(chunks))
+    assert plan.chunk * (chunks - 1) < slots <= plan.chunk * chunks
+    lengths = [len(walk) for walk in walks]
+    assert min(lengths) >= 1 and max(lengths) - min(lengths) <= 1, (plan, lengths)
+    step_rows, step_rem = divmod(plan.grid * plan.chunk, nnz)
+    for walk in walks[:3] + walks[-2:]:
+        row, rem = divmod(walk[0] * plan.chunk, nnz)
+        for k in walk:
+            assert (row, rem) == divmod(k * plan.chunk, nnz)
+            first_slot = k * plan.chunk
+            last_slot = min(first_slot + plan.chunk, slots) - 1
+            assert last_slot // nnz - row + 1 <= plan.row_cap
+            row, rem = row + step_rows, rem + step_rem
+            if rem >= nnz:
+                row, rem = row + 1, rem - nnz
+
+
 @pytest.mark.parametrize(
     "rows,nnz",
     [(1, 3), (7, 39), (8, 39), (9, 40), (1000, 39), (100_000, 39), (5_000, 1), (37, 5000),
-     (16, 5000)],
+     (16, 5000), (100_003, 39), (100_000, 1), (300, 65), (64, 5)],
 )
 def test_tiles_cover_every_row_exactly_once(rows, nnz):
     # the row dot: a warp per row, block b takes rows [b * per, (b + 1) * per)
-    # the gradient: a thread per slot, block b takes slots [b * per, (b + 1) * per)
+    # the thread-per-slot gradient: block b takes slots [b * per, (b + 1) * per)
     for grad, items in ((False, rows), (True, rows * nnz)):
         plan = sparsekernels._launch_plan(rows, nnz, grad)
         per = plan.threads if grad else plan.threads // 32
@@ -178,6 +264,76 @@ def test_tiles_cover_every_row_exactly_once(rows, nnz):
             counts[b * per:(b + 1) * per] += 1
         np.testing.assert_array_equal(counts[:items], 1)
         assert (plan.grid - 1) * per < items, "a block with nothing to do"
+    # sparse_grad: persistent blocks walking chunks
+    for sms in SM_COUNTS:
+        _check_grad_walk(rows, nnz, sms)
+
+
+@pytest.mark.parametrize("rows,nnz", [(1_000_000, 39), (100_000, 100), (10_000_000, 39)])
+@pytest.mark.parametrize("sms", SM_COUNTS)
+def test_grad_chunks_cover_the_main_path_batches_exactly_once(rows, nnz, sms):
+    _check_grad_plan(sparsekernels._grad_plan(rows, nnz, sms), rows, nnz, sms)
+    _check_grad_walk(rows, nnz, sms)
+
+
+def test_grad_plan_at_the_fit_batch_on_an_h100():
+    """The fit batch (100,000 x 39) on 132 SMs: two blocks an SM, eight
+    chunks of 1856 slots each (but ten blocks with seven), an 8192-entry
+    table (64 KB) flushed at a quarter, two stages, 95,776 bytes a block."""
+    plan = sparsekernels._grad_plan(100_000, 39, 132)
+    assert plan == sparsekernels.GradPlan(threads=512, grid=264, chunk=1856, table=8192,
+                                          flush_at=2048, row_cap=49)
+    assert _grad_smem_bytes(plan) == 95_776
+    lengths = [len(walk) for walk in _walks(plan, 100_000 * 39)[0]]
+    assert lengths.count(8) == 254 and lengths.count(7) == 10
+
+
+def _div_rows(n, d):
+    """csrc/sparse_kernels.cu `div_rows` in numpy: float32 n times the
+    float32 reciprocal of d, truncated, then one correction each way."""
+    n = np.asarray(n, np.uint64)
+    if d > 2**20:
+        return (n >= d).astype(np.uint64)
+    inv = np.float32(1.0) / np.float32(d)
+    q = (n.astype(np.float32) * inv).astype(np.uint64)
+    r = n.astype(np.int64) - (q * np.uint64(d)).astype(np.int64)
+    return np.where(r < 0, q - 1, np.where(r >= d, q + 1, q))
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 39, 100, 1000, 4095, 5000, 65_535, 2**20 - 1, 2**20,
+                               2**20 + 1, 2**31 - 1])
+def test_reciprocal_row_division_is_exact_within_a_chunk(d):
+    """The gradient finds a slot's row from its offset n < d + 2^16 past the
+    chunk's first row start (the kernel's chunks are at most 2^16 slots)
+    without a division instruction; it must equal n // d for every such n."""
+    n = np.arange(0, d + 2**16, dtype=np.uint64) if d <= 2**20 else np.concatenate(
+        [np.arange(0, 2**16, dtype=np.uint64), np.arange(d - 2**16, d + 2**16, dtype=np.uint64)])
+    np.testing.assert_array_equal(_div_rows(n, d), n // np.uint64(d))
+
+
+def _fleet_coeff(layout, members, d, aligned):
+    """An (N, d) coeff in `layout`, its base 16-byte aligned or 4 bytes past."""
+    start = 0 if aligned else 1
+    buf = torch.zeros(members * d + 4)[start:start + members * d]
+    if layout == "member-major":
+        return buf.view(members, d)
+    return buf.view(d, members).T
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("members", [1, 4, 8, 9])
+@pytest.mark.parametrize("layout", ["member-major", "member-minor"])
+def test_fleet_row_dots_loads_float4_members_only_where_whole_and_aligned(layout, members, aligned):
+    coeff = _fleet_coeff(layout, members, 10, aligned)
+    assert (coeff.data_ptr() % 16 == 0) == aligned
+    strides = sparsekernels._fleet_strides(coeff)
+    want = layout == "member-minor" and members % 4 == 0 and aligned
+    assert sparsekernels._float4_members(members, *strides, coeff.data_ptr()) == want
+    # the wrapper takes every layout; on the CPU it is the plain version
+    indices, values, _, _ = _t(*_batch(73, 6, 5, 10))
+    torch.testing.assert_close(sparsekernels.fleet_row_dots(indices, values, coeff),
+                               sparsekernels.fleet_row_dots_plain(indices, values, coeff),
+                               rtol=0, atol=0)
 
 
 def test_a_fit_batch_at_an_odd_row_offset_is_not_aligned():
