@@ -10,9 +10,10 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    `flink_ml_tpu_torch/csrc/sparse_kernels.cu`, of the floor probes
    `csrc/probes.cu` and of the replaced designs `csrc/designs.cu`, one
    nvcc each, started together; the registers of each kernel (cuobjdump
-   -res-usage) and a look at the SASS: both gradients add to device memory
-   with RED and never ATOMG, sparse_grad adds in shared memory (ATOMS; its
-   forms are printed), fleet_row_dots loads with 128-bit global loads;
+   -res-usage) and a look at the SASS: no kernel adds with ATOMG;
+   sparse_grad adds to device memory with RED and in shared memory (ATOMS;
+   its forms are printed), fleet_grad only with bulk reductions (no float
+   RED), fleet_row_dots loads with 128-bit global loads;
 2. each kernel against its plain PyTorch version, on seeded inputs with
    -1 padding and indices >= d: at edge shapes, on the index-convention
    probe, at the main path's shapes (the fit batch, 100,000 x 39, and the
@@ -433,36 +434,44 @@ def resource_usage(cuda_build, name):
     return usage
 
 
-SASS_KERNEL = re.compile(r"\d(sparse_grad|fleet_grad|fleet_row_dots|row_dots)_kernel")
+SASS_KERNEL = re.compile(r"\d(sparse_grad|fleet_grad|fleet_grad_copy|fleet_row_dots|row_dots)_kernel")
 
 
 def check_sass(cuda_build):
-    """What the compiler made of the kernels (cuobjdump -sass): every
-    global add of the gradients must be RED (REDG on Hopper), not ATOMG,
-    which waits for the old value; sparse_grad must add in shared memory
-    (ATOMS: its claims and its table's float adds, whose form is printed);
-    fleet_row_dots must load with 128-bit global loads (its float4 member
-    loads). Returns the ATOMS forms of sparse_grad."""
+    """What the compiler made of the kernels (cuobjdump -sass): no ATOMG
+    anywhere (it waits for the old value); sparse_grad adds to device
+    memory with RED and adds in shared memory (ATOMS: its claims and its
+    table's float adds, whose form is printed); fleet_grad adds to device
+    memory only with bulk reductions (UBLKRED, cp.reduce.async.bulk), no
+    float RED; fleet_row_dots
+    loads with 128-bit global loads (its float4 member loads). Returns the
+    ATOMS forms of sparse_grad."""
     sass = cuobjdump(cuda_build, "sparse_kernels", "-sass")
-    opcode = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)((?:\.[A-Z0-9_]+)*)")
+    opcode = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)((?:\.[A-Za-z0-9_]+)*)")
     counts, kernel = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             mangled = line.split("Function :")[1].strip()
             match = SASS_KERNEL.search(mangled)
             kernel = f"{match.group(1)}_kernel {mangled}" if match else mangled
-            counts[kernel] = {"RED": 0, "ATOMG": 0, "ATOMS": 0, "LDG128": 0, "atoms_forms": set()}
+            counts[kernel] = {"RED": 0, "RED_F32": 0, "ATOMG": 0, "ATOMS": 0, "BLKRED": 0,
+                              "LDG128": 0, "atoms_forms": set()}
             continue
         match = opcode.search(line)
         if kernel is None or not match:
             continue
         op, mods = match.groups()
         ops = counts[kernel]
-        if op in ("RED", "REDG", "ATOMG"):
-            ops["ATOMG" if op == "ATOMG" else "RED"] += 1
+        if op in ("RED", "REDG"):
+            ops["RED"] += 1
+            ops["RED_F32"] += ".F" in mods  # .F32, .F32x4: a float add
+        elif op == "ATOMG":
+            ops["ATOMG"] += 1
         elif op == "ATOMS":
             ops["ATOMS"] += 1
             ops["atoms_forms"].add(op + mods)
+        elif "BLKRED" in op:
+            ops["BLKRED"] += 1
         elif op == "LDG" and ".128" in mods:
             ops["LDG128"] += 1
     forms = set()
@@ -470,24 +479,31 @@ def check_sass(cuda_build):
         ops["atoms_forms"] = sorted(ops["atoms_forms"])
         log(f"  sass {kernel}: {ops}")
         name = kernel.split()[0]
-        if name in ("sparse_grad_kernel", "fleet_grad_kernel"):
-            check(ops["RED"] > 0 and ops["ATOMG"] == 0,
-                  f"{kernel} adds to device memory with {ops}, not RED")
+        check(ops["ATOMG"] == 0, f"{kernel} adds to device memory with ATOMG: {ops}")
         if name == "sparse_grad_kernel":
+            check(ops["RED"] > 0, f"{kernel} adds to device memory with {ops}, not RED")
             check(ops["ATOMS"] > 0, f"{kernel} has no shared atomics: {ops}")
             forms.update(ops["atoms_forms"])
+        if name == "fleet_grad_kernel":
+            check(ops["BLKRED"] > 0 and ops["RED_F32"] == 0,
+                  f"{kernel} must add to device memory with bulk reductions only: {ops}")
         if name == "fleet_row_dots_kernel":
             check(ops["LDG128"] > 0, f"{kernel} has no 128-bit global loads: {ops}")
     names = {k.split()[0] for k in counts}
-    check({"sparse_grad_kernel", "fleet_grad_kernel", "fleet_row_dots_kernel"} <= names,
+    check({"sparse_grad_kernel", "fleet_row_dots_kernel", "fleet_grad_kernel"} <= names,
           f"kernels missing from the SASS: {sorted(names)}")
     log(f"  sparse_grad's shared atomics: {sorted(forms)}")
     return sorted(forms)
 
 
+#: fleet_grad's floor probes (csrc/probes.cu `fmt_probe_red8`, by form), at N = 8
+RED8_PROBES = ("two RED.128 a slot", "one RED.128 a slot", "one 32-byte bulk reduction a slot")
+
+
 def load_probes(cuda_build):
     """csrc/probes.cu: the floors of random L2 access that the kernels meet:
-    (gather, red, gather8)."""
+    (gather, red, gather8, red8), red8(form, idx, table) adding member rows
+    of a (d, 8) table in RED8_PROBES[form]'s way."""
     import ctypes
 
     lib = cuda_build.load("probes")
@@ -495,7 +511,9 @@ def load_probes(cuda_build):
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.fmt_probe_red.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-    lib.fmt_probe_red.restype = ctypes.c_int
+    lib.fmt_probe_red8.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int,
+                                                                                      ctypes.c_void_p]
+    lib.fmt_probe_red.restype = lib.fmt_probe_red8.restype = ctypes.c_int
 
     def gather_with(fn, what):
         def gather(idx, coeff):
@@ -514,20 +532,31 @@ def load_probes(cuda_build):
         check(err == 0, f"RED probe launch failed with CUDA error {err}")
         return counts
 
-    return gather_with(lib.fmt_probe_gather, "gather"), red, gather_with(lib.fmt_probe_gather8, "gather8")
+    def red8(form, idx, table):
+        table.zero_()
+        err = lib.fmt_probe_red8(idx.data_ptr(), table.data_ptr(), idx.numel(), table.shape[0], form,
+                                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"{RED8_PROBES[form]} probe launch failed with CUDA error {err}")
+        return table
+
+    return (gather_with(lib.fmt_probe_gather, "gather"), red, gather_with(lib.fmt_probe_gather8, "gather8"),
+            red8)
 
 
 def load_designs(cuda_build, sk):
     """csrc/designs.cu: the designs that this port's kernels replaced, on
-    the plans they ran with: (red_grad, scalar_fleet_row_dots), called as
-    sparse_grad and fleet_row_dots are."""
+    the plans they ran with: (red_grad, scalar_fleet_row_dots,
+    red_fleet_grad), called as sparse_grad, fleet_row_dots and fleet_grad
+    are."""
     import ctypes
 
     lib = cuda_build.load("designs")
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.fmt_red_grad.argtypes = [vp] * 4 + [ll, i32, ll, i32, i32, vp]
     lib.fmt_scalar_fleet_row_dots.argtypes = [vp] * 4 + [ll, i32, ll, i32, ll, ll, i32, i32, vp]
-    lib.fmt_red_grad.restype = lib.fmt_scalar_fleet_row_dots.restype = i32
+    lib.fmt_red_fleet_grad.argtypes = [vp] * 4 + [ll, i32, ll, i32, ll, ll, i32, i32, vp]
+    for fn in (lib.fmt_red_grad, lib.fmt_scalar_fleet_row_dots, lib.fmt_red_fleet_grad):
+        fn.restype = i32
 
     def red_grad(idx, vals, mult, coeff):
         grad = torch.zeros_like(coeff)
@@ -547,7 +576,23 @@ def load_designs(cuda_build, sk):
         check(err == 0, f"fmt_scalar_fleet_row_dots launch failed with CUDA error {err}")
         return out
 
-    return red_grad, scalar_fleet_row_dots
+    def zeroed_like(coeff):
+        members, d = coeff.shape
+        if coeff.is_contiguous():
+            return torch.zeros((members, d), device=coeff.device)
+        return torch.zeros((d, members), device=coeff.device).T
+
+    def red_fleet_grad(idx, vals, mult, coeff):
+        grad = zeroed_like(coeff)
+        plan = sk._launch_plan(*idx.shape, True)
+        err = lib.fmt_red_fleet_grad(
+            idx.data_ptr(), vals.data_ptr(), mult.data_ptr(), grad.data_ptr(), *idx.shape,
+            coeff.shape[1], coeff.shape[0], *sk._fleet_strides(grad), *plan,
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"fmt_red_fleet_grad launch failed with CUDA error {err}")
+        return grad
+
+    return red_grad, scalar_fleet_row_dots, red_fleet_grad
 
 
 def check_probes(gather, red, idx, coeff):
@@ -609,7 +654,7 @@ def measure_case(sk, probes, designs, label, idx, vals, coeff, mult, sets, exact
     batch_bytes = idx.numel() * 4 + vals.numel() * 4
     probe_ms = {}
     if idx.data_ptr() % 16 == 0 and idx.numel() % 4 == 0 and probes is not None:
-        gather, red, _ = probes
+        gather, red = probes[:2]
         check_probes(gather, red, idx, coeff)
         probe_ms["sparse_row_dots"] = cuda_ms(lambda i, v: gather(i, coeff), sets)
         probe_ms["sparse_grad"] = cuda_ms(lambda i, v: red(i, coeff), sets)
@@ -3652,6 +3697,7 @@ FLEET_EDGE_SHAPES = [(64, 5, 24, 8), (200, 39, 64, 8), (1, 3, 4, 1), (33, 40, 50
                      (300, 65, 1000, 17)]
 #: the designs of csrc/designs.cu that this port's kernels replaced (timed in phase 2)
 REPLACED_DESIGNS = {"sparse_grad": "fmt_red_grad (csrc/designs.cu)",
+                    "fleet_grad": "fmt_red_fleet_grad (csrc/designs.cu)",
                     "fleet_row_dots": "fmt_scalar_fleet_row_dots (csrc/designs.cu)"}
 FLEET_SOURCES = {"fleet_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96 (under jax.vmap)",
                  "fleet_grad": "flink_ml_tpu/ops/sparsekernels.py:107 (under jax.vmap)"}
@@ -3718,7 +3764,6 @@ def fleet_kernel_phase(sk, probes, designs, dev):
     M = torch.randn(N, BATCH, generator=gen, device=dev)
     sets = copies(idx, vals)
     valid = idx >= 0
-    keep = valid & (idx < SPARSE_DIM)
     safe = torch.where(valid, idx, 0).clamp(max=SPARSE_DIM - 1)
     masked_vals = torch.where(valid, vals, 0.0)
     batch_bytes = idx.numel() * 8
@@ -3753,54 +3798,157 @@ def fleet_kernel_phase(sk, probes, designs, dev):
         "probe_ms": cuda_ms(lambda i, v: gather8(i, table), sets),
         "bound_ms": b_ms, "bound_by": b_by,
     }
-    del got, want, solo, lib
+    results["fleet_row_dots"].update(rows=BATCH, nnz=NNZ, d=SPARSE_DIM, members=N, tolerance=ROW_DOTS_TOL)
+    r = results["fleet_row_dots"]
+    log(f"  fleet_row_dots fit batch ({N} x {BATCH} x {NNZ}, d={SPARSE_DIM}): max_abs_err "
+        f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms member-minor, {r['member_major_ms']:.4f} ms "
+        f"member-major; replaced design {r['replaced_ms']:.4f} ms member-minor, "
+        f"{r['replaced_member_major_ms']:.4f} ms member-major; probe {r['probe_ms']:.4f} ms; {N} solo "
+        f"launches {r['solo_n_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"  fleet_row_dots equals solo launches of sparse_row_dots bit for bit: {bits}")
+    del solo, got, want, lib
 
-    got = sk.fleet_grad(idx, vals, M, Cm)
+    cases = fleet_grad_cases(sk, gen, dev, idx, vals, M)
+    del idx, vals, sets
+    by_case = [measure_fleet_grad(sk, probes, designs, label, *case) for label, case in cases.items()]
+    del cases
+    main = by_case[0]
+    speedups = {r["case"]: (round(r["replaced_ms"] / r["ms"], 3),
+                            round(r["replaced_member_major_ms"] / r["member_major_ms"], 3))
+                for r in by_case if "ms" in r}
+    log(f"  fleet_grad's replaced design over the kernel, member-minor and member-major: {speedups}")
+    results["fleet_grad"] = {**main, "by_case": by_case, "speedup_over_replaced": speedups}
+    return results
+
+
+# the fleet gradient's cases in phase 2: label -> how its gradient is held
+FLEET_GRAD_GATES = {"fit batch": "tol", "zipf": "exact", "text fit batch": "bound",
+                    "text fit batch, quarter grid": "exact", "tiny d": "exact", "misaligned slice": "tol"}
+
+
+def fleet_grad_cases(sk, gen, dev, idx, vals, M):
+    """fleet_grad's cases at N = FLEET_MEMBERS, label -> (idx, vals, mult,
+    d, sets): the fleet fit's batch (`idx`, `vals`, `M`); Zipf(1.1)
+    indices; the text path's fit batch (100,000 x 100, d = 2^18, ~900
+    hashed columns), with its values and with quarter-grid values on the
+    same indices; a tiny d; a fit batch sliced at an odd row offset.
+    Values and multipliers lie on the quarter grid where the gate is
+    exact. `sets` rotate copies of (idx, vals, mult) through timed calls."""
+    N = FLEET_MEMBERS
+    out = {"fit batch": (idx, vals, M, SPARSE_DIM, [(i, v, M) for i, v in copies(idx, vals)])}
+    zidx, zvals = zipf_batch(gen, BATCH, NNZ, SPARSE_DIM, dev)
+    zmult = quarter_grid(gen, (N, BATCH), dev, signed=True)
+    out["zipf"] = (zidx, zvals, zmult, SPARSE_DIM, [(i, v, zmult) for i, v in copies(zidx, zvals)])
+    tidx, tvals, td = text_fit_batch(dev)
+    tmult = torch.randn(N, tidx.shape[0], generator=gen, device=dev)
+    out["text fit batch"] = (tidx, tvals, tmult, td, [(i, v, tmult) for i, v in copies(tidx, tvals)])
+    qvals = quarter_grid(gen, tuple(tidx.shape), dev)
+    qmult = quarter_grid(gen, (N, tidx.shape[0]), dev, signed=True)
+    out["text fit batch, quarter grid"] = (tidx, qvals, qmult, td, None)
+    tiny = mask_slots(gen, torch.randint(0, TINY_D, (BATCH, NNZ), generator=gen, device=dev), TINY_D)
+    tiny_vals = quarter_grid(gen, (BATCH, NNZ), dev)
+    tiny_mult = quarter_grid(gen, (N, BATCH), dev, signed=True)
+    out["tiny d"] = (tiny, tiny_vals, tiny_mult, TINY_D,
+                     [(i, v, tiny_mult) for i, v in copies(tiny, tiny_vals)])
+    big_idx, big_vals = sparse_batch(gen, BATCH + MISALIGNED_OFFSET, NNZ, SPARSE_DIM, dev,
+                                     DEFAULT_MASK_SHARE, OUT_OF_RANGE_SHARE)
+    sidx, svals = big_idx[MISALIGNED_OFFSET:], big_vals[MISALIGNED_OFFSET:]
+    check(sidx.data_ptr() % 16 != 0, "the misaligned slice is aligned")
+    smult = torch.randn(N, BATCH, generator=gen, device=dev)
+    out["misaligned slice"] = (sidx, svals, smult, SPARSE_DIM,
+                               [(i, v, smult) for i, v in copies(big_idx, big_vals, MISALIGNED_OFFSET)])
+    return out
+
+
+def measure_fleet_grad(sk, probes, designs, label, idx, vals, M, d, sets):
+    """fleet_grad on one case at N = FLEET_MEMBERS, in both layouts, held
+    to its FLEET_GRAD_GATES gate with its replaced design
+    (`fmt_red_fleet_grad`, both layouts). Where `sets` is given: CUDA-event
+    times of each, of the plain version and of one library call (index_add_ of
+    (B * nnz, N) rows into (d, N)), beside the bound from the bytes moved;
+    at the fit batch also of N solo launches and of the floor probes
+    (RED8_PROBES)."""
+    N = FLEET_MEMBERS
+    red_fleet_grad = designs[2]
+    gen = torch.Generator(device=idx.device)
+    gen.manual_seed(19)
+    C = torch.randn(N, d, generator=gen, device=idx.device)
+    Cm = C.T.contiguous().T  # the fit's layout: member-minor
+    gate = FLEET_GRAD_GATES[label]
     want = sk.fleet_grad_plain(idx, vals, M, C)
-    err = (got - want).abs()
-    check(not got.is_contiguous(), "fleet_grad's layout is not coeff's")
-    check(torch.allclose(got, want, **GRAD_TOL),
-          f"fleet_grad disagrees with its plain version: max abs {float(err.max())}")
+    bound = (torch.stack([summation_bound(idx, vals, M[m], d) for m in range(N)])
+             if gate == "bound" else None)
+
+    def hold(name, got):
+        err = (got - want).abs()
+        if gate == "exact":
+            check(torch.equal(got, want), f"{name} is not exact on {label}'s exact sums: max abs "
+                  f"{float(err.max())}")
+        elif gate == "bound":
+            check(bool((err.double() <= bound).all()),
+                  f"{name} exceeds the summation bound on {label}: max abs {float(err.max())}")
+        else:
+            check(torch.allclose(got, want, **GRAD_TOL),
+                  f"{name} disagrees with its plain version on {label}: max abs {float(err.max())}")
+        return err
+
+    errs = {}
+    for name, fn in (("fleet_grad", sk.fleet_grad), ("fmt_red_fleet_grad", red_fleet_grad)):
+        for layout, c in (("member-minor", Cm), ("member-major", C)):
+            got = fn(idx, vals, M, c)
+            check(got.is_contiguous() == c.is_contiguous(), f"{name}'s layout {got.stride()} is not coeff's")
+            errs[(name, layout)] = hold(f"{name} {layout}", got)
+    err = torch.maximum(errs[("fleet_grad", "member-minor")], errs[("fleet_grad", "member-major")])
+    r = {"case": label, "rows": idx.shape[0], "nnz": idx.shape[1], "d": d, "members": N,
+         "max_abs_err": float(err.max()),
+         "max_rel_err": float((err / want.abs().clamp_min(1e-6)).max()),
+         "tolerance": {"tol": GRAD_TOL, "exact": "exact (quarter-grid sums)",
+                       "bound": "per column 2 n_c 2^-24 sum |v m| (summation_bound)"}[gate]}
+    if sets is None:
+        log(f"  fleet_grad {label} ({N} x {idx.shape[0]} x {idx.shape[1]}, d={d}): exact in both layouts, "
+            f"and its replaced design")
+        return r
+    keep = (idx >= 0) & (idx < d)
     flat_idx = torch.where(keep, idx, 0).long().reshape(-1)
     contrib = torch.where(keep[None], vals[None] * M[:, :, None], 0.0).permute(1, 2, 0).reshape(-1, N)
-    lib = torch.zeros((SPARSE_DIM, N), device=dev).index_add_(0, flat_idx, contrib)
-    check(torch.allclose(lib.T, want, **GRAD_TOL), "index_add_ yardstick disagrees")
-    b_ms, b_by = bound_ms(batch_bytes + N * BATCH * 4 + N * SPARSE_DIM * 4, 2.0 * N * int(keep.sum()))
-    msets = [(i, v, M) for i, v in sets]
-    results["fleet_grad"] = {
-        "max_abs_err": float(err.max()),
-        "max_rel_err": float((err / want.abs().clamp_min(1e-6)).max()),
-        "ms": cuda_ms(lambda i, v, m: sk.fleet_grad(i, v, m, Cm), msets),
-        "member_major_ms": cuda_ms(lambda i, v, m: sk.fleet_grad(i, v, m, C), msets),
-        "solo_n_ms": cuda_ms(lambda i, v, m: [sk.sparse_grad(i, v, m[j], C[j]) for j in range(N)], msets),
-        "plain_ms": cuda_ms(lambda i, v, m: sk.fleet_grad_plain(i, v, m, C), msets, iters=5),
-        "library_ms": cuda_ms(
-            lambda fi, c: torch.zeros((SPARSE_DIM, N), device=dev).index_add_(0, fi, c),
-            [(flat_idx, contrib)], iters=10),
+    lib = torch.zeros((d, N), device=idx.device).index_add_(0, flat_idx, contrib)
+    hold("index_add_ yardstick", lib.T)
+    b_ms, b_by = bound_ms(idx.numel() * 8 + N * idx.shape[0] * 4 + N * d * 4, 2.0 * N * int(keep.sum()))
+    slow = 5 if label == "tiny d" else 30  # the RED design serialises on 7 columns
+    r.update({
+        "ms": cuda_ms(lambda i, v, m: sk.fleet_grad(i, v, m, Cm), sets),
+        "member_major_ms": cuda_ms(lambda i, v, m: sk.fleet_grad(i, v, m, C), sets),
+        "enqueue_ms": cuda_ms(lambda i, v, m: sk.fleet_grad(i, v, m, Cm), sets, ahead=False),
+        "replaced_ms": cuda_ms(lambda i, v, m: red_fleet_grad(i, v, m, Cm), sets, iters=slow),
+        "replaced_member_major_ms": cuda_ms(lambda i, v, m: red_fleet_grad(i, v, m, C), sets, iters=slow),
+        "plain_ms": cuda_ms(lambda i, v, m: sk.fleet_grad_plain(i, v, m, C), sets, iters=5),
+        "library_ms": cuda_ms(lambda fi, c: torch.zeros((d, N), device=idx.device).index_add_(0, fi, c),
+                              [(flat_idx, contrib)], iters=10),
         "bound_ms": b_ms, "bound_by": b_by,
-    }
-    # Zipf-skewed indices with quarter-grid values: every partial sum is
-    # exact, so the float4 and scalar REDs in any order give the plain bits
-    zidx, zvals = zipf_batch(gen, BATCH, NNZ, SPARSE_DIM, dev)
-    zmult = torch.randint(-4, 5, (N, BATCH), generator=gen, device=dev).to(torch.float32) / 4
-    for c in (Cm, C):
-        check(torch.equal(sk.fleet_grad(zidx, zvals, zmult, c), sk.fleet_grad_plain(zidx, zvals, zmult, C)),
-              "fleet_grad is not exact on the Zipf batch's exact sums")
-    del zidx, zvals
-    for name, r in results.items():
-        r.update(rows=BATCH, nnz=NNZ, d=SPARSE_DIM, members=N,
-                 tolerance=ROW_DOTS_TOL if name == "fleet_row_dots" else GRAD_TOL)
-        extra = (f"; replaced design {r['replaced_ms']:.4f} ms member-minor, "
-                 f"{r['replaced_member_major_ms']:.4f} ms member-major; probe {r['probe_ms']:.4f} ms"
-                 if "replaced_ms" in r else "")
-        log(f"  {name} fit batch ({N} x {BATCH} x {NNZ}, d={SPARSE_DIM}): max_abs_err "
-            f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms member-minor, "
-            f"{r['member_major_ms']:.4f} ms member-major{extra}; {N} solo launches "
-            f"{r['solo_n_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    log(f"  fleet_row_dots equals solo launches of sparse_row_dots bit for bit: {bits}; fleet_grad "
-        f"exact on Zipf-skewed quarter-grid sums in both layouts")
-    return results
+    })
+    if label == "fit batch":
+        r["solo_n_ms"] = cuda_ms(lambda i, v, m: [sk.sparse_grad(i, v, m[j], C[j]) for j in range(N)], sets)
+        red8 = probes[3]
+        table = torch.zeros((d, 8), device=idx.device)
+        counts = torch.bincount(flat_idx[keep.reshape(-1)], minlength=d).to(torch.float32)
+        for form, what in enumerate(RED8_PROBES):
+            want_table = counts[:, None].expand(d, 8).clone()
+            if form == 1:
+                want_table[:, 4:] = 0.0
+            check(torch.equal(red8(form, idx, table), want_table), f"the {what} probe's counts disagree")
+        r["probe_ms"] = {what: cuda_ms(lambda i, v, m, f=form: red8(f, i, table), sets)
+                         for form, what in enumerate(RED8_PROBES)}
+    probe = (f"; probes {', '.join(f'{k} {t:.4f} ms' for k, t in r['probe_ms'].items())}"
+             if "probe_ms" in r else "")
+    solo = f"; {N} solo launches {r['solo_n_ms']:.4f} ms" if "solo_n_ms" in r else ""
+    log(f"  fleet_grad {label} ({N} x {idx.shape[0]} x {idx.shape[1]}, d={d}): max_abs_err "
+        f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms member-minor (enqueue-bound "
+        f"{r['enqueue_ms']:.4f}), {r['member_major_ms']:.4f} ms member-major; replaced design "
+        f"{r['replaced_ms']:.4f} ms member-minor, {r['replaced_member_major_ms']:.4f} ms member-major"
+        f"{solo}; plain {r['plain_ms']:.4f} ms, library "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){probe}")
+    return r
 
 
 def fleet_members(cls, weight_col=None, count=FLEET_MEMBERS):
@@ -4477,10 +4625,10 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "member_major_ms": r["member_major_ms"], "solo_n_ms": r["solo_n_ms"],
-            **({"replaced_design": REPLACED_DESIGNS[name], "replaced_ms": r["replaced_ms"],
-                "replaced_member_major_ms": r["replaced_member_major_ms"], "probe_ms": r["probe_ms"],
-                "bit_identical_to_solo": r["bit_identical_to_solo"]}
-               if name in REPLACED_DESIGNS else {}),
+            "replaced_design": REPLACED_DESIGNS[name], "replaced_ms": r["replaced_ms"],
+            "replaced_member_major_ms": r["replaced_member_major_ms"], "probe_ms": r["probe_ms"],
+            **({"bit_identical_to_solo": r["bit_identical_to_solo"]} if name == "fleet_row_dots"
+               else {"by_case": r["by_case"]}),
             "shape": [r["members"], r["rows"], r["nnz"], r["d"]],
         })
     log("first calls: " + "; ".join(

@@ -110,23 +110,38 @@
 //     Member-major coeff and other N keep the scalar loads (designs.cu
 //     keeps the kernel that always took them as
 //     fmt_scalar_fleet_row_dots).
-//   - fleet_grad has the gradient's layout (a thread per slot) and adds
-//     the slot's N products with RED atomics: N scalar ones, or, where
-//     the gradient is member-minor with N a multiple of 4 (the fit's
-//     case), N / 4 REDs of a float4 each (RED.128, sm_90 from CUDA 12.1).
+//   - fleet_grad is a thread per slot. The slot's N products go to the
+//     thread's stage in shared memory, which it adds to the column's member
+//     row with one bulk asynchronous reduction (cp.reduce.async.bulk
+//     .add.f32, Hopper's TMA path: one L2 request for the whole 32-byte row
+//     at N = 8). The gradient is summed in place where it is member-minor
+//     with N a multiple of 4 and 16-byte aligned (the fleet fit's layout),
+//     else in a (d, N rounded up to 4) scratch copied out to the gradient's
+//     strides after (fleet_grad_copy_kernel), so member-major costs a copy,
+//     not N sectors a slot. The entry zeroes what it sums into.
 // What bounds them: the batch's 8 bytes a slot stream once, as in the
-// solo kernels; the random accesses to the (N, d) operand are N a slot.
-// Member-major, they fall on N different 32-byte sectors; member-minor,
-// on the N neighbouring floats of one column (one sector at N = 8), read
-// by one warp's gathers together and added by two float4 REDs. That is
-// why the sparse fleet fit keeps its coefficients member-minor
-// (ops/optimizer.py `fleet_init_state`). PERF.md has the times of both
-// layouts.
-//
+// solo kernels; the random side is N values a slot. The row dot gathers
+// them (one sector at N = 8 member-minor, N sectors member-major). The
+// gradient must add them, and the L2 prices its atomics by request: the
+// floor probes (csrc/probes.cu `fmt_probe_red8`) at the fleet fit's batch
+// compare two RED.128 a slot (the first design, csrc/designs.cu
+// fmt_red_fleet_grad), one RED.128 and one 32-byte bulk reduction.
+// fleet_grad pays one request a slot, at the bulk probe's rate. Requests
+// to one column still serialise in the L2, half as many as the first
+// design's: a hot column (Zipf, a tiny d) costs more than its bytes.
+// Combining a warp's lanes that share a column first (__match_any_sync)
+// cut that on Zipf but cost time on the fleet fit's batch and the text
+// path's, whose warps hold distinct columns, so the kernel does not
+// combine (PERF.md). Designs that add once per column instead of once per
+// slot (csrc/designs.cu fmt_bucketed_fleet_grad: count, scan, scatter,
+// accumulate) win on skew, but must count the batch before they add; on
+// this card that pre-pass and the scatter of the entries cost more than
+// the atomics they save on a uniform batch (PERF.md has the sweep).
 // The launch plans come from ops/sparsekernels.py (`_launch_plan`; for
 // sparse_grad `_grad_plan`: grid, chunk, table size, flush threshold and
-// the multipliers a stage holds, from the batch's shape and the SM count),
-// which the CPU tests check; sparse_grad's entry computes its shared
+// the multipliers a stage holds, from the batch's shape and the SM count;
+// for fleet_grad `_fleet_grad_plan`: grid, member tiles and the padded
+// row), which the CPU tests check; sparse_grad's entry computes its shared
 // memory from them. The gradients are not bitwise deterministic:
 // their additions (shared and global atomics, flushes) land in an order
 // that changes from run to run, so they agree with the row-major
@@ -138,8 +153,8 @@
 //
 // Interface: plain C, for ctypes. Each entry launches on the given stream,
 // does not synchronise, allocates nothing, and returns a cudaError_t
-// (0 on success). The caller zeroes the gradient. Empty batches launch
-// nothing.
+// (0 on success). The caller zeroes sparse_grad's gradient; fmt_fleet_grad
+// zeroes what it sums into itself. Empty batches launch nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -524,39 +539,70 @@ __global__ void __launch_bounds__(kFleetThreads, 6) fleet_row_dots_kernel(const 
 
 // ---- fleet_grad ------------------------------------------------------
 
-// float4 atomicAdd (RED.128) exists for global memory on compute
-// capability 9.x from CUDA 12.1.
-#if defined(__CUDACC_VER_MAJOR__) && (__CUDACC_VER_MAJOR__ * 100 + __CUDACC_VER_MINOR__ >= 1201)
-#define FMT_VECTOR_RED 1
-#else
-#define FMT_VECTOR_RED 0
-#endif
+// fleet_grad's bulk reductions (cp.reduce.async.bulk) need sm_90.
+constexpr int kFleetGradThreads = 256;
+// Members one bulk reduction carries: a block's tile of the padded row.
+constexpr int kFleetTile = 16;
 
-__global__ void fleet_grad_kernel(const int32_t* __restrict__ idx, const float* __restrict__ vals,
-                                  const float* __restrict__ mult, float* __restrict__ grad,
-                                  int64_t rows, int nnz, int64_t d, int members, int64_t ms,
-                                  int64_t cs, bool vec4) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= rows * nnz) return;
-  const int32_t c = idx[t];
-  if (c < 0 || c >= d) return;
-  const float v = vals[t];
-  const float* row_mult = mult + t / nnz;
-  float* col = grad + static_cast<int64_t>(c) * cs;
-#if FMT_VECTOR_RED
-  if (vec4) {  // member-minor, members % 4 == 0, columns 16-byte aligned
-    for (int m = 0; m < members; m += 4) {
-      const float4 add = make_float4(v * row_mult[static_cast<int64_t>(m) * rows],
-                                     v * row_mult[static_cast<int64_t>(m + 1) * rows],
-                                     v * row_mult[static_cast<int64_t>(m + 2) * rows],
-                                     v * row_mult[static_cast<int64_t>(m + 3) * rows]);
-      atomicAdd(reinterpret_cast<float4*>(col + m), add);  // one RED of 16 bytes
-    }
-    return;
+// A thread a slot; blockIdx.y picks the tile of members [16 y, 16 y + 16)
+// of the (d, stride) row-major sum `acc` (stride = N padded to whole
+// float4s). Each valid slot writes its products v * mult[m, row] to the
+// thread's own stage in shared memory and adds the stage to the column's
+// row of `acc` with one bulk asynchronous reduction (cp.reduce.async.bulk
+// .add.f32 of the tile, 16 to 64 bytes). The bulk reduction is a uniform
+// instruction (UBLKRED) that the compiler issues for one lane at a time in
+// a loop over the warp's active lanes, so the warp reconverges (a ballot)
+// before it: with invalid lanes leaving first, the fit batch took 9%
+// longer (PERF.md). A slot's row comes from the block's first row (one
+// 64-bit division a thread) and a float reciprocal of nnz with one
+// correction each way (`div_rows`).
+__global__ void __launch_bounds__(kFleetGradThreads) fleet_grad_kernel(
+    const int32_t* __restrict__ idx, const float* __restrict__ vals, const float* __restrict__ mult,
+    float* __restrict__ acc, int64_t rows, int nnz, int64_t d, int members, int stride) {
+  __shared__ __align__(16) float stage[kFleetGradThreads * kFleetTile];
+  const int m0 = blockIdx.y * kFleetTile;
+  const int mt = min(kFleetTile, stride - m0);  // a multiple of 4
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x;
+  const int64_t t = first + threadIdx.x;
+  const int32_t c = t < rows * nnz ? idx[t] : -1;
+  const bool valid = c >= 0 && c < d;
+  const int64_t row0 = first / nnz;
+  const unsigned row = static_cast<unsigned>(row0) +
+                       div_rows(static_cast<unsigned>(first - row0 * nnz) + threadIdx.x, nnz,
+                                1.0f / static_cast<float>(nnz));
+  const float v = valid ? vals[t] : 0.0f;
+  float* mine = stage + threadIdx.x * kFleetTile;
+  for (int m = 0; m < mt; ++m) {
+    const int mm = m0 + m;
+    mine[m] = valid && mm < members ? v * mult[static_cast<int64_t>(mm) * rows + row] : 0.0f;
   }
-#endif
-  for (int m = 0; m < members; ++m) {
-    atomicAdd(col + m * ms, v * row_mult[static_cast<int64_t>(m) * rows]);  // RED
+  if (__ballot_sync(kFull, valid) == 0 || !valid) return;
+  // the generic stores above, seen by the async proxy that reads the stage
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+          acc + static_cast<int64_t>(c) * stride + m0),
+      "r"(static_cast<unsigned>(__cvta_generic_to_shared(mine))), "r"(mt * 4)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // the stage is read
+}
+
+// Where fleet_grad sums into a scratch: the (d, stride) rows to the (N, d)
+// gradient at member stride ms and column stride cs, a thread a column (its
+// row loaded as float4s, each member's stores neighbours across the warp).
+__global__ void fleet_grad_copy_kernel(const float* __restrict__ acc, float* __restrict__ grad,
+                                       int64_t d, int members, int stride, int64_t ms, int64_t cs) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  const float4* src = reinterpret_cast<const float4*>(acc + c * stride);
+  for (int q = 0; q < stride / 4; ++q) {
+    const float4 f = src[q];
+    const float w[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (4 * q + u < members) grad[c * cs + static_cast<int64_t>(4 * q + u) * ms] = w[u];
+    }
   }
 }
 
@@ -661,20 +707,38 @@ extern "C" int fmt_fleet_row_dots(const void* idx, const void* vals, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// fleet_grad's plan (ops/sparsekernels.py `_fleet_grad_plan`): `grid`
+// blocks of 256 threads, a slot each, covering the slots, by `tiles` tiles
+// of 16 members of the padded row of `stride` floats (N rounded up to a
+// multiple of 4). Where `scratch` is null the sums go straight to `out`,
+// which must then be member-minor (ms == 1, cs == stride == N) and 16-byte
+// aligned; else to `scratch`, d * stride floats 16-byte aligned, and from
+// there to `out` at its strides. The entry zeroes what it sums into (a
+// memset on the stream), so `out` need not be zeroed.
 extern "C" int fmt_fleet_grad(const void* idx, const void* vals, const void* mult, void* out,
                               long long rows, int nnz, long long d, int members, long long ms,
-                              long long cs, int threads, int grid, void* stream) {
+                              long long cs, void* scratch, int threads, int grid,
+                              int tiles, int stride, void* stream) {
   if (rows <= 0 || nnz <= 0) return 0;
+  const bool direct = scratch == nullptr;
+  float* acc = static_cast<float*>(direct ? out : scratch);
   if (bad_plan(rows, nnz, d, threads, grid) || bad_fleet(members, ms, cs) ||
-      static_cast<long long>(grid) * threads < rows * nnz) {
+      threads != kFleetGradThreads || static_cast<long long>(grid) * threads < rows * nnz ||
+      stride < members || stride % 4 != 0 || tiles <= 0 || tiles > 65535 ||
+      static_cast<long long>(tiles) * kFleetTile < stride || (tiles - 1) * kFleetTile >= stride ||
+      reinterpret_cast<uintptr_t>(acc) % 16 != 0 ||
+      (direct && (ms != 1 || cs != members || stride != members))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // member-minor with whole float4s of members: each slot adds 4 members a RED
-  const bool vec4 = FMT_VECTOR_RED && ms == 1 && cs == members && members % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  fleet_grad_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(acc, 0, 4LL * d * stride, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fleet_grad_kernel<<<dim3(grid, tiles), threads, 0, s>>>(
       static_cast<const int32_t*>(idx), static_cast<const float*>(vals),
-      static_cast<const float*>(mult), static_cast<float*>(out), rows, nnz, d, members, ms, cs,
-      vec4);
+      static_cast<const float*>(mult), acc, rows, nnz, d, members, stride);
+  if (!direct) {
+    fleet_grad_copy_kernel<<<static_cast<unsigned>((d + 255) / 256), 256, 0, s>>>(
+        acc, static_cast<float*>(out), d, members, stride, ms, cs);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,16 +43,18 @@ first. Padding contributes 0; an index >= d is clamped in the dot and
 dropped in the gradient, so such a weight is read but never updated.
 
 The gradient kernels add with atomics (the solo one through a table of
-columns in shared memory, flushed with atomics), so their order of
-additions changes from run to run: they agree with the plain version to a
-tolerance, not bit for bit.
+columns in shared memory, flushed with atomics; the fleet one with bulk
+asynchronous reductions), so their order of additions changes from run to
+run: they agree with the plain version to a tolerance, not bit for bit.
 
 How a batch is cut into blocks is decided here and passed to the kernels:
-`_launch_plan` (the row dots and `fleet_grad`, a pure function of the
-batch's shape), `_grad_plan` (`sparse_grad`'s persistent grid, chunks,
-table and shared memory, a pure function of the shape and the card's SM
-count) and `_float4_members` (whether `fleet_row_dots` loads a slot's
-members as float4s). The CPU tests check them without a card.
+`_launch_plan` (the row dots and the thread-per-slot gradients, a pure
+function of the batch's shape), `_grad_plan` (`sparse_grad`'s persistent
+grid, chunks, table and shared memory, a pure function of the shape and
+the card's SM count), `_float4_members` (whether `fleet_row_dots` loads a slot's members as
+float4s, and `fleet_grad` sums into the gradient itself rather than into a
+scratch copied out after) and `_fleet_grad_plan` (`fleet_grad`'s grid,
+member tiles and padded row). The CPU tests check them without a card.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ _SOURCE = "sparse_kernels"
 
 #: the row dot: warps a block, one row each
 ROW_WARPS = 8
-#: fleet_grad (and the first gradient, csrc/designs.cu): threads a block, one slot each
+#: the thread-per-slot gradients (fleet_grad, csrc/designs.cu's): threads a block, one slot each
 GRAD_THREADS = 256
 
 # sparse_grad's plan (csrc/sparse_kernels.cu): a persistent grid of
@@ -86,6 +88,9 @@ TABLE_MIN_CHUNK = 256
 TABLE_MIN, TABLE_MAX = 1024, 8192
 #: what `sparse_grad_walk` counts (csrc/sparse_kernels.cu `WalkStat`)
 WALK_STATS = ("mid_walk_flushes", "overflows", "direct_chunks")
+
+#: fleet_grad: members a block's bulk reduction carries
+FLEET_TILE = 16
 
 
 class LaunchPlan(NamedTuple):
@@ -148,16 +153,37 @@ def _grad_plan(rows: int, nnz: int, sms: int) -> GradPlan:
     return GradPlan(TABLE_THREADS, grid, chunk, table, table // 4, row_cap)
 
 
+class FleetGradPlan(NamedTuple):
+    """fleet_grad's launch (the order of the C entry's arguments): the
+    gradient's thread-per-slot `threads` and `grid` (`_launch_plan`), by
+    `tiles` tiles of FLEET_TILE members of a row of `stride` floats, N
+    rounded up to a multiple of 4 (a bulk reduction moves whole 16
+    bytes)."""
+
+    threads: int
+    grid: int
+    tiles: int
+    stride: int
+
+
+@functools.lru_cache(maxsize=256)
+def _fleet_grad_plan(rows: int, nnz: int, members: int) -> FleetGradPlan:
+    """fleet_grad's launch for a (rows, nnz) batch and `members` models."""
+    stride = _round_up(members, 4)
+    return FleetGradPlan(*_launch_plan(rows, nnz, True), -(-stride // FLEET_TILE), stride)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _float4_members(members: int, member_stride: int, column_stride: int, data_ptr: int) -> bool:
-    """Whether fleet_row_dots loads a slot's members as float4s: coeff
-    member-minor (member stride 1, column stride N), N a multiple of 4 and
-    its base 16-byte aligned, so every column's tile of 4 or 8 members is
-    whole aligned float4s."""
+    """Whether a column's members are whole, aligned float4s: the (N, d)
+    operand member-minor (member stride 1, column stride N), N a multiple
+    of 4 and its base 16-byte aligned. Then fleet_row_dots loads a slot's
+    members as float4s, and fleet_grad's bulk reductions add into the
+    gradient itself."""
     return (member_stride == 1 and column_stride == members and members % 4 == 0
             and data_ptr % 16 == 0)
 
@@ -171,7 +197,7 @@ def _kernels():
         (lib.fmt_sparse_row_dots, batch + [ctypes.c_int] * 2),
         (lib.fmt_sparse_grad, batch + [ctypes.c_void_p] + [ctypes.c_int] * len(GradPlan._fields)),
         (lib.fmt_fleet_row_dots, batch + fleet + [ctypes.c_int] * 3),  # vec4, threads, grid
-        (lib.fmt_fleet_grad, batch + fleet + [ctypes.c_int] * 2),
+        (lib.fmt_fleet_grad, batch + fleet + [ctypes.c_void_p] + [ctypes.c_int] * 4),
     ]
     for fn, args in entries:
         fn.argtypes = args + [ctypes.c_void_p]
@@ -186,12 +212,12 @@ def build() -> None:
 
 def _launch(name, entry, indices, values, vector, out, d, extra=(), plan=None):
     """Launch the C entry point `entry` on the batch with `plan` (by
-    default `_launch_plan`'s), on the current stream of the batch's device;
-    raise if the launch failed. `extra` are the entry's arguments between
-    the batch's and the plan's (the fleet kernels' members and strides, the
-    gradient's counters)."""
+    default the row dot's `_launch_plan`), on the current stream of the
+    batch's device; raise if the launch failed. `extra` are the entry's
+    arguments between the batch's and the plan's (the fleet kernels'
+    members and strides, the gradient's counters, fleet_grad's scratch)."""
     rows, nnz = indices.shape
-    plan = plan or _launch_plan(rows, nnz, entry.endswith("_grad"))
+    plan = plan or _launch_plan(rows, nnz)
     device = indices.device
     with torch.cuda.device(device):
         err = getattr(_kernels(), entry)(
@@ -405,17 +431,34 @@ def fleet_grad(indices, values, multiplier, coeff):
     if device.type == "cpu":
         grad = fleet_grad_plain(indices, values, multiplier, coeff)
         return grad if coeff.is_contiguous() else grad.T.contiguous().T
-    members, d = coeff.shape
-    if coeff.is_contiguous():
-        grad = torch.zeros((members, d), dtype=torch.float32, device=device)
-    else:
-        grad = torch.zeros((d, members), dtype=torch.float32, device=device).T
+    grad = _fleet_grad_out(coeff)
     if indices.numel() == 0:
-        return grad
-    _launch("fleet_grad", "fmt_fleet_grad", indices, values, multiplier, grad, d,
-            (members, *_fleet_strides(grad)))
+        return grad.zero_()
+    _launch_fleet_grad(indices, values, multiplier, grad)
     fleet_grad.launches += 1
     return grad
+
+
+def _fleet_grad_out(coeff):
+    """An uninitialised (N, d) gradient in coeff's layout: the kernel's
+    entry zeroes what it sums into."""
+    members, d = coeff.shape
+    if coeff.is_contiguous():
+        return torch.empty((members, d), dtype=torch.float32, device=coeff.device)
+    return torch.empty((d, members), dtype=torch.float32, device=coeff.device).T
+
+
+def _launch_fleet_grad(indices, values, multiplier, grad):
+    """fleet_grad's kernel into `grad` (N, d) with its plan: straight into
+    `grad` where it takes the bulk reductions itself (`_float4_members`),
+    else into a (d, stride) scratch copied out to grad's strides."""
+    members, d = grad.shape
+    strides = _fleet_strides(grad)
+    plan = _fleet_grad_plan(*indices.shape, members)
+    scratch = (None if _float4_members(members, *strides, grad.data_ptr())
+               else torch.empty(d * plan.stride, dtype=torch.float32, device=grad.device))
+    _launch("fleet_grad", "fmt_fleet_grad", indices, values, multiplier, grad, d,
+            (members, *strides, None if scratch is None else scratch.data_ptr()), plan)
 
 
 sparse_row_dots.launches = 0

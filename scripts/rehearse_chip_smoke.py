@@ -86,12 +86,23 @@ def _probes(_cuda_build):
 
     def gather8(idx, table):
         return gather(idx, table.sum(dim=1))
-    return gather, red, gather8
+
+    def red8(form, idx, table):
+        counts = red(idx, table[:, 0])
+        table.copy_(counts[:, None].expand(table.shape))
+        if form == 1:
+            table[:, 4:] = 0.0
+        return table
+    return gather, red, gather8, red8
 
 
 def _designs(plain):
-    """The replaced designs of csrc/designs.cu: their plain versions."""
-    return lambda _cuda_build, _sk: (plain["sparse_grad"], plain["fleet_row_dots"])
+    """The replaced designs of csrc/designs.cu: their plain versions, the
+    fleet gradient's in its coeff's layout as the kernels give it."""
+    def fleet_grad(indices, values, multiplier, coeff):
+        grad = plain["fleet_grad"](indices, values, multiplier, coeff)
+        return grad if coeff.is_contiguous() else grad.T.contiguous().T
+    return lambda _cuda_build, _sk: (plain["sparse_grad"], plain["fleet_row_dots"], fleet_grad)
 
 
 def _walk(indices, values, multiplier, coeff):
@@ -130,7 +141,8 @@ def stub() -> None:
     cs.check_sass = lambda *args: []
     cs.load_probes = _probes
     cs.load_designs = _designs({"sparse_grad": sk.sparse_grad_plain,
-                                "fleet_row_dots": sk.fleet_row_dots_plain})
+                                "fleet_row_dots": sk.fleet_row_dots_plain,
+                                "fleet_grad": sk.fleet_grad_plain})
     cs.profile_run = lambda name, run: run()
     cs.profile_overlap = lambda name, run: (run(), {})[1]
     sk.sparse_row_dots_plain = _counted(sk.sparse_row_dots, sk.sparse_row_dots_plain)

@@ -21,7 +21,14 @@ Designs (`flink_ml_tpu_torch/csrc/designs.cu`, beside the shipped
   `chunk1024`;
 - fleet row dot at N = 8: `shipped` (float4 member loads where coeff is
   member-minor) and `scalar` (the first fleet row dot, 8 scalar loads a slot), each
-  on member-minor and member-major coefficients.
+  on member-minor and member-major coefficients;
+- fleet gradient at N = 8: `shipped` (a thread a slot, one bulk reduction
+  of the member row a slot), `red` (the first fleet gradient, two RED.128 a slot,
+  `fmt_red_fleet_grad`) and the column-bucketed candidate
+  (`fmt_bucketed_fleet_grad`: count, scan, scatter, accumulate) at two
+  bucket widths W and two piece sizes P (`FLEET_BUCKETED`), each on
+  member-minor and member-major gradients, at the fit batch, on Zipf(1.1),
+  at the text path's fit batch and on a tiny d = 7.
 
 Every design is first held against the plain PyTorch version at edge shapes
 and at the fit batch. Then, on the fit batch (100,000 x 39, d = 1e6), the
@@ -34,8 +41,11 @@ max are printed. Last, the sparse LogisticRegression fit (1M x 1e6 x 39,
 pair of kernels (`first` row dot, `red` gradient), for the row dot with the
 `red` gradient, and for the shipped pair, three fits each in three rounds,
 and torch.profiler gives each kernel's device time per launch inside the
-fit. Then whole fits and 1M-row transforms on the first and on the shipped
-pair alternate, 15 of each, timed on the host's clock with a synchronize on
+fit; the 8-member sparse LR fleet fit (chip_smoke.py's `sparse_fleet`
+members) likewise with fleet_grad's wrapper on each fleet gradient
+design, which gives the gradient's device time per fleet fit. Then whole
+fits and 1M-row transforms on the first and on the shipped pair
+alternate, 15 of each, timed on the host's clock with a synchronize on
 each side. The card's name and power limit come first; a JSON summary
 comes last.
 """
@@ -61,6 +71,12 @@ WALL_ROUNDS = 15
 LANES = {"lanes32_k2": (2, 5), "lanes16_k4": (4, 4), "lanes16_k2": (2, 4), "lanes8_k8": (8, 3),
          "lanes8_k4": (4, 3), "lanes4_k8": (8, 2), "lanes1_k8": (8, 0)}
 EDGE_SHAPES = cs.EDGE_SHAPES + [cs.WIDE_SHAPE]
+# the bucketed fleet gradient: name -> (bucket width W, piece size P); runs
+# of BUCKETED_RUN slots for its count and scatter steps, lanes combined in
+# every piece (BUCKETED_HOT = 0 entries a column)
+FLEET_BUCKETED = {"bucketed_W1024_P8192": (1024, 8192), "bucketed_W1024_P4096": (1024, 4096),
+                  "bucketed_W2048_P8192": (2048, 8192), "bucketed_W2048_P4096": (2048, 4096)}
+BUCKETED_RUN, BUCKETED_HOT = 8192, 0
 # the shipped gradient on other plans: module constants of ops/sparsekernels.py
 # for `_grad_plan`, and fields of its plan replaced after
 GRAD_PLANS = {
@@ -106,7 +122,12 @@ def main() -> int:
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     designs.fmt_first_row_dots.argtypes = [vp] * 4 + [ll, i32, ll, vp]
     designs.fmt_lanes_row_dots.argtypes = [vp] * 4 + [ll, i32, ll, i32, i32, i32, vp]
-    red_grad, scalar_fleet_row_dots = cs.load_designs(cuda_build, sk)
+    red_grad, scalar_fleet_row_dots, _ = cs.load_designs(cuda_build, sk)
+    designs.fmt_bucketed_fleet_grad.argtypes = [vp] * 4 + [ll, i32, ll, i32, ll, ll, vp] + [i32] * 4 + [vp]
+    designs.fmt_bucketed_fleet_grad_scratch.argtypes = [ll, i32, ll] + [i32] * 4
+    designs.fmt_bucketed_fleet_grad.restype = i32
+    designs.fmt_bucketed_fleet_grad_scratch.restype = ll
+    shipped_fleet_grad = sk._launch_fleet_grad
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     dev = torch.device("cuda")
     shipped_launch = sk._launch
@@ -144,6 +165,32 @@ def main() -> int:
         plan = grad_plan(sk, design, *idx.shape, sms)
         shipped_launch(design, "fmt_sparse_grad", idx, vals, mult, out, d, (None,), plan)
         return out
+
+    def fleet_grad_into(design, idx, vals, mult, grad):
+        """The fleet gradient `design` into `grad` (N, d), in its layout,
+        which need not be zeroed."""
+        members, d = grad.shape
+        if design == "shipped":
+            shipped_fleet_grad(idx, vals, mult, grad)
+        elif design == "red":
+            plan = sk._launch_plan(*idx.shape, True)
+            ok(designs.fmt_red_fleet_grad(
+                idx.data_ptr(), vals.data_ptr(), mult.data_ptr(), grad.zero_().data_ptr(), *idx.shape,
+                d, members, *sk._fleet_strides(grad), *plan, stream()), design)
+        else:
+            width, piece = FLEET_BUCKETED[design]
+            words = designs.fmt_bucketed_fleet_grad_scratch(*idx.shape, d, members, width, piece,
+                                                            BUCKETED_RUN)
+            cs.check(words > 0, f"{design} cannot take a {tuple(idx.shape)} batch at d = {d}")
+            scratch = torch.empty(words, dtype=torch.int32, device=dev)
+            ok(designs.fmt_bucketed_fleet_grad(
+                idx.data_ptr(), vals.data_ptr(), mult.data_ptr(), grad.data_ptr(), *idx.shape, d,
+                members, *sk._fleet_strides(grad), scratch.data_ptr(), width, piece, BUCKETED_RUN,
+                BUCKETED_HOT, stream()), design)
+        return grad
+
+    def fleet_grad(design, idx, vals, mult, coeff):
+        return fleet_grad_into(design, idx, vals, mult, sk._fleet_grad_out(coeff))
 
     dot_designs = ["shipped", "first", *LANES, "lanes32_k2_walk"]
     grad_designs = ["red", *GRAD_PLANS]
@@ -218,6 +265,52 @@ def main() -> int:
               f"min {stats['min']:.4f}, max {stats['max']:.4f}", flush=True)
     del idx, vals, sets
 
+    # the fleet gradient, every design in both layouts, on the fleet fit's
+    # batch, Zipf, the text path's fit batch and a tiny d; each held first
+    # against the plain version (exactly on quarter-grid values)
+    N = cs.FLEET_MEMBERS
+    fleet_grad_designs = ["shipped", "red", *FLEET_BUCKETED]
+    for label in ("fit batch", "zipf", "text fit batch", "tiny d"):
+        if label == "fit batch":
+            idx, vals = cs.sparse_batch(gen, cs.BATCH, cs.NNZ, cs.SPARSE_DIM, dev, cs.DEFAULT_MASK_SHARE,
+                                        cs.OUT_OF_RANGE_SHARE)
+            d, mult = cs.SPARSE_DIM, torch.randn(N, cs.BATCH, generator=gen, device=dev)
+        elif label == "zipf":
+            idx, vals = cs.zipf_batch(gen, cs.BATCH, cs.NNZ, cs.SPARSE_DIM, dev)
+            d, mult = cs.SPARSE_DIM, cs.quarter_grid(gen, (N, cs.BATCH), dev, signed=True)
+        elif label == "text fit batch":
+            idx, _, d = cs.text_fit_batch(dev)
+            vals = cs.quarter_grid(gen, tuple(idx.shape), dev)
+            mult = cs.quarter_grid(gen, (N, idx.shape[0]), dev, signed=True)
+        else:
+            idx = cs.mask_slots(gen, torch.randint(0, cs.TINY_D, (cs.BATCH, cs.NNZ), generator=gen,
+                                                   device=dev), cs.TINY_D)
+            vals = cs.quarter_grid(gen, (cs.BATCH, cs.NNZ), dev)
+            d, mult = cs.TINY_D, cs.quarter_grid(gen, (N, cs.BATCH), dev, signed=True)
+        C = torch.randn(N, d, generator=gen, device=dev)
+        layouts = {"member-minor": C.T.contiguous().T, "member-major": C}
+        want = sk.fleet_grad_plain(idx, vals, mult, C)
+        for design in fleet_grad_designs:
+            for layout, c in layouts.items():
+                got = fleet_grad(design, idx, vals, mult, c)
+                cs.check(torch.equal(got, want) if label != "fit batch" else
+                         torch.allclose(got, want, **cs.GRAD_TOL),
+                         f"fleet gradient {design} {layout} disagrees on the {label}")
+        sets = [(i, v, mult) for i, v in cs.copies(idx, vals)]
+        times = {}
+        for _ in range(ROUNDS):
+            for design in fleet_grad_designs:
+                for layout, c in layouts.items():
+                    iters = 5 if design == "red" and label == "tiny d" else 30
+                    times.setdefault(f"fleet_grad {design} {layout} {label}", []).append(
+                        cs.cuda_ms(lambda i, v, m: fleet_grad(design, i, v, m, c), sets, iters=iters))
+        for key, ts in times.items():
+            stats = {"median": statistics.median(ts), "min": min(ts), "max": max(ts)}
+            summary["device_ms"][key] = stats
+            print(f"{key:58s} N={N} {tuple(idx.shape)}: median {stats['median']:.4f} ms, "
+                  f"min {stats['min']:.4f}, max {stats['max']:.4f}", flush=True)
+        del idx, vals, sets
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -260,6 +353,36 @@ def main() -> int:
                         summary["in_fit_ms_per_launch"].setdefault(key, []).append(per)
                         print(f"in fit, round {rep}: {kernel:8s} {chosen[kernel]:18s} with "
                               f"{'/'.join(pair)}: {per:.4f} ms a launch (x{e.count})", flush=True)
+
+    # the sparse LR fleet fit with fleet_grad's wrapper on each design:
+    # the gradient's device time per fleet fit (20 launches)
+    from flink_ml_tpu_torch.fleet import FitFleet
+    fleet_design = {}
+    sk._launch = shipped_launch
+    sk._launch_fleet_grad = lambda i, v, m, g: fleet_grad_into(fleet_design["name"], i, v, m, g)
+    fleet_kernel_marks = {"shipped": ("fleet_grad_kernel",), "red": ("red_fleet_grad_kernel",),
+                          **{name: ("bucket_",) for name in FLEET_BUCKETED}}
+    summary["fleet_fit_grad_ms"] = {}
+    for rep in range(3):
+        for design in ("shipped", "red", "bucketed_W1024_P8192"):
+            fleet_design["name"] = design
+            FitFleet(cs.fleet_members(lr_module.LogisticRegression)).fit(table)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    FitFleet(cs.fleet_members(lr_module.LogisticRegression)).fit(table)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") \
+                else "self_cuda_time_total"
+            grad_ms = sum(getattr(e, attr) for e in events
+                          if any(m in e.key for m in fleet_kernel_marks[design])) / 1e3 / 2
+            busy_ms = sum(getattr(e, attr) for e in events) / 1e3 / 2
+            summary["fleet_fit_grad_ms"].setdefault(design, []).append(grad_ms)
+            print(f"in fleet fit, round {rep}: fleet gradient {design:22s} {grad_ms:.4f} ms a fit "
+                  f"(device busy {busy_ms:.4f} ms a fit)", flush=True)
+    sk._launch_fleet_grad = shipped_fleet_grad
+    sk._launch = launch
 
     # whole fits and 1M-row transforms on the first and on the shipped
     # kernels, interleaved, wall time with a synchronize on each side

@@ -324,15 +324,24 @@ def _fleet_coeff(layout, members, d, aligned):
 @pytest.mark.parametrize("members", [1, 4, 8, 9])
 @pytest.mark.parametrize("layout", ["member-major", "member-minor"])
 def test_fleet_row_dots_loads_float4_members_only_where_whole_and_aligned(layout, members, aligned):
+    """Where a column's members are whole, aligned float4s, fleet_row_dots
+    loads them as float4s and fleet_grad's bulk reductions add into the
+    gradient itself (else into a padded scratch copied out after)."""
     coeff = _fleet_coeff(layout, members, 10, aligned)
     assert (coeff.data_ptr() % 16 == 0) == aligned
     strides = sparsekernels._fleet_strides(coeff)
     want = layout == "member-minor" and members % 4 == 0 and aligned
     assert sparsekernels._float4_members(members, *strides, coeff.data_ptr()) == want
-    # the wrapper takes every layout; on the CPU it is the plain version
+    # the wrappers take every layout (fleet_grad's gradient in coeff's);
+    # on the CPU they are the plain versions
     indices, values, _, _ = _t(*_batch(73, 6, 5, 10))
+    mult = torch.from_numpy(np.random.default_rng(73).standard_normal((members, 6)).astype(np.float32))
     torch.testing.assert_close(sparsekernels.fleet_row_dots(indices, values, coeff),
                                sparsekernels.fleet_row_dots_plain(indices, values, coeff),
+                               rtol=0, atol=0)
+    grad = sparsekernels.fleet_grad(indices, values, mult, coeff)
+    assert grad.is_contiguous() == coeff.is_contiguous()
+    torch.testing.assert_close(grad, sparsekernels.fleet_grad_plain(indices, values, mult, coeff),
                                rtol=0, atol=0)
 
 
@@ -510,3 +519,99 @@ def test_fleet_wrappers_reject_what_the_kernels_do_not_take(bad):
             sparsekernels.fleet_grad(indices, values, mult, coeff)
         else:
             sparsekernels.fleet_row_dots(indices, values, coeff)
+
+
+# -- fleet_grad's one-pass plan and a numpy replica of its kernel --------
+
+# (rows, nnz): the fit batch, the text path's, one slot, a wide row, the
+# 1M-row transform, a slot count that leaves a partial block
+FLEET_PLAN_BATCHES = [(100_000, 39), (100_000, 100), (1, 1), (16, 5000), (1_000_000, 39), (33, 40)]
+
+
+def _check_fleet_plan(plan, rows, nnz, members):
+    """fleet_grad's plan against the kernel's layout: a slot a thread, the
+    blocks cover the slots with none empty, the padded row is whole float4s
+    and its tiles of FLEET_TILE members cover it with none empty."""
+    slots = rows * nnz
+    assert plan.threads == sparsekernels.GRAD_THREADS and plan.threads % 32 == 0, plan
+    assert plan.grid * plan.threads >= slots > (plan.grid - 1) * plan.threads, plan
+    assert plan.grid <= MAX_GRID, plan
+    assert plan.stride % 4 == 0 and members <= plan.stride < members + 4, plan
+    tile = sparsekernels.FLEET_TILE
+    assert plan.tiles * tile >= plan.stride > (plan.tiles - 1) * tile and plan.tiles <= 65_535, plan
+
+
+@pytest.mark.parametrize("rows,nnz", FLEET_PLAN_BATCHES)
+def test_fleet_grad_plan_covers_the_slots_and_the_members(rows, nnz):
+    for members in range(1, 65):
+        _check_fleet_plan(sparsekernels._fleet_grad_plan(rows, nnz, members), rows, nnz, members)
+
+
+def _replica_fleet_grad(indices, values, mult, d, plan, layout):
+    """fleet_grad's kernel in numpy on the plan's own numbers: a thread a
+    slot, each valid slot adding its N products, padded to the plan's
+    row of `stride` floats, to the column's row of a (d, stride) float32
+    sum with one reduction, in some order; the sum's first N members are
+    the (N, d) gradient, laid out as `layout`."""
+    rows, nnz = indices.shape
+    members = mult.shape[0]
+    assert plan.grid * plan.threads >= rows * nnz and plan.threads % 32 == 0
+    flat_idx = indices.reshape(-1).astype(np.int64)
+    slot = np.flatnonzero((flat_idx >= 0) & (flat_idx < d))
+    products = values.reshape(-1)[slot, None] * mult[:, slot // nnz].T  # float32, (valid, N)
+    acc = np.zeros((d, plan.stride), np.float32)
+    np.add.at(acc, flat_idx[slot], np.pad(products, ((0, 0), (0, plan.stride - members))))
+    grad = acc[:, :members].T
+    return np.ascontiguousarray(grad) if layout == "member-major" else np.ascontiguousarray(grad.T).T
+
+
+def _fleet_case(case):
+    """(indices, values, mult, d, exact): seeded numpy batches; `exact`
+    where values and multipliers lie on the quarter grid."""
+    rng = np.random.default_rng(89)
+    if case == "uniform":
+        indices, values, _, mult = _fleet_batch(97, 300, 39, 1000, 8)
+        return indices, values, mult, 1000, False
+    if case == "out_of_range":
+        indices, values, _, mult = _fleet_batch(101, 200, 39, 64, 9)
+        return indices, values, mult, 64, False
+    if case == "padding":
+        return (np.full((50, 6), -1, np.int32), rng.standard_normal((50, 6)).astype(np.float32),
+                rng.standard_normal((4, 50)).astype(np.float32), 16, True)
+    rows, nnz, d, members = {"zipf": (2000, 39, 1000, 8), "zipf_wide": (2000, 39, 10_000, 8),
+                             "tiny_d": (2000, 39, 7, 3)}[case]
+    if case.startswith("zipf"):  # ranks drawn by k^-1.1, scattered over the columns
+        weights = np.arange(1, d + 1, dtype=np.float64) ** -1.1
+        indices = rng.permutation(d)[rng.choice(d, size=(rows, nnz), p=weights / weights.sum())]
+    else:
+        indices = rng.integers(0, d, size=(rows, nnz))
+    indices = np.where(rng.random((rows, nnz)) < 0.05, -1, indices).astype(np.int32)
+    values = (rng.integers(0, 5, size=(rows, nnz)) / 4).astype(np.float32)
+    mult = (rng.integers(-4, 5, size=(members, rows)) / 4).astype(np.float32)
+    return indices, values, mult, d, True
+
+
+@pytest.mark.parametrize("layout", ["member-major", "member-minor"])
+@pytest.mark.parametrize("case", ["uniform", "zipf", "zipf_wide", "tiny_d", "out_of_range", "padding"])
+def test_fleet_grad_replica_matches_plain_and_pallas_under_vmap(case, layout):
+    """The kernel's arithmetic on the plan's numbers gives fleet_grad_plain's
+    gradient (exactly on quarter-grid values) and the JAX package's Pallas
+    gradient under jax.vmap, for N a multiple of 4 (summed in place) and
+    not (3 and 9 members, summed in a padded scratch)."""
+    indices, values, mult, d, exact = _fleet_case(case)
+    members, rows = mult.shape
+    coeff = np.zeros((members, d), np.float32)
+    tc = torch.from_numpy(coeff) if layout == "member-major" else torch.from_numpy(coeff.T.copy()).T
+    direct = sparsekernels._float4_members(members, *sparsekernels._fleet_strides(tc), tc.data_ptr())
+    assert direct == (layout == "member-minor" and members % 4 == 0 and tc.data_ptr() % 16 == 0)
+    plan = sparsekernels._fleet_grad_plan(rows, indices.shape[1], members)
+    got = _replica_fleet_grad(indices, values, mult, d, plan, layout)
+    assert got.flags.c_contiguous == (layout == "member-major")
+    want = sparsekernels.fleet_grad_plain(*_t(indices, values, mult, coeff)).numpy()
+    if exact:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    ji, jv, jm, jc = (jnp.asarray(a) for a in (indices, values, mult, coeff))
+    pallas = jax.vmap(jax_kernels.sparse_grad, in_axes=(None, None, 0, 0))(ji, jv, jm, jc)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=RTOL, atol=ATOL)
