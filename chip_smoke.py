@@ -195,7 +195,35 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    model saved and loaded as npz; every committed tests/fixtures/
    reference_* directory loaded and applied on the card to the values the
    tests expect, and round-tripped through npz bit for bit;
-11. a `kernels` JSON line (four kernels), then the result line.
+11. fused transforms (the transform fusion planner, pipeline.py): phase 3's
+   sparse LR model alone in a PipelineModel on its 1M x 39 (d = 1e6) table
+   and on a 1,024-row slice, one fused segment captured as a CUDA graph
+   on the first call, one sparse_row_dots launch a replay, equal bit for
+   bit to the eager path and to the model's own transform, and a replay on
+   a second batch of the same signature (every row moved down by one)
+   equal to its eager transform and to phase 2's plain row dot; the guarded
+   pipeline VectorAssembler (error; the 100 features split 60/40) ->
+   StandardScaler -> Normalizer (p 2) -> Bucketizer (error; the weight
+   column) -> Binarizer -> phase 3's dense LR model, at 1M and 1,024 rows:
+   one segment of six stages, one transform host sync fused and two
+   eager, a NaN planted in a copy raising VectorAssembler's message fused
+   and eager, a guard-free two-stage twin paying none, and at 1M rows a
+   second signature (1,024 rows fewer) captured into the segment's shared
+   pool, which grows by its outputs and less than half the first
+   capture's temporaries; the BASELINE
+   pipeline planning no fused segment (OneHotEncoder hands VectorAssembler
+   sparse columns, as in the JAX package) with phase 3's outputs; the
+   online LR model in a PipelineModel with three versions published
+   between transforms, each row stamped with its version and no capture
+   after the first; every stage with a transform kernel alone at 1,024
+   rows, captured and replayed equal to eager, on its batch and on a
+   second one. Each fused path prints its first (capture) call, warm
+   medians of five fused and five eager calls, the device's idle share of
+   each (CUDA events: torch.profiler sees no kernel of a replayed graph)
+   and the memory the graph keeps,
+   counted directly: its static feed, and its segment's pool from the
+   allocator's snapshot;
+12. a `kernels` JSON line (four kernels), then the result line.
 """
 
 from __future__ import annotations
@@ -4305,6 +4333,504 @@ def fleet_phase(sk, dev, tmp, tables):
     return out
 
 
+# -- phase 11: fused transforms ---------------------------------------------------
+FUSED_SMALL_ROWS = 1_024
+FUSED_REPEATS = 5
+#: VectorAssembler's two inputs: the BASELINE width (DIM) split 60/40
+ASSEMBLER_SPLIT = 60
+#: Bucketizer's splits over the weight column (uniform in [0, 1)), each exact in float32
+FUSED_SPLITS = [0.0, 0.25, 0.5, 0.75, 1.0]
+#: a fused sparse LR replay against the plain row dot: check_sparse_linear's
+#: rawPrediction tolerance
+FUSED_PLAIN_TOL = dict(rtol=1e-5, atol=1e-6)
+#: a second signature of a segment grows the pool by its own outputs and
+#: at most this share of the first capture's temporaries: the graphs share
+#: one pool, so the second capture reuses the first one's temporaries (a
+#: pool of its own would add them all again)
+SECOND_SIGNATURE_TEMP_SHARE = 0.5
+ONLINE_SWAPS = 3
+ASSEMBLER_NAN = ("Encountered NaN while assembling a row with handleInvalid = 'error'. "
+                 "Consider removing NaNs from dataset or using handleInvalid = 'keep' or 'skip'.")
+
+
+def _fused_gauges():
+    from flink_ml_tpu_torch.utils import metrics
+
+    return (metrics.get_gauge("pipeline.fused_segments"),
+            metrics.get_gauge("pipeline.fused_stages"))
+
+
+def _counter(name):
+    from flink_ml_tpu_torch.utils import metrics
+
+    return metrics.get_counter(name)
+
+
+def _eager(pm, table):
+    from flink_ml_tpu_torch import config as port_config
+
+    with port_config.pipeline_fusion_mode("off"):
+        return pm.transform(table)[0]
+
+
+def _transform_syncs(fn):
+    before = _counter("iteration.host_sync.transform")
+    synced(fn)
+    return _counter("iteration.host_sync.transform") - before
+
+
+def _tensor_bytes(col) -> int:
+    from flink_ml_tpu_torch import SparseBatch
+
+    if isinstance(col, SparseBatch):
+        return _tensor_bytes(col.indices) + _tensor_bytes(col.values)
+    return col.numel() * col.element_size() if isinstance(col, torch.Tensor) else 0
+
+
+def device_span_ms(fn) -> float:
+    """The card's time for one call of `fn`, whose only synchronization (if
+    any) is at its end: CUDA events around the call after the stream spins
+    long enough for the host to enqueue all of it, so no host gap counts."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(max(2 * host_s, MIN_SPIN_S) * SPIN_CYCLES_PER_S))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def rolled(table):
+    """`table` with every row moved down by one, the last first: a second
+    batch with the first one's signature and other values in every row."""
+    from flink_ml_tpu_torch import SparseBatch, Table
+
+    def roll(col):
+        if isinstance(col, SparseBatch):
+            return SparseBatch(col.size, torch.roll(col.indices, 1, 0), torch.roll(col.values, 1, 0))
+        return torch.roll(col, 1, 0)
+
+    return Table({n: roll(table.column(n)) for n in table.column_names})
+
+
+def graph_memory(pm):
+    """What the captured graphs of `pm`'s fused segments keep, counted
+    directly, in bytes: outside the pools each graph's static feed and
+    copied constants; inside them the allocator's segments of each fused
+    segment's shared pool (outputs and temporaries); and of those the
+    graphs' outputs."""
+    captured = [run[1].graphs for run in pm._fusion_plan().runs
+                if run[0] == "fused" and run[1].graphs.pool is not None]
+    segments = torch.cuda.memory._snapshot()["segments"] if captured else []
+    static = pool = outputs = 0
+    for graphs in captured:
+        static += sum(e.static_bytes for e in graphs.entries.values())
+        outputs += sum(e.kept_bytes - e.static_bytes for e in graphs.entries.values())
+        pool += sum(s["total_size"] for s in segments
+                    if tuple(s["segment_pool_id"]) == tuple(graphs.pool))
+    return {"static": static, "pool": pool, "outputs": outputs}
+
+
+def check_second_batch(sk, name, pm, table, first, launches_per_call):
+    """A replay on a second batch of the first one's signature: no new
+    capture, the replay's launches, and bit for bit the eager transform of
+    that batch (a broken copy of the feed into the graph would give the
+    first batch's outputs). Returns (the batch, the fused output)."""
+    other = rolled(table)
+    traces = _counter("jit.traces")
+    sk.reset_launch_counts()
+    fused = pm.transform(other)[0]
+    launches = sk.launch_counts()
+    check(_counter("jit.traces") == traces, f"{name}: a second batch of one signature captured")
+    check(launches == launches_per_call,
+          f"{name}: launches on a second batch {launches}, expected {launches_per_call}")
+    eager = _eager(pm, other)
+    produced = [c for c in eager.column_names if c not in table.column_names]
+    for col in produced:
+        check(same_column(fused.column(col), eager.column(col)),
+              f"{name}: column {col} of a replay on a second batch differs from eager")
+    check(any(not same_column(fused.column(c), first.column(c)) for c in produced),
+          f"{name}: a second batch gave the first batch's outputs")
+    return other, fused
+
+
+def fused_path(sk, name, pm, table, gauges, launches_per_call):
+    """One fused transform path: the first call (the capture) against a
+    fresh plan, a replay, the eager twin (`pipeline_fusion = "off"`), all
+    bit for bit; a replay on a second batch of the same signature against
+    its eager transform; the launches of each replay; warm medians of
+    both; the device's idle share of a warm call of each: its device time
+    (the fused call whole, the eager one stage by stage, each stage's guard
+    drain at its end; `device_span_ms`) over the warm median wall; the
+    memory the captured graph keeps (`graph_memory`). No profiler pass:
+    torch.profiler sees no kernel of a replayed graph, and after a capture
+    it read no device time for the eager twin either. Returns (result, the
+    replay, (second batch, its fused output))."""
+    traces = _counter("jit.traces")
+    sk.reset_launch_counts()
+    first, first_ms = synced(lambda: pm.transform(table)[0])
+    first_launches = sk.launch_counts()
+    check(_fused_gauges() == gauges, f"{name}: plan gauges {_fused_gauges()}, expected {gauges}")
+    memory = graph_memory(pm)
+    captures = _counter("jit.traces") - traces
+    # a CUDA graph a segment on the card; the CPU composes the kernels with no capture
+    check(captures == (gauges[0] if DEVICE == "cuda" else 0),
+          f"{name}: {captures} captures on the first call")
+    sk.reset_launch_counts()
+    replay, replay_ms = synced(lambda: pm.transform(table)[0])
+    replay_launches = sk.launch_counts()
+    check(replay_launches == launches_per_call and first_launches == launches_per_call,
+          f"{name}: launches first {first_launches}, replay {replay_launches}, expected "
+          f"{launches_per_call} a call")
+    eager, eager_ms = synced(lambda: _eager(pm, table))
+    produced = [c for c in eager.column_names if c not in table.column_names]
+    for col in produced:
+        check(same_column(first.column(col), eager.column(col)),
+              f"{name}: column {col} of the first fused call differs from eager")
+        check(same_column(replay.column(col), eager.column(col)),
+              f"{name}: column {col} of a replay differs from eager")
+    second = check_second_batch(sk, name, pm, table, first, launches_per_call)
+    fused_runs = [synced(lambda: pm.transform(table)[0])[1] for _ in range(FUSED_REPEATS)]
+    eager_runs = [synced(lambda: _eager(pm, table))[1] for _ in range(FUSED_REPEATS)]
+    check(_counter("jit.traces") == traces + captures, f"{name}: warm calls captured again")
+    mib = {k: v / 2**20 for k, v in memory.items()}
+    result = {
+        "rows": table.num_rows, "gauges": list(gauges), "first_ms": first_ms,
+        "first_replay_ms": replay_ms, "eager_first_ms": eager_ms,
+        "fused_median_ms": float(np.median(fused_runs)),
+        "eager_median_ms": float(np.median(eager_runs)),
+        "fused_runs": fused_runs, "eager_runs": eager_runs,
+        "graph_static_mib": mib["static"], "graph_pool_mib": mib["pool"],
+        "graph_outputs_mib": mib["outputs"], "replay_launches": replay_launches,
+    }
+    tables = [table]
+    for stage in pm.stages:
+        tables.append(stage.transform(tables[-1])[0])
+    result["fused_device_ms"] = device_span_ms(lambda: pm.transform(table)[0])
+    result["eager_device_ms"] = sum(device_span_ms(lambda s=s, t=t: s.transform(t))
+                                    for s, t in zip(pm.stages, tables))
+    for mode in ("fused", "eager"):
+        result[f"{mode}_idle"] = 1.0 - result[f"{mode}_device_ms"] / max(
+            result[f"{mode}_median_ms"], 1e-9)
+    log(f"  {name}: first (capture) {first_ms:.3f} ms, fused median "
+        f"{result['fused_median_ms']:.3f} ms (runs {[round(t, 3) for t in fused_runs]}), eager "
+        f"median {result['eager_median_ms']:.3f} ms (runs {[round(t, 3) for t in eager_runs]}); "
+        f"the graph keeps {mib['static']:.1f} MiB of static feed and {mib['pool']:.1f} MiB of "
+        f"pool ({mib['outputs']:.1f} MiB of it outputs); launches a replay {replay_launches}; "
+        f"device time fused {result['fused_device_ms']:.3f} ms ({result['fused_idle']:.1%} of the "
+        f"warm median idle), eager {result['eager_device_ms']:.3f} ms "
+        f"({result['eager_idle']:.1%} idle); a second batch replayed equal to its eager transform")
+    return result, replay, second
+
+
+def check_second_signature(pm, X_all, w_all, rows):
+    """The guarded pipeline on a batch of `rows - FUSED_SMALL_ROWS` rows, a
+    second signature of its segment (the last chunk of a stream): it is
+    captured into the segment's shared pool, which grows by its outputs
+    and less than SECOND_SIGNATURE_TEMP_SHARE of the first capture's
+    temporaries, and it replays equal to eager. Returns the memory
+    readings, MiB."""
+    from flink_ml_tpu_torch import Table
+
+    n = rows - FUSED_SMALL_ROWS
+    X = X_all[:n]
+    table = Table({"va": X[:, :ASSEMBLER_SPLIT].contiguous(),
+                   "vb": X[:, ASSEMBLER_SPLIT:].contiguous(), "raw": w_all[:n]})
+    before = graph_memory(pm)
+    traces = _counter("jit.traces")
+    pm.transform(table)
+    after = graph_memory(pm)
+    check(_counter("jit.traces") == traces + (DEVICE == "cuda"),
+          "guarded pipeline: a second signature not captured")
+    replay, eager = pm.transform(table)[0], _eager(pm, table)
+    for col in eager.column_names:
+        check(same_column(replay.column(col), eager.column(col)),
+              f"guarded pipeline, second signature: column {col} differs from eager")
+    growth = after["pool"] - before["pool"]
+    outputs = after["outputs"] - before["outputs"]
+    temps = before["pool"] - before["outputs"]
+    out = {"rows": n, "pool_first_mib": before["pool"] / 2**20, "temps_first_mib": temps / 2**20,
+           "pool_growth_mib": growth / 2**20, "outputs_mib": outputs / 2**20}
+    # the CPU captures nothing: no pool to hold to the share
+    check(DEVICE != "cuda" or growth - outputs < SECOND_SIGNATURE_TEMP_SHARE * temps,
+          f"guarded pipeline: a second signature grew the pool by {out['pool_growth_mib']:.1f} "
+          f"MiB, its outputs {out['outputs_mib']:.1f} MiB, the first capture's temporaries "
+          f"{out['temps_first_mib']:.1f} MiB")
+    log(f"  guarded pipeline, a second signature ({n} rows): the shared pool grew "
+        f"{out['pool_growth_mib']:.1f} MiB (its outputs {out['outputs_mib']:.1f} MiB) on the first "
+        f"capture's {out['pool_first_mib']:.1f} MiB ({out['temps_first_mib']:.1f} MiB of it "
+        f"temporaries); replayed equal to eager")
+    return out
+
+
+def guarded_pipeline(dense_lr, X, w):
+    """VectorAssembler (error; the 100 features split 60/40) -> StandardScaler
+    (fitted on the assembled rows) -> Normalizer (p 2) -> Bucketizer (error;
+    the weight column) -> Binarizer -> the dense LR model on the normalized
+    rows: six stages, two of them guarded."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.models.classification import logisticregression
+    from flink_ml_tpu_torch.models.feature import (binarizer, bucketizer, normalizer,
+                                                   standardscaler, vectorassembler)
+
+    scaler = (standardscaler.StandardScaler().set_input_col("assembled").set_output_col("scaled")
+              .set_with_mean(True).fit(Table({"assembled": X})))
+    lr = logisticregression.LogisticRegressionModel()
+    lr.coefficient = dense_lr.coefficient
+    lr.set_features_col("norm")
+    return [
+        vectorassembler.VectorAssembler().set_input_cols("va", "vb").set_output_col("assembled"),
+        scaler,
+        normalizer.Normalizer().set_p(2.0).set_input_col("scaled").set_output_col("norm"),
+        bucketizer.Bucketizer().set_input_cols("raw").set_output_cols("bucket")
+        .set_splits_array([FUSED_SPLITS]),
+        binarizer.Binarizer().set_input_cols("bucket").set_output_cols("bin").set_thresholds(1.5),
+        lr,
+    ]
+
+
+def kernel_stage_cases(dev, rows):
+    """Every stage with a transform kernel, alone, on seeded columns born on
+    the card: name -> (stage, columns)."""
+    from flink_ml_tpu_torch.linalg import Vectors
+    from flink_ml_tpu_torch.models.classification import (linearsvc, logisticregression,
+                                                          onlinelogisticregression)
+    from flink_ml_tpu_torch.models.clustering import kmeans, onlinekmeans
+    from flink_ml_tpu_torch.models.feature import (
+        binarizer, bucketizer, dct, elementwiseproduct, idf, imputer, interaction,
+        kbinsdiscretizer, maxabsscaler, minmaxscaler, normalizer, onehotencoder,
+        polynomialexpansion, robustscaler, standardscaler, univariatefeatureselector,
+        variancethresholdselector, vectorassembler, vectorslicer)
+    from flink_ml_tpu_torch.models.regression import linearregression
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    rng = np.random.default_rng(23)
+    d = 8
+
+    def mat(width=d):
+        return torch.randn((rows, width), generator=gen, device=dev)
+
+    def model(cls, **attrs):
+        m = cls()
+        for k, v in attrs.items():
+            setattr(m, k, v)
+        return m
+
+    with_nan = torch.randn(rows, generator=gen, device=dev)
+    with_nan[::7] = float("nan")
+    online_lr = onlinelogisticregression.OnlineLogisticRegressionModel()
+    online_lr.publish_model_arrays((rng.standard_normal(d),), 4)
+    online_km = onlinekmeans.OnlineKMeansModel()
+    online_km.publish_model_arrays((rng.standard_normal((5, d)), np.ones(5)), 2)
+    f = {"features": mat()}
+    cases = {
+        "StandardScalerModel": model(standardscaler.StandardScalerModel,
+                                     mean=rng.standard_normal(d), std=rng.random(d) + 0.1),
+        "MinMaxScalerModel": model(minmaxscaler.MinMaxScalerModel, min_vector=-rng.random(d),
+                                   max_vector=rng.random(d)),
+        "MaxAbsScalerModel": model(maxabsscaler.MaxAbsScalerModel, max_abs=rng.random(d) + 0.5),
+        "RobustScalerModel": model(robustscaler.RobustScalerModel, medians=rng.standard_normal(d),
+                                   ranges=rng.random(d)),
+        "Normalizer": normalizer.Normalizer().set_p(3.0),
+        "DCT": dct.DCT(),
+        "ElementwiseProduct": elementwiseproduct.ElementwiseProduct().set_scaling_vec(
+            Vectors.dense(*rng.standard_normal(d))),
+        "IDFModel": model(idf.IDFModel, idf=rng.random(d), doc_freq=np.ones(d), num_docs=rows),
+        "KBinsDiscretizerModel": model(kbinsdiscretizer.KBinsDiscretizerModel, bin_edges=[
+            np.array([-np.inf, -0.5, 0.5, np.inf])] * d),
+        "PolynomialExpansion": polynomialexpansion.PolynomialExpansion().set_degree(2),
+        "UnivariateFeatureSelectorModel": model(
+            univariatefeatureselector.UnivariateFeatureSelectorModel, indices=np.array([5, 1, 2])),
+        "VarianceThresholdSelectorModel": model(
+            variancethresholdselector.VarianceThresholdSelectorModel, indices=np.array([0, 3, 7])),
+        "VectorSlicer": vectorslicer.VectorSlicer().set_indices(6, 2),
+        "LinearRegressionModel": model(linearregression.LinearRegressionModel,
+                                       coefficient=rng.standard_normal(d)),
+        "LogisticRegressionModel": model(logisticregression.LogisticRegressionModel,
+                                         coefficient=rng.standard_normal(d)),
+        "LinearSVCModel": model(linearsvc.LinearSVCModel, coefficient=rng.standard_normal(d)),
+        "KMeansModel": model(kmeans.KMeansModel, centroids=rng.standard_normal((5, d)),
+                             weights=np.ones(5)),
+        "OnlineKMeansModel": online_km,
+        "OnlineLogisticRegressionModel": online_lr,
+    }
+    out = {}
+    for name, stage in cases.items():
+        if hasattr(stage, "set_features_col"):
+            stage.set_features_col("features")
+            if hasattr(stage, "set_prediction_col"):
+                stage.set_prediction_col("out")
+            else:
+                stage.set_output_col("out")
+        else:
+            stage.set_input_col("features").set_output_col("out")
+        out[name] = (stage, f)
+    out["Binarizer"] = (binarizer.Binarizer().set_input_cols("a", "b").set_output_cols("oa", "ob")
+                        .set_thresholds(0.0, 0.5),
+                        {"a": torch.randn(rows, generator=gen, device=dev),
+                         "b": torch.rand(rows, generator=gen, device=dev)})
+    out["Bucketizer"] = (bucketizer.Bucketizer().set_input_cols("a").set_output_cols("oa")
+                         .set_splits_array([[-10.0, -0.5, 0.0, 0.5, 10.0]]),
+                         {"a": torch.randn(rows, generator=gen, device=dev)})
+    out["ImputerModel"] = (model(imputer.ImputerModel, surrogates={"a": 1.25})
+                           .set_input_cols("a").set_output_cols("oa"), {"a": with_nan})
+    out["Interaction"] = (interaction.Interaction().set_input_cols("va", "vb").set_output_col("out"),
+                          {"va": mat(3), "vb": mat(4)})
+    out["OneHotEncoderModel"] = (
+        model(onehotencoder.OneHotEncoderModel, category_sizes=np.array([ARITY]))
+        .set_input_cols("c").set_output_cols("oc"),
+        {"c": torch.randint(0, ARITY, (rows,), generator=gen, device=dev).to(torch.float32)})
+    out["VectorAssembler"] = (vectorassembler.VectorAssembler().set_input_cols("va", "vb")
+                              .set_output_col("out"), {"va": mat(3), "vb": mat(5)})
+    return out
+
+
+def fusion_phase(sk, dev, runs, sparse_table, dense_table, p_table, held_table):
+    """Phase 11: the transform fusion planner on the card. Returns what the
+    output lines print."""
+    from flink_ml_tpu_torch import PipelineModel, SparseBatch, Table
+    from flink_ml_tpu_torch.models.classification import logisticregression
+
+    t_phase = time.perf_counter()
+    result = {}
+    one = launch_dict(sparse_row_dots=1)
+
+    # 1. the sparse LR model alone in a PipelineModel
+    lr_model = runs["sparse lr"]["model"]
+    batch = sparse_table.column("features")
+    coeff = torch.as_tensor(lr_model.coefficient, dtype=torch.float32, device=dev)
+    for rows in (SPARSE_ROWS, FUSED_SMALL_ROWS):
+        label = f"{rows} rows"
+        table = Table({"features": SparseBatch(batch.size, batch.indices[:rows],
+                                               batch.values[:rows])})
+        r, replay, (other, again) = fused_path(sk, f"fused sparse lr {label}",
+                                               PipelineModel([lr_model]), table, (1, 1), one)
+        own = lr_model.transform(table)[0]
+        for col in ("prediction", "rawPrediction"):
+            check(same_column(replay.column(col), own.column(col)),
+                  f"fused sparse lr {label}: {col} differs from the model's own transform")
+        # the second batch's replay against phase 2's plain row dot
+        feats = other.column("features")
+        want = logisticregression._predict_from_dot(
+            sk.sparse_row_dots_plain(feats.indices, feats.values, coeff))[1]
+        r["second_batch_max_abs_err"] = float(torch.max(torch.abs(again.column("rawPrediction")
+                                                                  - want)))
+        check(torch.allclose(again.column("rawPrediction"), want, **FUSED_PLAIN_TOL),
+              f"fused sparse lr {label}: a second batch's replay differs from the plain row dot "
+              f"by {r['second_batch_max_abs_err']:.3g}")
+        result[f"sparse lr {label}"] = r
+
+    # 2. the guarded pipeline at the BASELINE width, and a guard-free twin
+    dense_lr = runs["dense lr"]["model"]
+    X_all, w_all = dense_table.column("features"), dense_table.column("weight")
+    stages = guarded_pipeline(dense_lr, X_all[:PIPELINE_ROWS], w_all[:PIPELINE_ROWS])
+    for rows in (PIPELINE_ROWS, FUSED_SMALL_ROWS):
+        label = f"{rows} rows"
+        X = X_all[:rows]
+        table = Table({"va": X[:, :ASSEMBLER_SPLIT].contiguous(),
+                       "vb": X[:, ASSEMBLER_SPLIT:].contiguous(), "raw": w_all[:rows]})
+        pm = PipelineModel(stages)
+        r, _, _ = fused_path(sk, f"fused guarded pipeline {label}", pm, table, (1, 6),
+                             launch_dict())
+        if rows == PIPELINE_ROWS:
+            r["second_signature"] = check_second_signature(pm, X_all, w_all, rows)
+        r["syncs_fused"] = _transform_syncs(lambda: pm.transform(table))
+        r["syncs_eager"] = _transform_syncs(lambda: _eager(pm, table))
+        check(r["syncs_fused"] == 1 and r["syncs_eager"] == 2,
+              f"guarded pipeline {label}: transform syncs fused {r['syncs_fused']}, eager "
+              f"{r['syncs_eager']} (expected 1 and 2)")
+        bad_va = table.column("va").clone()
+        bad_va[rows // 2, 7] = float("nan")
+        bad = table.with_columns({"va": bad_va})
+        for mode, call in (("fused", lambda: pm.transform(bad)), ("eager", lambda: _eager(pm, bad))):
+            try:
+                call()
+                raised = None
+            except ValueError as e:
+                raised = str(e)
+            check(raised == ASSEMBLER_NAN,
+                  f"guarded pipeline {label}: a planted NaN ({mode}) raised {raised!r}")
+        free = PipelineModel(stages[1:3])
+        free_table = Table({"assembled": X})
+        synced(lambda: free.transform(free_table))
+        r["syncs_guard_free"] = _transform_syncs(lambda: free.transform(free_table))
+        check(r["syncs_guard_free"] == 0 and _fused_gauges() == (1, 2),
+              f"guard-free pipeline {label}: {r['syncs_guard_free']} transform syncs")
+        log(f"  guarded pipeline {label}: transform syncs fused {r['syncs_fused']}, eager "
+            f"{r['syncs_eager']}, guard-free {r['syncs_guard_free']}; a planted NaN raises "
+            f"VectorAssembler's message fused and eager")
+        result[f"guarded pipeline {label}"] = r
+
+    # 3. the BASELINE pipeline: vetoed (OneHotEncoder hands VectorAssembler sparse columns)
+    baseline = runs["pipeline"]["model"]
+    out = baseline.transform(p_table)[0]
+    check(_fused_gauges() == (0, 0), f"BASELINE pipeline gauges {_fused_gauges()}")
+    off = _eager(baseline, p_table)
+    for col in ("prediction", "rawPrediction", "assembled", "scaled"):
+        check(same_column(out.column(col), runs["pipeline"]["out"].column(col))
+              and same_column(out.column(col), off.column(col)),
+              f"BASELINE pipeline: {col} differs from phase 3's")
+    log("  BASELINE pipeline: 0 fused segments, outputs equal to phase 3's")
+
+    # 4. the online LR model: versions published between transforms
+    online = runs["online lr"]["model"]
+    arrays, version = online.model_arrays(), online.model_version
+    pm = PipelineModel([online])
+    pm.transform(held_table)
+    traces = _counter("jit.traces")
+    stamped = []
+    try:
+        for k in range(1, ONLINE_SWAPS + 1):
+            online.publish_model_arrays((arrays[0] * (1.0 + 0.1 * k),), version + k)
+            out = pm.transform(held_table)[0]
+            check(_fused_gauges() == (1, 1), f"online lr: gauges {_fused_gauges()}")
+            got = out.column("modelVersion")
+            check(bool(torch.all(got == version + k)),
+                  f"online lr: rows stamped {torch.unique(got).tolist()}, expected {version + k}")
+            own = online.transform(held_table)[0]
+            for col in ("prediction", "rawPrediction", "modelVersion"):
+                check(same_column(out.column(col), own.column(col)),
+                      f"online lr version {version + k}: {col} differs from the eager transform")
+            stamped.append(version + k)
+        check(_counter("jit.traces") == traces,
+              f"online lr: {_counter('jit.traces') - traces} captures across {ONLINE_SWAPS} swaps")
+    finally:
+        online.publish_model_arrays(arrays, version)
+    result["online lr"] = {"versions": stamped, "captures_across_swaps": 0}
+    log(f"  online lr: versions {stamped} stamped on every row, no capture across the swaps")
+
+    # 5. every stage with a kernel, alone, captured on the card
+    equal = []
+    for name, (stage, cols) in kernel_stage_cases(dev, FUSED_SMALL_ROWS).items():
+        pm = PipelineModel([stage])
+        table = Table(cols)
+        first = pm.transform(table)[0]
+        check(_fused_gauges() == (1, 1), f"{name}: gauges {_fused_gauges()}")
+        replay = pm.transform(table)[0]
+        eager = _eager(pm, table)
+        for col in eager.column_names:
+            if col not in cols:
+                check(same_column(first.column(col), eager.column(col))
+                      and same_column(replay.column(col), eager.column(col)),
+                      f"{name}: fused column {col} differs from eager")
+        check_second_batch(sk, name, pm, table, first, launch_dict())
+        equal.append(name)
+    check(len(equal) == 25, f"{len(equal)} kernel stages checked")
+    result["kernel stages"] = equal
+    log(f"  the 25 stages with a transform kernel, alone at {FUSED_SMALL_ROWS} rows: "
+        "captured, replayed, equal to eager, and replayed on a second batch equal to its eager "
+        "transform")
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 11 took {result['seconds']:.2f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; the port's kernels run only on the card",
@@ -4579,6 +5105,17 @@ def main() -> int:
         launches[kernel] += fleets["sparse lr fleet"]["launches"][kernel]
         launches[kernel] += fleets["reference format"]["launches"]["winner"][kernel]
 
+    # -- 11. fused transforms ------------------------------------------------------
+    log("phase 11: fused transforms: PipelineModels planned into fused segments, each one "
+        "captured CUDA graph (launch counts reset before and read after each call)")
+    torch.cuda.empty_cache()
+    fused = fusion_phase(sk, dev, runs, sparse_table, dense_table, p_table, held_table)
+    path_s["fused transforms"] = fused["seconds"]
+    fused_launches = {f"fused {name} (a replay)": r["replay_launches"]["sparse_row_dots"]
+                      for name, r in fused.items() if name.startswith("sparse lr")}
+    for n in fused_launches.values():
+        launches["sparse_row_dots"] += n
+
     # -- output -----------------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
@@ -4599,7 +5136,8 @@ def main() -> int:
                                  "graph": graph_run["launches"][name],
                                  "graph transform": graph_run["transform_launches"][name],
                                  "reference-format transform":
-                                     fleets["reference format"]["launches"]["winner"][name]},
+                                     fleets["reference format"]["launches"]["winner"][name],
+                                 **(fused_launches if name == "sparse_row_dots" else {})},
             "launches_by_feature_path": {p: r["launches"][name] for p, r in
                                          {**features, **texts, **stat_stages, **slice8}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -4644,7 +5182,8 @@ def main() -> int:
     log("graph path: " + json.dumps(graph_run))
     log("phase 9 stages: " + json.dumps(slice8) + "; window_all_and_process: " + json.dumps(windows_run))
     log("fleets and reference format: " + json.dumps(fleets))
-    log("seconds by path (phases 3-10): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("fused transforms: " + json.dumps(fused))
+    log("seconds by path (phases 3-11): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")
@@ -4659,7 +5198,7 @@ def main() -> int:
 def profile_run(name, run):
     """torch.profiler over one warm call (a fit or a transform): the wall
     time, the device's busy time (the sum of its kernels and copies) and
-    the largest kernels."""
+    the largest kernels. Returns the wall, busy time and idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4674,10 +5213,12 @@ def profile_run(name, run):
         else "self_cuda_time_total"
     events.sort(key=lambda e: -getattr(e, attr))
     busy_ms = sum(getattr(e, attr) for e in events) / 1e3
+    idle = 1.0 - busy_ms / wall_ms
     log(f"  profile {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-        f"idle {100.0 * (1.0 - busy_ms / wall_ms):.1f}%")
+        f"idle {100.0 * idle:.1f}%")
     for e in events[:8]:
         log(f"    {getattr(e, attr) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": idle}
 
 
 if __name__ == "__main__":

@@ -5,13 +5,15 @@ card and no explicit request it raises: nothing falls back to the CPU
 quietly. Host (numpy) columns are staged to `device()`; torch tensor
 columns stay on the device they already live on.
 
-The stream, online and fleet knobs keep the JAX package's names and
-defaults (flink_ml_tpu/config.py). Its other TPU knobs (whole-fit,
-collectives, serving, compile bank) have no counterpart here yet.
+The stream, online, fleet and fusion knobs keep the JAX package's names,
+defaults and environment variables (flink_ml_tpu/config.py). Its other
+TPU knobs (whole-fit, collectives, serving, compile bank) have no
+counterpart here yet.
 """
 
 from __future__ import annotations
 
+import os
 from contextlib import contextmanager
 from typing import Iterator, Optional, Union
 
@@ -42,7 +44,48 @@ iteration_checkpoint_dir: Optional[str] = None
 #: so a fleet here is always replicated (fleet.py)
 fleet_shard_state_bytes: Optional[int] = 256 << 20
 
+#: "auto": PipelineModel.transform runs maximal runs of fusable stages as
+#: one fused segment when their input columns are tensors (on the card,
+#: one captured CUDA graph a segment); "off": always the eager per-stage
+#: path, the reference of the fused-vs-eager parity tests (pipeline.py)
+pipeline_fusion: str = "auto"
+#: captured CUDA graphs a fused segment keeps, one per input signature,
+#: least recently used first out
+kernel_cache_size: int = 256
+
 OVERLOAD_POLICIES = ("block", "shed_oldest", "sample")
+
+
+@contextmanager
+def pipeline_fusion_mode(mode: str):
+    """Scoped override of `pipeline_fusion` ("auto" | "off")."""
+    global pipeline_fusion
+    if mode not in ("auto", "off"):
+        raise ValueError(f"Unknown pipeline_fusion mode {mode!r}")
+    prev = pipeline_fusion
+    pipeline_fusion = mode
+    try:
+        yield
+    finally:
+        pipeline_fusion = prev
+
+
+@contextmanager
+def kernel_cache_limit(size: int):
+    """Scoped override of `kernel_cache_size` (>= 1)."""
+    global kernel_cache_size
+    prev = kernel_cache_size
+    kernel_cache_size = max(1, int(size))
+    try:
+        yield
+    finally:
+        kernel_cache_size = prev
+
+
+if os.environ.get("FLINK_ML_TPU_PIPELINE_FUSION") in ("auto", "off"):
+    pipeline_fusion = os.environ["FLINK_ML_TPU_PIPELINE_FUSION"]
+if os.environ.get("FLINK_ML_TPU_KERNEL_CACHE_SIZE"):
+    kernel_cache_size = max(1, int(os.environ["FLINK_ML_TPU_KERNEL_CACHE_SIZE"]))
 
 
 def check_overload_policy(policy: str) -> None:

@@ -341,6 +341,9 @@ class Graph(Estimator):
 class GraphModel(Model):
     """A Model or AlgoOperator DAG (builder/GraphModel.java:50)."""
 
+    fusable = False
+    fusable_reason = "composite stage: executes a DAG of member stages; fusion applies inside each member's own transform"
+
     def __init__(
         self,
         nodes: List[GraphNode],

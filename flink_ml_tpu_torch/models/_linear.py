@@ -11,17 +11,19 @@ its float32 compute dtype as it stages them to `config.device()`.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import config
+from ..api import as_kernel_matrix
 from ..linalg import DenseVector
 from ..ops.losses import LossFunc, predict_raw, sparse_dot, sparse_variant
 from ..ops.optimizer import SGD, read_train_result
 from ..table import SparseBatch, StreamTable, Table, as_dense_matrix
 from ..utils import javacodec, read_write
+from ..utils.packing import packed_device_get
 
 
 def extract_train_data(
@@ -128,16 +130,11 @@ def column_device(col) -> torch.device:
     return col.device if isinstance(col, torch.Tensor) else config.device()
 
 
-def packed_to_host(*tensors):
-    """Read device tensors back in ONE transfer: each is flattened into one
-    packed vector of their common dtype, which comes back as float64 numpy
-    arrays of the original shapes."""
-    host = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy().astype(np.float64)
-    out, offset = [], 0
-    for t in tensors:
-        out.append(host[offset : offset + t.numel()].reshape(tuple(t.shape)))
-        offset += t.numel()
-    return out
+def packed_to_host(*tensors, sync_kind: str = "fit"):
+    """Read tensors back in ONE accounted transfer
+    (`utils.packing.packed_device_get`, one `iteration.host_sync.<sync_kind>`):
+    float64 numpy arrays of the original shapes."""
+    return [a.astype(np.float64) for a in packed_device_get(*tensors, sync_kind=sync_kind)]
 
 
 def sparse_raw_scores(indices, values, coeff):
@@ -147,15 +144,23 @@ def sparse_raw_scores(indices, values, coeff):
 
 
 def raw_scores(col, coeff: torch.Tensor) -> torch.Tensor:
-    """X @ coeff for any features layout, on coeff's device: dense host or
-    tensor columns, or a SparseBatch, which is never densified."""
-    device = coeff.device
+    """X @ coeff for a tensor features column on coeff's device: dense
+    rows, or a SparseBatch, which is never densified."""
     if isinstance(col, SparseBatch):
-        indices = torch.as_tensor(col.indices, dtype=torch.int32, device=device)
-        values = torch.as_tensor(col.values, dtype=torch.float32, device=device)
-        return sparse_raw_scores(indices.contiguous(), values.contiguous(), coeff)
-    X = as_dense_matrix(col, allow_device=True)
-    return predict_raw(torch.as_tensor(X, dtype=coeff.dtype, device=device), coeff)
+        return sparse_raw_scores(col.indices.to(torch.int32).contiguous(),
+                                 col.values.to(torch.float32).contiguous(), coeff)
+    return predict_raw(as_kernel_matrix(col).to(coeff.dtype), coeff)
+
+
+def staged_features(col):
+    """A host features column as the kernels take it, on `config.device()`:
+    a SparseBatch as int32 indices and float32 values (never densified),
+    dense rows as float32."""
+    device = config.device()
+    if isinstance(col, SparseBatch):
+        return SparseBatch(col.size, torch.as_tensor(col.indices, dtype=torch.int32, device=device),
+                           torch.as_tensor(col.values, dtype=torch.float32, device=device))
+    return torch.as_tensor(as_dense_matrix(col), dtype=torch.float32, device=device)
 
 
 def _raise_if_invalid(flag) -> None:
@@ -176,9 +181,13 @@ class CoefficientModelData:
     """The model data of a linear model: one coefficient vector, a float64
     host array. As a one-row Table of a DenseVector (get/set_model_data),
     and as `coefficient` in the `.npz` model data (save/load); a directory
-    the reference wrote loads through `_load_reference`."""
+    the reference wrote loads through `_load_reference`. On the card the
+    kernels read it as float32 constants (`device_constants`), and take a
+    dense or a SparseBatch features column."""
 
     coefficient: np.ndarray = None
+    fusable = True
+    kernel_supports_sparse = True
     #: decodes a reference-written model directory to the coefficient
     #: (LinearSVCModelData and LinearRegressionModelData: one DenseVector)
     _load_reference = staticmethod(javacodec.load_reference_coefficient)
@@ -199,10 +208,19 @@ class CoefficientModelData:
         loaded = read_write.load_arrays_or_reference(path, self._load_reference)
         self.coefficient = loaded["coefficient"] if isinstance(loaded, dict) else loaded
 
-    def _dot(self, col) -> torch.Tensor:
-        """The features column's dot with the coefficient, float32, on the
-        column's device (`config.device()` for a host column)."""
-        coeff = torch.as_tensor(
-            np.asarray(self.coefficient), dtype=torch.float32, device=column_device(col)
-        )
-        return raw_scores(col, coeff)
+    def _constant_sources(self):
+        return (self.coefficient,)
+
+    def _kernel_constants(self):
+        return {"coefficient": np.asarray(self.coefficient, np.float32)}
+
+    def kernel_output_dtypes(self, cols):
+        return dict.fromkeys(self.kernel_output_cols(), torch.float32)
+
+    def transform(self, *inputs: Table) -> List[Table]:
+        (table,) = inputs
+        return [self._transform_with_kernel(table, staged_features)]
+
+    def _host_outputs(self, out):
+        # float64 host arrays, read back in one accounted transfer
+        return dict(zip(out, packed_to_host(*out.values(), sync_kind="transform")))

@@ -91,6 +91,9 @@ def _majority_vote(neighbor_labels: np.ndarray) -> np.ndarray:
 
 
 class KnnModel(Model, KnnModelParams):
+    fusable = False
+    fusable_reason = "top-k search runs as its own chunked device driver; the k-neighbor label vote is host-side f64"
+
     def __init__(self):
         self.features = None  # (n_train, d): host array or tensor
         self.labels = None  # (n_train,): host float64 or tensor

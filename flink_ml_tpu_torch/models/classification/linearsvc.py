@@ -14,8 +14,7 @@ back in one transfer.
 
 from __future__ import annotations
 
-from typing import List
-
+import numpy as np
 import torch
 
 from ...api import Estimator, Model
@@ -77,15 +76,17 @@ def _predict_from_dot(dot, threshold: float):
 
 
 class LinearSVCModel(_linear.CoefficientModelData, Model, LinearSVCModelParams):
-    def transform(self, *inputs: Table) -> List[Table]:
-        (table,) = inputs
-        col = table.column(self.get_features_col())
-        pred, raw = _predict_from_dot(self._dot(col), self.get_threshold())
-        if not _linear.is_device_column(col):
-            pred, raw = _linear.packed_to_host(pred, raw)
-        return [table.with_columns({
-            self.get_prediction_col(): pred, self.get_raw_prediction_col(): raw,
-        })]
+    def _kernel_constants(self):
+        return {
+            "coefficient": np.asarray(self.coefficient, np.float32),
+            "threshold": np.float32(self.get_threshold()),
+        }
+
+    def transform_kernel(self, consts, cols, ctx):
+        dot = _linear.raw_scores(cols[self.get_features_col()], consts["coefficient"])
+        pred, raw = _predict_from_dot(dot, consts["threshold"])
+        cols[self.get_prediction_col()], cols[self.get_raw_prediction_col()] = pred, raw
+        return cols
 
 
 class LinearSVC(Estimator, LinearSVCParams):

@@ -13,8 +13,6 @@ back in one transfer.
 
 from __future__ import annotations
 
-from typing import List
-
 import torch
 
 from ...api import Estimator, Model
@@ -82,16 +80,10 @@ class LogisticRegressionModel(
 ):
     _load_reference = staticmethod(_load_reference)
 
-    def transform(self, *inputs: Table) -> List[Table]:
-        (table,) = inputs
-        col = table.column(self.get_features_col())
-        pred, raw = _predict_from_dot(self._dot(col))
-        if _linear.is_device_column(col):
-            cols = {self.get_prediction_col(): pred, self.get_raw_prediction_col(): raw}
-        else:
-            pred_h, raw_h = _linear.packed_to_host(pred, raw)
-            cols = {self.get_prediction_col(): pred_h, self.get_raw_prediction_col(): raw_h}
-        return [table.with_columns(cols)]
+    def transform_kernel(self, consts, cols, ctx):
+        dot = _linear.raw_scores(cols[self.get_features_col()], consts["coefficient"])
+        cols[self.get_prediction_col()], cols[self.get_raw_prediction_col()] = _predict_from_dot(dot)
+        return cols
 
 
 class LogisticRegression(Estimator, LogisticRegressionParams):

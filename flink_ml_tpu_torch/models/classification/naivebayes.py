@@ -100,6 +100,9 @@ def _category_index(cats: torch.Tensor, Xc: torch.Tensor):
 
 
 class NaiveBayesModel(Model, NaiveBayesModelParams):
+    fusable = False
+    fusable_reason = "exactness contract needs host f64 rescoring of near-tie rows and a data-dependent unseen-category error, both mid-transform readbacks"
+
     def __init__(self):
         self.theta: List[List[Dict[float, float]]] = None  # [label][feature] -> {value: logp}
         self.pi: np.ndarray = None  # (numLabels,) log priors

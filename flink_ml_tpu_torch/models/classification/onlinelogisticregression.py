@@ -15,6 +15,9 @@ and publishes one model version per global batch through the lazy
 `iterate_unbounded`: nothing trains until `process_updates` reads the
 versions. Each version's coefficient comes back to the host as float64,
 one small readback per batch (the model's `coefficient` is a host array).
+The model's transform kernel serves tensor features; host features keep
+a branch of their own, scored on the host in float64 as the JAX host path
+scores them.
 """
 
 from __future__ import annotations
@@ -113,6 +116,9 @@ class OnlineLogisticRegressionModel(Model, OnlineLogisticRegressionModelParams):
     give tensors (float32 predictions, int32 versions); host features are
     scored on the host in float64, as the JAX package's host path does."""
 
+    fusable = True
+    swap_capable = True
+
     def __init__(self):
         self._published = _PublishedLR(0, None)
         self._updates: Optional[Iterator] = None
@@ -136,6 +142,47 @@ class OnlineLogisticRegressionModel(Model, OnlineLogisticRegressionModelParams):
     def _publish(self, coefficient, version: int) -> None:
         coefficient = None if coefficient is None else np.asarray(coefficient, dtype=np.float64)
         self._published = _PublishedLR(int(version), coefficient)
+        self.bump_model_data_version()
+
+    def model_arrays(self) -> tuple:
+        return (self._published.coefficient,)
+
+    def publish_model_arrays(self, arrays: tuple, version: int) -> None:
+        (coefficient,) = arrays
+        self._publish(coefficient, version)
+
+    def _kernel_constants(self):
+        pub = self._published  # one record read: version-consistent constants
+        return self.kernel_constants_for((pub.coefficient,), pub.version)
+
+    def kernel_constants_for(self, arrays: tuple, version: int = 0):
+        (coefficient,) = arrays
+        return {"coefficient": np.asarray(coefficient, dtype=np.float32),
+                "version": np.int32(version)}
+
+    def _constant_sources(self) -> tuple:
+        return (self._published.coefficient,)
+
+    def kernel_output_cols(self) -> List[str]:
+        return [self.get_prediction_col(), self.get_raw_prediction_col(),
+                self.get_model_version_col()]
+
+    def kernel_output_dtypes(self, cols):
+        return {self.get_prediction_col(): torch.float32,
+                self.get_raw_prediction_col(): torch.float32,
+                self.get_model_version_col(): torch.int32}
+
+    def kernel_ready(self, cols) -> bool:
+        return self._published.coefficient is not None
+
+    def transform_kernel(self, consts, cols, ctx):
+        X = as_dense_matrix(cols[self.get_features_col()], allow_device=True).to(torch.float32)
+        dot = X @ consts["coefficient"]
+        prob = 1.0 / (1.0 + torch.exp(-dot))
+        cols[self.get_prediction_col()] = torch.where(dot >= 0, 1.0, 0.0)
+        cols[self.get_raw_prediction_col()] = torch.stack([1.0 - prob, prob], dim=1)
+        cols[self.get_model_version_col()] = consts["version"].repeat(X.shape[0])
+        return cols
 
     def set_model_data(self, *inputs) -> "OnlineLogisticRegressionModel":
         """A model-data Table (a coefficient, and a modelVersion if it has
@@ -174,21 +221,14 @@ class OnlineLogisticRegressionModel(Model, OnlineLogisticRegressionModelParams):
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
         col = table.column(self.get_features_col())
+        if _linear.is_device_column(col):  # the kernel densifies a tensor SparseBatch
+            return [self._transform_with_kernel(table)]
         pub = self._published  # one read: a consistent (version, coefficient)
-        if _linear.is_device_column(col):
-            X = as_dense_matrix(col, allow_device=True).to(torch.float32)
-            coeff = torch.as_tensor(pub.coefficient, dtype=torch.float32, device=X.device)
-            dot = X @ coeff
-            prob = 1.0 / (1.0 + torch.exp(-dot))
-            pred = torch.where(dot >= 0, 1.0, 0.0)
-            raw = torch.stack([1.0 - prob, prob], dim=1)
-            version = torch.full((X.shape[0],), pub.version, dtype=torch.int32, device=X.device)
-        else:
-            dot = as_dense_matrix(col) @ pub.coefficient
-            prob = 1.0 / (1.0 + np.exp(-dot))
-            pred = np.where(dot >= 0, 1.0, 0.0)
-            raw = np.stack([1.0 - prob, prob], axis=1)
-            version = np.full(dot.shape[0], pub.version, dtype=np.int64)
+        dot = as_dense_matrix(col) @ pub.coefficient
+        prob = 1.0 / (1.0 + np.exp(-dot))
+        pred = np.where(dot >= 0, 1.0, 0.0)
+        raw = np.stack([1.0 - prob, prob], axis=1)
+        version = np.full(dot.shape[0], pub.version, dtype=np.int64)
         return [table.with_columns({
             self.get_prediction_col(): pred,
             self.get_raw_prediction_col(): raw,

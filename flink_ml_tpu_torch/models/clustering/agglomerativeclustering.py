@@ -262,6 +262,9 @@ def window_row_groups(table: Table, n: int, windows) -> List[np.ndarray]:
 
 
 class AgglomerativeClustering(AlgoOperator, AgglomerativeClusteringParams):
+    fusable = False
+    fusable_reason = "O(n^2) host linkage build (prefers_host_input); no record-wise device kernel exists"
+
     def transform(self, *inputs: Table) -> List[Table]:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

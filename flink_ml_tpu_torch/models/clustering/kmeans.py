@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ... import config
-from ...api import Estimator, Model
+from ...api import Estimator, Model, as_kernel_matrix
 from ...common.param import (
     HasDistanceMeasure,
     HasFeaturesCol,
@@ -159,10 +159,41 @@ def _lloyd_fleet_train(X, init_centroids, max_iters, measure_name: str):
     return torch.cat([centroids.reshape(members, k * d), counts], dim=1)
 
 
+def closest_centroids(measure: str, X: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """Each row's closest centroid, int32: the rows of a tensor column as
+    float32 against float32 centroids."""
+    return DistanceMeasure.get_instance(measure).find_closest(
+        as_kernel_matrix(X).to(torch.float32), centroids)
+
+
+def staged_features(col) -> torch.Tensor:
+    """A features column the kernel does not take as it is (a host column,
+    or any SparseBatch) as dense float32 rows on the column's device
+    (`config.device()` for a host column)."""
+    return torch.as_tensor(as_dense_matrix(col, allow_device=True), dtype=torch.float32,
+                           device=_linear.column_device(col))
+
+
 class KMeansModel(Model, KMeansModelParams):
+    fusable = True
+
     def __init__(self):
         self.centroids: np.ndarray = None  # (k, d) host array
         self.weights: np.ndarray = None  # (k,) host array
+
+    def _constant_sources(self):
+        return (self.centroids,)
+
+    def _kernel_constants(self):
+        return {"centroids": np.asarray(self.centroids, np.float32)}
+
+    def kernel_output_dtypes(self, cols):
+        return dict.fromkeys(self.kernel_output_cols(), torch.int32)
+
+    def transform_kernel(self, consts, cols, ctx):
+        cols[self.get_prediction_col()] = closest_centroids(
+            self.get_distance_measure(), cols[self.get_features_col()], consts["centroids"])
+        return cols
 
     def set_model_data(self, *inputs: Table) -> "KMeansModel":
         (model_data,) = inputs
@@ -185,17 +216,7 @@ class KMeansModel(Model, KMeansModelParams):
         """The closest centroid's index, int32: a tensor on the features'
         device, or host int32 numpy for host features."""
         (table,) = inputs
-        col = table.column(self.get_features_col())
-        X = as_dense_matrix(col, allow_device=True)
-        device = _linear.column_device(X)
-        X = torch.as_tensor(X, dtype=torch.float32, device=device)
-        centroids = torch.as_tensor(self.centroids, dtype=torch.float32, device=device)
-        assign = DistanceMeasure.get_instance(self.get_distance_measure()).find_closest(
-            X, centroids
-        )
-        if not _linear.is_device_column(col):
-            assign = assign.cpu().numpy()
-        return [table.with_columns({self.get_prediction_col(): assign})]
+        return [self._transform_with_kernel(table, staged_features)]
 
     def _save_extra(self, path: str) -> None:
         read_write.save_model_arrays(path, centroids=self.centroids, weights=self.weights)

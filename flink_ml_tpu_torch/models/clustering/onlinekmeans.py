@@ -35,7 +35,7 @@ from ...table import StreamTable, Table, as_dense_matrix, global_batches
 from ...utils import read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
-from .kmeans import KMeansModelParams
+from .kmeans import KMeansModelParams, closest_centroids, staged_features
 
 
 def generate_random_model_data(k: int, dim: int, weight: float, seed: int = 0) -> Table:
@@ -102,6 +102,9 @@ class OnlineKMeansModel(Model, KMeansModelParams):
     int32, a tensor on the features' device, or host numpy for host
     features (computed on `config.device()`)."""
 
+    fusable = True
+    swap_capable = True
+
     def __init__(self):
         self._published = _PublishedKMeans(0, None, None)
         self._updates: Optional[Iterator] = None
@@ -137,6 +140,38 @@ class OnlineKMeansModel(Model, KMeansModelParams):
         centroids = None if centroids is None else np.asarray(centroids, dtype=np.float64)
         weights = None if weights is None else np.asarray(weights, dtype=np.float64)
         self._published = _PublishedKMeans(int(version), centroids, weights)
+        self.bump_model_data_version()
+
+    def model_arrays(self) -> tuple:
+        pub = self._published
+        return (pub.centroids, pub.weights)
+
+    def publish_model_arrays(self, arrays: tuple, version: int) -> None:
+        centroids, weights = arrays
+        self._publish(centroids, weights, version)
+
+    def _kernel_constants(self):
+        pub = self._published  # one record read: version-consistent constants
+        return self.kernel_constants_for((pub.centroids, pub.weights), pub.version)
+
+    def kernel_constants_for(self, arrays: tuple, version: int = 0):
+        centroids, _ = arrays
+        return {"centroids": np.asarray(centroids, dtype=np.float32)}
+
+    def _constant_sources(self) -> tuple:
+        pub = self._published
+        return (pub.centroids, pub.weights)
+
+    def kernel_ready(self, cols) -> bool:
+        return self._published.centroids is not None
+
+    def kernel_output_dtypes(self, cols):
+        return dict.fromkeys(self.kernel_output_cols(), torch.int32)
+
+    def transform_kernel(self, consts, cols, ctx):
+        cols[self.get_prediction_col()] = closest_centroids(
+            self.get_distance_measure(), cols[self.get_features_col()], consts["centroids"])
+        return cols
 
     def set_model_data(self, *inputs) -> "OnlineKMeansModel":
         """A KMeansModelData Table, or a stream of (version, (centroids,
@@ -171,16 +206,7 @@ class OnlineKMeansModel(Model, KMeansModelParams):
 
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
-        col = table.column(self.get_features_col())
-        X = as_dense_matrix(col, allow_device=True)
-        device = _linear.column_device(X)
-        X = torch.as_tensor(X, dtype=torch.float32, device=device)
-        centroids = torch.as_tensor(self.centroids, dtype=torch.float32, device=device)
-        assign = DistanceMeasure.get_instance(self.get_distance_measure()).find_closest(
-            X, centroids)
-        if not _linear.is_device_column(col):
-            assign = assign.cpu().numpy()
-        return [table.with_columns({self.get_prediction_col(): assign})]
+        return [self._transform_with_kernel(table, staged_features)]
 
     def _save_extra(self, path: str) -> None:
         read_write.save_model_arrays(

@@ -195,6 +195,9 @@ def _on(col, device: torch.device) -> torch.Tensor:
 
 
 class BinaryClassificationEvaluator(AlgoOperator, BinaryClassificationEvaluatorParams):
+    fusable = False
+    fusable_reason = "aggregating evaluator: reduces the whole input to one metrics row — not a row-count-preserving record-wise transform"
+
     def transform(self, *inputs: Table) -> List[Table]:
         device = config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

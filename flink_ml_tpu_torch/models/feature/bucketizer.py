@@ -13,8 +13,11 @@ When one does not (a float64 split with no float32 twin), the JAX package
 pulls the column to the host and compares in float64; the port compares
 on the device in float64 instead (ROADMAP C, port rule), which puts every
 value in the same bucket as the host path. A host column compares in
-float64 and gives float64 numpy. Invalid rows cost one scalar probe; the
-mask is read back only when a row is invalid.
+float64 and gives float64 numpy. Tensor columns under 'error' or 'keep'
+run the transform kernel (its check a guard); host columns (float64
+output) and 'skip' (a data-dependent row count) keep a branch of their
+own, where invalid rows cost one scalar probe and the mask is read back
+only when a row is invalid.
 """
 
 from __future__ import annotations
@@ -48,6 +51,11 @@ def splits_survive(splits: np.ndarray, dtype: torch.dtype) -> bool:
     return torch.equal(s.to(dtype).to(torch.float64), s)
 
 
+_INVALID_MESSAGE = (
+    "The input contains invalid value. See handleInvalid parameter for more options."
+)
+
+
 class BucketizerParams(HasInputCols, HasOutputCols, HasHandleInvalid):
     SPLITS_ARRAY = DoubleArrayArrayParam(
         "splitsArray",
@@ -69,14 +77,57 @@ class BucketizerParams(HasInputCols, HasOutputCols, HasHandleInvalid):
 
 
 class Bucketizer(Transformer, BucketizerParams):
-    def transform(self, *inputs: Table) -> List[Table]:
-        (table,) = inputs
+    fusable = True
+
+    def _checked_params(self):
         in_cols, out_cols = self.get_input_cols(), self.get_output_cols()
         splits_array = self.get_splits_array()
         if len(in_cols) != len(splits_array):
             raise ValueError(
                 "Bucketizer: number of splits arrays must match number of input columns"
             )
+        return in_cols, out_cols, splits_array
+
+    def supports_fusion(self) -> bool:
+        # 'skip' drops invalid rows: a data-dependent row count
+        return self.get_handle_invalid() != HasHandleInvalid.SKIP_INVALID
+
+    def kernel_ready(self, cols) -> bool:
+        # the JAX package's veto: a split with no twin in the column's dtype
+        # sends the column to the host there (C.6), so the plan runs eagerly
+        for name, splits in zip(self.get_input_cols() or [], self.get_splits_array() or []):
+            col = cols.get(name)
+            if col is None or not splits_survive(np.asarray(splits, dtype=np.float64), col.dtype):
+                return False
+        return True
+
+    def _kernel_constants(self):
+        return {"splits": [np.asarray(s, dtype=np.float64) for s in self.get_splits_array()]}
+
+    def kernel_output_dtypes(self, cols):
+        return dict.fromkeys(self.kernel_output_cols(), torch.float32)
+
+    def transform_kernel(self, consts, cols, ctx):
+        in_cols, out_cols, splits_array = self._checked_params()
+        keep = self.get_handle_invalid() == HasHandleInvalid.KEEP_INVALID
+        for i, (name, out_name, splits) in enumerate(zip(in_cols, out_cols, splits_array)):
+            col = cols[name]
+            # a split with no twin in the column's dtype compares in float64 (C.6)
+            exact = splits_survive(np.asarray(splits, dtype=np.float64), col.dtype)
+            arr = col if exact else col.to(torch.float64)
+            idx, bad = bucketize(arr, consts["splits"][i].to(arr.dtype))
+            if keep:
+                idx = torch.where(bad, len(splits) - 1, idx)
+            else:
+                ctx.guard(bad.any(), _INVALID_MESSAGE)
+            cols[out_name] = idx.to(torch.float32)
+        return cols
+
+    def transform(self, *inputs: Table) -> List[Table]:
+        (table,) = inputs
+        if self.kernel_takes(table):
+            return [self._transform_with_kernel(table)]
+        in_cols, out_cols, splits_array = self._checked_params()
         keep = self.get_handle_invalid() == HasHandleInvalid.KEEP_INVALID
         updates, bads = {}, []
         for name, out_name, splits in zip(in_cols, out_cols, splits_array):
@@ -98,10 +149,6 @@ class Bucketizer(Transformer, BucketizerParams):
             invalid = torch.stack([b.to(bads[0].device) for b in bads]).any(dim=0)
             if bool(invalid.any()):
                 if self.get_handle_invalid() == HasHandleInvalid.ERROR_INVALID:
-                    raise ValueError(
-                        "The input contains invalid value. See "
-                        + self.HANDLE_INVALID.name
-                        + " parameter for more options."
-                    )
+                    raise ValueError(_INVALID_MESSAGE)
                 out = out.take(torch.nonzero(~invalid).flatten())
         return [out]

@@ -116,6 +116,9 @@ def min_tf_thresholds(ids, min_tf: float) -> torch.Tensor:
 
 
 class CountVectorizerModel(Model, CountVectorizerModelParams):
+    fusable = False
+    fusable_reason = "consumes host token documents; the vocabulary lookup is string-keyed"
+
     def __init__(self):
         self.vocabulary: List[str] = None
 

@@ -19,7 +19,7 @@ from typing import Iterator, List
 import numpy as np
 import torch
 
-from ...api import Transformer
+from ...api import Transformer, as_kernel_matrix, upload_constants
 from ...common.param import HasInputCol, HasOutputCol
 from ...param import BooleanParam
 from ...table import Table
@@ -62,13 +62,34 @@ def full_float32_matmul() -> Iterator[None]:
         torch.set_float32_matmul_precision(prev)
 
 
+def transform_matrix(n: int, inverse: bool) -> np.ndarray:
+    """The float32 (n, n) matrix M of the transform, y = M @ x."""
+    B = dct_basis(n)
+    return np.ascontiguousarray(B.T if inverse else B, dtype=np.float32)
+
+
 class DCT(Transformer, DCTParams):
+    fusable = True
+
+    def _basis(self, n: int, device: torch.device) -> torch.Tensor:
+        """The transform's matrix on `device`, uploaded once per width: the
+        first (eager) call of a fused segment makes it, so its captured
+        graph reads a tensor that already exists."""
+        memo = self.__dict__.setdefault("_dct_matrices", {})
+        key = (n, bool(self.get_inverse()), device)
+        if key not in memo:
+            memo[key] = upload_constants(transform_matrix(n, key[1]), device)
+        return memo[key]
+
+    def kernel_output_dtypes(self, cols):
+        return dict.fromkeys(self.kernel_output_cols(), torch.float32)
+
+    def transform_kernel(self, consts, cols, ctx):
+        X = as_kernel_matrix(cols[self.get_input_col()]).to(torch.float32)
+        with full_float32_matmul():
+            cols[self.get_output_col()] = torch.matmul(X, self._basis(X.shape[1], X.device).T)
+        return cols
+
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
-        col = table.column(self.get_input_col())
-        X = _columns.staged_matrix(col).to(torch.float32)
-        B = dct_basis(X.shape[1])
-        mat = B.T if self.get_inverse() else B
-        with full_float32_matmul():
-            out = torch.matmul(X, _columns.constant(mat.T, X))
-        return [table.with_columns({self.get_output_col(): _columns.output(out, col)})]
+        return [self._transform_with_kernel(table, _columns.staged_matrix)]

@@ -4,8 +4,10 @@ Port of flink_ml_tpu/models/feature/elementwiseproduct.py (the
 reference's ElementwiseProduct.java: `scalingVec`, required). One
 broadcast multiply on the column's device: a tensor column multiplies in
 its own dtype (the JAX device path's float32 constants), a host column in
-float64. A SparseBatch stays sparse: its stored values are scaled, its
-padding slots (index -1) keep 0.
+float64. Dense columns run the transform kernel (a host column staged in
+float64). A SparseBatch, which the kernel does not take, stays sparse in
+a branch of its own: its stored values are scaled, its padding slots
+(index -1) keep 0.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ...api import Transformer
+from ...api import Transformer, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
 from ...param import ParamValidators, VectorParam
 from ...table import SparseBatch, Table
@@ -38,27 +40,38 @@ class ElementwiseProductParams(HasInputCol, HasOutputCol):
 
 
 class ElementwiseProduct(Transformer, ElementwiseProductParams):
+    fusable = True
+
     def _scaling_array(self) -> np.ndarray:
         scaling = self.get_scaling_vec()
         if scaling is None:
             raise ValueError("Parameter scalingVec must be set")
         return np.asarray(scaling.to_array(), dtype=np.float64)
 
+    def _kernel_constants(self):
+        return {"scaling": self._scaling_array()}
+
+    def transform_kernel(self, consts, cols, ctx):
+        sv = consts["scaling"]
+        X = as_kernel_matrix(cols[self.get_input_col()])
+        if X.shape[1] != sv.shape[0]:
+            raise ValueError(
+                f"Vector size {X.shape[1]} does not match scalingVec size {sv.shape[0]}")
+        cols[self.get_output_col()] = X * sv.to(X.dtype)
+        return cols
+
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
-        sv = self._scaling_array()
         col = table.column(self.get_input_col())
-        if isinstance(col, SparseBatch):
-            indices = _columns.staged(col.indices, torch.long)
-            values = _columns.staged(col.values)
-            scale = _columns.constant(sv, values)[indices.clamp(min=0)]
-            scaled = values * torch.where(indices >= 0, scale, 0.0)
-            out = SparseBatch(col.size, _columns.output(indices.to(torch.int32), col),
-                              _columns.output(scaled, col))
-        else:
-            X = _columns.staged_matrix(col)
-            if X.shape[1] != sv.shape[0]:
-                raise ValueError(
-                    f"Vector size {X.shape[1]} does not match scalingVec size {sv.shape[0]}")
-            out = _columns.output(X * _columns.model_constant(sv, X, col), col)
+        if not isinstance(col, SparseBatch):
+            return [self._transform_with_kernel(
+                table, lambda c: _columns.staged_matrix(c, torch.float64))]
+        # a SparseBatch keeps its layout, which the kernel does not take
+        sv = self._scaling_array()
+        indices = _columns.staged(col.indices, torch.long)
+        values = _columns.staged(col.values)
+        scale = _columns.constant(sv, values)[indices.clamp(min=0)]
+        scaled = values * torch.where(indices >= 0, scale, 0.0)
+        out = SparseBatch(col.size, _columns.output(indices.to(torch.int32), col),
+                          _columns.output(scaled, col))
         return [table.with_columns({self.get_output_col(): out})]

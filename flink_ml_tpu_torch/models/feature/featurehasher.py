@@ -97,6 +97,9 @@ class FeatureHasherParams(HasInputCols, HasCategoricalCols, HasOutputCol, HasNum
 
 
 class FeatureHasher(Transformer, FeatureHasherParams):
+    fusable = False
+    fusable_reason = "murmur-hashes 'col=value' strings rendered on host (prefers_host_input)"
+
     def transform(self, *inputs: Table) -> List[Table]:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

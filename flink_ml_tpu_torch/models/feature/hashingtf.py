@@ -49,6 +49,9 @@ def bucket_lut(terms, num_features: int) -> np.ndarray:
 
 
 class HashingTF(Transformer, HashingTFParams):
+    fusable = False
+    fusable_reason = "murmur-hashes host token strings into term frequencies"
+
     def transform(self, *inputs: Table) -> List[Table]:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

@@ -12,7 +12,9 @@ counts are integers, so they are equal), a host one with `np.add.at`, a
 dense column on its device. The transform follows each JAX path's
 precision: a tensor column (dense or sparse) times the idf in float32,
 `float32(v) * float32(idf)` (the JAX device path with x64 off); a host
-column times the float64 idf.
+column times the float64 idf. Dense columns run the transform kernel (a
+host column staged in float64); a SparseBatch, which the kernel does not
+take, keeps its layout in a branch of its own.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from ... import config
-from ...api import Estimator, Model
+from ...api import Estimator, Model, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
 from ...linalg import DenseVector
 from ...param import IntParam, ParamValidators
@@ -68,10 +70,23 @@ def sparse_doc_freq(col: SparseBatch) -> np.ndarray:
 
 
 class IDFModel(Model, IDFModelParams):
+    fusable = True
+
     def __init__(self):
         self.idf: np.ndarray = None
         self.doc_freq: np.ndarray = None
         self.num_docs: int = 0
+
+    def _constant_sources(self):
+        return (self.idf,)
+
+    def _kernel_constants(self):
+        return {"idf": self.idf}
+
+    def transform_kernel(self, consts, cols, ctx):
+        X = as_kernel_matrix(cols[self.get_input_col()])
+        cols[self.get_output_col()] = X * consts["idf"].to(X.dtype)[None, :]
+        return cols
 
     def set_model_data(self, *inputs: Table) -> "IDFModel":
         (model_data,) = inputs
@@ -89,20 +104,18 @@ class IDFModel(Model, IDFModelParams):
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs
         col = table.column(self.get_input_col())
-        if isinstance(col, SparseBatch):
-            if _linear.is_device_column(col):
-                idf = torch.as_tensor(self.idf, dtype=torch.float32, device=col.values.device)
-                valid = col.indices >= 0
-                gathered = torch.where(valid, idf[torch.where(valid, col.indices, 0).long()], 0.0)
-                out = SparseBatch(col.size, col.indices.clone(),
-                                  col.values * gathered.to(col.values.dtype))
-            else:
-                gathered = np.where(col.indices >= 0,
-                                    self.idf[np.clip(col.indices, 0, None)], 0.0)
-                out = SparseBatch(col.size, col.indices.copy(), col.values * gathered)
+        if not isinstance(col, SparseBatch):
+            return [self._transform_with_kernel(
+                table, lambda c: _columns.staged_matrix(c, torch.float64))]
+        # a SparseBatch keeps its layout, which the kernel does not take
+        if _linear.is_device_column(col):
+            idf = torch.as_tensor(self.idf, dtype=torch.float32, device=col.values.device)
+            valid = col.indices >= 0
+            gathered = torch.where(valid, idf[torch.where(valid, col.indices, 0).long()], 0.0)
+            out = SparseBatch(col.size, col.indices.clone(), col.values * gathered.to(col.values.dtype))
         else:
-            X = _columns.staged_matrix(col)
-            out = _columns.output(X * _columns.model_constant(self.idf, X, col)[None, :], col)
+            gathered = np.where(col.indices >= 0, self.idf[np.clip(col.indices, 0, None)], 0.0)
+            out = SparseBatch(col.size, col.indices.copy(), col.values * gathered)
         return [table.with_columns({self.get_output_col(): out})]
 
     def _save_extra(self, path: str) -> None:

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ... import config
-from ...api import Estimator, Model
+from ...api import Estimator, Model, column_dtype
 from ...common.param import HasInputCols, HasMissingValue, HasOutputCols, HasRelativeError
 from ...common.quantilesummary import QuantileSummary
 from ...linalg import DenseVector
@@ -103,6 +103,14 @@ def _host_surrogate(arr: torch.Tensor, missing: float, strategy: str) -> torch.T
     return torch.stack([value, count])
 
 
+def _impute(arr: torch.Tensor, missing: float, fill: torch.Tensor) -> torch.Tensor:
+    """`arr` with `fill` where it holds the missing value: only that value is
+    replaced at transform time (ImputerModel.java:159); the fit always
+    leaves NaN out."""
+    mask = torch.isnan(arr) if math.isnan(missing) else arr == missing
+    return torch.where(mask, fill, arr)
+
+
 class ImputerModelParams(HasInputCols, HasOutputCols, HasMissingValue):
     pass
 
@@ -123,8 +131,27 @@ class ImputerParams(ImputerModelParams, HasRelativeError):
 
 
 class ImputerModel(Model, ImputerModelParams):
+    fusable = True
+
     def __init__(self):
         self.surrogates: Dict[str, float] = None
+
+    def _constant_sources(self):
+        return (self.surrogates,)
+
+    def _kernel_constants(self):
+        return {"surrogates": [np.asarray(self.surrogates[name]) for name in self.get_input_cols()]}
+
+    def kernel_output_dtypes(self, cols):
+        return {out: column_dtype(cols[name])
+                for name, out in zip(self.get_input_cols(), self.get_output_cols())}
+
+    def transform_kernel(self, consts, cols, ctx):
+        missing = float(self.get_missing_value())
+        for i, (name, out_name) in enumerate(zip(self.get_input_cols(), self.get_output_cols())):
+            arr = cols[name]
+            cols[out_name] = _impute(arr, missing, consts["surrogates"][i].to(arr.dtype))
+        return cols
 
     def set_model_data(self, *inputs: Table) -> "ImputerModel":
         (model_data,) = inputs
@@ -139,17 +166,7 @@ class ImputerModel(Model, ImputerModelParams):
 
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
-        missing = float(self.get_missing_value())
-        updates = {}
-        for name, out_name in zip(self.get_input_cols(), self.get_output_cols()):
-            col = table.column(name)
-            arr = _columns.staged_numbers(col)
-            # only the configured missing value is replaced at transform
-            # time (ImputerModel.java:159); the fit always leaves NaN out
-            mask = torch.isnan(arr) if math.isnan(missing) else arr == missing
-            fill = _columns.constant(self.surrogates[name], arr)
-            updates[out_name] = _columns.output(torch.where(mask, fill, arr), col)
-        return [table.with_columns(updates)]
+        return [self._transform_with_kernel(table, _columns.staged_numbers)]
 
     def _save_extra(self, path: str) -> None:
         names = list(self.surrogates)

@@ -15,9 +15,9 @@ from typing import List
 
 import torch
 
-from ...api import Transformer
+from ...api import Transformer, as_kernel_matrix
 from ...common.param import HasInputCols, HasOutputCol
-from ...table import Table, as_dense_matrix
+from ...table import Table
 from . import _columns
 
 
@@ -34,14 +34,15 @@ class InteractionParams(HasInputCols, HasOutputCol):
 
 
 class Interaction(Transformer, InteractionParams):
-    def transform(self, *inputs: Table) -> List[Table]:
-        (table,) = inputs
+    fusable = True
+
+    def transform_kernel(self, consts, cols, ctx):
         in_cols = self.get_input_cols()
         if not in_cols:
             raise ValueError("Parameter inputCols must be set")
-        cols = [table.column(name) for name in in_cols]
-        if all(_columns.is_device_column(c) for c in cols):
-            out = interact([_columns.staged_matrix(c) for c in cols])
-        else:  # the JAX package's host path: every input as host numpy
-            out = interact([_columns.staged(as_dense_matrix(c)) for c in cols]).cpu().numpy()
-        return [table.with_columns({self.get_output_col(): out})]
+        cols[self.get_output_col()] = interact([as_kernel_matrix(cols[name]) for name in in_cols])
+        return cols
+
+    def transform(self, *inputs: Table) -> List[Table]:
+        (table,) = inputs
+        return [self._transform_with_kernel(table, _columns.staged_matrix)]

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ... import config
-from ...api import Estimator, Model
+from ...api import Estimator, Model, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
 from ...common.quantilesummary import column_sketches, update_column_sketches
 from ...ops.quantile import jnp_quantile, numpy_quantile
@@ -117,21 +117,26 @@ def kmeans_1d_edges(col: np.ndarray, num_bins: int) -> np.ndarray:
     return np.concatenate([[col.min()], mids, [col.max()]])
 
 
-def bin_all(X: torch.Tensor, bin_edges: List[np.ndarray]) -> torch.Tensor:
+def bin_all(X: torch.Tensor, bin_edges: List[np.ndarray], edge_tensors=None) -> torch.Tensor:
     """Each feature's bin on X's device, in X's dtype: #edges <= x minus
     one, clamped to [0, edges - 2]; NaN to the top bin; a feature with at
     most 2 edges to bin 0. The edges are cast to X's dtype, as the JAX
     device path casts them. A NaN edge (a quantile fit over a column with
     +inf interpolates inf - inf) never counts as <= x, as in both JAX paths
     (np.searchsorted sorts NaN last, the compare-sum finds it false), so
-    only the other edges are searched; the top bin still counts it."""
+    only the other edges are searched; the top bin still counts it.
+    `edge_tensors` are those searched edges already on X's device (any
+    float dtype), one a feature; without them they are uploaded here."""
     out = torch.empty_like(X)
     for j, edges in enumerate(bin_edges):
         top = max(edges.size - 2, 0)
         if top == 0:
             out[:, j] = 0
             continue
-        e = torch.as_tensor(edges[~np.isnan(edges)], dtype=X.dtype, device=X.device)
+        if edge_tensors is None:
+            e = torch.as_tensor(edges[~np.isnan(edges)], dtype=X.dtype, device=X.device)
+        else:
+            e = edge_tensors[j].to(X.dtype)
         idx = torch.searchsorted(e, X[:, j].contiguous(), right=True) - 1
         idx = torch.where(torch.isnan(X[:, j]), top, idx.clamp(0, top))
         out[:, j] = idx.to(X.dtype)
@@ -139,8 +144,21 @@ def bin_all(X: torch.Tensor, bin_edges: List[np.ndarray]) -> torch.Tensor:
 
 
 class KBinsDiscretizerModel(Model, KBinsDiscretizerModelParams):
+    fusable = True
+
     def __init__(self):
         self.bin_edges: List[np.ndarray] = None  # per feature, increasing
+
+    def _constant_sources(self):
+        return (self.bin_edges,)
+
+    def _kernel_constants(self):
+        return {"edges": [e[~np.isnan(e)] for e in self.bin_edges]}
+
+    def transform_kernel(self, consts, cols, ctx):
+        X = as_kernel_matrix(cols[self.get_input_col()])
+        cols[self.get_output_col()] = bin_all(X, self.bin_edges, consts["edges"])
+        return cols
 
     def set_model_data(self, *inputs: Table) -> "KBinsDiscretizerModel":
         (model_data,) = inputs
@@ -153,9 +171,8 @@ class KBinsDiscretizerModel(Model, KBinsDiscretizerModelParams):
 
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
-        col = table.column(self.get_input_col())
-        X = _columns.staged_matrix(col, torch.float64)
-        return [table.with_columns({self.get_output_col(): _columns.output(bin_all(X, self.bin_edges), col)})]
+        return [self._transform_with_kernel(
+            table, lambda col: _columns.staged_matrix(col, torch.float64))]
 
     def _save_extra(self, path: str) -> None:
         read_write.save_model_arrays(

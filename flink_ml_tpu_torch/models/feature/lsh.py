@@ -123,6 +123,9 @@ def _row_indices(indices: np.ndarray, i: int) -> np.ndarray:
 
 
 class MinHashLSHModel(Model, LSHParams):
+    fusable = False
+    fusable_reason = "emits a per-row list of hash vectors (object column) — not a fixed-shape device array"
+
     def __init__(self):
         self.rand_coefficient_a: np.ndarray = None  # (numHashFunctions,) int64
         self.rand_coefficient_b: np.ndarray = None

@@ -16,7 +16,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ...api import Estimator, Model
+from ...api import Estimator, Model, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
 from ...linalg import DenseVector
 from ...table import Table
@@ -31,8 +31,21 @@ class MaxAbsScalerParams(HasInputCol, HasOutputCol):
 
 
 class MaxAbsScalerModel(Model, MaxAbsScalerParams):
+    fusable = True
+
     def __init__(self):
         self.max_abs: np.ndarray = None
+
+    def _constant_sources(self):
+        return (self.max_abs,)
+
+    def _kernel_constants(self):
+        return {"scale": np.where(self.max_abs > 0, self.max_abs, 1.0)}
+
+    def transform_kernel(self, consts, cols, ctx):
+        X = as_kernel_matrix(cols[self.get_input_col()])
+        cols[self.get_output_col()] = X / consts["scale"].to(X.dtype)
+        return cols
 
     def set_model_data(self, *inputs: Table) -> "MaxAbsScalerModel":
         (model_data,) = inputs
@@ -45,10 +58,8 @@ class MaxAbsScalerModel(Model, MaxAbsScalerParams):
 
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
-        col = table.column(self.get_input_col())
-        X = _columns.staged_matrix(col)
-        scale = _columns.model_constant(np.where(self.max_abs > 0, self.max_abs, 1.0), X, col)
-        return [table.with_columns({self.get_output_col(): _columns.output(X / scale, col)})]
+        return [self._transform_with_kernel(
+            table, lambda col: _columns.staged_matrix(col, torch.float64))]
 
     def _save_extra(self, path: str) -> None:
         read_write.save_model_arrays(path, maxVector=self.max_abs)

@@ -10,7 +10,8 @@ on the host in float64, as the JAX package derives them; then a tensor
 column computes X * scale + offset in its dtype as one fused multiply-add
 (`torch.addcmul`, one rounding), as XLA contracts the JAX device path's
 expression, and a host column in float64 as a multiply then an add, as
-numpy does.
+numpy does. So a host column keeps a branch of its own beside the
+transform kernel, which rounds once.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ...api import Estimator, Model
+from ...api import Estimator, Model, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
 from ...linalg import DenseVector
 from ...param import DoubleParam, ParamValidators
@@ -53,9 +54,24 @@ class MinMaxScalerParams(HasInputCol, HasOutputCol):
 
 
 class MinMaxScalerModel(Model, MinMaxScalerParams):
+    fusable = True
+
     def __init__(self):
         self.min_vector: np.ndarray = None
         self.max_vector: np.ndarray = None
+
+    def _constant_sources(self):
+        return (self.min_vector, self.max_vector)
+
+    def _kernel_constants(self):
+        scale, offset = self.scale_offset()
+        return {"scale": scale, "offset": offset}
+
+    def transform_kernel(self, consts, cols, ctx):
+        X = as_kernel_matrix(cols[self.get_input_col()])
+        cols[self.get_output_col()] = torch.addcmul(
+            consts["offset"].to(X.dtype), X, consts["scale"].to(X.dtype))
+        return cols
 
     def scale_offset(self):
         """The transform's affine coefficients, host float64."""
@@ -80,13 +96,11 @@ class MinMaxScalerModel(Model, MinMaxScalerParams):
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
         col = table.column(self.get_input_col())
+        if _columns.is_device_column(col):  # a tensor SparseBatch densified on its device
+            return [self._transform_with_kernel(table, _columns.staged_matrix)]
         X = _columns.staged_matrix(col)
         scale, offset = (_columns.model_constant(c, X, col) for c in self.scale_offset())
-        if _columns.is_device_column(col):
-            out = torch.addcmul(offset, X, scale)
-        else:
-            out = _columns.output(X * scale + offset, col)
-        return [table.with_columns({self.get_output_col(): out})]
+        return [table.with_columns({self.get_output_col(): _columns.output(X * scale + offset, col)})]
 
     def _save_extra(self, path: str) -> None:
         read_write.save_model_arrays(path, minVector=self.min_vector, maxVector=self.max_vector)

@@ -45,6 +45,9 @@ def _empty_lists(rows: int) -> np.ndarray:
 
 
 class NGram(Transformer, NGramParams):
+    fusable = False
+    fusable_reason = "assembles n-gram strings from host token lists"
+
     def transform(self, *inputs: Table) -> List[Table]:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

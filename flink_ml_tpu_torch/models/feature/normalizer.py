@@ -13,9 +13,10 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
-from ...api import Transformer
+from ...api import Transformer, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
 from ...param import DoubleParam, ParamValidators
 from ...table import Table
@@ -32,15 +33,25 @@ class NormalizerParams(HasInputCol, HasOutputCol):
         return self.set(self.P, value)
 
 
-def normalize(X: torch.Tensor, p: float) -> torch.Tensor:
-    p = _columns.constant(p, X)
+def normalize(X: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Each row over its p-norm, with p (a 0-d tensor) in X's dtype."""
+    p = p.to(X.dtype)
     norms = torch.sum(torch.abs(X) ** p, dim=1) ** (1.0 / p)
     return X / torch.clamp(norms, min=1e-30)[:, None]
 
 
 class Normalizer(Transformer, NormalizerParams):
+    fusable = True
+
+    def _kernel_constants(self):
+        return {"p": np.asarray(self.get_p(), dtype=np.float64)}
+
+    def transform_kernel(self, consts, cols, ctx):
+        X = as_kernel_matrix(cols[self.get_input_col()])
+        cols[self.get_output_col()] = normalize(X, consts["p"])
+        return cols
+
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
-        col = table.column(self.get_input_col())
-        X = _columns.staged_matrix(col, torch.float32)
-        return [table.with_columns({self.get_output_col(): _columns.output(normalize(X, self.get_p()), col)})]
+        return [self._transform_with_kernel(
+            table, lambda col: _columns.staged_matrix(col, torch.float32))]

@@ -9,10 +9,12 @@ exists, as in the reference.
 
 The fit reads each column to the host once and takes its largest index.
 The transform encodes on the column's device (host columns are staged to
-`config.device()`); validation costs one probe of two flags per column,
-not a readback of it, and raises the JAX package's host-path errors
-(a non-integer or negative index; an index out of range) for either kind
-of column. Host columns give a host SparseBatch.
+`config.device()`) and raises the JAX package's host-path errors (a
+non-integer or negative index; an index out of range) for either kind of
+column. Either kind runs the transform kernel (a host column staged in
+float64), whose checks are guards read back once a transform (or once a
+fused segment); a host column gives a host SparseBatch with float64
+values, as the JAX host path does.
 """
 
 from __future__ import annotations
@@ -29,14 +31,15 @@ from ...table import SparseBatch, Table, _to_numpy
 from ...utils import javacodec, read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
+from . import _columns
 
 
-def _not_indexed(name: str) -> ValueError:
-    return ValueError(f"Value cannot be parsed as indexed integer in column {name}")
+def _not_indexed(name: str) -> str:
+    return f"Value cannot be parsed as indexed integer in column {name}"
 
 
-def _out_of_range(name: str) -> ValueError:
-    return ValueError(f"The input contains invalid index in column {name}.")
+def _out_of_range(name: str) -> str:
+    return f"The input contains invalid index in column {name}."
 
 
 def _onehot(col, vec_size: int, drop: bool):
@@ -65,8 +68,29 @@ class OneHotEncoderParams(OneHotEncoderModelParams):
 
 
 class OneHotEncoderModel(Model, OneHotEncoderModelParams):
+    fusable = True
+    kernel_emits_sparse = True
+
     def __init__(self):
         self.category_sizes: np.ndarray = None  # per column: largest index + 1
+
+    def supports_fusion(self) -> bool:
+        # only handleInvalid='error' exists (the reference's contract)
+        return self.get_handle_invalid() == HasHandleInvalid.ERROR_INVALID
+
+    def _constant_sources(self):
+        return (self.category_sizes,)
+
+    def transform_kernel(self, consts, cols, ctx):
+        drop = bool(self.get_drop_last())
+        for i, (name, out_name) in enumerate(zip(self.get_input_cols(), self.get_output_cols())):
+            vec_size = int(self.category_sizes[i]) - int(drop)
+            indices, values, (not_int, out_of_range) = _onehot(cols[name], vec_size, drop)
+            # the JAX host path's two messages, which the eager tests pin
+            ctx.guard(not_int, _not_indexed(name))
+            ctx.guard(out_of_range, _out_of_range(name))
+            cols[out_name] = SparseBatch(vec_size, indices, values)
+        return cols
 
     def set_model_data(self, *inputs: Table) -> "OneHotEncoderModel":
         (model_data,) = inputs
@@ -86,26 +110,15 @@ class OneHotEncoderModel(Model, OneHotEncoderModelParams):
         # (OneHotEncoderModel.java:73 checkArgument)
         if self.get_handle_invalid() != HasHandleInvalid.ERROR_INVALID:
             raise ValueError("OneHotEncoder only supports handleInvalid = 'error'")
-        drop = bool(self.get_drop_last())
-        updates = {}
-        for i, (name, out_name) in enumerate(zip(self.get_input_cols(), self.get_output_cols())):
-            vec_size = int(self.category_sizes[i]) - int(drop)
-            col = table.column(name)
-            on_device = _linear.is_device_column(col)
-            if not on_device:
-                col = torch.as_tensor(np.asarray(col, dtype=np.float64),
-                                      device=_linear.column_device(col))
-            indices, values, bad = _onehot(col, vec_size, drop)
-            not_int, out_of_range = bad.tolist()  # the column's one sync
-            if not_int:
-                raise _not_indexed(name)
-            if out_of_range:
-                raise _out_of_range(name)
-            if not on_device:
-                indices = indices.cpu().numpy()
-                values = (indices >= 0).astype(np.float64)
-            updates[out_name] = SparseBatch(vec_size, indices, values)
-        return [table.with_columns(updates)]
+        return [self._transform_with_kernel(table, lambda col: _columns.staged(col, torch.float64))]
+
+    def _host_outputs(self, out):
+        # the JAX host path's float64 values
+        host = {}
+        for name, col in out.items():
+            indices = col.indices.cpu().numpy()
+            host[name] = SparseBatch(col.size, indices, (indices >= 0).astype(np.float64))
+        return host
 
     def _save_extra(self, path: str) -> None:
         read_write.save_model_arrays(path, categorySizes=self.category_sizes)
@@ -125,7 +138,7 @@ class OneHotEncoder(Estimator, OneHotEncoderParams):
             idx = np.asarray(_to_numpy(col), dtype=np.float64)  # one readback
             int_idx = idx.astype(np.int64)
             if np.any(int_idx != idx) or np.any(int_idx < 0):
-                raise _not_indexed(name)
+                raise ValueError(_not_indexed(name))
             sizes.append(int(int_idx.max()) + 1)
         model = OneHotEncoderModel()
         model.category_sizes = np.asarray(sizes, dtype=np.int64)

@@ -19,7 +19,7 @@ from typing import List
 
 import torch
 
-from ...api import Transformer
+from ...api import Transformer, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
 from ...param import IntParam, ParamValidators
 from ...table import Table
@@ -67,8 +67,13 @@ def expand_columns(X: torch.Tensor, degree: int) -> torch.Tensor:
 
 
 class PolynomialExpansion(Transformer, PolynomialExpansionParams):
+    fusable = True
+
+    def transform_kernel(self, consts, cols, ctx):
+        X = as_kernel_matrix(cols[self.get_input_col()])
+        cols[self.get_output_col()] = expand_columns(X, self.get_degree())
+        return cols
+
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
-        col = table.column(self.get_input_col())
-        out = expand_columns(_columns.staged_matrix(col), self.get_degree())
-        return [table.with_columns({self.get_output_col(): _columns.output(out, col)})]
+        return [self._transform_with_kernel(table, _columns.staged_matrix)]

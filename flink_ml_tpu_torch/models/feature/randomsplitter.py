@@ -55,6 +55,9 @@ def split_assignments(num_rows: int, weights, seed: int) -> np.ndarray:
 
 
 class RandomSplitter(AlgoOperator, RandomSplitterParams):
+    fusable = False
+    fusable_reason = "1-to-many split with data-dependent per-output row counts (host RNG + boolean take)"
+
     def transform(self, *inputs: Table) -> List[Table]:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

@@ -60,6 +60,9 @@ class RegexTokenizerParams(HasInputCol, HasOutputCol):
 
 
 class RegexTokenizer(Transformer, RegexTokenizerParams):
+    fusable = False
+    fusable_reason = "host regex matching over a string column"
+
     def transform(self, *inputs: Table) -> List[Table]:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ... import config
-from ...api import Estimator, Model
+from ...api import Estimator, Model, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol, HasRelativeError
 from ...common.quantilesummary import column_sketches, update_column_sketches
 from ...linalg import DenseVector
@@ -85,9 +85,26 @@ class RobustScalerParams(RobustScalerModelParams, HasRelativeError):
 
 
 class RobustScalerModel(Model, RobustScalerModelParams):
+    fusable = True
+
     def __init__(self):
         self.medians: np.ndarray = None
         self.ranges: np.ndarray = None
+
+    def _constant_sources(self):
+        return (self.medians, self.ranges)
+
+    def _kernel_constants(self):
+        return {"medians": self.medians, "scale": np.where(self.ranges > 0, self.ranges, 1.0)}
+
+    def transform_kernel(self, consts, cols, ctx):
+        out = as_kernel_matrix(cols[self.get_input_col()])
+        if self.get_with_centering():
+            out = out - consts["medians"].to(out.dtype)
+        if self.get_with_scaling():
+            out = out / consts["scale"].to(out.dtype)
+        cols[self.get_output_col()] = out
+        return cols
 
     def set_model_data(self, *inputs: Table) -> "RobustScalerModel":
         (model_data,) = inputs
@@ -102,14 +119,8 @@ class RobustScalerModel(Model, RobustScalerModelParams):
 
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
-        col = table.column(self.get_input_col())
-        out = _columns.staged_matrix(col)
-        if self.get_with_centering():
-            out = out - _columns.model_constant(self.medians, out, col)
-        if self.get_with_scaling():
-            scale = np.where(self.ranges > 0, self.ranges, 1.0)
-            out = out / _columns.model_constant(scale, out, col)
-        return [table.with_columns({self.get_output_col(): _columns.output(out, col)})]
+        return [self._transform_with_kernel(
+            table, lambda col: _columns.staged_matrix(col, torch.float64))]
 
     def _save_extra(self, path: str) -> None:
         read_write.save_model_arrays(path, medians=self.medians, ranges=self.ranges)

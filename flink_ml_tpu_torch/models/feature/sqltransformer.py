@@ -44,6 +44,9 @@ from ...table import Table, _to_numpy
 
 
 class SQLTransformer(Transformer):
+    fusable = False
+    fusable_reason = "interprets a SQL statement over host rows (arbitrary expressions, aggregates, row filters)"
+
     STATEMENT = StringParam("statement", "SQL statement.", None, ParamValidators.not_null())
 
     def get_statement(self) -> str:

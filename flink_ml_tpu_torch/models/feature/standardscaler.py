@@ -20,7 +20,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ...api import Estimator, Model
+from ...api import Estimator, Model, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
 from ...linalg import DenseVector
 from ...param import BooleanParam
@@ -63,9 +63,27 @@ def _fit_stats(X):
 
 
 class StandardScalerModel(Model, StandardScalerParams):
+    fusable = True
+
     def __init__(self):
         self.mean: np.ndarray = None  # (d,) host array
         self.std: np.ndarray = None  # (d,) host array
+
+    def _constant_sources(self):
+        return (self.mean, self.std)
+
+    def _kernel_constants(self):
+        # the scale derived in host float64, as the eager path derives it
+        return {"mean": self.mean, "scale": np.where(self.std > 0, self.std, 1.0)}
+
+    def transform_kernel(self, consts, cols, ctx):
+        out = as_kernel_matrix(cols[self.get_input_col()])
+        if self.get_with_mean():
+            out = out - consts["mean"].to(out.dtype)
+        if self.get_with_std():
+            out = out / consts["scale"].to(out.dtype)
+        cols[self.get_output_col()] = out
+        return cols
 
     def set_model_data(self, *inputs: Table) -> "StandardScalerModel":
         (model_data,) = inputs
@@ -79,16 +97,8 @@ class StandardScalerModel(Model, StandardScalerParams):
 
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
-        col = table.column(self.get_input_col())
-        out = _columns.staged_matrix(col, torch.float64)
-        if self.get_with_mean():
-            out = out - torch.as_tensor(self.mean, dtype=out.dtype, device=out.device)
-        if self.get_with_std():
-            scale = np.where(self.std > 0, self.std, 1.0)
-            out = out / torch.as_tensor(scale, dtype=out.dtype, device=out.device)
-        if not _linear.is_device_column(col):
-            out = out.cpu().numpy()
-        return [table.with_columns({self.get_output_col(): out})]
+        return [self._transform_with_kernel(
+            table, lambda col: _columns.staged_matrix(col, torch.float64))]
 
     def _save_extra(self, path: str) -> None:
         read_write.save_model_arrays(path, mean=self.mean, std=self.std)

@@ -80,6 +80,9 @@ class StopWordsRemoverParams(HasInputCols, HasOutputCols):
 
 
 class StopWordsRemover(Transformer, StopWordsRemoverParams):
+    fusable = False
+    fusable_reason = "string filtering over host token lists"
+
     @staticmethod
     def load_default_stop_words(language: str) -> List[str]:
         return load_default_stop_words(language)

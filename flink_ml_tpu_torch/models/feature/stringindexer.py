@@ -126,6 +126,8 @@ class StringIndexerParams(StringIndexerModelParams):
 
 
 class StringIndexerModel(Model, StringIndexerModelParams):
+    fusable = False
+    fusable_reason = "string-keyed dictionary lookup over host string columns"
 
     def __init__(self):
         self.string_arrays: List[List[str]] = None
@@ -215,6 +217,10 @@ class IndexToStringModelParams(HasInputCols, HasOutputCols):
 
 class IndexToStringModel(Model, IndexToStringModelParams):
     """Reverse transform: index -> original string (IndexToStringModel.java)."""
+
+    fusable = False
+    fusable_reason = "renders output strings on host"
+
     def __init__(self):
         self.string_arrays: List[List[str]] = None
 

@@ -35,6 +35,9 @@ def split_one(s: str) -> list:
 
 
 class Tokenizer(Transformer, TokenizerParams):
+    fusable = False
+    fusable_reason = "host string splitting"
+
     def transform(self, *inputs: Table) -> List[Table]:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ... import config
-from ...api import Estimator, Model
+from ...api import Estimator, Model, as_kernel_matrix
 from ...common.param import HasFeaturesCol, HasLabelCol, HasOutputCol
 from ...ops import stats
 from ...param import DoubleParam, ParamValidators, StringParam
@@ -129,8 +129,22 @@ def select_indices_from_p_values(
 
 
 class UnivariateFeatureSelectorModel(Model, UnivariateFeatureSelectorModelParams):
+    fusable = True
+
     def __init__(self):
         self.indices: np.ndarray = None
+
+    def _constant_sources(self):
+        return (self.indices,)
+
+    def _kernel_constants(self):
+        return {"indices": np.asarray(self.indices, dtype=np.int64)}
+
+    def transform_kernel(self, consts, cols, ctx):
+        X = as_kernel_matrix(cols[self.get_features_col()])
+        # a gather, not the JAX device path's 0/1 matmul (C.10)
+        cols[self.get_output_col()] = select_columns(X, self.indices, consts["indices"])
+        return cols
 
     def set_model_data(self, *inputs: Table) -> "UnivariateFeatureSelectorModel":
         (model_data,) = inputs
@@ -144,10 +158,7 @@ class UnivariateFeatureSelectorModel(Model, UnivariateFeatureSelectorModelParams
     def transform(self, *inputs: Table) -> List[Table]:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs
-        col = table.column(self.get_features_col())
-        X = _columns.staged_matrix(col)
-        out = _columns.output(select_columns(X, self.indices), col)
-        return [table.with_columns({self.get_output_col(): out})]
+        return [self._transform_with_kernel(table, _columns.staged_matrix)]
 
     def _save_extra(self, path: str) -> None:
         read_write.save_model_arrays(path, indices=self.indices)

@@ -19,7 +19,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ...api import Estimator, Model
+from ...api import Estimator, Model, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
 from ...param import DoubleParam, ParamValidators
 from ...table import Table
@@ -55,8 +55,27 @@ def sample_variance(X: torch.Tensor) -> torch.Tensor:
 
 
 class VarianceThresholdSelectorModel(Model, VarianceThresholdSelectorModelParams):
+    fusable = True
+
     def __init__(self):
         self.indices: np.ndarray = None  # the kept feature indices
+
+    def _constant_sources(self):
+        return (self.indices,)
+
+    def _kernel_constants(self):
+        return {"indices": np.asarray(self.indices, dtype=np.int64)}
+
+    def _check_width(self, width: int) -> None:
+        if self.indices.size > 0 and self.indices.max() >= width:
+            raise ValueError("Model feature count does not match input vector size")
+
+    def transform_kernel(self, consts, cols, ctx):
+        X = as_kernel_matrix(cols[self.get_input_col()])
+        self._check_width(X.shape[1])
+        # a gather, not the JAX device path's 0/1 matmul (C.10)
+        cols[self.get_output_col()] = select_columns(X, self.indices, consts["indices"])
+        return cols
 
     def set_model_data(self, *inputs: Table) -> "VarianceThresholdSelectorModel":
         (model_data,) = inputs
@@ -69,12 +88,7 @@ class VarianceThresholdSelectorModel(Model, VarianceThresholdSelectorModelParams
 
     def transform(self, *inputs: Table) -> List[Table]:
         (table,) = inputs
-        col = table.column(self.get_input_col())
-        X = _columns.staged_matrix(col)
-        if self.indices.size > 0 and self.indices.max() >= X.shape[1]:
-            raise ValueError("Model feature count does not match input vector size")
-        out = _columns.output(select_columns(X, self.indices), col)
-        return [table.with_columns({self.get_output_col(): out})]
+        return [self._transform_with_kernel(table, _columns.staged_matrix)]
 
     def _save_extra(self, path: str) -> None:
         read_write.save_model_arrays(path, indices=self.indices)

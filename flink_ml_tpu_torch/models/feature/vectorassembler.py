@@ -10,8 +10,11 @@ SparseBatch densified there, host columns staged to it) and the output is
 a tensor there. With host inputs only, they are staged to
 `config.device()` and the output comes back as numpy. Either way the
 dtype is the inputs' promoted one, as numpy's hstack gives it in the JAX
-package (a host SparseBatch densifies to float64). The NaN check costs
-one scalar probe; 'skip' then reads back which rows to drop.
+package (a host SparseBatch densifies to float64). Under 'error' or
+'keep' every input runs the transform kernel (host columns staged, a
+tensor SparseBatch densified), whose NaN check is a guard (one readback,
+drained at once eagerly or with its fused segment's); 'skip' reads back
+which rows to drop.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ...api import Transformer
 from ...common.param import HasHandleInvalid, HasInputCols, HasOutputCol
 from ...param import IntArrayParam
 from ...table import Table, as_dense_matrix
+from . import _columns
 
 
 class VectorAssemblerParams(HasInputCols, HasOutputCol, HasHandleInvalid):
@@ -42,34 +46,57 @@ class VectorAssemblerParams(HasInputCols, HasOutputCol, HasHandleInvalid):
         return self.set(self.INPUT_SIZES, list(values))
 
 
+_NAN_MESSAGE = (
+    "Encountered NaN while assembling a row with handleInvalid = 'error'. "
+    "Consider removing NaNs from dataset or using handleInvalid = 'keep' or 'skip'."
+)
+
+
 class VectorAssembler(Transformer, VectorAssemblerParams):
-    def transform(self, *inputs: Table) -> List[Table]:
-        (table,) = inputs
+    fusable = True
+
+    def supports_fusion(self) -> bool:
+        # 'skip' drops NaN rows: a data-dependent row count
+        return self.get_handle_invalid() != HasHandleInvalid.SKIP_INVALID
+
+    def _matrices(self, column):
+        """The input columns as (n, d) matrices, tensors left on their
+        device; `column(name)` gives a column."""
         in_cols = self.get_input_cols()
         if not in_cols:
             raise ValueError("Parameter inputCols must be set")
         sizes = self.get_input_sizes()
         mats = []
         for i, name in enumerate(in_cols):
-            m = as_dense_matrix(table.column(name), allow_device=True)
+            m = as_dense_matrix(column(name), allow_device=True)
             if sizes is not None and m.shape[1] != sizes[i]:
                 raise ValueError(
                     f"Input column {name} has size {m.shape[1]}, "
                     f"declared inputSizes[{i}] = {sizes[i]}"
                 )
             mats.append(m)
+        return mats
+
+    def transform_kernel(self, consts, cols, ctx):
+        out = torch.cat(self._matrices(cols.__getitem__), dim=1)
+        if self.get_handle_invalid() == HasHandleInvalid.ERROR_INVALID:
+            ctx.guard(torch.isnan(out).any(), _NAN_MESSAGE)
+        cols[self.get_output_col()] = out
+        return cols
+
+    def transform(self, *inputs: Table) -> List[Table]:
+        (table,) = inputs
+        if self.supports_fusion():
+            return [self._transform_with_kernel(table, _columns.staged_matrix)]
+        # 'skip' drops the rows with a NaN: a row count the kernel cannot give
+        mats = self._matrices(table.column)
         tensors = [m for m in mats if isinstance(m, torch.Tensor)]
         device = tensors[0].device if tensors else config.device()
         out = torch.cat([torch.as_tensor(m, device=device) for m in mats], dim=1)
-        bad_rows = torch.isnan(out).any(dim=1)
+        keep = ~torch.isnan(out).any(dim=1)
         result = table.with_columns({self.get_output_col(): out if tensors else out.cpu().numpy()})
-        if bool(bad_rows.any()):
-            handle = self.get_handle_invalid()
-            if handle == HasHandleInvalid.ERROR_INVALID:
-                raise ValueError(
-                    "Encountered NaN while assembling a row with handleInvalid = 'error'. "
-                    "Consider removing NaNs from dataset or using handleInvalid = 'keep' or 'skip'."
-                )
-            if handle == HasHandleInvalid.SKIP_INVALID:
-                result = result.take(np.nonzero(~bad_rows.cpu().numpy())[0])
-        return [result]
+        return [result.take(np.nonzero(keep.cpu().numpy())[0])]
+
+    def _outputs_on_host(self, cols) -> bool:
+        # any tensor input joins the others on its device
+        return not any(_columns.is_device_column(c) for c in cols.values())

@@ -65,6 +65,9 @@ def build_category_map(values: np.ndarray) -> Dict[float, int]:
 
 
 class VectorIndexerModel(Model, VectorIndexerModelParams):
+    fusable = False
+    fusable_reason = "python-dict category re-mapping with handleInvalid row drops (data-dependent row count)"
+
     def __init__(self):
         self.category_maps: Dict[int, Dict[float, int]] = None
 

@@ -13,7 +13,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ...api import Transformer
+from ...api import Transformer, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
 from ...param import IntArrayParam, ParamValidator
 from ...table import Table
@@ -45,25 +45,40 @@ class VectorSlicerParams(HasInputCol, HasOutputCol):
         return self.set(self.INDICES, list(values))
 
 
-def select_columns(X: torch.Tensor, indices) -> torch.Tensor:
+def select_columns(X: torch.Tensor, indices, index_tensor=None) -> torch.Tensor:
     """Columns `indices` of X, in order, exactly, on X's device. A run of
     neighbouring columns is a slice made contiguous (X itself when it is
     every column); other indices are one gather over the output rows
-    (index_select along columns would read X once per chosen column)."""
+    (index_select along columns would read X once per chosen column), by
+    `index_tensor` (the indices on X's device) when given."""
     idx = np.asarray(indices, dtype=np.int64)
     if idx.size and np.array_equal(idx, np.arange(idx[0], idx[0] + idx.size)):
         return X[:, int(idx[0]):int(idx[0]) + idx.size].contiguous()
-    return X[:, torch.as_tensor(idx, device=X.device)]
+    if index_tensor is None:
+        index_tensor = torch.as_tensor(idx, device=X.device)
+    return X[:, index_tensor]
 
 
 class VectorSlicer(Transformer, VectorSlicerParams):
-    def transform(self, *inputs: Table) -> List[Table]:
-        (table,) = inputs
+    fusable = True
+
+    def _checked_indices(self, width: int):
         indices = self.get_indices()
         if indices is None:
             raise ValueError("Parameter indices must be set")
-        col = table.column(self.get_input_col())
-        X = _columns.staged_matrix(col)
-        if max(indices) >= X.shape[1]:
-            raise ValueError(f"Index {max(indices)} out of range for vector size {X.shape[1]}")
-        return [table.with_columns({self.get_output_col(): _columns.output(select_columns(X, indices), col)})]
+        if max(indices) >= width:
+            raise ValueError(f"Index {max(indices)} out of range for vector size {width}")
+        return indices
+
+    def _kernel_constants(self):
+        return {"indices": np.asarray(self.get_indices() or [], dtype=np.int64)}
+
+    def transform_kernel(self, consts, cols, ctx):
+        X = as_kernel_matrix(cols[self.get_input_col()])
+        indices = self._checked_indices(X.shape[1])
+        cols[self.get_output_col()] = select_columns(X, indices, consts["indices"])
+        return cols
+
+    def transform(self, *inputs: Table) -> List[Table]:
+        (table,) = inputs
+        return [self._transform_with_kernel(table, _columns.staged_matrix)]

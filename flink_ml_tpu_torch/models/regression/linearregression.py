@@ -13,8 +13,6 @@ are staged to `config.device()` and give a float64 numpy prediction.
 
 from __future__ import annotations
 
-from typing import List
-
 from ...api import Estimator, Model
 from ...common.param import (
     HasElasticNet,
@@ -55,13 +53,10 @@ class LinearRegressionParams(
 class LinearRegressionModel(
     _linear.CoefficientModelData, Model, LinearRegressionModelParams
 ):
-    def transform(self, *inputs: Table) -> List[Table]:
-        (table,) = inputs
-        col = table.column(self.get_features_col())
-        pred = self._dot(col)
-        if not _linear.is_device_column(col):
-            (pred,) = _linear.packed_to_host(pred)
-        return [table.with_columns({self.get_prediction_col(): pred})]
+    def transform_kernel(self, consts, cols, ctx):
+        cols[self.get_prediction_col()] = _linear.raw_scores(
+            cols[self.get_features_col()], consts["coefficient"])
+        return cols
 
 
 class LinearRegression(Estimator, LinearRegressionParams):

@@ -27,6 +27,9 @@ class ANOVATestParams(HasFeaturesCol, HasLabelCol, HasFlatten):
 
 
 class ANOVATest(AlgoOperator, ANOVATestParams):
+    fusable = False
+    fusable_reason = "aggregate statistic: reduces the input to a single results row, not a record-wise transform"
+
     def transform(self, *inputs: Table) -> List[Table]:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

@@ -25,6 +25,9 @@ class ChiSqTestParams(HasFeaturesCol, HasLabelCol, HasFlatten):
 
 
 class ChiSqTest(AlgoOperator, ChiSqTestParams):
+    fusable = False
+    fusable_reason = "aggregate statistic: reduces the input to a single results row, not a record-wise transform"
+
     def transform(self, *inputs: Table) -> List[Table]:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

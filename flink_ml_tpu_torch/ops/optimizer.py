@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils.packing import packed_device_get
 from .losses import LossFunc
 
 #: the fit's compute dtype: host float64 columns are cast to it once, at staging
@@ -253,7 +254,7 @@ def read_train_result(async_result):
     """Bring an `optimize_async` result to the host in one transfer.
     Returns (flag_or_None, coeff[:d], criteria, epochs)."""
     _, packed, d, has_flag = async_result
-    host = packed.cpu().numpy()
+    (host,) = packed_device_get(packed, sync_kind="fit")
     return unpack_train_result(host, d, has_flag=has_flag)
 
 
@@ -357,7 +358,7 @@ class SGD:
                     state = _masked_epoch(Xk, yk, wk, state, float(self.tol), loss_func, lr, reg, en)
             finally:
                 batches.close()
-            host = _finish(state, lr, reg, en).cpu().numpy()
+            (host,) = packed_device_get(_finish(state, lr, reg, en), sync_kind="fit")
             stats = {**cache.stats, "ingestSeconds": ingest_s,
                      "deviceCache": loader.cache.stats}
         finally:

@@ -272,6 +272,10 @@ class WithParams:
         if value is not None:
             param.validate(value)
         params[param] = value
+        # a monotone token for the fusion planner's plan cache and the
+        # device-constant cache (api.AlgoOperator.device_constants): a
+        # param change invalidates captured transforms that baked the old value
+        self.__dict__["_params_version"] = self.__dict__.get("_params_version", 0) + 1
         return self
 
     def get(self, param: Param):

@@ -12,7 +12,10 @@ the floor probes are emulated in torch, the replaced designs of
 gradient's walk counters (`sparse_grad_walk`) are the plain gradient
 with the counts the table-overflow case asks for (the CPU has no walk),
 and each call of a kernel's plain version counts as a launch, as the
-kernel's does on the card. It catches
+kernel's does on the card. The fused transforms of phase 11 run on CPU
+tensors, where a fused segment calls its stages' kernels in turn with no
+capture (a CUDA graph exists only on the card), so each call counts its
+launches as a replay does there. It catches
 a broken path, check or output line before a chip run; every number it
 prints is a CPU number and none stands for the card's.
 """
