@@ -223,7 +223,36 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    and the memory the graph keeps,
    counted directly: its static feed, and its segment's pool from the
    allocator's snapshot;
-12. a `kernels` JSON line (four kernels), then the result line.
+12. serving (`serving_phase`): phase 10's eight sparse LR members (d = 1e6),
+   each alone in a PipelineModel registered in one ModelStore whose budget
+   holds four members' constants (so traffic pages), with a quota of four
+   requests each, served at buckets (64, 256, 1024, 4096), form_rows 4096
+   and the default forming budget, window and admission: every (tenant x
+   bucket) graph captured by `warmup` ahead of traffic; 20,000 requests of
+   1-512 rows (log-uniform), each a slice of phase 3's 1M x 39 table, for
+   tenants drawn by Zipf(1.1), all seeded, served through the pull loop
+   and then through submit/results in each of "request", "fixed" and
+   "continuous" mode from a producer thread that backs off on
+   ServerOverloaded. Every served row equals its tenant's own transform of
+   the same rows bit for bit (the three modes and the pull loop alike) and
+   phase 2's plain row dot within ROW_DOTS_TOL; one sparse_row_dots launch
+   and one transform host sync a dispatched batch; no capture after
+   warmup and no "error" result; the store's ledgered model bytes within
+   its budget at every page-in, and every page-out lowering
+   torch.cuda.memory_allocated by at least the tenant's constant bytes.
+   Then train while serving: phase 3's online LR behind a ModelLifecycle
+   (a canary of 256 held-out rows), served in continuous mode while a
+   trainer thread promotes 20 versions (phase 3's traced FTRL versions
+   and their midpoints), sends a NaN-poisoned and a wrong-shape candidate
+   (each refused once), reports a run of guard errors that rolls back to
+   the last-good version (its arrays bit for bit, its original id) and
+   promotes phase 10's dense fleet winner by held-out AUC: every result
+   stamped with one version and equal to that version's eager transform,
+   no capture. It prints requests/s and rows/s of each mode, health()'s
+   p50/p99 by stage, rejected, expired and coalesced counts, the store's
+   hits, misses and evictions, fused against eager warm medians at each
+   bucket and the card's idle share (CUDA events);
+13. a `kernels` JSON line (four kernels), then the result line.
 """
 
 from __future__ import annotations
@@ -235,6 +264,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -4322,7 +4352,7 @@ def fleet_phase(sk, dev, tmp, tables):
     X64 = X[:touched].double().cpu().numpy()
     y64 = tables["dense"].column("label")[:touched].double().cpu().numpy()
     w64 = tables["dense"].column("weight")[:touched].double().cpu().numpy()
-    _, out["dense lr fleet"] = dense_fleet(tables["dense"], X64, y64, w64)
+    dense_models, out["dense lr fleet"] = dense_fleet(tables["dense"], X64, y64, w64)
     del X64
     km_models, out["kmeans fleet"] = kmeans_fleet(tables["kmeans"])
     out["stream lr fleet"] = stream_fleet(tables["stream_cols"], tables["bounded"])
@@ -4330,7 +4360,7 @@ def fleet_phase(sk, dev, tmp, tables):
         sk, dev, tmp, sparse_models, km_models, tables["sparse"], tables["kmeans"])
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase 10 took {out['seconds']:.2f} s")
-    return out
+    return out, {"sparse": sparse_models, "dense": dense_models}
 
 
 # -- phase 11: fused transforms ---------------------------------------------------
@@ -4831,6 +4861,582 @@ def fusion_phase(sk, dev, runs, sparse_table, dense_table, p_table, held_table):
     return result
 
 
+# -- phase 12: serving ---------------------------------------------------------------
+SERVE_REQUESTS = 20_000
+SERVE_MAX_ROWS = 512
+SERVE_BUCKETS = (64, 256, 1024, 4096)
+SERVE_ZIPF = 1.1
+SERVE_SEED = 23
+#: the store's budget holds this many tenants' constants, so traffic pages
+SERVE_RESIDENT = 4
+#: each tenant's share of the admission queue (16 by default). Fixed
+#: batching holds a tenant's requests until their rows fill the largest
+#: bucket, which this few requests cannot: its run lifts the quota to that
+#: bucket's rows (a request has at least one)
+SERVE_QUOTA = 4
+#: a refused client's backoff: doubling from the first to the second
+SERVE_BACKOFF_S = (100e-6, 2e-3)
+SERVE_WAIT_S = 300.0
+ONLINE_REQUESTS = 2_000
+#: the columns a client keeps of a sparse tenant's result and of the online LR's
+SERVE_COLUMNS = ("prediction", "rawPrediction")
+ONLINE_COLUMNS = ("prediction", "rawPrediction", "modelVersion")
+LIFECYCLE_VERSIONS = 20
+LIFECYCLE_CANARY_ROWS = 256
+#: the rollback leg's health window
+LIFECYCLE_WINDOW = 8
+
+
+def serve_plan(count, rows_total, tenants, seed):
+    """`count` requests (tenant, first row, rows): 1-SERVE_MAX_ROWS rows,
+    log-uniform; tenants by Zipf(SERVE_ZIPF)."""
+    rng = np.random.default_rng(seed)
+    sizes = np.floor(np.exp(rng.uniform(0.0, np.log(SERVE_MAX_ROWS + 1), count))).astype(np.int64)
+    sizes = np.clip(sizes, 1, SERVE_MAX_ROWS)
+    starts = rng.integers(0, rows_total - SERVE_MAX_ROWS, count)
+    weights = 1.0 / np.arange(1, tenants + 1) ** SERVE_ZIPF
+    owners = rng.choice(tenants, size=count, p=weights / weights.sum())
+    return list(zip(owners.tolist(), starts.tolist(), sizes.tolist()))
+
+
+def host_column(col):
+    return col.cpu().numpy() if isinstance(col, torch.Tensor) else np.asarray(col)
+
+
+#: the CPU rehearsal's allowance (ROADMAP C.19: on the CPU torch's
+#: vectorized math and its scalar tail may put a row an ulp away by its
+#: offset in the batch); on the card served rows are held bit for bit
+REHEARSAL_MAX_ULP = 2
+
+
+def same_rows(a, b) -> bool:
+    """Served rows against their reference: bit for bit on the card."""
+    a, b = np.asarray(a), np.asarray(b)
+    if DEVICE == "cuda" or a.dtype.kind != "f":
+        return a.shape == b.shape and np.array_equal(a, b)
+    return a.shape == b.shape and bool(np.all(np.abs(
+        a.astype(np.float32).view(np.int32).astype(np.int64)
+        - b.astype(np.float32).view(np.int32).astype(np.int64)) <= REHEARSAL_MAX_ULP))
+
+
+def push_run(server, plan, make, tenant_of, columns, gate=None):
+    """Submit every request of `plan` from a producer thread that backs off
+    on ServerOverloaded (and, given `gate`, stops where the trainer stops
+    it), consuming the results on this thread, of which it keeps the
+    status and `columns` on the host (a client keeps what it asked for).
+    Returns ({request index: {"status", column: host array}}, wall ms,
+    refusals)."""
+    from flink_ml_tpu_torch import flow
+    from flink_ml_tpu_torch.serving import ServerOverloaded
+
+    seqs, rejected, errors = [], [0], []
+
+    def produce():
+        try:
+            for i, req in enumerate(plan):
+                table = make(req)
+                if gate is not None:
+                    gate.wait_open(i)
+                deadline, backoff = time.monotonic() + SERVE_WAIT_S, SERVE_BACKOFF_S[0]
+                while True:
+                    try:
+                        seqs.append(server.submit(table, tenant=tenant_of(req)))
+                        break
+                    except ServerOverloaded:
+                        rejected[0] += 1
+                        check(time.monotonic() < deadline, f"request {i} was refused for "
+                                                           f"{SERVE_WAIT_S} s")
+                        time.sleep(backoff)
+                        backoff = min(2.0 * backoff, SERVE_BACKOFF_S[1])
+                if gate is not None:
+                    gate.submitted = i + 1
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+        finally:
+            server.close()
+
+    t0 = time.perf_counter()
+    producer = flow.spawn(produce, name="serve.producer")
+    results = {}
+    for r in server.results():
+        kept = {"status": r.status}
+        if r.table is not None:
+            kept.update((c, host_column(r.table.column(c))) for c in columns)
+        results[r.seq] = kept
+        if gate is not None:
+            gate.retired = len(results)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    producer.join(timeout=SERVE_WAIT_S)
+    check(not producer.is_alive(), "the producer thread did not finish")
+    if errors:
+        raise errors[0]
+    check(len(results) == len(plan) == len(seqs), f"{len(results)} results of {len(plan)} requests")
+    return {i: results[seq] for i, seq in enumerate(seqs)}, wall_ms, rejected[0]
+
+
+class TrafficGate:
+    """Where the online run's producer stops for the trainer: at each stop
+    index the producer waits until the trainer has done what it does there
+    (a promotion; the rollback leg), so each promotion lands between known
+    requests. It counts what was submitted; the consumer counts what
+    retired."""
+
+    def __init__(self, stops):
+        self.reached = {i: threading.Event() for i in stops}
+        self.release = {i: threading.Event() for i in stops}
+        self.submitted = self.retired = 0
+
+    def wait_open(self, i):  # the producer, before request i
+        if i in self.release:
+            self.reached[i].set()
+            check(self.release[i].wait(SERVE_WAIT_S), f"traffic was held at request {i}")
+
+    def at(self, i):  # the trainer: the producer stands at stop i
+        check(self.reached[i].wait(SERVE_WAIT_S), f"traffic never reached request {i}")
+
+    def drain(self):  # the trainer, traffic stopped: every submitted request retired
+        deadline = time.monotonic() + SERVE_WAIT_S
+        while self.retired < self.submitted:
+            check(time.monotonic() < deadline, "the window never drained")
+            time.sleep(0.001)
+
+    def go(self, i):
+        self.release[i].set()
+
+    def open_all(self):
+        for event in self.release.values():
+            event.set()
+
+
+def serving_counters():
+    from flink_ml_tpu_torch.utils import metrics
+
+    return {k: metrics.get_counter(k) for k in ("iteration.host_sync.transform", "serving.coalesced")}
+
+
+def stage_percentiles(server):
+    return {stage: None if p is None else {"p50": p["p50"], "p99": p["p99"], "count": p["count"]}
+            for stage, p in server.health().stageLatencyMs.items()}
+
+
+def bucket_times(sk, pm, idx, vals):
+    """Fused against eager warm medians of `pm` at each serving bucket, its
+    device time (CUDA events, `device_span_ms`) and idle share."""
+    from flink_ml_tpu_torch import SparseBatch, Table
+
+    out = {}
+    for bucket in SERVE_BUCKETS:
+        table = Table({"features": SparseBatch(SPARSE_DIM, idx[:bucket], vals[:bucket])})
+        traces = _counter("jit.traces")
+        fused_runs = [synced(lambda: pm.transform(table)[0])[1] for _ in range(FUSED_REPEATS)]
+        eager_runs = [synced(lambda: _eager(pm, table))[1] for _ in range(FUSED_REPEATS)]
+        check(_counter("jit.traces") == traces, f"a transform at bucket {bucket} captured")
+        fused_ms, eager_ms = float(np.median(fused_runs)), float(np.median(eager_runs))
+        device = {"fused": device_span_ms(lambda: pm.transform(table)[0]),
+                  "eager": device_span_ms(lambda: _eager(pm, table))}
+        out[bucket] = {"fused_ms": fused_ms, "eager_ms": eager_ms, "fused_runs": fused_runs,
+                       "eager_runs": eager_runs, "fused_device_ms": device["fused"],
+                       "eager_device_ms": device["eager"],
+                       "fused_idle": 1.0 - device["fused"] / max(fused_ms, 1e-9),
+                       "eager_idle": 1.0 - device["eager"] / max(eager_ms, 1e-9)}
+        log(f"  bucket {bucket}: fused median {fused_ms:.3f} ms (runs "
+            f"{[round(t, 3) for t in fused_runs]}), eager median {eager_ms:.3f} ms (runs "
+            f"{[round(t, 3) for t in eager_runs]}); device {device['fused']:.4f} / "
+            f"{device['eager']:.4f} ms, idle {out[bucket]['fused_idle']:.1%} / "
+            f"{out[bucket]['eager_idle']:.1%}")
+    return out
+
+
+def count_buckets(server):
+    """Count the server's staged batches by bucket."""
+    from flink_ml_tpu_torch.parallel.prefetch import next_bucket
+
+    counts = {}
+    stage = server._stage_batch
+
+    def counted(batch):
+        b = next_bucket(batch.num_rows, server.buckets)
+        counts[b] = counts.get(b, 0) + 1
+        return stage(batch)
+
+    server._stage_batch = counted
+    return counts
+
+
+def watch_store(store, base):
+    """Record, at every page-in, the store's ledgered model bytes, and at
+    every page-out the fall of torch.cuda.memory_allocated against the
+    tenant's constant bytes."""
+    from flink_ml_tpu_torch.obs import memledger
+
+    seen = {"peak": 0, "page_ins": 0, "page_outs": []}
+    page_in, page_out = store.page_in, store._page_out_locked
+
+    def watched_page_in(key):
+        entry = page_in(key)
+        seen["peak"] = max(seen["peak"], memledger.live_bytes("model") - base)
+        seen["page_ins"] += 1
+        return entry
+
+    def watched_page_out(key, entry, count_eviction=True):
+        nbytes = entry.dev_nbytes
+        before = torch.cuda.memory_allocated()
+        page_out(key, entry, count_eviction)
+        seen["page_outs"].append((nbytes, before - torch.cuda.memory_allocated()))
+
+    store.page_in, store._page_out_locked = watched_page_in, watched_page_out
+    return seen
+
+
+def serving_phase(sk, dev, sparse_models, sparse_table, online, online_trace, dense_models,
+                  held_table):
+    """Phase 12: MicroBatchServer, ModelStore and ModelLifecycle on the card.
+    Returns what the output lines print."""
+    from flink_ml_tpu_torch import PipelineModel, SparseBatch, Table
+    from flink_ml_tpu_torch.data.modelstore import ModelStore
+    from flink_ml_tpu_torch.models.classification import logisticregression
+    from flink_ml_tpu_torch.obs import hist, memledger
+    from flink_ml_tpu_torch.serving import MicroBatchServer
+
+    t_phase = time.perf_counter()
+    result = {}
+    feats = sparse_table.column("features")
+    idx_h, vals_h = feats.indices.cpu().numpy(), feats.values.cpu().numpy()
+    tenants = [f"tenant{i}" for i in range(len(sparse_models))]
+    pms = [PipelineModel([m]) for m in sparse_models]
+
+    # each tenant's own transform of the whole table, and phase 2's plain row dot
+    refs, plain = [], []
+    for model, pm in zip(sparse_models, pms):
+        own = _eager(pm, sparse_table)
+        refs.append({c: host_column(own.column(c)) for c in ("prediction", "rawPrediction")})
+        coeff = torch.as_tensor(model.coefficient, dtype=torch.float32, device=dev)
+        plain.append(host_column(logisticregression._predict_from_dot(
+            sk.sparse_row_dots_plain(feats.indices, feats.values, coeff))[1]))
+        check(np.allclose(refs[-1]["rawPrediction"], plain[-1], **ROW_DOTS_TOL),
+              "a tenant's transform differs from the plain row dot")
+
+    # the store: budget for SERVE_RESIDENT tenants' constants
+    memledger_base = memledger.live_bytes("model")
+    probe = ModelStore(budget_bytes=None, name="probe")
+    probe.register("x", PipelineModel([sparse_models[0]]))
+    est = probe.estimated_nbytes("x")
+    probe.unregister("x")
+    store = ModelStore(budget_bytes=SERVE_RESIDENT * est)
+    for key, pm in zip(tenants, pms):
+        store.register(key, pm, quota=SERVE_QUOTA)
+    base = memledger.live_bytes("model")
+    seen = watch_store(store, base)
+    log(f"  store: {len(tenants)} tenants of {est} constant bytes each (ledger base "
+        f"{memledger_base} -> {base} bytes of other models), budget {store.budget_bytes} bytes "
+        f"({SERVE_RESIDENT} tenants)")
+
+    plan = serve_plan(SERVE_REQUESTS, sparse_table.num_rows, len(tenants), SERVE_SEED)
+    rows_total = sum(n for _, _, n in plan)
+
+    def make(req):
+        _, start, n = req
+        return Table({"features": SparseBatch(SPARSE_DIM, idx_h[start:start + n],
+                                              vals_h[start:start + n])})
+
+    def tenant_of(req):
+        return tenants[req[0]]
+
+    example = make(plan[0])
+    warm = MicroBatchServer(store=store, buckets=SERVE_BUCKETS)
+    sk.reset_launch_counts()
+    warmed = warm.warmup(example)
+    warm_launches = sk.launch_counts()
+    check(warm_launches == launch_dict(sparse_row_dots=int(warmed["programs"])),
+          f"warmup launched {warm_launches} for {warmed['programs']} programs")
+    traces = _counter("jit.traces")
+    log(f"  warmup: {warmed['programs']:.0f} (tenant x bucket) programs in "
+        f"{warmed['warmupMs']:.1f} ms, {warmed['captures']:.0f} captures (one a bucket: the "
+        f"tenants share their architecture's graphs)")
+    check(warmed["captures"] == (len(SERVE_BUCKETS) if DEVICE == "cuda" else 0),
+          f"warmup captured {warmed['captures']} graphs")
+
+    runs = {}
+    for mode in ("pull",) + ("request", "fixed", "continuous"):
+        hist.reset()
+        before, stats0 = serving_counters(), dict(store.stats)
+        sk.reset_launch_counts()
+        if mode == "pull":
+            server = MicroBatchServer(store=store, buckets=SERVE_BUCKETS)
+        else:
+            quotas = ({t: SERVE_BUCKETS[-1] for t in tenants} if mode == "fixed" else None)
+            server = MicroBatchServer(store=store, buckets=SERVE_BUCKETS, batching=mode,
+                                      form_rows=SERVE_BUCKETS[-1], tenant_quotas=quotas)
+        by_bucket = count_buckets(server)
+        if mode == "pull":
+            # a client keeps what it asked for, not the batch's input buffers
+            t0 = time.perf_counter()
+            served = {i: {c: out.column(c) for c in SERVE_COLUMNS} for i, out in enumerate(
+                server.serve((tenant_of(req), make(req)) for req in plan))}
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            rejected = 0
+        else:
+            results, wall_ms, rejected = push_run(server, plan, make, tenant_of, SERVE_COLUMNS)
+            statuses = sorted({r["status"] for r in results.values()})
+            check(statuses == ["ok"], f"{mode}: statuses {statuses}")
+            served = results
+        counts = sk.launch_counts()
+        after = serving_counters()
+        dispatched = server.watchdog.samples
+        delta = {k: after[k] - before[k] for k in after}
+        check(counts == launch_dict(sparse_row_dots=dispatched),
+              f"{mode}: launches {counts} for {dispatched} dispatched batches")
+        check(delta["iteration.host_sync.transform"] == dispatched,
+              f"{mode}: {delta['iteration.host_sync.transform']} transform syncs for "
+              f"{dispatched} dispatched batches")
+        check(_counter("jit.traces") == traces, f"{mode}: captured after warmup")
+        mismatched = []
+        for i, (owner, start, n) in enumerate(plan):
+            cols = {c: host_column(v) for c, v in served[i].items() if c in SERVE_COLUMNS}
+            check(len(cols["prediction"]) == n, f"{mode}: request {i} has "
+                                                f"{len(cols['prediction'])} rows of {n}")
+            for col in SERVE_COLUMNS:
+                if not same_rows(cols[col], refs[owner][col][start:start + n]):
+                    mismatched.append((i, col))
+            check(np.allclose(cols["rawPrediction"], plain[owner][start:start + n], **ROW_DOTS_TOL),
+                  f"{mode}: request {i} differs from the plain row dot")
+        check(not mismatched, f"{mode}: {len(mismatched)} served columns differ from their "
+                              f"tenant's own transform, first {mismatched[:3]}")
+        stats = {k: store.stats[k] - stats0.get(k, 0) if k in ("hits", "misses", "evictions")
+                 else store.stats[k] for k in store.stats}
+        health = server.health()
+        runs[mode] = {
+            "requests": len(plan), "rows": rows_total, "wall_ms": wall_ms,
+            "requests_per_s": len(plan) / (wall_ms / 1e3), "rows_per_s": rows_total / (wall_ms / 1e3),
+            "dispatched": dispatched, "launches": counts["sparse_row_dots"],
+            "transform_syncs": delta["iteration.host_sync.transform"],
+            "rejected": health.rejected, "producer_backoffs": rejected,
+            "expired": health.expired, "coalesced": delta["serving.coalesced"],
+            "store": stats, "stages_ms": stage_percentiles(server),
+            "buckets_seen": health.bucketsSeen, "batches_by_bucket": dict(sorted(by_bucket.items())),
+        }
+        log(f"  {mode}: {len(plan)} requests ({rows_total} rows) in {wall_ms:.1f} ms: "
+            f"{runs[mode]['requests_per_s']:.0f} requests/s, {runs[mode]['rows_per_s']:.0f} rows/s; "
+            f"{dispatched} batches, {counts['sparse_row_dots']} row dots, "
+            f"{delta['iteration.host_sync.transform']} transform syncs; rejected "
+            f"{health.rejected}, expired {health.expired}, coalesced {delta['serving.coalesced']}; "
+            f"store hits {stats['hits']}, misses {stats['misses']}, evictions "
+            f"{stats['evictions']}; every row equal to its tenant's own transform")
+        log(f"    stages p50/p99 ms: " + "; ".join(
+            f"{k} {v['p50']:.3f}/{v['p99']:.3f}" for k, v in runs[mode]["stages_ms"].items() if v))
+    check(seen["peak"] <= store.budget_bytes,
+          f"the store's ledgered bytes reached {seen['peak']} of a {store.budget_bytes} budget")
+    outs = seen["page_outs"]
+    check(bool(outs), "traffic never paged a tenant out")
+    if DEVICE == "cuda":
+        short = [(n, fell) for n, fell in outs if fell < n]
+        check(not short, f"{len(short)} of {len(outs)} page-outs freed less than the tenant's "
+                         f"constants: {short[:3]}")
+    log(f"  store: ledgered model bytes at most {seen['peak']} of {store.budget_bytes} at "
+        f"{seen['page_ins']} page-ins; {len(outs)} page-outs, each lowering memory_allocated "
+        f"by at least its {outs[0][0]} constant bytes (least fall {min(f for _, f in outs)})")
+    result["runs"] = runs
+    result["store"] = {"budget": store.budget_bytes, "constant_bytes": est,
+                       "peak_ledgered": seen["peak"], "page_ins": seen["page_ins"],
+                       "page_outs": len(outs), "least_fall": min(f for _, f in outs)}
+    result["buckets"] = bucket_times(sk, pms[0], feats.indices, feats.values)
+    for mode, r in runs.items():
+        # the run's device time: its batches by bucket, each at its bucket's
+        # fused device time (CUDA events)
+        r["device_ms"] = sum(n * result["buckets"][b]["fused_device_ms"]
+                             for b, n in r["batches_by_bucket"].items())
+        r["idle"] = 1.0 - r["device_ms"] / r["wall_ms"]
+        log(f"  {mode}: device time {r['device_ms']:.1f} ms of {r['wall_ms']:.1f} ms wall, "
+            f"idle {r['idle']:.1%} (batches by bucket {r['batches_by_bucket']})")
+    result["launches_by_run"] = {"warmup": warm_launches["sparse_row_dots"],
+                                 **{mode: r["launches"] for mode, r in runs.items()}}
+
+    # -- train while serving ------------------------------------------------------
+    result["lifecycle"] = lifecycle_soak(sk, dev, online, online_trace, dense_models, held_table)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12 took {result['seconds']:.2f} s")
+    return result
+
+
+def row_invariance(dev, X_h, coeff):
+    """How many rows of the first m (each serving bucket) get other bits
+    than in one product over all rows: a matrix-vector product (`X @ c`,
+    which picks its kernel by the row count) against the row-by-row
+    reduction the online LR's kernel runs (`sum(X * c, 1)`; ROADMAP C.20)."""
+    X = torch.as_tensor(X_h, device=dev)
+    c = torch.as_tensor(coeff, device=dev)
+    full = {"matvec": X @ c, "row sums": torch.sum(X * c, dim=1)}
+    out = {}
+    for name, ref in full.items():
+        out[name] = {}
+        for m in SERVE_BUCKETS:
+            part = X[:m] @ c if name == "matvec" else torch.sum(X[:m] * c, dim=1)
+            out[name][m] = int(torch.count_nonzero(part != ref[:m]))
+    log(f"  rows whose dot differs from the product over all {X.shape[0]} rows, by rows "
+        f"batched: {out}")
+    return out
+
+
+def lifecycle_soak(sk, dev, online, trace, dense_models, held_table):
+    """Train while serving: `online` (phase 3's FTRL model) in a
+    PipelineModel behind a ModelLifecycle, served in continuous mode, while
+    a trainer thread promotes LIFECYCLE versions, sends a NaN-poisoned and a
+    wrong-shape candidate, reports guard errors until traffic rolls back,
+    and promotes the dense fleet's winner by held-out AUC."""
+    from flink_ml_tpu_torch import PipelineModel, Table, flow
+    from flink_ml_tpu_torch.fleet import promote_fleet_winner
+    from flink_ml_tpu_torch.lifecycle import ModelLifecycle, PromotionRejected
+    from flink_ml_tpu_torch.models.classification.onlinelogisticregression import (
+        OnlineLogisticRegressionModel)
+    from flink_ml_tpu_torch.models.evaluation.binaryclassification import (
+        BinaryClassificationEvaluator)
+    from flink_ml_tpu_torch.serving import MicroBatchServer
+    from flink_ml_tpu_torch.utils import metrics
+
+    X_h = held_table.column("features").cpu().numpy()
+    arrays0, version0 = online.model_arrays(), online.model_version
+    # LIFECYCLE_VERSIONS candidates along the traced FTRL versions (every
+    # tenth, then the last): points of that path at even steps
+    path = [np.asarray(trace[v], np.float64) for v in sorted(trace)] + [
+        np.asarray(arrays0[0], np.float64)]
+    candidates = []
+    for at in np.linspace(0.0, len(path) - 1, LIFECYCLE_VERSIONS):
+        lo, frac = int(np.floor(at)), at - np.floor(at)
+        hi = min(lo + 1, len(path) - 1)
+        candidates.append((1.0 - frac) * path[lo] + frac * path[hi])
+    nan = candidates[6].copy()
+    nan[3] = np.nan
+    schedule = candidates[:7] + [nan] + candidates[7:13] + [np.ones(DIM + 1)] + candidates[13:]
+    evaluator = BinaryClassificationEvaluator().set_metrics_names("areaUnderROC")
+    aucs = [float(evaluator.transform(m.transform(held_table)[0])[0].collect()[0]["areaUnderROC"])
+            for m in dense_models]
+    canary = {"features": X_h[:LIFECYCLE_CANARY_ROWS].astype(np.float32)}
+    # the canary's gate accepts any LR output (rtol 1.0): it runs on the card
+    # under the capture lock, and the fleet winner, trained on other labels,
+    # must pass it
+    lc = ModelLifecycle(online, canary=canary, canary_rtol=1.0, health_window=LIFECYCLE_WINDOW)
+    pm = PipelineModel([online])
+    server = MicroBatchServer(pm, buckets=SERVE_BUCKETS, batching="continuous",
+                              form_rows=SERVE_BUCKETS[-1], lifecycle=lc)
+    plan = serve_plan(ONLINE_REQUESTS, X_h.shape[0], 1, SERVE_SEED + 1)
+    example = Table({"features": X_h[:SERVE_MAX_ROWS]})
+    warmed = server.warmup(example)
+    traces = _counter("jit.traces")
+    rejected0 = metrics.get_counter("lifecycle.promoteRejected")
+    coalesced0 = metrics.get_counter("serving.coalesced")
+    # a promotion every `step` requests over the first half; the rollback
+    # leg and the fleet winner at the middle
+    step = max(1, ONLINE_REQUESTS // (2 * len(schedule) + 2))
+    stops = [step * (k + 1) for k in range(len(schedule))]
+    middle = max(stops[-1] + 1, ONLINE_REQUESTS // 2)
+    gate = TrafficGate(stops + [middle])
+    published = {version0: np.asarray(arrays0[0], np.float64)}
+    events = {"rejected": [], "rollback": None, "winner": None, "errors": []}
+
+    def trainer():
+        try:
+            for stop, cand in zip(stops, schedule):
+                gate.at(stop)
+                try:
+                    entry = lc.promote((cand,))
+                    published[entry.version_id] = entry.arrays[0]
+                except PromotionRejected as e:
+                    events["rejected"].append(e.reason)
+                gate.go(stop)
+            gate.at(middle)
+            gate.drain()
+            good_id = lc.last_good
+            kept = {v.version_id: v.arrays[0] for v in lc._ring}
+            check(good_id in kept and good_id == online.model_version,
+                  f"last-good version {good_id} ({sorted(kept)} retained; published "
+                  f"{online.model_version})")
+            good = kept[good_id]
+            bad = lc.promote((-3.0 * candidates[-1],))
+            published[bad.version_id] = bad.arrays[0]
+            reports = 0
+            while lc.rollback_count == 0 and reports < 4 * LIFECYCLE_WINDOW:
+                lc.record_guard_error(ValueError("a guard fired on the served batch"))
+                reports += 1
+            events["rollback"] = {
+                "from": bad.version_id, "to": online.model_version, "last_good": good_id,
+                "reports": reports, "quarantined": lc.quarantined,
+                "bits": bool(np.array_equal(online.coefficient, good))}
+            lc.release_quarantine()
+            winner, entry = promote_fleet_winner(lc, dense_models, aucs)
+            published[entry.version_id] = entry.arrays[0]
+            events["winner"] = {"member": winner, "version": entry.version_id, "auc": aucs[winner]}
+        except BaseException as e:  # noqa: BLE001 - raised below
+            events["errors"].append(e)
+        finally:
+            gate.open_all()
+
+    worker = flow.spawn(trainer, name="serve.trainer")
+
+    def make(req):
+        _, start, n = req
+        return Table({"features": X_h[start:start + n]})
+
+    try:
+        results, wall_ms, backoffs = push_run(server, plan, make, lambda req: None,
+                                              ONLINE_COLUMNS, gate)
+        worker.join(timeout=SERVE_WAIT_S)
+        check(not worker.is_alive(), "the trainer thread did not finish")
+        if events["errors"]:
+            raise events["errors"][0]
+        statuses = sorted({r["status"] for r in results.values()})
+        check(statuses == ["ok"], f"online: statuses {statuses}")
+        check(_counter("jit.traces") == traces, "the soak captured after warmup")
+        check(sorted(events["rejected"]) == ["nonfinite", "shape"] and lc.promote_rejected == 2
+              and metrics.get_counter("lifecycle.promoteRejected") - rejected0 == 2,
+              f"promotions refused {events['rejected']}, counted {lc.promote_rejected}")
+        rb = events["rollback"]
+        check(rb is not None and rb["to"] == rb["last_good"] and rb["bits"] and rb["quarantined"],
+              f"rollback {rb}")
+        # every result: one version, equal to that version's eager transform
+        by_version = {}
+        for i, (_, start, n) in enumerate(plan):
+            versions = np.unique(results[i]["modelVersion"])
+            check(len(versions) == 1 and int(versions[0]) in published,
+                  f"online request {i} stamped {versions}")
+            by_version.setdefault(int(versions[0]), []).append(i)
+        mismatched = []
+        for version, members in by_version.items():
+            ref_model = OnlineLogisticRegressionModel()
+            ref_model.publish_model_arrays((published[version],), version)
+            rows = np.concatenate([X_h[plan[i][1]:plan[i][1] + plan[i][2]] for i in members])
+            ref = _eager(PipelineModel([ref_model]), Table({
+                "features": torch.as_tensor(rows, dtype=torch.float32, device=dev)}))
+            offset = 0
+            for i in members:
+                n = plan[i][2]
+                for col in ONLINE_COLUMNS:
+                    want = host_column(ref.column(col))[offset:offset + n]
+                    if not same_rows(results[i][col], want):
+                        mismatched.append((i, version, col))
+                offset += n
+        check(not mismatched, f"online: {len(mismatched)} served columns differ from their "
+                              f"version's eager transform, first {mismatched[:3]}")
+    finally:
+        online.publish_model_arrays(arrays0, version0)
+    rows_total = sum(n for _, _, n in plan)
+    health = server.health()
+    invariance = row_invariance(dev, X_h, np.asarray(arrays0[0], np.float32))
+    out = {"row_invariance": invariance, "requests": len(plan), "rows": rows_total, "wall_ms": wall_ms,
+           "requests_per_s": len(plan) / (wall_ms / 1e3), "rows_per_s": rows_total / (wall_ms / 1e3),
+           "versions_served": sorted(by_version), "promoted": len(published) - 1,
+           "refused": events["rejected"], "rollback": rb, "winner": events["winner"],
+           "warmup_captures": warmed["captures"], "captures_after_warmup": 0,
+           "coalesced": metrics.get_counter("serving.coalesced") - coalesced0,
+           "rejected": health.rejected,
+           "stages_ms": stage_percentiles(server)}
+    log(f"  train while serving: {len(plan)} requests ({rows_total} rows) in {wall_ms:.1f} ms, "
+        f"{out['requests_per_s']:.0f} requests/s; {len(by_version)} versions served "
+        f"{sorted(by_version)}; refused {events['rejected']}; rollback {rb}; fleet winner "
+        f"{events['winner']}; every result equal to its version's eager transform; no capture "
+        f"after warmup")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; the port's kernels run only on the card",
@@ -5095,7 +5701,7 @@ def main() -> int:
         "loader (launch counts reset before and read after each)")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        fleets = fleet_phase(sk, dev, tmp, {
+        fleets, fleet_models = fleet_phase(sk, dev, tmp, {
             "sparse": sparse_table, "dense": dense_table, "kmeans": km_table,
             "stream_cols": stream_cols, "bounded": bounded_table})
     high_water = max([high_water] + [r["peak_gib"] for r in fleets.values()
@@ -5114,6 +5720,19 @@ def main() -> int:
     fused_launches = {f"fused {name} (a replay)": r["replay_launches"]["sparse_row_dots"]
                       for name, r in fused.items() if name.startswith("sparse lr")}
     for n in fused_launches.values():
+        launches["sparse_row_dots"] += n
+
+    # -- 12. serving -----------------------------------------------------------------
+    log("phase 12: serving: phase 10's sparse LR members as ModelStore tenants behind a "
+        "MicroBatchServer (pull loop, then request, fixed and continuous push modes), then "
+        "phase 3's online LR behind a ModelLifecycle while a trainer promotes (launch counts "
+        "reset before and read after each run)")
+    torch.cuda.empty_cache()
+    serving = serving_phase(sk, dev, fleet_models["sparse"], sparse_table, runs["online lr"]["model"],
+                            traces["online lr"], fleet_models["dense"], held_table)
+    path_s["serving"] = serving["seconds"]
+    serving_launches = {f"serving {run}": n for run, n in serving["launches_by_run"].items()}
+    for n in serving_launches.values():
         launches["sparse_row_dots"] += n
 
     # -- output -----------------------------------------------------------------
@@ -5137,7 +5756,8 @@ def main() -> int:
                                  "graph transform": graph_run["transform_launches"][name],
                                  "reference-format transform":
                                      fleets["reference format"]["launches"]["winner"][name],
-                                 **(fused_launches if name == "sparse_row_dots" else {})},
+                                 **(fused_launches if name == "sparse_row_dots" else {}),
+                                 **(serving_launches if name == "sparse_row_dots" else {})},
             "launches_by_feature_path": {p: r["launches"][name] for p, r in
                                          {**features, **texts, **stat_stages, **slice8}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -5183,7 +5803,8 @@ def main() -> int:
     log("phase 9 stages: " + json.dumps(slice8) + "; window_all_and_process: " + json.dumps(windows_run))
     log("fleets and reference format: " + json.dumps(fleets))
     log("fused transforms: " + json.dumps(fused))
-    log("seconds by path (phases 3-11): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("serving: " + json.dumps(serving))
+    log("seconds by path (phases 3-12): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")

@@ -69,38 +69,78 @@ def column_dtype(col) -> torch.dtype:
     return col.values.dtype if isinstance(col, SparseBatch) else col.dtype
 
 
+def _map_leaves(node, fn):
+    """`node` (dicts, lists, tuples) with every leaf replaced by fn(leaf).
+    A module function, not a recursive closure: a closure that refers to
+    itself is a reference cycle, which would keep what it captured (the
+    uploaded tensors) alive until the garbage collector runs."""
+    if isinstance(node, dict):
+        return {k: _map_leaves(v, fn) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map_leaves(v, fn) for v in node)
+    return fn(node)
+
+
+class HostConstants:
+    """A constants tree (dicts, lists, tuples of host arrays and scalars)
+    packed once into one host buffer: each leaf in its host dtype at an
+    offset aligned to `ALIGN` bytes, the buffer page-locked once it is
+    uploaded to a card. `upload` puts the tree on a device with one
+    asynchronous copy on the current stream, ledgered under `model`
+    (obs/memledger.py) while the uploaded tensors live: dropping them frees
+    them at once. A stage keeps its HostConstants across uploads, so paging
+    a model in costs one host-to-device copy."""
+
+    #: the offset alignment of each leaf in the buffer
+    ALIGN = 256
+
+    def __init__(self, tree):
+        leaves: List[np.ndarray] = []
+
+        def index(node):
+            leaves.append(np.ascontiguousarray(np.asarray(node)))
+            return len(leaves) - 1
+
+        self.layout = _map_leaves(tree, index)
+        self.specs = []  # per leaf: (offset, nbytes, torch dtype, shape)
+        offset = 0
+        for a in leaves:
+            self.specs.append((offset, a.nbytes, torch.from_numpy(a).dtype, a.shape))
+            offset += -(-a.nbytes // self.ALIGN) * self.ALIGN
+        self.nbytes = offset
+        self.buffer = torch.zeros(offset, dtype=torch.uint8)
+        for a, (off, nbytes, _, _) in zip(leaves, self.specs):
+            self.buffer[off:off + nbytes] = torch.from_numpy(a.reshape(-1).view(np.uint8))
+
+    def upload(self, device: torch.device):
+        """The tree as tensors on `device`, accounted (`h2d.*`) and ledgered."""
+        import time
+
+        from .obs import memledger
+        from .parallel import prefetch
+
+        if not self.specs:
+            return self.layout
+        if device.type == "cuda" and not self.buffer.is_pinned():
+            self.buffer = self.buffer.pin_memory()
+        memledger.admit(self.nbytes, "model")
+        t0 = time.perf_counter()
+        try:
+            out = torch.empty(self.nbytes, dtype=torch.uint8, device=device)
+        except torch.cuda.OutOfMemoryError as e:
+            raise memledger.wrap_oom(e) from e
+        out.copy_(self.buffer, non_blocking=True)
+        prefetch.account_h2d(sum(spec[1] for spec in self.specs), arrays=len(self.specs),
+                             seconds=time.perf_counter() - t0)
+        tensors = [out[off:off + nbytes].view(dtype).view(shape)
+                   for off, nbytes, dtype, shape in self.specs]
+        return memledger.track(_map_leaves(self.layout, tensors.__getitem__), "model")
+
+
 def upload_constants(tree, device: torch.device):
-    """A tree (dicts, lists, tuples) of host arrays and scalars as tensors
-    on `device`, in the host dtypes, through one staged copy
-    (`parallel.prefetch.stage_to_device`)."""
-    from .parallel import prefetch
-
-    leaves: List[np.ndarray] = []
-
-    def flatten(node):
-        if isinstance(node, dict):
-            return {k: flatten(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(flatten(v) for v in node)
-        arr = np.asarray(node)
-        leaves.append(arr)
-        return len(leaves) - 1
-
-    layout = flatten(tree)
-    if not leaves:
-        return tree
-    flat = tuple(np.ascontiguousarray(a.reshape(-1)) for a in leaves)
-    staged = prefetch.stage_to_device(flat, device).wait()
-    tensors = [t.view(a.shape) for t, a in zip(staged, leaves)]
-
-    def rebuild(node):
-        if isinstance(node, dict):
-            return {k: rebuild(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(rebuild(v) for v in node)
-        return tensors[node]
-
-    return rebuild(layout)
+    """A tree of host arrays and scalars as tensors on `device`, in the
+    host dtypes, through one copy (`HostConstants`)."""
+    return HostConstants(tree).upload(torch.device(device))
 
 
 class Stage(WithParams, abc.ABC):
@@ -182,6 +222,11 @@ class AlgoOperator(Stage):
     kernel_supports_sparse: bool = False
     #: the kernel's output columns are SparseBatches
     kernel_emits_sparse: bool = False
+    #: the kernel reads nothing of the stage but its params and `consts`
+    #: (no model data held in Python), so stages of one class and params
+    #: may share captured graphs that take their constants as operands
+    #: (PipelineModel.constants_as_operands)
+    graph_shareable: bool = False
 
     @abc.abstractmethod
     def transform(self, *inputs: Table) -> List[Table]:
@@ -309,28 +354,35 @@ class AlgoOperator(Stage):
         """Explicit constants invalidation for a model-data change."""
         self.__dict__["_model_data_version"] = self.model_data_version + 1
         self.__dict__.pop("_device_consts", None)
+        self.__dict__.pop("_host_consts", None)
 
     def device_constants(self, device: Optional[torch.device] = None):
-        """`_kernel_constants()` on `device` (default `config.device()`),
-        uploaded at most once per (params, model data, device) state."""
+        """`_kernel_constants()` on `device` (default `config.device()`):
+        derived and packed on the host once per (params, model data) state
+        (`HostConstants`), uploaded at most once per (state, device)."""
         if device is None:
             from . import config
 
             device = config.device()
-        token = (
+        state = (
             self.__dict__.get("_params_version", 0),
             self.model_data_version,
             tuple(id(a) for a in self._constant_sources()),
-            torch.device(device),
         )
+        token = state + (torch.device(device),)
         cached = self.__dict__.get("_device_consts")
         if cached is not None and cached[0] == token:
             return cached[1]
-        consts = upload_constants(self._kernel_constants(), torch.device(device))
+        host = self.__dict__.get("_host_consts")
+        if host is None or host[0] != state:
+            host = self.__dict__["_host_consts"] = (state, HostConstants(self._kernel_constants()))
+        consts = host[1].upload(torch.device(device))
         self.__dict__["_device_consts"] = (token, consts)
         return consts
 
     def invalidate_device_constants(self) -> None:
+        """Drop the device copy of the constants (the packed host copy stays,
+        so the next `device_constants` is one upload)."""
         self.__dict__.pop("_device_consts", None)
 
 

@@ -5,10 +5,10 @@ card and no explicit request it raises: nothing falls back to the CPU
 quietly. Host (numpy) columns are staged to `device()`; torch tensor
 columns stay on the device they already live on.
 
-The stream, online, fleet and fusion knobs keep the JAX package's names,
-defaults and environment variables (flink_ml_tpu/config.py). Its other
-TPU knobs (whole-fit, collectives, serving, compile bank) have no
-counterpart here yet.
+The stream, online, fleet, fusion, flow-control, serving, model-store and
+lifecycle knobs keep the JAX package's names, defaults and environment
+variables (flink_ml_tpu/config.py). Its other TPU knobs (whole-fit,
+collectives, compile bank) have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -33,7 +33,9 @@ device_cache_bytes: Optional[int] = None
 #: (parallel/prefetch.py)
 input_prefetch_depth: int = 2
 #: what the online estimators' ingest does when the stream outruns the
-#: training step: "block" (lossless backpressure) is the only policy ported
+#: training step (flow.py): "block" is lossless backpressure, every batch
+#: folded; "shed_oldest" bounds memory and model staleness (consumed lag <
+#: the window); "sample" bounds memory only (the window keeps a prefix)
 online_overload_policy: str = "block"
 #: checkpointed iteration is not ported (ROADMAP A.13); set, it raises
 iteration_checkpoint_dir: Optional[str] = None
@@ -52,6 +54,46 @@ pipeline_fusion: str = "auto"
 #: captured CUDA graphs a fused segment keeps, one per input signature,
 #: least recently used first out
 kernel_cache_size: int = 256
+
+#: device memory the ledgered uploads may hold (obs/memledger.py): an
+#: upload past it raises HbmBudgetExceeded before it allocates; None is off
+hbm_budget_bytes: Optional[int] = None
+
+# -- flow control (flow.py) -----------------------------------------------
+#: retries of a transiently failing call (serving batch dispatch): extra
+#: attempts after the first, 0 fails fast; only flow.TRANSIENT_ERRORS retry
+transient_retries: int = 2
+#: attempt k sleeps min(retry_max_delay_s, retry_base_delay_s * 2**(k-1)),
+#: with full jitter
+retry_base_delay_s: float = 0.005
+retry_max_delay_s: float = 0.25
+#: a stage execution above this multiple of its trailing mean is flagged
+#: (flow.StragglerWatchdog, `flow.straggler.*`)
+straggler_factor: float = 4.0
+#: consecutive flags after which the watchdog raises PersistentStraggler;
+#: 0 is off (counters only)
+straggler_escalate: int = 0
+
+# -- serving (serving.py), the model store and the lifecycle ----------------
+#: transformed-but-undrained batches a MicroBatchServer keeps in flight
+serving_in_flight: int = 2
+#: requests the push API's admission queue holds before submit() raises
+#: ServerOverloaded
+serving_admission: int = 16
+#: default per-request deadline (None: none)
+serving_deadline_ms: Optional[float] = None
+#: the longest a request waits in a forming batch (continuous batching)
+serving_form_budget_ms: float = 5.0
+#: device bytes a ModelStore keeps resident (LRU paging); None is unbounded
+model_store_bytes: Optional[int] = None
+#: promoted versions a ModelLifecycle retains for rollback (>= 2)
+model_versions_retained: int = 4
+#: the promotion gate's canary tolerance against the outgoing version
+lifecycle_canary_rtol: float = 0.5
+#: serve outcomes in the health window, and the guard-error rate over a full
+#: window that rolls traffic back
+lifecycle_health_window: int = 16
+lifecycle_error_rate_trigger: float = 0.5
 
 OVERLOAD_POLICIES = ("block", "shed_oldest", "sample")
 
@@ -82,6 +124,70 @@ def kernel_cache_limit(size: int):
         kernel_cache_size = prev
 
 
+@contextmanager
+def _scoped(name: str, value):
+    """Set the module knob `name` to `value` for the block."""
+    module = globals()
+    prev = module[name]
+    module[name] = value
+    try:
+        yield
+    finally:
+        module[name] = prev
+
+
+def hbm_budget_mode(budget_bytes: Optional[int]):
+    """Scoped override of `hbm_budget_bytes` (None: admission off)."""
+    return _scoped("hbm_budget_bytes", None if budget_bytes is None else max(0, int(budget_bytes)))
+
+
+def transient_retry_mode(retries: int):
+    """Scoped override of `transient_retries` (0 disables retries)."""
+    return _scoped("transient_retries", max(0, int(retries)))
+
+
+def straggler_escalation_mode(consecutive: int):
+    """Scoped override of `straggler_escalate` (0 disables escalation)."""
+    return _scoped("straggler_escalate", max(0, int(consecutive)))
+
+
+def online_overload_mode(policy: str):
+    """Scoped override of `online_overload_policy`."""
+    if policy not in ("block", "shed_oldest", "sample", "reject"):
+        raise ValueError(f"Unknown overload policy {policy!r}")
+    return _scoped("online_overload_policy", policy)
+
+
+def serving_form_budget(budget_ms: float):
+    """Scoped override of `serving_form_budget_ms`."""
+    return _scoped("serving_form_budget_ms", max(0.0, float(budget_ms)))
+
+
+def model_store_budget(budget_bytes: Optional[int]):
+    """Scoped override of `model_store_bytes` (None: unbounded)."""
+    return _scoped("model_store_bytes", None if budget_bytes is None else max(0, int(budget_bytes)))
+
+
+def model_retention_mode(retained: int):
+    """Scoped override of `model_versions_retained`."""
+    return _scoped("model_versions_retained", max(2, int(retained)))
+
+
+_env = os.environ.get
+if _env("FLINK_ML_TPU_HBM_BUDGET_BYTES"):
+    hbm_budget_bytes = max(0, int(_env("FLINK_ML_TPU_HBM_BUDGET_BYTES")))
+if _env("FLINK_ML_TPU_TRANSIENT_RETRIES"):
+    transient_retries = max(0, int(_env("FLINK_ML_TPU_TRANSIENT_RETRIES")))
+if _env("FLINK_ML_TPU_ONLINE_OVERLOAD_POLICY") in OVERLOAD_POLICIES:
+    online_overload_policy = _env("FLINK_ML_TPU_ONLINE_OVERLOAD_POLICY")
+if _env("FLINK_ML_TPU_SERVING_FORM_BUDGET_MS"):
+    serving_form_budget_ms = max(0.0, float(_env("FLINK_ML_TPU_SERVING_FORM_BUDGET_MS")))
+if _env("FLINK_ML_TPU_MODEL_STORE_BYTES"):
+    model_store_bytes = max(0, int(_env("FLINK_ML_TPU_MODEL_STORE_BYTES")))
+if _env("FLINK_ML_TPU_MODEL_VERSIONS_RETAINED"):
+    model_versions_retained = max(2, int(_env("FLINK_ML_TPU_MODEL_VERSIONS_RETAINED")))
+if _env("FLINK_ML_TPU_LIFECYCLE_CANARY_RTOL"):
+    lifecycle_canary_rtol = float(_env("FLINK_ML_TPU_LIFECYCLE_CANARY_RTOL"))
 if os.environ.get("FLINK_ML_TPU_PIPELINE_FUSION") in ("auto", "off"):
     pipeline_fusion = os.environ["FLINK_ML_TPU_PIPELINE_FUSION"]
 if os.environ.get("FLINK_ML_TPU_KERNEL_CACHE_SIZE"):
@@ -89,14 +195,9 @@ if os.environ.get("FLINK_ML_TPU_KERNEL_CACHE_SIZE"):
 
 
 def check_overload_policy(policy: str) -> None:
-    """Accept "block"; the JAX package's lossy policies need its flow
-    control layer, which lands with serving."""
+    """Accept an ingest overload policy: "block", "shed_oldest" or "sample"."""
     if policy not in OVERLOAD_POLICIES:
         raise ValueError(f"unknown overload policy {policy!r}; one of {OVERLOAD_POLICIES}")
-    if policy != "block":
-        raise NotImplementedError(
-            f"overload policy {policy!r} is not ported yet (ROADMAP A.12, with flow.py)"
-        )
 
 
 def check_no_checkpoint(checkpoint_dir: Optional[str] = None) -> None:

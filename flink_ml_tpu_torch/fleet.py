@@ -28,9 +28,10 @@ Regime: the JAX package shards the member axis over the mesh's data
 shards when the members' state outgrows `config.fleet_shard_state_bytes`.
 The port trains on one device, one data shard, so its fleet is always
 replicated, and `shard_fleet_axis=True` raises the JAX package's
-ValueError. Not ported yet: the checkpointed fleet (A.13), the `fleet.*`
-counters and the per-member peak memory (A.14), `promote_fleet_winner`
-(A.12, with ModelLifecycle) and the fleet-sharded regime (A.10).
+ValueError. `promote_fleet_winner` publishes the best member into a
+`lifecycle.ModelLifecycle`. Not ported yet: the checkpointed fleet (A.13),
+the `fleet.*` counters and the per-member peak memory (A.14) and the
+fleet-sharded regime (A.10).
 """
 
 from __future__ import annotations
@@ -326,3 +327,29 @@ def fleet_model_arrays(model) -> Tuple:
             np.asarray(model.weights, np.float32),
         )
     return (np.asarray(model.coefficient, np.float32),)
+
+
+def promote_fleet_winner(lifecycle, models: Sequence, scores: Sequence[float], mode: str = "max"):
+    """Promote the fleet's winner by a held-out metric into a
+    `ModelLifecycle` version ring: the argmax (`mode="max"`) or argmin
+    (`mode="min"`) of `scores`, published through `lifecycle.promote`
+    (its gate, retention and rollback apply). Returns (winner_index,
+    ModelVersion)."""
+    from .utils import metrics
+
+    if len(models) != len(scores):
+        raise ValueError(
+            f"{len(models)} models but {len(scores)} scores — every fleet "
+            "member needs its held-out metric"
+        )
+    if mode not in ("max", "min"):
+        raise ValueError(f"Unknown winner mode {mode!r} (use 'max' or 'min')")
+    scores = np.asarray(list(scores), np.float64)
+    if np.any(np.isnan(scores)):
+        raise ValueError("fleet winner selection got NaN scores")
+    winner = int(np.argmax(scores) if mode == "max" else np.argmin(scores))
+    version = lifecycle.promote(fleet_model_arrays(models[winner]))
+    metrics.inc_counter("fleet.winnerPromoted")
+    metrics.set_gauge("fleet.winnerIndex", float(winner))
+    metrics.set_gauge("fleet.winnerScore", float(scores[winner]))
+    return winner, version

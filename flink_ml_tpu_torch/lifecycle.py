@@ -1,0 +1,325 @@
+"""Versioned model hot-swap: the train-while-serving lifecycle.
+
+Port of flink_ml_tpu/lifecycle.py. A swap-capable model (api.Model's swap
+protocol) is served through fused segments that take its constants as
+operands of their captured graphs (pipeline.py), so a publication is one
+reference assignment between batches: no pause, no capture, and a batch
+in flight keeps the version it was dispatched with. `ModelLifecycle` adds
+what a live swap must not skip:
+
+1. **Promotion gate**: a candidate is checked before publication: the
+   serving version's arity, shapes and dtypes, finite values, and, with a
+   pinned canary batch, outputs within `config.lifecycle_canary_rtol` of
+   the outgoing version's. The canary runs the model's transform kernel on
+   the served device (`config.device()`), its constants uploaded through
+   `api.upload_constants`. A refusal raises `PromotionRejected`, counts
+   `lifecycle.promoteRejected` and leaves the serving model untouched.
+2. **Version ring and rollback**: promoted versions are kept as host
+   float64 copies in a bounded ring (`config.model_versions_retained`).
+   Serve outcomes feed a sliding health window
+   (`config.lifecycle_health_window`); a guard-error rate at or above
+   `config.lifecycle_error_rate_trigger` over a full window republishes
+   the last-good version, bit for bit and under its original version id,
+   and quarantines the trainer: `promote` raises `TrainerQuarantined`
+   until `release_quarantine()`.
+
+Fault sites (ckpt/faults.py): `lifecycle.promote` at promote entry and
+`lifecycle.swap` before the pointer swap. A checkpoint directory (the
+JAX package persists every promotion in a JobSnapshot) raises until
+checkpoints are ported (ROADMAP A.13).
+
+Thread contract: `promote`/`rollback` run on one trainer thread, under
+`pipeline.capture_lock` (the canary's uploads and kernels never run inside
+a capture); `record_serve_ok`/`record_guard_error` are serve-side. The
+published state is one atomic reference on the model.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from . import config
+from .api import KernelContext, Model
+from .ckpt import faults
+from .obs import timeline
+from .utils import metrics
+
+__all__ = [
+    "LifecycleEvent",
+    "ModelVersion",
+    "PromotionRejected",
+    "TrainerQuarantined",
+    "ModelLifecycle",
+]
+
+
+class PromotionRejected(ValueError):
+    """The promotion gate refused a candidate; `reason` is "arity",
+    "shape", "dtype", "nonfinite" or "canary"."""
+
+    def __init__(self, reason: str, detail: str):
+        super().__init__(f"promotion rejected ({reason}): {detail}")
+        self.reason = reason
+        self.detail = detail
+
+
+class TrainerQuarantined(RuntimeError):
+    """Raised by `promote` while the lifecycle is quarantined: a health
+    trigger rolled traffic back, and the trainer's output is refused until
+    `release_quarantine()`."""
+
+    def __init__(self, since_version: int, reason: str):
+        super().__init__(f"trainer quarantined since rollback from version {since_version}: {reason}")
+        self.since_version = since_version
+        self.reason = reason
+
+
+@dataclass(frozen=True)
+class LifecycleEvent:
+    """One lifecycle transition, in order: kind is "promoted", "rejected",
+    "rollback", "quarantined" or "released"."""
+
+    kind: str
+    version: int
+    reason: str = ""
+    at: float = 0.0
+
+
+@dataclass(frozen=True)
+class ModelVersion:
+    """One retained version: host float64 copies of the arrays (the
+    rollback target, bit-exact by construction) and its provenance."""
+
+    version_id: int
+    arrays: Tuple[Optional[np.ndarray], ...]
+    source: str = "trainer"  # "trainer" | "seed" | "rollback"
+    promoted_at: float = 0.0
+
+
+def _host_copy(arrays: Tuple) -> Tuple[Optional[np.ndarray], ...]:
+    """Host float64 copies of a candidate's arrays, tensors read back in
+    one packed transfer."""
+    from .utils.packing import packed_device_get
+
+    pulled = packed_device_get(*[a for a in arrays if a is not None], sync_kind="lifecycle")
+    it = iter(pulled)
+    return tuple(None if a is None else np.array(next(it), dtype=np.float64, copy=True)
+                 for a in arrays)
+
+
+class ModelLifecycle:
+    """Promotion, retention and rollback of one swap-capable model's
+    published versions.
+
+    `canary` optionally pins a canary batch (the model's kernel input
+    columns to host arrays), which turns on the gate's output check.
+    `checkpoint_dir` (with `job_key`) is the JAX package's persistence; it
+    raises until checkpoints are ported (ROADMAP A.13)."""
+
+    def __init__(
+        self,
+        model: Model,
+        retained: Optional[int] = None,
+        canary: Optional[Dict[str, Any]] = None,
+        canary_rtol: Optional[float] = None,
+        health_window: Optional[int] = None,
+        error_rate_trigger: Optional[float] = None,
+        checkpoint_dir: Optional[str] = None,
+        job_key: Optional[str] = None,
+    ):
+        if not getattr(model, "swap_capable", False):
+            raise TypeError(
+                f"{type(model).__name__} is not swap-capable: ModelLifecycle "
+                "needs the api.Model swap protocol (model_arrays / "
+                "publish_model_arrays / kernel_constants_for)"
+            )
+        config.check_no_checkpoint(checkpoint_dir)
+        self.model = model
+        self.retained = max(2, int(retained if retained is not None else config.model_versions_retained))
+        self.canary = canary
+        self.canary_rtol = float(canary_rtol if canary_rtol is not None else config.lifecycle_canary_rtol)
+        window = int(health_window if health_window is not None else config.lifecycle_health_window)
+        self.health_window = max(2, window)
+        self.error_rate_trigger = float(
+            error_rate_trigger if error_rate_trigger is not None
+            else config.lifecycle_error_rate_trigger)
+        self._ring: deque = deque(maxlen=self.retained)
+        self._outcomes: deque = deque(maxlen=self.health_window)
+        self.events: deque = deque(maxlen=256)
+        self._quarantined: Optional[TrainerQuarantined] = None
+        self._last_good: Optional[int] = None
+        self._next_id = 1
+        self.promote_rejected = 0
+        self.swap_count = 0
+        self.rollback_count = 0
+
+        seed = model.model_arrays()
+        if any(a is not None for a in seed):
+            self._ring.append(ModelVersion(model.model_version, _host_copy(seed), "seed", time.time()))
+            self._last_good = model.model_version
+            self._next_id = model.model_version + 1
+        metrics.set_gauge("lifecycle.publishedVersion", self.model.model_version)
+
+    # -- introspection -------------------------------------------------------
+    @property
+    def current(self) -> Optional[ModelVersion]:
+        return self._ring[-1] if self._ring else None
+
+    @property
+    def last_good(self) -> Optional[int]:
+        return self._last_good
+
+    @property
+    def quarantined(self) -> bool:
+        return self._quarantined is not None
+
+    def retained_versions(self) -> List[int]:
+        return [v.version_id for v in self._ring]
+
+    def _event(self, kind: str, version: int, reason: str = "") -> None:
+        self.events.append(LifecycleEvent(kind, version, reason, time.time()))
+
+    # -- the promotion gate --------------------------------------------------
+    def _reject(self, reason: str, detail: str) -> None:
+        self.promote_rejected += 1
+        metrics.inc_counter("lifecycle.promoteRejected")
+        self._event("rejected", self._next_id, f"{reason}: {detail}")
+        raise PromotionRejected(reason, detail)
+
+    def _gate(self, candidate: Tuple[Optional[np.ndarray], ...]) -> None:
+        current = self.model.model_arrays()
+        if len(candidate) != len(current):
+            self._reject("arity", f"candidate has {len(candidate)} arrays, serving model {len(current)}")
+        for i, (cand, cur) in enumerate(zip(candidate, current)):
+            if cand is None:
+                self._reject("shape", f"array {i} is None")
+            if cur is not None and np.shape(cand) != np.shape(cur):
+                self._reject("shape", f"array {i}: candidate {np.shape(cand)} vs serving {np.shape(cur)}")
+            if cur is not None and np.asarray(cur).dtype != cand.dtype:
+                self._reject("dtype", f"array {i}: candidate {cand.dtype} vs serving "
+                                      f"{np.asarray(cur).dtype}")
+            if not np.all(np.isfinite(cand)):
+                self._reject("nonfinite", f"array {i} contains NaN/Inf")
+        if self.canary is not None:
+            self._canary_gate(candidate, current)
+
+    def _canary_outputs(self, arrays: Tuple) -> Dict[str, np.ndarray]:
+        """The model's transform kernel over the pinned canary batch with
+        `arrays` as its (unpublished) model, on the served device; the
+        version is pinned to 0 on both sides so only the model differs."""
+        from .api import upload_constants
+        from .parallel.prefetch import stage_to_device
+        from .utils.packing import packed_device_get
+
+        device = config.device()
+        consts = upload_constants(self.model.kernel_constants_for(tuple(arrays), 0), device)
+        names = list(self.canary)
+        staged = stage_to_device(tuple(np.asarray(self.canary[k]) for k in names), device).wait()
+        out = self.model.transform_kernel(consts, dict(zip(names, staged)), KernelContext())
+        produced = [k for k in out if k not in self.canary]
+        host = packed_device_get(*[out[k] for k in produced], sync_kind="lifecycle")
+        return dict(zip(produced, host))
+
+    def _canary_gate(self, candidate: Tuple, current: Tuple) -> None:
+        if all(a is None for a in current):
+            return  # nothing to regress against
+        got = self._canary_outputs(candidate)
+        want = self._canary_outputs(current)
+        for name, ref in want.items():
+            cand = np.asarray(got[name], np.float64)
+            ref = np.asarray(ref, np.float64)
+            if not np.allclose(cand, ref, rtol=self.canary_rtol, atol=self.canary_rtol):
+                diff = float(np.max(np.abs(cand - ref)))
+                self._reject("canary", f"output {name!r} moved {diff:.3g} past rtol "
+                                       f"{self.canary_rtol} vs the outgoing version")
+
+    # -- promote / rollback --------------------------------------------------
+    def promote(self, arrays: Tuple, version: Optional[int] = None) -> ModelVersion:
+        """Gate and publish one candidate; returns the retained
+        `ModelVersion`. Raises `PromotionRejected` (the gate) or
+        `TrainerQuarantined` (after a rollback). The swap is the model's one
+        reference assignment: a batch dispatched a moment earlier keeps the
+        old version."""
+        from .pipeline import capture_lock
+
+        if self._quarantined is not None:
+            metrics.inc_counter("lifecycle.quarantineRefused")
+            raise self._quarantined
+        faults.tick("lifecycle.promote")
+        with capture_lock:
+            candidate = _host_copy(tuple(arrays))
+            self._gate(candidate)
+            version_id = self._next_id if version is None else int(version)
+            entry = ModelVersion(version_id, candidate, "trainer", time.time())
+            faults.tick("lifecycle.swap")
+            self.model.publish_model_arrays(candidate, version_id)
+        self._ring.append(entry)
+        self._next_id = version_id + 1
+        self.swap_count += 1
+        metrics.inc_counter("lifecycle.swap")
+        metrics.set_gauge("lifecycle.publishedVersion", version_id)
+        if timeline.enabled():
+            timeline.record_instant(timeline.LANE_LIFECYCLE, "lifecycle.promote", version=version_id)
+        self._event("promoted", version_id)
+        return entry
+
+    def rollback(self, reason: str = "manual") -> ModelVersion:
+        """Republish the last-good retained version (bit-exact host copies,
+        original version id), quarantine the trainer, clear the health
+        window. Raises if no good version is retained."""
+        target = None
+        for entry in reversed(self._ring):
+            if self._last_good is not None and entry.version_id == self._last_good:
+                target = entry
+                break
+        if target is None and len(self._ring) >= 2:
+            target = self._ring[-2]  # the newest version before the current one
+        if target is None:
+            raise RuntimeError("rollback impossible: no retained good version")
+        bad = self.model.model_version
+        self.model.publish_model_arrays(target.arrays, target.version_id)
+        restored = ModelVersion(target.version_id, target.arrays, "rollback", time.time())
+        self._ring.append(restored)
+        self.rollback_count += 1
+        self._outcomes.clear()
+        metrics.inc_counter("lifecycle.rollback")
+        if timeline.enabled():
+            timeline.record_instant(timeline.LANE_LIFECYCLE, "lifecycle.rollback",
+                                    version=target.version_id, fromVersion=bad)
+        metrics.set_gauge("lifecycle.publishedVersion", target.version_id)
+        self._event("rollback", target.version_id, f"from {bad}: {reason}")
+        self._quarantined = TrainerQuarantined(bad, reason)
+        metrics.inc_counter("lifecycle.quarantined")
+        self._event("quarantined", bad, reason)
+        return restored
+
+    def release_quarantine(self) -> None:
+        """Operator override: accept the trainer's output again."""
+        if self._quarantined is not None:
+            self._event("released", self.model.model_version)
+        self._quarantined = None
+
+    # -- serve-side health ---------------------------------------------------
+    def record_serve_ok(self) -> None:
+        self._outcomes.append(0)
+        self._last_good = self.model.model_version
+
+    def record_guard_error(self, error: Optional[BaseException] = None) -> None:
+        """One served batch failed validation; at `error_rate_trigger` over
+        a full window, traffic rolls back."""
+        self._outcomes.append(1)
+        metrics.inc_counter("lifecycle.guardErrors")
+        if (
+            self._quarantined is None
+            and len(self._outcomes) >= self.health_window
+            and sum(self._outcomes) / len(self._outcomes) >= self.error_rate_trigger
+            and self._last_good is not None
+            and self._last_good != self.model.model_version
+        ):
+            self.rollback(f"guard-error rate {sum(self._outcomes)}/{len(self._outcomes)} "
+                          f">= {self.error_rate_trigger}")

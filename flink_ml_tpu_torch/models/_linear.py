@@ -187,6 +187,7 @@ class CoefficientModelData:
 
     coefficient: np.ndarray = None
     fusable = True
+    graph_shareable = True
     kernel_supports_sparse = True
     #: decodes a reference-written model directory to the coefficient
     #: (LinearSVCModelData and LinearRegressionModelData: one DenseVector)

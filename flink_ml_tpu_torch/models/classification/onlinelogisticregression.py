@@ -118,6 +118,7 @@ class OnlineLogisticRegressionModel(Model, OnlineLogisticRegressionModelParams):
 
     fusable = True
     swap_capable = True
+    graph_shareable = True
 
     def __init__(self):
         self._published = _PublishedLR(0, None)
@@ -177,7 +178,11 @@ class OnlineLogisticRegressionModel(Model, OnlineLogisticRegressionModelParams):
 
     def transform_kernel(self, consts, cols, ctx):
         X = as_dense_matrix(cols[self.get_features_col()], allow_device=True).to(torch.float32)
-        dot = X @ consts["coefficient"]
+        # each row's dot reduced on its own, in an order set by the width
+        # alone: a served row's bits do not depend on the rows batched with
+        # it (a matrix-vector product picks its kernel by the row count;
+        # ROADMAP C.20)
+        dot = torch.sum(X * consts["coefficient"], dim=1)
         prob = 1.0 / (1.0 + torch.exp(-dot))
         cols[self.get_prediction_col()] = torch.where(dot >= 0, 1.0, 0.0)
         cols[self.get_raw_prediction_col()] = torch.stack([1.0 - prob, prob], dim=1)
@@ -279,7 +284,11 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams):
             lambda t: as_dense_matrix(t.column(features_col)),
             lambda t: np.asarray(_linear._host(t.column(label_col)), dtype=np.float64),
         ), self.get_global_batch_size())
-        staged = Prefetcher(stager).iterate(batches)
+        # the ingest window under config.online_overload_policy: "block"
+        # folds every batch; "shed_oldest" bounds memory and model staleness
+        # when the stream outruns the step, "sample" memory only (flow.shed)
+        staged = Prefetcher(stager, policy=config.online_overload_policy,
+                            name="online.ingest").iterate(batches)
         init = torch.as_tensor(coeff, dtype=torch.float32, device=stager.device)
         updates = iterate_unbounded(
             staged, step, (init, torch.zeros_like(init), torch.zeros_like(init)))

@@ -176,6 +176,7 @@ def staged_features(col) -> torch.Tensor:
 
 class KMeansModel(Model, KMeansModelParams):
     fusable = True
+    graph_shareable = True
 
     def __init__(self):
         self.centroids: np.ndarray = None  # (k, d) host array

@@ -104,6 +104,7 @@ class OnlineKMeansModel(Model, KMeansModelParams):
 
     fusable = True
     swap_capable = True
+    graph_shareable = True
 
     def __init__(self):
         self._published = _PublishedKMeans(0, None, None)
@@ -248,7 +249,11 @@ class OnlineKMeans(Estimator, OnlineKMeansParams):
         features_col = self.get_features_col()
         batches = global_batches(stream, (lambda t: as_dense_matrix(t.column(features_col)),),
                                  self.get_global_batch_size())
-        staged = Prefetcher(stager).iterate(batches)
+        # the ingest window under config.online_overload_policy: "block"
+        # folds every batch; "shed_oldest" bounds memory and model staleness
+        # when the stream outruns the step, "sample" memory only (flow.shed)
+        staged = Prefetcher(stager, policy=config.online_overload_policy,
+                            name="online.ingest").iterate(batches)
         init = tuple(torch.as_tensor(a, dtype=torch.float32, device=stager.device)
                      for a in (centroids, weights))
         model = OnlineKMeansModel()

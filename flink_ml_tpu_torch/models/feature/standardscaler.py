@@ -64,6 +64,7 @@ def _fit_stats(X):
 
 class StandardScalerModel(Model, StandardScalerParams):
     fusable = True
+    graph_shareable = True
 
     def __init__(self):
         self.mean: np.ndarray = None  # (d,) host array

@@ -12,8 +12,9 @@ DataCacheWriter.java, ReplayOperator.java:125-246):
   leaves later passes complete: each pass replays what is cached, then goes
   on reading the source.
 
-The JAX package's metrics, flow-control retries, fault injection and
-tracing are not ported (ROADMAP A.12-A.14), nor is its pure-Python cache:
+The JAX package's metrics, the retries of its spill I/O under
+`flow.with_retries` with their fault sites, and its tracing are not wired
+in here (ROADMAP A.13, A.14), nor is its pure-Python cache:
 the library builds at first use or the cache raises.
 """
 

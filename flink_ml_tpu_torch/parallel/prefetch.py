@@ -1,6 +1,7 @@
-"""Input staging: host-to-device copies and a one-worker prefetcher.
+"""Input staging: accounted host-to-device copies, shape buckets and a
+one-worker prefetcher.
 
-Port of the staging half of flink_ml_tpu/parallel/prefetch.py (`:136`,
+Port of flink_ml_tpu/parallel/prefetch.py (`:114`, `:136`, `:214-262`,
 `:275-319`):
 
 - `DeviceStager` stages host arrays to one device. On a CUDA device it
@@ -12,32 +13,45 @@ Port of the staging half of flink_ml_tpu/parallel/prefetch.py (`:136`,
   cannot hand the buffer out again while the consumer still reads it. A
   ring slot is written again only after its last copy has finished. On the
   CPU the staging is a plain copy. `stage_to_device` is the one-call form.
-- `Prefetcher` runs `stage(item)` on one worker thread, up to `depth`
-  items ahead of the consumer, and yields the results in input order,
-  waited for. An exception in `stage` or in the source re-raises at the
-  consumer's next `__next__`, after the items staged before it; closing
-  the generator early stops and joins the worker.
+  Every staging is accounted (`h2d.count`, `h2d.bytes`), admitted against
+  `config.hbm_budget_bytes` before it allocates, and, given a `category`,
+  ledgered (obs/memledger.py: `model` for constants, `serving` for served
+  batches); the card's out-of-memory error comes back as
+  `memledger.HbmExhausted` with the ledger's snapshot.
+- `next_bucket`, `pad_rows` and `slice_rows`: the serving batch-shape
+  schedule (powers of two from 8, or an explicit bucket list) and its pad,
+  which repeats the last real row, so a pad row can fire no guard the real
+  rows would not.
+- `Prefetcher` runs `stage(item)` on one worker thread (`flow.pump`), up to
+  `depth` items ahead of the consumer, through a `flow.BoundedChannel`
+  under an overload policy ("block": every item in order; "shed_oldest"
+  and "sample": bounded memory, items dropped and counted in `flow.shed`),
+  every stage timed by a `flow.StragglerWatchdog`. It yields the results
+  in input order, waited for. An exception in `stage` or in the source
+  re-raises at the consumer's next `__next__`, after the items staged
+  before it; closing the generator early cancels the channel and joins the
+  worker.
 
 A leaf of a staged tree is an array, a tensor, or a list of arrays that
 are the row pieces of one array: the pieces are copied one after another
 into the staging buffer, so a batch cut from several host chunks is never
-concatenated on the host first. The JAX package's upload accounting, HBM
-ledger, shape bucketing and flow-control policies are not ported (ROADMAP
-A.12, A.14); only the "block" policy exists.
+concatenated on the host first.
 """
 
 from __future__ import annotations
 
-import queue
-import threading
-from typing import Any, Callable, Iterable, Iterator, List, Optional
+import time
+from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, flow
+from ..obs import memledger, timeline
+from ..utils import metrics
 
-__all__ = ["DeviceStager", "Prefetcher", "Staged", "stage_to_device"]
+__all__ = ["DeviceStager", "Prefetcher", "Staged", "stage_to_device", "account_h2d",
+           "next_bucket", "pad_rows", "slice_rows"]
 
 #: bytes each leaf's region of a staging buffer is aligned to
 _ALIGN = 256
@@ -91,7 +105,7 @@ class DeviceStager:
     floating leaves to `dtype` when one is given."""
 
     def __init__(self, device: Optional[torch.device] = None, dtype: Optional[torch.dtype] = None,
-                 slots: Optional[int] = None):
+                 slots: Optional[int] = None, side_stream: bool = True):
         self.device = torch.device(device) if device is not None else config.device()
         self.dtype = dtype
         self.cuda = self.device.type == "cuda"
@@ -100,7 +114,10 @@ class DeviceStager:
         self._ring: List[Optional[torch.Tensor]] = [None] * max(1, num_slots)
         self._done: List[Optional[torch.cuda.Event]] = [None] * len(self._ring)
         self._next = 0
-        self._stream = torch.cuda.Stream(self.device) if self.cuda else None
+        # without a side stream the copy goes on the caller's current
+        # stream, ahead of the work that reads it (a caller that stages and
+        # computes on one thread, as a server does); nothing to wait for
+        self._stream = torch.cuda.Stream(self.device) if self.cuda and side_stream else None
 
     def stage(self, nbytes: int, fill: Callable[[torch.Tensor], None]) -> Staged:
         """A device buffer of `nbytes` that `fill(host_uint8_buffer)`
@@ -118,6 +135,12 @@ class DeviceStager:
             pinned = self._ring[slot] = torch.empty(
                 max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
         fill(pinned[:nbytes])
+        if self._stream is None:
+            out = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            out.copy_(pinned[:nbytes], non_blocking=True)
+            self._done[slot] = torch.cuda.Event()
+            self._done[slot].record()
+            return Staged(out, None, out)
         with torch.cuda.stream(self._stream):
             out = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
             out.copy_(pinned[:nbytes], non_blocking=True)
@@ -126,11 +149,13 @@ class DeviceStager:
         self._done[slot] = event
         return Staged(out, event, out)
 
-    def __call__(self, tree) -> Staged:
+    def __call__(self, tree, category: Optional[str] = None) -> Staged:
         """Stage a tree (nested tuples) of arrays, tensors or row-piece
-        lists in one copy; returns a `Staged` tree of device tensors."""
+        lists in one accounted copy; returns a `Staged` tree of device
+        tensors, ledgered under `category` when one is given."""
         specs, total = [], 0  # per leaf: (shape, dtype, pieces, offset, nbytes)
-        for leaf in _leaves(tree):
+        leaves = _leaves(tree)
+        for leaf in leaves:
             shape, dtype, pieces = _host_leaf(leaf)
             if self.dtype is not None and dtype.is_floating_point:
                 dtype = self.dtype
@@ -149,74 +174,115 @@ class DeviceStager:
                     view[row:row + piece.shape[0]].copy_(piece)
                     row += piece.shape[0]
 
-        staged = self.stage(total, fill)
+        memledger.admit(total, category)
+        t0 = time.perf_counter()
+        try:
+            staged = self.stage(total, fill)
+        except torch.cuda.OutOfMemoryError as e:
+            raise memledger.wrap_oom(e) from e
+        account_h2d(sum(spec[4] for spec in specs), arrays=len(leaves),
+                    seconds=time.perf_counter() - t0)
         buf = staged.value
         staged.value = _rebuild(tree, views(buf))
+        if category is not None:
+            memledger.track(staged.value, category, site=f"staging:{category}")
         return staged
 
 
 def stage_to_device(tree, device: Optional[torch.device] = None,
-                    dtype: Optional[torch.dtype] = None) -> Staged:
+                    dtype: Optional[torch.dtype] = None, category: Optional[str] = None) -> Staged:
     """Stage one tree through a one-slot `DeviceStager`. A loop that stages
     many batches keeps one stager, so its pinned buffers are reused."""
-    return DeviceStager(device, dtype, slots=1)(tree)
+    return DeviceStager(device, dtype, slots=1)(tree, category)
 
 
-_END = object()
+def account_h2d(nbytes: int, arrays: int = 1, seconds: Optional[float] = None) -> None:
+    """Fold one host-to-device transfer into the registry (`h2d.count`,
+    `h2d.bytes`), and onto the timeline's `h2d` lane when it records."""
+    metrics.inc_counter("h2d.count", arrays)
+    metrics.inc_counter("h2d.bytes", int(nbytes))
+    if timeline.enabled():
+        dur_ns = int((seconds or 0.0) * 1e9)
+        timeline.record_complete(timeline.LANE_H2D, "h2d", time.perf_counter_ns() - dur_ns,
+                                 dur_ns, bytes=int(nbytes), arrays=arrays)
 
 
-class _Failure:
-    __slots__ = ("error",)
+# ---------------------------------------------------------------------------
+# batch-shape buckets (serving)
+# ---------------------------------------------------------------------------
 
-    def __init__(self, error: BaseException):
-        self.error = error
+def next_bucket(n: int, buckets: Optional[Sequence[int]] = None) -> int:
+    """The smallest bucket >= n: of `buckets` (sorted) when given, n itself
+    beyond the largest; else a power of two >= 8. 0 stays 0."""
+    if n <= 0:
+        return n
+    if buckets:
+        for b in buckets:
+            if b >= n:
+                return int(b)
+        return int(n)
+    b = 8
+    while b < n:
+        b <<= 1
+    return b
 
+
+def pad_rows(col, n: int, bucket: int):
+    """A column padded from n to `bucket` rows by repeating its last row:
+    host numpy, a tensor (on its device) or a SparseBatch of either."""
+    if bucket == n:
+        return col
+    from ..table import SparseBatch
+
+    if isinstance(col, SparseBatch):
+        return SparseBatch(col.size, pad_rows(col.indices, n, bucket),
+                           pad_rows(col.values, n, bucket))
+    if isinstance(col, torch.Tensor):
+        return torch.cat([col, col[n - 1:].expand((bucket - n,) + tuple(col.shape[1:]))])
+    col = np.asarray(col)
+    return np.concatenate([col, np.broadcast_to(col[n - 1:], (bucket - n,) + col.shape[1:])])
+
+
+def slice_rows(col, n: int):
+    """The first n rows of a column (undoes `pad_rows`; a view)."""
+    from ..table import SparseBatch
+
+    if isinstance(col, SparseBatch):
+        return SparseBatch(col.size, col.indices[:n], col.values[:n])
+    return col[:n]
+
+
+# ---------------------------------------------------------------------------
+# bounded-depth single-worker prefetch
+# ---------------------------------------------------------------------------
 
 class Prefetcher:
     """Run `stage(item)` on one worker thread up to `depth` items ahead of
-    the consumer (default `config.input_prefetch_depth`)."""
+    the consumer (default `config.input_prefetch_depth`), through a
+    `flow.BoundedChannel` under `policy` (default "block")."""
 
     def __init__(self, stage: Callable[[Any], Any], depth: Optional[int] = None,
-                 policy: Optional[str] = None):
-        config.check_overload_policy(policy if policy is not None else config.online_overload_policy)
+                 policy: str = flow.BLOCK, name: str = "prefetch"):
+        if policy not in flow.POLICIES:
+            raise ValueError(f"unknown overload policy {policy!r} (one of {flow.POLICIES})")
         self.stage = stage
         self.depth = max(1, int(depth if depth is not None else config.input_prefetch_depth))
+        self.policy = policy
+        self.name = name
+        self.watchdog = flow.StragglerWatchdog(name)
+        self.channel: Optional[flow.BoundedChannel] = None  # the latest iterate()'s window
 
     def iterate(self, items: Iterable) -> Iterator:
-        """The staged items in input order; a `Staged` result is waited for
-        on the consumer's stream before it is yielded."""
-        window: "queue.Queue" = queue.Queue(maxsize=self.depth)
-        stop = threading.Event()
-
-        def put(entry) -> bool:
-            while not stop.is_set():
-                try:
-                    window.put(entry, timeout=0.05)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def work() -> None:
-            try:
-                for item in items:
-                    if stop.is_set() or not put(self.stage(item)):
-                        return
-            except BaseException as e:  # handed to the consumer, who re-raises it
-                put(_Failure(e))
-                return
-            put(_END)
-
-        worker = threading.Thread(target=work, name="prefetch", daemon=True)
-        worker.start()
+        """The staged items in input order (those the policy kept); a
+        `Staged` result is waited for on the consumer's stream before it
+        is yielded."""
+        metrics.set_gauge("prefetch.depth", self.depth)
+        channel = flow.BoundedChannel(self.depth, policy=self.policy, name=self.name)
+        self.channel = channel
+        worker = flow.pump(items, channel, transform=self.stage, watchdog=self.watchdog)
         try:
-            while True:
-                entry = window.get()
-                if entry is _END:
-                    return
-                if isinstance(entry, _Failure):
-                    raise entry.error
+            for entry in channel:
                 yield entry.wait() if isinstance(entry, Staged) else entry
         finally:
-            stop.set()
+            channel.cancel()  # early exit: stop the speculative staging
             worker.join()

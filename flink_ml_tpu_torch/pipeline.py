@@ -18,8 +18,18 @@ the capture) and then captures them into static buffers; every later call
 copies the feed in, replays, and clones the outputs out of the graph's
 pool. A segment's graphs share one memory pool, and it keeps at most
 `config.kernel_cache_size` of them, and no more bytes in them than the
-card has free (`_GraphCache`). On the CPU a segment calls its kernels in
-turn. The plan is the JAX package's: a segment is vetoed as a whole when
+card has free (`_GraphCache`). A swap-capable stage's constants are
+operands of its graphs: copied into buffers of the graph's own before a
+replay. `PipelineModel.constants_as_operands()` (what a model store
+calls) makes every stage's constants operands and lets the segment share
+its graphs with every segment of the same architecture (stage classes and
+params, where each stage's kernel reads only its params and constants:
+`graph_shareable`), so that dropping a model's constants frees them and
+bringing them back captures nothing. Captures run one at a time under
+`capture_lock`, in `capture_error_mode="thread_local"`, so CUDA work of
+another thread (a trainer's canary and uploads) cannot invalidate them.
+On the CPU a segment calls its kernels in turn. The plan is the JAX
+package's: a segment is vetoed as a whole when
 a column is host data, or is a SparseBatch that a stage's kernel does not
 take, so the BASELINE pipeline (OneHotEncoder feeds VectorAssembler
 sparse columns) and the text pipeline (HashingTF feeds IDF) run eagerly
@@ -32,6 +42,8 @@ Save and load keep the reference's layout: the pipeline's metadata with
 
 from __future__ import annotations
 
+import threading
+import weakref
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -45,6 +57,10 @@ from .utils import metrics, read_write
 
 #: guards waiting for a drain: (messages, packed bool vector) per segment run
 Pending = List[Tuple[Tuple[str, ...], torch.Tensor]]
+
+#: held by every capture, and by CUDA work on other threads that must not
+#: run inside one (a lifecycle's canary and publication)
+capture_lock = threading.RLock()
 
 
 def _transform_one(stage: Stage, table: Table) -> Table:
@@ -140,28 +156,66 @@ def _bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _first_ref(tree):
+    """A weak reference to a constants tree's first tensor (None for a tree
+    without tensors): which tree a static buffer holds, without keeping it
+    alive."""
+    leaves = _tree_leaves(tree)
+    return weakref.ref(leaves[0]) if leaves else None
+
+
+def _holds(ref, tree) -> bool:
+    leaves = _tree_leaves(tree)
+    return not leaves or (ref is not None and ref() is leaves[0])
+
+
+class _Operands:
+    """The static buffers of the constants a graph reads as operands (a
+    stage's entry is its constants themselves where they are not operands),
+    and which constants they hold. A tree is never written in place (a new
+    publication or a page-in is a new upload), so its first tensor's
+    identity names its values."""
+
+    def __init__(self, consts_list, swap: List[bool]):
+        self.static = [_clone_tree(c) if op else c for c, op in zip(consts_list, swap)]
+        self.held = [_first_ref(c) if op else None for c, op in zip(consts_list, swap)]
+        self.nbytes = _bytes([t for c, op in zip(self.static, swap) if op for t in _tree_leaves(c)])
+
+    def load(self, consts_list, swap: List[bool]) -> None:
+        """Copy each operand stage's constants in, where the buffers hold
+        others; on the caller's stream, so a batch in flight keeps the
+        version it was dispatched with."""
+        for i, consts in enumerate(consts_list):
+            if swap[i] and not _holds(self.held[i], consts):
+                for static, leaf in zip(_tree_leaves(self.static[i]), _tree_leaves(consts)):
+                    static.copy_(leaf)
+                self.held[i] = _first_ref(consts)
+
+
 class _CapturedSegment:
     """One CUDA graph of a segment for one input signature. It holds every
-    tensor the graph reads or writes: the static feed, the static
-    constants, the static outputs and (through the graph) the memory pool
+    tensor the graph reads or writes: the static feed, the constants (in
+    `operands`), the static outputs and (through the graph) the memory pool
     that the segment's graphs share."""
 
-    def __init__(self, segment: "FusedSegment", consts_list, feed: Dict[str, Any], pool):
+    def __init__(self, segment: "FusedSegment", consts_list, feed: Dict[str, Any],
+                 cache: "_GraphCache"):
         from .ops import sparsekernels
 
         stages = segment.stages
         self.static_feed = {name: _clone(col) for name, col in feed.items()}
-        self.swap = [bool(getattr(s, "swap_capable", False)) for s in stages]
-        # a swap-capable stage's constants are copied into buffers of the
-        # graph's own before a replay; a static stage's new constants come
-        # with a new plan, so the graph reads the ones it was captured with
-        self.static_consts = [_clone_tree(c) if swap else c for c, swap in zip(consts_list, self.swap)]
-        # the constants each static buffer holds a copy of
-        self.copied = list(consts_list)
+        # a swap-capable stage's constants (every stage's, in operand mode)
+        # are copied into buffers of the graph's own before a replay; a
+        # static stage's new constants come with a new plan, so the graph
+        # reads the ones it was captured with
+        self.swap = [segment.operands or bool(getattr(s, "swap_capable", False)) for s in stages]
+        shared = cache.shared_operands(consts_list, self.swap) if segment.operands else None
+        self.operands = shared or _Operands(consts_list, self.swap)
         self.graph = torch.cuda.CUDAGraph()
         before = sparsekernels.launch_counts()
-        with torch.cuda.graph(self.graph, pool=pool):
-            cols, ctx = segment.run_kernels(self.static_consts, self.static_feed)
+        with capture_lock, torch.cuda.graph(self.graph, pool=cache.pool,
+                                            capture_error_mode="thread_local"):
+            cols, ctx = segment.run_kernels(self.operands.static, self.static_feed)
             self.guard_vec = ctx.packed(feed_device(feed))
         after = sparsekernels.launch_counts()
         # capture launches nothing: its counted launches move to each replay
@@ -171,11 +225,11 @@ class _CapturedSegment:
         self.messages = tuple(ctx.guards)
         self.outputs = {n: v for n, v in cols.items() if self.static_feed.get(n) is not v}
         # what this graph alone keeps between replays: outside the pool its
-        # static feed and copied constants, inside it its outputs; the
-        # pool's temporaries are shared with the segment's other graphs
-        self.static_bytes = _bytes(
-            _tree_leaves(self.static_feed)
-            + [t for c, swap in zip(self.static_consts, self.swap) if swap for t in _tree_leaves(c)])
+        # static feed and (unless the cache shares them) its constant
+        # buffers, inside it its outputs; the pool's temporaries are shared
+        # with the segment's other graphs
+        self.static_bytes = _bytes(_tree_leaves(self.static_feed)) + (
+            0 if shared else self.operands.nbytes)
         self.kept_bytes = self.static_bytes + _bytes(_tree_leaves(self.outputs) + [self.guard_vec])
         metrics.inc_counter("jit.traces")
 
@@ -183,13 +237,7 @@ class _CapturedSegment:
         for name, col in feed.items():
             for static, leaf in zip(_leaves(self.static_feed[name]), _leaves(col)):
                 static.copy_(leaf)
-        for i, consts in enumerate(consts_list):
-            # the constants this batch was dispatched with, copied on the
-            # replay's stream: a batch in flight keeps its version
-            if self.swap[i] and consts is not self.copied[i]:
-                for static, leaf in zip(_tree_leaves(self.static_consts[i]), _tree_leaves(consts)):
-                    static.copy_(leaf)
-                self.copied[i] = consts
+        self.operands.load(consts_list, self.swap)
         self.graph.replay()
         for kernel, n in self.launches.items():
             kernel.launches += n
@@ -209,11 +257,25 @@ class _GraphCache:
     """A segment's captured graphs by input signature, least recently used
     first, and the memory pool they share. Replays of a segment run one at
     a time on one stream and their outputs are cloned out at once, so a
-    graph's temporaries may lie where another graph's were."""
+    graph's temporaries may lie where another graph's were. `lock` makes
+    each call (feed and constants copied in, replay, outputs cloned out)
+    one unit on the host, so two threads serving tenants of one
+    architecture cannot interleave their copies into shared buffers."""
 
     def __init__(self):
         self.entries: "OrderedDict[tuple, _CapturedSegment]" = OrderedDict()
         self.pool = None
+        self.lock = threading.Lock()
+        #: operand mode: constant buffers by constants signature, which every
+        #: graph of that signature reads
+        self.operands: Dict[tuple, _Operands] = {}
+
+    def shared_operands(self, consts_list, swap: List[bool]) -> _Operands:
+        key = _signature({}, consts_list)[1]
+        entry = self.operands.get(key)
+        if entry is None:
+            entry = self.operands[key] = _Operands(consts_list, swap)
+        return entry
 
     def get(self, sig: tuple) -> Optional[_CapturedSegment]:
         entry = self.entries.get(sig)
@@ -235,13 +297,35 @@ class _GraphCache:
             metrics.inc_counter("jit.kernelCacheEvict")
 
 
-class FusedSegment:
-    """A maximal run of fusable stages, run as one unit."""
+#: the graph caches of operand-mode segments, by architecture
+_SHARED_GRAPHS: Dict[tuple, _GraphCache] = {}
 
-    def __init__(self, indexed_stages: Sequence[Tuple[int, Stage]]):
+
+def _architecture(stages: Sequence[AlgoOperator]) -> Optional[tuple]:
+    """What an operand-mode segment's graphs depend on besides their inputs'
+    signature: each stage's class and params, where every stage's kernel
+    reads only its params and its constants (`graph_shareable`); else None
+    (the segment keeps graphs of its own)."""
+    key = []
+    for stage in stages:
+        if not getattr(stage, "graph_shareable", False):
+            return None
+        params = tuple(sorted((p.name, repr(v)) for p, v in stage.get_param_map().items()))
+        key.append((type(stage), params))
+    return tuple(key)
+
+
+class FusedSegment:
+    """A maximal run of fusable stages, run as one unit. In operand mode
+    every stage's constants are operands of its graphs, which it shares
+    with the segments of its architecture."""
+
+    def __init__(self, indexed_stages: Sequence[Tuple[int, Stage]], operands: bool = False):
         self.indices = [i for i, _ in indexed_stages]
         self.stages: List[AlgoOperator] = [s for _, s in indexed_stages]
-        self.graphs = _GraphCache()
+        self.operands = operands
+        arch = _architecture(self.stages) if operands else None
+        self.graphs = _GraphCache() if arch is None else _SHARED_GRAPHS.setdefault(arch, _GraphCache())
 
     @property
     def start(self) -> int:
@@ -293,8 +377,11 @@ class FusedSegment:
         device = feed_device(feed)
         consts_list = [stage.device_constants(device) for stage in self.stages]
         if device.type == "cuda":
-            with torch.cuda.device(device):
+            if device.index in (None, torch.cuda.current_device()):
                 out, messages, guard_vec = self._run_captured(consts_list, feed)
+            else:
+                with torch.cuda.device(device):
+                    out, messages, guard_vec = self._run_captured(consts_list, feed)
         else:
             cols, ctx = self.run_kernels(consts_list, feed)
             out = {n: v for n, v in cols.items() if feed.get(n) is not v}
@@ -304,6 +391,10 @@ class FusedSegment:
         return table.with_columns(out)
 
     def _run_captured(self, consts_list, feed: Dict[str, Any]):
+        with self.graphs.lock:
+            return self._replay_or_capture(consts_list, feed)
+
+    def _replay_or_capture(self, consts_list, feed: Dict[str, Any]):
         sig = _signature(feed, consts_list)
         entry = self.graphs.get(sig)
         if entry is not None:
@@ -318,14 +409,14 @@ class FusedSegment:
         self.graphs.make_room(_free_bytes(device))
         if self.graphs.pool is None:
             self.graphs.pool = torch.cuda.graph_pool_handle()
-        self.graphs.entries[sig] = _CapturedSegment(self, consts_list, feed, self.graphs.pool)
+        self.graphs.entries[sig] = _CapturedSegment(self, consts_list, feed, self.graphs)
         return result
 
 
 class _FusionPlan:
     """A stage list cut into fused segments and eager stages."""
 
-    def __init__(self, stages: Sequence[Stage]):
+    def __init__(self, stages: Sequence[Stage], operands: bool = False):
         self.runs: List[Tuple[Any, ...]] = []  # ("fused", seg) | ("eager", i, stage)
         buf: List[Tuple[int, Stage]] = []
         for i, stage in enumerate(stages):
@@ -333,11 +424,11 @@ class _FusionPlan:
                 buf.append((i, stage))
             else:
                 if buf:
-                    self.runs.append(("fused", FusedSegment(buf)))
+                    self.runs.append(("fused", FusedSegment(buf, operands)))
                     buf = []
                 self.runs.append(("eager", i, stage))
         if buf:
-            self.runs.append(("fused", FusedSegment(buf)))
+            self.runs.append(("fused", FusedSegment(buf, operands)))
         self.has_fusable = any(kind == "fused" for kind, *_ in self.runs)
 
 
@@ -404,12 +495,22 @@ class PipelineModel(_StageList, Model):
             )
             for stage in self._stages
         )
+        operands = self.__dict__.get("_constants_as_operands", False)
+        token += (operands,)
         cached = self.__dict__.get("_plan_cache")
         if cached is not None and cached[0] == token:
             return cached[1]
-        plan = _FusionPlan(self._stages)
+        plan = _FusionPlan(self._stages, operands)
         self.__dict__["_plan_cache"] = (token, plan)
         return plan
+
+    def constants_as_operands(self) -> None:
+        """From now on every fused segment takes its stages' constants as
+        operands of its captured graphs, copied in before a replay, and
+        shares its graphs with the segments of its architecture: so the
+        constants can be dropped (a model store's page-out frees them) and
+        uploaded again (a page-in) without a capture."""
+        self.__dict__["_constants_as_operands"] = True
 
     def _transform_fused(self, table: Table, pending: Pending) -> Table:
         """Run the plan: each device-ready segment fused, the others and

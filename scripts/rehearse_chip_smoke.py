@@ -50,6 +50,8 @@ SIZES = dict(
     STATS_SHAPE=(20_000, 10), SPLIT_ROWS=20_000, AGG_SHAPE=(300, 100, 10), AGG_BIG_ROWS=600,
     AGG_COUNT_WINDOW=50, SQL_ROWS=200_000, SQL_WHERE_SHAPE=(50_000, 100), SQL_GROUP_ROWS=5_000,
     SQL_SAMPLE_ROWS=2_000, LSH_ROWS=40_000, LSH_JOIN_ROWS=300, WINDOW_ROWS=40_000, WINDOW_COUNT=500,
+    SERVE_REQUESTS=400, SERVE_MAX_ROWS=64, SERVE_BUCKETS=(8, 32, 64, 128), ONLINE_REQUESTS=200,
+    LIFECYCLE_CANARY_ROWS=32,
 )
 #: below 8 of the small stream segments, so the spill twin spills
 CACHE_BUDGET = 200 << 10

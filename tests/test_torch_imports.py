@@ -69,6 +69,29 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+SERVING_SLICE = ["flink_ml_tpu_torch.serving", "flink_ml_tpu_torch.data.modelstore",
+                 "flink_ml_tpu_torch.lifecycle", "flink_ml_tpu_torch.flow",
+                 "flink_ml_tpu_torch.ckpt.faults", "flink_ml_tpu_torch.obs.hist",
+                 "flink_ml_tpu_torch.obs.timeline", "flink_ml_tpu_torch.obs.memledger"]
+
+
+@pytest.mark.parametrize("name", SERVING_SLICE)
+def test_the_serving_slice_imports_neither_jax_nor_the_jax_package(name):
+    """Each module of the serving slice, imported alone in a fresh
+    interpreter, pulls in neither jax nor flink_ml_tpu."""
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({name!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flink_ml_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert name in PORT_MODULES
+
+
 def test_the_slice_modules_are_checked():
     """The fleet and the reference-format codecs are port modules like the
     rest: imported without JAX above and parsed below."""
@@ -178,7 +201,40 @@ def _entry_points():
         *_stats_entry_points(),
         *_slice8_entry_points(),
         *_slice9_entry_points(),
+        *_serving_entry_points(),
     ])
+
+
+def _serving_entry_points():
+    """(name, call) of the serving slice: a server (built and driven), a
+    model store's page-in and a lifecycle's canary gate, on host data."""
+    from flink_ml_tpu_torch import PipelineModel
+    from flink_ml_tpu_torch.data.modelstore import ModelStore
+    from flink_ml_tpu_torch.lifecycle import ModelLifecycle
+    from flink_ml_tpu_torch.models.classification.onlinelogisticregression import (
+        OnlineLogisticRegressionModel)
+    from flink_ml_tpu_torch.serving import MicroBatchServer
+
+    X, _ = _data()
+    table = Table({"features": X})
+    model = LogisticRegressionModel()
+    model.coefficient = np.ones(3)
+
+    def serve():
+        return list(MicroBatchServer(PipelineModel([model])).serve([table]))
+
+    def page_in():
+        store = ModelStore(budget_bytes=None)
+        store.register("t", PipelineModel([model]))
+        store.page_in("t")
+
+    def canary_gate():
+        online = OnlineLogisticRegressionModel()
+        online.publish_model_arrays((np.ones(3),), 1)
+        ModelLifecycle(online, canary={"features": X.astype(np.float32)}).promote((np.ones(3),))
+
+    return [("MicroBatchServer.serve", serve), ("ModelStore.page_in", page_in),
+            ("ModelLifecycle.promote with a canary", canary_gate)]
 
 
 def _feature_entry_points(table, stream):
@@ -378,6 +434,7 @@ ENTRY_POINTS = [
     "AgglomerativeClustering.transform", "MinHashLSH.fit", "MinHashLSHModel.transform",
     "SQLTransformer.transform", "Graph.fit", "GraphModel.transform",
     "FitFleet.fit", "FitFleet.fit of KMeans", "reference-format PipelineModel.transform",
+    "MicroBatchServer.serve", "ModelStore.page_in", "ModelLifecycle.promote with a canary",
 ]
 
 
