@@ -252,7 +252,34 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    p50/p99 by stage, rejected, expired and coalesced counts, the store's
    hits, misses and evictions, fused against eager warm medians at each
    bucket and the card's idle share (CUDA events);
-13. a `kernels` JSON line (four kernels), then the result line.
+13. checkpoint and recovery (`checkpoint_phase`) at phase 3's widths,
+   each kill followed by a resume from the same directory: the dense LR
+   checkpointed every epoch equal to phase 3's unchecked fit bit for bit,
+   killed at the `chunk` site after chunk 7 and resumed bit for bit; the
+   sparse LR (both kernels) fitted in a child process that is SIGKILLed
+   once it printed its second committed cut, resumed in this process
+   (launching row dots and gradients only for the epochs after the cut)
+   within 1e-4 of the plain-loss fit, its gap from the unkilled fit printed
+   beside the gap between two unkilled fits (ROADMAP C.21); kills at
+   `snapshot.write`, at a shard write and at the manifest commit of 4
+   simulated hosts, each leaving the previous cut restorable and, after the
+   resume, no stray file, and a flipped byte in a shard falling back to the
+   older cut with one digest mismatch; the stream LR at 10M x 100 in
+   65,536-row chunks killed at an epoch and resumed bit for bit; the stream
+   LR on its first 1M rows with 4 hosts and the cache's contents, resumed
+   without reading its source; the out-of-core KMeans killed and resumed
+   bit for bit; the online LR killed after version 50 of 100, republishing
+   version 50 and every later version equal to an unkilled run's; phase
+   10's sparse fleet every 5 epochs killed after chunk 2, on fleet kernels
+   only, each member within phase 10's gate; the lifecycle killed at
+   `lifecycle.swap` and rebuilt on its directory (the published and the
+   last-good version served bit for bit, no capture); the supervisor on the
+   dense LR with 4 hosts through a `host.hang.dispatch` hang (readmit) and
+   a `host.die.commit` death (shrink), each recovered once, its cut swept,
+   bit for bit. Each leg prints its wall, its cuts' bytes and ms a cut, its
+   restores' ms, resume-to-first-epoch ms and the supervisor's detection
+   ms, with the card's name and power limit;
+14. a `kernels` JSON line (four kernels), then the result line.
 """
 
 from __future__ import annotations
@@ -266,6 +293,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1101,7 +1129,8 @@ def check_dense_linear(name, run, dense_table, X64, y64, w64):
 def check_sparse_linear(name, run, s_idx, s_vals, s_y, dim=None):
     """A sparse fit on the kernels against the same fit on the plain loss
     on the card, and the transform against the plain row dots; `dim` is
-    the feature count (SPARSE_DIM unless given)."""
+    the feature count (SPARSE_DIM unless given). Returns the plain-loss
+    fit's coefficients."""
     from flink_ml_tpu_torch.models.classification import linearsvc
     from flink_ml_tpu_torch.models.classification import logisticregression
     from flink_ml_tpu_torch.ops import losses
@@ -1140,6 +1169,19 @@ def check_sparse_linear(name, run, s_idx, s_vals, s_y, dim=None):
         got, want, tol = out.column("prediction"), plain, ROW_DOTS_TOL
     check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"sparse {name} transform shape")
     check(torch.allclose(got, want, **tol), f"sparse {name} transform disagrees with plain")
+    return c_p
+
+
+def sparse_data(dev):
+    """The wide sparse table's (indices, values, labels), seeded on the card:
+    1M rows, 39 uniform columns of 1e6, random 0/1 labels."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    s_idx = torch.randint(0, SPARSE_DIM, (SPARSE_ROWS, NNZ), generator=gen, device=dev,
+                          dtype=torch.int32)
+    s_vals = torch.rand((SPARSE_ROWS, NNZ), generator=gen, device=dev)
+    s_y = (torch.rand(SPARSE_ROWS, generator=gen, device=dev) > 0.5).to(torch.float32)
+    return s_idx, s_vals, s_y
 
 
 def kmeans_data(dev):
@@ -4065,28 +4107,11 @@ def sparse_fleet(sk, sparse_table):
     check(counts == expected, f"sparse lr fleet launched {counts}, expected {expected}")
     check(epochs.tolist() == [MAX_ITER] * (FLEET_MEMBERS - 1) + [FLEET_SHORT_ITER],
           f"sparse lr fleet epochs {epochs.tolist()}")
-    plain, plain_crit, plain_epochs = FitFleet(members())._fit_linear(
+    plain = FitFleet(members())._fit_linear(
         sparse_table, losses.fleet_loss("binary_logistic", plain=True))
     solo = [m.fit(sparse_table) for m in members()]
-    gaps, solo_gaps, scales = [], [], []
-    for i, (got, ref, one, est) in enumerate(zip(models, plain, solo, members())):
-        scale = float(np.max(np.abs(ref.coefficient)))
-        gap = max_gap(got.coefficient, ref.coefficient)
-        rel = abs(crit[i] - plain_crit[i]) / max(abs(plain_crit[i]), 1e-30)
-        gaps.append(gap)
-        scales.append(scale)
-        solo_gaps.append(max_gap(got.coefficient, one.coefficient))
-        # atomics reorder float32 sums: 1e-4 of the coefficients' scale, as
-        # the solo sparse fits are held; plus, under an L1 term, one step of
-        # it on each side: the proximal step moves a coefficient by
-        # lr * elasticNet * reg * sign(coeff), so one that rounding leaves
-        # on the other side of 0 lands 2 * lr * elasticNet * reg away
-        l1_step = est.get_learning_rate() * est.get_elastic_net() * est.get_reg()
-        check(np.isfinite(got.coefficient).all() and gap <= 1e-4 * scale + 2.0 * l1_step,
-              f"sparse fleet member {i} differs from the plain-version fleet by {gap} (scale "
-              f"{scale}, L1 step {l1_step})")
-        check(rel < LOSS_REL_TOL and epochs[i] == plain_epochs[i],
-              f"sparse fleet member {i} loss {crit[i]} vs plain {plain_crit[i]}")
+    gaps, scales = sparse_fleet_gate("sparse fleet", (models, crit, epochs), plain, members())
+    solo_gaps = [max_gap(got.coefficient, one.coefficient) for got, one in zip(models, solo)]
     log(f"  sparse lr fleet vs the plain-version fleet: max abs gap by member "
         f"{[f'{g:.3g}' for g in gaps]} of max |coeff| {[f'{c:.3g}' for c in scales]}; losses "
         f"{[round(float(c), 6) for c in crit]}")
@@ -4098,6 +4123,33 @@ def sparse_fleet(sk, sparse_table):
                  sparse_table, result)
     profile_run("sparse lr fleet fit", lambda: FitFleet(members()).fit(sparse_table))
     return models, result
+
+
+def sparse_fleet_gate(label, fit, plain, members):
+    """Phase 10's gate: each member of a sparse fleet `fit` (models,
+    criteria, epochs) against the same fleet on the plain versions.
+    Returns (max abs gap, coefficient scale) by member."""
+    models, crit, epochs = fit
+    plain_models, plain_crit, plain_epochs = plain
+    gaps, scales = [], []
+    for i, (got, ref, est) in enumerate(zip(models, plain_models, members)):
+        scale = float(np.max(np.abs(ref.coefficient)))
+        gap = max_gap(got.coefficient, ref.coefficient)
+        rel = abs(crit[i] - plain_crit[i]) / max(abs(plain_crit[i]), 1e-30)
+        gaps.append(gap)
+        scales.append(scale)
+        # atomics reorder float32 sums: 1e-4 of the coefficients' scale, as
+        # the solo sparse fits are held; plus, under an L1 term, one step of
+        # it on each side: the proximal step moves a coefficient by
+        # lr * elasticNet * reg * sign(coeff), so one that rounding leaves
+        # on the other side of 0 lands 2 * lr * elasticNet * reg away
+        l1_step = est.get_learning_rate() * est.get_elastic_net() * est.get_reg()
+        check(np.isfinite(got.coefficient).all() and gap <= 1e-4 * scale + 2.0 * l1_step,
+              f"{label} member {i} differs from the plain-version fleet by {gap} (scale "
+              f"{scale}, L1 step {l1_step})")
+        check(rel < LOSS_REL_TOL and epochs[i] == plain_epochs[i],
+              f"{label} member {i} loss {crit[i]} vs plain {plain_crit[i]}")
+    return gaps, scales
 
 
 def dense_fleet(dense_table, X64, y64, w64):
@@ -5437,6 +5489,497 @@ def lifecycle_soak(sk, dev, online, trace, dense_models, held_table):
     return out
 
 
+# -- phase 13: checkpoint and recovery ----------------------------------------
+
+CKPT_KILL_CHUNK = 7  # the dense leg's kill: after this many drained chunks (epochs)
+CKPT_CHILD_CUTS = 2  # the sparse child is killed once it printed this many committed cuts
+CKPT_HOSTS = 4  # simulated hosts of the sharded legs
+CKPT_STREAM_KILL_EPOCH = 7
+CKPT_SHARDED_STREAM_ROWS = 1_000_000  # the sharded stream leg's cut: its cache section is 0.4 GB
+CKPT_SHARDED_KILL_EPOCH = 5
+CKPT_KMEANS_KILL_EPOCH = 4
+CKPT_FLEET_INTERVAL, CKPT_FLEET_KILL_CHUNK = 5, 2
+# the sparse fault legs: (site, snapshot hosts, the site's hit that kills,
+# the cut left restorable)
+CKPT_SPARSE_FAULTS = (("snapshot.write", None, 5, 4),
+                      ("snapshot.shard.write", CKPT_HOSTS, 4 * CKPT_HOSTS + 2, 4),
+                      ("snapshot.commit", CKPT_HOSTS, 5, 4))
+# the supervisor legs: (site, hit, policy, detectors); the commit site pulses
+# once a host's shard and once the manifest, so hit 22 is cut 5's host 1
+CKPT_SUPERVISOR_LEGS = (
+    ("host.hang.dispatch", 8, {"on_hang": "readmit"},
+     {"heartbeat_timeout_s": 30.0, "poll_interval_s": 0.01, "stall_safety_s": 120.0}),
+    ("host.die.commit", 22, {"on_failure": "shrink"},
+     {"heartbeat_timeout_s": 0.25, "poll_interval_s": 0.01, "stall_safety_s": 120.0}),
+)
+CKPT_CHILD_TIMEOUT_S = 600.0
+
+
+def carry_template(d):
+    """The SGD snapshot's `model` section: (coeff, grad, wsum, epoch)."""
+    return {"model": (np.zeros(d, np.float32), np.zeros(d, np.float32), np.float32(0),
+                      np.int32(0))}
+
+
+def snapshot_epoch(path, key, d):
+    """The epoch of the newest snapshot of `key` that restores, or None."""
+    from flink_ml_tpu_torch.ckpt import snapshot
+
+    snap = snapshot.load_job_snapshot(path, key, templates=carry_template(d))
+    return None if snap is None else snap.epoch
+
+
+def killed(site, after, fn):
+    """Run `fn` with a fatal fault armed at `site`'s `after`-th hit: it must
+    die there. Returns the wall until the kill, ms."""
+    from flink_ml_tpu_torch.ckpt import faults
+
+    t0 = time.perf_counter()
+    with faults.inject(site, after=after) as plan:
+        try:
+            fn()
+        except faults.InjectedFault:
+            pass
+    torch.cuda.synchronize()
+    check(plan.fired, f"the fault at {site} (hit {after}) never fired")
+    return (time.perf_counter() - t0) * 1e3
+
+
+def stray_files(path, key):
+    """Files of `key` in `path` that no committed state owns: uncommitted
+    cuts' shards, temps, a torn single file's temp."""
+    from flink_ml_tpu_torch.ckpt import coordinator
+
+    base = coordinator._base(key)
+    cuts = set(coordinator.committed_cuts(path, key))
+    out = []
+    for name in os.listdir(path):
+        cut = coordinator._cut_of(name, base)
+        if ".tmp" in name or (cut is not None and cut not in cuts):
+            out.append(name)
+    return out
+
+
+def cut_meter():
+    """The checkpoint spans recorded since the last call: (cuts, bytes a
+    cut, ms a cut, restores, ms a restore)."""
+    from flink_ml_tpu_torch.obs import tracing
+
+    spans = tracing.drain_ring()
+    saves = [s for s in spans if s["name"] == "checkpoint.save"]
+    loads = [s for s in spans if s["name"] == "checkpoint.restore"]
+    return {
+        "cuts": len(saves),
+        "bytes_a_cut": float(np.mean([s["attrs"].get("bytes", 0) for s in saves])) if saves else 0.0,
+        "ms_a_cut": float(np.mean([s["durUs"] for s in saves])) / 1e3 if saves else 0.0,
+        "restores": len(loads),
+        "ms_a_restore": float(np.mean([s["durUs"] for s in loads])) / 1e3 if loads else 0.0,
+    }
+
+
+def leg_report(result, name, t0, **extra):
+    stats = {"wall_s": time.perf_counter() - t0, **cut_meter(), **extra}
+    result[name] = stats
+    log(f"  {name}: wall {stats['wall_s']:.2f} s; {stats['cuts']} cuts of "
+        f"{stats['bytes_a_cut']:.0f} B, {stats['ms_a_cut']:.3f} ms a cut; {stats['restores']} "
+        f"restores, {stats['ms_a_restore']:.3f} ms a restore"
+        + "".join(f"; {k} {v}" for k, v in extra.items()) + f" ({result['card']})")
+    return stats
+
+
+def sparse_child(spec_json: str) -> int:
+    """The sparse leg's child process: the sparse LR fit, checkpointed every
+    epoch into spec["dir"], printing "cut <epoch>" after each committed
+    snapshot; the parent SIGKILLs it."""
+    from flink_ml_tpu_torch import SparseBatch, Table
+    from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.ckpt import snapshot
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
+
+    spec = json.loads(spec_json)
+    for name, value in spec["sizes"].items():
+        globals()[name] = value
+    dev = torch.device(DEVICE)
+    save = snapshot.save_job_snapshot
+
+    def announced(*args, **kwargs):
+        target = save(*args, **kwargs)
+        print(f"cut {kwargs['epoch']}", flush=True)
+        return target
+
+    snapshot.save_job_snapshot = announced
+    with port_config.use_device(dev), port_config.iteration_checkpointing(spec["dir"]):
+        s_idx, s_vals, s_y = sparse_data(dev)
+        table = Table({"features": SparseBatch(SPARSE_DIM, s_idx, s_vals), "label": s_y})
+        estimator(LogisticRegression).fit(table)
+    print("done", flush=True)
+    return 0
+
+
+def preempted_sparse_fit(path):
+    """Run the sparse fit in a child process and SIGKILL it once it has
+    printed CKPT_CHILD_CUTS committed cuts: a real preemption. Returns the
+    cuts it printed."""
+    import signal
+    import subprocess as sp
+
+    spec = json.dumps({"dir": path, "sizes": {n: globals()[n] for n in (
+        "DEVICE", "SPARSE_ROWS", "SPARSE_DIM", "NNZ", "MAX_ITER", "BATCH", "TOL")}})
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = sp.Popen([sys.executable, "-c",
+                     "import sys, chip_smoke; sys.exit(chip_smoke.sparse_child(sys.argv[1]))", spec],
+                    cwd=here, stdout=sp.PIPE, text=True)
+    timer = threading.Timer(CKPT_CHILD_TIMEOUT_S, proc.kill)
+    timer.start()
+    cuts = []
+    try:
+        for line in proc.stdout:
+            if line.startswith("cut "):
+                cuts.append(int(line.split()[1]))
+                if len(cuts) == CKPT_CHILD_CUTS:
+                    os.kill(proc.pid, signal.SIGKILL)
+                    break
+        proc.wait(timeout=CKPT_CHILD_TIMEOUT_S)
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    check(len(cuts) == CKPT_CHILD_CUTS and proc.returncode == -signal.SIGKILL,
+          f"the sparse child printed cuts {cuts} and ended with {proc.returncode}, expected "
+          f"{CKPT_CHILD_CUTS} cuts and SIGKILL")
+    return cuts
+
+
+def counted_stream(columns, rows, chunk, reads):
+    """A one-shot StreamTable of the first `rows` rows in `chunk`-row host
+    Tables, counting the Tables it hands out in reads[0]."""
+    from flink_ml_tpu_torch import StreamTable, Table
+
+    def tables():
+        for i in range(0, rows, chunk):
+            reads[0] += 1
+            yield Table({k: v[i:min(i + chunk, rows)] for k, v in columns.items()})
+
+    return StreamTable(tables())
+
+
+def checkpoint_phase(sk, dev, card, runs, traces, dense_table, sparse_table, stream_cols,
+                     km_cols, online_cols, held_table):
+    """Phase 13: checkpoint and recovery at phase 3's full widths; every
+    resume against its unkilled fit, bit for bit but where the gradient's
+    atomics order float32 sums (the sparse and fleet legs: ROADMAP C.21)."""
+    import shutil
+
+    from flink_ml_tpu_torch import PipelineModel
+    from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.ckpt import coordinator, snapshot
+    from flink_ml_tpu_torch.fleet import FitFleet
+    from flink_ml_tpu_torch.lifecycle import ModelLifecycle
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
+    from flink_ml_tpu_torch.obs import tracing
+    from flink_ml_tpu_torch.ops import losses
+    from flink_ml_tpu_torch.parallel import supervisor
+    from flink_ml_tpu_torch.parallel.iteration import checkpoint_job_key
+    from flink_ml_tpu_torch.utils import metrics
+
+    result = {"card": card}
+    launches = {}
+    t_phase = time.perf_counter()
+    tracing.configure(ring_size=1 << 16)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    lr_key = checkpoint_job_key(estimator(LogisticRegression, "weight"))
+    sparse_key = checkpoint_job_key(estimator(LogisticRegression))
+    try:
+        # dense LR (10M x 100, weighted): checkpointed == unchecked; kill, resume
+        t0 = time.perf_counter()
+        cut_meter()
+        want = runs["dense lr"]["model"].coefficient
+        path = os.path.join(tmp, "dense")
+        with port_config.iteration_checkpointing(path):
+            got = estimator(LogisticRegression, "weight").fit(dense_table).coefficient
+            check(np.array_equal(got, want), "dense lr: the checkpointed fit differs from phase 3's "
+                  "unchecked fit")
+            full = cut_meter()
+            shutil.rmtree(path)
+            killed("chunk", CKPT_KILL_CHUNK,
+                   lambda: estimator(LogisticRegression, "weight").fit(dense_table))
+            check(snapshot_epoch(path, lr_key, DIM) == CKPT_KILL_CHUNK,
+                  "dense lr: the killed fit's newest cut")
+            first_ms = killed("chunk", 1,
+                              lambda: estimator(LogisticRegression, "weight").fit(dense_table))
+            got = estimator(LogisticRegression, "weight").fit(dense_table).coefficient
+        check(np.array_equal(got, want), "dense lr: the resumed fit differs from the unkilled fit")
+        result["dense lr"] = {**full, "resume_to_first_epoch_ms": first_ms}
+        leg_report(result, "dense lr kill-resume", t0, killed_at_epoch=CKPT_KILL_CHUNK,
+                   resume_to_first_epoch_ms=round(first_ms, 3), bits="equal")
+
+        # sparse LR (1M x 39, d 1e6, both kernels): a child process SIGKILLed
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "sparse")
+        cuts = preempted_sparse_fit(path)
+        epoch = snapshot_epoch(path, sparse_key, SPARSE_DIM)
+        check(epoch is not None and epoch >= cuts[-1], f"sparse lr: the child's newest cut {epoch}")
+        with port_config.iteration_checkpointing(path):
+            first_ms = killed("chunk", 1, lambda: estimator(LogisticRegression).fit(sparse_table))
+            epoch += 1
+            sk.reset_launch_counts()
+            got = estimator(LogisticRegression).fit(sparse_table).coefficient
+            counts = sk.launch_counts()
+        launches["checkpoint sparse resume"] = counts
+        expected = launch_dict(sparse_row_dots=MAX_ITER - epoch, sparse_grad=MAX_ITER - epoch)
+        check(counts == expected, f"sparse lr resume from epoch {epoch} launched {counts}, "
+              f"expected {expected}")
+        plain = runs["sparse lr"]["plain_coefficient"]
+        scale = float(np.max(np.abs(plain)))
+        unkilled = runs["sparse lr"]["model"].coefficient
+        second = estimator(LogisticRegression).fit(sparse_table).coefficient
+        gap_plain, gap_unkilled = max_gap(got, plain), max_gap(got, unkilled)
+        gap_two = max_gap(second, unkilled)
+        check(gap_plain <= 1e-4 * scale, f"sparse lr resume differs from the plain-loss fit by "
+              f"{gap_plain} (scale {scale})")
+        leg_report(result, "sparse lr SIGKILL-resume", t0, child_cuts=cuts, resumed_from=epoch,
+                   resume_to_first_epoch_ms=round(first_ms, 3),
+                   resumed_launches=counts, gap_plain=gap_plain, gap_unkilled=gap_unkilled,
+                   gap_two_unkilled_fits=gap_two)
+        log(f"  sparse lr (C.21): resumed fit vs the unkilled fit {gap_unkilled:.3g}, two unkilled "
+            f"fits {gap_two:.3g}, resumed vs plain {gap_plain:.3g} of max |coeff| {scale:.3g} "
+            f"({card})")
+
+        # sparse LR: kills inside a commit leave the previous cut restorable
+        t0 = time.perf_counter()
+        fault_runs = {}
+        for site, hosts, after, restorable in CKPT_SPARSE_FAULTS:
+            path = os.path.join(tmp, site)
+            with port_config.snapshot_hosts_mode(hosts), port_config.iteration_checkpointing(path):
+                killed(site, after, lambda: estimator(LogisticRegression).fit(sparse_table))
+                left = snapshot_epoch(path, sparse_key, SPARSE_DIM)
+                check(left == restorable, f"sparse lr, kill at {site}: restorable cut {left}, "
+                      f"expected {restorable}")
+                sk.reset_launch_counts()
+                got = estimator(LogisticRegression).fit(sparse_table).coefficient
+                launches[f"checkpoint sparse {site}"] = sk.launch_counts()
+            gap = max_gap(got, plain)
+            check(gap <= 1e-4 * scale, f"sparse lr, kill at {site}: resumed fit off the plain "
+                  f"fit by {gap}")
+            stray = stray_files(path, sparse_key)
+            check(stray == [], f"sparse lr, kill at {site}: stray files {stray}")
+            fault_runs[site] = {"restorable": left, "gap_plain": gap}
+        # a flipped byte in the newest cut's shard: fall back to the older cut
+        cut = coordinator.committed_cuts(path, sparse_key)[-1]
+        with open(coordinator.shard_file(path, sparse_key, cut, 0), "r+b") as f:
+            f.seek(1000)
+            byte = f.read(1)
+            f.seek(1000)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        mismatches = metrics.get_counter("checkpoint.digest.mismatch")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the refused cut's warning is expected
+            left = snapshot_epoch(path, sparse_key, SPARSE_DIM)
+        check(left == MAX_ITER - 1 and metrics.get_counter("checkpoint.digest.mismatch")
+              == mismatches + 1, f"a flipped byte in cut {cut}: restored epoch {left}, "
+              f"{metrics.get_counter('checkpoint.digest.mismatch') - mismatches} digest mismatches")
+        leg_report(result, "sparse lr commit faults", t0, faults=fault_runs,
+                   flipped_byte_fell_back_to=left)
+
+        # stream LR, single file, 10M x 100 in 65,536-row chunks
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "stream")
+
+        def stream_fit():
+            return estimator(LogisticRegression, "weight").fit(
+                stream_of(stream_cols, DENSE_ROWS, STREAM_CHUNK))
+
+        with port_config.iteration_checkpointing(path):
+            killed("epoch", CKPT_STREAM_KILL_EPOCH, stream_fit)
+            check(snapshot_epoch(path, lr_key, DIM) == CKPT_STREAM_KILL_EPOCH,
+                  "stream lr: the killed fit's newest cut")
+            got = stream_fit().coefficient
+        check(np.array_equal(got, runs["stream lr"]["model"].coefficient),
+              "stream lr: the resumed fit differs from phase 3's unkilled fit")
+        leg_report(result, "stream lr kill-resume", t0, killed_at_epoch=CKPT_STREAM_KILL_EPOCH,
+                   bits="equal")
+
+        # stream LR, sharded with the cache's contents, on the first 1M rows
+        t0 = time.perf_counter()
+        rows = min(CKPT_SHARDED_STREAM_ROWS, DENSE_ROWS)
+        reads = [0]
+        want = estimator(LogisticRegression, "weight").fit(
+            counted_stream(stream_cols, rows, STREAM_CHUNK, reads)).coefficient
+        path = os.path.join(tmp, "stream_sharded")
+        reads = [0]
+        with port_config.snapshot_hosts_mode(CKPT_HOSTS), port_config.iteration_checkpointing(path):
+            killed("epoch", CKPT_SHARDED_KILL_EPOCH, lambda: estimator(LogisticRegression, "weight")
+                   .fit(counted_stream(stream_cols, rows, STREAM_CHUNK, reads)))
+            first_reads, reads[0] = reads[0], 0
+            shard_bytes = metrics.get_counter("checkpoint.shard.bytes")
+            restored = metrics.get_counter("devicecache.contents.restored")
+            got = estimator(LogisticRegression, "weight").fit(
+                counted_stream(stream_cols, rows, STREAM_CHUNK, reads)).coefficient
+        segments = metrics.get_counter("devicecache.contents.restored") - restored
+        check(reads[0] == 0 and segments == -(-rows // BATCH),
+              f"sharded stream lr: the resume read {reads[0]} source batches and restored "
+              f"{segments} segments")
+        check(np.array_equal(got, want), "sharded stream lr: the resumed fit differs from the "
+              "unkilled fit")
+        leg_report(result, "sharded stream lr kill-resume", t0, rows=rows, hosts=CKPT_HOSTS,
+                   resume_shard_bytes=metrics.get_counter("checkpoint.shard.bytes") - shard_bytes,
+                   source_reads_first=first_reads, source_reads_resume=reads[0],
+                   segments_restored=segments, bits="equal")
+
+        # out-of-core KMeans (1M x 100, k 10, seed 2)
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "kmeans")
+
+        def kmeans_fit():
+            return kmeans_estimator().fit(stream_of(km_cols, KMEANS_ROWS, KMEANS_CHUNK))
+
+        with port_config.iteration_checkpointing(path):
+            killed("epoch", CKPT_KMEANS_KILL_EPOCH, kmeans_fit)
+            got = kmeans_fit()
+        want = runs["stream kmeans"]["model"]
+        check(np.array_equal(got.centroids, want.centroids) and np.array_equal(got.weights,
+                                                                               want.weights),
+              "stream kmeans: the resumed fit differs from phase 3's unkilled fit")
+        leg_report(result, "stream kmeans kill-resume", t0, killed_at_epoch=CKPT_KMEANS_KILL_EPOCH,
+                   bits="equal")
+
+        # online LR (FTRL): killed half way, after version 50 of 100
+        t0 = time.perf_counter()
+        kill_version = DENSE_ROWS // BATCH // 2
+        unkilled = {}
+        model = online_lr_estimator().fit(stream_of(online_cols, DENSE_ROWS, STREAM_CHUNK))
+        while model.process_updates(1) not in unkilled:
+            unkilled[model.model_version] = model.coefficient.copy()
+        path = os.path.join(tmp, "online")
+        with port_config.iteration_checkpointing(path):
+            part = online_lr_estimator().fit(stream_of(online_cols, DENSE_ROWS, STREAM_CHUNK))
+            killed("batch", kill_version, part.process_updates)
+            check(part.model_version == kill_version - 1,
+                  f"online lr: the killed run published version {part.model_version}")
+            res = online_lr_estimator().fit(stream_of(online_cols, DENSE_ROWS, STREAM_CHUNK))
+            versions = [res.process_updates(1)]
+            check(versions[0] == kill_version,
+                  f"online lr: the resume republished version {versions[0]}")
+            same = [np.array_equal(res.coefficient, unkilled[versions[0]])]
+            while True:
+                v = res.process_updates(1)
+                if v == versions[-1]:
+                    break
+                versions.append(v)
+                same.append(np.array_equal(res.coefficient, unkilled[v]))
+        check(versions == list(range(kill_version, max(unkilled) + 1)) and all(same),
+              f"online lr: resumed versions {versions[0]}..{versions[-1]}, "
+              f"{len(same) - sum(same)} differ from the unkilled run's")
+        check(os.listdir(path) == [], "online lr: a completed stream keeps its snapshot")
+        leg_report(result, "online lr kill-resume", t0, killed_after_version=kill_version,
+                   republished=versions[0], versions_equal=len(same), bits="equal")
+
+        # the sparse fleet: phase 10's 8 members, every 5 epochs, killed after chunk 2
+        t0 = time.perf_counter()
+        members = lambda: fleet_members(LogisticRegression)  # noqa: E731
+        plain_fleet = FitFleet(members())._fit_linear(
+            sparse_table, losses.fleet_loss("binary_logistic", plain=True))
+        path = os.path.join(tmp, "fleet")
+        with port_config.iteration_checkpointing(path, CKPT_FLEET_INTERVAL):
+            sk.reset_launch_counts()
+            killed("chunk", CKPT_FLEET_KILL_CHUNK, lambda: FitFleet(members()).fit(sparse_table))
+            killed_counts = sk.launch_counts()
+            sk.reset_launch_counts()
+            fit = FitFleet(members())._fit_linear(sparse_table)
+            counts = sk.launch_counts()
+        launches["checkpoint fleet (killed)"] = killed_counts
+        launches["checkpoint fleet resume"] = counts
+        done = CKPT_FLEET_INTERVAL * CKPT_FLEET_KILL_CHUNK
+        check(killed_counts == launch_dict(fleet_row_dots=done, fleet_grad=done)
+              and counts == launch_dict(fleet_row_dots=MAX_ITER - done, fleet_grad=MAX_ITER - done),
+              f"fleet: the killed fit launched {killed_counts}, the resume {counts}")
+        gaps, scales = sparse_fleet_gate("resumed sparse fleet", fit, plain_fleet, members())
+        leg_report(result, "sparse fleet kill-resume", t0, resumed_from=done,
+                   launches_killed=killed_counts, launches_resumed=counts,
+                   gap_plain=[float(g) for g in gaps])
+
+        # the lifecycle: killed at lifecycle.swap, rebuilt on the directory
+        t0 = time.perf_counter()
+        online = runs["online lr"]["model"]
+        arrays0, version0 = online.model_arrays(), online.model_version
+        trace = traces["online lr"]
+        path = os.path.join(tmp, "lifecycle")
+        pm = PipelineModel([online])
+        pm.transform(held_table)
+        captures = _counter("jit.traces")
+
+        def served(version, arrays):
+            out = pm.transform(held_table)[0]
+            own = online.transform(held_table)[0]
+            check(bool(torch.all(out.column("modelVersion") == version))
+                  and np.array_equal(online.coefficient, arrays[0])
+                  and all(same_column(out.column(c), own.column(c))
+                          for c in ("prediction", "rawPrediction")),
+                  f"lifecycle: a served batch of version {version} is not that version's")
+
+        try:
+            lc = ModelLifecycle(online, checkpoint_dir=path, job_key="ckpt-lifecycle")
+            good = lc.promote((trace[20],))
+            lc.record_serve_ok()
+            pending = (np.asarray(trace[30], np.float64),)
+            killed("lifecycle.swap", 1, lambda: lc.promote(pending))
+            served(good.version_id, good.arrays)  # the server kept the last-good version
+            lc2 = ModelLifecycle(online, checkpoint_dir=path, job_key="ckpt-lifecycle")
+            check(online.model_version == good.version_id + 1 and lc2.last_good == good.version_id,
+                  f"lifecycle: restored version {online.model_version}, last good {lc2.last_good}")
+            served(good.version_id + 1, pending)  # the published version, bit for bit
+            lc2.rollback("phase 13")
+            served(good.version_id, good.arrays)  # the last-good version, bit for bit
+            check(_counter("jit.traces") == captures,
+                  f"lifecycle: {_counter('jit.traces') - captures} captures after the restore")
+        finally:
+            online.publish_model_arrays(arrays0, version0)
+        leg_report(result, "lifecycle kill-restore", t0, published=good.version_id + 1,
+                   last_good=good.version_id, captures=0)
+
+        # the supervisor on the dense LR, 4 simulated hosts
+        want = runs["dense lr"]["model"].coefficient
+        for site, after, policy, detectors in CKPT_SUPERVISOR_LEGS:
+            t0 = time.perf_counter()
+            swept = metrics.get_counter("checkpoint.sweep") + metrics.get_counter(
+                "supervisor.cutSwept")
+            path = os.path.join(tmp, site)
+            with port_config.iteration_checkpointing(path), \
+                    port_config.snapshot_hosts_mode(CKPT_HOSTS):
+                from flink_ml_tpu_torch.ckpt import faults
+
+                with faults.inject(site, after=after) as plan:
+                    res = supervisor.supervise(
+                        lambda device: estimator(LogisticRegression, "weight").fit(
+                            dense_table).coefficient,
+                        hosts=CKPT_HOSTS, checkpoint_dir=path, job_key=lr_key, **policy,
+                        **detectors)
+            (ev,) = res.events
+            kind = "collectiveHang" if "hang" in site else "hostFailure"
+            check(plan.fired and res.recoveries == 1 and ev.kind == kind
+                  and res.hosts == (CKPT_HOSTS if kind == "collectiveHang" else CKPT_HOSTS - 1),
+                  f"supervisor at {site}: {res.recoveries} recoveries, {ev.kind}, "
+                  f"{res.hosts} hosts")
+            check(np.array_equal(res.value, want), f"supervisor at {site}: the recovered fit "
+                  "differs from the unkilled fit")
+            stray = stray_files(path, lr_key)
+            check(stray == [], f"supervisor at {site}: stray files {stray}")
+            leg_report(result, f"supervisor {site}", t0, kind=ev.kind, phase=ev.phase,
+                       detection_ms=round(ev.detection_ms, 3),
+                       recovery_ms=round(ev.recovery_ms, 3), hosts_after=res.hosts,
+                       swept=metrics.get_counter("checkpoint.sweep") + metrics.get_counter(
+                           "supervisor.cutSwept") - swept, bits="equal")
+    finally:
+        tracing.configure()
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    result["launches"] = launches
+    log(f"  phase 13 took {result['seconds']:.2f} s ({card})")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; the port's kernels run only on the card",
@@ -5492,11 +6035,7 @@ def main() -> int:
     y = torch.randint(0, 2, (DENSE_ROWS,), generator=gen, device=dev).to(torch.float32)
     w = torch.rand((DENSE_ROWS,), generator=gen, device=dev)
     dense_table = Table({"features": X, "label": y, "weight": w})
-    gen.manual_seed(5)
-    s_idx = torch.randint(0, SPARSE_DIM, (SPARSE_ROWS, NNZ), generator=gen, device=dev,
-                          dtype=torch.int32)
-    s_vals = torch.rand((SPARSE_ROWS, NNZ), generator=gen, device=dev)
-    s_y = (torch.rand(SPARSE_ROWS, generator=gen, device=dev) > 0.5).to(torch.float32)
+    s_idx, s_vals, s_y = sparse_data(dev)
     sparse_table = Table({"features": SparseBatch(SPARSE_DIM, s_idx, s_vals), "label": s_y})
     km_table = Table({"features": kmeans_data(dev)})
     p_table = pipeline_data(dev)
@@ -5564,7 +6103,8 @@ def main() -> int:
     y64, w64 = y[:touched].double().cpu().numpy(), w[:touched].double().cpu().numpy()
     for name in LINEAR_PATHS:
         check_dense_linear(name, runs[f"dense {name}"], dense_table, X64, y64, w64)
-        check_sparse_linear(name, runs[f"sparse {name}"], s_idx, s_vals, s_y)
+        runs[f"sparse {name}"]["plain_coefficient"] = check_sparse_linear(
+            name, runs[f"sparse {name}"], s_idx, s_vals, s_y)
     del X64
     for name, (*_, java_class) in LINEAR_PATHS.items():
         columns = ("prediction",) if name == "linreg" else ("prediction", "rawPrediction")
@@ -5735,6 +6275,18 @@ def main() -> int:
     for n in serving_launches.values():
         launches["sparse_row_dots"] += n
 
+    # -- 13. checkpoint and recovery ------------------------------------------
+    log("phase 13: checkpoint and recovery: kill-resume of the dense, sparse (a SIGKILLed child "
+        "process), stream, KMeans, online, fleet and lifecycle paths, commit faults, and the "
+        "supervisor (launch counts reset before and read after each resumed fit)")
+    torch.cuda.empty_cache()
+    checkpoints = checkpoint_phase(sk, dev, card, runs, traces, dense_table, sparse_table,
+                                   stream_cols, km_cols, online_cols, held_table)
+    path_s["checkpoint and recovery"] = checkpoints["seconds"]
+    for counts in checkpoints["launches"].values():
+        for kernel in launches:
+            launches[kernel] += counts[kernel]
+
     # -- output -----------------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
@@ -5757,7 +6309,9 @@ def main() -> int:
                                  "reference-format transform":
                                      fleets["reference format"]["launches"]["winner"][name],
                                  **(fused_launches if name == "sparse_row_dots" else {}),
-                                 **(serving_launches if name == "sparse_row_dots" else {})},
+                                 **(serving_launches if name == "sparse_row_dots" else {}),
+                                 **{p: c[name] for p, c in checkpoints["launches"].items()
+                                    if c[name]}},
             "launches_by_feature_path": {p: r["launches"][name] for p, r in
                                          {**features, **texts, **stat_stages, **slice8}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -5777,7 +6331,9 @@ def main() -> int:
             "source": "flink_ml_tpu_torch/csrc/sparse_kernels.cu",
             "replaces": FLEET_SOURCES[name],
             "launches": launches[name],
-            "launches_by_path": {"sparse lr fleet": fleets["sparse lr fleet"]["launches"][name]},
+            "launches_by_path": {"sparse lr fleet": fleets["sparse lr fleet"]["launches"][name],
+                                 **{p: c[name] for p, c in checkpoints["launches"].items()
+                                    if c[name]}},
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "tolerance": r["tolerance"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -5804,7 +6360,8 @@ def main() -> int:
     log("fleets and reference format: " + json.dumps(fleets))
     log("fused transforms: " + json.dumps(fused))
     log("serving: " + json.dumps(serving))
-    log("seconds by path (phases 3-12): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("checkpoint and recovery: " + json.dumps(checkpoints))
+    log("seconds by path (phases 3-13): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")

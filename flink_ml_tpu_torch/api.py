@@ -425,7 +425,18 @@ class Model(Transformer):
 
 
 class Estimator(Stage):
-    """A stage that fits a Model from training tables (Estimator.java:30)."""
+    """A stage that fits a Model from training tables (Estimator.java:30).
+
+    Checkpoint contract (JAX `api.py:303-315`): every concrete estimator
+    declares `checkpointable`. True means its iterative fit snapshots
+    through the JobSnapshot API (ckpt/): `run_sgd`/`optimize_stream`,
+    `iterate_unbounded`, or `save_job_snapshot`/`load_job_snapshot`
+    directly, so a preempted fit resumes from its last epoch boundary
+    under `config.iteration_checkpoint_dir`. False comes with a non-empty
+    `checkpoint_reason` saying why the fit holds no resumable state."""
+
+    checkpointable: Optional[bool] = None
+    checkpoint_reason: str = ""
 
     @abc.abstractmethod
     def fit(self, *inputs: Table) -> Model:

@@ -1,19 +1,44 @@
 """Fault-injection sites: the reference's `FailingMap` idiom.
 
-Port of the fault sites of flink_ml_tpu/ckpt/faults.py (snapshots and the
-coordinator stay ROADMAP A.13). Two entry styles:
+Port of flink_ml_tpu/ckpt/faults.py. Two entry styles:
 
 - `failing_map(items, after_records)`: wrap a stream; it raises
   `InjectedFault` once the cumulative record count crosses the threshold.
 - `inject(site, after)` + `tick(site)`: code calls `tick(<site>)` at its
-  boundaries; a test arms one plan and the matching tick raises. The sites
-  the port ticks: `serving.batch` (inside `MicroBatchServer`'s batch
-  dispatch), `lifecycle.promote` (at `ModelLifecycle.promote` entry) and
-  `lifecycle.swap` (inside `promote`, before the pointer swap).
+  boundaries; a test arms one plan and the matching tick raises.
 - `flaky(site, times)`: the transient twin of `inject`: the site fails its
   first `times` hits with `TransientFault` (a `flow.TransientError`, so
   `flow.with_retries` retries it), then succeeds. `InjectedFault` models a
   crash and is never retried.
+
+The sites the port ticks:
+
+| site                     | boundary                                        |
+|--------------------------|-------------------------------------------------|
+| `chunk`                  | a checkpointed chunk drained (SGD, the fleet,   |
+|                          | `iterate_bounded`)                              |
+| `epoch`                  | a stream epoch (SGD `optimize_stream`, KMeans   |
+|                          | out of core)                                    |
+| `batch`                  | a global batch folded (`iterate_unbounded`)     |
+| `snapshot.write`         | in `save_job_snapshot`, after the temp file,    |
+|                          | before the atomic rename                        |
+| `snapshot.read`          | in `load_job_snapshot`, before the npz opens    |
+| `snapshot.shard.write`   | in one host's shard write, before its rename;   |
+|                          | ticks once a host                               |
+| `snapshot.commit`        | in the manifest commit, after every shard       |
+|                          | landed, before the manifest's rename            |
+| `snapshot.manifest.read` | in each manifest read of a sharded restore      |
+| `snapshot.shard.read`    | in each shard-file read (restore, digesting)    |
+| `datacache.append`       | in `DataCache.append_array`, before the write   |
+| `datacache.read`         | in `DataCache.read_into`                        |
+| `serving.batch`          | in `MicroBatchServer`'s batch dispatch          |
+| `lifecycle.promote`      | at `ModelLifecycle.promote` entry               |
+| `lifecycle.swap`         | in `promote`, after the snapshot, before the    |
+|                          | pointer swap                                    |
+| `host.die[.<phase>]`     | at every supervised boundary (parallel/         |
+| `host.hang[.<phase>]`    | supervisor.py), phase `dispatch`, `collective`  |
+|                          | or `commit`: a death stops the victim's         |
+|                          | heartbeat, a hang blocks the fit thread         |
 
 Disarmed cost is one module-global load per tick.
 """

@@ -5,10 +5,11 @@ card and no explicit request it raises: nothing falls back to the CPU
 quietly. Host (numpy) columns are staged to `device()`; torch tensor
 columns stay on the device they already live on.
 
-The stream, online, fleet, fusion, flow-control, serving, model-store and
-lifecycle knobs keep the JAX package's names, defaults and environment
-variables (flink_ml_tpu/config.py). Its other TPU knobs (whole-fit,
-collectives, compile bank) have no counterpart here yet.
+The stream, online, fleet, fusion, flow-control, serving, model-store,
+lifecycle, checkpoint, snapshot and supervisor knobs keep the JAX
+package's names, defaults and environment variables
+(flink_ml_tpu/config.py). Its other TPU knobs (whole-fit, collectives,
+compile bank) have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -37,8 +38,38 @@ input_prefetch_depth: int = 2
 #: folded; "shed_oldest" bounds memory and model staleness (consumed lag <
 #: the window); "sample" bounds memory only (the window keeps a prefix)
 online_overload_policy: str = "block"
-#: checkpointed iteration is not ported (ROADMAP A.13); set, it raises
+#: where the iterative fits (SGD, stream SGD, out-of-core KMeans, the
+#: online estimators, the fleet) snapshot their state at epoch boundaries
+#: and resume from; None is no checkpointing (ckpt/snapshot.py)
 iteration_checkpoint_dir: Optional[str] = None
+#: epochs (global batches for the online estimators) between two snapshots
+iteration_checkpoint_interval: int = 1
+
+# -- sharded snapshots (ckpt/coordinator.py) --------------------------------
+#: simulated hosts of the sharded snapshot: each writes only its own slices
+#: of every leaf and a manifest commits the cut; None is the single file
+snapshot_hosts: Optional[int] = None
+#: committed cuts kept per job key (>= 1; >= 2 keeps a fallback)
+snapshot_retained: int = 2
+#: seconds one host's shard write may take, retries included, before the
+#: cut is aborted (the previous cut stays restorable); None is no deadline
+snapshot_host_deadline_s: Optional[float] = None
+#: a sharded stream-SGD snapshot also carries the stream cache's contents,
+#: written once per job key, so a resume does not read the stream again
+snapshot_cache_contents: bool = True
+
+# -- the supervisor (parallel/supervisor.py) --------------------------------
+#: no dispatch/drain/commit progress for hang_factor x the trailing chunk
+#: wall is a CollectiveHang
+hang_factor: float = 8.0
+#: the floor under that deadline, seconds
+hang_min_deadline_s: float = 1.0
+#: a simulated host whose heartbeat is older than this is a HostFailure
+host_heartbeat_timeout_s: float = 1.0
+#: the supervisor's poll cadence, seconds
+supervisor_poll_interval_s: float = 0.02
+#: recoveries the supervisor may spend on one fit
+recovery_budget: int = 2
 
 #: a fleet whose member state (coeff and grad, N x d x 8 bytes; KMeans
 #: N x k x d x 8) exceeds this would shard its member axis over the data
@@ -173,6 +204,41 @@ def model_retention_mode(retained: int):
     return _scoped("model_versions_retained", max(2, int(retained)))
 
 
+def set_iteration_checkpoint_dir(path: Optional[str], interval: int = 1) -> None:
+    global iteration_checkpoint_dir, iteration_checkpoint_interval
+    iteration_checkpoint_dir = path
+    iteration_checkpoint_interval = interval
+
+
+@contextmanager
+def iteration_checkpointing(path: str, interval: int = 1):
+    """Scoped checkpoint and resume of the iterative fits."""
+    global iteration_checkpoint_dir, iteration_checkpoint_interval
+    prev = (iteration_checkpoint_dir, iteration_checkpoint_interval)
+    iteration_checkpoint_dir, iteration_checkpoint_interval = path, interval
+    try:
+        yield
+    finally:
+        iteration_checkpoint_dir, iteration_checkpoint_interval = prev
+
+
+def snapshot_hosts_mode(hosts: Optional[int]):
+    """Scoped override of `snapshot_hosts` (None: the single-file path)."""
+    if hosts is not None and int(hosts) < 1:
+        raise ValueError(f"snapshot_hosts must be >= 1, got {hosts!r}")
+    return _scoped("snapshot_hosts", None if hosts is None else int(hosts))
+
+
+def snapshot_retention_mode(retained: int):
+    """Scoped override of `snapshot_retained` (>= 1)."""
+    return _scoped("snapshot_retained", max(1, int(retained)))
+
+
+def recovery_budget_mode(budget: int):
+    """Scoped override of `recovery_budget` (0: detect, never resume)."""
+    return _scoped("recovery_budget", max(0, int(budget)))
+
+
 _env = os.environ.get
 if _env("FLINK_ML_TPU_HBM_BUDGET_BYTES"):
     hbm_budget_bytes = max(0, int(_env("FLINK_ML_TPU_HBM_BUDGET_BYTES")))
@@ -188,6 +254,18 @@ if _env("FLINK_ML_TPU_MODEL_VERSIONS_RETAINED"):
     model_versions_retained = max(2, int(_env("FLINK_ML_TPU_MODEL_VERSIONS_RETAINED")))
 if _env("FLINK_ML_TPU_LIFECYCLE_CANARY_RTOL"):
     lifecycle_canary_rtol = float(_env("FLINK_ML_TPU_LIFECYCLE_CANARY_RTOL"))
+if _env("FLINK_ML_TPU_SNAPSHOT_HOSTS"):
+    snapshot_hosts = max(1, int(_env("FLINK_ML_TPU_SNAPSHOT_HOSTS")))
+if _env("FLINK_ML_TPU_SNAPSHOT_RETAINED"):
+    snapshot_retained = max(1, int(_env("FLINK_ML_TPU_SNAPSHOT_RETAINED")))
+if _env("FLINK_ML_TPU_SNAPSHOT_HOST_DEADLINE_S"):
+    snapshot_host_deadline_s = float(_env("FLINK_ML_TPU_SNAPSHOT_HOST_DEADLINE_S"))
+if _env("FLINK_ML_TPU_RECOVERY_BUDGET"):
+    recovery_budget = max(0, int(_env("FLINK_ML_TPU_RECOVERY_BUDGET")))
+if _env("FLINK_ML_TPU_HOST_HEARTBEAT_TIMEOUT_S"):
+    host_heartbeat_timeout_s = float(_env("FLINK_ML_TPU_HOST_HEARTBEAT_TIMEOUT_S"))
+if _env("FLINK_ML_TPU_HANG_FACTOR"):
+    hang_factor = float(_env("FLINK_ML_TPU_HANG_FACTOR"))
 if os.environ.get("FLINK_ML_TPU_PIPELINE_FUSION") in ("auto", "off"):
     pipeline_fusion = os.environ["FLINK_ML_TPU_PIPELINE_FUSION"]
 if os.environ.get("FLINK_ML_TPU_KERNEL_CACHE_SIZE"):
@@ -198,12 +276,6 @@ def check_overload_policy(policy: str) -> None:
     """Accept an ingest overload policy: "block", "shed_oldest" or "sample"."""
     if policy not in OVERLOAD_POLICIES:
         raise ValueError(f"unknown overload policy {policy!r}; one of {OVERLOAD_POLICIES}")
-
-
-def check_no_checkpoint(checkpoint_dir: Optional[str] = None) -> None:
-    """Raise for a checkpoint directory, given or from the config."""
-    if checkpoint_dir is not None or iteration_checkpoint_dir is not None:
-        raise NotImplementedError("checkpointed training is not ported yet (ROADMAP A.13)")
 
 
 def device() -> torch.device:

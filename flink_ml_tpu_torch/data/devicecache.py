@@ -15,8 +15,14 @@ staged batches on the device, so a batch crosses to the device once:
   order. A key that repeats the one before reuses its batch without a
   lookup or a copy, whatever the budget.
 
-The JAX package's HBM-ledger accounting (ROADMAP A.14) and its snapshot
-of the cache's contents (A.13) are not ported.
+- `cache_contents_section` / `restore_cache_contents` (`:88-130`): the
+  stream cache's contents as a snapshot section, so a resumed stream fit
+  rebuilds its host cache from a sharded snapshot and does not read its
+  input again. The section holds each segment as the JAX package's packed
+  (batch, d + 2) [X | y | w] array, so either package restores the
+  other's.
+
+The JAX package's HBM-ledger accounting is ROADMAP A.14.
 """
 
 from __future__ import annotations
@@ -24,10 +30,14 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, Iterable, Iterator, Optional
 
+import numpy as np
+
 from .. import config
 from ..parallel.prefetch import Prefetcher, Staged
+from ..utils import metrics
 
-__all__ = ["DeviceEpochCache", "CachedEpochLoader"]
+__all__ = ["DeviceEpochCache", "CachedEpochLoader", "cache_contents_section",
+           "restore_cache_contents"]
 
 _UNSET = object()
 
@@ -118,3 +128,40 @@ class CachedEpochLoader:
         """The device batch of each key, in order. Closing the generator
         early stops the staging worker; a stage error re-raises here."""
         return Prefetcher(self._resolve, self.depth, policy="block").iterate(keys)
+
+
+# ---------------------------------------------------------------------------
+# the cache's contents as a snapshot section (sharded snapshots)
+# ---------------------------------------------------------------------------
+
+def cache_contents_section(cache, segs, layout):
+    """The stream cache's segments as the host arrays of a snapshot
+    `cache` section, each the (batch, d + 2) [X | y | w] array of the JAX
+    package's layout. Called once, at fit start, before the epoch loader's
+    worker reads the (serial) cache; the saves close over the arrays."""
+    out = []
+    for seg in segs:
+        X, y, w = layout.views(cache.read_array(seg))
+        out.append(np.concatenate([X, y[:, None], w[:, None]], axis=1))
+    return tuple(out)
+
+
+def restore_cache_contents(snap, cache, layout):
+    """Append a snapshot's `cache` section to a fresh cache in replay order
+    as `layout`'s packed segments; returns (segment ids, layout), or None
+    when the snapshot carries no cache contents (the caller then ingests
+    the stream)."""
+    section = snap.sections.get("cache")
+    if section is None:
+        return None
+    flat = np.zeros(layout.size, np.float32)
+    Xv, yv, wv = layout.views(flat)
+    segs = []
+    for arr in section:
+        arr = np.asarray(arr, np.float32)
+        if arr.shape != (layout.batch, layout.d + 2):
+            return None
+        Xv[:], yv[:], wv[:] = arr[:, :layout.d], arr[:, layout.d], arr[:, layout.d + 1]
+        segs.append(cache.append_array(flat))
+    metrics.inc_counter("devicecache.contents.restored", len(segs))
+    return segs, layout

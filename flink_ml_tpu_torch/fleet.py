@@ -29,8 +29,17 @@ shards when the members' state outgrows `config.fleet_shard_state_bytes`.
 The port trains on one device, one data shard, so its fleet is always
 replicated, and `shard_fleet_axis=True` raises the JAX package's
 ValueError. `promote_fleet_winner` publishes the best member into a
-`lifecycle.ModelLifecycle`. Not ported yet: the checkpointed fleet (A.13),
-the `fleet.*` counters and the per-member peak memory (A.14) and the
+`lifecycle.ModelLifecycle`.
+
+Checkpoints (the JAX package's `_run_fleet_sgd`, `:326-430`): under
+`config.iteration_checkpoint_dir` the in-memory linear fleet runs its
+epochs in chunks that end at the checkpoint boundaries
+(`optimizer._sgd_fleet_chunk`), reads every member's (epoch, criteria)
+back once a chunk, snapshots the fleet carry as one `fleet` section
+(coeff and grad as [N, d] host arrays, whatever their device layout)
+under `_job_key()`, ticks the `chunk` fault site, and resumes from the
+newest snapshot; the chunking changes no arithmetic. Not ported yet: the
+`fleet.*` counters and the per-member peak memory (A.14) and the
 fleet-sharded regime (A.10).
 """
 
@@ -158,7 +167,6 @@ class FitFleet:
         """Train every member on `table` (a Table, or a StreamTable for the
         linear estimators); returns the N fitted models in the estimators'
         order."""
-        config.check_no_checkpoint()
         if self.kind == "KMeans":
             return self._fit_kmeans(table)
         return self._fit_linear(table)[0]
@@ -214,16 +222,79 @@ class FitFleet:
         X_f, y_f, w_f, n = optimizer.stage_flat(X, y, w, gbs)
         device = y_f.device
         state = optimizer.fleet_init_state(len(ests), d, device, member_minor=sparse)
-        packed = optimizer._sgd_fleet_whole_fit(
-            X_f, y_f, w_f, state, loss_func, optimizer.fleet_hyper(rows, device), gmax, gbs, n,
-            validate_on_device,
-        )
+        hyper = optimizer.fleet_hyper(rows, device)
+        if config.iteration_checkpoint_dir is not None:
+            state = self._run_checkpointed(X_f, y_f, w_f, n, state, loss_func, hyper, rows,
+                                           gmax, gbs, d, sparse)
+            packed = optimizer._sgd_fleet_final(state, hyper)
+            if validate_on_device:
+                flag = optimizer._binomial_labels_ok(y_f).reshape(1, 1)
+                packed = torch.cat([flag.expand(packed.shape[0], 1), packed], dim=1)
+        else:
+            packed = optimizer._sgd_fleet_whole_fit(
+                X_f, y_f, w_f, state, loss_func, hyper, gmax, gbs, n, validate_on_device)
         (host,) = _linear.packed_to_host(packed)
         flags, coeffs, criteria, epochs = optimizer.unpack_fleet_train_result(
             host, d, validate_on_device)
         if flags is not None:
             _linear._raise_if_invalid(float(np.min(flags)))
         return self._linear_models(coeffs), criteria, epochs
+
+    def _run_checkpointed(self, X, y, w, n, state, loss_func, hyper, rows, gmax, gbs, d,
+                          member_minor):
+        """The fleet's epochs in chunks that end at the checkpoint
+        boundaries, a snapshot of the fleet carry at each boundary, a
+        resume from the newest one. Returns the final fleet state."""
+        from .ckpt import faults
+        from .ckpt import snapshot as _snapshot
+        from .ops import optimizer
+        from .parallel import supervisor
+        from .utils.packing import packed_device_get
+
+        ckpt_dir, key = config.iteration_checkpoint_dir, self._job_key()
+        interval = max(1, int(config.iteration_checkpoint_interval))
+        N = len(self.estimators)
+        meta = {"numBatches": int(y.shape[0]) // gbs, "globalBatchSize": gbs,
+                "fleetSize": N, "dim": d}
+        specs = {"fleet": ("replicated",) * 5}
+        template = (np.zeros((N, d), np.float32), np.zeros((N, d), np.float32),
+                    np.zeros(N, np.float32), np.zeros(N, np.int32), np.zeros(N, np.float32))
+        planned = 0
+        snap = _snapshot.load_job_snapshot(ckpt_dir, key, templates={"fleet": template},
+                                           expect_meta=meta)
+        if snap is not None:
+            coeff, grad, wsum, epochs, crit = _snapshot.stage_section(
+                snap, "fleet", device=y.device, specs=specs["fleet"], category="fleet")
+            if member_minor:  # the kernels' layout: the transpose of a contiguous (d, N)
+                coeff, grad = coeff.T.contiguous().T, grad.T.contiguous().T
+            state, planned = (coeff, grad, wsum, epochs, crit), snap.epoch
+        max_iters = np.asarray([r[0] for r in rows])
+        tols = np.asarray([r[1] for r in rows], np.float32)  # the device mask's tol
+        stopped = False
+        while planned < gmax and not stopped:
+            end = min((planned // interval + 1) * interval, gmax)
+            supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
+            state = optimizer._sgd_fleet_chunk(X, y, w, state, loss_func, hyper, gbs, n,
+                                               planned, end)
+            supervisor.pulse_boundary(supervisor.PHASE_COLLECTIVE)
+            e_m, c_m = packed_device_get(state[3], state[4], sync_kind="drain")
+            if end % interval == 0:
+                _snapshot.save_job_snapshot(ckpt_dir, key, {"fleet": state}, epoch=end,
+                                            criteria=float(np.max(c_m)), specs=specs, meta=meta)
+            faults.tick("chunk")
+            planned = end
+            stopped = bool(np.all((e_m >= max_iters) | (c_m <= tols)))
+        return state
+
+    def _job_key(self) -> str:
+        """The fleet's job identity: "fleet-" and a hash of every member's
+        checkpoint job key (the JAX package's key)."""
+        import hashlib
+
+        from .parallel.iteration import checkpoint_job_key
+
+        member_keys = "|".join(checkpoint_job_key(e) for e in self.estimators)
+        return f"fleet-{hashlib.sha1(member_keys.encode()).hexdigest()[:10]}"
 
     def _linear_models(self, coeffs) -> List:
         models = []

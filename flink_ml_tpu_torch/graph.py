@@ -288,6 +288,12 @@ def _load_graph_nodes(path: str, metadata: Dict) -> List[GraphNode]:
 class Graph(Estimator):
     """An Estimator DAG (builder/Graph.java:54)."""
 
+    checkpointable = False
+    checkpoint_reason = (
+        "composite stage: each contained estimator snapshots its own "
+        "fit through config.iteration_checkpoint_dir; the graph itself holds no training state"
+    )
+
     def __init__(
         self,
         nodes: List[GraphNode],

@@ -23,14 +23,23 @@ what a live swap must not skip:
    and quarantines the trainer: `promote` raises `TrainerQuarantined`
    until `release_quarantine()`.
 
-Fault sites (ckpt/faults.py): `lifecycle.promote` at promote entry and
-`lifecycle.swap` before the pointer swap. A checkpoint directory (the
-JAX package persists every promotion in a JobSnapshot) raises until
-checkpoints are ported (ROADMAP A.13).
+3. **Persistence** (`checkpoint_dir`, `job_key`): every promotion and
+   rollback is written to a JobSnapshot (ckpt/snapshot.py; section `model`,
+   meta `publishedVersion`, `lastGoodVersion`, `ringVersions`) before the
+   swap, and a lifecycle built on the directory republishes the persisted
+   version and restores the last-good id at construction. The republished
+   arrays go through the model's swap protocol, so its constants are
+   packed once (`api.HostConstants`) and a server in operand mode replays
+   them without a capture.
 
-Thread contract: `promote`/`rollback` run on one trainer thread, under
-`pipeline.capture_lock` (the canary's uploads and kernels never run inside
-a capture); `record_serve_ok`/`record_guard_error` are serve-side. The
+Fault sites (ckpt/faults.py): `lifecycle.promote` at promote entry and
+`lifecycle.swap` after the snapshot, before the pointer swap: a trainer
+killed there never published, and the resumed lifecycle republishes the
+same version.
+
+Thread contract: `promote`/`rollback` and the restore run on one trainer
+thread, under `pipeline.capture_lock` (the canary's uploads and kernels
+never run inside a capture); `record_serve_ok`/`record_guard_error` are serve-side. The
 published state is one atomic reference on the model.
 """
 
@@ -81,7 +90,7 @@ class TrainerQuarantined(RuntimeError):
 
 @dataclass(frozen=True)
 class LifecycleEvent:
-    """One lifecycle transition, in order: kind is "promoted", "rejected",
+    """One lifecycle transition, in order: kind is "promoted", "rejected", "restored",
     "rollback", "quarantined" or "released"."""
 
     kind: str
@@ -97,7 +106,7 @@ class ModelVersion:
 
     version_id: int
     arrays: Tuple[Optional[np.ndarray], ...]
-    source: str = "trainer"  # "trainer" | "seed" | "rollback"
+    source: str = "trainer"  # "trainer" | "seed" | "restore" | "rollback"
     promoted_at: float = 0.0
 
 
@@ -118,8 +127,8 @@ class ModelLifecycle:
 
     `canary` optionally pins a canary batch (the model's kernel input
     columns to host arrays), which turns on the gate's output check.
-    `checkpoint_dir` (with `job_key`) is the JAX package's persistence; it
-    raises until checkpoints are ported (ROADMAP A.13)."""
+    `checkpoint_dir` (with `job_key`) persists every promotion and restores
+    the persisted version at construction."""
 
     def __init__(
         self,
@@ -138,7 +147,6 @@ class ModelLifecycle:
                 "needs the api.Model swap protocol (model_arrays / "
                 "publish_model_arrays / kernel_constants_for)"
             )
-        config.check_no_checkpoint(checkpoint_dir)
         self.model = model
         self.retained = max(2, int(retained if retained is not None else config.model_versions_retained))
         self.canary = canary
@@ -157,12 +165,16 @@ class ModelLifecycle:
         self.promote_rejected = 0
         self.swap_count = 0
         self.rollback_count = 0
+        self.checkpoint_dir = checkpoint_dir
+        self.job_key = job_key
 
         seed = model.model_arrays()
         if any(a is not None for a in seed):
             self._ring.append(ModelVersion(model.model_version, _host_copy(seed), "seed", time.time()))
             self._last_good = model.model_version
             self._next_id = model.model_version + 1
+        if checkpoint_dir is not None:
+            self._restore(checkpoint_dir, job_key)
         metrics.set_gauge("lifecycle.publishedVersion", self.model.model_version)
 
     # -- introspection -------------------------------------------------------
@@ -240,7 +252,7 @@ class ModelLifecycle:
 
     # -- promote / rollback --------------------------------------------------
     def promote(self, arrays: Tuple, version: Optional[int] = None) -> ModelVersion:
-        """Gate and publish one candidate; returns the retained
+        """Gate, persist and publish one candidate; returns the retained
         `ModelVersion`. Raises `PromotionRejected` (the gate) or
         `TrainerQuarantined` (after a rollback). The swap is the model's one
         reference assignment: a batch dispatched a moment earlier keeps the
@@ -256,6 +268,9 @@ class ModelLifecycle:
             self._gate(candidate)
             version_id = self._next_id if version is None else int(version)
             entry = ModelVersion(version_id, candidate, "trainer", time.time())
+            self._persist(entry)
+            # the mid-publish kill window: the snapshot is durable, the swap
+            # not done; a resume republishes version_id
             faults.tick("lifecycle.swap")
             self.model.publish_model_arrays(candidate, version_id)
         self._ring.append(entry)
@@ -296,6 +311,7 @@ class ModelLifecycle:
         self._quarantined = TrainerQuarantined(bad, reason)
         metrics.inc_counter("lifecycle.quarantined")
         self._event("quarantined", bad, reason)
+        self._persist(restored)
         return restored
 
     def release_quarantine(self) -> None:
@@ -323,3 +339,42 @@ class ModelLifecycle:
         ):
             self.rollback(f"guard-error rate {sum(self._outcomes)}/{len(self._outcomes)} "
                           f">= {self.error_rate_trigger}")
+
+    # -- persistence (the JobSnapshot meta contract) -------------------------
+    def _persist(self, entry: ModelVersion) -> None:
+        if self.checkpoint_dir is None:
+            return
+        from .ckpt import snapshot as _snapshot
+
+        _snapshot.save_job_snapshot(
+            self.checkpoint_dir,
+            self.job_key,
+            {"model": list(entry.arrays)},
+            epoch=entry.version_id,
+            meta={
+                "publishedVersion": entry.version_id,
+                "lastGoodVersion": self._last_good if self._last_good is not None else -1,
+                "ringVersions": self.retained_versions() + [entry.version_id],
+            },
+        )
+
+    def _restore(self, checkpoint_dir: str, job_key: Optional[str]) -> None:
+        """Republish the persisted version (its arrays bit for bit, its
+        version id) and restore the last-good id."""
+        from .ckpt import snapshot as _snapshot
+        from .pipeline import capture_lock
+
+        template = list(self.model.model_arrays())
+        snap = _snapshot.load_job_snapshot(checkpoint_dir, job_key, {"model": template})
+        if snap is None:
+            return
+        arrays = tuple(snap.sections["model"])
+        version = int(snap.meta.get("publishedVersion", snap.epoch))
+        last_good = int(snap.meta.get("lastGoodVersion", -1))
+        with capture_lock:
+            self.model.publish_model_arrays(arrays, version)
+        self._ring.append(ModelVersion(version, _host_copy(arrays), "restore", time.time()))
+        self._last_good = last_good if last_good >= 0 else None
+        self._next_id = version + 1
+        metrics.inc_counter("lifecycle.restored")
+        self._event("restored", version)

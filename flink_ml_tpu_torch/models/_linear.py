@@ -59,7 +59,12 @@ def run_sgd(params, table, loss_func: LossFunc, weight_col: Optional[str],
 
     A bounded `Table` trains on the device; a `StreamTable` trains out of
     core (`SGD.optimize_stream`) on the same batch schedule, so both give
-    the same coefficients for the same rows."""
+    the same coefficients for the same rows. Checkpoint and resume follow
+    `config.iteration_checkpoint_dir`, the files named by the stage's
+    `checkpoint_job_key`."""
+    from ..parallel.iteration import checkpoint_job_key
+
+    ckpt_dir = config.iteration_checkpoint_dir
     optimizer = SGD(
         max_iter=params.get_max_iter(),
         learning_rate=params.get_learning_rate(),
@@ -67,6 +72,9 @@ def run_sgd(params, table, loss_func: LossFunc, weight_col: Optional[str],
         tol=params.get_tol(),
         reg=params.get_reg(),
         elastic_net=params.get_elastic_net(),
+        checkpoint_dir=ckpt_dir,
+        checkpoint_interval=config.iteration_checkpoint_interval,
+        checkpoint_key=checkpoint_job_key(params) if ckpt_dir is not None else None,
     )
     if isinstance(table, StreamTable):
         chunks = _stream_chunks(table, params.get_features_col(), params.get_label_col(),

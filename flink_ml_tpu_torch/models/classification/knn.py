@@ -136,6 +136,13 @@ class KnnModel(Model, KnnModelParams):
 
 
 class Knn(Estimator, KnnParams):
+
+    checkpointable = False
+    checkpoint_reason = (
+        "fit materializes the training set as the model (no "
+        "iterations); a restart recomputes the repack"
+    )
+
     def fit(self, *inputs: Table) -> KnnModel:
         """The training set is the model (Knn.java): a tensor column stays
         on its device, a host one stays on the host."""

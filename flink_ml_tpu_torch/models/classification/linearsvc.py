@@ -92,6 +92,9 @@ class LinearSVCModel(_linear.CoefficientModelData, Model, LinearSVCModelParams):
 class LinearSVC(Estimator, LinearSVCParams):
     """Estimator (LinearSVC.java)."""
 
+    # fits through run_sgd: checkpointed SGD under config.iteration_checkpoint_dir
+    checkpointable = True
+
     def fit(self, *inputs: Table) -> LinearSVCModel:
         (table,) = inputs
         coeff, _, _ = _linear.run_sgd(

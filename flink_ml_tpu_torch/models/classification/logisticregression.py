@@ -89,6 +89,9 @@ class LogisticRegressionModel(
 class LogisticRegression(Estimator, LogisticRegressionParams):
     """Estimator (LogisticRegression.java:60)."""
 
+    # fits through run_sgd: checkpointed SGD under config.iteration_checkpoint_dir
+    checkpointable = True
+
     def fit(self, *inputs: Table) -> LogisticRegressionModel:
         (table,) = inputs
         if self.get_multi_class() == "multinomial":

@@ -298,6 +298,10 @@ def _device_label(y, X: torch.Tensor):
 
 
 class NaiveBayes(Estimator, NaiveBayesParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass label/feature count aggregation; a restart recomputes the fit"
+
     def _fit_stats_device(self, X: torch.Tensor, y):
         """(labels, per-label counts, per-column categories (d, m_max),
         per-column category counts, (L, d, m_max) co-occurrence counts),

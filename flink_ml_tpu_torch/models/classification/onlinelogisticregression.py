@@ -43,7 +43,7 @@ from ...common.param import (
 )
 from ...linalg import DenseVector
 from ...param import DoubleParam, ParamValidators
-from ...parallel.iteration import iterate_unbounded
+from ...parallel.iteration import checkpoint_job_key, iterate_unbounded
 from ...parallel.prefetch import DeviceStager, Prefetcher
 from ...table import StreamTable, Table, as_dense_matrix, global_batches
 from ...utils import read_write
@@ -254,6 +254,9 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams):
     """Estimator (OnlineLogisticRegression.java). Needs initial model data,
     from a batch LogisticRegression, say."""
 
+    # snapshots (coeff, z, n) per global batch through iterate_unbounded
+    checkpointable = True
+
     def __init__(self):
         self._initial_model_data: Optional[Table] = None
 
@@ -267,7 +270,6 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams):
             raise TypeError("OnlineLogisticRegression.fit expects a StreamTable")
         if self._initial_model_data is None:
             raise ValueError("OnlineLogisticRegression requires initial model data")
-        config.check_no_checkpoint()
         stager = DeviceStager(config.device(), torch.float32)
         row = self._initial_model_data.collect()[0]
         coeff = np.asarray(row["coefficient"].to_array(), dtype=np.float64)
@@ -290,8 +292,11 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams):
         staged = Prefetcher(stager, policy=config.online_overload_policy,
                             name="online.ingest").iterate(batches)
         init = torch.as_tensor(coeff, dtype=torch.float32, device=stager.device)
+        # under config.iteration_checkpoint_dir each version snapshots the
+        # FTRL state (coeff, z, n), and a resumed fit republishes it first
         updates = iterate_unbounded(
-            staged, step, (init, torch.zeros_like(init), torch.zeros_like(init)))
+            staged, step, (init, torch.zeros_like(init), torch.zeros_like(init)),
+            job_key=checkpoint_job_key(self))
         model = OnlineLogisticRegressionModel()
         model.coefficient = coeff
         model.set_model_data((version, state[0]) for version, state in updates)

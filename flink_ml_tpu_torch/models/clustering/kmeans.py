@@ -44,6 +44,8 @@ import torch
 
 from ... import config
 from ...api import Estimator, Model, as_kernel_matrix
+from ...ckpt import faults
+from ...ckpt import snapshot as _snapshot
 from ...common.param import (
     HasDistanceMeasure,
     HasFeaturesCol,
@@ -56,6 +58,8 @@ from ...linalg import DenseVector
 from ...native.datacache import ReplayableStreamTable
 from ...ops.distance import DistanceMeasure
 from ...param import IntParam, ParamValidators, StringParam
+from ...parallel import supervisor
+from ...parallel.iteration import checkpoint_job_key
 from ...parallel.prefetch import DeviceStager
 from ...table import Table, as_dense_matrix
 from ...utils import javacodec, read_write
@@ -233,6 +237,9 @@ class KMeansModel(Model, KMeansModelParams):
 class KMeans(Estimator, KMeansParams):
     """Estimator (KMeans.java:87)."""
 
+    # out-of-core (StreamTable) fits snapshot (centroids, counts, rng) per epoch
+    checkpointable = True
+
     def fit(self, *inputs) -> KMeansModel:
         (table,) = inputs
         if not isinstance(table, Table):
@@ -267,8 +274,14 @@ class KMeans(Estimator, KMeansParams):
         repeating its last row at weight 0 (`next_bucket`), which only
         bounds XLA recompiles. Eager PyTorch does not recompile for a new
         shape, so a batch goes to the device at its own row count, with no
-        pad and no weight column."""
-        config.check_no_checkpoint()
+        pad and no weight column.
+
+        Checkpoints (JAX `:513-560`): under `config.iteration_checkpoint_dir`
+        every `iteration_checkpoint_interval`-th epoch snapshots
+        (centroids, counts) and the host generator's state after the init
+        draw (section `rng`), keyed by `checkpoint_job_key(self)` with the
+        batch count in meta, and a fit resumes from the newest snapshot;
+        the `epoch` fault site ticks after each epoch."""
         device = config.device()
         replay = stream if isinstance(stream, ReplayableStreamTable) else ReplayableStreamTable(
             stream, config.datacache_memory_budget_bytes, config.datacache_spill_dir)
@@ -284,8 +297,8 @@ class KMeans(Estimator, KMeansParams):
         n = int(np.sum(batch_rows, dtype=np.int64))
         if n < k:
             raise ValueError(f"Number of points ({n}) is less than k ({k})")
-        centroid_idx = _sample_without_replacement(
-            np.random.RandomState(self.get_seed() % (2**32)), n, k)
+        rng = np.random.RandomState(self.get_seed() % (2**32))
+        centroid_idx = _sample_without_replacement(rng, n, k)
         bounds = np.cumsum([0] + batch_rows)
         batch_of = np.searchsorted(bounds, centroid_idx, side="right") - 1
         picked = {}
@@ -305,10 +318,30 @@ class KMeans(Estimator, KMeansParams):
         centroids = torch.as_tensor(init, device=device)
         counts = centroids.new_zeros((k,))
         nb, max_iter = len(batch_rows), int(self.get_max_iter())
+        ckpt_dir = config.iteration_checkpoint_dir
+        interval = max(1, int(config.iteration_checkpoint_interval))
+        job_key = checkpoint_job_key(self) if ckpt_dir is not None else None
+        start = 0
+        if ckpt_dir is not None:
+            snap = _snapshot.load_job_snapshot(
+                ckpt_dir, job_key, templates={"model": (init, np.zeros(k, np.float32))},
+                expect_meta={"numBatches": nb})
+            if snap is not None:
+                centroids, counts = _snapshot.stage_section(snap, "model", device=device)
+                start = snap.epoch
+                if "rng" in snap.sections:
+                    keys, pos = snap.sections["rng"]
+                    rng.set_state(("MT19937", keys, int(pos[0]), int(pos[1]), float(pos[2])))
+
+        def rng_section():
+            _, keys, pos, has_gauss, cached = rng.get_state()
+            return (np.asarray(keys), np.asarray([pos, has_gauss, cached], np.float64))
+
         loader = CachedEpochLoader(stage)
-        batches = loader.epoch(bi for _ in range(max_iter) for bi in range(nb))
+        batches = loader.epoch(bi for _ in range(start, max_iter) for bi in range(nb))
         try:
-            for _ in range(max_iter):
+            for epoch in range(start, max_iter):
+                supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
                 sums = centroids.new_zeros(centroids.shape)
                 counts = centroids.new_zeros((k,))
                 for _ in range(nb):
@@ -319,6 +352,11 @@ class KMeans(Estimator, KMeansParams):
                 centroids = torch.where(
                     counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1e-30), centroids
                 )
+                if ckpt_dir is not None and (epoch + 1) % interval == 0:
+                    _snapshot.save_job_snapshot(
+                        ckpt_dir, job_key, {"model": (centroids, counts), "rng": rng_section()},
+                        epoch=epoch + 1, specs={"rng": "host"}, meta={"numBatches": nb})
+                faults.tick("epoch")
         finally:
             batches.close()
         model = KMeansModel()

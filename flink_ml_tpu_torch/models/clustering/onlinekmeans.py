@@ -29,7 +29,7 @@ from ...common.param import (
 )
 from ...linalg import DenseVector
 from ...ops.distance import DistanceMeasure
-from ...parallel.iteration import iterate_unbounded
+from ...parallel.iteration import checkpoint_job_key, iterate_unbounded
 from ...parallel.prefetch import DeviceStager, Prefetcher
 from ...table import StreamTable, Table, as_dense_matrix, global_batches
 from ...utils import read_write
@@ -224,6 +224,9 @@ class OnlineKMeans(Estimator, OnlineKMeansParams):
     """Estimator (OnlineKMeans.java:44-60). Needs initial model data, from
     a batch KMeans or `generate_random_model_data`."""
 
+    # snapshots (centroids, weights) per global batch through iterate_unbounded
+    checkpointable = True
+
     def __init__(self):
         self._initial_model_data: Optional[Table] = None
 
@@ -237,7 +240,6 @@ class OnlineKMeans(Estimator, OnlineKMeansParams):
             raise TypeError("OnlineKMeans.fit expects a StreamTable")
         if self._initial_model_data is None:
             raise ValueError("OnlineKMeans requires initial model data")
-        config.check_no_checkpoint()
         stager = DeviceStager(config.device(), torch.float32)
         centroids, weights = _extract_model_data(self._initial_model_data)
         decay, measure_name = self.get_decay_factor(), self.get_distance_measure()
@@ -258,6 +260,9 @@ class OnlineKMeans(Estimator, OnlineKMeansParams):
                      for a in (centroids, weights))
         model = OnlineKMeansModel()
         model.centroids, model.weights = centroids, weights
-        model.set_model_data(iterate_unbounded(staged, step, init))
+        # under config.iteration_checkpoint_dir each version snapshots
+        # (centroids, weights), and a resumed fit republishes it first
+        model.set_model_data(iterate_unbounded(staged, step, init,
+                                               job_key=checkpoint_job_key(self)))
         update_existing_params(model, self)
         return model

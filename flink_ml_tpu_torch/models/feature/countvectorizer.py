@@ -176,6 +176,10 @@ class CountVectorizerModel(Model, CountVectorizerModelParams):
 
 
 class CountVectorizer(Estimator, CountVectorizerParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass vocabulary count over the input; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> CountVectorizerModel:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

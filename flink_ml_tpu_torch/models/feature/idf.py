@@ -130,6 +130,10 @@ class IDFModel(Model, IDFModelParams):
 
 
 class IDF(Estimator, IDFParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass document-frequency count; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> IDFModel:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

@@ -183,6 +183,10 @@ class ImputerModel(Model, ImputerModelParams):
 
 
 class Imputer(Estimator, ImputerParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass surrogate aggregation; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> ImputerModel:
         (table,) = inputs
         if isinstance(table, StreamTable):

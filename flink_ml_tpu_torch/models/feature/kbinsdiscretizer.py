@@ -193,6 +193,10 @@ def subsample_rows(n: int, sub: int) -> torch.Tensor:
 
 
 class KBinsDiscretizer(Estimator, KBinsDiscretizerParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass quantile/width binning; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> KBinsDiscretizerModel:
         (table,) = inputs
         if isinstance(table, StreamTable):

@@ -239,6 +239,13 @@ def draw_coefficients(seed: int, num_fns: int):
 
 
 class MinHashLSH(Estimator, MinHashLSHParams):
+
+    checkpointable = False
+    checkpoint_reason = (
+        "fit only derives seeded hash coefficients; deterministic "
+        "recompute on restart"
+    )
+
     def fit(self, *inputs: Table) -> MinHashLSHModel:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

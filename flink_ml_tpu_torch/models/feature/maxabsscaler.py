@@ -70,6 +70,10 @@ class MaxAbsScalerModel(Model, MaxAbsScalerParams):
 
 
 class MaxAbsScaler(Estimator, MaxAbsScalerParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass abs-max aggregation; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> MaxAbsScalerModel:
         (table,) = inputs
         col = table.column(self.get_input_col())

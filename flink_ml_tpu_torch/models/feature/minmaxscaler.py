@@ -111,6 +111,10 @@ class MinMaxScalerModel(Model, MinMaxScalerParams):
 
 
 class MinMaxScaler(Estimator, MinMaxScalerParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass min/max aggregation; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> MinMaxScalerModel:
         (table,) = inputs
         col = table.column(self.get_input_col())

@@ -129,6 +129,10 @@ class OneHotEncoderModel(Model, OneHotEncoderModelParams):
 
 
 class OneHotEncoder(Estimator, OneHotEncoderParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass category-count aggregation; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> OneHotEncoderModel:
         (table,) = inputs
         sizes = []

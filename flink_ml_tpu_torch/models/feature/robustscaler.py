@@ -131,6 +131,10 @@ class RobustScalerModel(Model, RobustScalerModelParams):
 
 
 class RobustScaler(Estimator, RobustScalerParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass quantile aggregation; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> RobustScalerModel:
         (table,) = inputs
         if isinstance(table, StreamTable):

@@ -110,6 +110,10 @@ class StandardScalerModel(Model, StandardScalerParams):
 
 
 class StandardScaler(Estimator, StandardScalerParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass moment aggregation; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> StandardScalerModel:
         (table,) = inputs
         X = _columns.staged_matrix(table.column(self.get_input_col()), torch.float64).to(torch.float32)

@@ -267,6 +267,10 @@ class IndexToStringModel(Model, IndexToStringModelParams):
 
 
 class StringIndexer(Estimator, StringIndexerParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass frequency count over the input; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> StringIndexerModel:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

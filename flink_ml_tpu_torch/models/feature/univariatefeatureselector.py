@@ -170,6 +170,10 @@ class UnivariateFeatureSelectorModel(Model, UnivariateFeatureSelectorModelParams
 
 
 class UnivariateFeatureSelector(Estimator, UnivariateFeatureSelectorParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass statistical test over the input; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> UnivariateFeatureSelectorModel:
         config.device()  # an entry point: no silent CPU without a request
         (table,) = inputs

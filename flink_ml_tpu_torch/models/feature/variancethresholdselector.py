@@ -99,6 +99,10 @@ class VarianceThresholdSelectorModel(Model, VarianceThresholdSelectorModelParams
 
 
 class VarianceThresholdSelector(Estimator, VarianceThresholdSelectorParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass variance aggregation; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> VarianceThresholdSelectorModel:
         (table,) = inputs
         col = table.column(self.get_input_col())

@@ -139,6 +139,10 @@ class VectorIndexerModel(Model, VectorIndexerModelParams):
 
 
 class VectorIndexer(Estimator, VectorIndexerParams):
+
+    checkpointable = False
+    checkpoint_reason = "single-pass distinct-value aggregation; a restart recomputes the fit"
+
     def fit(self, *inputs: Table) -> VectorIndexerModel:
         (table,) = inputs
         col = table.column(self.get_input_col())

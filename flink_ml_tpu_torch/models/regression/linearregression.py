@@ -62,6 +62,9 @@ class LinearRegressionModel(
 class LinearRegression(Estimator, LinearRegressionParams):
     """Estimator (LinearRegression.java:48)."""
 
+    # fits through run_sgd: checkpointed SGD under config.iteration_checkpoint_dir
+    checkpointable = True
+
     def fit(self, *inputs: Table) -> LinearRegressionModel:
         (table,) = inputs
         coeff, _, _ = _linear.run_sgd(self, table, LEAST_SQUARE_LOSS, self.get_weight_col())

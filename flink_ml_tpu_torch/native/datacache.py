@@ -12,10 +12,12 @@ DataCacheWriter.java, ReplayOperator.java:125-246):
   leaves later passes complete: each pass replays what is cached, then goes
   on reading the source.
 
-The JAX package's metrics, the retries of its spill I/O under
-`flow.with_retries` with their fault sites, and its tracing are not wired
-in here (ROADMAP A.13, A.14), nor is its pure-Python cache:
-the library builds at first use or the cache raises.
+Spill I/O runs under `flow.with_retries` with the JAX package's fault
+sites (`:60-121`): `datacache.append` ticks before the native write, whose
+failure commits no segment, so a retried append never appends twice;
+`datacache.read` ticks inside the (idempotent) read. The JAX package's
+metrics and tracing of the cache are ROADMAP A.14, and its pure-Python
+cache is not ported: the library builds at first use or the cache raises.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from .. import flow
+from ..ckpt import faults
 from ..table import SparseBatch, Table, _to_numpy
 from . import load as _load_native
 
@@ -62,13 +66,21 @@ class DataCache:
         array = np.asarray(array)
         shape = array.shape
         array = np.ascontiguousarray(array)  # a 0-d array becomes 1-d
-        seg = self._lib.dc_append(
-            self._handle, array.ctypes.data_as(ctypes.c_void_p), ctypes.c_uint64(array.nbytes)
-        )
-        if seg < 0:
-            raise IOError(f"native data cache append failed (spill file {self.spill_path})")
+
+        def append() -> int:
+            # the retried unit: a failed dc_append commits no segment, and
+            # the site ticks before the write, so a retry appends once
+            faults.tick("datacache.append")
+            seg = self._lib.dc_append(
+                self._handle, array.ctypes.data_as(ctypes.c_void_p), ctypes.c_uint64(array.nbytes)
+            )
+            if seg < 0:
+                raise IOError(f"native data cache append failed (spill file {self.spill_path})")
+            return int(seg)
+
+        seg = flow.with_retries(append, site="datacache.append")
         self._meta.append((array.dtype, shape))
-        return int(seg)
+        return seg
 
     def segment_shape(self, seg: int) -> tuple:
         return self._meta[seg][1]
@@ -84,9 +96,15 @@ class DataCache:
         nbytes = self.segment_nbytes(seg)
         if not out.flags.c_contiguous or not out.flags.writeable or out.nbytes < nbytes:
             raise ValueError(f"segment {seg} needs a writable contiguous buffer of {nbytes} bytes")
-        rc = self._lib.dc_read(self._handle, seg, out.ctypes.data_as(ctypes.c_void_p))
-        if rc != 0:
-            raise IOError(f"native data cache read of segment {seg} failed with code {rc}")
+
+        def read() -> None:
+            # the retried unit: a segment read is idempotent
+            faults.tick("datacache.read")
+            rc = self._lib.dc_read(self._handle, seg, out.ctypes.data_as(ctypes.c_void_p))
+            if rc != 0:
+                raise IOError(f"native data cache read of segment {seg} failed with code {rc}")
+
+        flow.with_retries(read, site="datacache.read")
         return out.reshape(-1).view(np.uint8)[:nbytes].view(dtype).reshape(shape)
 
     def read_array(self, seg: int) -> np.ndarray:

@@ -26,12 +26,26 @@ caches the stream once in the native data cache and replays one batch an
 epoch through the device epoch cache, with the same epoch arithmetic
 (`_masked_epoch`), so it equals the bounded fit of the same rows.
 
-The fleet programs (`_sgd_fleet_whole_fit`, `_sgd_fleet_stream_whole_fit`)
-train N members over one staged input for `fleet.FitFleet`, each member
-with the solo fit's arithmetic, its own hyperparameters and its own stop.
+The fleet programs (`_sgd_fleet_whole_fit`, `_sgd_fleet_chunk`,
+`_sgd_fleet_stream_whole_fit`) train N members over one staged input for
+`fleet.FitFleet`, each member with the solo fit's arithmetic, its own
+hyperparameters and its own stop.
 
-Checkpointing, feature sharding, overlapped collectives and more than one
-device are later ROADMAP items and raise NotImplementedError.
+Checkpoints (`SGD.checkpoint_dir`; the JAX package's
+`_optimize_with_checkpoints`, `optimize_stream`'s snapshots): the epochs
+are the whole fit's masked epochs (`_sgd_epochs`) cut into chunks that end
+at the checkpoint boundaries, one (epoch, criteria) readback a chunk, so a
+checkpointed fit equals the unchecked one bit for bit. The carry
+(coeff, grad, wsum, epoch) is snapshotted with the criteria at every
+`checkpoint_interval`-th epoch under `checkpoint_key`, with the batch
+schedule in meta (`numBatches` / `numSegments`, `globalBatchSize`), and a
+fit resumes from the newest snapshot; the `chunk` (in memory) and `epoch`
+(stream) fault sites tick at each drained chunk and epoch. A sharded
+stream snapshot also carries the stream cache's contents, so a resumed
+stream fit does not read its input again.
+
+Feature sharding, overlapped collectives and more than one device are
+ROADMAP A.10 and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,6 +58,8 @@ import numpy as np
 import torch
 
 from .. import config
+from ..ckpt import faults
+from ..parallel import supervisor
 from ..utils.packing import packed_device_get
 from .losses import LossFunc
 
@@ -150,25 +166,50 @@ def _finish(state, lr, reg, elastic_net, flag=None):
     return _pack_train_result(coeff, criteria, epochs, flag)
 
 
-def _sgd_train_flat(X, y, w, init_coeff, loss_func, batch, n, max_iter, tol,
-                    lr, reg, elastic_net, check_labels):
-    """The whole bounded fit on flat, batch-padded device tensors; each
-    epoch's batch is a row slice. `w` None synthesizes `row < n` weights.
-    Returns the packed result tensor, on the device."""
+def _sgd_epochs(X, y, w, state, loss_func, batch, n, start, end, tol, lr, reg, elastic_net):
+    """Epochs [start, end) of the bounded fit on flat, batch-padded device
+    tensors: epoch e trains the row slice of batch e mod num_batches; `w`
+    None synthesizes `row < n` weights. The whole fit is this from 0 to
+    maxIter; a checkpointed fit runs it chunk by chunk."""
     num_batches = y.shape[0] // batch
     device = y.device
-    state = _init_state(init_coeff)
-    for e in range(max_iter):
-        start = (e % num_batches) * batch
-        Xk = _slice_rows(X, start, batch)
-        yk = y[start : start + batch]
+    for e in range(start, end):
+        begin = (e % num_batches) * batch
+        Xk = _slice_rows(X, begin, batch)
+        yk = y[begin : begin + batch]
         if w is not None:
-            wk = w[start : start + batch]
+            wk = w[begin : begin + batch]
         else:
-            wk = (torch.arange(start, start + batch, device=device) < n).to(init_coeff.dtype)
+            wk = (torch.arange(begin, begin + batch, device=device) < n).to(state[0].dtype)
         state = _masked_epoch(Xk, yk, wk, state, tol, loss_func, lr, reg, elastic_net)
+    return state
+
+
+def _sgd_train_flat(X, y, w, init_coeff, loss_func, batch, n, max_iter, tol,
+                    lr, reg, elastic_net, check_labels):
+    """The whole bounded fit on flat, batch-padded device tensors.
+    Returns the packed result tensor, on the device."""
+    state = _sgd_epochs(X, y, w, _init_state(init_coeff), loss_func, batch, n, 0, max_iter,
+                        tol, lr, reg, elastic_net)
     flag = _binomial_labels_ok(y) if check_labels else None
     return _finish(state, lr, reg, elastic_net, flag)
+
+
+def _carry_template(d: int):
+    """The snapshot template of the SGD carry (coeff, grad, wsum, epoch):
+    the JAX package's leaves and dtypes."""
+    return (np.zeros(d, np.float32), np.zeros(d, np.float32), np.float32(0.0), np.int32(0))
+
+
+def _resumed_state(snap, device):
+    """The fit state (coeff, grad, wsum, epochs, criteria) of a restored
+    snapshot, on `device` in one copy."""
+    from ..ckpt.snapshot import stage_section
+
+    coeff, grad, wsum, _ = stage_section(snap, "model", device=device)
+    return (coeff, grad, wsum,
+            torch.tensor(snap.epoch, dtype=torch.int32, device=device),
+            torch.tensor(snap.criteria, dtype=torch.float32, device=device))
 
 
 class StreamLayout(NamedTuple):
@@ -280,7 +321,13 @@ class SGD:
     tol: float = 1e-6
     reg: float = 0.0
     elastic_net: float = 0.0
+    #: snapshot the fit here every `checkpoint_interval` epochs and resume
+    #: from the newest snapshot; None is no checkpointing
     checkpoint_dir: Optional[str] = None
+    checkpoint_interval: int = 1
+    #: the job identity that names the snapshot files
+    #: (`parallel.iteration.checkpoint_job_key`); None is the un-keyed file
+    checkpoint_key: Optional[str] = None
     shard_features: bool = False
     collective_overlap: Optional[bool] = None
 
@@ -323,13 +370,26 @@ class SGD:
         Only the min(nb, maxIter) segments that the epochs replay are
         staged to the device, one at a time as the epochs reach them (the
         JAX package's whole-fit arm stacks all nb first; the arithmetic is
-        the same). Returns (coefficient, final_loss, num_epochs, stats)."""
-        from ..data.devicecache import CachedEpochLoader
+        the same).
+
+        With `checkpoint_dir`, the carry is snapshotted every
+        `checkpoint_interval` epochs (meta `numSegments`,
+        `globalBatchSize`, `dim`, `cacheCursor`) and a fit resumes from
+        the newest snapshot; a sharded snapshot (`config.snapshot_hosts`)
+        also holds the cache's segments as a stable `cache` section (with
+        `config.snapshot_cache_contents`), from which a resumed fit
+        rebuilds its cache without reading `chunks`. Returns
+        (coefficient, final_loss, num_epochs, stats)."""
+        from ..ckpt import snapshot as _snapshot
+        from ..data.devicecache import (CachedEpochLoader, cache_contents_section,
+                                        restore_cache_contents)
         from ..native.datacache import DataCache
         from ..parallel.prefetch import DeviceStager
 
         self._check_single_device(mesh)
         device = config.device()
+        ckpt, key = self.checkpoint_dir, self.checkpoint_key
+        B = int(self.global_batch_size)
         cache = DataCache(
             config.datacache_memory_budget_bytes if memory_budget_bytes is None
             else memory_budget_bytes,
@@ -337,9 +397,24 @@ class SGD:
         )
         try:
             t0 = time.perf_counter()
-            segs, layout = ingest_stream(chunks, int(self.global_batch_size), cache)
+            restored = peek = None
+            if ckpt is not None and config.snapshot_cache_contents:
+                peek = _snapshot.load_job_snapshot(ckpt, key, expect_meta={"globalBatchSize": B})
+                if peek is not None and "dim" in peek.meta:
+                    restored = restore_cache_contents(peek, cache, StreamLayout(B, int(peek.meta["dim"])))
+            if restored is not None:
+                segs, layout = restored
+            else:
+                segs, layout = ingest_stream(chunks, B, cache)
             ingest_s = time.perf_counter() - t0
             d, nb = layout.d, len(segs)
+            meta = {"numSegments": nb, "globalBatchSize": B, "dim": int(d)}
+            stable, stable_specs = None, {}
+            if ckpt is not None and config.snapshot_hosts is not None \
+                    and config.snapshot_cache_contents:
+                # read before the loader's worker starts: the cache is serial
+                contents = cache_contents_section(cache, segs, layout)
+                stable, stable_specs = {"cache": lambda: contents}, {"cache": "data"}
             stager = DeviceStager(device)
             seg_bytes = layout.size * 4
 
@@ -350,41 +425,114 @@ class SGD:
 
             init = np.zeros(d) if init_coeff is None else init_coeff
             state = _init_state(_stage(init, COMPUTE_DTYPE, device))
+            start, interval = 0, max(1, int(self.checkpoint_interval))
+            if ckpt is not None:
+                templates = {"model": _carry_template(d)}
+                # the cache came from `peek`: its model is the same cut's
+                snap = _snapshot.conform(peek, templates, meta) if restored is not None else \
+                    _snapshot.load_job_snapshot(ckpt, key, templates=templates, expect_meta=meta)
+                if snap is not None:
+                    state, start = _resumed_state(snap, device), snap.epoch
+            stopped = ckpt is not None and start > 0 and float(state[4]) <= self.tol
             lr, reg, en = float(self.learning_rate), float(self.reg), float(self.elastic_net)
+            tol = float(self.tol)
             loader = CachedEpochLoader(fetch)
-            batches = loader.epoch(p % nb for p in range(int(self.max_iter)))
+            batches = loader.epoch(p % nb for p in range(start, int(self.max_iter)))
             try:
-                for Xk, yk, wk in batches:
-                    state = _masked_epoch(Xk, yk, wk, state, float(self.tol), loss_func, lr, reg, en)
+                for p in range(start, int(self.max_iter)):
+                    if stopped:
+                        break
+                    supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
+                    Xk, yk, wk = next(batches)
+                    state = _masked_epoch(Xk, yk, wk, state, tol, loss_func, lr, reg, en)
+                    if ckpt is not None and (p + 1) % interval == 0:
+                        stopped = self._drain_and_snapshot(
+                            state, p + 1, meta={**meta, "cacheCursor": (p + 1) % nb},
+                            specs=stable_specs or None, stable_sections=stable)
+                    faults.tick("epoch")
             finally:
                 batches.close()
             (host,) = packed_device_get(_finish(state, lr, reg, en), sync_kind="fit")
             stats = {**cache.stats, "ingestSeconds": ingest_s,
-                     "deviceCache": loader.cache.stats}
+                     "deviceCache": loader.cache.stats, "restoredCache": restored is not None}
         finally:
             cache.close()
         _, coeff, criteria, epochs = unpack_train_result(host, d)
         return coeff, criteria, epochs, stats
 
+    def _drain_and_snapshot(self, state, end: int, meta, specs=None,
+                            stable_sections=None) -> bool:
+        """A checkpointed chunk's drain: read (epoch, criteria) back, and
+        when the fit reached `end` (a boundary) snapshot its carry.
+        Returns whether the tol stop fired."""
+        from ..ckpt import snapshot as _snapshot
+
+        supervisor.pulse_boundary(supervisor.PHASE_COLLECTIVE)
+        e_act, crit = packed_device_get(state[3], state[4], sync_kind="drain")
+        e_act, crit = int(e_act), float(crit)
+        if e_act == end and end % max(1, int(self.checkpoint_interval)) == 0:
+            _snapshot.save_job_snapshot(
+                self.checkpoint_dir, self.checkpoint_key, {"model": state[:4]},
+                epoch=e_act, criteria=crit, specs=specs, meta=meta,
+                stable_sections=stable_sections)
+        return crit <= self.tol
+
     def _check_single_device(self, mesh) -> None:
         if mesh is not None:
             raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A.10)")
-        config.check_no_checkpoint(self.checkpoint_dir)
         if self.shard_features or self.collective_overlap:
             raise NotImplementedError(
                 "feature sharding and overlapped collectives are not ported yet (ROADMAP A.10)"
             )
 
     def _optimize_flat_async(self, init_coeff, X, y, weights, loss_func, validate_labels):
-        """Stage the inputs (`stage_flat`) and run `_sgd_train_flat`."""
+        """Stage the inputs (`stage_flat`) and run `_sgd_train_flat`, or
+        the checkpointed chunks."""
         B = int(self.global_batch_size)
         X_f, y_f, w_f, n = stage_flat(X, y, weights, B)
         init = _stage(init_coeff, COMPUTE_DTYPE, y_f.device)
+        args = (float(self.learning_rate), float(self.reg), float(self.elastic_net))
+        if self.checkpoint_dir is not None:
+            return self._optimize_with_checkpoints(X_f, y_f, w_f, n, init, loss_func,
+                                                   validate_labels, *args)
         return _sgd_train_flat(
             X_f, y_f, w_f, init, loss_func, B, n, int(self.max_iter), float(self.tol),
-            float(self.learning_rate), float(self.reg), float(self.elastic_net),
-            validate_labels,
+            *args, validate_labels,
         )
+
+    def _optimize_with_checkpoints(self, X, y, w, n, init, loss_func, validate_labels,
+                                   lr, reg, elastic_net):
+        """The whole fit's epochs in chunks that end at the checkpoint
+        boundaries (every `checkpoint_interval` epochs, and maxIter): one
+        (epoch, criteria) readback a chunk, a snapshot of the carry at each
+        boundary (meta `numBatches`, `globalBatchSize`: a snapshot of
+        another batch layout is refused), the `chunk` fault site ticked at
+        each drained chunk, and a resume from the newest snapshot. A fit
+        whose tol fires inside a chunk stops there, as the masked whole fit
+        does. Returns the whole fit's packed result, on the device."""
+        from ..ckpt import snapshot as _snapshot
+
+        B, d = int(self.global_batch_size), int(init.shape[0])
+        meta = {"numBatches": int(y.shape[0]) // B, "globalBatchSize": B}
+        state = _init_state(init)
+        planned = 0
+        snap = _snapshot.load_job_snapshot(
+            self.checkpoint_dir, self.checkpoint_key,
+            templates={"model": _carry_template(d)}, expect_meta=meta)
+        if snap is not None:
+            state, planned = _resumed_state(snap, y.device), snap.epoch
+        stopped = planned > 0 and snap.criteria <= self.tol
+        interval, max_iter = max(1, int(self.checkpoint_interval)), int(self.max_iter)
+        while planned < max_iter and not stopped:
+            end = min((planned // interval + 1) * interval, max_iter)
+            supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
+            state = _sgd_epochs(X, y, w, state, loss_func, B, n, planned, end, float(self.tol),
+                                lr, reg, elastic_net)
+            stopped = self._drain_and_snapshot(state, end, meta)
+            faults.tick("chunk")
+            planned = end
+        flag = _binomial_labels_ok(y) if validate_labels else None
+        return _finish(state, lr, reg, elastic_net, flag)
 
 
 def stage_flat(X, y, weights, batch: int):
@@ -530,24 +678,34 @@ def _fleet_member_finish(state, hyper: FleetHyper, flag=None):
     return torch.cat(parts, dim=1)
 
 
-def _sgd_fleet_whole_fit(X, y, w, state, loss_func, hyper: FleetHyper, gmax: int, batch: int,
-                         n: int, check_labels: bool):
-    """N whole bounded fits over the flat, batch-padded data of one fit
-    (`stage_flat`): `gmax` (the largest maxIter, a host int) epochs, every
-    member to its own maxIter or tol, then the packed
-    [N, flag? + d + 2] result, on the device. The {0,1} label flag is
-    computed once, for the shared labels."""
+def _sgd_fleet_chunk(X, y, w, state, loss_func, hyper: FleetHyper, batch: int, n: int,
+                     start: int, end: int):
+    """Epochs [start, end) of the fleet fit over the flat, batch-padded data
+    of one fit (`stage_flat`): every member to its own maxIter or tol (a
+    member whose budget ends inside the chunk freezes there). The whole
+    fit is this from 0 to the largest maxIter; the checkpointed fleet runs
+    it chunk by chunk."""
     num_batches = y.shape[0] // batch
     max_iter = hyper.max_iter
-    for e in range(gmax):
-        start = (e % num_batches) * batch
-        Xk = _slice_rows(X, start, batch)
-        yk = y[start : start + batch]
+    for e in range(start, end):
+        begin = (e % num_batches) * batch
+        Xk = _slice_rows(X, begin, batch)
+        yk = y[begin : begin + batch]
         if w is not None:
-            wk = w[start : start + batch]
+            wk = w[begin : begin + batch]
         else:
-            wk = (torch.arange(start, start + batch, device=y.device) < n).to(COMPUTE_DTYPE)
+            wk = (torch.arange(begin, begin + batch, device=y.device) < n).to(COMPUTE_DTYPE)
         state = _fleet_masked_epoch(Xk, yk, wk, state, loss_func, hyper, max_iter)
+    return state
+
+
+def _sgd_fleet_whole_fit(X, y, w, state, loss_func, hyper: FleetHyper, gmax: int, batch: int,
+                         n: int, check_labels: bool):
+    """N whole bounded fits: `gmax` (the largest maxIter, a host int)
+    epochs of `_sgd_fleet_chunk`, then the packed [N, flag? + d + 2]
+    result, on the device. The {0,1} label flag is computed once, for the
+    shared labels."""
+    state = _sgd_fleet_chunk(X, y, w, state, loss_func, hyper, batch, n, 0, gmax)
     flag = _binomial_labels_ok(y) if check_labels else None
     return _fleet_member_finish(state, hyper, flag)
 
@@ -569,11 +727,6 @@ def _sgd_fleet_stream_whole_fit(segments, layout: StreamLayout, state, loss_func
         Xk, yk, wk = layout.views(segments[e % nb])
         state = _fleet_masked_epoch(Xk, yk, wk, state, loss_func, hyper, max_iter)
     return _sgd_fleet_final(state, hyper)
-
-
-def _sgd_fleet_chunk(*args, **kwargs):
-    """The JAX package's fleet chunk serves only its checkpointed fit."""
-    raise NotImplementedError("checkpointed training is not ported yet (ROADMAP A.13)")
 
 
 def unpack_fleet_train_result(host: np.ndarray, d: int, has_flag: bool = False):

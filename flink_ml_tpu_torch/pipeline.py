@@ -567,6 +567,12 @@ class PipelineModel(_StageList, Model):
 class Pipeline(_StageList, Estimator):
     """Sequential Estimator (builder/Pipeline.java:79-107)."""
 
+    checkpointable = False
+    checkpoint_reason = (
+        "composite stage: each contained estimator snapshots its own "
+        "fit through config.iteration_checkpoint_dir; the pipeline itself holds no training state"
+    )
+
     def fit(self, *inputs: Table) -> PipelineModel:
         if len(inputs) != 1:
             raise ValueError("Pipeline.fit expects exactly 1 input table")

@@ -48,3 +48,34 @@ def packed_device_get(*tensors, sync_kind: str = "readback") -> List[np.ndarray]
         out[i] = host[offset:offset + t.numel()].reshape(tuple(t.shape)).astype(numpy_dtype)
         offset += t.numel()
     return out
+
+
+def packed_bytes_get(*tensors, sync_kind: str = "readback") -> List[np.ndarray]:
+    """Host numpy copies of `tensors`, bit for bit in their own dtypes,
+    through one transfer: the tensors' bytes are concatenated on their
+    device (one uint8 buffer, no dtype promotion) and copied into one
+    page-locked host buffer when they live on a card. Host inputs pass
+    through. Accounted as one `iteration.host_sync.<sync_kind>`."""
+    device_idx = [i for i, t in enumerate(tensors) if isinstance(t, torch.Tensor)]
+    out: List = [None if i in device_idx else np.asarray(t) for i, t in enumerate(tensors)]
+    if not device_idx:
+        return out
+    tracing.account_host_sync(sync_kind)
+    devs = [tensors[i] for i in device_idx]
+    t0 = time.perf_counter()
+    flat = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8) for t in devs])
+    if flat.is_cuda:
+        host_t = torch.empty(flat.numel(), dtype=torch.uint8, pin_memory=True)
+        host_t.copy_(flat, non_blocking=True)
+        torch.cuda.current_stream(flat.device).synchronize()
+    else:
+        host_t = flat
+    host = host_t.numpy()
+    tracing.account_readback(host.nbytes, time.perf_counter() - t0, arrays=len(devs))
+    offset = 0
+    for i, t in zip(device_idx, devs):
+        numpy_dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        nbytes = t.numel() * t.element_size()
+        out[i] = host[offset:offset + nbytes].view(numpy_dtype).reshape(tuple(t.shape)).copy()
+        offset += nbytes
+    return out

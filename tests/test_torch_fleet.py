@@ -365,20 +365,25 @@ def test_invalid_tensor_labels_raise_from_the_readback(both_on_one_device):
         port_fleet.FitFleet(_members("lr")[1]).fit(table)
 
 
-def test_unported_fleet_paths_raise_naming_their_roadmap_item(both_on_one_device):
+def test_unported_fleet_paths_raise_naming_their_roadmap_item(both_on_one_device, tmp_path):
+    """The checkpointed fleet raised naming ROADMAP A.13 until checkpoints
+    were ported; it now checkpoints, and a fleet killed at a chunk resumes
+    to the unkilled fleet bit for bit (its chunk program replaces the
+    stub). The sharded regime still raises (A.10)."""
+    from flink_ml_tpu_torch.ckpt import faults
+
     X, y, _ = _dense("lr", seed=19)
-    old = config.iteration_checkpoint_dir
-    config.iteration_checkpoint_dir = "ckpt"
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-            port_fleet.FitFleet(_members("lr")[1]).fit(Table({"features": X, "label": y}))
-    finally:
-        config.iteration_checkpoint_dir = old
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        port_optimizer._sgd_fleet_chunk()
+    table = Table({"features": X, "label": y})
+    want = port_fleet.FitFleet(_members("lr")[1]).fit(table)
+    with config.iteration_checkpointing(str(tmp_path), interval=2):
+        with faults.inject("chunk", after=2):
+            with pytest.raises(faults.InjectedFault):
+                port_fleet.FitFleet(_members("lr")[1]).fit(table)
+        got = port_fleet.FitFleet(_members("lr")[1]).fit(table)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.coefficient, w.coefficient)
     # forbidding the sharded regime is the default regime
-    models = port_fleet.FitFleet(_members("lr")[1], shard_fleet_axis=False).fit(
-        Table({"features": X, "label": y}))
+    models = port_fleet.FitFleet(_members("lr")[1], shard_fleet_axis=False).fit(table)
     assert len(models) == len(MEMBERS)
 
 

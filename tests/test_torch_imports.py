@@ -92,6 +92,30 @@ def test_the_serving_slice_imports_neither_jax_nor_the_jax_package(name):
     assert name in PORT_MODULES
 
 
+CHECKPOINT_SLICE = ["flink_ml_tpu_torch.ckpt", "flink_ml_tpu_torch.ckpt.snapshot",
+                    "flink_ml_tpu_torch.ckpt.coordinator", "flink_ml_tpu_torch.parallel.supervisor",
+                    "flink_ml_tpu_torch.parallel.iteration", "flink_ml_tpu_torch.data.devicecache",
+                    "flink_ml_tpu_torch.native.datacache", "flink_ml_tpu_torch.utils.packing"]
+
+
+@pytest.mark.parametrize("name", CHECKPOINT_SLICE)
+def test_the_checkpoint_slice_imports_neither_jax_nor_the_jax_package(name):
+    """Each module of checkpointing and recovery, imported alone in a
+    fresh interpreter, pulls in neither jax nor flink_ml_tpu, and needs no
+    card."""
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({name!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flink_ml_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert name in PORT_MODULES or name == "flink_ml_tpu_torch.ckpt"
+
+
 def test_the_slice_modules_are_checked():
     """The fleet and the reference-format codecs are port modules like the
     rest: imported without JAX above and parsed below."""

@@ -9,9 +9,11 @@
 - iterate_bounded against the JAX package's on a small body (the same stop
   epoch, criteria and carry), and iterate_unbounded's versions and
   listener calls;
-- the pieces not ported yet (checkpoints) raise NotImplementedError
-  naming their ROADMAP item; the lossy overload policies are held against
-  the JAX package in test_torch_flow.py.
+- the checkpoint arguments that raised until checkpoints were ported
+  (ROADMAP A.13) now checkpoint: each such call, killed at its fault site,
+  resumes to its unkilled result bit for bit (test_torch_checkpoint.py
+  holds the rest); the lossy overload policies are held against the JAX
+  package in test_torch_flow.py.
 """
 
 import sys
@@ -318,28 +320,47 @@ def test_iterate_unbounded_versions_and_listener():
     assert recorder.epochs == [1, 2, 3] and recorder.terminated == 24
 
 
-def _not_ported_calls():
-    """name -> a call of each path that must raise NotImplementedError."""
-    table = Table({"features": np.zeros((4, 2)), "label": np.zeros(4)})
-    stream = StreamTable.from_batches([table])
-    olr = port_olr.OnlineLogisticRegression().set_initial_model_data(
-        Table({"coefficient": [port_olr.DenseVector(np.zeros(2))]}))
-    okm = port_okm.OnlineKMeans().set_initial_model_data(port_okm.generate_random_model_data(2, 2, 1.0))
+def _not_ported_calls(ckpt):
+    """name -> (the fault site, a call of each path that once raised
+    NotImplementedError for its checkpoint argument, naming A.13). Each
+    call checkpoints into `ckpt` and returns what a resume must equal."""
+    X = np.random.default_rng(0).standard_normal((240, 2))
+    y = (X[:, 0] > 0).astype(np.float64)
+
+    def stream():
+        return StreamTable.from_batches(
+            [Table({"features": X[i:i + 40], "label": y[i:i + 40]}) for i in range(0, 240, 40)])
+
+    def online(est):
+        model = est.fit(stream())
+        model.process_updates()
+        return (model.model_version,
+                np.asarray(getattr(model, "coefficient", getattr(model, "centroids", None))))
+
+    olr = lambda: port_olr.OnlineLogisticRegression().set_global_batch_size(40) \
+        .set_initial_model_data(Table({"coefficient": [port_olr.DenseVector(np.zeros(2))]}))  # noqa: E731
+    okm = lambda: port_okm.OnlineKMeans().set_global_batch_size(40).set_initial_model_data(  # noqa: E731
+        port_okm.generate_random_model_data(2, 2, 1.0))
     return {
-        "iterate_bounded": ("A.13", lambda: iteration.iterate_bounded(
-            _body(torch), (torch.tensor(0.0), torch.tensor(0)), 3, checkpoint_dir="ckpt")),
-        "iterate_unbounded": ("A.13", lambda: iteration.iterate_unbounded(
-            [], lambda s, b: s, 0, checkpoint_dir="ckpt")),
-        "optimize_stream": ("A.13", lambda: SGD(checkpoint_dir="ckpt").optimize_stream(
-            None, [], losses.BINARY_LOGISTIC_LOSS)),
-        "config checkpoint, stream fit": ("A.13", lambda: _with_config(
-            "iteration_checkpoint_dir", "ckpt", lambda: LogisticRegression().fit(stream))),
-        "config checkpoint, kmeans stream": ("A.13", lambda: _with_config(
-            "iteration_checkpoint_dir", "ckpt", lambda: KMeans().set_k(2).fit(stream))),
-        "config checkpoint, online lr": ("A.13", lambda: _with_config(
-            "iteration_checkpoint_dir", "ckpt", lambda: olr.fit(stream))),
-        "config checkpoint, online kmeans": ("A.13", lambda: _with_config(
-            "iteration_checkpoint_dir", "ckpt", lambda: okm.fit(stream))),
+        "iterate_bounded": ("chunk", lambda: iteration.iterate_bounded(
+            _body(torch), (torch.tensor(0.0), torch.tensor(0)), 6, checkpoint_dir=ckpt).carry),
+        "iterate_unbounded": ("batch", lambda: list(iteration.iterate_unbounded(
+            iter([2.0, 3.0, 4.0]), lambda s, b: s * b, torch.tensor(1.0), checkpoint_dir=ckpt))[-1]),
+        "optimize_stream": ("epoch", lambda: SGD(checkpoint_dir=ckpt, max_iter=6,
+                                                 global_batch_size=40).optimize_stream(
+            None, ((X[i:i + 40], y[i:i + 40], None) for i in range(0, 240, 40)),
+            losses.BINARY_LOGISTIC_LOSS)[0]),
+        "config checkpoint, stream fit": ("epoch", lambda: _with_config(
+            "iteration_checkpoint_dir", ckpt,
+            lambda: LogisticRegression().set_max_iter(6).set_global_batch_size(40)
+            .fit(stream()).coefficient)),
+        "config checkpoint, kmeans stream": ("epoch", lambda: _with_config(
+            "iteration_checkpoint_dir", ckpt,
+            lambda: KMeans().set_k(2).set_max_iter(4).fit(stream()).centroids)),
+        "config checkpoint, online lr": ("batch", lambda: _with_config(
+            "iteration_checkpoint_dir", ckpt, lambda: online(olr()))),
+        "config checkpoint, online kmeans": ("batch", lambda: _with_config(
+            "iteration_checkpoint_dir", ckpt, lambda: online(okm()))),
     }
 
 
@@ -347,7 +368,7 @@ def _with_config(name, value, call):
     old = getattr(config, name)
     setattr(config, name, value)
     try:
-        call()
+        return call()
     finally:
         setattr(config, name, old)
 
@@ -359,14 +380,30 @@ NOT_PORTED = [
 ]
 
 
+def _equal(a, b):
+    if isinstance(a, (tuple, list)):
+        return all(_equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
 @pytest.mark.parametrize("name", NOT_PORTED)
-def test_unported_options_raise_naming_their_roadmap_item(name):
-    calls = _not_ported_calls()
-    assert sorted(calls) == sorted(NOT_PORTED)
-    item, call = calls[name]
+def test_unported_options_raise_naming_their_roadmap_item(name, tmp_path):
+    """These checkpoint options raised NotImplementedError naming ROADMAP
+    A.13 until checkpoints were ported; each now checkpoints, and a run
+    killed at its fault site resumes to the unkilled run's result."""
+    from flink_ml_tpu_torch.ckpt import faults
+
+    assert sorted(_not_ported_calls(str(tmp_path))) == sorted(NOT_PORTED)
     with config.use_device("cpu"):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call()
+        site, call = _not_ported_calls(str(tmp_path / "ref"))[name]
+        want = call()
+        site, call = _not_ported_calls(str(tmp_path / "kill"))[name]
+        with faults.inject(site, after=2):
+            with pytest.raises(faults.InjectedFault):
+                call()
+        assert _equal(call(), want)
 
 
 def test_unknown_overload_policy_is_refused():

@@ -261,9 +261,18 @@ def test_gate_decisions_are_the_hot_swap_ones(both_on_one_device):
 
 
 def test_checkpoint_dir_raises_until_a13(tmp_path):
-    model = _olr_model(PKGS["port"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        port_lifecycle.ModelLifecycle(model, checkpoint_dir=str(tmp_path))
+    """A checkpoint directory raised naming ROADMAP A.13 until checkpoints
+    were ported; the lifecycle now persists each promotion and a new
+    lifecycle on the directory republishes it, as the JAX package's does."""
+    for name in ("port", "jax"):
+        lc = PKGS[name].lifecycle.ModelLifecycle(
+            _olr_model(PKGS[name]), checkpoint_dir=str(tmp_path / name), job_key="a13")
+        lc.promote((np.full(DIM, 0.5),))
+        resumed = _olr_model(PKGS[name])
+        PKGS[name].lifecycle.ModelLifecycle(resumed, checkpoint_dir=str(tmp_path / name),
+                                            job_key="a13")
+        assert resumed.model_version == 1
+        np.testing.assert_array_equal(resumed.coefficient, np.full(DIM, 0.5))
 
 
 def test_not_swap_capable_is_refused():

@@ -7,6 +7,8 @@ on the CPU. Held to: the same epoch count, coefficients allclose
 epochs), final loss relative difference < 1e-5.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -153,8 +155,18 @@ def test_label_flag_rides_the_packed_result(both_on_one_device):
     [({"checkpoint_dir": "ckpt"}, None), ({"shard_features": True}, None),
      ({"collective_overlap": True}, None), ({}, "a mesh")],
 )
-def test_unported_options_raise(both_on_one_device, kwargs, mesh):
+def test_unported_options_raise(both_on_one_device, kwargs, mesh, tmp_path):
+    """The A.10 options raise naming their ROADMAP item. `checkpoint_dir`
+    raised (A.13) until checkpoints were ported; it now checkpoints, and
+    its fit equals the unchecked fit bit for bit."""
     X, y, _ = _dense(5, 40, 3, False)
+    if "checkpoint_dir" in kwargs:
+        ckpt = optimizer.SGD(checkpoint_dir=str(tmp_path), checkpoint_key="k").optimize(
+            np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS, mesh=mesh)
+        plain = optimizer.SGD().optimize(np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS)
+        np.testing.assert_array_equal(ckpt[0], plain[0])
+        assert ckpt[1:] == plain[1:] and os.listdir(tmp_path) == ["snap-k.npz"]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         optimizer.SGD(**kwargs).optimize(
             np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS, mesh=mesh
