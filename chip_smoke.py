@@ -279,7 +279,40 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    bit for bit. Each leg prints its wall, its cuts' bytes and ms a cut, its
    restores' ms, resume-to-first-epoch ms and the supervisor's detection
    ms, with the card's name and power limit;
-14. a `kernels` JSON line (four kernels), then the result line.
+14. the program funnel, the program bank and a traced run
+   (`funnel_phase`): the dense LR (10M x 100), the sparse LR (1M x 39 of
+   1e6), KMeans (1M x 100) and phase 10's 8-member sparse LR fleet, each
+   fitted eagerly (`config.whole_fit = "off"`), through the funnel from an
+   empty graph cache (one capture) and again (a replay, no capture): the
+   dense and KMeans replays equal to the eager fits bit for bit, the
+   sparse and fleet ones within the sparse gate; the replays launch 20
+   row dots and 20 gradients (the sparse fit) and 20 + 20 fleet kernels
+   (the fleet); the three walls, and a replay's median, device time (CUDA
+   events) and idle share. Memory: the graph holding (freed when the
+   cache drops it) only its accounted buffers and outputs, less than half
+   the fit's training data (the data on the card is read in place, not
+   copied), and the first call's allocator peak at most the eager fit's
+   plus that and the library state the capture made. A sweep: the sparse fit at another learning
+   rate and an L2 regularisation replays the same graph (no capture),
+   within the sparse gate (1e-4 of max |coeff|) of its eager fit, while a
+   replay with the first fit's operands, or its reg alone, would be off by
+   100 gates or more. The sparse fit on a copy of its data (other
+   addresses) runs eagerly (no capture, no new graph) and the original
+   data still replays, each within the sparse gate. The bank: a child process fills one
+   (its server's warmup over two tenants at SERVE_BUCKETS, and the sparse
+   fit), a fresh child warm-loads it (timed) and captures nothing in its
+   warmup, its first 100 requests and its first fit (a bank hit); a
+   changed fingerprint refuses the bank and a flipped byte one entry,
+   each with one `bank.refused` tick. A traced run: the sparse LR
+   pipeline's fit and transform from empty caches under the JSONL sink
+   and the timeline: stage, iteration, compile, segment and readback
+   spans whose parents resolve, `render_report`, the timeline's JSONL and
+   Chrome round trips, a dispatch attribution whose parts sum to its
+   window, the fit's ledger peak within the allocator's (the untracked
+   bytes printed), a Prometheus snapshot with no name collision; then a
+   profiler pass over each replayed fit (`utils/traceprof.py`, as every
+   profiler pass since phase 5: its idle share);
+15. a `kernels` JSON line (four kernels), then the result line.
 """
 
 from __future__ import annotations
@@ -1646,43 +1679,21 @@ def online_lr_split(columns, dev):
 
 
 def profile_overlap(name, run):
-    """torch.profiler over one call: wall, device busy and idle share, and
-    how much of the host-to-device copy time runs under kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """A profiler pass over one call (utils/traceprof.capture_trace): wall,
+    device busy and idle share, and how much of the host-to-device copy
+    time runs under kernels."""
+    from flink_ml_tpu_torch.utils import traceprof
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    copies = [(a, b) for n, a, b in spans if "HtoD" in n]
-    kernels = sorted((a, b) for n, a, b in spans if "Memcpy" not in n and "Memset" not in n)
-    merged = []
-    for a, b in kernels:
-        if merged and a <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], b)
-        else:
-            merged.append([a, b])
-    overlap = sum(max(0.0, min(b, mb) - max(a, ma)) for a, b in copies for ma, mb in merged)
-    busy = []
-    for a, b in sorted((a, b) for _, a, b in spans):
-        if busy and a <= busy[-1][1]:
-            busy[-1][1] = max(busy[-1][1], b)
-        else:
-            busy.append([a, b])
-    busy_ms = sum(b - a for a, b in busy) / 1e3
-    copy_ms = sum(b - a for a, b in copies) / 1e3
-    kernel_ms = sum(b - a for a, b in merged) / 1e3
+    stats = traceprof.capture_trace(run)
+    wall_ms, busy_ms = stats["wallMs"], stats["deviceBusyMs"]
+    copy_ms, overlap_ms = stats["hostToDeviceMs"], stats["hostToDeviceUnderKernelsMs"]
+    kernel_ms = stats["byCategory"].get("kernel", {}).get("durUs", 0.0) / 1e3
     log(f"  profile {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-        f"(idle {100.0 * (1.0 - busy_ms / wall_ms):.1f}%); {len(copies)} uploads {copy_ms:.3f} ms, "
-        f"kernels {kernel_ms:.3f} ms, uploads under kernels {overlap / 1e3:.3f} ms "
-        f"({100.0 * overlap / max(copy_ms * 1e3, 1e-9):.1f}% of upload time)")
+        f"(idle {100.0 * (1.0 - busy_ms / wall_ms):.1f}%); uploads {copy_ms:.3f} ms, "
+        f"kernels {kernel_ms:.3f} ms, uploads under kernels {overlap_ms:.3f} ms "
+        f"({100.0 * overlap_ms / max(copy_ms, 1e-9):.1f}% of upload time)")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "upload_ms": copy_ms, "kernel_ms": kernel_ms,
-            "overlap_ms": overlap / 1e3}
+            "overlap_ms": overlap_ms}
 
 def stream_and_online_times(stream_cols, km_cols, online_cols, kmeans_model, dev, path_s):
     """Phase 5 for the stream and online paths: two warm runs of each, the
@@ -5980,6 +5991,518 @@ def checkpoint_phase(sk, dev, card, runs, traces, dense_table, sparse_table, str
     return result
 
 
+# -- phase 14: the program funnel, the program bank and a traced run ----------------
+#: the bank's fresh child serves this many requests (then its first banked fit)
+BANK_REQUESTS = 100
+BANK_TENANTS = 2
+BANK_SEED = 31
+BANK_CHILD_TIMEOUT_S = 300.0
+#: the sweep's second sparse LR fit: another learning rate and an L2
+#: regularisation (elasticNet 0: no L1 step, whose sign flips near zero
+#: would need more than the sparse gate), strong enough that a stale
+#: learning rate or reg moves the coefficients far past the gate
+SWEEP_LR, SWEEP_REG, SWEEP_EN = 0.05, 0.5, 0.0
+#: a stale operand must move the sweep's coefficients by this many times
+#: the sparse gate
+SWEEP_SEPARATION = 100.0
+
+
+#: allocator slop on the memory gates: blocks rounded up to 512 B and
+#: 2 MiB segments' tails
+FUNNEL_ALLOC_SLACK = 8 << 20
+
+
+def _allocated(fn):
+    """fn() with its wall and its memory: what was allocated before it
+    (`base`), its allocator peak above that, and what it left allocated
+    right after it (`left`) and once the collector has freed its garbage
+    (`kept`)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = synced(fn)
+    left = torch.cuda.memory_allocated() - base
+    gc.collect()
+    return out, ms, {"base": base, "peak": torch.cuda.max_memory_allocated() - base,
+                     "left": left, "kept": torch.cuda.memory_allocated() - base}
+
+
+def funnel_fit(name, sk, fit, kernel, arrays, expected, gate, data_bytes):
+    """One fit signature three ways: eagerly (`config.whole_fit = "off"`,
+    the op-by-op fit that stages its input as the parent tree did), a
+    first call through the funnel from an empty cache (a fresh process's:
+    it captures), and, after a second capture, a call that replays.
+    `arrays` gives the arrays a model holds; `gate(got, want)` checks them
+    and returns their gap (0 for bit for bit). Memory: what the graph
+    holds (the bytes freed when the cache drops it) is its own static
+    buffers and outputs, less than half the fit's training data
+    (`data_bytes`: the data on the card is read in place, not copied);
+    the first call's allocator peak is at most the eager fit's plus that
+    and what else the capture left allocated (a capture stream's library
+    state, made once a process). Returns the walls, the memory, the
+    capture counts and the replay's launches."""
+    import gc
+
+    from flink_ml_tpu_torch import config as port_config
+
+    with port_config.whole_fit_mode("off"):
+        eager, eager_ms, eager_mem = _allocated(fit)
+    kernel.cache.clear()
+    traces = _counter("jit.traces")
+    first, first_ms, mem = _allocated(fit)
+    captured = _counter("jit.traces") - traces
+    graph_bytes = sum(e.kept_bytes for e in kernel.cache.entries.values())
+    kernel.cache.clear()
+    gc.collect()
+    held = mem["kept"] - (torch.cuda.memory_allocated() - mem["base"])
+    library = mem["kept"] - held
+    traces = _counter("jit.traces")
+    synced(fit)  # the graph again, for the replay
+    recaptured = _counter("jit.traces") - traces
+    sk.reset_launch_counts()
+    replay, replay_ms, replay_mem = _allocated(fit)
+    counts = sk.launch_counts()
+    replayed = _counter("jit.traces") - traces - recaptured
+    gaps = {"first": gate(arrays(first), arrays(eager)), "replay": gate(arrays(replay), arrays(eager))}
+    mib = lambda b: f"{b / 2**20:.1f} MiB"  # noqa: E731
+    log(f"  {name}: eager {eager_ms:.3f} ms, first call (capture) {first_ms:.3f} ms "
+        f"({first_ms / eager_ms:.2f}x eager), replay {replay_ms:.3f} ms; captures {captured}, "
+        f"{recaptured} after the cache was dropped, then {replayed}; replay launches {counts}; gap "
+        f"to eager {gaps}; allocator peak eager {mib(eager_mem['peak'])}, first call "
+        f"{mib(mem['peak'])}, replay {mib(replay_mem['peak'])}; the first call left "
+        f"{mib(mem['left'])} allocated ({mib(mem['kept'])} after a collection), of which the graph "
+        f"held {mib(held)} (its accounted {mib(graph_bytes)}; training data {mib(data_bytes)}) and "
+        f"library state {mib(library)}")
+    check(captured == 1 and recaptured == 1 and replayed == 0,
+          f"{name}: the first call captured {captured}, the second {recaptured}, the replay "
+          f"{replayed}")
+    check(counts == expected, f"{name}: the replay launched {counts}, expected {expected}")
+    check(held <= graph_bytes + FUNNEL_ALLOC_SLACK and 2 * max(held, graph_bytes) < data_bytes,
+          f"{name}: the graph held {held} bytes (accounted {graph_bytes}) of {data_bytes} bytes "
+          f"of training data")
+    check(mem["peak"] <= eager_mem["peak"] + graph_bytes + library + FUNNEL_ALLOC_SLACK,
+          f"{name}: the first call's peak {mem['peak']} against the eager fit's "
+          f"{eager_mem['peak']}, the graph's {graph_bytes} bytes and {library} of library state")
+    return {"eager_ms": eager_ms, "first_ms": first_ms, "replay_ms": replay_ms,
+            "captures": [captured, recaptured, replayed], "replay_launches": counts,
+            "gap_to_eager": gaps, "peak_bytes": {"eager": eager_mem["peak"], "first": mem["peak"],
+                                                 "replay": replay_mem["peak"]},
+            "graph_bytes": graph_bytes, "held_bytes": held, "library_bytes": library,
+            "replay": replay}
+
+
+def _table_bytes(table, *cols):
+    """The bytes of a Table's tensor columns (a SparseBatch's indices and
+    values)."""
+    from flink_ml_tpu_torch import SparseBatch
+
+    total = 0
+    for col in cols:
+        value = table.column(col)
+        parts = (value.indices, value.values) if isinstance(value, SparseBatch) else (value,)
+        total += sum(t.numel() * t.element_size() for t in parts)
+    return total
+
+
+def _bits(got, want) -> float:
+    """The dense and KMeans gate: every array equal bit for bit."""
+    same = all(np.asarray(g).tobytes() == np.asarray(w).tobytes() for g, w in zip(got, want))
+    check(same, f"a replay differs from its eager fit (max gap "
+          f"{max(max_gap(g, w) for g, w in zip(got, want))})")
+    return 0.0
+
+
+def _sparse_gate(scale):
+    """The sparse gate (phase 4, ROADMAP C.21): 1e-4 of the coefficients'
+    scale."""
+    def gate(got, want):
+        gap = max(max_gap(g, w) for g, w in zip(got, want))
+        check(gap <= 1e-4 * scale, f"a sparse replay differs by {gap} (scale {scale})")
+        return gap
+    return gate
+
+
+def _fleet_gate(members):
+    """Phase 10's fleet gate on each member: 1e-4 of its scale plus two of
+    its L1 steps."""
+    def gate(got, want):
+        gaps = []
+        for g, w, est in zip(got, want, members):
+            scale = float(np.max(np.abs(w)))
+            gap = max_gap(g, w)
+            l1 = est.get_learning_rate() * est.get_elastic_net() * est.get_reg()
+            check(gap <= 1e-4 * scale + 2.0 * l1, f"a fleet member's replay differs by {gap}")
+            gaps.append(gap)
+        return max(gaps)
+    return gate
+
+
+def _bank_setup(dev, s_idx, s_vals):
+    """The bank children's serving: BANK_TENANTS sparse LR tenants (seeded
+    coefficients over SPARSE_DIM) in a store, a server over SERVE_BUCKETS,
+    an example batch and BANK_REQUESTS (tenant, Table) requests of the
+    table's rows."""
+    from flink_ml_tpu_torch import PipelineModel, SparseBatch, Table
+    from flink_ml_tpu_torch.data.modelstore import ModelStore
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegressionModel
+    from flink_ml_tpu_torch.serving import MicroBatchServer
+
+    rng = np.random.default_rng(BANK_SEED)
+    store = ModelStore(budget_bytes=None)
+    tenants = [f"tenant{i}" for i in range(BANK_TENANTS)]
+    for key in tenants:
+        model = LogisticRegressionModel()
+        model.coefficient = rng.standard_normal(SPARSE_DIM) * 1e-3
+        store.register(key, PipelineModel([model]))
+    server = MicroBatchServer(store=store, buckets=SERVE_BUCKETS)
+    idx_h, vals_h = s_idx.cpu().numpy(), s_vals.cpu().numpy()
+
+    def rows(start, n):
+        return Table({"features": SparseBatch(SPARSE_DIM, idx_h[start:start + n],
+                                              vals_h[start:start + n])})
+
+    requests = []
+    for i in range(BANK_REQUESTS):
+        n = int(rng.integers(1, SERVE_MAX_ROWS + 1))
+        start = int(rng.integers(0, idx_h.shape[0] - n))
+        requests.append((tenants[i % BANK_TENANTS], rows(start, n)))
+    return server, rows(0, 64), requests
+
+
+def bank_child(spec_json: str) -> int:
+    """A process of the bank leg: with `config.program_bank_dir` at
+    spec["dir"], warm-load the bank (timed), warm the bank's server up,
+    serve BANK_REQUESTS requests, then run the sparse LR fit, counting
+    the captures of each step. Prints one JSON line."""
+    from flink_ml_tpu_torch import SparseBatch, Table, compilebank
+    from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
+    from flink_ml_tpu_torch.ops import cuda_build
+    from flink_ml_tpu_torch.ops import sparsekernels as sk
+
+    spec = json.loads(spec_json)
+    for name, value in spec["sizes"].items():
+        globals()[name] = tuple(value) if isinstance(value, list) else value
+    dev = torch.device(DEVICE)
+    if dev.type == "cuda":
+        cuda_build.load_all(("sparse_kernels",))
+        sk.build()
+    out = {}
+    with port_config.use_device(dev), port_config.program_bank_mode(spec["dir"]):
+        loads = _counter("jit.bankLoads")
+        t0 = time.perf_counter()
+        bank = compilebank.active_bank()
+        out["load_ms"] = (time.perf_counter() - t0) * 1e3
+        out["loaded_fits"] = _counter("jit.bankLoads") - loads
+        s_idx, s_vals, s_y = sparse_data(dev)
+        table = Table({"features": SparseBatch(SPARSE_DIM, s_idx, s_vals), "label": s_y})
+        server, example, requests = _bank_setup(dev, s_idx, s_vals)
+        traces, loads = _counter("jit.traces"), _counter("jit.bankLoads")
+        t0 = time.perf_counter()
+        warm = server.warmup(example)
+        out["warmup_ms"] = (time.perf_counter() - t0) * 1e3
+        out["warmup"] = {k: warm[k] for k in ("programs", "captures", "bankHits", "bankMisses",
+                                               "bankLoads")}
+        traces = _counter("jit.traces")
+        served = list(server.serve(iter(requests)))
+        out["served"] = len(served)
+        out["serve_captures"] = _counter("jit.traces") - traces
+        traces, hits = _counter("jit.traces"), _counter("bank.hits")
+        t0 = time.perf_counter()
+        model = estimator(LogisticRegression).fit(table)  # its readback synchronizes
+        out["fit_ms"] = (time.perf_counter() - t0) * 1e3
+        out["fit_captures"] = _counter("jit.traces") - traces
+        out["fit_bank_hits"] = _counter("bank.hits") - hits
+        out["coefficient_finite"] = bool(np.isfinite(model.coefficient).all())
+        out["entries"] = bank.stats()["entries"]
+        out["refused"] = _counter("bank.refused")
+    print("bank " + json.dumps(out), flush=True)
+    return 0
+
+
+def run_bank_child(path):
+    import subprocess as sp
+
+    spec = json.dumps({"dir": path, "sizes": {n: globals()[n] for n in (
+        "DEVICE", "SPARSE_ROWS", "SPARSE_DIM", "NNZ", "MAX_ITER", "BATCH", "TOL",
+        "SERVE_BUCKETS", "SERVE_MAX_ROWS")}})
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = sp.run([sys.executable, "-c",
+                   "import sys, chip_smoke; sys.exit(chip_smoke.bank_child(sys.argv[1]))", spec],
+                  cwd=here, capture_output=True, text=True, timeout=BANK_CHILD_TIMEOUT_S)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("bank ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"the bank child ended with {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(lines[0][len("bank "):])
+
+
+def bank_leg(tmp):
+    """(c): a child fills a bank (its server's warmup over two tenants and
+    the sparse fit's signature); a fresh child loads it and captures
+    nothing on its first BANK_REQUESTS requests and its first banked fit;
+    a changed fingerprint refuses the bank, a flipped byte one entry, with
+    a warning and a `bank.refused` tick each, and neither crashes."""
+    import shutil
+
+    from flink_ml_tpu_torch import compilebank
+
+    path = os.path.join(tmp, "bank")
+    fill = run_bank_child(path)
+    fresh = run_bank_child(path)
+    segments = len(SERVE_BUCKETS) if DEVICE == "cuda" else 0  # the CPU captures no segment
+    log(f"  bank: filled {fill['entries']:.0f} entries (warmup {fill['warmup']}, fit captures "
+        f"{fill['fit_captures']}); a fresh process warm-loaded {fresh['loaded_fits']} fit "
+        f"signature(s) in {fresh['load_ms']:.1f} ms and {fresh['warmup']['bankLoads']:.0f} serving "
+        f"signature(s) in its warmup ({fresh['warmup_ms']:.1f} ms): captures warmup "
+        f"{fresh['warmup']['captures']:.0f}, {fresh['served']} requests "
+        f"{fresh['serve_captures']}, first fit {fresh['fit_captures']} ({fresh['fit_ms']:.1f} ms, "
+        f"{fresh['fit_bank_hits']} bank hit)")
+    check(fill["entries"] == 1 + segments, f"the bank holds {fill['entries']} entries")
+    check(fresh["loaded_fits"] == 1 and fresh["warmup"]["bankLoads"] == segments,
+          f"the fresh process warm-loaded {fresh['loaded_fits']} fits and "
+          f"{fresh['warmup']['bankLoads']} serving signatures")
+    check(fresh["warmup"]["captures"] == 0 and fresh["serve_captures"] == 0
+          and fresh["fit_captures"] == 0 and fresh["fit_bank_hits"] == 1,
+          f"the fresh process captured {fresh}")
+    check(fresh["served"] == BANK_REQUESTS and fresh["coefficient_finite"] and fresh["refused"] == 0,
+          f"the fresh process served {fresh['served']}")
+    out = {"fill": fill, "fresh": fresh}
+    # a changed fingerprint refuses the whole bank; a flipped byte one entry
+    for case in ("fingerprint", "flipped byte"):
+        copy = os.path.join(tmp, f"bank {case}")
+        shutil.copytree(path, copy)
+        manifest_path = os.path.join(copy, compilebank.MANIFEST)
+        manifest = json.load(open(manifest_path))
+        # this process's fingerprint (the children's, on the card), changed
+        # in one field for the fingerprint case
+        manifest["fingerprint"] = compilebank.env_fingerprint()
+        if case == "fingerprint":
+            manifest["fingerprint"]["kernelSources"] = "0" * 32
+        json.dump(manifest, open(manifest_path, "w"))
+        if case == "flipped byte":
+            record = sorted(manifest["entries"].values(), key=lambda r: r["file"])[0]
+            entry = os.path.join(copy, record["file"])
+            raw = bytearray(open(entry, "rb").read())
+            raw[len(raw) // 2] ^= 0x01
+            open(entry, "wb").write(bytes(raw))
+        refused = _counter("bank.refused")
+        bank = compilebank.ProgramBank(copy, warm_load=False)
+        kept, ticks = bank.stats()["entries"], _counter("bank.refused") - refused
+        log(f"  bank, {case}: {ticks} refusal(s), {kept:.0f} of {fill['entries']:.0f} entries kept")
+        want = 0 if case == "fingerprint" else fill["entries"] - 1
+        check(ticks == 1 and kept == want, f"bank {case}: {ticks} refusals, {kept} entries kept")
+        out[case] = {"refused": ticks, "kept": kept}
+    return out
+
+
+def traced_run(sk, sparse_table, tmp, card):
+    """(d): the sparse LR pipeline's fit and transform from empty program
+    caches, with the JSONL span sink and the timeline on: its stage,
+    iteration and compile spans with parents that resolve, the report, the
+    Chrome export and the JSONL round trip, the dispatch attribution, the
+    fit's ledger peak against the allocator's, and a Prometheus snapshot
+    without a name collision."""
+    from flink_ml_tpu_torch import Pipeline
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
+    from flink_ml_tpu_torch.obs import exporters, memledger, report, timeline, tracing
+    from flink_ml_tpu_torch.utils import lazyjit
+
+    lazyjit.forget_graphs()  # a fresh process: the fit and the segment capture
+    trace_path = os.path.join(tmp, "trace.jsonl")
+    tracing.configure(trace_file=trace_path)
+    timeline.configure(ring_size=1 << 16)
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        live, tok = memledger.live_bytes(), memledger.mark_peak()
+        model, fit_ms = synced(lambda: Pipeline([estimator(LogisticRegression)]).fit(sparse_table))
+        ledger_peak = memledger.peak_since(tok) - live
+        alloc_peak = torch.cuda.max_memory_allocated() - base
+        out, transform_ms = synced(lambda: model.transform(sparse_table)[0])
+        events, truncated = timeline.snapshot_events()
+    finally:
+        tracing.configure()
+        timeline.configure()
+    check(bool(torch.isfinite(out.column("rawPrediction")).all()), "the traced transform")
+    records, dropped = report.sanitize_records(report.load_trace(trace_path))
+    names = {r["name"] for r in records}
+    by_id = {r["spanId"] for r in records}
+    orphans = [r for r in records if r["parentId"] and r["parentId"] not in by_id]
+    log(f"  traced run: fit {fit_ms:.1f} ms, transform {transform_ms:.1f} ms, {len(records)} spans "
+        f"({sorted(names)}), {dropped} dropped, {len(orphans)} without a parent")
+    for want in ("pipeline.stage", "stage.fit", "stage.transform", "iteration.run", "jit.compile",
+                 "pipeline.segment", "readback"):
+        check(want in names, f"the trace has no {want} span")
+    check(dropped == 0 and not orphans, f"{dropped} dropped, {len(orphans)} orphans")
+    text = report.render_report(records)
+    check("== Per-stage breakdown ==" in text and "LogisticRegression" in text, "the report")
+    log("  report:\n" + "\n".join("    " + line for line in text.splitlines()[:12]))
+    dump = os.path.join(tmp, "timeline.jsonl")
+    timeline.dump_jsonl(dump, events)
+    loaded = timeline.load_events(dump)
+    doc = timeline.export_chrome_file(os.path.join(tmp, "timeline.json"), loaded)
+    with open(os.path.join(tmp, "timeline.json")) as f:
+        check(json.load(f) == doc == timeline.to_chrome(loaded), "the Chrome export")
+    key = lambda evs: [(e["ph"], e["lane"], e["name"], e["tsUs"], e.get("ref")) for e in evs]  # noqa: E731
+    check(key(loaded) == key(events), "the timeline's JSONL round trip")
+    att = timeline.dispatch_attribution(loaded)
+    parts = sum(att[k] for k in ("dispatchMs", "deviceMs", "readbackMs", "idleGapMs"))
+    log(f"  dispatch attribution: {att['gapCount']} dispatches in {att['windowMs']:.3f} ms: "
+        f"dispatch {att['dispatchMs']:.3f}, device {att['deviceMs']:.3f}, readback "
+        f"{att['readbackMs']:.3f}, idle gap {att['idleGapMs']:.3f} ms ({len(events)} events, "
+        f"{truncated} truncated)")
+    check(abs(parts - att["windowMs"]) <= 1e-6 * max(att["windowMs"], 1.0),
+          f"the attribution's parts {parts} are not its window {att['windowMs']}")
+    untracked = alloc_peak - ledger_peak
+    log(f"  fit peak: the ledger {ledger_peak / 2**20:.1f} MiB, the allocator "
+        f"{alloc_peak / 2**20:.1f} MiB; untracked by the ledger {untracked / 2**20:.1f} MiB "
+        f"(temporaries and graph pools) ({card})")
+    check(0 < ledger_peak and (DEVICE != "cuda" or ledger_peak <= alloc_peak),
+          f"the ledger's fit peak {ledger_peak} against the allocator's {alloc_peak}")
+    prom = exporters.snapshot_prometheus()  # raises on a name collision
+    check("flink_ml_tpu_jit_traces_total" in prom, "the Prometheus snapshot")
+    return {"spans": len(records), "names": sorted(names), "fit_ms": fit_ms,
+            "transform_ms": transform_ms, "attribution": {k: v for k, v in att.items()
+                                                          if k != "chunks"},
+            "ledger_peak_bytes": ledger_peak, "allocator_peak_bytes": alloc_peak,
+            "untracked_bytes": untracked, "prometheus_lines": prom.count("\n")}
+
+
+def moved_data_leg(sgd_kernel, sparse_table, sparse_fit, first_fit, scale):
+    """The sparse fit's data at other addresses (a copy of its table), as a
+    pipeline stage's fresh output comes: the signature's graph reads its
+    data at home, so a fit of the copy runs eagerly (no capture, no new
+    graph) within the sparse gate of the eager fit, and the original
+    data still replays its graph."""
+    from flink_ml_tpu_torch import SparseBatch, Table
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
+
+    col = sparse_table.column("features")
+    moved = Table({"features": SparseBatch(col.size, col.indices.clone(), col.values.clone()),
+                   "label": sparse_table.column("label").clone()})
+    moved_fit = lambda: estimator(LogisticRegression).fit(moved)  # noqa: E731
+    captures, gaps, replays = [], [], []
+    graphs = len(sgd_kernel.cache.entries)
+    for fit in (moved_fit, sparse_fit, moved_fit):
+        traces = _counter("jit.traces")
+        stamps = {id(e): e.stamp for e in sgd_kernel.cache.entries.values()}
+        gaps.append(max_gap(fit().coefficient, first_fit))
+        captures.append(_counter("jit.traces") - traces)
+        replays.append(sum(e.stamp != stamps.get(id(e)) for e in sgd_kernel.cache.entries.values()))
+    log(f"  the sparse fit's data at other addresses (the copy, the original, the copy "
+        f"again): captures {captures}, graphs replayed {replays}, graphs {graphs} then "
+        f"{len(sgd_kernel.cache.entries)}; gaps to the eager fit {[f'{g:.3g}' for g in gaps]} "
+        f"against the sparse gate {1e-4 * scale:.3g}")
+    # the CPU borrows nothing: every call runs the function, and a call of a
+    # known signature counts as a replay
+    want = [0, 1, 0] if DEVICE == "cuda" else [1, 1, 1]
+    check(captures == [0, 0, 0] and replays == want and len(sgd_kernel.cache.entries) == graphs,
+          f"data at other addresses: captures {captures}, replays {replays}")
+    check(max(gaps) <= 1e-4 * scale, f"a fit at other addresses differs by {max(gaps)}")
+    return {"captures": captures, "replays": replays, "gaps": gaps}
+
+
+def funnel_phase(sk, dev, card, dense_table, sparse_table, km_table, tmp):
+    """Phase 14: the whole fits through the program funnel (eager, first
+    call, replay), a sweep, the program bank across processes, and a
+    traced run. Returns the phase's results and its launches by path."""
+    from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.fleet import FitFleet
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
+    from flink_ml_tpu_torch.models.clustering import kmeans
+    from flink_ml_tpu_torch.ops import optimizer
+
+    t_phase = time.perf_counter()
+    result, launches = {}, {}
+    coeff = lambda m: (m.coefficient,)  # noqa: E731
+    sgd_kernel = optimizer._sgd_train_flat.kernel
+    dense_bytes = _table_bytes(dense_table, "features")
+    sparse_bytes = _table_bytes(sparse_table, "features")
+    dense = funnel_fit("dense lr", sk, lambda: estimator(LogisticRegression, "weight").fit(
+        dense_table), sgd_kernel, coeff, launch_dict(), _bits, dense_bytes)
+    sparse_fit = lambda: estimator(LogisticRegression).fit(sparse_table)  # noqa: E731
+    with port_config.whole_fit_mode("off"):
+        first_fit = sparse_fit().coefficient
+    scale = float(np.max(np.abs(first_fit)))
+    sparse = funnel_fit("sparse lr", sk, sparse_fit, sgd_kernel, coeff,
+                        launch_dict(sparse_row_dots=MAX_ITER, sparse_grad=MAX_ITER),
+                        _sparse_gate(scale), sparse_bytes)
+    km = funnel_fit("kmeans", sk, lambda: kmeans_estimator().fit(km_table),
+                    kmeans._lloyd_train.kernel, lambda m: (m.centroids, m.weights), launch_dict(),
+                    _bits, _table_bytes(km_table, "features"))
+    members = fleet_members(LogisticRegression)
+    fleet = funnel_fit("sparse lr fleet", sk, lambda: FitFleet(fleet_members(
+        LogisticRegression)).fit(sparse_table), optimizer._sgd_fleet_whole_fit.kernel,
+        lambda models: tuple(m.coefficient for m in models),
+        launch_dict(fleet_row_dots=MAX_ITER, fleet_grad=MAX_ITER), _fleet_gate(members),
+        sparse_bytes)
+    for name, r in (("dense lr", dense), ("sparse lr", sparse), ("kmeans", km),
+                    ("sparse lr fleet", fleet)):
+        r.pop("replay")
+        result[name] = r
+        launches[f"funnel {name} (a replay)"] = r["replay_launches"]
+
+    # (b) a sweep: another learning rate and regularisation replays the graph
+    def sweep_fit(reg=SWEEP_REG):
+        return estimator(LogisticRegression, None, SWEEP_LR).set_reg(reg).set_elastic_net(
+            SWEEP_EN).fit(sparse_table)
+
+    traces = _counter("jit.traces")
+    sk.reset_launch_counts()
+    swept, sweep_ms = synced(sweep_fit)
+    launches["funnel sparse lr sweep (a replay)"] = sk.launch_counts()
+    sweep_captures = _counter("jit.traces") - traces
+    with port_config.whole_fit_mode("off"):
+        sweep_eager = sweep_fit().coefficient
+        stale_reg = sweep_fit(reg=0.0).coefficient  # the sweep's lr with the first fit's reg
+    sweep_scale = float(np.max(np.abs(sweep_eager)))
+    limit = 1e-4 * sweep_scale  # the sparse gate
+    sweep_gap = max_gap(swept.coefficient, sweep_eager)
+    # what a replay that kept the first fit's operands would be off by
+    stale = {"all": max_gap(first_fit, sweep_eager), "reg": max_gap(stale_reg, sweep_eager)}
+    log(f"  sweep (lr {SWEEP_LR}, reg {SWEEP_REG}, elasticNet {SWEEP_EN}): {sweep_ms:.3f} ms, "
+        f"{sweep_captures} captures, gap to its eager fit {sweep_gap:.3g} against the sparse "
+        f"gate {limit:.3g} (max |coeff| {sweep_scale:.3g}); a stale operand would be off by "
+        f"{stale['all']:.3g} (the first fit's lr and reg), {stale['reg']:.3g} (its reg)")
+    check(sweep_captures == 0, f"the sweep captured {sweep_captures}")
+    check(sweep_gap <= limit, f"the sweep's fit differs by {sweep_gap} (gate {limit})")
+    check(min(stale.values()) >= SWEEP_SEPARATION * limit,
+          f"the sweep cannot tell a stale operand: {stale} against the gate {limit}")
+    result["sweep"] = {"ms": sweep_ms, "captures": sweep_captures, "gap_to_eager": sweep_gap,
+                       "gate": limit, "scale": sweep_scale, "stale_gaps": stale}
+    result["moved"] = moved_data_leg(sgd_kernel, sparse_table, sparse_fit, first_fit, scale)
+
+    # the card's idle share of a replayed fit: CUDA events, and the profiler
+    for name, fit in (("sparse lr", sparse_fit), ("dense lr", lambda: estimator(
+            LogisticRegression, "weight").fit(dense_table))):
+        wall = float(np.median([synced(fit)[1] for _ in range(3)]))
+        device = device_span_ms(fit)
+        result[name]["replay_median_ms"] = wall
+        result[name]["replay_device_ms"] = device
+        result[name]["replay_idle"] = 1.0 - device / wall
+        log(f"  {name} replay: median {wall:.3f} ms, device {device:.3f} ms (CUDA events), idle "
+            f"{100.0 * (1.0 - device / wall):.1f}% ({card})")
+
+    with tempfile.TemporaryDirectory(dir=tmp) as bank_tmp:
+        result["bank"] = bank_leg(bank_tmp)
+    with tempfile.TemporaryDirectory(dir=tmp) as trace_tmp:
+        result["traced"] = traced_run(sk, sparse_table, trace_tmp, card)
+    # last: a profiler pass once left the next device span wrong (phase 11);
+    # traceprof's idle share of each replayed fit
+    for name, fit in (("dense lr", lambda: estimator(LogisticRegression, "weight").fit(
+            dense_table)), ("sparse lr", sparse_fit), ("kmeans", lambda: kmeans_estimator().fit(
+            km_table)), ("sparse lr fleet", lambda: FitFleet(fleet_members(
+            LogisticRegression)).fit(sparse_table))):
+        result[name]["replay_profile"] = profile_run(f"replayed {name} fit", fit)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 14 took {result['seconds']:.2f} s")
+    return result, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; the port's kernels run only on the card",
@@ -6287,6 +6810,19 @@ def main() -> int:
         for kernel in launches:
             launches[kernel] += counts[kernel]
 
+    # -- 14. the program funnel, the program bank and a traced run -------------
+    log("phase 14: whole fits through the program funnel (eager, a first call that captures, "
+        "a replay), a sweep, the program bank across processes, a traced run (launch counts "
+        "reset before and read after each replay)")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        funnel, funnel_launches = funnel_phase(sk, dev, card, dense_table, sparse_table, km_table,
+                                               tmp)
+    path_s["funnel, bank and traced run"] = funnel["seconds"]
+    for counts in funnel_launches.values():
+        for kernel in launches:
+            launches[kernel] += counts[kernel]
+
     # -- output -----------------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
@@ -6311,7 +6847,8 @@ def main() -> int:
                                  **(fused_launches if name == "sparse_row_dots" else {}),
                                  **(serving_launches if name == "sparse_row_dots" else {}),
                                  **{p: c[name] for p, c in checkpoints["launches"].items()
-                                    if c[name]}},
+                                    if c[name]},
+                                 **{p: c[name] for p, c in funnel_launches.items() if c[name]}},
             "launches_by_feature_path": {p: r["launches"][name] for p, r in
                                          {**features, **texts, **stat_stages, **slice8}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -6333,7 +6870,8 @@ def main() -> int:
             "launches": launches[name],
             "launches_by_path": {"sparse lr fleet": fleets["sparse lr fleet"]["launches"][name],
                                  **{p: c[name] for p, c in checkpoints["launches"].items()
-                                    if c[name]}},
+                                    if c[name]},
+                                 **{p: c[name] for p, c in funnel_launches.items() if c[name]}},
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "tolerance": r["tolerance"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -6361,7 +6899,8 @@ def main() -> int:
     log("fused transforms: " + json.dumps(fused))
     log("serving: " + json.dumps(serving))
     log("checkpoint and recovery: " + json.dumps(checkpoints))
-    log("seconds by path (phases 3-13): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("funnel, bank and traced run: " + json.dumps(funnel, default=str))
+    log("seconds by path (phases 3-14): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")
@@ -6374,29 +6913,23 @@ def main() -> int:
 
 
 def profile_run(name, run):
-    """torch.profiler over one warm call (a fit or a transform): the wall
-    time, the device's busy time (the sum of its kernels and copies) and
-    the largest kernels. Returns the wall, busy time and idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """A profiler pass over one warm call (a fit or a transform) through
+    utils/traceprof.capture_trace: the wall time, the device's busy time
+    (the union of its kernels and copies) and the largest kernels.
+    Returns the wall, busy time and idle share. A replayed CUDA graph's
+    kernels appear only where the profiler reports graph kernels: the
+    line prints how many device events the trace held."""
+    from flink_ml_tpu_torch.utils import traceprof
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    attr = "self_device_time_total" if events and hasattr(events[0], "self_device_time_total") \
-        else "self_cuda_time_total"
-    events.sort(key=lambda e: -getattr(e, attr))
-    busy_ms = sum(getattr(e, attr) for e in events) / 1e3
+    stats = traceprof.capture_trace(run)
+    wall_ms, busy_ms = stats["wallMs"], stats["deviceBusyMs"]
     idle = 1.0 - busy_ms / wall_ms
     log(f"  profile {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-        f"idle {100.0 * idle:.1f}%")
-    for e in events[:8]:
-        log(f"    {getattr(e, attr) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": idle}
+        f"idle {100.0 * idle:.1f}% ({stats['deviceEvents']} device events)")
+    for kernel, top in list(stats["topKernels"].items())[:8]:
+        log(f"    {top['durUs'] / 1e3:8.3f} ms  x{top['count']:<4d} {kernel[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": idle,
+            "device_events": stats["deviceEvents"]}
 
 
 if __name__ == "__main__":

@@ -1,9 +1,13 @@
 """The five-interface Stage contract and the transform-kernel protocol.
 
 Port of flink_ml_tpu/api.py (the reference's api/Stage.java,
-AlgoOperator.java, Transformer.java, Model.java, Estimator.java) without
-the tracing hook (ROADMAP A.14). Save/load keeps the reference's directory
-layout: `{path}/metadata` JSON plus model data under `{path}/data`.
+AlgoOperator.java, Transformer.java, Model.java, Estimator.java). Every
+concrete stage's own `fit`/`transform` runs under a `stage.fit` /
+`stage.transform` span and every fit under a per-fit memory watermark
+(`obs.tracing.instrument_stage_methods`, applied in
+`Stage.__init_subclass__` as the JAX package's `api.py:53` applies it).
+Save/load keeps the reference's directory layout: `{path}/metadata` JSON
+plus model data under `{path}/data`.
 
 The transform-kernel protocol (`:117-252` there) lets the fusion planner
 (pipeline.py) run consecutive stages as one fused segment: a stage whose
@@ -148,6 +152,11 @@ class Stage(WithParams, abc.ABC):
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
+        # every concrete fit/transform runs under a `stage.fit` /
+        # `stage.transform` span (obs/tracing.py)
+        from .obs.tracing import instrument_stage_methods
+
+        instrument_stage_methods(cls)
         _instrument_model_publication(cls)
 
     def save(self, path: str) -> None:

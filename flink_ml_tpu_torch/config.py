@@ -8,8 +8,9 @@ columns stay on the device they already live on.
 The stream, online, fleet, fusion, flow-control, serving, model-store,
 lifecycle, checkpoint, snapshot and supervisor knobs keep the JAX
 package's names, defaults and environment variables
-(flink_ml_tpu/config.py). Its other TPU knobs (whole-fit, collectives,
-compile bank) have no counterpart here yet.
+(flink_ml_tpu/config.py), as do the program funnel's (`whole_fit`,
+`kernel_cache_size`) and the program bank's (`program_bank_dir`). Its
+collective knobs wait for more than one card (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -82,9 +83,18 @@ fleet_shard_state_bytes: Optional[int] = 256 << 20
 #: one captured CUDA graph a segment); "off": always the eager per-stage
 #: path, the reference of the fused-vs-eager parity tests (pipeline.py)
 pipeline_fusion: str = "auto"
-#: captured CUDA graphs a fused segment keeps, one per input signature,
-#: least recently used first out
+#: captured CUDA graphs a program funnel (a fused segment, a whole fit:
+#: utils/lazyjit.py) keeps, one per input signature, and keyed_jit's
+#: wrappers, least recently used first out
 kernel_cache_size: int = 256
+#: "auto": the whole fits run through the program funnel (one captured CUDA
+#: graph per signature on the card, replayed by later fits of the same
+#: shapes); "off": every fit launches op by op (utils/lazyjit.py)
+whole_fit: str = "auto"
+#: where the program bank keeps the signatures a process captured, so the
+#: next process captures them ahead of its first calls (compilebank.py);
+#: None is off
+program_bank_dir: Optional[str] = None
 
 #: device memory the ledgered uploads may hold (obs/memledger.py): an
 #: upload past it raises HbmBudgetExceeded before it allocates; None is off
@@ -141,6 +151,38 @@ def pipeline_fusion_mode(mode: str):
         yield
     finally:
         pipeline_fusion = prev
+
+
+@contextmanager
+def whole_fit_mode(mode: str):
+    """Scoped override of `whole_fit` ("auto" | "off")."""
+    global whole_fit
+    if mode not in ("auto", "off"):
+        raise ValueError(f"Unknown whole_fit mode {mode!r}")
+    prev = whole_fit
+    whole_fit = mode
+    try:
+        yield
+    finally:
+        whole_fit = prev
+
+
+@contextmanager
+def program_bank_mode(path: Optional[str]):
+    """Scoped override of `program_bank_dir` (None = bank off). The active
+    ProgramBank is reset on entry and exit, so the scope sees a bank
+    freshly loaded from `path`."""
+    global program_bank_dir
+    prev = program_bank_dir
+    program_bank_dir = path
+    from . import compilebank
+
+    compilebank.reset_active_bank()
+    try:
+        yield
+    finally:
+        program_bank_dir = prev
+        compilebank.reset_active_bank()
 
 
 @contextmanager
@@ -270,6 +312,10 @@ if os.environ.get("FLINK_ML_TPU_PIPELINE_FUSION") in ("auto", "off"):
     pipeline_fusion = os.environ["FLINK_ML_TPU_PIPELINE_FUSION"]
 if os.environ.get("FLINK_ML_TPU_KERNEL_CACHE_SIZE"):
     kernel_cache_size = max(1, int(os.environ["FLINK_ML_TPU_KERNEL_CACHE_SIZE"]))
+if os.environ.get("FLINK_ML_TPU_WHOLE_FIT") in ("auto", "off"):
+    whole_fit = os.environ["FLINK_ML_TPU_WHOLE_FIT"]
+if os.environ.get("FLINK_ML_TPU_PROGRAM_BANK_DIR"):
+    program_bank_dir = os.environ["FLINK_ML_TPU_PROGRAM_BANK_DIR"]
 
 
 def check_overload_policy(policy: str) -> None:

@@ -22,17 +22,25 @@ staged batches on the device, so a batch crosses to the device once:
   (batch, d + 2) [X | y | w] array, so either package restores the
   other's.
 
-The JAX package's HBM-ledger accounting is ROADMAP A.14.
+Accounting (the JAX package's, `:124-214`): every insert opens a
+`batchCache` entry in the memory ledger (obs/memledger.py) and every
+eviction, replacement or clear closes it, so the ledger's `batchCache`
+live bytes equal the cache's `devicecache.bytes` gauge after any sequence
+(`check_ledger_parity`); the counters `devicecache.hit`,
+`devicecache.miss`, `devicecache.evict`, `devicecache.evictBytes`,
+`devicecache.replaceBytes` and `devicecache.contents.restored`.
 """
 
 from __future__ import annotations
 
+import weakref
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, Iterable, Iterator, Optional
 
 import numpy as np
 
 from .. import config
+from ..obs import memledger
 from ..parallel.prefetch import Prefetcher, Staged
 from ..utils import metrics
 
@@ -42,16 +50,26 @@ __all__ = ["DeviceEpochCache", "CachedEpochLoader", "cache_contents_section",
 _UNSET = object()
 
 
+def _release_ledger_entries(handles) -> None:
+    for handle in handles.values():
+        memledger.release(handle)
+    handles.clear()
+
+
 class DeviceEpochCache:
-    """Keyed LRU of staged batches (`Staged`) under a byte budget."""
+    """Keyed LRU of staged batches (`Staged`) under a byte budget, each
+    entry a `batchCache` entry of the memory ledger."""
 
     def __init__(self, budget_bytes=_UNSET):
         if budget_bytes is _UNSET:
             budget_bytes = config.device_cache_bytes
         self.budget_bytes: Optional[int] = None if budget_bytes is None else max(0, int(budget_bytes))
         self._entries: "OrderedDict[Hashable, Staged]" = OrderedDict()
+        self._handles: Dict[Hashable, int] = {}  # key -> ledger handle
         self._used = 0
         self.hits = self.misses = self.evictions = 0
+        # a cache dropped without clear() must not strand its ledger entries
+        weakref.finalize(self, _release_ledger_entries, self._handles)
 
     @property
     def enabled(self) -> bool:
@@ -61,9 +79,11 @@ class DeviceEpochCache:
         entry = self._entries.get(key)
         if entry is None:
             self.misses += 1
+            metrics.inc_counter("devicecache.miss")
             return None
         self._entries.move_to_end(key)
         self.hits += 1
+        metrics.inc_counter("devicecache.hit")
         return entry
 
     def put(self, key: Hashable, staged: Staged) -> bool:
@@ -75,17 +95,34 @@ class DeviceEpochCache:
         old = self._entries.pop(key, None)
         if old is not None:
             self._used -= old.nbytes
+            memledger.release(self._handles.pop(key, None))
+            metrics.inc_counter("devicecache.replaceBytes", old.nbytes)
         self._entries[key] = staged
+        self._handles[key] = memledger.register("batchCache", nbytes)
         self._used += nbytes
         while self.budget_bytes is not None and self._used > self.budget_bytes:
-            _, evicted = self._entries.popitem(last=False)
+            ev_key, evicted = self._entries.popitem(last=False)
             self._used -= evicted.nbytes
+            memledger.release(self._handles.pop(ev_key, None))
             self.evictions += 1
+            metrics.inc_counter("devicecache.evict")
+            metrics.inc_counter("devicecache.evictBytes", evicted.nbytes)
+        metrics.set_gauge("devicecache.bytes", self._used)
         return True
 
     def clear(self) -> None:
+        _release_ledger_entries(self._handles)
         self._entries.clear()
         self._used = 0
+        metrics.set_gauge("devicecache.bytes", 0)
+
+    def check_ledger_parity(self) -> None:
+        """Assert the ledger's `batchCache` live bytes equal this cache's
+        own (exact while this is the only live DeviceEpochCache: the
+        ledger's category is process-wide)."""
+        ledgered = memledger.live_bytes("batchCache")
+        assert ledgered == self._used, (
+            f"ledger batchCache={ledgered} != devicecache bytes={self._used}")
 
     def __len__(self) -> int:
         return len(self._entries)

@@ -38,9 +38,20 @@ epochs in chunks that end at the checkpoint boundaries
 back once a chunk, snapshots the fleet carry as one `fleet` section
 (coeff and grad as [N, d] host arrays, whatever their device layout)
 under `_job_key()`, ticks the `chunk` fault site, and resumes from the
-newest snapshot; the chunking changes no arithmetic. Not ported yet: the
-`fleet.*` counters and the per-member peak memory (A.14) and the
-fleet-sharded regime (A.10).
+newest snapshot; the chunking changes no arithmetic.
+
+The in-memory linear fleet (`optimizer._sgd_fleet_whole_fit`, fed only
+the batches its epochs read) and the KMeans fleet
+(`kmeans._lloyd_fleet_train`) run through the program funnel
+(utils/lazyjit.py): one captured CUDA graph per signature on the card,
+replayed by a later fleet of the same shapes and maxIters at any other
+hyperparameters. Accounting, with the JAX package's names: the
+`fleet.size` and `fleet.sharded` gauges (always 0: one card is one data
+shard), `fleet.fits`, `fleet.modelsTrained`, `fleet.examplesTrained`, the
+fleet's memory peak on `hbm.peak.fit` and every member's
+`hbm.peak.fit.member.<i>`, and an `iteration.run` span a fit (mode
+"fleet", "fleet_chunked" with `iteration.chunk` spans, or
+"fleet_stream"). Not yet: the fleet-sharded regime (A.10).
 """
 
 from __future__ import annotations
@@ -167,9 +178,22 @@ class FitFleet:
         """Train every member on `table` (a Table, or a StreamTable for the
         linear estimators); returns the N fitted models in the estimators'
         order."""
-        if self.kind == "KMeans":
-            return self._fit_kmeans(table)
-        return self._fit_linear(table)[0]
+        from .obs import memledger
+        from .utils import metrics
+
+        n = len(self.estimators)
+        metrics.set_gauge("fleet.size", n)
+        tok = memledger.mark_peak()
+        try:
+            if self.kind == "KMeans":
+                models = self._fit_kmeans(table)
+            else:
+                models = self._fit_linear(table)[0]
+        finally:
+            memledger.record_fleet_fit_peak(memledger.peak_since(tok), n)
+        metrics.inc_counter("fleet.fits")
+        metrics.inc_counter("fleet.modelsTrained", n)
+        return models
 
     # -- linear (SGD) -----------------------------------------------------
 
@@ -179,8 +203,10 @@ class FitFleet:
         replaces the fleet loss (a check holds the kernels' fleet against
         `losses.fleet_loss(name, plain=True)`)."""
         from .models import _linear
+        from .obs import tracing
         from .ops import losses, optimizer
         from .table import StreamTable
+        from .utils import lazyjit, metrics
 
         ests = self.estimators
         loss_name, validate = _LINEAR_KINDS[self.kind]
@@ -218,24 +244,35 @@ class FitFleet:
             d = int(X.shape[1])
         # coeff + grad are the dim-proportional member state; one data shard
         # never shards the member axis (shard_fleet_axis=True raises here)
-        self._decide_sharded(state_bytes=2 * len(ests) * d * 4)
-        X_f, y_f, w_f, n = optimizer.stage_flat(X, y, w, gbs)
+        sharded = self._decide_sharded(state_bytes=2 * len(ests) * d * 4)
+        metrics.set_gauge("fleet.sharded", 1.0 if sharded else 0.0)
+        checkpointed = config.iteration_checkpoint_dir is not None
+        X_f, y_f, w_f, n = optimizer.stage_flat(
+            X, y, w, gbs,
+            rows=None if checkpointed else lambda nb: optimizer._touched_rows(nb, gbs, gmax))
+        if checkpointed:  # the chunk loop runs eagerly
+            X_f, y_f, w_f = lazyjit.materialize((X_f, y_f, w_f))
         device = y_f.device
         state = optimizer.fleet_init_state(len(ests), d, device, member_minor=sparse)
         hyper = optimizer.fleet_hyper(rows, device)
-        if config.iteration_checkpoint_dir is not None:
+        if checkpointed:
             state = self._run_checkpointed(X_f, y_f, w_f, n, state, loss_func, hyper, rows,
                                            gmax, gbs, d, sparse)
             packed = optimizer._sgd_fleet_final(state, hyper)
             if validate_on_device:
                 flag = optimizer._binomial_labels_ok(y_f).reshape(1, 1)
                 packed = torch.cat([flag.expand(packed.shape[0], 1), packed], dim=1)
+            (host,) = _linear.packed_to_host(packed)
         else:
-            packed = optimizer._sgd_fleet_whole_fit(
-                X_f, y_f, w_f, state, loss_func, hyper, gmax, gbs, n, validate_on_device)
-        (host,) = _linear.packed_to_host(packed)
+            if config.whole_fit != "off":
+                optimizer.account_whole_fit("fleet")
+            with tracing.span("iteration.run", mode="fleet", epochs=gmax, fleet=len(ests)):
+                packed = optimizer._sgd_fleet_whole_fit(
+                    X_f, y_f, w_f, state, loss_func, hyper, gmax, gbs, n, validate_on_device)
+                (host,) = _linear.packed_to_host(packed)
         flags, coeffs, criteria, epochs = optimizer.unpack_fleet_train_result(
             host, d, validate_on_device)
+        metrics.inc_counter("fleet.examplesTrained", int(np.sum(epochs)) * gbs)
         if flags is not None:
             _linear._raise_if_invalid(float(np.min(flags)))
         return self._linear_models(coeffs), criteria, epochs
@@ -247,6 +284,7 @@ class FitFleet:
         resume from the newest one. Returns the final fleet state."""
         from .ckpt import faults
         from .ckpt import snapshot as _snapshot
+        from .obs import tracing
         from .ops import optimizer
         from .parallel import supervisor
         from .utils.packing import packed_device_get
@@ -271,19 +309,22 @@ class FitFleet:
         max_iters = np.asarray([r[0] for r in rows])
         tols = np.asarray([r[1] for r in rows], np.float32)  # the device mask's tol
         stopped = False
-        while planned < gmax and not stopped:
-            end = min((planned // interval + 1) * interval, gmax)
-            supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
-            state = optimizer._sgd_fleet_chunk(X, y, w, state, loss_func, hyper, gbs, n,
-                                               planned, end)
-            supervisor.pulse_boundary(supervisor.PHASE_COLLECTIVE)
-            e_m, c_m = packed_device_get(state[3], state[4], sync_kind="drain")
-            if end % interval == 0:
-                _snapshot.save_job_snapshot(ckpt_dir, key, {"fleet": state}, epoch=end,
-                                            criteria=float(np.max(c_m)), specs=specs, meta=meta)
-            faults.tick("chunk")
-            planned = end
-            stopped = bool(np.all((e_m >= max_iters) | (c_m <= tols)))
+        with tracing.span("iteration.run", mode="fleet_chunked", chunk=interval, fleet=N):
+            while planned < gmax and not stopped:
+                end = min((planned // interval + 1) * interval, gmax)
+                with tracing.span("iteration.chunk", epoch=planned, end=end):
+                    supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
+                    state = optimizer._sgd_fleet_chunk(X, y, w, state, loss_func, hyper, gbs, n,
+                                                       planned, end)
+                supervisor.pulse_boundary(supervisor.PHASE_COLLECTIVE)
+                e_m, c_m = packed_device_get(state[3], state[4], sync_kind="drain")
+                if end % interval == 0:
+                    _snapshot.save_job_snapshot(ckpt_dir, key, {"fleet": state}, epoch=end,
+                                                criteria=float(np.max(c_m)), specs=specs,
+                                                meta=meta)
+                faults.tick("chunk")
+                planned = end
+                stopped = bool(np.all((e_m >= max_iters) | (c_m <= tols)))
         return state
 
     def _job_key(self) -> str:
@@ -312,7 +353,9 @@ class FitFleet:
         by every member, and the whole fleet trains in
         `_sgd_fleet_stream_whole_fit`."""
         from .models import _linear
+        from .obs import tracing
         from .ops import optimizer
+        from .utils import metrics
 
         chunks = list(
             _linear._stream_chunks(table, features_col, label_col, weight_col, validate)
@@ -328,7 +371,8 @@ class FitFleet:
             )
         (b, d) = next(iter(shapes))
         device = config.device()
-        self._decide_sharded(state_bytes=2 * len(self.estimators) * d * 4)
+        sharded = self._decide_sharded(state_bytes=2 * len(self.estimators) * d * 4)
+        metrics.set_gauge("fleet.sharded", 1.0 if sharded else 0.0)
         layout = optimizer.StreamLayout(int(b), int(d))
         segments = torch.empty((len(chunks), layout.size), dtype=optimizer.COMPUTE_DTYPE,
                                device=device)
@@ -339,10 +383,13 @@ class FitFleet:
             segments[i].copy_(torch.from_numpy(flat))
         del chunks
         state = optimizer.fleet_init_state(len(self.estimators), d, device)
-        packed = optimizer._sgd_fleet_stream_whole_fit(
-            segments, layout, state, loss_func, optimizer.fleet_hyper(rows, device), gmax)
-        (host,) = _linear.packed_to_host(packed)
+        with tracing.span("iteration.run", mode="fleet_stream", epochs=gmax,
+                          fleet=len(self.estimators)):
+            packed = optimizer._sgd_fleet_stream_whole_fit(
+                segments, layout, state, loss_func, optimizer.fleet_hyper(rows, device), gmax)
+            (host,) = _linear.packed_to_host(packed)
         _, coeffs, criteria, epochs = optimizer.unpack_fleet_train_result(host, d)
+        metrics.inc_counter("fleet.examplesTrained", int(np.sum(epochs)) * int(b))
         return self._linear_models(coeffs), criteria, epochs
 
     # -- KMeans (Lloyd) -----------------------------------------------------
@@ -353,7 +400,10 @@ class FitFleet:
         [N, k * d + k] pack."""
         from .models import _linear
         from .models.clustering import kmeans as km
+        from .obs import tracing
+        from .ops import optimizer
         from .table import StreamTable, as_dense_matrix
+        from .utils import metrics
         from .utils.param_utils import update_existing_params
 
         if isinstance(table, StreamTable):
@@ -369,16 +419,18 @@ class FitFleet:
         n, d = X.shape
         if n < k:
             raise ValueError(f"Number of points ({n}) is less than k ({k})")
-        if not isinstance(X, torch.Tensor):
-            X = torch.as_tensor(np.asarray(X, dtype=np.float32), device=config.device())
-        X = X.to(torch.float32)
-        inits = torch.stack([
-            X[torch.as_tensor(km.init_rows(n, k, e.get_seed()), device=X.device)] for e in ests
-        ])
+        X, rows_of = km.staged_points(X)
+        inits = torch.stack([rows_of(km.init_rows(n, k, e.get_seed())) for e in ests])
         max_iters = [int(e.get_max_iter()) for e in ests]
-        self._decide_sharded(state_bytes=2 * len(ests) * k * d * 4)
-        packed = km._lloyd_fleet_train(X, inits, max_iters, measure)
-        (host,) = _linear.packed_to_host(packed)
+        sharded = self._decide_sharded(state_bytes=2 * len(ests) * k * d * 4)
+        metrics.set_gauge("fleet.sharded", 1.0 if sharded else 0.0)
+        if config.whole_fit != "off":
+            optimizer.account_whole_fit("fleet")
+        with tracing.span("iteration.run", mode="fleet", epochs=max(max_iters),
+                          fleet=len(ests)):
+            packed = km._lloyd_fleet_train(X, inits, max_iters, measure)
+            (host,) = _linear.packed_to_host(packed)
+        metrics.inc_counter("fleet.examplesTrained", int(np.sum(max_iters)) * int(n))
         models = []
         for i, est in enumerate(ests):
             model = km.KMeansModel()

@@ -29,10 +29,20 @@ them: the distances to the N * k centroids and the N * k cells' sums.
 Whether a stacked matmul adds in the solo one's order is the matmul
 library's choice (on the CPU it does, bit for bit; PERF.md has the card).
 
+The bounded fit and the fleet fit run through the program funnel
+(utils/lazyjit.py): one captured CUDA graph per signature on the card
+(X's and the init rows' shapes, maxIter, the measure), replayed by every
+later fit of that signature; `config.whole_fit = "off"` runs them op by
+op. X on the card is read in place (never copied into the graph), host X
+is uploaded once, straight into the graph's buffer (`staged_points`).
+Each runs in an `iteration.run` span (mode "device", as the JAX
+package's whole Lloyd program).
+
 A StreamTable fits out of core (`_fit_stream`): the batches are cached
 once in the native data cache and replay every epoch through the device
-epoch cache. The JAX package's mesh, overlapped-collective, dispatch and
-tracing hooks have no counterpart here (A.10, A.14).
+epoch cache, one `iteration.epoch` span an epoch; that loop stays eager
+(its per-epoch work is uploads). The JAX package's mesh and
+overlapped-collective hooks wait for more than one card (A.10).
 """
 
 from __future__ import annotations
@@ -56,13 +66,15 @@ from ...common.param import (
 from ...data.devicecache import CachedEpochLoader
 from ...linalg import DenseVector
 from ...native.datacache import ReplayableStreamTable
+from ...obs import tracing
 from ...ops.distance import DistanceMeasure
+from ...ops.optimizer import account_whole_fit
 from ...param import IntParam, ParamValidators, StringParam
 from ...parallel import supervisor
 from ...parallel.iteration import checkpoint_job_key
 from ...parallel.prefetch import DeviceStager
 from ...table import Table, as_dense_matrix
-from ...utils import javacodec, read_write
+from ...utils import javacodec, lazyjit, read_write
 from ...utils.param_utils import update_existing_params
 from .. import _linear
 
@@ -114,9 +126,26 @@ def _sample_without_replacement(rng: np.random.RandomState, n: int, k: int) -> n
     return np.asarray(out, dtype=np.int64)
 
 
+def staged_points(X):
+    """A bounded fit's points for the funnel, and a function that gathers
+    rows of them on their device: a host matrix becomes a float32
+    `lazyjit.Feed` (uploaded once, straight into the graph's buffer, or
+    made by an eager call), a tensor is cast to float32 on its own device
+    (the graph reads it in place)."""
+    if isinstance(X, torch.Tensor):
+        X = X.to(torch.float32)
+        return X, lambda idx: X[torch.as_tensor(idx, device=X.device)]
+    host = np.asarray(X, dtype=np.float32)
+    device = config.device()
+    return (lazyjit.Feed(host, host.shape, torch.float32, device),
+            lambda idx: torch.as_tensor(host[idx], device=device))
+
+
+@lazyjit.lazy_jit(static_argnames=("max_iter", "measure_name"), borrow=("X",))
 def _lloyd_train(X, init_centroids, max_iter: int, measure_name: str):
-    """maxIter Lloyd epochs on X's device with no host sync. Returns
-    (centroids, counts of the last epoch), on the device."""
+    """maxIter Lloyd epochs on X's device with no host sync; one program of
+    the funnel. Returns (centroids, counts of the last epoch), on the
+    device."""
     measure = DistanceMeasure.get_instance(measure_name)
     k = init_centroids.shape[0]
     labels = torch.arange(k, device=X.device)
@@ -140,12 +169,21 @@ def _lloyd_fleet_train(X, init_centroids, max_iters, measure_name: str):
     its maxIter (host ints). The loop runs the largest; a member past its
     own maxIter keeps its centroids and counts, so each member ends where
     its solo fit ends. Returns ONE packed (N, k * d + k) tensor
-    ([centroids.ravel | counts] per member), on the device."""
+    ([centroids.ravel | counts] per member), on the device, from one
+    program of the funnel (`_lloyd_fleet_program`)."""
+    max_iters = tuple(int(m) for m in max_iters)
+    limits = torch.as_tensor(max_iters, dtype=torch.int32, device=X.device)
+    return _lloyd_fleet_program(X, init_centroids, limits, max_iters, measure_name)
+
+
+@lazyjit.lazy_jit(static_argnames=("max_iters", "measure_name"), borrow=("X",))
+def _lloyd_fleet_program(X, init_centroids, limits, max_iters, measure_name: str):
+    """`_lloyd_fleet_train`'s epochs, with the members' maxIter on the
+    device (`limits`, an operand: an upload cannot be captured)."""
     measure = DistanceMeasure.get_instance(measure_name)
     members, k, d = init_centroids.shape
     n = X.shape[0]
     labels = torch.arange(k, device=X.device)
-    limits = torch.as_tensor(list(max_iters), dtype=torch.int32, device=X.device)
     centroids = init_centroids
     counts = X.new_zeros((members, k))
     for e in range(max(max_iters, default=0)):
@@ -248,14 +286,14 @@ class KMeans(Estimator, KMeansParams):
         n, k = X.shape[0], self.get_k()
         if n < k:
             raise ValueError(f"Number of points ({n}) is less than k ({k})")
-        centroid_idx = init_rows(n, k, self.get_seed())
-        if not isinstance(X, torch.Tensor):
-            X = torch.as_tensor(np.asarray(X, dtype=np.float32), device=config.device())
-        X = X.to(torch.float32)
-        init = X[torch.as_tensor(centroid_idx, device=X.device)]
-        centroids, counts = _lloyd_train(
-            X, init, int(self.get_max_iter()), self.get_distance_measure()
-        )
+        X, rows_of = staged_points(X)
+        init = rows_of(init_rows(n, k, self.get_seed()))
+        if config.whole_fit != "off":
+            account_whole_fit("lloyd")
+        with tracing.span("iteration.run", mode="device", epochs=self.get_max_iter()):
+            centroids, counts = _lloyd_train(
+                X, init, int(self.get_max_iter()), self.get_distance_measure()
+            )
         model = KMeansModel()
         model.centroids, model.weights = _linear.packed_to_host(centroids, counts)
         update_existing_params(model, self)
@@ -341,22 +379,25 @@ class KMeans(Estimator, KMeansParams):
         batches = loader.epoch(bi for _ in range(start, max_iter) for bi in range(nb))
         try:
             for epoch in range(start, max_iter):
-                supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
-                sums = centroids.new_zeros(centroids.shape)
-                counts = centroids.new_zeros((k,))
-                for _ in range(nb):
-                    X = next(batches)
-                    one_hot = (measure.find_closest(X, centroids)[:, None] == labels).to(X.dtype)
-                    sums = sums + one_hot.T @ X
-                    counts = counts + torch.sum(one_hot, dim=0)
-                centroids = torch.where(
-                    counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1e-30), centroids
-                )
-                if ckpt_dir is not None and (epoch + 1) % interval == 0:
-                    _snapshot.save_job_snapshot(
-                        ckpt_dir, job_key, {"model": (centroids, counts), "rng": rng_section()},
-                        epoch=epoch + 1, specs={"rng": "host"}, meta={"numBatches": nb})
-                faults.tick("epoch")
+                with tracing.span("iteration.epoch", epoch=epoch, mode="stream"):
+                    supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
+                    sums = centroids.new_zeros(centroids.shape)
+                    counts = centroids.new_zeros((k,))
+                    for _ in range(nb):
+                        X = next(batches)
+                        one_hot = (measure.find_closest(X, centroids)[:, None] == labels).to(
+                            X.dtype)
+                        sums = sums + one_hot.T @ X
+                        counts = counts + torch.sum(one_hot, dim=0)
+                    centroids = torch.where(
+                        counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1e-30),
+                        centroids
+                    )
+                    if ckpt_dir is not None and (epoch + 1) % interval == 0:
+                        _snapshot.save_job_snapshot(
+                            ckpt_dir, job_key, {"model": (centroids, counts), "rng": rng_section()},
+                            epoch=epoch + 1, specs={"rng": "host"}, meta={"numBatches": nb})
+                    faults.tick("epoch")
         finally:
             batches.close()
         model = KMeansModel()

@@ -15,9 +15,13 @@ DataCacheWriter.java, ReplayOperator.java:125-246):
 Spill I/O runs under `flow.with_retries` with the JAX package's fault
 sites (`:60-121`): `datacache.append` ticks before the native write, whose
 failure commits no segment, so a retried append never appends twice;
-`datacache.read` ticks inside the (idempotent) read. The JAX package's
-metrics and tracing of the cache are ROADMAP A.14, and its pure-Python
-cache is not ported: the library builds at first use or the cache raises.
+`datacache.read` ticks inside the (idempotent) read. Accounting, with
+the JAX package's names: `datacache.append`, `datacache.appendBytes`,
+`datacache.hit` / `datacache.miss` (a read of an in-memory or a spilled
+segment), `datacache.readBytes`, `datacache.evict` and a `cache.evict`
+event (category `cache`) for a segment that spilled. The JAX package's
+pure-Python cache is not ported: the library builds at first use or the
+cache raises.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ import numpy as np
 
 from .. import flow
 from ..ckpt import faults
+from ..obs import tracing
+from ..utils import metrics
 from ..table import SparseBatch, Table, _to_numpy
 from . import load as _load_native
 
@@ -50,6 +56,7 @@ class DataCache:
     def __init__(self, memory_budget_bytes: int = 64 << 20, spill_dir: Optional[str] = None):
         self._lib = _load_native()
         self._meta: List[Tuple[np.dtype, tuple]] = []  # per segment
+        self._spilled: List[bool] = []  # per segment: written to the spill file
         spill_dir = spill_dir or tempfile.gettempdir()
         self.spill_path = os.path.join(
             spill_dir, f"flink_ml_tpu_torch_cache_{os.getpid()}_{id(self):x}.bin"
@@ -78,8 +85,16 @@ class DataCache:
                 raise IOError(f"native data cache append failed (spill file {self.spill_path})")
             return int(seg)
 
+        metrics.inc_counter("datacache.append")
+        metrics.inc_counter("datacache.appendBytes", int(array.nbytes))
+        spilled_before = self.spilled_segments
         seg = flow.with_retries(append, site="datacache.append")
         self._meta.append((array.dtype, shape))
+        spilled = self.spilled_segments > spilled_before
+        self._spilled.append(spilled)
+        if spilled:  # over budget: this segment went to the spill file
+            metrics.inc_counter("datacache.evict")
+            tracing.event("cache.evict", category="cache", bytes=int(array.nbytes), seg=int(seg))
         return seg
 
     def segment_shape(self, seg: int) -> tuple:
@@ -104,7 +119,10 @@ class DataCache:
             if rc != 0:
                 raise IOError(f"native data cache read of segment {seg} failed with code {rc}")
 
+        spilled = seg < len(self._spilled) and self._spilled[seg]
+        metrics.inc_counter("datacache.miss" if spilled else "datacache.hit")
         flow.with_retries(read, site="datacache.read")
+        metrics.inc_counter("datacache.readBytes", nbytes)
         return out.reshape(-1).view(np.uint8)[:nbytes].view(dtype).reshape(shape)
 
     def read_array(self, seg: int) -> np.ndarray:

@@ -15,19 +15,27 @@ here:
   the moment a model store drops a model's constants (CPython
   refcounting), and `live_bytes("model")` is the store's residency.
 
-Surfaces: the gauges `hbm.live.<category>`, `hbm.live` and `hbm.peak`
-(through `utils.metrics`); the `memory` lane of the timeline; budget
+Surfaces: the gauges `hbm.live.<category>`, `hbm.live`, `hbm.peak` and
+`hbm.peak.fit` (through `utils.metrics`); the `memory` lane of the
+timeline; `mark_peak()`/`peak_since(tok)` watermark tokens, and
+`fit_peak_scope` (every stage's fit runs in one: obs/tracing.py) and
+`record_fleet_fit_peak` for the per-fit and per-member peaks; budget
 admission against `config.hbm_budget_bytes` (`admit` raises the typed
 `HbmBudgetExceeded` before the allocating copy; a budget that never fires
 changes nothing); `wrap_oom`, which turns a `torch.cuda.OutOfMemoryError`
-into `HbmExhausted` carrying the ledger's snapshot. The per-fit peak
-scopes and the staging-ring and epoch-cache hooks are not ported yet
-(ROADMAP A.14).
+into `HbmExhausted` carrying the ledger's snapshot (also written to
+`FLINK_ML_TPU_HBM_DUMP` when set); `ranked_entries`, `snapshot`,
+`dump_snapshot` and `load_dump` for the forensic view. The ledger sees
+what is tracked or registered (the staged fit inputs, the program
+funnel's static buffers, the epoch cache, model constants, served
+batches), not a kernel's temporaries: `torch.cuda.max_memory_allocated`
+sees those too.
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import sys
 import threading
@@ -52,8 +60,14 @@ __all__ = [
     "wrap_oom",
     "live_bytes",
     "peak_bytes",
+    "mark_peak",
+    "peak_since",
+    "fit_peak_scope",
+    "record_fleet_fit_peak",
     "snapshot",
     "ranked_entries",
+    "dump_snapshot",
+    "load_dump",
     "reset",
 ]
 
@@ -72,6 +86,7 @@ _entries: Dict[int, Tuple[str, int, Optional[Tuple], Optional[str], str]] = {}
 _live: Dict[str, int] = {}
 _total = 0
 _peak = 0
+_marks: Dict[int, int] = {}  # mark token -> max total seen since the mark
 #: id(tensor) -> ledger handle, so tracking one tensor twice counts once
 _tracked_ids: Dict[int, int] = {}
 
@@ -151,6 +166,9 @@ def _publish_locked(category: str) -> None:
     if _total > _peak:
         _peak = _total
         metrics.set_gauge("hbm.peak", _peak)
+    for tok in _marks:
+        if _total > _marks[tok]:
+            _marks[tok] = _total
     from . import timeline
 
     if timeline.enabled():
@@ -261,6 +279,55 @@ def peak_bytes() -> int:
         return _peak
 
 
+def mark_peak() -> int:
+    """Open a watermark: `peak_since(tok)` returns the most total live
+    bytes seen between the mark and the query."""
+    with _locked():
+        tok = next(_ids)
+        _marks[tok] = _total
+        return tok
+
+
+def peak_since(token: int, close: bool = True) -> int:
+    with _locked():
+        value = _marks.get(token, 0)
+        if close:
+            _marks.pop(token, None)
+        return value
+
+
+#: fleets larger than this record only the first this-many member gauges
+_FLEET_MEMBER_GAUGE_CAP = 64
+
+
+class fit_peak_scope:
+    """Context manager bracketing one fit: on exit, the peak live bytes
+    seen inside the scope land on the `hbm.peak.fit` gauge (and on
+    `hbm.peak.fit.member.<i>` for a fleet member `member`)."""
+
+    def __init__(self, member: Optional[int] = None):
+        self._member = member
+
+    def __enter__(self):
+        self._tok = mark_peak()
+        return self
+
+    def __exit__(self, *exc):
+        peak = peak_since(self._tok)
+        metrics.set_gauge("hbm.peak.fit", peak)
+        if self._member is not None and self._member < _FLEET_MEMBER_GAUGE_CAP:
+            metrics.set_gauge(f"hbm.peak.fit.member.{self._member}", peak)
+        return False
+
+
+def record_fleet_fit_peak(peak: int, num_members: int) -> None:
+    """A fleet fit is one program: its one watermark is every member's
+    (on the first `_FLEET_MEMBER_GAUGE_CAP` member gauges)."""
+    metrics.set_gauge("hbm.peak.fit", peak)
+    for i in range(min(num_members, _FLEET_MEMBER_GAUGE_CAP)):
+        metrics.set_gauge(f"hbm.peak.fit.member.{i}", peak)
+
+
 def admit(nbytes: int, category: Optional[str] = None) -> None:
     """Raise `HbmBudgetExceeded` when staging `nbytes` more would push the
     ledgered live bytes over `config.hbm_budget_bytes` (None: always
@@ -284,8 +351,15 @@ def wrap_oom(exc: BaseException) -> Optional[HbmExhausted]:
     if not isinstance(exc, torch.cuda.OutOfMemoryError):
         return None
     metrics.inc_counter("hbm.exhausted")
+    snap = snapshot()
+    dump_path = os.environ.get("FLINK_ML_TPU_HBM_DUMP")
+    if dump_path:
+        try:
+            dump_snapshot(dump_path, snap)
+        except OSError:
+            pass
     msg = str(exc)
-    return HbmExhausted(msg.splitlines()[0] if msg else type(exc).__name__, snapshot())
+    return HbmExhausted(msg.splitlines()[0] if msg else type(exc).__name__, snap)
 
 
 def ranked_entries(top_n: int = 20) -> List[Dict[str, Any]]:
@@ -308,6 +382,19 @@ def snapshot(top_n: int = 20) -> Dict[str, Any]:
             "topEntries": ranked_entries(top_n)}
 
 
+def dump_snapshot(path: str, snap: Optional[Dict[str, Any]] = None) -> Dict:
+    """Write the forensic snapshot as JSON (the `HbmExhausted` dump)."""
+    snap = snap if snap is not None else snapshot()
+    with open(path, "w") as f:
+        json.dump(snap, f, indent=2)
+    return snap
+
+
+def load_dump(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return json.load(f)
+
+
 def reset() -> None:
     """Forget every entry and the peak (tests); finalizers of tensors still
     alive later release unknown handles, which are no-ops."""
@@ -317,6 +404,7 @@ def reset() -> None:
         _entries.clear()
         _live.clear()
         _tracked_ids.clear()
+        _marks.clear()
         _total = 0
         _peak = 0
     for c in CATEGORIES:

@@ -189,6 +189,30 @@ def fleet_loss(name: str, plain: bool = False) -> LossFunc:
     return (PLAIN_FLEET_VARIANTS if plain else FLEET_VARIANTS)[name]
 
 
+#: every LossFunc by its name (the program bank rebuilds a banked fit's
+#: loss from its name: compilebank.static_value)
+BY_NAME = {
+    loss.name: loss
+    for group in ((BINARY_LOGISTIC_LOSS, HINGE_LOSS, LEAST_SQUARE_LOSS),
+                  SPARSE_VARIANTS.values(), PLAIN_SPARSE_VARIANTS.values(),
+                  FLEET_VARIANTS.values(), PLAIN_FLEET_VARIANTS.values())
+    for loss in group
+}
+
+
+def by_name(name: str) -> LossFunc:
+    return BY_NAME[name]
+
+
+def _register_bank_types() -> None:
+    from .. import compilebank
+
+    compilebank.register_static_type("LossFunc", by_name)
+
+
+_register_bank_types()
+
+
 def predict_raw(X, coeff):
     """Raw linear prediction X @ coeff, the inference matvec
     (LogisticRegressionModel.java:131). A float32 matmul on the card follows

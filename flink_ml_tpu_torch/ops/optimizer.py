@@ -18,8 +18,27 @@ kept exactly:
 One host sync per fit: the tol stop is a device-side mask. The Python loop
 always runs maxIter epochs, and once `criteria <= tol` every update and the
 epoch count are `torch.where`'d away, so nothing is read back until the
-packed result. Hyperparameters are host floats; they enter float32 device
-arithmetic as scalars, as the JAX package's packed f32 hyper vector does.
+packed result. The hyperparameters are one float32 device vector
+(`sgd_hyper`: learningRate, reg, elasticNet, tol and the two proximal
+factors, formed in float64 on the host), as the JAX package packs them
+(`_unpack_hyper`), and every product they enter is the one the
+host-scalar form computes, so the bits are the same.
+
+The whole bounded fit (`_sgd_train_flat`) runs through the program funnel
+(utils/lazyjit.py): on the card, one captured CUDA graph per signature
+(the inputs' shapes, the loss, the batch, the row count, maxIter and the
+label check), replayed by every later fit of the same signature, at any
+learning rate, regularisation or tol (they are operands). Only the rows
+the epochs read go in: the first min(num_batches, maxIter) batches of X
+(and of the weights), with all of y for the label check. A staged input
+that needs padding, a cast or an upload is written straight into the
+graph's buffer (`stage_flat` returns it as a `lazyjit.Feed`), and the
+graph reads training data already on the card in place (`borrow`), so
+the data is never copied twice and the cache keeps no copy of data the
+caller holds. `config.whole_fit = "off"` runs the fit op by op. The
+stream fit and the checkpointed chunk loops stay eager: their per-epoch
+host work (uploads, drains, snapshots) is the point of them (ROADMAP
+A.14b, C.23).
 
 `SGD.optimize_stream` trains on a stream of host chunks, out of core: it
 caches the stream once in the native data cache and replays one batch an
@@ -59,7 +78,9 @@ import torch
 
 from .. import config
 from ..ckpt import faults
+from ..obs import tracing
 from ..parallel import supervisor
+from ..utils import lazyjit
 from ..utils.packing import packed_device_get
 from .losses import LossFunc
 
@@ -98,11 +119,33 @@ def regularize(coeff, reg, elastic_net, learning_rate):
     return new_coeff, loss
 
 
-def _update_model(coeff, grad, wsum, lr, reg, elastic_net):
+#: the rows of `sgd_hyper`
+HYPER_LR, HYPER_REG, HYPER_EN, HYPER_TOL, HYPER_L1, HYPER_L2 = range(6)
+
+
+def sgd_hyper(learning_rate, reg, elastic_net, tol, device) -> torch.Tensor:
+    """The fit's hyperparameters as one float32 device vector [lr, reg,
+    elasticNet, tol, elasticNet * reg, (1 - elasticNet) * reg], the
+    products formed in float64 as the host-scalar `_prox_step` forms them
+    before they scale a tensor."""
+    lr, reg, en, tol = float(learning_rate), float(reg), float(elastic_net), float(tol)
+    rows = np.asarray([lr, reg, en, tol, en * reg, (1.0 - en) * reg], np.float64)
+    return torch.as_tensor(rows.astype(np.float32), device=device)
+
+
+def _hyper_prox_step(coeff, hyper):
+    """`_prox_step` with the hyperparameters as device operands: the same
+    products, and coeff kept exactly where reg is 0."""
+    step = hyper[HYPER_LR] * (hyper[HYPER_L1] * torch.sign(coeff) + hyper[HYPER_L2] * coeff)
+    return torch.where(hyper[HYPER_REG] > 0.0, coeff - step, coeff)
+
+
+def _update_model(coeff, grad, wsum, hyper):
     """coeff -= lr / wsum * grad, then the proximal step, only where
-    wsum > 0 (a device-side select: no host sync)."""
-    updated = coeff - (lr / torch.clamp(wsum, min=1e-30)) * grad
-    updated = _prox_step(updated, reg, elastic_net, lr)
+    wsum > 0 (a device-side select: no host sync). `lr / t` is
+    `t.reciprocal() * lr`, as torch computes it for a host lr."""
+    updated = coeff - (torch.reciprocal(torch.clamp(wsum, min=1e-30)) * hyper[HYPER_LR]) * grad
+    updated = _hyper_prox_step(updated, hyper)
     return torch.where(wsum > 0, updated, coeff)
 
 
@@ -112,11 +155,11 @@ def _binomial_labels_ok(y):
     return torch.all((y == 0.0) | (y == 1.0)).to(torch.float32)
 
 
-def _epoch_step(Xk, yk, wk, carry, loss_func, lr, reg, elastic_net):
+def _epoch_step(Xk, yk, wk, carry, loss_func, hyper):
     """One epoch: apply the previous gradient, compute the next on this
     epoch's batch. Returns (carry, criteria)."""
     coeff, grad, wsum, epoch = carry
-    coeff = _update_model(coeff, grad, wsum, lr, reg, elastic_net)
+    coeff = _update_model(coeff, grad, wsum, hyper)
     lsum, grad, wsum = loss_func(Xk, yk, wk, coeff)
     criteria = (lsum / torch.clamp(wsum, min=1e-30)).to(torch.float32)
     return (coeff, grad, wsum, epoch + 1), criteria
@@ -150,25 +193,26 @@ def _init_state(init_coeff):
     )
 
 
-def _masked_epoch(Xk, yk, wk, state, tol, loss_func, lr, reg, elastic_net):
+def _masked_epoch(Xk, yk, wk, state, loss_func, hyper):
     """`_epoch_step` under the device-side tol mask: once the criteria are
     <= tol, the state is kept as it was. While the fit is live, the device
     epoch count equals the host's epoch index, so the host knows the batch."""
-    live = state[4] > tol
-    carry, criteria = _epoch_step(Xk, yk, wk, state[:4], loss_func, lr, reg, elastic_net)
+    live = state[4] > hyper[HYPER_TOL]
+    carry, criteria = _epoch_step(Xk, yk, wk, state[:4], loss_func, hyper)
     return tuple(torch.where(live, new, old) for new, old in zip((*carry, criteria), state))
 
 
-def _finish(state, lr, reg, elastic_net, flag=None):
+def _finish(state, hyper, flag=None):
     """The update after the loop, packed with the criteria and epochs."""
     coeff, grad, wsum, epochs, criteria = state
-    coeff = _update_model(coeff, grad, wsum, lr, reg, elastic_net)
+    coeff = _update_model(coeff, grad, wsum, hyper)
     return _pack_train_result(coeff, criteria, epochs, flag)
 
 
-def _sgd_epochs(X, y, w, state, loss_func, batch, n, start, end, tol, lr, reg, elastic_net):
+def _sgd_epochs(X, y, w, state, loss_func, batch, n, start, end, hyper):
     """Epochs [start, end) of the bounded fit on flat, batch-padded device
-    tensors: epoch e trains the row slice of batch e mod num_batches; `w`
+    tensors: epoch e trains the row slice of batch e mod num_batches (of
+    y's rows: X and w may hold only the batches the epochs read); `w`
     None synthesizes `row < n` weights. The whole fit is this from 0 to
     maxIter; a checkpointed fit runs it chunk by chunk."""
     num_batches = y.shape[0] // batch
@@ -181,18 +225,27 @@ def _sgd_epochs(X, y, w, state, loss_func, batch, n, start, end, tol, lr, reg, e
             wk = w[begin : begin + batch]
         else:
             wk = (torch.arange(begin, begin + batch, device=device) < n).to(state[0].dtype)
-        state = _masked_epoch(Xk, yk, wk, state, tol, loss_func, lr, reg, elastic_net)
+        state = _masked_epoch(Xk, yk, wk, state, loss_func, hyper)
     return state
 
 
-def _sgd_train_flat(X, y, w, init_coeff, loss_func, batch, n, max_iter, tol,
-                    lr, reg, elastic_net, check_labels):
-    """The whole bounded fit on flat, batch-padded device tensors.
-    Returns the packed result tensor, on the device."""
+def _touched_rows(num_batches: int, batch: int, max_iter: int) -> int:
+    """The rows the epochs of a whole fit read: the first
+    min(num_batches, maxIter) batches."""
+    return min(num_batches, max(1, max_iter)) * batch
+
+
+@lazyjit.lazy_jit(static_argnames=("loss_func", "batch", "n", "max_iter", "check_labels"),
+                  ledger="streamSegments", borrow=("X", "y", "w"))
+def _sgd_train_flat(X, y, w, init_coeff, hyper, loss_func, batch, n, max_iter, check_labels):
+    """The whole bounded fit on flat, batch-padded device tensors (X and w
+    may hold only the batches the epochs read, `_touched_rows`); one
+    program of the funnel. Returns the packed result tensor, on the
+    device."""
     state = _sgd_epochs(X, y, w, _init_state(init_coeff), loss_func, batch, n, 0, max_iter,
-                        tol, lr, reg, elastic_net)
+                        hyper)
     flag = _binomial_labels_ok(y) if check_labels else None
-    return _finish(state, lr, reg, elastic_net, flag)
+    return _finish(state, hyper, flag)
 
 
 def _carry_template(d: int):
@@ -434,25 +487,25 @@ class SGD:
                 if snap is not None:
                     state, start = _resumed_state(snap, device), snap.epoch
             stopped = ckpt is not None and start > 0 and float(state[4]) <= self.tol
-            lr, reg, en = float(self.learning_rate), float(self.reg), float(self.elastic_net)
-            tol = float(self.tol)
+            hyper = self._hyper(device)
             loader = CachedEpochLoader(fetch)
             batches = loader.epoch(p % nb for p in range(start, int(self.max_iter)))
             try:
                 for p in range(start, int(self.max_iter)):
                     if stopped:
                         break
-                    supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
-                    Xk, yk, wk = next(batches)
-                    state = _masked_epoch(Xk, yk, wk, state, tol, loss_func, lr, reg, en)
-                    if ckpt is not None and (p + 1) % interval == 0:
-                        stopped = self._drain_and_snapshot(
-                            state, p + 1, meta={**meta, "cacheCursor": (p + 1) % nb},
-                            specs=stable_specs or None, stable_sections=stable)
-                    faults.tick("epoch")
+                    with tracing.span("iteration.epoch", epoch=p, mode="stream"):
+                        supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
+                        Xk, yk, wk = next(batches)
+                        state = _masked_epoch(Xk, yk, wk, state, loss_func, hyper)
+                        if ckpt is not None and (p + 1) % interval == 0:
+                            stopped = self._drain_and_snapshot(
+                                state, p + 1, meta={**meta, "cacheCursor": (p + 1) % nb},
+                                specs=stable_specs or None, stable_sections=stable)
+                        faults.tick("epoch")
             finally:
                 batches.close()
-            (host,) = packed_device_get(_finish(state, lr, reg, en), sync_kind="fit")
+            (host,) = packed_device_get(_finish(state, hyper), sync_kind="fit")
             stats = {**cache.stats, "ingestSeconds": ingest_s,
                      "deviceCache": loader.cache.stats, "restoredCache": restored is not None}
         finally:
@@ -477,6 +530,9 @@ class SGD:
                 stable_sections=stable_sections)
         return crit <= self.tol
 
+    def _hyper(self, device) -> torch.Tensor:
+        return sgd_hyper(self.learning_rate, self.reg, self.elastic_net, self.tol, device)
+
     def _check_single_device(self, mesh) -> None:
         if mesh is not None:
             raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A.10)")
@@ -488,20 +544,28 @@ class SGD:
     def _optimize_flat_async(self, init_coeff, X, y, weights, loss_func, validate_labels):
         """Stage the inputs (`stage_flat`) and run `_sgd_train_flat`, or
         the checkpointed chunks."""
-        B = int(self.global_batch_size)
-        X_f, y_f, w_f, n = stage_flat(X, y, weights, B)
-        init = _stage(init_coeff, COMPUTE_DTYPE, y_f.device)
-        args = (float(self.learning_rate), float(self.reg), float(self.elastic_net))
-        if self.checkpoint_dir is not None:
-            return self._optimize_with_checkpoints(X_f, y_f, w_f, n, init, loss_func,
-                                                   validate_labels, *args)
-        return _sgd_train_flat(
-            X_f, y_f, w_f, init, loss_func, B, n, int(self.max_iter), float(self.tol),
-            *args, validate_labels,
-        )
+        from ..obs import memledger
 
-    def _optimize_with_checkpoints(self, X, y, w, n, init, loss_func, validate_labels,
-                                   lr, reg, elastic_net):
+        B = int(self.global_batch_size)
+        if self.checkpoint_dir is not None:
+            X_f, y_f, w_f, n = lazyjit.materialize(stage_flat(X, y, weights, B))
+            memledger.track((X_f, y_f, w_f), "streamSegments")
+            init = _stage(init_coeff, COMPUTE_DTYPE, y_f.device)
+            return self._optimize_with_checkpoints(X_f, y_f, w_f, n, init, loss_func,
+                                                   validate_labels, self._hyper(y_f.device))
+        max_iter = int(self.max_iter)
+        X_f, y_f, w_f, n = stage_flat(X, y, weights, B,
+                                      rows=lambda nb: _touched_rows(nb, B, max_iter))
+        init = _stage(init_coeff, COMPUTE_DTYPE, y_f.device)
+        if config.whole_fit == "off":
+            return _sgd_train_flat(X_f, y_f, w_f, init, self._hyper(y_f.device), loss_func, B, n,
+                                   max_iter, validate_labels)
+        account_whole_fit("sgd")
+        with tracing.span("iteration.run", mode="whole_fit", epochs=max_iter):
+            return _sgd_train_flat(X_f, y_f, w_f, init, self._hyper(y_f.device), loss_func, B, n,
+                                   max_iter, validate_labels)
+
+    def _optimize_with_checkpoints(self, X, y, w, n, init, loss_func, validate_labels, hyper):
         """The whole fit's epochs in chunks that end at the checkpoint
         boundaries (every `checkpoint_interval` epochs, and maxIter): one
         (epoch, criteria) readback a chunk, a snapshot of the carry at each
@@ -523,53 +587,70 @@ class SGD:
             state, planned = _resumed_state(snap, y.device), snap.epoch
         stopped = planned > 0 and snap.criteria <= self.tol
         interval, max_iter = max(1, int(self.checkpoint_interval)), int(self.max_iter)
-        while planned < max_iter and not stopped:
-            end = min((planned // interval + 1) * interval, max_iter)
-            supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
-            state = _sgd_epochs(X, y, w, state, loss_func, B, n, planned, end, float(self.tol),
-                                lr, reg, elastic_net)
-            stopped = self._drain_and_snapshot(state, end, meta)
-            faults.tick("chunk")
-            planned = end
+        with tracing.span("iteration.run", mode="chunked", chunk=interval, depth=1):
+            while planned < max_iter and not stopped:
+                end = min((planned // interval + 1) * interval, max_iter)
+                with tracing.span("iteration.chunk", epoch=planned, end=end):
+                    supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
+                    state = _sgd_epochs(X, y, w, state, loss_func, B, n, planned, end, hyper)
+                stopped = self._drain_and_snapshot(state, end, meta)
+                faults.tick("chunk")
+                planned = end
         flag = _binomial_labels_ok(y) if validate_labels else None
-        return _finish(state, lr, reg, elastic_net, flag)
+        return _finish(state, hyper, flag)
 
 
-def stage_flat(X, y, weights, batch: int):
+def stage_flat(X, y, weights, batch: int, rows=None):
     """The flat fit's inputs on one device: host arrays staged to
     `config.device()`, tensors kept on theirs; rows padded to a multiple
     of `batch` (the only case that copies a device input), sparse padding
-    rows with index -1. Returns (X, y, w or None, true row count)."""
+    rows with index -1. Returns (X, y, w or None, true row count).
+
+    An input that needs a copy (an upload, a cast, padding) comes back as
+    a `lazyjit.Feed`, which the program funnel writes straight into its
+    graph's buffer; `lazyjit.materialize` makes the tensors for an eager
+    caller. `rows(num_batches)`, if given, cuts X and w to the rows the
+    fit reads (y stays whole: the label check reads it all)."""
     first = X[0] if isinstance(X, tuple) else X
     device = first.device if isinstance(first, torch.Tensor) else config.device()
     n = int(first.shape[0])
     num_batches = max(1, -(-n // batch))
     n_pad = num_batches * batch
+    keep = n_pad if rows is None else min(n_pad, int(rows(num_batches)))
+
+    def staged(arr, dtype, fill, cut):
+        if isinstance(arr, torch.Tensor) and arr.device != device:
+            raise ValueError(
+                f"training inputs must share one device, got {arr.device} and {device}")
+        total = keep if cut else n_pad
+        src = arr[:total]
+        shape = (total,) + tuple(np.shape(arr)[1:])
+        if isinstance(src, torch.Tensor) and src.dtype == dtype and src.shape[0] == total \
+                and src.is_contiguous():
+            return src
+        if not isinstance(src, torch.Tensor):
+            src = np.asarray(src)
+        return lazyjit.Feed(src, shape, dtype, device, fill)
+
     if isinstance(X, tuple):
-        X_f = (_stage(X[0], torch.int32, device), _stage(X[1], COMPUTE_DTYPE, device))
+        X_f = (staged(X[0], torch.int32, -1, True), staged(X[1], COMPUTE_DTYPE, 0, True))
     else:
-        X_f = _stage(X, COMPUTE_DTYPE, device)
-    y_f = (
-        _stage(y, COMPUTE_DTYPE, device)
-        if y is not None
-        else torch.zeros((n,), dtype=COMPUTE_DTYPE, device=device)
-    )
-    w_f = None if weights is None else _stage(weights, COMPUTE_DTYPE, device)
-    if n_pad != n:
-        pad = n_pad - n
-        if isinstance(X_f, tuple):
-            X_f = (
-                torch.nn.functional.pad(X_f[0], (0, 0, 0, pad), value=-1),
-                torch.nn.functional.pad(X_f[1], (0, 0, 0, pad)),
-            )
-        else:
-            X_f = torch.nn.functional.pad(X_f, (0, 0, 0, pad))
-        y_f = torch.nn.functional.pad(y_f, (0, pad))
-        if w_f is not None:
-            w_f = torch.nn.functional.pad(w_f, (0, pad))
-    if isinstance(X_f, tuple):
-        X_f = tuple(leaf.contiguous() for leaf in X_f)
+        X_f = staged(X, COMPUTE_DTYPE, 0, True)
+    if y is not None:
+        y_f = staged(y, COMPUTE_DTYPE, 0, False)
+    else:
+        y_f = torch.zeros((n_pad,), dtype=COMPUTE_DTYPE, device=device)
+    w_f = None if weights is None else staged(weights, COMPUTE_DTYPE, 0, True)
     return X_f, y_f, w_f, n
+
+
+def account_whole_fit(kind: str) -> None:
+    """One fit run as a whole-fit program (`dispatch.whole_fit`,
+    `dispatch.whole_fit.<kind>`: sgd, fleet, lloyd)."""
+    from ..utils import metrics
+
+    metrics.inc_counter("dispatch.whole_fit")
+    metrics.inc_counter(f"dispatch.whole_fit.{kind}")
 
 
 # ---------------------------------------------------------------------------
@@ -605,6 +686,15 @@ class FleetHyper(NamedTuple):
     @property
     def max_iter(self) -> torch.Tensor:
         return self.packed[:, 0].to(torch.int32)
+
+
+def _register_bank_types() -> None:
+    from .. import compilebank
+
+    compilebank.register_named_tuple(FleetHyper)
+
+
+_register_bank_types()
 
 
 def fleet_hyper(rows, device) -> FleetHyper:
@@ -699,17 +789,21 @@ def _sgd_fleet_chunk(X, y, w, state, loss_func, hyper: FleetHyper, batch: int, n
     return state
 
 
+@lazyjit.lazy_jit(static_argnames=("loss_func", "gmax", "batch", "n", "check_labels"),
+                  ledger="streamSegments", borrow=("X", "y", "w"))
 def _sgd_fleet_whole_fit(X, y, w, state, loss_func, hyper: FleetHyper, gmax: int, batch: int,
                          n: int, check_labels: bool):
     """N whole bounded fits: `gmax` (the largest maxIter, a host int)
     epochs of `_sgd_fleet_chunk`, then the packed [N, flag? + d + 2]
-    result, on the device. The {0,1} label flag is computed once, for the
-    shared labels."""
+    result, on the device; one program of the funnel (X and w may hold
+    only the batches the epochs read). The {0,1} label flag is computed
+    once, for the shared labels."""
     state = _sgd_fleet_chunk(X, y, w, state, loss_func, hyper, batch, n, 0, gmax)
     flag = _binomial_labels_ok(y) if check_labels else None
     return _fleet_member_finish(state, hyper, flag)
 
 
+@lazyjit.lazy_jit
 def _sgd_fleet_final(state, hyper: FleetHyper):
     """The fleet's finish without a label flag -> [N, d + 2]."""
     return _fleet_member_finish(state, hyper)

@@ -32,6 +32,12 @@ by skipping the replayed prefix after republishing the restored version,
 and removes the job's snapshot when the stream completes.
 `checkpoint_job_key` names a job's files as the JAX package does, so
 either package resumes the other's snapshot.
+
+Spans and gauges (the JAX package's `:202-440`): an `iteration.run` span
+a bounded run (mode "device" with its `epochs` and `finalCriteria`,
+"chunked" with an `iteration.chunk` span a chunk, "host" with an
+`iteration.epoch` span an epoch), an `iteration.epoch` span (mode
+"unbounded") a step of the online loop, and the `iteration.epochs` gauge.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ import torch
 
 from .. import config
 from ..ckpt import faults
+from ..obs import tracing
+from ..utils import metrics
 from . import supervisor
 
 BodyFn = Callable[[Any, int], Tuple[Any, torch.Tensor]]
@@ -218,11 +226,18 @@ def _iterate_on_device(body: BodyFn, init_carry, max_iter: int, tol: Optional[fl
     loop is live the device's epoch count equals the host's `e`, which the
     body receives. One readback of (epochs, criteria)."""
     tol_value = float("-inf") if tol is None else float(tol)
-    carry, epochs, criteria = _masked_epochs(body, init_carry, None, None, 0, max_iter, tol_value)
-    if epochs is None:
-        return IterationResult(carry, 0, float("inf"))
-    host = torch.stack([epochs.to(torch.float64), criteria.to(torch.float64)]).cpu()
-    return IterationResult(carry, int(host[0]), float(host[1]))
+    with tracing.span("iteration.run", mode="device") as sp:
+        carry, epochs, criteria = _masked_epochs(body, init_carry, None, None, 0, max_iter,
+                                                 tol_value)
+        if epochs is None:
+            num_epochs, final = 0, float("inf")
+        else:
+            host = torch.stack([epochs.to(torch.float64), criteria.to(torch.float64)]).cpu()
+            num_epochs, final = int(host[0]), float(host[1])
+        sp.set_attr("epochs", num_epochs)
+        sp.set_attr("finalCriteria", final)
+    metrics.set_gauge("iteration.epochs", num_epochs)
+    return IterationResult(carry, num_epochs, final)
 
 
 def _iterate_checkpointed(body, init_carry, max_iter, tol, checkpoint_dir, interval, job_key,
@@ -245,24 +260,27 @@ def _iterate_checkpointed(body, init_carry, max_iter, tol, checkpoint_dir, inter
         criteria = torch.tensor(final_crit, dtype=torch.float32, device=device)
     stopped = tol is not None and final_crit <= tol
     planned = final_epoch
-    while planned < max_iter and not stopped:
-        end = min(next_boundary(planned, interval), max_iter,
-                  planned + max(1, int(chunk_size or max_iter)))
-        supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
-        carry, epochs, criteria = _masked_epochs(body, carry, epochs, criteria, planned, end,
-                                                 tol_value)
-        supervisor.pulse_boundary(supervisor.PHASE_COLLECTIVE)
-        e_act, crit = packed_device_get(epochs, criteria, sync_kind="drain")
-        e_act, crit = int(e_act), float(crit)
-        advanced = e_act > final_epoch
-        final_epoch, final_crit = e_act, crit
-        if advanced and e_act == end and e_act % interval == 0:
-            _snapshot.save_job_snapshot(checkpoint_dir, job_key, {"model": carry},
-                                        epoch=e_act, criteria=crit)
-        if tol is not None and crit <= tol:
-            stopped = True
-        faults.tick("chunk")
-        planned = end
+    chunk = max(1, int(chunk_size or max_iter))
+    with tracing.span("iteration.run", mode="chunked", chunk=chunk, depth=1):
+        while planned < max_iter and not stopped:
+            end = min(next_boundary(planned, interval), max_iter, planned + chunk)
+            with tracing.span("iteration.chunk", epoch=planned, end=end):
+                supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
+                carry, epochs, criteria = _masked_epochs(body, carry, epochs, criteria, planned,
+                                                         end, tol_value)
+            supervisor.pulse_boundary(supervisor.PHASE_COLLECTIVE)
+            e_act, crit = packed_device_get(epochs, criteria, sync_kind="drain")
+            e_act, crit = int(e_act), float(crit)
+            advanced = e_act > final_epoch
+            final_epoch, final_crit = e_act, crit
+            metrics.set_gauge("iteration.epochs", final_epoch)
+            if advanced and e_act == end and e_act % interval == 0:
+                _snapshot.save_job_snapshot(checkpoint_dir, job_key, {"model": carry},
+                                            epoch=e_act, criteria=crit)
+            if tol is not None and crit <= tol:
+                stopped = True
+            faults.tick("chunk")
+            planned = end
     return IterationResult(carry, final_epoch, final_crit)
 
 
@@ -276,18 +294,21 @@ def _iterate_host_driven(body, init_carry, max_iter, tol, listener, checkpoint_d
                                            templates={"model": init_carry})
         if snap is not None:
             carry, epoch, criteria = _restored_carry(snap, init_carry), snap.epoch, snap.criteria
-    while epoch < max_iter and (tol is None or criteria > tol):
-        supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
-        carry, crit = body(carry, epoch)
-        epoch += 1
-        supervisor.pulse_boundary(supervisor.PHASE_COLLECTIVE)
-        criteria = float(crit)
-        listener.on_epoch_watermark_incremented(epoch, carry)
-        if checkpoint_dir is not None:
-            if epoch % interval == 0:
-                _snapshot.save_job_snapshot(checkpoint_dir, job_key, {"model": carry},
-                                            epoch=epoch, criteria=criteria)
-            faults.tick("chunk")
+    with tracing.span("iteration.run", mode="host", chunk=1, depth=1):
+        while epoch < max_iter and (tol is None or criteria > tol):
+            with tracing.span("iteration.epoch", epoch=epoch):
+                supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
+                carry, crit = body(carry, epoch)
+                epoch += 1
+                supervisor.pulse_boundary(supervisor.PHASE_COLLECTIVE)
+                criteria = float(crit)
+            metrics.set_gauge("iteration.epochs", epoch)
+            listener.on_epoch_watermark_incremented(epoch, carry)
+            if checkpoint_dir is not None:
+                if epoch % interval == 0:
+                    _snapshot.save_job_snapshot(checkpoint_dir, job_key, {"model": carry},
+                                                epoch=epoch, criteria=criteria)
+                faults.tick("chunk")
     listener.on_iteration_terminated(carry)
     return IterationResult(carry, epoch, criteria)
 
@@ -334,7 +355,8 @@ def iterate_unbounded(
             if skip > 0:  # the replayed prefix is already in the snapshot
                 skip -= 1
                 continue
-            state = step(state, batch)
+            with tracing.span("iteration.epoch", epoch=version, mode="unbounded"):
+                state = step(state, batch)
             version += 1
             if listener is not None:
                 listener.on_epoch_watermark_incremented(version, state)

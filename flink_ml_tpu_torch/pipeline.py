@@ -12,13 +12,15 @@ segments' validation guards come back in one packed readback at the
 pipeline's exit, or before a stage outside a segment runs.
 
 On the card each segment is one captured CUDA graph per input signature
-(`_CapturedSegment`): the first call of a signature runs the kernels
+(`_CapturedSegment`), through the program funnel's one capture mechanism
+(utils/lazyjit.py): the first call of a signature runs the kernels
 eagerly (which builds the CUDA kernels and the library handles outside
 the capture) and then captures them into static buffers; every later call
 copies the feed in, replays, and clones the outputs out of the graph's
-pool. A segment's graphs share one memory pool, and it keeps at most
-`config.kernel_cache_size` of them, and no more bytes in them than the
-card has free (`_GraphCache`). A swap-capable stage's constants are
+pool. A segment's graphs share one memory pool, at most
+`config.kernel_cache_size` of them are kept, and no more bytes in all the
+funnel's graphs than the card has free (`lazyjit.GraphCache.make_room`).
+A swap-capable stage's constants are
 operands of its graphs: copied into buffers of the graph's own before a
 replay. `PipelineModel.constants_as_operands()` (what a model store
 calls) makes every stage's constants operands and lets the segment share
@@ -28,6 +30,11 @@ params, where each stage's kernel reads only its params and constants:
 bringing them back captures nothing. Captures run one at a time under
 `capture_lock`, in `capture_error_mode="thread_local"`, so CUDA work of
 another thread (a trainer's canary and uploads) cannot invalidate them.
+With the program bank on (compilebank.py), a segment's signatures are
+banked under `bank_kernel_id()` with its guard messages, and a fresh
+process captures them at the segment's first call (`_warm_load`).
+Spans: `pipeline.stage` (each stage slot of `Pipeline.fit`, each eager
+transform), `pipeline.segment` (each fused segment).
 On the CPU a segment calls its kernels in turn. The plan is the JAX
 package's: a segment is vetoed as a whole when
 a column is host data, or is a SparseBatch that a stage's kernel does not
@@ -42,25 +49,26 @@ Save and load keep the reference's layout: the pipeline's metadata with
 
 from __future__ import annotations
 
-import threading
+import time
 import weakref
-from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import config
+from . import compilebank, config
 from .api import AlgoOperator, Estimator, KernelContext, Model, Stage
+from .obs import tracing
 from .table import SparseBatch, Table
-from .utils import metrics, read_write
+from .utils import lazyjit, metrics, read_write
 
 #: guards waiting for a drain: (messages, packed bool vector) per segment run
 Pending = List[Tuple[Tuple[str, ...], torch.Tensor]]
 
 #: held by every capture, and by CUDA work on other threads that must not
-#: run inside one (a lifecycle's canary and publication)
-capture_lock = threading.RLock()
+#: run inside one (a lifecycle's canary and publication): the program
+#: funnel's one lock
+capture_lock = lazyjit.capture_lock
 
 
 def _transform_one(stage: Stage, table: Table) -> Table:
@@ -68,6 +76,12 @@ def _transform_one(stage: Stage, table: Table) -> Table:
     if len(outputs) != 1:
         raise ValueError(f"Stage {type(stage).__name__} must produce exactly 1 output table")
     return outputs[0]
+
+
+def _run_eager(index: int, stage: Stage, table: Table) -> Table:
+    with tracing.span("pipeline.stage", index=index, stage=type(stage).__name__,
+                      op="transform"):
+        return _transform_one(stage, table)
 
 
 # ---------------------------------------------------------------------------
@@ -192,16 +206,14 @@ class _Operands:
                 self.held[i] = _first_ref(consts)
 
 
-class _CapturedSegment:
+class _CapturedSegment(lazyjit.Captured):
     """One CUDA graph of a segment for one input signature. It holds every
     tensor the graph reads or writes: the static feed, the constants (in
     `operands`), the static outputs and (through the graph) the memory pool
     that the segment's graphs share."""
 
     def __init__(self, segment: "FusedSegment", consts_list, feed: Dict[str, Any],
-                 cache: "_GraphCache"):
-        from .ops import sparsekernels
-
+                 cache: "lazyjit.GraphCache"):
         stages = segment.stages
         self.static_feed = {name: _clone(col) for name, col in feed.items()}
         # a swap-capable stage's constants (every stage's, in operand mode)
@@ -211,18 +223,14 @@ class _CapturedSegment:
         self.swap = [segment.operands or bool(getattr(s, "swap_capable", False)) for s in stages]
         shared = cache.shared_operands(consts_list, self.swap) if segment.operands else None
         self.operands = shared or _Operands(consts_list, self.swap)
-        self.graph = torch.cuda.CUDAGraph()
-        before = sparsekernels.launch_counts()
-        with capture_lock, torch.cuda.graph(self.graph, pool=cache.pool,
-                                            capture_error_mode="thread_local"):
+
+        def body():
             cols, ctx = segment.run_kernels(self.operands.static, self.static_feed)
-            self.guard_vec = ctx.packed(feed_device(feed))
-        after = sparsekernels.launch_counts()
-        # capture launches nothing: its counted launches move to each replay
-        self.launches = {k: after[k.__name__] - before[k.__name__] for k in sparsekernels.KERNELS}
-        for kernel, n in self.launches.items():
-            kernel.launches -= n
-        self.messages = tuple(ctx.guards)
+            return cols, ctx.packed(feed_device(feed)), tuple(ctx.guards)
+
+        captured, (cols, self.guard_vec, self.messages) = lazyjit.capture(cache.ensure_pool(),
+                                                                          body)
+        super().__init__(captured.graph, captured.launches)
         self.outputs = {n: v for n, v in cols.items() if self.static_feed.get(n) is not v}
         # what this graph alone keeps between replays: outside the pool its
         # static feed and (unless the cache shares them) its constant
@@ -231,44 +239,21 @@ class _CapturedSegment:
         self.static_bytes = _bytes(_tree_leaves(self.static_feed)) + (
             0 if shared else self.operands.nbytes)
         self.kept_bytes = self.static_bytes + _bytes(_tree_leaves(self.outputs) + [self.guard_vec])
-        metrics.inc_counter("jit.traces")
 
-    def replay(self, consts_list, feed: Dict[str, Any]):
+    def run(self, consts_list, feed: Dict[str, Any]):
         for name, col in feed.items():
             for static, leaf in zip(_leaves(self.static_feed[name]), _leaves(col)):
                 static.copy_(leaf)
         self.operands.load(consts_list, self.swap)
-        self.graph.replay()
-        for kernel, n in self.launches.items():
-            kernel.launches += n
+        self.replay()
         # the next replay overwrites the pool: the outputs leave it now
         out = {name: _clone(col) for name, col in self.outputs.items()}
         return out, self.messages, self.guard_vec.clone()
 
 
-def _free_bytes(device: torch.device) -> int:
-    """What the card can still give: its free memory and the blocks
-    PyTorch's allocator holds unused."""
-    free, _ = torch.cuda.mem_get_info(device)
-    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-
-
-class _GraphCache:
-    """A segment's captured graphs by input signature, least recently used
-    first, and the memory pool they share. Replays of a segment run one at
-    a time on one stream and their outputs are cloned out at once, so a
-    graph's temporaries may lie where another graph's were. `lock` makes
-    each call (feed and constants copied in, replay, outputs cloned out)
-    one unit on the host, so two threads serving tenants of one
-    architecture cannot interleave their copies into shared buffers."""
-
-    def __init__(self):
-        self.entries: "OrderedDict[tuple, _CapturedSegment]" = OrderedDict()
-        self.pool = None
-        self.lock = threading.Lock()
-        #: operand mode: constant buffers by constants signature, which every
-        #: graph of that signature reads
-        self.operands: Dict[tuple, _Operands] = {}
+class _GraphCache(lazyjit.GraphCache):
+    """A segment's graphs (lazyjit.GraphCache), and in operand mode the
+    constant buffers that every graph of a constants signature reads."""
 
     def shared_operands(self, consts_list, swap: List[bool]) -> _Operands:
         key = _signature({}, consts_list)[1]
@@ -276,25 +261,6 @@ class _GraphCache:
         if entry is None:
             entry = self.operands[key] = _Operands(consts_list, swap)
         return entry
-
-    def get(self, sig: tuple) -> Optional[_CapturedSegment]:
-        entry = self.entries.get(sig)
-        if entry is not None:
-            self.entries.move_to_end(sig)
-        return entry
-
-    def make_room(self, free_bytes: int) -> None:
-        """Before a capture: drop the least recently used graphs while there
-        are `config.kernel_cache_size` of them or more, or while they keep
-        more bytes than the card has free (`free_bytes`), so that batches
-        of many distinct shapes cannot fill the card. A dropped graph's
-        blocks go back to the shared pool, where the capture reuses them."""
-        while self.entries and (
-            len(self.entries) >= config.kernel_cache_size
-            or sum(e.kept_bytes for e in self.entries.values()) > free_bytes
-        ):
-            self.entries.popitem(last=False)
-            metrics.inc_counter("jit.kernelCacheEvict")
 
 
 #: the graph caches of operand-mode segments, by architecture
@@ -323,6 +289,7 @@ class FusedSegment:
     def __init__(self, indexed_stages: Sequence[Tuple[int, Stage]], operands: bool = False):
         self.indices = [i for i, _ in indexed_stages]
         self.stages: List[AlgoOperator] = [s for _, s in indexed_stages]
+        self.names = ",".join(type(s).__name__ for s in self.stages)
         self.operands = operands
         arch = _architecture(self.stages) if operands else None
         self.graphs = _GraphCache() if arch is None else _SHARED_GRAPHS.setdefault(arch, _GraphCache())
@@ -394,23 +361,101 @@ class FusedSegment:
         with self.graphs.lock:
             return self._replay_or_capture(consts_list, feed)
 
+    def bank_kernel_id(self) -> Optional[str]:
+        """The segment's process-restart-stable identity in the program
+        bank: its stage classes and their param values (the constants'
+        shapes are in the call signature). None when a param value has no
+        stable token: that segment skips the bank."""
+        parts = []
+        for stage in self.stages:
+            tokens = []
+            for param, value in sorted(stage.get_param_map().items(), key=lambda kv: kv[0].name):
+                token = compilebank.static_token(value)
+                if token is None:
+                    return None
+                tokens.append(f"{param.name}={token}")
+            cls = type(stage)
+            parts.append(f"{cls.__module__}.{cls.__qualname__}({','.join(tokens)})")
+        return "pipeline.FusedSegment[" + ";".join(parts) + "]"
+
     def _replay_or_capture(self, consts_list, feed: Dict[str, Any]):
         sig = _signature(feed, consts_list)
+        bank = compilebank.active_bank()
+        kernel_id = self.bank_kernel_id() if bank is not None else None
+        if kernel_id is not None and self.graphs.__dict__.get("warmed_bank") is not bank:
+            self.graphs.warmed_bank = bank
+            self._warm_load(bank, kernel_id, consts_list, feed_device(feed))
         entry = self.graphs.get(sig)
         if entry is not None:
-            return entry.replay(consts_list, feed)
+            if bank is not None and entry.banked:
+                bank.count_hit()
+                tracing.event("bank.hit", kernel=kernel_id, category="cache")
+            return entry.run(consts_list, feed)
+        if bank is not None:
+            bank.count_miss()
         # the first call of a signature runs eagerly (real, counted
         # launches; nvcc builds and library handles made outside capture),
         # then captures the same kernels for the calls after it
+        start = time.perf_counter()
         cols, ctx = self.run_kernels(consts_list, feed)
         out = {n: v for n, v in cols.items() if feed.get(n) is not v}
         result = (out, tuple(ctx.guards), ctx.packed(feed_device(feed)))
-        device = feed_device(feed)
-        self.graphs.make_room(_free_bytes(device))
-        if self.graphs.pool is None:
-            self.graphs.pool = torch.cuda.graph_pool_handle()
-        self.graphs.entries[sig] = _CapturedSegment(self, consts_list, feed, self.graphs)
+        entry = self._capture(consts_list, feed)
+        lazyjit.account_capture(time.perf_counter() - start, kernel_id or "pipeline.FusedSegment")
+        if kernel_id is not None:
+            bank.offer(compilebank.signature_digest(kernel_id, sig), {
+                "kernel": kernel_id, "segment": True,
+                "leaves": [_leaf_json(t) for col in feed.values() for t in _leaves(col)],
+                "feed": [_feed_json(name, col) for name, col in sorted(feed.items())],
+                "extras": {"guards": list(entry.messages)}})
         return result
+
+    def _capture(self, consts_list, feed: Dict[str, Any]) -> _CapturedSegment:
+        device = feed_device(feed)
+        self.graphs.make_room(lazyjit.free_bytes(device), _bytes(_tree_leaves(feed)))
+        entry = _CapturedSegment(self, consts_list, feed, self.graphs)
+        self.graphs.put(_signature(feed, consts_list), entry)
+        return entry
+
+    def _warm_load(self, bank, kernel_id: str, consts_list, device: torch.device) -> None:
+        """Capture every banked signature of this segment whose constants
+        match the live ones, on a synthetic feed (zeros of the banked
+        shapes), ahead of its first call. The banked guard messages must be
+        the captured ones."""
+
+        def load(entry):
+            feed = {f["name"]: _synthetic_col(f, device) for f in entry["feed"]}
+            sig = _signature(feed, consts_list)
+            if self.graphs.get(sig) is not None:
+                return
+            if compilebank.signature_digest(kernel_id, sig) not in \
+                    {s for s, _ in bank.entries_for(kernel_id)}:
+                raise ValueError("its constants' shapes differ from the served model's")
+            self.run_kernels(consts_list, feed)  # the warm-up
+            captured = self._capture(consts_list, feed)
+            captured.banked = True
+            guards = (entry.get("extras") or {}).get("guards")
+            if guards is not None and list(captured.messages) != list(guards):
+                raise ValueError(f"captured guards {captured.messages} are not the banked {guards}")
+
+        bank.warm_load_segment(kernel_id, load)
+
+
+def _leaf_json(t: torch.Tensor) -> Dict[str, Any]:
+    return compilebank.leaf_json(lazyjit.leaf_descriptor(t))
+
+
+def _feed_json(name: str, col) -> Dict[str, Any]:
+    return {"name": name, "kind": type(col).__name__,
+            "size": col.size if isinstance(col, SparseBatch) else None,
+            "leaves": [_leaf_json(t) for t in _leaves(col)]}
+
+
+def _synthetic_col(desc: Dict[str, Any], device: torch.device):
+    leaves = [compilebank.synthetic_leaf(d, device) for d in desc["leaves"]]
+    if desc["kind"] == "SparseBatch":
+        return SparseBatch(desc["size"], leaves[0], leaves[1])
+    return leaves[0]
 
 
 class _FusionPlan:
@@ -523,24 +568,26 @@ class PipelineModel(_StageList, Model):
                 seg: FusedSegment = run[1]
                 feed = seg.ready_feed(table)
                 if feed is not None:
-                    table = seg.execute(table, feed, pending)
+                    with tracing.span("pipeline.segment", index=seg.start, stages=seg.names,
+                                      numStages=len(seg.stages), op="transform", fused=True):
+                        table = seg.execute(table, feed, pending)
                     fused_segments += 1
                     fused_stages += len(seg.stages)
                     continue
                 _drain_guards(pending)
-                for stage in seg.stages:
-                    table = _transform_one(stage, table)
+                for i, stage in zip(seg.indices, seg.stages):
+                    table = _run_eager(i, stage, table)
             else:
                 _drain_guards(pending)
-                table = _transform_one(run[2], table)
+                table = _run_eager(run[1], run[2], table)
         metrics.set_gauge("pipeline.fused_segments", fused_segments)
         metrics.set_gauge("pipeline.fused_stages", fused_stages)
         return table
 
     def _run(self, table: Table, pending: Pending) -> Table:
         if config.pipeline_fusion == "off":
-            for stage in self._stages:
-                table = _transform_one(stage, table)
+            for i, stage in enumerate(self._stages):
+                table = _run_eager(i, stage, table)
             return table
         return self._transform_fused(table, pending)
 
@@ -584,12 +631,16 @@ class Pipeline(_StageList, Estimator):
         model_stages: List[Stage] = []
         with metrics.timed("pipeline.fit"):
             for i, stage in enumerate(self._stages):
-                model = stage.fit(table) if isinstance(stage, Estimator) else stage
-                model_stages.append(model)
-                if i < last_estimator_idx:
-                    if not isinstance(model, AlgoOperator):
-                        raise TypeError(
-                            f"Intermediate stage {type(stage).__name__} cannot transform data"
-                        )
-                    table = _transform_one(model, table)
+                # one span a stage slot: the stage's fit and its transform
+                # of the training data for the stages after it
+                with tracing.span("pipeline.stage", index=i, stage=type(stage).__name__,
+                                  op="fit"):
+                    model = stage.fit(table) if isinstance(stage, Estimator) else stage
+                    model_stages.append(model)
+                    if i < last_estimator_idx:
+                        if not isinstance(model, AlgoOperator):
+                            raise TypeError(
+                                f"Intermediate stage {type(stage).__name__} cannot transform data"
+                            )
+                        table = _transform_one(model, table)
         return PipelineModel(model_stages)

@@ -439,8 +439,12 @@ class MicroBatchServer:
         """Drive every (tenant x bucket) serving program once ahead of
         traffic, so each captured graph exists before the first request.
         `example` is a schema template (one real batch). Tenants page in
-        through the store first. Returns {"programs", "warmupMs",
-        "captures"}; a guard tripped by the synthetic rows is swallowed."""
+        through the store first. With the program bank on
+        (`config.program_bank_dir`, compilebank.py), a fresh process's
+        warmup captures the banked signatures as warm loads and the new
+        ones back-fill the bank. Returns {"programs", "warmupMs",
+        "captures", "bankHits", "bankMisses", "bankLoads"}; a guard
+        tripped by the synthetic rows is swallowed."""
         if buckets is None:
             buckets = self.buckets or [next_bucket(self.form_rows, None)]
         buckets = sorted({int(b) for b in buckets})
@@ -449,7 +453,8 @@ class MicroBatchServer:
         if self.store is not None:
             self.store.prefetch([t for t in tenants if t is not None], wait=True)
         t0 = time.perf_counter()
-        traces = metrics.get_counter("jit.traces")
+        counted = ("jit.traces", "bank.hits", "bank.misses", "jit.bankLoads")
+        before = {k: metrics.get_counter(k) for k in counted}
         programs = 0
         for tenant in tenants:
             model = self._model_for(tenant)
@@ -463,8 +468,10 @@ class MicroBatchServer:
                 programs += 1
         wall_ms = (time.perf_counter() - t0) * 1000.0
         metrics.record_time("serving.warmup", wall_ms / 1000.0)
+        delta = {k: float(metrics.get_counter(k) - before[k]) for k in counted}
         return {"programs": float(programs), "warmupMs": wall_ms,
-                "captures": float(metrics.get_counter("jit.traces") - traces)}
+                "captures": delta["jit.traces"], "bankHits": delta["bank.hits"],
+                "bankMisses": delta["bank.misses"], "bankLoads": delta["jit.bankLoads"]}
 
     def _finish(self, out: Table, readback: _Readback, n: int) -> Table:
         """Retire one batch: wait on its readback (its one host sync), then

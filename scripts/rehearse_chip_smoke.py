@@ -15,7 +15,10 @@ and each call of a kernel's plain version counts as a launch, as the
 kernel's does on the card. The fused transforms of phase 11 run on CPU
 tensors, where a fused segment calls its stages' kernels in turn with no
 capture (a CUDA graph exists only on the card), so each call counts its
-launches as a replay does there. It catches
+launches as a replay does there. Phase 14's whole fits run through the
+program funnel's CPU path (a new signature counted as a capture, the
+function run eagerly), and its bank children are real child processes
+on the CPU (no stub reaches them; the CPU banks no fused segment). It catches
 a broken path, check or output line before a chip run; every number it
 prints is a CPU number and none stands for the card's.
 """

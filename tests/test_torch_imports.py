@@ -2,8 +2,9 @@
 
 - no module of the port pulls in JAX when imported, with or without a card;
 - no module of the port, and neither chip_smoke.py nor
-  scripts/torch_kernel_designs.py nor scripts/rehearse_chip_smoke.py,
-  imports jax or flink_ml_tpu;
+  scripts/torch_kernel_designs.py, scripts/rehearse_chip_smoke.py,
+  scripts/chip_funnel_phase.py, scripts/chip_checkpoint_phase.py nor
+  scripts/chip_host_attribution.py, imports jax or flink_ml_tpu;
 - chip_smoke.py fails without a card, and its CPU rehearsal runs through;
 - an entry point that was not asked for the CPU raises without a card,
   rather than falling back to the CPU; that holds for the stages whose work
@@ -31,7 +32,8 @@ from flink_ml_tpu_torch.models.classification.logisticregression import (
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "flink_ml_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "torch_kernel_designs.py",
-    REPO / "scripts" / "rehearse_chip_smoke.py"]
+    REPO / "scripts" / "rehearse_chip_smoke.py", REPO / "scripts" / "chip_funnel_phase.py",
+    REPO / "scripts" / "chip_checkpoint_phase.py", REPO / "scripts" / "chip_host_attribution.py"]
 
 
 PORT_MODULES = sorted(
