@@ -288,11 +288,14 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    sparse and fleet ones within the sparse gate; the replays launch 20
    row dots and 20 gradients (the sparse fit) and 20 + 20 fleet kernels
    (the fleet); the three walls, and a replay's median, device time (CUDA
-   events) and idle share. Memory: the graph holding (freed when the
-   cache drops it) only its accounted buffers and outputs, less than half
-   the fit's training data (the data on the card is read in place, not
-   copied), and the first call's allocator peak at most the eager fit's
-   plus that and the library state the capture made. A sweep: the sparse fit at another learning
+   events) and idle share. Memory: the bytes the graph holds (freed when
+   the cache drops it) equal to its measured kept bytes, which are its
+   accounted buffers and outputs, all within the allocator's rounding, and
+   less than half the fit's training data (the data on the card is read
+   in place, not copied); no library state left by the capture; dropping
+   the graph gives back its pool's whole reserve and nothing beyond what
+   `make_room` counts for it; the first call's allocator peak at most the
+   eager fit's plus the accounted bytes. A sweep: the sparse fit at another learning
    rate and an L2 regularisation replays the same graph (no capture),
    within the sparse gate (1e-4 of max |coeff|) of its eager fit, while a
    replay with the first fit's operands, or its reg alone, would be off by
@@ -1694,6 +1697,146 @@ def profile_overlap(name, run):
         f"({100.0 * overlap_ms / max(copy_ms, 1e-9):.1f}% of upload time)")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "upload_ms": copy_ms, "kernel_ms": kernel_ms,
             "overlap_ms": overlap_ms}
+
+#: rows of phase 3's tables that the Table API check takes with head()
+HEAD_ROWS = 1_024
+
+
+def _shares_storage(a, b) -> bool:
+    """Do two columns hold the same tensors (a SparseBatch's indices and
+    values)?"""
+    from flink_ml_tpu_torch import SparseBatch
+
+    if isinstance(a, SparseBatch):
+        return a.indices.data_ptr() == b.indices.data_ptr() and \
+            a.values.data_ptr() == b.values.data_ptr()
+    return a.data_ptr() == b.data_ptr()
+
+
+def _on_card(col) -> bool:
+    from flink_ml_tpu_torch import SparseBatch
+
+    parts = (col.indices, col.values) if isinstance(col, SparseBatch) else (col,)
+    return all(isinstance(t, torch.Tensor) and t.is_cuda == (DEVICE == "cuda") for t in parts)
+
+
+def _first_rows(col, n):
+    from flink_ml_tpu_torch import SparseBatch
+
+    if isinstance(col, SparseBatch):
+        return SparseBatch(col.size, col.indices[:n], col.values[:n])
+    return col[:n]
+
+
+def table_api_check(sk, dense_table, sparse_table, sparse_model):
+    """The Table API on phase 3's device tables (the 10M x 100 dense table
+    and the 1M x 39 sparse one): head(HEAD_ROWS), select, drop, rename and
+    with_column leave every column on the card; select, drop and rename
+    share the source's storage; none moves an `iteration.host_sync`
+    counter; head's rows are the table's first rows; and the fused sparse
+    LR transform of the sparse head equals its eager transform bit for
+    bit, having captured or replayed a graph, with one row-dot launch
+    each. Returns what the output lines print and the row dots launched."""
+    from flink_ml_tpu_torch import PipelineModel
+    from flink_ml_tpu_torch.utils import lazyjit
+
+    t0 = time.perf_counter()
+    out = {}
+    syncs = _counter("iteration.host_sync")
+    for name, table in (("dense", dense_table), ("sparse", sparse_table)):
+        first = table.column_names[0]
+        derived = {"head": table.head(HEAD_ROWS), "select": table.select(*table.column_names[::-1]),
+                   "drop": table.drop(table.column_names[-1]),
+                   "rename": table.rename({first: "renamed"}),
+                   "with_column": table.with_column("extra", table.column(first))}
+        out[name] = {}
+        for op, t in derived.items():
+            cols = [t.column(c) for c in t.column_names]
+            check(all(_on_card(c) for c in cols), f"{name} {op}: a column left the card")
+            shared = all(_shares_storage(t.column(c), table.column(
+                first if c == "renamed" else c)) for c in t.column_names if c != "extra")
+            if op in ("select", "drop", "rename"):
+                check(shared, f"{name} {op}: a column was copied")
+            out[name][op] = {"rows": t.num_rows, "columns": t.column_names, "shared": shared}
+        head = derived["head"]
+        check(head.num_rows == HEAD_ROWS and all(
+            same_column(head.column(c), _first_rows(table.column(c), HEAD_ROWS))
+            for c in table.column_names), f"{name} head({HEAD_ROWS}) is not the first rows")
+    moved = _counter("iteration.host_sync") - syncs
+    check(moved == 0, f"the Table API moved iteration.host_sync by {moved}")
+    head = sparse_table.select("features").head(HEAD_ROWS)
+    stamps = lambda: {(id(e), e.stamp) for c in list(lazyjit._caches)  # noqa: E731
+                      for e in c.entries.values()}
+    sk.reset_launch_counts()
+    before = stamps()
+    pipeline = PipelineModel([sparse_model])  # held: its segment's graph cache is weakly listed
+    fused = pipeline.transform(head)[0]
+    fused_cols = {col: fused.column(col) for col in ("prediction", "rawPrediction")}
+    graphed = len(stamps() - before)  # graphs captured or replayed by the fused call
+    eager = sparse_model.transform(head)[0]
+    for col in ("prediction", "rawPrediction"):
+        check(same_column(fused_cols[col], eager.column(col)),
+              f"the fused sparse LR transform of head({HEAD_ROWS}) differs from eager in {col}")
+    launches = sk.launch_counts()
+    check(graphed > 0 or DEVICE != "cuda",  # the CPU captures no graph
+          f"the fused transform of head({HEAD_ROWS}) captured or replayed no graph")
+    check(launches == launch_dict(sparse_row_dots=2),
+          f"the fused and eager transforms of head({HEAD_ROWS}) launched {launches}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  table api: head({HEAD_ROWS}), select, drop, rename and with_column on the dense and "
+        f"sparse tables: every column on the card, select/drop/rename share storage, "
+        f"iteration.host_sync moved {moved}; the fused sparse LR transform of head({HEAD_ROWS}) "
+        f"equals eager bit for bit ({graphed} graph(s) captured or replayed; launches "
+        f"{launches}); {out['seconds']:.2f} s")
+    return out, launches
+
+
+def _ledger_peak(category, fn):
+    """fn() and the most bytes the memory ledger held under `category`
+    while it ran (a register hook)."""
+    from flink_ml_tpu_torch.obs import memledger
+
+    register, peak = memledger.register, [memledger.live_bytes(category)]
+
+    def observed(cat, nbytes, *args, **kwargs):
+        handle = register(cat, nbytes, *args, **kwargs)
+        if cat == category:
+            peak[0] = max(peak[0], memledger.live_bytes(category))
+        return handle
+
+    memledger.register = observed
+    try:
+        return fn(), peak[0]
+    finally:
+        memledger.register = register
+
+
+def budgeted_stream_kmeans(km_cols, default_model):
+    """Phase 3's stream KMeans once more under `device_cache_budget(0)`: the
+    device epoch cache holds no ledgered byte (every batch is staged again
+    each epoch), the model equals the default run's bit for bit, and
+    `config.device_cache_bytes` is restored after the scope."""
+    from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.data import devicecache
+
+    before = port_config.device_cache_bytes
+    fit = lambda: kmeans_estimator().fit(stream_of(km_cols, KMEANS_ROWS, KMEANS_CHUNK))  # noqa: E731
+    (default_again, default_peak) = _ledger_peak("batchCache", lambda: synced(fit))
+    with port_config.device_cache_budget(0):
+        nothing_fits = not devicecache.within_device_budget(1)
+        (model, ms), peak = _ledger_peak("batchCache", lambda: synced(fit))
+    restored = port_config.device_cache_bytes == before
+    same = all(np.asarray(a).tobytes() == np.asarray(b).tobytes() for a, b in
+               ((model.centroids, default_model.centroids), (model.weights, default_model.weights)))
+    log(f"  stream kmeans under device_cache_budget(0): {ms:.1f} ms (default {default_again[1]:.1f} "
+        f"ms), batchCache ledger peak {peak} bytes (default {default_peak}), model equal to the "
+        f"default run bit for bit: {same}; device_cache_bytes restored: {restored}")
+    check(nothing_fits and peak == 0, f"the budget-0 stream kmeans ledgered {peak} cache bytes")
+    check(same, "the budget-0 stream kmeans differs from the default run")
+    check(restored, f"device_cache_bytes is {port_config.device_cache_bytes}, not {before}")
+    return {"ms": ms, "default_ms": default_again[1], "ledger_peak": peak,
+            "default_ledger_peak": default_peak}
+
 
 def stream_and_online_times(stream_cols, km_cols, online_cols, kmeans_model, dev, path_s):
     """Phase 5 for the stream and online paths: two warm runs of each, the
@@ -6007,9 +6150,50 @@ SWEEP_LR, SWEEP_REG, SWEEP_EN = 0.05, 0.5, 0.0
 SWEEP_SEPARATION = 100.0
 
 
-#: allocator slop on the memory gates: blocks rounded up to 512 B and
-#: 2 MiB segments' tails
-FUNNEL_ALLOC_SLACK = 8 << 20
+#: the allocator's own rounding on the memory gates: one 2 MiB segment's
+#: tail a graph (`FUNNEL_ALLOC_SLACK`), and each block rounded up to 512 B
+#: (`FUNNEL_BLOCK_SLACK`); a graph's kept bytes are measured (ROADMAP C.25)
+FUNNEL_ALLOC_SLACK = 2 << 20
+FUNNEL_BLOCK_SLACK = 512
+
+
+def static_buffers_of(entry):
+    """A fit graph's static input buffers (a borrowed operand has none; the
+    CPU's entry, which holds no graph, has none)."""
+    return [b for b in getattr(entry, "static_in", ()) if b is not None]
+
+
+def graph_tensors(entry):
+    """A fit graph's own tensors: its static input buffers and its outputs
+    in the pool."""
+    from flink_ml_tpu_torch.utils import lazyjit
+
+    outputs = lazyjit.flatten(entry.outputs)[0] if hasattr(entry, "outputs") else []
+    return static_buffers_of(entry) + outputs
+
+
+def funnel_slack(entries) -> int:
+    """The memory gates' slack for the graphs `entries`: a segment tail
+    each and a rounding for each of their blocks (static buffers and
+    outputs)."""
+    blocks = sum(len(graph_tensors(e)) for e in entries)
+    return len(entries) * FUNNEL_ALLOC_SLACK + blocks * FUNNEL_BLOCK_SLACK
+
+
+def reserve_of(pool, static_in):
+    """From the allocator's snapshot: the bytes the graph pool `pool`
+    reserves, and the bytes of the default pool's segments whose allocated
+    blocks are all static buffers (`static_in`), which dropping the graph
+    frees whole."""
+    ptrs = {t.data_ptr() for t in static_in}
+    pool_total = static_segments = 0
+    for seg in torch.cuda.memory._snapshot()["segments"]:
+        live = [b["address"] for b in seg["blocks"] if b["state"] == "active_allocated"]
+        if tuple(seg["segment_pool_id"]) == tuple(pool):
+            pool_total += seg["total_size"]
+        elif live and all(a in ptrs for a in live):
+            static_segments += seg["total_size"]
+    return pool_total, static_segments
 
 
 def _allocated(fn):
@@ -6036,29 +6220,52 @@ def funnel_fit(name, sk, fit, kernel, arrays, expected, gate, data_bytes):
     first call through the funnel from an empty cache (a fresh process's:
     it captures), and, after a second capture, a call that replays.
     `arrays` gives the arrays a model holds; `gate(got, want)` checks them
-    and returns their gap (0 for bit for bit). Memory: what the graph
-    holds (the bytes freed when the cache drops it) is its own static
-    buffers and outputs, less than half the fit's training data
-    (`data_bytes`: the data on the card is read in place, not copied);
-    the first call's allocator peak is at most the eager fit's plus that
-    and what else the capture left allocated (a capture stream's library
-    state, made once a process). Returns the walls, the memory, the
-    capture counts and the replay's launches."""
+    and returns their gap (0 for bit for bit). Memory, each within the
+    allocator's rounding (`funnel_slack`): what the graph holds (the bytes
+    freed when the cache drops it) is its measured kept bytes, and these
+    are its own static buffers and outputs (accounted by their sizes),
+    less than half the fit's training data (`data_bytes`: the data on the
+    card is read in place, not copied); the capture leaves no library
+    state (the capture stream's, made first, is made with the stream
+    once a process); the reserve
+    freed by dropping the graph (`memory_reserved`, the cache emptied on
+    both sides) is the pool's whole reserve and at most what `make_room`
+    counts for the graph (its kept bytes and its pool's scratch) and the
+    unsplit tails of its static buffers' segments; the first call's
+    allocator peak is at most the eager fit's plus the accounted bytes.
+    Returns the walls, the memory, the capture counts and the replay's
+    launches."""
     import gc
 
     from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.utils import lazyjit
 
+    lazyjit.capture_stream()  # the stream and its library state: made once a process
     with port_config.whole_fit_mode("off"):
         eager, eager_ms, eager_mem = _allocated(fit)
     kernel.cache.clear()
     traces = _counter("jit.traces")
     first, first_ms, mem = _allocated(fit)
     captured = _counter("jit.traces") - traces
-    graph_bytes = sum(e.kept_bytes for e in kernel.cache.entries.values())
+    graphs = list(kernel.cache.entries.values())
+    graph_bytes = sum(e.kept_bytes for e in graphs)
+    accounted = sum(t.numel() * t.element_size() for e in graphs for t in graph_tensors(e))
+    static = [t for e in graphs for t in static_buffers_of(e)]
+    static_bytes = sum(t.numel() * t.element_size() for t in static)
+    slack = funnel_slack(graphs)
+    pool = kernel.cache.pool
+    counted = graph_bytes + sum(lazyjit.pool_reserve([pool]).values())
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    pool_total, static_segments = reserve_of(pool, static)
+    del graphs, static
     kernel.cache.clear()
     gc.collect()
+    torch.cuda.empty_cache()
+    freed = reserved - torch.cuda.memory_reserved()
     held = mem["kept"] - (torch.cuda.memory_allocated() - mem["base"])
     library = mem["kept"] - held
+    tails = max(0, static_segments - static_bytes)
     traces = _counter("jit.traces")
     synced(fit)  # the graph again, for the replay
     recaptured = _counter("jit.traces") - traces
@@ -6074,23 +6281,32 @@ def funnel_fit(name, sk, fit, kernel, arrays, expected, gate, data_bytes):
         f"to eager {gaps}; allocator peak eager {mib(eager_mem['peak'])}, first call "
         f"{mib(mem['peak'])}, replay {mib(replay_mem['peak'])}; the first call left "
         f"{mib(mem['left'])} allocated ({mib(mem['kept'])} after a collection), of which the graph "
-        f"held {mib(held)} (its accounted {mib(graph_bytes)}; training data {mib(data_bytes)}) and "
-        f"library state {mib(library)}")
+        f"held {held} bytes (its measured kept bytes {graph_bytes}, accounted {accounted}; slack "
+        f"{slack}; training data {mib(data_bytes)}) and library state {library} bytes; dropping "
+        f"the graph freed {freed} reserved bytes (its pool's {pool_total}, make_room counts "
+        f"{counted}, static segments {static_segments})")
     check(captured == 1 and recaptured == 1 and replayed == 0,
           f"{name}: the first call captured {captured}, the second {recaptured}, the replay "
           f"{replayed}")
     check(counts == expected, f"{name}: the replay launched {counts}, expected {expected}")
-    check(held <= graph_bytes + FUNNEL_ALLOC_SLACK and 2 * max(held, graph_bytes) < data_bytes,
-          f"{name}: the graph held {held} bytes (accounted {graph_bytes}) of {data_bytes} bytes "
-          f"of training data")
-    check(mem["peak"] <= eager_mem["peak"] + graph_bytes + library + FUNNEL_ALLOC_SLACK,
+    check(abs(held - graph_bytes) <= slack and graph_bytes <= accounted + slack
+          and 2 * max(held, graph_bytes) < data_bytes,
+          f"{name}: the graph held {held} bytes (measured {graph_bytes}, accounted {accounted}, "
+          f"slack {slack}) of {data_bytes} bytes of training data")
+    check(library == 0, f"{name}: the capture left {library} bytes of library state")
+    check(pool_total <= freed <= counted + tails + slack,
+          f"{name}: dropping the graph freed {freed} reserved bytes; its pool reserved "
+          f"{pool_total}, make_room counts {counted}, its static segments' tails {tails}")
+    check(mem["peak"] <= eager_mem["peak"] + accounted + slack,
           f"{name}: the first call's peak {mem['peak']} against the eager fit's "
-          f"{eager_mem['peak']}, the graph's {graph_bytes} bytes and {library} of library state")
+          f"{eager_mem['peak']} and the graph's {accounted} accounted bytes")
     return {"eager_ms": eager_ms, "first_ms": first_ms, "replay_ms": replay_ms,
             "captures": [captured, recaptured, replayed], "replay_launches": counts,
             "gap_to_eager": gaps, "peak_bytes": {"eager": eager_mem["peak"], "first": mem["peak"],
                                                  "replay": replay_mem["peak"]},
-            "graph_bytes": graph_bytes, "held_bytes": held, "library_bytes": library,
+            "graph_bytes": graph_bytes, "accounted_bytes": accounted, "held_bytes": held,
+            "library_bytes": library, "slack_bytes": slack, "reserve_freed": freed,
+            "pool_reserve": pool_total, "make_room_bytes": counted,
             "replay": replay}
 
 
@@ -6174,9 +6390,11 @@ def _bank_setup(dev, s_idx, s_vals):
 
 def bank_child(spec_json: str) -> int:
     """A process of the bank leg: with `config.program_bank_dir` at
-    spec["dir"], warm-load the bank (timed), warm the bank's server up,
-    serve BANK_REQUESTS requests, then run the sparse LR fit, counting
-    the captures of each step. Prints one JSON line."""
+    spec["dir"], warm-load the bank (timed). With spec["populate"], fill
+    the bank through `ProgramBank.populate` over each tenant's warmup and
+    the sparse LR fit; else warm the bank's server up, serve BANK_REQUESTS
+    requests, then run the sparse LR fit, counting the captures of each
+    step. Prints one JSON line."""
     from flink_ml_tpu_torch import SparseBatch, Table, compilebank
     from flink_ml_tpu_torch import config as port_config
     from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
@@ -6200,6 +6418,20 @@ def bank_child(spec_json: str) -> int:
         s_idx, s_vals, s_y = sparse_data(dev)
         table = Table({"features": SparseBatch(SPARSE_DIM, s_idx, s_vals), "label": s_y})
         server, example, requests = _bank_setup(dev, s_idx, s_vals)
+        if spec.get("populate"):
+            programs = [(server.warmup, (example,), {"tenants": [t]})
+                        for t in server.store.keys()]
+            programs.append((lambda: estimator(LogisticRegression).fit(table), (), None))
+            traces = _counter("jit.traces")
+            t0 = time.perf_counter()
+            out["populated"] = bank.populate(programs)
+            out["populate_ms"] = (time.perf_counter() - t0) * 1e3
+            out["populate_captures"] = _counter("jit.traces") - traces
+            out["programs"] = len(programs)
+            out["entries"] = bank.stats()["entries"]
+            out["refused"] = _counter("bank.refused")
+            print("bank " + json.dumps(out), flush=True)
+            return 0
         traces, loads = _counter("jit.traces"), _counter("jit.bankLoads")
         t0 = time.perf_counter()
         warm = server.warmup(example)
@@ -6223,10 +6455,10 @@ def bank_child(spec_json: str) -> int:
     return 0
 
 
-def run_bank_child(path):
+def run_bank_child(path, populate=False):
     import subprocess as sp
 
-    spec = json.dumps({"dir": path, "sizes": {n: globals()[n] for n in (
+    spec = json.dumps({"dir": path, "populate": populate, "sizes": {n: globals()[n] for n in (
         "DEVICE", "SPARSE_ROWS", "SPARSE_DIM", "NNZ", "MAX_ITER", "BATCH", "TOL",
         "SERVE_BUCKETS", "SERVE_MAX_ROWS")}})
     here = os.path.dirname(os.path.abspath(__file__))
@@ -6250,16 +6482,20 @@ def bank_leg(tmp):
     from flink_ml_tpu_torch import compilebank
 
     path = os.path.join(tmp, "bank")
-    fill = run_bank_child(path)
+    fill = run_bank_child(path, populate=True)
     fresh = run_bank_child(path)
     segments = len(SERVE_BUCKETS) if DEVICE == "cuda" else 0  # the CPU captures no segment
-    log(f"  bank: filled {fill['entries']:.0f} entries (warmup {fill['warmup']}, fit captures "
-        f"{fill['fit_captures']}); a fresh process warm-loaded {fresh['loaded_fits']} fit "
+    log(f"  bank: ProgramBank.populate drove {fill['populated']} of {fill['programs']} programs "
+        f"({BANK_TENANTS} tenants' warmups and the sparse fit) in {fill['populate_ms']:.1f} ms with "
+        f"{fill['populate_captures']} captures, filling {fill['entries']:.0f} entries; a fresh "
+        f"process warm-loaded {fresh['loaded_fits']} fit "
         f"signature(s) in {fresh['load_ms']:.1f} ms and {fresh['warmup']['bankLoads']:.0f} serving "
         f"signature(s) in its warmup ({fresh['warmup_ms']:.1f} ms): captures warmup "
         f"{fresh['warmup']['captures']:.0f}, {fresh['served']} requests "
         f"{fresh['serve_captures']}, first fit {fresh['fit_captures']} ({fresh['fit_ms']:.1f} ms, "
         f"{fresh['fit_bank_hits']} bank hit)")
+    check(fill["populated"] == fill["programs"] == BANK_TENANTS + 1,
+          f"populate drove {fill['populated']} of {fill['programs']} programs")
     check(fill["entries"] == 1 + segments, f"the bank holds {fill['entries']} entries")
     check(fresh["loaded_fits"] == 1 and fresh["warmup"]["bankLoads"] == segments,
           f"the fresh process warm-loaded {fresh['loaded_fits']} fits and "
@@ -6618,6 +6854,12 @@ def main() -> int:
     log(f"  launches on the main paths: {launches}")
     check(launches == launch_dict(sparse_row_dots=3 * (MAX_ITER + 2), sparse_grad=3 * MAX_ITER),
           f"launches over phase 3 {launches}")
+    table_api, table_api_launches = table_api_check(sk, dense_table, sparse_table,
+                                                    runs["sparse lr"]["model"])
+    for kernel in launches:
+        launches[kernel] += table_api_launches[kernel]
+    table_api["budgeted stream kmeans"] = budgeted_stream_kmeans(km_cols,
+                                                                 runs["stream kmeans"]["model"])
 
     # -- 4. results against references ------------------------------------
     log("phase 4: results")
@@ -6844,6 +7086,7 @@ def main() -> int:
                                  "graph transform": graph_run["transform_launches"][name],
                                  "reference-format transform":
                                      fleets["reference format"]["launches"]["winner"][name],
+                                 f"table api head({HEAD_ROWS})": table_api_launches[name],
                                  **(fused_launches if name == "sparse_row_dots" else {}),
                                  **(serving_launches if name == "sparse_row_dots" else {}),
                                  **{p: c[name] for p, c in checkpoints["launches"].items()
@@ -6893,6 +7136,7 @@ def main() -> int:
     log("text stages: " + json.dumps(texts))
     log("eval path: " + json.dumps(eval_run))
     log("stats stages: " + json.dumps(stat_stages) + "; functions: " + json.dumps(functions))
+    log("table api: " + json.dumps(table_api))
     log("graph path: " + json.dumps(graph_run))
     log("phase 9 stages: " + json.dumps(slice8) + "; window_all_and_process: " + json.dumps(windows_run))
     log("fleets and reference format: " + json.dumps(fleets))
@@ -6903,7 +7147,7 @@ def main() -> int:
     log("seconds by path (phases 3-14): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
-        f"total {time.perf_counter() - t_start:.1f} s")
+        f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

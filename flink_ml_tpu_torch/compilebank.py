@@ -50,7 +50,7 @@ import logging
 import os
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -342,6 +342,16 @@ class ProgramBank:
                           lambda tmp: _write_bytes(
                               tmp, json.dumps(manifest, sort_keys=True, indent=1).encode()),
                           site="bank.manifest")
+
+    def populate(self, programs: Iterable[Tuple[Callable, Tuple, Dict[str, Any]]]) -> int:
+        """Drive each declared `(callable, args, kwargs)` program once, so
+        the funnels back-fill the bank ahead of traffic. Returns the number
+        of programs driven."""
+        n = 0
+        for fn, args, kwargs in programs:
+            fn(*args, **(kwargs or {}))
+            n += 1
+        return n
 
     def stats(self) -> Dict[str, float]:
         return {"entries": float(len(self._entries)), "loadMs": self.load_ms}

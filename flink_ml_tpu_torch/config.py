@@ -209,6 +209,11 @@ def _scoped(name: str, value):
         module[name] = prev
 
 
+def device_cache_budget(budget_bytes: Optional[int]):
+    """Scoped override of `device_cache_bytes` (None = unbounded, 0 = off)."""
+    return _scoped("device_cache_bytes", budget_bytes)
+
+
 def hbm_budget_mode(budget_bytes: Optional[int]):
     """Scoped override of `hbm_budget_bytes` (None: admission off)."""
     return _scoped("hbm_budget_bytes", None if budget_bytes is None else max(0, int(budget_bytes)))

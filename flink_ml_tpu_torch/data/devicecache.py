@@ -4,6 +4,7 @@ Port of flink_ml_tpu/data/devicecache.py (`:134`, `:231`). A bounded
 iteration over a stream replays its batches every epoch; this keeps the
 staged batches on the device, so a batch crosses to the device once:
 
+- `within_device_budget` (`:66`): does an allocation fit that budget;
 - `DeviceEpochCache`: a keyed LRU of staged batches under
   `config.device_cache_bytes` (None is unbounded, 0 caches nothing). An
   evicted batch stays in the host cache and is staged again when next
@@ -44,10 +45,18 @@ from ..obs import memledger
 from ..parallel.prefetch import Prefetcher, Staged
 from ..utils import metrics
 
-__all__ = ["DeviceEpochCache", "CachedEpochLoader", "cache_contents_section",
-           "restore_cache_contents"]
+__all__ = ["DeviceEpochCache", "CachedEpochLoader", "within_device_budget",
+           "cache_contents_section", "restore_cache_contents"]
 
 _UNSET = object()
+
+
+def within_device_budget(nbytes: int) -> bool:
+    """Does a device allocation of `nbytes` fit `config.device_cache_bytes`?
+    None is an unbounded budget (it fits), 0 a disabled cache (nothing fits)."""
+    if config.device_cache_bytes is None:
+        return True
+    return int(nbytes) <= int(config.device_cache_bytes)
 
 
 def _release_ledger_entries(handles) -> None:

@@ -21,6 +21,7 @@ from ..api import as_kernel_matrix
 from ..linalg import DenseVector
 from ..ops.losses import LossFunc, predict_raw, sparse_dot, sparse_variant
 from ..ops.optimizer import SGD, read_train_result
+from ..parallel.prefetch import to_device
 from ..table import SparseBatch, StreamTable, Table, as_dense_matrix
 from ..utils import javacodec, read_write
 from ..utils.packing import packed_device_get
@@ -166,9 +167,9 @@ def staged_features(col):
     dense rows as float32."""
     device = config.device()
     if isinstance(col, SparseBatch):
-        return SparseBatch(col.size, torch.as_tensor(col.indices, dtype=torch.int32, device=device),
-                           torch.as_tensor(col.values, dtype=torch.float32, device=device))
-    return torch.as_tensor(as_dense_matrix(col), dtype=torch.float32, device=device)
+        return SparseBatch(col.size, to_device(col.indices, device, torch.int32),
+                           to_device(col.values, device, torch.float32))
+    return to_device(as_dense_matrix(col), device, torch.float32)
 
 
 def _raise_if_invalid(flag) -> None:

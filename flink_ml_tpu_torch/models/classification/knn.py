@@ -23,6 +23,7 @@ import torch
 from ... import config
 from ...api import Estimator, Model
 from ...common.param import HasFeaturesCol, HasLabelCol, HasPredictionCol
+from ...parallel.prefetch import to_device
 from ...param import IntParam, ParamValidators
 from ...table import Table, _to_numpy, as_dense_matrix
 from ...utils import javacodec, read_write
@@ -114,14 +115,16 @@ class KnnModel(Model, KnnModelParams):
         if isinstance(X, torch.Tensor):
             device = X.device
         k = min(self.get_k(), self.features.shape[0])
-        idx = top_k_indices(torch.as_tensor(X, dtype=torch.float32, device=device),
-                            torch.as_tensor(self.features, dtype=torch.float32, device=device), k)
+        idx = top_k_indices(to_device(X, device, torch.float32),
+                            to_device(self.features, device, torch.float32), k)
         # one readback either way: the neighbours' labels gathered on the
         # card, or their indices (never packed with float labels: float32
         # would round an index above 2**24)
         if isinstance(self.labels, torch.Tensor):
-            neighbor_labels = self.labels.to(device)[idx].double().cpu().numpy()
+            # tpulint: disable=host-sync-leak -- the transform's one readback (host predictions)
+            neighbor_labels = to_device(self.labels, device)[idx].double().cpu().numpy()
         else:
+            # tpulint: disable=host-sync-leak -- the transform's one readback
             neighbor_labels = np.asarray(self.labels, dtype=np.float64)[idx.cpu().numpy()]
         pred = _majority_vote(neighbor_labels)
         return [table.with_columns({self.get_prediction_col(): pred})]

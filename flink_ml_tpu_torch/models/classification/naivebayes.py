@@ -41,6 +41,7 @@ import torch
 from ... import config
 from ...api import Estimator, Model
 from ...common.param import HasFeaturesCol, HasLabelCol, HasPredictionCol
+from ...parallel.prefetch import to_device
 from ...param import DoubleParam, ParamValidators, StringParam
 from ...table import Table, _to_numpy, as_dense_matrix
 from ...utils import javacodec, read_write
@@ -179,7 +180,7 @@ class NaiveBayesModel(Model, NaiveBayesModelParams):
             return logp_h
         d, m = cats_h.shape
         L = self.labels.size
-        flat = torch.as_tensor(np.concatenate([
+        flat = to_device(np.concatenate([
             cats_h.ravel(), logp_h.ravel(), self.pi.astype(np.float32),
             self.labels.astype(np.float32)]), device=device)
         cm = d * m
@@ -205,7 +206,7 @@ class NaiveBayesModel(Model, NaiveBayesModelParams):
         chunk = _nb_chunk_rows(d, m_max)
         starts = list(range(0, n, chunk))
         cols = torch.arange(d, device=X.device)[:, None] * m_max
-        eps = torch.tensor(_EPS32, dtype=torch.float32, device=X.device)
+        eps = to_device(_EPS32, X.device, torch.float32)
         preds, flags, gaps = [], [], []
         for s in starts:
             Xc = X[s:s + chunk]
@@ -241,7 +242,7 @@ class NaiveBayesModel(Model, NaiveBayesModelParams):
             ties = torch.nonzero(near).flatten()
             HOST_COUNTS["NaiveBayes rows rescored on the host"] += int(n_near)
             host = self._predict_host(X[ties].double().cpu().numpy())
-            pred[ties] = torch.as_tensor(host, dtype=pred.dtype, device=pred.device)
+            pred[ties] = to_device(host, pred.device, pred.dtype)
         return [table.with_columns({self.get_prediction_col(): pred})]
 
     def _predict_host(self, X: np.ndarray) -> np.ndarray:
@@ -289,12 +290,12 @@ def _device_label(y, X: torch.Tensor):
     """The label as a float32 tensor on X's device, or None when float32
     cannot hold it exactly (the counts would merge labels)."""
     if isinstance(y, torch.Tensor):
-        return y.to(X.device) if y.dtype == torch.float32 else None
+        return to_device(y, X.device) if y.dtype == torch.float32 else None
     y_np = np.asarray(y)
     y32 = y_np.astype(np.float32)
     if not np.array_equal(y32.astype(y_np.dtype), y_np, equal_nan=True):
         return None
-    return torch.as_tensor(y32, device=X.device)
+    return to_device(y32, X.device)
 
 
 class NaiveBayes(Estimator, NaiveBayesParams):

@@ -44,7 +44,7 @@ from ...common.param import (
 from ...linalg import DenseVector
 from ...param import DoubleParam, ParamValidators
 from ...parallel.iteration import checkpoint_job_key, iterate_unbounded
-from ...parallel.prefetch import DeviceStager, Prefetcher
+from ...parallel.prefetch import DeviceStager, Prefetcher, to_device
 from ...table import StreamTable, Table, as_dense_matrix, global_batches
 from ...utils import read_write
 from ...utils.param_utils import update_existing_params
@@ -177,6 +177,7 @@ class OnlineLogisticRegressionModel(Model, OnlineLogisticRegressionModelParams):
         return self._published.coefficient is not None
 
     def transform_kernel(self, consts, cols, ctx):
+        # tpulint: disable=resident-program -- a tensor column stays on the card
         X = as_dense_matrix(cols[self.get_features_col()], allow_device=True).to(torch.float32)
         # each row's dot reduced on its own, in an order set by the width
         # alone: a served row's bits do not depend on the rows batched with
@@ -291,7 +292,7 @@ class OnlineLogisticRegression(Estimator, OnlineLogisticRegressionParams):
         # when the stream outruns the step, "sample" memory only (flow.shed)
         staged = Prefetcher(stager, policy=config.online_overload_policy,
                             name="online.ingest").iterate(batches)
-        init = torch.as_tensor(coeff, dtype=torch.float32, device=stager.device)
+        init = to_device(coeff, stager.device, torch.float32)
         # under config.iteration_checkpoint_dir each version snapshots the
         # FTRL state (coeff, z, n), and a resumed fit republishes it first
         updates = iterate_unbounded(

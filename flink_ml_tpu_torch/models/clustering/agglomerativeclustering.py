@@ -40,6 +40,7 @@ from ...common.window import (
     ProcessingTimeTumblingWindows,
 )
 from ...native import load_agglomerative
+from ...parallel.prefetch import to_device
 from ...param import BooleanParam, DoubleParam, IntParam, ParamValidators, StringParam
 from ...table import Table, as_dense_matrix
 from ...utils.datastream import event_time_groups_from_table
@@ -313,7 +314,7 @@ class AgglomerativeClustering(AlgoOperator, AgglomerativeClusteringParams):
         if not np.array_equal(kept_rows, np.arange(table.num_rows)):
             out = out.take(kept_rows)
         if isinstance(features, torch.Tensor):
-            pred = torch.as_tensor(pred, device=features.device)
+            pred = to_device(pred, features.device)
         out = out.with_columns({self.get_prediction_col(): pred})
         merge_table = Table({
             "clusterId1": [m[0] for m in all_merges],

@@ -72,7 +72,7 @@ from ...ops.optimizer import account_whole_fit
 from ...param import IntParam, ParamValidators, StringParam
 from ...parallel import supervisor
 from ...parallel.iteration import checkpoint_job_key
-from ...parallel.prefetch import DeviceStager
+from ...parallel.prefetch import DeviceStager, to_device
 from ...table import Table, as_dense_matrix
 from ...utils import javacodec, lazyjit, read_write
 from ...utils.param_utils import update_existing_params
@@ -134,11 +134,11 @@ def staged_points(X):
     (the graph reads it in place)."""
     if isinstance(X, torch.Tensor):
         X = X.to(torch.float32)
-        return X, lambda idx: X[torch.as_tensor(idx, device=X.device)]
+        return X, lambda idx: X[to_device(idx, X.device)]
     host = np.asarray(X, dtype=np.float32)
     device = config.device()
     return (lazyjit.Feed(host, host.shape, torch.float32, device),
-            lambda idx: torch.as_tensor(host[idx], device=device))
+            lambda idx: to_device(host[idx], device))
 
 
 @lazyjit.lazy_jit(static_argnames=("max_iter", "measure_name"), borrow=("X",))
@@ -172,7 +172,7 @@ def _lloyd_fleet_train(X, init_centroids, max_iters, measure_name: str):
     ([centroids.ravel | counts] per member), on the device, from one
     program of the funnel (`_lloyd_fleet_program`)."""
     max_iters = tuple(int(m) for m in max_iters)
-    limits = torch.as_tensor(max_iters, dtype=torch.int32, device=X.device)
+    limits = to_device(max_iters, X.device, torch.int32)
     return _lloyd_fleet_program(X, init_centroids, limits, max_iters, measure_name)
 
 
@@ -212,8 +212,8 @@ def staged_features(col) -> torch.Tensor:
     """A features column the kernel does not take as it is (a host column,
     or any SparseBatch) as dense float32 rows on the column's device
     (`config.device()` for a host column)."""
-    return torch.as_tensor(as_dense_matrix(col, allow_device=True), dtype=torch.float32,
-                           device=_linear.column_device(col))
+    return to_device(as_dense_matrix(col, allow_device=True), _linear.column_device(col),
+                     torch.float32)
 
 
 class KMeansModel(Model, KMeansModelParams):
@@ -353,7 +353,7 @@ class KMeans(Estimator, KMeansParams):
 
         measure = DistanceMeasure.get_instance(self.get_distance_measure())
         labels = torch.arange(k, device=device)
-        centroids = torch.as_tensor(init, device=device)
+        centroids = to_device(init, device)
         counts = centroids.new_zeros((k,))
         nb, max_iter = len(batch_rows), int(self.get_max_iter())
         ckpt_dir = config.iteration_checkpoint_dir

@@ -30,7 +30,7 @@ from ...common.param import (
 from ...linalg import DenseVector
 from ...ops.distance import DistanceMeasure
 from ...parallel.iteration import checkpoint_job_key, iterate_unbounded
-from ...parallel.prefetch import DeviceStager, Prefetcher
+from ...parallel.prefetch import DeviceStager, Prefetcher, to_device
 from ...table import StreamTable, Table, as_dense_matrix, global_batches
 from ...utils import read_write
 from ...utils.param_utils import update_existing_params
@@ -256,7 +256,7 @@ class OnlineKMeans(Estimator, OnlineKMeansParams):
         # when the stream outruns the step, "sample" memory only (flow.shed)
         staged = Prefetcher(stager, policy=config.online_overload_policy,
                             name="online.ingest").iterate(batches)
-        init = tuple(torch.as_tensor(a, dtype=torch.float32, device=stager.device)
+        init = tuple(to_device(a, stager.device, torch.float32)
                      for a in (centroids, weights))
         model = OnlineKMeansModel()
         model.centroids, model.weights = centroids, weights

@@ -26,6 +26,7 @@ import torch
 from ... import config
 from ...api import AlgoOperator
 from ...common.param import HasLabelCol, HasRawPredictionCol, HasWeightCol
+from ...parallel.prefetch import to_device
 from ...param import ParamValidators, StringArrayParam
 from ...table import Table
 
@@ -190,8 +191,8 @@ def _on(col, device: torch.device) -> torch.Tensor:
     """A column of numbers on `device`: a tensor as it is, a host column
     in float64."""
     if isinstance(col, torch.Tensor):
-        return col.to(device)
-    return torch.as_tensor(np.asarray(col, dtype=np.float64), device=device)
+        return to_device(col, device)
+    return to_device(np.asarray(col, dtype=np.float64), device)
 
 
 class BinaryClassificationEvaluator(AlgoOperator, BinaryClassificationEvaluatorParams):
@@ -223,6 +224,7 @@ class BinaryClassificationEvaluator(AlgoOperator, BinaryClassificationEvaluatorP
         n = int(np.shape(scores)[0])
         weights = (torch.ones(n, dtype=torch.float64, device=device) if weight_col is None
                    else _on(table.column(weight_col), device))
+        # tpulint: disable=host-sync-leak -- the evaluation's one readback
         packed = binary_metrics_device(_on(scores, device), _on(labels_col, device),
                                        weights).cpu().numpy()
         metrics = dict(zip(METRICS, (float(v) for v in packed)))

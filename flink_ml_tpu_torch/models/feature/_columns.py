@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ... import config
+from ...parallel.prefetch import to_device
 from ...table import as_dense_matrix
 from .._linear import is_device_column
 
@@ -33,7 +34,7 @@ def staged(arr, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     arr = np.asarray(arr)
     if dtype is None and arr.dtype not in (np.float32, np.float64):
         arr = arr.astype(np.float64)
-    return torch.as_tensor(arr, dtype=dtype, device=config.device())
+    return to_device(arr, config.device(), dtype)
 
 
 def staged_numbers(col) -> torch.Tensor:
@@ -57,7 +58,7 @@ def output(t: torch.Tensor, like):
 
 def constant(values, like: torch.Tensor) -> torch.Tensor:
     """Host values as a tensor in `like`'s dtype and device."""
-    return torch.as_tensor(np.asarray(values), dtype=like.dtype, device=like.device)
+    return to_device(np.asarray(values), like.device, like.dtype)
 
 
 def model_constant(values, X: torch.Tensor, col) -> torch.Tensor:
@@ -66,4 +67,4 @@ def model_constant(values, X: torch.Tensor, col) -> torch.Tensor:
     float64 for a host column (the JAX host path's numpy arithmetic, which
     promotes a float32 column to float64)."""
     dtype = X.dtype if is_device_column(col) else torch.float64
-    return torch.as_tensor(np.asarray(values), dtype=dtype, device=X.device)
+    return to_device(np.asarray(values), X.device, dtype)

@@ -78,12 +78,14 @@ class Binarizer(Transformer, BinarizerParams):
             col = table.column(name)
             if isinstance(col, SparseBatch):
                 values = _columns.staged(col.values)
+                # tpulint: disable=host-sync-leak -- a host SparseBatch's values go back to the host
                 binary = _columns.output(_binarize(values, thr, values.dtype), col)
                 indices = col.indices.clone() if _columns.is_device_column(col) else col.indices.copy()
                 updates[out_name] = SparseBatch(col.size, indices, binary)
             elif _columns.is_device_column(col):
                 updates[out_name] = _binarize(col, _columns.constant(thr, col), torch.float32)
             else:
+                # tpulint: disable=host-sync-leak -- a host column's output goes back to the host
                 updates[out_name] = _columns.output(
                     _binarize(_columns.staged_numbers(col), thr, torch.float64), col)
         return [table.with_columns(updates)]

@@ -29,6 +29,7 @@ import torch
 
 from ...api import Transformer
 from ...common.param import HasHandleInvalid, HasInputCols, HasOutputCols
+from ...parallel.prefetch import to_device
 from ...param import DoubleArrayArrayParam, ParamValidators
 from ...table import Table
 from . import _columns
@@ -143,10 +144,11 @@ class Bucketizer(Transformer, BucketizerParams):
                 idx = torch.where(bad, len(splits) - 1, idx)
             else:
                 bads.append(bad)
+            # tpulint: disable=host-sync-leak -- a host column's buckets go back to the host
             updates[out_name] = _columns.output(idx.to(out_dtype), col)
         out = table.with_columns(updates)
         if bads:
-            invalid = torch.stack([b.to(bads[0].device) for b in bads]).any(dim=0)
+            invalid = torch.stack([to_device(b, bads[0].device) for b in bads]).any(dim=0)
             if bool(invalid.any()):
                 if self.get_handle_invalid() == HasHandleInvalid.ERROR_INVALID:
                     raise ValueError(_INVALID_MESSAGE)

@@ -31,6 +31,7 @@ from ... import config
 from ...api import Estimator, Model
 from ...common.param import HasInputCol, HasOutputCol
 from ...ops import tokens as tokens_ops
+from ...parallel.prefetch import to_device
 from ...param import BooleanParam, DoubleParam, IntParam, ParamValidators
 from ...table import DictTokenMatrix, SparseBatch, Table, rows_to_sparse_batch
 from ...utils import javacodec, read_write
@@ -111,8 +112,8 @@ def min_tf_thresholds(ids, min_tf: float) -> torch.Tensor:
     if isinstance(ids, torch.Tensor):
         valid = (ids >= 0).sum(dim=1)
     else:
-        valid = torch.as_tensor((np.asarray(ids) >= 0).sum(axis=1), device=device)
-    return torch.tensor(min_tf, dtype=torch.float32, device=device) * valid.to(torch.float32)
+        valid = to_device((np.asarray(ids) >= 0).sum(axis=1), device)
+    return to_device(min_tf, device, torch.float32) * valid.to(torch.float32)
 
 
 class CountVectorizerModel(Model, CountVectorizerModelParams):
@@ -189,6 +190,7 @@ class CountVectorizer(Estimator, CountVectorizerParams):
         min_count = min_df if min_df >= 1.0 else min_df * n_docs
         max_count = max_df if max_df >= 1.0 else max_df * n_docs
         if isinstance(col, DictTokenMatrix):
+            # tpulint: disable=host-sync-leak -- the fit's one readback (a host vocabulary)
             tf_arr, df_arr = tokens_ops.term_counts_chunked(col.ids, len(col.vocab)).cpu().numpy()
             # df > 0: dictionary entries absent from the corpus (stop words
             # filtered upstream of an unchanged vocabulary) stay out, as the

@@ -72,6 +72,8 @@ class ElementwiseProduct(Transformer, ElementwiseProductParams):
         values = _columns.staged(col.values)
         scale = _columns.constant(sv, values)[indices.clamp(min=0)]
         scaled = values * torch.where(indices >= 0, scale, 0.0)
-        out = SparseBatch(col.size, _columns.output(indices.to(torch.int32), col),
-                          _columns.output(scaled, col))
+        # tpulint: disable=host-sync-leak -- a host SparseBatch's indices go back to the host
+        out_indices = _columns.output(indices.to(torch.int32), col)
+        # tpulint: disable=host-sync-leak -- a host SparseBatch's values go back to the host
+        out = SparseBatch(col.size, out_indices, _columns.output(scaled, col))
         return [table.with_columns({self.get_output_col(): out})]

@@ -28,6 +28,7 @@ from ... import config
 from ...api import Estimator, Model, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
 from ...linalg import DenseVector
+from ...parallel.prefetch import to_device
 from ...param import IntParam, ParamValidators
 from ...table import SparseBatch, Table
 from ...utils import javacodec, read_write
@@ -109,7 +110,7 @@ class IDFModel(Model, IDFModelParams):
                 table, lambda c: _columns.staged_matrix(c, torch.float64))]
         # a SparseBatch keeps its layout, which the kernel does not take
         if _linear.is_device_column(col):
-            idf = torch.as_tensor(self.idf, dtype=torch.float32, device=col.values.device)
+            idf = to_device(self.idf, col.values.device, torch.float32)
             valid = col.indices >= 0
             gathered = torch.where(valid, idf[torch.where(valid, col.indices, 0).long()], 0.0)
             out = SparseBatch(col.size, col.indices.clone(), col.values * gathered.to(col.values.dtype))
@@ -142,6 +143,7 @@ class IDF(Estimator, IDFParams):
             df, n_docs = sparse_doc_freq(col), col.n
         else:
             X = _columns.staged_matrix(col)
+            # tpulint: disable=host-sync-leak -- the fit's one readback (a host idf)
             df, n_docs = (X != 0).sum(dim=0).cpu().numpy().astype(np.float64), X.shape[0]
         idf = np.where(df >= self.get_min_doc_freq(), np.log((n_docs + 1.0) / (df + 1.0)), 0.0)
         model = IDFModel()

@@ -35,6 +35,7 @@ from ...api import Estimator, Model, column_dtype
 from ...common.param import HasInputCols, HasMissingValue, HasOutputCols, HasRelativeError
 from ...common.quantilesummary import QuantileSummary
 from ...linalg import DenseVector
+from ...parallel.prefetch import to_device
 from ...param import ParamValidators, StringParam
 from ...table import StreamTable, Table
 from ...utils import javacodec, read_write
@@ -88,7 +89,7 @@ def _host_surrogate(arr: torch.Tensor, missing: float, strategy: str) -> torch.T
     terms: np.mean, np.median, and the smallest of np.unique's most
     frequent values."""
     valid = arr[~_missing_mask(arr, missing)]
-    count = torch.tensor(float(valid.numel()), dtype=arr.dtype, device=arr.device)
+    count = to_device(float(valid.numel()), arr.device, arr.dtype)
     if valid.numel() == 0:
         return torch.stack([torch.zeros((), dtype=arr.dtype, device=arr.device), count])
     if strategy == MEAN:

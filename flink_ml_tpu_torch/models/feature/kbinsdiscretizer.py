@@ -44,6 +44,7 @@ from ...api import Estimator, Model, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
 from ...common.quantilesummary import column_sketches, update_column_sketches
 from ...ops.quantile import jnp_quantile, numpy_quantile
+from ...parallel.prefetch import to_device
 from ...param import IntParam, ParamValidators, StringParam
 from ...table import StreamTable, Table, as_dense_matrix
 from ...utils import javacodec, read_write
@@ -134,7 +135,7 @@ def bin_all(X: torch.Tensor, bin_edges: List[np.ndarray], edge_tensors=None) -> 
             out[:, j] = 0
             continue
         if edge_tensors is None:
-            e = torch.as_tensor(edges[~np.isnan(edges)], dtype=X.dtype, device=X.device)
+            e = to_device(edges[~np.isnan(edges)], X.device, X.dtype)
         else:
             e = edge_tensors[j].to(X.dtype)
         idx = torch.searchsorted(e, X[:, j].contiguous(), right=True) - 1
@@ -205,7 +206,7 @@ class KBinsDiscretizer(Estimator, KBinsDiscretizerParams):
         on_device = _columns.is_device_column(col)
         X = _columns.staged_matrix(col)
         if X.shape[0] > self.get_sub_samples():
-            X = X[subsample_rows(X.shape[0], self.get_sub_samples()).to(X.device)]
+            X = X[to_device(subsample_rows(X.shape[0], self.get_sub_samples()), X.device)]
         strategy, num_bins = self.get_strategy(), self.get_num_bins()
         if strategy == UNIFORM:
             # a host column's float32 stays float32, as numpy's min/max keep it
@@ -223,6 +224,7 @@ class KBinsDiscretizer(Estimator, KBinsDiscretizerParams):
             all_edges = _linear.packed_to_host(all_edges)[0]
             edges = [np.unique(all_edges[:, j]) for j in range(X.shape[1])]
         else:  # kmeans: the JAX package's host 1-D Lloyd on each sampled column
+            # tpulint: disable=host-sync-leak -- the kmeans strategy's host 1-D Lloyd
             X_host = X.cpu().numpy()
             edges = [np.asarray(kmeans_1d_edges(X_host[:, j], num_bins), dtype=np.float64)
                      for j in range(X_host.shape[1])]

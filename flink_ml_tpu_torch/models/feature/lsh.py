@@ -31,8 +31,9 @@ import torch
 from ... import config
 from ...api import Estimator, Model
 from ...common.param import HasInputCol, HasOutputCol, HasSeed
+from ...parallel.prefetch import to_device
 from ...param import IntParam, ParamValidators
-from ...table import SparseBatch, Table, _sparse_vectors_to_batch, _to_numpy, as_dense_matrix
+from ...table import SparseBatch, Table, _to_numpy, as_sparse_batch
 from ...utils import javacodec, read_write
 from ...utils.javarandom import JavaRandom
 from ...utils.param_utils import update_existing_params
@@ -70,34 +71,16 @@ class MinHashLSHParams(LSHParams, HasSeed):
     pass
 
 
-def as_sparse_batch(col) -> SparseBatch:
-    """A features column as a SparseBatch, as the JAX package's
-    `as_sparse_batch` makes it: a SparseBatch as it is, an object column of
-    vectors through `to_sparse`, a dense (n, d) column with every index
-    0..d-1 in every row (zeros included, since only indices count)."""
-    if isinstance(col, SparseBatch):
-        return col
-    if isinstance(col, np.ndarray) and col.dtype == object:
-        return _sparse_vectors_to_batch([v.to_sparse() for v in col])
-    dense = as_dense_matrix(col, allow_device=True)
-    n, d = dense.shape
-    if isinstance(dense, torch.Tensor):
-        indices = torch.arange(d, dtype=torch.int32, device=dense.device).expand(n, d)
-    else:
-        indices = np.tile(np.arange(d, dtype=np.int32), (n, 1))
-    return SparseBatch(d, indices, dense)
-
-
 def min_hash(indices, coeff_a: np.ndarray, coeff_b: np.ndarray, device=None) -> torch.Tensor:
     """(n, k) indices (-1 absent) -> (n, h) int64 min-hash values on the
     indices' device (a host array is staged to `device`, else to
     `config.device()`); a row of only padding gives HASH_PRIME."""
     if not isinstance(indices, torch.Tensor):
-        indices = torch.as_tensor(np.asarray(indices),
-                                  device=device if device is not None else config.device())
+        indices = to_device(np.asarray(indices),
+                            device if device is not None else config.device())
     dev = indices.device
-    a = torch.as_tensor(np.asarray(coeff_a, dtype=np.int64), device=dev)
-    b = torch.as_tensor(np.asarray(coeff_b, dtype=np.int64), device=dev)
+    a = to_device(np.asarray(coeff_a, dtype=np.int64), dev)
+    b = to_device(np.asarray(coeff_b, dtype=np.int64), dev)
     n, k = indices.shape
     out = torch.empty((n, a.numel()), dtype=torch.int64, device=dev)
     step = max(1, HASH_CHUNK_BYTES // (8 * max(k, 1) * max(a.numel(), 1)))
@@ -158,6 +141,7 @@ class MinHashLSHModel(Model, LSHParams):
         if bool((present == 0).any()):
             raise ValueError("Must have at least 1 non zero entry.")
         nt = self.get_num_hash_tables()
+        # tpulint: disable=host-sync-leak -- the hashes' one readback: the output is host vectors
         rows = list(_to_numpy(self._hash(batch)).astype(np.float64).reshape(
             batch.n * nt, self.get_num_hash_functions_per_table()))
         out = np.empty(batch.n, dtype=object)
@@ -178,7 +162,7 @@ class MinHashLSHModel(Model, LSHParams):
         same = (self._shape(hashes) == self._shape(key_hash)).all(dim=2).any(dim=1)
         candidates = _to_numpy(torch.nonzero(same).flatten())
         idx = batch.indices
-        rows = (_to_numpy(idx[torch.as_tensor(candidates, device=idx.device)])
+        rows = (_to_numpy(idx[to_device(candidates, idx.device)])
                 if isinstance(idx, torch.Tensor) else idx[candidates])
         dists = [_jaccard_distance(_row_indices(rows, r), key_sparse.indices)
                  for r in range(candidates.size)]

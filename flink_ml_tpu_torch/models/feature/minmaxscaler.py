@@ -100,6 +100,7 @@ class MinMaxScalerModel(Model, MinMaxScalerParams):
             return [self._transform_with_kernel(table, _columns.staged_matrix)]
         X = _columns.staged_matrix(col)
         scale, offset = (_columns.model_constant(c, X, col) for c in self.scale_offset())
+        # tpulint: disable=host-sync-leak -- a host column's output goes back to the host
         return [table.with_columns({self.get_output_col(): _columns.output(X * scale + offset, col)})]
 
     def _save_extra(self, path: str) -> None:

@@ -111,6 +111,7 @@ class VarianceThresholdSelector(Estimator, VarianceThresholdSelectorParams):
         # package's float32 variances with a Python float
         kept = sample_variance(X) > self.get_variance_threshold()
         model = VarianceThresholdSelectorModel()
+        # tpulint: disable=host-sync-leak -- the fit's one readback (host indices)
         model.indices = torch.nonzero(kept).flatten().cpu().numpy()
         update_existing_params(model, self)
         return model

@@ -27,6 +27,7 @@ import torch
 from ... import config
 from ...api import Transformer
 from ...common.param import HasHandleInvalid, HasInputCols, HasOutputCol
+from ...parallel.prefetch import to_device
 from ...param import IntArrayParam
 from ...table import Table, as_dense_matrix
 from . import _columns
@@ -92,7 +93,7 @@ class VectorAssembler(Transformer, VectorAssemblerParams):
         mats = self._matrices(table.column)
         tensors = [m for m in mats if isinstance(m, torch.Tensor)]
         device = tensors[0].device if tensors else config.device()
-        out = torch.cat([torch.as_tensor(m, device=device) for m in mats], dim=1)
+        out = torch.cat([to_device(m, device) for m in mats], dim=1)
         keep = ~torch.isnan(out).any(dim=1)
         result = table.with_columns({self.get_output_col(): out if tensors else out.cpu().numpy()})
         return [result.take(np.nonzero(keep.cpu().numpy())[0])]

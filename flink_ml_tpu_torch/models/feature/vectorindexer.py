@@ -26,6 +26,7 @@ import torch
 
 from ...api import Estimator, Model
 from ...common.param import HasHandleInvalid, HasInputCol, HasOutputCol
+from ...parallel.prefetch import to_device
 from ...param import IntParam, ParamValidators
 from ...table import Table
 from ...ops.quantile import count_distinct
@@ -88,6 +89,7 @@ class VectorIndexerModel(Model, VectorIndexerModelParams):
         col = table.column(self.get_input_col())
         X = _columns.staged_matrix(col, torch.float64)
         if not self.category_maps:  # nothing to re-index: pass through
+            # tpulint: disable=host-sync-leak -- a host column passed through goes back to the host
             return [table.with_columns({self.get_output_col(): _columns.output(X, col)})]
         handle = self.get_handle_invalid()
         out = X.clone()
@@ -95,13 +97,15 @@ class VectorIndexerModel(Model, VectorIndexerModelParams):
         for col_id, mapping in self.category_maps.items():
             keys = np.fromiter(mapping.keys(), dtype=np.float64, count=len(mapping))
             order = np.argsort(keys)  # a NaN key sorts last and never matches, as in a dict
-            keys_t = torch.as_tensor(keys[order], device=X.device)
-            index_t = torch.as_tensor(np.fromiter(mapping.values(), dtype=np.float64,
-                                                  count=len(mapping))[order], device=X.device)
+            keys_t = to_device(keys[order], X.device)
+            index_t = to_device(np.fromiter(mapping.values(), dtype=np.float64,
+                                            count=len(mapping))[order], X.device)
             values = X[:, col_id].to(torch.float64).contiguous()
             pos = torch.searchsorted(keys_t, values).clamp(max=keys.size - 1)
             found = keys_t[pos] == values
+            # tpulint: disable=host-sync-leak -- eager error check (fused: a guard)
             if handle == HasHandleInvalid.ERROR_INVALID and not bool(found.all()):
+                # tpulint: disable=host-sync-leak -- only on the way to the raise
                 unseen = float(values[~found][0])
                 raise ValueError(
                     f"The input contains unseen value: {unseen}. See "
@@ -112,7 +116,9 @@ class VectorIndexerModel(Model, VectorIndexerModelParams):
             # an unseen value maps to len(map) under keep; under skip its row goes
             unseen_to = float(len(mapping)) if handle == HasHandleInvalid.KEEP_INVALID else values
             out[:, col_id] = torch.where(found, index_t[pos], unseen_to).to(out.dtype)
+        # tpulint: disable=host-sync-leak -- a host column's output goes back to the host
         result = table.with_columns({self.get_output_col(): _columns.output(out, col)})
+        # tpulint: disable=host-sync-leak -- skip: kept rows set the output's shape
         if bool(drop.any()):
             result = result.take(torch.nonzero(~drop).flatten())
         return [result]
@@ -148,10 +154,12 @@ class VectorIndexer(Estimator, VectorIndexerParams):
         col = table.column(self.get_input_col())
         on_device = _columns.is_device_column(col)
         X = _columns.staged_matrix(col)
+        # tpulint: disable=host-sync-leak -- the fit's readback (host category maps)
         counts = count_distinct(X, nan_equal=not on_device).cpu().numpy()
         category_maps = {}
         for j in np.nonzero(counts <= self.get_max_categories())[0]:
             # the distinct values come to the host, not the column
+            # tpulint: disable=host-sync-leak -- the fit's readback (a column's values)
             category_maps[int(j)] = build_category_map(torch.unique(X[:, j]).cpu().numpy())
         model = VectorIndexerModel()
         model.category_maps = category_maps

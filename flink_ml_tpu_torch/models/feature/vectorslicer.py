@@ -15,6 +15,7 @@ import torch
 
 from ...api import Transformer, as_kernel_matrix
 from ...common.param import HasInputCol, HasOutputCol
+from ...parallel.prefetch import to_device
 from ...param import IntArrayParam, ParamValidator
 from ...table import Table
 from . import _columns
@@ -55,7 +56,7 @@ def select_columns(X: torch.Tensor, indices, index_tensor=None) -> torch.Tensor:
     if idx.size and np.array_equal(idx, np.arange(idx[0], idx[0] + idx.size)):
         return X[:, int(idx[0]):int(idx[0]) + idx.size].contiguous()
     if index_tensor is None:
-        index_tensor = torch.as_tensor(idx, device=X.device)
+        index_tensor = to_device(idx, X.device)
     return X[:, index_tensor]
 
 

@@ -80,6 +80,7 @@ from .. import config
 from ..ckpt import faults
 from ..obs import tracing
 from ..parallel import supervisor
+from ..parallel.prefetch import to_device
 from ..utils import lazyjit
 from ..utils.packing import packed_device_get
 from .losses import LossFunc
@@ -130,7 +131,7 @@ def sgd_hyper(learning_rate, reg, elastic_net, tol, device) -> torch.Tensor:
     before they scale a tensor."""
     lr, reg, en, tol = float(learning_rate), float(reg), float(elastic_net), float(tol)
     rows = np.asarray([lr, reg, en, tol, en * reg, (1.0 - en) * reg], np.float64)
-    return torch.as_tensor(rows.astype(np.float32), device=device)
+    return to_device(rows.astype(np.float32), device)
 
 
 def _hyper_prox_step(coeff, hyper):
@@ -261,8 +262,8 @@ def _resumed_state(snap, device):
 
     coeff, grad, wsum, _ = stage_section(snap, "model", device=device)
     return (coeff, grad, wsum,
-            torch.tensor(snap.epoch, dtype=torch.int32, device=device),
-            torch.tensor(snap.criteria, dtype=torch.float32, device=device))
+            to_device(snap.epoch, device, torch.int32),
+            to_device(snap.criteria, device, torch.float32))
 
 
 class StreamLayout(NamedTuple):
@@ -361,7 +362,7 @@ def _stage(arr, dtype, device):
                 f"training inputs must share one device, got {arr.device} and {device}"
             )
         return arr.to(dtype) if arr.dtype != dtype else arr
-    return torch.as_tensor(np.asarray(arr), dtype=dtype, device=device)
+    return to_device(np.asarray(arr), device, dtype)
 
 
 @dataclass
@@ -486,6 +487,7 @@ class SGD:
                     _snapshot.load_job_snapshot(ckpt, key, templates=templates, expect_meta=meta)
                 if snap is not None:
                     state, start = _resumed_state(snap, device), snap.epoch
+            # tpulint: disable=host-sync-leak -- a resumed fit reads its cut once (eager loop)
             stopped = ckpt is not None and start > 0 and float(state[4]) <= self.tol
             hyper = self._hyper(device)
             loader = CachedEpochLoader(fetch)
@@ -702,8 +704,8 @@ def fleet_hyper(rows, device) -> FleetHyper:
     rows = np.asarray(rows, np.float64).reshape(-1, 5)
     reg, en = rows[:, 3], rows[:, 4]
     prox = np.stack([en * reg, (1.0 - en) * reg], axis=1)
-    return FleetHyper(torch.as_tensor(rows.astype(np.float32), device=device),
-                      torch.as_tensor(prox.astype(np.float32), device=device))
+    return FleetHyper(to_device(rows.astype(np.float32), device),
+                      to_device(prox.astype(np.float32), device))
 
 
 def fleet_init_state(members: int, d: int, device, member_minor: bool = False):

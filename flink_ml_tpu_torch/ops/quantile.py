@@ -29,6 +29,8 @@ from typing import Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.prefetch import to_device
+
 #: elements sorted at once; a block of columns is at most this many
 #: values (its sort keeps an int64 index of the same count)
 SORT_BLOCK_ELEMENTS = 1 << 27
@@ -46,7 +48,7 @@ def _sorted_blocks(X: torch.Tensor) -> Iterator[Tuple[int, torch.Tensor]]:
 def sorted_rows(X: torch.Tensor, rows: Sequence[int]) -> torch.Tensor:
     """Rows `rows` of X sorted column by column: (len(rows), d), on X's
     device, in X's dtype."""
-    idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=X.device)
+    idx = to_device(np.asarray(rows, dtype=np.int64), X.device)
     out = torch.empty((idx.numel(), X.shape[1]), dtype=X.dtype, device=X.device)
     for c0, block in _sorted_blocks(X):
         out[:, c0:c0 + block.shape[0]] = block.index_select(1, idx).t()
@@ -86,8 +88,8 @@ def jnp_quantile(X: torch.Tensor, qs) -> torch.Tensor:
     k = q.size
     rows = sorted_rows(X, np.concatenate([low_i, high_i, [n - 1]]))
     lo_v, hi_v, last = rows[:k], rows[k:2 * k], rows[2 * k]
-    w_low = torch.as_tensor(w_low, device=X.device)[:, None]
-    w_high = torch.as_tensor(w_high, device=X.device)[:, None]
+    w_low = to_device(w_low, X.device)[:, None]
+    w_high = to_device(w_high, X.device)[:, None]
     return _nan_columns(torch.addcmul(hi_v * w_high, lo_v, w_low), last)
 
 
@@ -107,7 +109,7 @@ def numpy_quantile(X: torch.Tensor, qs) -> torch.Tensor:
     k = virtual.size
     rows = sorted_rows(X, np.concatenate([prev_i % n, nxt_i % n, [n - 1]]))
     a, b, last = rows[:k], rows[k:2 * k], rows[2 * k]
-    g = torch.as_tensor(gamma, dtype=X.dtype, device=X.device)[:, None]
+    g = to_device(gamma, X.device, X.dtype)[:, None]
     diff = b - a
     out = torch.where(g >= 0.5, b - diff * (1 - g), a + diff * g)
     return _nan_columns(out, last)

@@ -31,6 +31,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
+from ..parallel.prefetch import to_device
 from ..table import _to_numpy
 from .special import betainc_reg, gammainc_p
 
@@ -97,8 +98,8 @@ def _device_label(y, X: torch.Tensor) -> torch.Tensor:
     """The label on X's device in X's dtype: a host label is staged there
     as the JAX device branch's `jnp.asarray` stages it (float32)."""
     if isinstance(y, torch.Tensor):
-        return y.to(device=X.device, dtype=X.dtype)
-    return torch.as_tensor(np.asarray(y), dtype=X.dtype, device=X.device)
+        return to_device(y, X.device, X.dtype)
+    return to_device(np.asarray(y), X.device, X.dtype)
 
 
 def _anova_device_sums(X: torch.Tensor, y: torch.Tensor):

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..parallel.prefetch import to_device
 
 CHUNK_ROWS = 1_000_000
 DENSE_COUNT_MAX_TERMS = 512
@@ -49,13 +50,13 @@ def _chunk(ids, start: int, stop: int, device: torch.device) -> torch.Tensor:
     part = ids[start:stop]
     if isinstance(part, torch.Tensor):
         return part.to(torch.int32)
-    return torch.as_tensor(np.asarray(part), dtype=torch.int32, device=device)
+    return to_device(np.asarray(part), device, torch.int32)
 
 
 def _staged(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+        return to_device(x, device, dtype)
+    return to_device(np.asarray(x), device, dtype)
 
 
 def term_counts(ids: torch.Tensor, num_terms: int) -> torch.Tensor:
@@ -228,9 +229,10 @@ def ngram_vocab_observed(vocab: np.ndarray, gram: int,
     on the device (one readback), each code's rank from a search of them;
     only the observed codes decode to strings. -1 stays -1."""
     u = len(vocab)
+    # tpulint: disable=host-sync-leak -- the observed codes' one readback
     uniq_host = torch.unique(codes, sorted=True).cpu().numpy()
     uniq_host = uniq_host[uniq_host >= 0]
-    uniq = torch.as_tensor(uniq_host, dtype=torch.int32, device=codes.device)
+    uniq = to_device(uniq_host, codes.device, torch.int32)
     n = codes.shape[0]
     remapped = torch.empty_like(codes)
     for s in range(0, n, CHUNK_ROWS):

@@ -12,7 +12,8 @@ Port of flink_ml_tpu/parallel/prefetch.py (`:114`, `:136`, `:214-262`,
   `record_stream`s the device buffer onto it, so the caching allocator
   cannot hand the buffer out again while the consumer still reads it. A
   ring slot is written again only after its last copy has finished. On the
-  CPU the staging is a plain copy. `stage_to_device` is the one-call form.
+  CPU the staging is a plain copy. `stage_to_device` is the one-call form,
+  and `to_device` the accounted `torch.as_tensor` of a one-off upload.
   Every staging is accounted (`h2d.count`, `h2d.bytes`), admitted against
   `config.hbm_budget_bytes` before it allocates, and, given a `category`,
   ledgered (obs/memledger.py: `model` for constants, `serving` for served
@@ -50,7 +51,7 @@ from .. import config, flow
 from ..obs import memledger, timeline
 from ..utils import metrics
 
-__all__ = ["DeviceStager", "Prefetcher", "Staged", "stage_to_device", "account_h2d",
+__all__ = ["DeviceStager", "Prefetcher", "Staged", "stage_to_device", "to_device", "account_h2d",
            "next_bucket", "pad_rows", "slice_rows"]
 
 #: bytes each leaf's region of a staging buffer is aligned to
@@ -129,6 +130,7 @@ class DeviceStager:
         slot = self._next
         self._next = (slot + 1) % len(self._ring)
         if self._done[slot] is not None:
+            # tpulint: disable=host-sync-leak -- a ring slot's refill waits for its copy
             self._done[slot].synchronize()  # the slot's last copy has landed
         pinned = self._ring[slot]
         if pinned is None or pinned.numel() < nbytes:
@@ -194,6 +196,18 @@ def stage_to_device(tree, device: Optional[torch.device] = None,
     """Stage one tree through a one-slot `DeviceStager`. A loop that stages
     many batches keeps one stager, so its pinned buffers are reused."""
     return DeviceStager(device, dtype, slots=1)(tree, category)
+
+
+def to_device(data, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """`data` (host values, a host tensor or a tensor anywhere) as a tensor
+    on `device`, as `torch.as_tensor(data, dtype=dtype, device=device)`
+    gives it, with a copy from the host to the card accounted (`h2d.*`).
+    The one-off uploads of a stage (indices, a model's constants, a host
+    column) take this; the bulk paths stage through `DeviceStager`."""
+    out = torch.as_tensor(data, dtype=dtype, device=device)
+    if out.is_cuda and not (isinstance(data, torch.Tensor) and data.is_cuda):
+        account_h2d(out.numel() * out.element_size())
+    return out
 
 
 def account_h2d(nbytes: int, arrays: int = 1, seconds: Optional[float] = None) -> None:

@@ -230,15 +230,16 @@ class _CapturedSegment(lazyjit.Captured):
 
         captured, (cols, self.guard_vec, self.messages) = lazyjit.capture(cache.ensure_pool(),
                                                                           body)
-        super().__init__(captured.graph, captured.launches)
+        super().__init__(captured.graph, captured.launches, captured.pool_bytes)
         self.outputs = {n: v for n, v in cols.items() if self.static_feed.get(n) is not v}
         # what this graph alone keeps between replays: outside the pool its
         # static feed and (unless the cache shares them) its constant
-        # buffers, inside it its outputs; the pool's temporaries are shared
-        # with the segment's other graphs
+        # buffers, inside it what the capture left allocated there (its
+        # outputs, measured: lazyjit.capture); the pool's temporaries are
+        # shared with the segment's other graphs
         self.static_bytes = _bytes(_tree_leaves(self.static_feed)) + (
             0 if shared else self.operands.nbytes)
-        self.kept_bytes = self.static_bytes + _bytes(_tree_leaves(self.outputs) + [self.guard_vec])
+        self.kept_bytes = self.static_bytes + self.pool_bytes
 
     def run(self, consts_list, feed: Dict[str, Any]):
         for name, col in feed.items():

@@ -213,6 +213,7 @@ class _Readback:
     def wait(self) -> Dict[str, Any]:
         t0 = time.perf_counter()
         if self.event is not None:
+            # tpulint: disable=host-sync-leak -- a served batch's one readback
             self.event.synchronize()
         if self.device is None:
             return {}

@@ -16,7 +16,7 @@ column of token lists.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Sequence
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,7 +24,7 @@ import torch
 from .linalg import DenseVector, SparseVector, Vector
 
 __all__ = ["Table", "SparseBatch", "StreamTable", "DictTokenMatrix", "as_dense_matrix",
-           "global_batches", "rows_to_sparse_batch"]
+           "as_sparse_batch", "global_batches", "rows_to_sparse_batch"]
 
 
 class DictTokenMatrix:
@@ -281,6 +281,18 @@ class Table:
             self._columns[name] = col
         self._num_rows = n or 0
 
+    @staticmethod
+    def from_dict(data: Dict[str, Any]) -> "Table":
+        return Table(data)
+
+    @staticmethod
+    def from_rows(rows: Sequence[Sequence], names: Sequence[str]) -> "Table":
+        cols: Dict[str, List] = {name: [] for name in names}
+        for row in rows:
+            for name, value in zip(names, row):
+                cols[name].append(value)
+        return Table(cols)
+
     @property
     def column_names(self) -> List[str]:
         return list(self._columns)
@@ -300,10 +312,23 @@ class Table:
     def __len__(self) -> int:
         return self._num_rows
 
+    def with_column(self, name: str, values) -> "Table":
+        return self.with_columns({name: values})
+
     def with_columns(self, updates: Dict[str, Any]) -> "Table":
         data = dict(self._columns)
         data.update(updates)
         return Table(data)
+
+    def select(self, *names: str) -> "Table":
+        """The named columns, in that order; the column objects are shared."""
+        return Table({name: self.column(name) for name in names})
+
+    def drop(self, *names: str) -> "Table":
+        return Table({k: v for k, v in self._columns.items() if k not in names})
+
+    def rename(self, mapping: Dict[str, str]) -> "Table":
+        return Table({mapping.get(k, k): v for k, v in self._columns.items()})
 
     def take(self, indices) -> "Table":
         """The rows at `indices` (host integers or an integer tensor), from
@@ -321,6 +346,10 @@ class Table:
             else:
                 out[name] = _take(col, indices, staged)
         return Table(out)
+
+    def head(self, k: int) -> "Table":
+        """The first k rows, through `take`: a device table stays on its device."""
+        return self.take(np.arange(min(k, self._num_rows)))
 
     def concat(self, other: "Table") -> "Table":
         """The rows of `self`, then those of `other`, column by column. A
@@ -361,10 +390,9 @@ class Table:
                 else:
                     v = col[i]
                     if isinstance(v, np.ndarray) and v.ndim == 1:
-                        if v.dtype.kind in "US":  # a token matrix row: its token list
-                            v = v.tolist()
-                        elif v.dtype.kind in "fiu":
-                            v = DenseVector(v)
+                        # a token matrix row is its token list; every other
+                        # row is a DenseVector (an object row of strings raises)
+                        v = v.tolist() if v.dtype.kind in "US" else DenseVector(v)
                     row[name] = v
             yield row
 
@@ -447,3 +475,21 @@ def as_dense_matrix(col, allow_device: bool = False):
     if arr.ndim == 1:
         arr = arr[:, None]
     return arr
+
+
+def as_sparse_batch(col, size: Optional[int] = None) -> SparseBatch:
+    """A features column as a SparseBatch: a SparseBatch as it is, an object
+    column of vectors through `to_sparse`, a dense (n, d) column with every
+    index 0..d-1 in every row (zeros included) and `size` (default d). A
+    tensor column stays on its device."""
+    if isinstance(col, SparseBatch):
+        return col
+    if isinstance(col, np.ndarray) and col.dtype == object:
+        return _sparse_vectors_to_batch([v.to_sparse() for v in col])
+    dense = as_dense_matrix(col, allow_device=True)
+    n, d = dense.shape
+    if isinstance(dense, torch.Tensor):
+        indices = torch.arange(d, dtype=torch.int32, device=dense.device).expand(n, d)
+    else:
+        indices = np.tile(np.arange(d, dtype=np.int32), (n, 1))
+    return SparseBatch(size or d, indices, dense)

@@ -52,6 +52,18 @@ bytes the graphs keep against what the card has free, over every cache),
 `capture_error_mode="thread_local"`), and `capture` (which moves the
 sparse kernels' counted launches from the capture to each replay).
 
+What a graph keeps (`kept_bytes`, which `make_room` evicts by) is
+measured on the card, from the allocator's own blocks: the blocks the
+capture left allocated in the pool and the blocks of the graph's static
+buffers, rounding and unsplit segment tails included. A capture runs on
+a stream of its thread's own whose library state (cuBLAS's workspace
+for the stream) was made before, outside the pool, so that state, which
+outlives every graph, is not counted as any graph's. `make_room` adds
+each live pool's reserved but unallocated bytes, its graphs' scratch
+(`pool_reserve`), and counts as free only the default pool's unused
+blocks. On the CPU no graph exists and a graph's figure is what its
+static inputs and outputs hold by their sizes.
+
 The program bank (compilebank.py): with `config.program_bank_dir` set, a
 wrapper's signatures are recorded in the bank, and a fresh process
 captures every banked signature ahead of its first call (`warm_load`).
@@ -76,6 +88,8 @@ capture_lock = threading.RLock()
 
 _stamps = itertools.count(1)
 _caches: "weakref.WeakSet[GraphCache]" = weakref.WeakSet()
+#: (thread, device index) -> the stream that thread's captures run on
+_capture_streams: Dict[Tuple[int, int], Any] = {}
 #: kernel id -> the wrapper's kernel, for the bank's warm loads
 _registry: Dict[str, "_Kernel"] = {}
 
@@ -235,20 +249,76 @@ def write_leaf(buf: torch.Tensor, leaf) -> None:
 # ---------------------------------------------------------------------------
 
 def free_bytes(device: torch.device) -> int:
-    """What the card can still give: its free memory and the blocks
-    PyTorch's allocator holds unused."""
+    """What the card can still give: its free memory and the unused blocks
+    of the allocator's default pool (a graph pool's unused blocks serve
+    only the captures into it)."""
     free, _ = torch.cuda.mem_get_info(device)
-    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return free + sum(seg["total_size"] - seg["allocated_size"]
+                      for seg in torch.cuda.memory._snapshot()["segments"]
+                      if seg["device"] == index and tuple(seg["segment_pool_id"]) == (0, 0))
+
+
+def pool_reserve(pools) -> Dict[Any, int]:
+    """The bytes each graph pool of `pools` holds reserved but unallocated:
+    its graphs' scratch space, which nothing outside the pool can use while
+    one of them lives."""
+    out = {tuple(p): 0 for p in pools if p is not None}
+    if not out or not torch.cuda.is_available():
+        return out
+    for seg in torch.cuda.memory._snapshot()["segments"]:
+        pool = tuple(seg["segment_pool_id"])
+        if pool in out:
+            out[pool] += seg["total_size"] - seg["allocated_size"]
+    return out
+
+
+def allocated_blocks(pool=None, ptrs=()) -> Tuple[int, int]:
+    """From the allocator's snapshot: the bytes of the blocks allocated in
+    the graph pool `pool`, and of the allocated blocks that start at the
+    addresses `ptrs`."""
+    want = set(ptrs)
+    in_pool = at_ptrs = 0
+    for seg in torch.cuda.memory._snapshot()["segments"]:
+        ours = pool is not None and tuple(seg["segment_pool_id"]) == tuple(pool)
+        for block in seg["blocks"]:
+            if block["state"] != "active_allocated":
+                continue
+            in_pool += block["size"] if ours else 0
+            at_ptrs += block["size"] if block["address"] in want else 0
+    return in_pool, at_ptrs
+
+
+def capture_stream():
+    """The calling thread's capture stream on the current card, made on
+    first use together with the library state a capture on it needs (a
+    matmul makes cuBLAS's workspace for the stream), outside every graph's
+    pool."""
+    index = torch.cuda.current_device()
+    key = (threading.get_ident(), index)
+    stream = _capture_streams.get(key)
+    if stream is None:
+        stream = torch.cuda.Stream(index)
+        stream.wait_stream(torch.cuda.current_stream(index))
+        with torch.cuda.stream(stream):
+            a = torch.ones((8, 8), device=torch.device("cuda", index))
+            torch.addmm(a[0], a, torch.mm(a, a))
+        torch.cuda.current_stream(index).wait_stream(stream)
+        _capture_streams[key] = stream
+    return stream
 
 
 class Captured:
     """One captured graph: the graph, the launches each replay adds to the
-    sparse kernels' counts, and the bytes it keeps between replays (set by
-    its owner). `stamp` orders the graphs of every cache by last use."""
+    sparse kernels' counts, the bytes the capture left allocated in its
+    pool (`pool_bytes`, measured) and the bytes it keeps between replays
+    (set by its owner). `stamp` orders the graphs of every cache by last
+    use."""
 
-    def __init__(self, graph, launches: Dict[Any, int]):
+    def __init__(self, graph, launches: Dict[Any, int], pool_bytes: int = 0):
         self.graph = graph
         self.launches = launches
+        self.pool_bytes = pool_bytes
         self.kept_bytes = 0
         self.stamp = next(_stamps)
         self.banked = False
@@ -262,21 +332,27 @@ class Captured:
 
 
 def capture(pool, body: Callable[[], Any]) -> Tuple[Captured, Any]:
-    """Capture `body()` into a new graph in `pool`, under `capture_lock`
-    and in thread-local error mode. The wrappers count launches on the
-    host, so the capture's counted launches move from the count to each
-    replay. Returns (Captured, body's outputs in the pool)."""
+    """Capture `body()` into a new graph in `pool`, under `capture_lock`,
+    in thread-local error mode and on the thread's `capture_stream`. The
+    wrappers count launches on the host, so the capture's counted launches
+    move from the count to each replay. Returns (Captured with the bytes
+    the capture left allocated in the pool, body's outputs in the pool)."""
     from ..ops import sparsekernels
 
     graph = torch.cuda.CUDAGraph()
     before = sparsekernels.launch_counts()
-    with capture_lock, torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-        out = body()
+    stream = capture_stream()
+    with capture_lock:
+        pool_before, _ = allocated_blocks(pool)
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = body()
+        pool_bytes = allocated_blocks(pool)[0] - pool_before
     after = sparsekernels.launch_counts()
     launches = {k: after[k.__name__] - before[k.__name__] for k in sparsekernels.KERNELS}
     for kernel, n in launches.items():
         kernel.launches -= n
-    return Captured(graph, launches), out
+    return Captured(graph, launches, pool_bytes), out
 
 
 class GraphCache:
@@ -323,9 +399,10 @@ class GraphCache:
         """Before a capture: drop this cache's least recently used graphs
         while it holds `config.kernel_cache_size` or more, and then the
         least recently used graphs of every cache while all of them keep
-        more bytes (with the `incoming` capture's) than the card has free
-        (`free_bytes`; None on the CPU). A dropped graph's blocks go back
-        to its pool; its static buffers are freed."""
+        more bytes (their own and their pools' scratch, with the `incoming`
+        capture's) than the card has free (`free_bytes`; None on the CPU).
+        A dropped graph's blocks go back to its pool, and its static
+        buffers are freed; a pool's reserve goes with its last graph."""
         from .. import config
         from . import metrics
 
@@ -335,9 +412,11 @@ class GraphCache:
         if free_bytes is None:
             return
         while True:
-            kept = [(getattr(e, "stamp", 0), c, s, e.kept_bytes) for c in list(_caches)
+            live = [c for c in list(_caches) if c.entries]
+            kept = [(getattr(e, "stamp", 0), c, s, e.kept_bytes) for c in live
                     for s, e in list(c.entries.items()) if e.kept_bytes > 0]
-            if not kept or sum(k[3] for k in kept) + incoming <= free_bytes:
+            scratch = sum(pool_reserve([c.pool for c in live]).values())
+            if not kept or sum(k[3] for k in kept) + scratch + incoming <= free_bytes:
                 return
             _, cache, sig, _ = min(kept, key=lambda k: k[0])
             cache.entries.pop(sig, None)
@@ -389,14 +468,20 @@ def kernel_id_of(fn: Callable, key: Tuple = ()) -> Optional[str]:
 class _Program(Captured):
     """A wrapper's graph for one signature: its static input buffers (None
     where the graph reads a borrowed operand in place) and its outputs in
-    the pool."""
+    the pool. `kept_bytes` is what the allocator holds for the graph
+    (`static_blocks`, the static buffers' blocks, and the capture's
+    `pool_bytes`), or on the CPU what those tensors hold by their sizes."""
 
-    def __init__(self, captured: Captured, static_in: List[Optional[torch.Tensor]], outputs):
-        super().__init__(captured.graph, captured.launches)
+    def __init__(self, captured: Captured, static_in: List[Optional[torch.Tensor]], outputs,
+                 static_blocks: Optional[int] = None):
+        super().__init__(captured.graph, captured.launches, captured.pool_bytes)
         self.static_in = static_in
         self.outputs = outputs
-        out_leaves, _ = flatten(outputs)
-        self.kept_bytes = _nbytes(b for b in static_in if b is not None) + _nbytes(out_leaves)
+        if static_blocks is None:
+            self.kept_bytes = (_nbytes(b for b in static_in if b is not None)
+                               + _nbytes(flatten(outputs)[0]))
+        else:
+            self.kept_bytes = static_blocks + self.pool_bytes
 
     def run(self, leaves) -> Any:
         for buf, leaf in zip(self.static_in, leaves):
@@ -537,8 +622,9 @@ class _Kernel:
             result = _unaliased(self.call_with(structure, operands, statics), owned)
             captured, outputs = capture(self.cache.ensure_pool(),
                                         lambda: self.call_with(structure, operands, statics))
+            _, static_blocks = allocated_blocks(ptrs=[b.data_ptr() for b in owned])
             entry = _Program(captured, [None if o else b for b, o in zip(operands, lent)],
-                             outputs)
+                             outputs, static_blocks)
             if self.ledger is not None:
                 from ..obs import memledger
 

@@ -39,6 +39,7 @@ import chip_smoke as cs  # noqa: E402
 from flink_ml_tpu_torch import config  # noqa: E402
 from flink_ml_tpu_torch.ops import cuda_build  # noqa: E402
 from flink_ml_tpu_torch.ops import sparsekernels as sk  # noqa: E402
+from flink_ml_tpu_torch.utils import lazyjit  # noqa: E402
 
 #: the rehearsal's sizes: chip_smoke's module constants, cut down
 SIZES = dict(
@@ -138,6 +139,9 @@ def stub() -> None:
         setattr(torch.cuda, name, lambda *args, **kwargs: None)
     torch.cuda.memory_allocated = lambda *args, **kwargs: 0
     torch.cuda.max_memory_allocated = lambda *args, **kwargs: 0
+    torch.cuda.memory_reserved = lambda *args, **kwargs: 0
+    torch.cuda.memory._snapshot = lambda *args, **kwargs: {"segments": []}
+    lazyjit.capture_stream = lambda: None
     torch.cuda.Event = _HostEvent
     empty = torch.empty
     torch.empty = lambda *args, pin_memory=False, **kwargs: empty(*args, **kwargs)

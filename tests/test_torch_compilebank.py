@@ -176,6 +176,36 @@ def test_unbankable_static_falls_through(tmp_path):
     np.testing.assert_array_equal(out.numpy(), X + np.float32(1.0))
 
 
+def test_populate_drives_each_program_and_a_fresh_bank_hits(tmp_path):
+    """`ProgramBank.populate` calls each (callable, args, kwargs) once and
+    returns the count, as the JAX package's does; the signatures it drove
+    are banked, so a fresh bank scope (a fresh process's graphs dropped)
+    serves them without a capture."""
+    xs = [np.linspace(-1.0, 1.0, n, dtype=np.float32) for n in (24, 40)]
+    counted = []
+    port_programs = [(PORT_AFFINE, (torch.from_numpy(x),), {"scale": 7.0}) for x in xs] + [
+        (counted.append, ("port",), None)]
+    jax_programs = [(JAX_AFFINE, (jnp.asarray(x),), {"scale": 7.0}) for x in xs] + [
+        (counted.append, ("jax",), {})]
+    bank_dir = str(tmp_path / "bank")
+    with config.use_device("cpu"), config.program_bank_mode(bank_dir):
+        bank = compilebank.active_bank()
+        assert bank.populate(port_programs) == 3
+        assert bank.stats()["entries"] == 2.0
+    with jax_config.program_bank_mode(str(tmp_path / "jax_bank")):
+        assert jax_compilebank.active_bank().populate(jax_programs) == 3
+    assert counted == ["port", "jax"]
+    assert compilebank.ProgramBank(str(tmp_path / "empty")).populate([]) == 0
+    PORT_AFFINE.kernel.cache.entries.clear()  # a fresh process
+    with config.use_device("cpu"), config.program_bank_mode(bank_dir):
+        traces, hits = metrics.get_counter("jit.traces"), metrics.get_counter("bank.hits")
+        for x in xs:
+            got = PORT_AFFINE(torch.from_numpy(x), scale=7.0).numpy()
+            np.testing.assert_array_equal(got, x * np.float32(7.0) + np.float32(1.0))
+        assert metrics.get_counter("jit.traces") == traces
+        assert metrics.get_counter("bank.hits") - hits == 2
+
+
 def _lr_table(n):
     rng = np.random.default_rng(n)
     feats = rng.standard_normal((n, 4))

@@ -1,6 +1,7 @@
 """The port stands alone and does not hide the device.
 
-- no module of the port pulls in JAX when imported, with or without a card;
+- no module of the port pulls in JAX when imported, with or without a card
+  (each module of the serving, checkpoint and tpulint slices also alone);
 - no module of the port, and neither chip_smoke.py nor
   scripts/torch_kernel_designs.py, scripts/rehearse_chip_smoke.py,
   scripts/chip_funnel_phase.py, scripts/chip_checkpoint_phase.py nor
@@ -116,6 +117,40 @@ def test_the_checkpoint_slice_imports_neither_jax_nor_the_jax_package(name):
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert name in PORT_MODULES or name == "flink_ml_tpu_torch.ckpt"
+
+
+ANALYSIS_SLICE = ["flink_ml_tpu_torch.analysis", "flink_ml_tpu_torch.analysis.__main__",
+                  "flink_ml_tpu_torch.analysis.source", "flink_ml_tpu_torch.analysis.engine",
+                  "flink_ml_tpu_torch.analysis.callgraph", "flink_ml_tpu_torch.analysis.cache",
+                  "flink_ml_tpu_torch.analysis.rules", "flink_ml_tpu_torch.analysis.rules._astwalk",
+                  "flink_ml_tpu_torch.analysis.rules._jitindex",
+                  "flink_ml_tpu_torch.analysis.rules.accounting",
+                  "flink_ml_tpu_torch.analysis.rules.hostsync",
+                  "flink_ml_tpu_torch.analysis.rules.memledger",
+                  "flink_ml_tpu_torch.analysis.rules.residentprogram",
+                  "flink_ml_tpu_torch.analysis.rules.retrace",
+                  "flink_ml_tpu_torch.analysis.rules.servepath"]
+
+
+@pytest.mark.parametrize("name", ANALYSIS_SLICE)
+def test_the_analysis_slice_imports_neither_jax_nor_the_jax_package(name):
+    """Each module of the port's tpulint, imported alone in a fresh
+    interpreter, pulls in neither jax nor flink_ml_tpu (it keeps its own
+    copy of every helper, even of the JAX package's modules that do no JAX
+    work), and its rules register."""
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({name!r})\n"
+        "from flink_ml_tpu_torch.analysis import engine\n"
+        "assert len(engine.all_rules()) == 6\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flink_ml_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert name in PORT_MODULES or name.endswith(("analysis", "rules"))
 
 
 def test_the_slice_modules_are_checked():

@@ -486,6 +486,56 @@ def test_make_room_evicts_the_oldest_graph_of_any_cache():
     assert list(a.entries) == ["a1"]
 
 
+def test_make_room_evicts_by_the_measured_kept_bytes_c25():
+    """A graph's kept bytes are what the allocator holds for it (its static
+    buffers' blocks and what the capture left in its pool, measured on the
+    card), and eviction goes by them: two graphs that account 48 bytes each
+    but keep 4 KiB each do not both fit in 6 KiB of free memory. On the CPU
+    (no measurement) a graph's figure is its accounted one."""
+    static, out = torch.zeros(4, 2), torch.zeros(4)  # 32 + 16 accounted bytes
+    measured = {}
+    cache = lazyjit.GraphCache()
+    for sig in ("old", "new"):
+        captured = lazyjit.Captured(None, {}, pool_bytes=2048)
+        measured[sig] = lazyjit._Program(captured, [static, None], out, static_blocks=2048)
+        assert measured[sig].kept_bytes == 4096
+        cache.put(sig, measured[sig])
+    cache.make_room(free_bytes=6144, incoming=0)
+    assert list(cache.entries) == ["new"]  # the accounted 96 bytes would have kept both
+    cache.make_room(free_bytes=4096, incoming=0)
+    assert list(cache.entries) == ["new"]
+    unmeasured = lazyjit._Program(lazyjit.Captured(None, {}), [static, None], out)
+    assert unmeasured.kept_bytes == 48
+
+
+def test_make_room_counts_each_live_pools_scratch_c25(monkeypatch):
+    """What a graph pool holds reserved but unallocated (its graphs'
+    scratch, which nothing outside the pool can use) counts against free
+    memory with the graphs' own bytes, once a pool, and only while the
+    cache that owns the pool holds a graph."""
+    a, b = lazyjit.GraphCache(), lazyjit.GraphCache()
+    a.pool, b.pool = (1, 7), (1, 8)
+    for cache, sig in ((a, "a1"), (a, "a2"), (b, "b1")):
+        entry = lazyjit.Captured(None, {})
+        entry.kept_bytes = 100
+        cache.put(sig, entry)
+    asked = []
+
+    def reserve(pools):
+        ours = [tuple(p) for p in pools if p in ((1, 7), (1, 8))]
+        asked.append(sorted(ours))
+        return {p: {(1, 7): 1000, (1, 8): 0}[p] for p in ours}
+
+    monkeypatch.setattr(lazyjit, "pool_reserve", reserve)
+    a.make_room(free_bytes=1300, incoming=0)  # 300 kept + 1000 scratch fit
+    assert list(a.entries) == ["a1", "a2"] and list(b.entries) == ["b1"]
+    a.make_room(free_bytes=1299, incoming=0)  # one byte short: a1 goes, a's pool stays
+    assert list(a.entries) == ["a2"] and list(b.entries) == ["b1"]
+    a.make_room(free_bytes=1199, incoming=0)  # a's last graph goes, and its pool's scratch
+    assert not a.entries and list(b.entries) == ["b1"]
+    assert asked == [[(1, 7), (1, 8)]] * 4 + [[(1, 8)]]
+
+
 def test_signatures_hold_shapes_strides_and_statics():
     kernel = PORT_AFFINE.kernel
     t = torch.zeros(4, 6)
