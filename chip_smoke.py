@@ -4,7 +4,14 @@
     python3 chip_smoke.py        # from the repository root
 
 It needs a CUDA card and exits non-zero without one, and on any failed
-phase; it imports nothing of JAX or of the JAX package. Phases:
+phase; it imports nothing of JAX or of the JAX package. Phases 1-14 run
+under the port's runtime concurrency sanitizer
+(`flink_ml_tpu_torch/analysis/sanitizer.py`, enabled before phase 1):
+every flow channel's condition, `capture_lock` and the tracing lock are
+recorded, every pump and spawn worker and every channel is ledgered, and
+after phase 14 any lock-order cycle, leaked worker or unclosed pump
+channel fails the run; its stats (acquisitions, locks, edges, workers,
+channels) are printed on a `sanitizer` line. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); the build of
    `flink_ml_tpu_torch/csrc/sparse_kernels.cu`, of the floor probes
@@ -315,7 +322,12 @@ phase; it imports nothing of JAX or of the JAX package. Phases:
    bytes printed), a Prometheus snapshot with no name collision; then a
    profiler pass over each replayed fit (`utils/traceprof.py`, as every
    profiler pass since phase 5: its idle share);
-15. a `kernels` JSON line (four kernels), then the result line.
+15. the port's tpulint (`python -m flink_ml_tpu_torch.analysis
+   --no-cache`) over this checkout, a cold lint in a fresh process (the
+   coverage gates import the package where CUDA is present): its 13
+   rules must run and it must exit 0; its wall and its census of
+   suppressed findings by rule are printed;
+16. a `kernels` JSON line (four kernels), then the result line.
 """
 
 from __future__ import annotations
@@ -355,6 +367,11 @@ NEAR_L1_SHARE = 1e-3
 # distances differ by at most this share are not gated
 TIE_MARGIN = 1e-4
 DEVICE = "cuda"
+#: seconds the sanitizer's verdict waits for each registered worker to end
+SANITIZER_JOIN_S = 30.0
+#: the port's tpulint: its rules, and the seconds phase 15 allows it
+LINT_RULES = 13
+LINT_TIMEOUT_S = 600
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -5427,7 +5444,8 @@ def serving_phase(sk, dev, sparse_models, sparse_table, online, online_trace, de
             f"{delta['iteration.host_sync.transform']} transform syncs; rejected "
             f"{health.rejected}, expired {health.expired}, coalesced {delta['serving.coalesced']}; "
             f"store hits {stats['hits']}, misses {stats['misses']}, evictions "
-            f"{stats['evictions']}; every row equal to its tenant's own transform")
+            f"{stats['evictions']}; every row equal to its tenant's own transform; "
+            "under the sanitizer")
         log(f"    stages p50/p99 ms: " + "; ".join(
             f"{k} {v['p50']:.3f}/{v['p99']:.3f}" for k, v in runs[mode]["stages_ms"].items() if v))
     check(seen["peak"] <= store.budget_bytes,
@@ -5639,7 +5657,7 @@ def lifecycle_soak(sk, dev, online, trace, dense_models, held_table):
         f"{out['requests_per_s']:.0f} requests/s; {len(by_version)} versions served "
         f"{sorted(by_version)}; refused {events['rejected']}; rollback {rb}; fleet winner "
         f"{events['winner']}; every result equal to its version's eager transform; no capture "
-        f"after warmup")
+        f"after warmup; under the sanitizer")
     return out
 
 
@@ -6747,9 +6765,14 @@ def main() -> int:
 
     from flink_ml_tpu_torch import SparseBatch, Table
     from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.analysis import sanitizer
     from flink_ml_tpu_torch.models.classification import logisticregression
     from flink_ml_tpu_torch.ops import cuda_build
     from flink_ml_tpu_torch.ops import sparsekernels as sk
+
+    # every phase runs under the concurrency sanitizer; its verdict is read
+    # after phase 14, so no exit hook of its own
+    sanitizer.enable(register_atexit=False)
 
     dev = torch.device(DEVICE)
     # parity checks cover every float32 matmul: keep TF32 off
@@ -7065,6 +7088,23 @@ def main() -> int:
         for kernel in launches:
             launches[kernel] += counts[kernel]
 
+    # -- the sanitizer's verdict over phases 1-14 ------------------------------
+    problems = sanitizer.recorder.problems(join_timeout=SANITIZER_JOIN_S)
+    sanitized = sanitizer.recorder.stats()
+    log("sanitizer: " + json.dumps(sanitized) + "; edges: " + "; ".join(
+        f"{a} -> {b} (x{sanitizer.recorder.edges[(a, b)][1]})"
+        for a, b in sorted(sanitizer.recorder.edges)))
+    check(not problems, f"the sanitizer found {len(problems)} problem(s): " + "; ".join(problems))
+    check(sanitized["workers"] > 0 and sanitized["channels"] > 0,
+          f"the sanitizer saw no worker or no channel: {sanitized}")
+    sanitizer.mark_exit_checked()
+
+    # -- 15. the port's tpulint ----------------------------------------------------
+    log("phase 15: the port's tpulint over this checkout, in a fresh process with no summary "
+        "cache")
+    lint = lint_phase(card)
+    path_s["tpulint"] = lint["seconds"]
+
     # -- output -----------------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
@@ -7144,7 +7184,8 @@ def main() -> int:
     log("serving: " + json.dumps(serving))
     log("checkpoint and recovery: " + json.dumps(checkpoints))
     log("funnel, bank and traced run: " + json.dumps(funnel, default=str))
-    log("seconds by path (phases 3-14): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("tpulint: " + json.dumps(lint))
+    log("seconds by path (phases 3-15): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s on {card}")
@@ -7154,6 +7195,37 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def lint_phase(card):
+    """Phase 15: `python -m flink_ml_tpu_torch.analysis --no-cache` over
+    this checkout in a fresh process (a cold lint). The registry must hold
+    LINT_RULES rules and the lint exit 0 with no finding left; returns its
+    wall, its census of suppressed findings by rule and the rules."""
+    import subprocess as sp
+
+    from flink_ml_tpu_torch.analysis import engine
+
+    rules = [rule.id for rule in engine.all_rules()]
+    check(len(rules) == LINT_RULES, f"tpulint has {len(rules)} rules, not {LINT_RULES}: {rules}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    module = [sys.executable, "-m", "flink_ml_tpu_torch.analysis"]
+    t0 = time.perf_counter()
+    proc = sp.run(module + ["--format", "json", "--no-cache"],
+                  cwd=here, capture_output=True, text=True, timeout=LINT_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"tpulint exited {proc.returncode}: {proc.stdout[-3000:]} "
+                                f"{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    check(report["clean"] and not report["findings"], f"tpulint left {report['findings']}")
+    census = {}
+    for finding in report["suppressed"]:
+        census[finding["rule"]] = census.get(finding["rule"], 0) + 1
+    log(f"  tpulint: {len(rules)} rules, exit 0 in {seconds:.2f} s (a fresh process, no "
+        f"cache), {len(report['suppressed'])} suppressed findings: {dict(sorted(census.items()))}; "
+        f"on {card}")
+    return {"seconds": seconds, "rules": rules, "suppressed": len(report["suppressed"]),
+            "census": dict(sorted(census.items()))}
 
 
 def profile_run(name, run):

@@ -33,6 +33,13 @@ from .table import DictTokenMatrix, SparseBatch, StreamTable, Table
 
 __version__ = "0.1.0"
 
+# FLINK_ML_TPU_SANITIZE=1: record this process's locks, workers and
+# channels, and fail it (status 66) at exit on a violation
+from .analysis import sanitizer as _sanitizer  # noqa: E402
+
+if _sanitizer.enabled_by_env():
+    _sanitizer.enable()
+
 __all__ = [
     "AlgoOperator",
     "Estimator",

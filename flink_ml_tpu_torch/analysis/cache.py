@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Set, Tuple
 
 from .callgraph import Summary, SyncEvent, SyncSite
 
-CACHE_VERSION = 1
+CACHE_VERSION = 2
 DEFAULT_NAME = ".tpulint_torch_cache.json"
 
 
@@ -78,6 +78,7 @@ def _summary_to_json(summary: Summary) -> dict:
             [i, [_site_to_json(s) for s in sites]]
             for i, sites in summary.param_syncs
         ],
+        "paramCloses": sorted(summary.param_closes),
     }
 
 
@@ -89,6 +90,7 @@ def _summary_from_json(d: dict) -> Summary:
             (int(i), tuple(_site_from_json(s) for s in sites))
             for i, sites in d.get("paramSyncs", ())
         ),
+        param_closes=frozenset(int(i) for i in d.get("paramCloses", ())),
     )
 
 

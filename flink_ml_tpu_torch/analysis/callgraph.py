@@ -13,7 +13,10 @@ under-approximates and every finding it makes is worth reading:
   parameters: `returns_device` (its result is on the card whatever its
   arguments), `returns_params` (the parameters whose taint flows to its
   result) and `param_syncs` (the parameters that reach a host sync inside
-  it, each with the sink's file:line and the call chain down to it).
+  it, each with the sink's file:line and the call chain down to it), and
+  `param_closes` (the parameters, channels, it closes or cancels, itself
+  or through a resolved callee: the channel-protocol rule's escape
+  analysis).
 - **The taint walker** (`TaintWalker`): one linear pass a function over
   *source sets*: a value's sources are `DEVICE` and parameter indices.
   One walk gives both the local events (device-sourced sinks) and the
@@ -129,6 +132,7 @@ class Summary:
     returns_device: bool = False
     returns_params: FrozenSet[int] = frozenset()
     param_syncs: Tuple[Tuple[int, Tuple[SyncSite, ...]], ...] = ()
+    param_closes: FrozenSet[int] = frozenset()
 
 
 EMPTY_SUMMARY = Summary()
@@ -377,6 +381,7 @@ class TaintWalker:
         self.events: List[SyncEvent] = []
         self.returns: Set = set()
         self._param_syncs: Dict[int, List[SyncSite]] = {}
+        self._param_closes: Set[int] = set()
 
     # -- summary assembly ----------------------------------------------------
     def build_summary(self) -> Summary:
@@ -394,7 +399,8 @@ class TaintWalker:
         return Summary(
             returns_device=DEVICE in self.returns,
             returns_params=frozenset(s for s in self.returns if s != DEVICE),
-            param_syncs=tuple((i, tuple(sites)) for i, sites in sorted(self._param_syncs.items())))
+            param_syncs=tuple((i, tuple(sites)) for i, sites in sorted(self._param_syncs.items())),
+            param_closes=frozenset(self._param_closes))
 
     # -- source evaluation ---------------------------------------------------
     def sources(self, node: ast.AST) -> FrozenSet:
@@ -619,6 +625,10 @@ class TaintWalker:
         func = call.func
         name = dotted_name(func)
 
+        # a channel closed or cancelled through a parameter
+        if isinstance(func, ast.Attribute) and func.attr in ("close", "cancel"):
+            self._param_closes.update(s for s in self.sources(func.value) if s != DEVICE)
+
         # a barrier: torch.cuda.synchronize(), an event's or a stream's
         # synchronize(); always a local finding, never lifted
         if isinstance(func, ast.Attribute) and func.attr == "synchronize":
@@ -656,3 +666,6 @@ class TaintWalker:
                 self._emit(call.lineno, site.kind, site.detail, arg_sources,
                            sink_path=site.sink_path, sink_line=site.sink_line,
                            funcs=(decl.qualname,) + site.funcs, documented=site.documented)
+        for index in summary.param_closes:
+            arg_sources = self._arg_sources(call, index, decl, skip_self)
+            self._param_closes.update(s for s in arg_sources if s != DEVICE)

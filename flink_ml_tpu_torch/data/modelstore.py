@@ -273,6 +273,7 @@ class ModelStore:
         if wait:
             _warm()
             return None
+        # tpulint: disable=channel-protocol -- nothing waits on it: dispatch re-runs the page-in
         return flow.spawn(_warm, name=f"{self.name}.prefetch")
 
     def warmup_programs(self, server, example, buckets=None) -> Dict[str, float]:

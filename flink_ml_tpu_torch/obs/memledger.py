@@ -79,6 +79,7 @@ _lock = threading.Lock()
 #: (key, handle) of tracked tensors that died while the lock was held: a
 #: finalizer may run inside a locked section (the garbage collector runs
 #: at any allocation), where taking the lock again would deadlock
+# tpulint: disable=unbounded-queue -- one entry a dead tracked tensor; the next release drains
 _pending: deque = deque()
 _ids = itertools.count(1)
 #: handle -> (category, nbytes, shape, dtype, site)

@@ -351,20 +351,27 @@ def iterate_unbounded(
                 # the restored model is published before the next live batch
                 yield version, state
         skip = version
-        for batch in batches:
-            if skip > 0:  # the replayed prefix is already in the snapshot
-                skip -= 1
-                continue
-            with tracing.span("iteration.epoch", epoch=version, mode="unbounded"):
-                state = step(state, batch)
-            version += 1
-            if listener is not None:
-                listener.on_epoch_watermark_incremented(version, state)
-            if checkpoint_dir is not None and version % interval == 0:
-                _snapshot.save_job_snapshot(checkpoint_dir, job_key, {"model": state},
-                                            epoch=version, meta={"streamOffset": version})
-            faults.tick("batch")
-            yield version, state
+        try:
+            for batch in batches:
+                if skip > 0:  # the replayed prefix is already in the snapshot
+                    skip -= 1
+                    continue
+                with tracing.span("iteration.epoch", epoch=version, mode="unbounded"):
+                    state = step(state, batch)
+                version += 1
+                if listener is not None:
+                    listener.on_epoch_watermark_incremented(version, state)
+                if checkpoint_dir is not None and version % interval == 0:
+                    _snapshot.save_job_snapshot(checkpoint_dir, job_key, {"model": state},
+                                                epoch=version, meta={"streamOffset": version})
+                faults.tick("batch")
+                yield version, state
+        finally:
+            # a closed or failed loop closes its source now (a Prefetcher's
+            # bounded join raises here), not when the collector finds it
+            close = getattr(batches, "close", None)
+            if close is not None:
+                close()
         if checkpoint_dir is not None:
             from ..ckpt import coordinator
 

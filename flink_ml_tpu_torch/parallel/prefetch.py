@@ -31,7 +31,8 @@ Port of flink_ml_tpu/parallel/prefetch.py (`:114`, `:136`, `:214-262`,
   in input order, waited for. An exception in `stage` or in the source
   re-raises at the consumer's next `__next__`, after the items staged
   before it; closing the generator early cancels the channel and joins the
-  worker.
+  worker, for at most `JOIN_TIMEOUT_S` seconds, then raises: a worker
+  blocked in its source would otherwise hang the consumer.
 
 A leaf of a staged tree is an array, a tensor, or a list of arrays that
 are the row pieces of one array: the pieces are copied one after another
@@ -56,6 +57,8 @@ __all__ = ["DeviceStager", "Prefetcher", "Staged", "stage_to_device", "to_device
 
 #: bytes each leaf's region of a staging buffer is aligned to
 _ALIGN = 256
+#: seconds a Prefetcher waits for its cancelled worker before it raises
+JOIN_TIMEOUT_S = 60.0
 
 
 class Staged:
@@ -285,6 +288,10 @@ class Prefetcher:
         self.name = name
         self.watchdog = flow.StragglerWatchdog(name)
         self.channel: Optional[flow.BoundedChannel] = None  # the latest iterate()'s window
+        # the latest iterate()'s failed join, kept (and counted as
+        # prefetch.abandonedWorkers) where a generator dropped without close()
+        # would have Python swallow the raise
+        self.error: Optional[RuntimeError] = None
 
     def iterate(self, items: Iterable) -> Iterator:
         """The staged items in input order (those the policy kept); a
@@ -293,10 +300,28 @@ class Prefetcher:
         metrics.set_gauge("prefetch.depth", self.depth)
         channel = flow.BoundedChannel(self.depth, policy=self.policy, name=self.name)
         self.channel = channel
-        worker = flow.pump(items, channel, transform=self.stage, watchdog=self.watchdog)
+        self.error = None
+        abandoned: List[RuntimeError] = []
+
+        def stage(item):
+            if abandoned:  # the consumer has gone on: stage nothing it may reuse
+                raise abandoned[0]
+            return self.stage(item)
+
+        worker = flow.pump(items, channel, transform=stage, watchdog=self.watchdog)
         try:
             for entry in channel:
                 yield entry.wait() if isinstance(entry, Staged) else entry
         finally:
             channel.cancel()  # early exit: stop the speculative staging
-            worker.join()
+            # the worker's stage in flight ends before the caller may touch
+            # what it stages (the native cache, the stager's ring); cancel()
+            # woke a put-blocked worker, but not one blocked in its source
+            worker.join(timeout=JOIN_TIMEOUT_S)
+            if worker.is_alive():
+                self.error = RuntimeError(
+                    f"prefetch {self.name!r}: its worker still runs {JOIN_TIMEOUT_S} s after "
+                    "cancel (blocked in its source or stage)")
+                abandoned.append(self.error)
+                metrics.inc_counter("prefetch.abandonedWorkers")
+                raise self.error

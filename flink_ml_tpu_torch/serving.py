@@ -526,7 +526,7 @@ class MicroBatchServer:
                 tenant, batch = item if isinstance(item, tuple) else (None, item)
                 entry = self._dispatch(batch, num_batches, model=self._model_for(tenant))
                 if not window.offer(entry):  # window full: retire the oldest
-                    # offer() just returned False, so get() cannot block
+                    # tpulint: disable=untimed-wait -- offer() returned False: get() cannot block
                     yield self._finish(*window.get())
                     window.offer(entry)
                 num_batches += 1
@@ -534,6 +534,7 @@ class MicroBatchServer:
                 metrics.inc_counter("serving.records", entry[2])
                 metrics.set_gauge("serving.buckets", len(self._buckets_seen))
             while len(window):
+                # tpulint: disable=untimed-wait -- guarded by len(window) > 0, get() cannot block
                 yield self._finish(*window.get())
         finally:
             self._release(window)
@@ -675,6 +676,7 @@ class MicroBatchServer:
             else:
                 self._run_forming(window)
             while len(window):
+                # tpulint: disable=untimed-wait -- guarded by len(window) > 0, get() cannot block
                 self._retire(window.get())
             self._out.close()
         except BaseException as e:  # worker death must not strand consumers
@@ -690,7 +692,7 @@ class MicroBatchServer:
 
     def _park(self, window: flow.BoundedChannel, entry) -> None:
         if not window.offer(entry):
-            # offer() just returned False, so get() cannot block
+            # tpulint: disable=untimed-wait -- offer() just returned False, so get() cannot block
             self._retire(window.get())
             window.offer(entry)
 
@@ -735,6 +737,7 @@ class MicroBatchServer:
             except TimeoutError:
                 self._flush_due(forming, window)
                 if timeout == 0.0 and len(window):
+                    # tpulint: disable=untimed-wait -- guarded by len(window), get() cannot block
                     self._retire(window.get())
                 continue
             except flow.ChannelClosed:
