@@ -23,8 +23,9 @@ channels) are printed on a `sanitizer` line. Phases:
    RED), fleet_row_dots loads with 128-bit global loads;
 2. each kernel against its plain PyTorch version, on seeded inputs with
    -1 padding and indices >= d: at edge shapes, on the index-convention
-   probe, at the main path's shapes (the fit batch, 100,000 x 39, and the
-   1M-row transform), on Zipf-skewed indices at the fit batch (values on
+   probe, at the main path's shapes (the fit batch, 100,000 x 39, the
+   1M-row transform, and one rank's share of the fit batch on phase 16's
+   mesh of 4, 25,000 x 39), on Zipf-skewed indices at the fit batch (values on
    a grid of quarters, so the gradient must be exact), on a fit batch
    sliced at an odd row offset (not 16-byte aligned), on a wide row
    (16 x 5000), on a fit batch that overflows the gradient's table (35%
@@ -327,7 +328,36 @@ channels) are printed on a `sanitizer` line. Phases:
    coverage gates import the package where CUDA is present): its 13
    rules must run and it must exit 0; its wall and its census of
    suppressed findings by rule are printed;
-16. a `kernels` JSON line (four kernels), then the result line.
+16. data-parallel training over a mesh of ranks (`mesh_phase`, A.10a):
+   (a) MESH_RANKS (4) gloo ranks sharing this card, started by
+   `flink_ml_tpu_torch.parallel.launcher.World` (spawned processes; each
+   loads the kernels this process built, and runs under the sanitizer as
+   one shard of the `mesh` group). Each rank makes phase 3's dense,
+   sparse and KMeans tables again from their seeds and fits, through the
+   estimators, the dense LR (10M x 100, weighted), the sparse LR (1M x
+   39 of 1e6) and KMeans (1M x 100, k 10, maxIter 10) on its rows, each
+   in plain and in overlap mode (`config.collective_overlap`), and the
+   sparse LR a third time on the SparCML pair route
+   (`collective_sparse_threshold` raised to MESH_PAIR_THRESHOLD), with its
+   launch counts reset before and read after each fit (the sparse dense
+   route: 20 row dots and 20 gradients a rank; the pair route 20 row
+   dots), then every collective once on the card held to its definition
+   (`collectives_check`: the ring's point-to-point staged through pinned
+   host memory, C.27). Every rank ends with the same model bit for bit;
+   each fit is held against phase 3's one-rank fit of the same data:
+   dense within MESH_DENSE_TOL, sparse within phase 4's gate of the
+   plain-loss fit, KMeans within MESH_KMEANS_SCALE_TOL of the scale with
+   at most MESH_KMEANS_POINT_SHARE of the points in other cells; overlap
+   against plain within the same (C.26); every rank's collective sequence
+   equals the others' (`sanitizer.compare_rank_sequences`) and the
+   sanitizer reports no problem. It prints each rank's launches, seconds
+   and peak memory, rank 0's collective counters (calls, bytes, chunks,
+   the sparse bytes against the dense-equivalent) and the gaps. (b) a
+   one-rank NCCL world: every collective once on CUDA tensors over the
+   world's group, held to its definition, nothing staged: the only run of
+   the NCCL branch until a multi-card check exists. A rank that fails
+   fails the run;
+17. a `kernels` JSON line (four kernels), then the result line.
 """
 
 from __future__ import annotations
@@ -386,6 +416,25 @@ LOSS_REL_TOL = 1e-3
 DEFAULT_MASK_SHARE, OUT_OF_RANGE_SHARE = 0.05, 0.001
 #: the kernels whose launches the paths count (flink_ml_tpu_torch/ops/sparsekernels.py KERNELS)
 KERNEL_NAMES = ("sparse_row_dots", "sparse_grad", "fleet_row_dots", "fleet_grad")
+#: phase 16: gloo ranks sharing the card, and the bounds of a job and of
+#: each collective (seconds)
+MESH_RANKS = 4
+MESH_JOB_TIMEOUT_S, MESH_COLLECTIVE_TIMEOUT_S = 300.0, 120.0
+#: the sparse LR's third mesh fit: a threshold above its pairs' bytes over
+#: the dense payload's (7.8 MB a rank against 4 MB), so they ride the pairs
+MESH_PAIR_THRESHOLD = 4.0
+#: a dense fit on the mesh against the one-rank fit, and overlap against
+#: plain at four ranks (the JAX package's sharded-against-flat tolerance,
+#: tests/test_linear_models.py:168; ROADMAP C.26)
+MESH_DENSE_TOL = dict(rtol=2e-5, atol=2e-6)
+#: KMeans on the mesh against the one-rank fit: centroids within this share
+#: of their scale, phase 4's gate of the one-rank fit against the float64
+#: Lloyd, and at most this share of the points counted in another cell. The
+#: sums differ in their last bits (a partial of 250,000 rows a rank, then
+#: four, against one matmul over 1M rows), and on uniform points a few
+#: near-ties flip and move the centroids further each epoch (on an H100:
+#: 3.5e-4 of a scale of ~0.5, 70 points in other cells)
+MESH_KMEANS_SCALE_TOL, MESH_KMEANS_POINT_SHARE = 1e-3, 1e-3
 
 
 def launch_dict(**counts):
@@ -906,7 +955,10 @@ def kernel_phase(sk, probes, designs, dev):
             results[name].append(res[name])
         return res
 
-    for label, rows in (("fit batch", BATCH), ("transform", SPARSE_ROWS)):
+    # the fit batch, the 1M-row transform and one rank's share of the fit
+    # batch on phase 16's mesh (the batch each rank's kernels get there)
+    for label, rows in (("fit batch", BATCH), ("transform", SPARSE_ROWS),
+                        (f"rank batch (1 of {MESH_RANKS})", BATCH // MESH_RANKS)):
         idx, vals = sparse_batch(gen, rows, NNZ, SPARSE_DIM, dev, DEFAULT_MASK_SHARE, OUT_OF_RANGE_SHARE)
         mult = torch.randn(rows, generator=gen, device=dev)
         run(label, idx, vals, coeff, mult, copies(idx, vals))
@@ -7105,6 +7157,19 @@ def main() -> int:
     lint = lint_phase(card)
     path_s["tpulint"] = lint["seconds"]
 
+    # -- 16. data-parallel training over a mesh of ranks -------------------------------
+    log(f"phase 16: {MESH_RANKS} gloo ranks sharing the card, each under the sanitizer: the "
+        "dense LR, the sparse LR (dense and pair routes) and KMeans of phase 3, plain and "
+        "overlapped, against the one-rank fits (launch counts reset before and read after "
+        "each fit on each rank); then a one-rank NCCL world")
+    mesh = mesh_phase(card, dev, runs)
+    path_s["mesh"] = mesh["seconds"]
+    mesh_launches = {f"mesh {name} (rank 0 of {MESH_RANKS})": counts[0]
+                     for name, counts in mesh["launches"].items()}
+    for counts in mesh_launches.values():
+        for kernel in launches:
+            launches[kernel] += counts[kernel]
+
     # -- output -----------------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
@@ -7131,7 +7196,8 @@ def main() -> int:
                                  **(serving_launches if name == "sparse_row_dots" else {}),
                                  **{p: c[name] for p, c in checkpoints["launches"].items()
                                     if c[name]},
-                                 **{p: c[name] for p, c in funnel_launches.items() if c[name]}},
+                                 **{p: c[name] for p, c in funnel_launches.items() if c[name]},
+                                 **{p: c[name] for p, c in mesh_launches.items() if c[name]}},
             "launches_by_feature_path": {p: r["launches"][name] for p, r in
                                          {**features, **texts, **stat_stages, **slice8}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -7185,7 +7251,8 @@ def main() -> int:
     log("checkpoint and recovery: " + json.dumps(checkpoints))
     log("funnel, bank and traced run: " + json.dumps(funnel, default=str))
     log("tpulint: " + json.dumps(lint))
-    log("seconds by path (phases 3-15): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("mesh: " + json.dumps(mesh, default=str))
+    log("seconds by path (phases 3-16): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s on {card}")
@@ -7195,6 +7262,337 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def mesh_fits():
+    """Phase 16's fits on each rank: name -> (path, overlap, threshold)."""
+    return {
+        "dense lr plain": ("dense", False, None), "dense lr overlap": ("dense", True, None),
+        "sparse lr plain": ("sparse", False, None), "sparse lr overlap": ("sparse", True, None),
+        "sparse lr pairs": ("sparse", True, MESH_PAIR_THRESHOLD),
+        "kmeans plain": ("kmeans", False, None), "kmeans overlap": ("kmeans", True, None),
+    }
+
+
+def mesh_expected_launches(name):
+    """A rank's launches in a phase-16 fit: a row dot and a gradient an
+    epoch on its rows; on the pair route the gradient is the pairs'
+    deterministic scatter (`collectives.scatter_pairs`), not the kernel."""
+    if not name.startswith("sparse"):
+        return launch_dict()
+    return launch_dict(sparse_row_dots=MAX_ITER,
+                       sparse_grad=0 if name.endswith("pairs") else MAX_ITER)
+
+
+def count_plain_launches(sk):
+    """On the CPU (the rehearsal) each call of a kernel's plain version
+    counts as its kernel's launch: scripts/rehearse_chip_smoke.py installs
+    it in its process, and phase 16's ranks (which start without that
+    stub) in theirs."""
+    def counted(kernel, plain):
+        def call(*args):
+            kernel.launches += 1
+            return plain(*args)
+        return call
+    for name in ("sparse_row_dots", "sparse_grad", "fleet_row_dots", "fleet_grad"):
+        setattr(sk, f"{name}_plain", counted(getattr(sk, name), getattr(sk, f"{name}_plain")))
+
+
+def collectives_check(mesh, dev, self_send=False):
+    """Every operation of parallel/collectives.py once on this rank's
+    tensors on `dev`, each held to its definition exactly (integer-valued
+    float32 operands, so any order of the sums is exact): the four
+    all-reduces, all_gather (tiled and stacked), reduce_scatter,
+    ppermute_ring, the chunked reduce (reduce-scatter + all-gather and the
+    ring, each also issued asynchronously), the sparse pair reduce and
+    host_all_reduce_sum; with `self_send` (a one-rank NCCL world) one
+    point-to-point exchange with itself. Returns the operations checked."""
+    from flink_ml_tpu_torch.parallel import collectives as coll
+
+    n, r = mesh.shape["data"], mesh.rank
+    base = torch.arange(n * 6 * 4, dtype=torch.float32, device=dev).reshape(n * 6, 4)
+    x = base + 1000.0 * r
+    ranks = torch.arange(n, dtype=torch.float32, device=dev)
+    total = n * base + 1000.0 * ranks.sum()
+    every = torch.cat([base + 1000.0 * q for q in range(n)])
+    want = {
+        "psum": (coll.all_reduce_sum(x, mesh=mesh), total),
+        "pmean": (coll.all_reduce_mean(x, mesh=mesh), total / n),
+        "pmax": (coll.all_reduce_max(x, mesh=mesh), base + 1000.0 * (n - 1)),
+        "pmin": (coll.all_reduce_min(x, mesh=mesh), base),
+        "all_gather": (coll.all_gather(x, mesh=mesh), every),
+        "all_gather stacked": (coll.all_gather(x, tiled=False, mesh=mesh),
+                               every.reshape(n, n * 6, 4)),
+        "psum_scatter": (coll.reduce_scatter(x, mesh=mesh), total.reshape(n, 6, 4)[r]),
+        "ppermute": (coll.ppermute_ring(x, mesh=mesh), base + 1000.0 * ((r - 1) % n)),
+    }
+    for ring in (False, True):
+        for async_op in (False, True):
+            got = coll.all_reduce_sum_chunked({"a": x, "b": (x[:2], x[2:])}, chunk_bytes=64,
+                                              ring=ring, mesh=mesh, async_op=async_op)
+            got = got.result() if async_op else got
+            label = f"chunked {'ring' if ring else 'rs+ag'}{' async' if async_op else ''}"
+            want[label] = (torch.cat([got["a"], got["b"][0], got["b"][1]]),
+                           torch.cat([total, total[:2], total[2:]]))
+    d = 50
+    idx = ((torch.arange(24, device=dev, dtype=torch.int32) * 7 + 3 * r) % (d + 4)
+           - 2).reshape(6, 4).to(torch.int32)
+    vals = torch.full((6, 4), float(r + 1), device=dev)
+    dense = torch.zeros(d, device=dev)
+    for q in range(n):
+        qi = ((torch.arange(24, device=dev) * 7 + 3 * q) % (d + 4) - 2)
+        keep = (qi >= 0) & (qi < d)
+        dense.index_add_(0, qi[keep], torch.full((int(keep.sum()),), float(q + 1), device=dev))
+    want["sparse_allreduce"] = (coll.sparse_all_reduce_sum(idx, vals, d, mesh=mesh), dense)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    hot = torch.randint(0, 64, (200_000,), generator=gen, device=dev, dtype=torch.int32)
+    hot_vals = torch.randn(200_000, generator=gen, device=dev)
+    first = coll.scatter_pairs(hot, hot_vals, 64)
+    want["scatter_pairs repeats its bits"] = (coll.scatter_pairs(hot, hot_vals, 64), first)
+    parts = [np.full(5, float(q), np.float32) for q in range(3)]
+    want["host_all_reduce_sum"] = (coll.host_all_reduce_sum(mesh, parts),
+                                   torch.full((5,), 3.0, device=dev))
+    if self_send:
+        want["p2p to itself"] = (coll._exchange(x, mesh, n, [1])[0], x)
+    for label, (got, expect) in want.items():
+        check(got.shape == expect.shape and torch.equal(got, expect.to(got.dtype)),
+              f"collective {label} on rank {r} over {mesh.group and 'its group'} differs "
+              f"from its definition")
+    return sorted(want)
+
+
+def mesh_rank_job(spec):
+    """Phase 16 on one rank of the gloo world: the dense LR, the sparse LR
+    and KMeans of phase 3 through their estimators on this rank's rows
+    (`mesh_fits`), each with the launch counts reset before and read
+    after, then `collectives_check` on the card, then this rank's
+    collective sequence held against every other rank's
+    (`sanitizer.compare_rank_sequences`) and the sanitizer's verdict. The
+    data is phase 3's, made again on this rank from its seeds (the whole
+    table; each fit stages only its rows). Returns host values only."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    module = sys.modules[__name__]
+    for name, value in spec["sizes"].items():
+        setattr(module, name, value)
+    from flink_ml_tpu_torch import SparseBatch, Table
+    from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.analysis import sanitizer
+    from flink_ml_tpu_torch.models.classification import logisticregression
+    from flink_ml_tpu_torch.ops import sparsekernels as sk
+    from flink_ml_tpu_torch.parallel import mesh as mesh_lib
+    from flink_ml_tpu_torch.utils import metrics
+
+    rank, dev = dist.get_rank(), torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    if spec["count_plain"]:
+        count_plain_launches(sk)
+    else:
+        sk.build()  # loads the parent's build: the library exists
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fits, tables = {}, {}
+
+    def table_of(path):
+        if path in tables:
+            return tables[path]
+        tables.clear()
+        if cuda:
+            torch.cuda.empty_cache()
+        if path == "dense":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(2)  # phase 3's dense table, in its order
+            X = torch.rand((DENSE_ROWS, DIM), generator=gen, device=dev)
+            y = torch.randint(0, 2, (DENSE_ROWS,), generator=gen, device=dev).to(torch.float32)
+            w = torch.rand((DENSE_ROWS,), generator=gen, device=dev)
+            tables[path] = Table({"features": X, "label": y, "weight": w})
+        elif path == "sparse":
+            s_idx, s_vals, s_y = sparse_data(dev)
+            tables[path] = Table({"features": SparseBatch(SPARSE_DIM, s_idx, s_vals),
+                                  "label": s_y})
+        else:
+            tables[path] = Table({"features": kmeans_data(dev)})
+        return tables[path]
+
+    for name, (path, overlap, threshold) in mesh_fits().items():
+        table = table_of(path)
+        est = (kmeans_estimator() if path == "kmeans" else
+               estimator(logisticregression.LogisticRegression,
+                         "weight" if path == "dense" else None))
+        threshold = port_config.collective_sparse_threshold if threshold is None else threshold
+        if cuda:
+            torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        before = metrics.snapshot()
+        t0 = time.perf_counter()
+        with port_config.collective_overlap_mode(overlap), \
+                port_config.collective_sparse_threshold_mode(threshold):
+            model = est.fit(table)
+        if cuda:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = sk.launch_counts()
+        delta = metrics.snapshot_delta(before, metrics.snapshot())
+        arrays = ({"centroids": model.centroids, "weights": model.weights} if path == "kmeans"
+                  else {"coefficient": np.asarray(model.coefficient)})
+        fits[name] = {
+            "seconds": seconds, "launches": launches,
+            "counters": {k: v for k, v in delta["counters"].items()
+                         if k.startswith(("collective.", "dispatch.whole_fit"))},
+            "digest": hashlib.sha256(b"".join(np.ascontiguousarray(a).tobytes()
+                                              for a in arrays.values())).hexdigest(),
+            **(arrays if rank == 0 else {}),
+        }
+    tables.clear()
+    checked = collectives_check(mesh_lib.default_mesh(), dev)
+    staged = {k: v for k, v in metrics.snapshot()["counters"].items()
+              if k.startswith("collective.staged.")}
+    sequence = sanitizer.recorder.collective_sequences.get("mesh", {}).get(str(rank), [])
+    return {
+        "rank": rank, "fits": fits, "collectives_checked": checked, "staged": staged,
+        "sequence_length": len(sequence),
+        "sequence_digest": hashlib.sha256(repr(sequence).encode()).hexdigest()[:16],
+        "sequence_problems": sanitizer.compare_rank_sequences(),
+        "sanitizer_problems": sanitizer.recorder.problems(join_timeout=SANITIZER_JOIN_S),
+        "sanitizer": sanitizer.recorder.stats(),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
+    }
+
+
+def nccl_rank_job(spec):
+    """Phase 16(b) on the one rank of an NCCL world: `collectives_check`
+    over the world's group (so every operation reaches the backend, which
+    a mesh of one rank with no group skips), with a point-to-point
+    exchange with itself; nothing may stage through the host."""
+    import torch.distributed as dist
+
+    from flink_ml_tpu_torch.parallel import mesh as mesh_lib
+    from flink_ml_tpu_torch.utils import metrics
+
+    dev = torch.device(spec["device"])
+    mesh = mesh_lib.Mesh((mesh_lib.DATA_AXIS,), (1,), group=dist.group.WORLD, rank=0, device=dev)
+    checked = collectives_check(mesh, dev, self_send=dist.get_backend() == "nccl")
+    staged = {k: v for k, v in metrics.snapshot()["counters"].items()
+              if k.startswith("collective.staged.")}
+    return {"backend": dist.get_backend(), "checked": checked, "staged": staged}
+
+
+def mesh_phase(card, dev, runs):
+    """Phase 16: (a) MESH_RANKS gloo ranks on this one card, each under
+    the sanitizer (`mesh_rank_job`), every fit held against phase 3's
+    one-rank fit of the same data, overlap against plain, every rank's
+    collective sequence against the others'; (b) a one-rank NCCL world
+    (`nccl_rank_job`). A rank that fails fails the run. Returns what the
+    output lines print."""
+    from flink_ml_tpu_torch.parallel import launcher
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks' tables need the parent's free cache
+    on_card = DEVICE == "cuda"
+    device = "cuda:0" if on_card else "cpu"
+    spec = {"device": device, "count_plain": not on_card,
+            "sizes": {name: getattr(sys.modules[__name__], name) for name in (
+                "DENSE_ROWS", "DIM", "SPARSE_ROWS", "SPARSE_DIM", "NNZ", "MAX_ITER", "BATCH",
+                "KMEANS_ROWS", "KMEANS_K", "KMEANS_ITER", "KMEANS_SEED")}}
+    with launcher.World(MESH_RANKS, backend="gloo", device=device, timeout_s=MESH_JOB_TIMEOUT_S,
+                        collective_timeout_s=MESH_COLLECTIVE_TIMEOUT_S, sanitize=True) as world:
+        spawn_s = time.perf_counter() - t0
+        per_rank = world.run(mesh_rank_job, spec)
+    gloo_s = time.perf_counter() - t0
+    r0 = per_rank[0]["fits"]
+    out = {"ranks": MESH_RANKS, "spawn_s": spawn_s, "seconds_by_fit": {}, "launches": {},
+           "counters": {}, "peak_gib": [r["peak_gib"] for r in per_rank]}
+    for name in mesh_fits():
+        digests = {r["fits"][name]["digest"] for r in per_rank}
+        check(len(digests) == 1, f"mesh {name}: the ranks ended with different models")
+        for r in per_rank:
+            got = r["fits"][name]["launches"]
+            check(got == mesh_expected_launches(name),
+                  f"mesh {name}: rank {r['rank']} launched {got}, expected "
+                  f"{mesh_expected_launches(name)}")
+        out["seconds_by_fit"][name] = [round(r["fits"][name]["seconds"], 4) for r in per_rank]
+        out["launches"][name] = [r["fits"][name]["launches"] for r in per_rank]
+        out["counters"][name] = r0[name]["counters"]
+        check(r0[name]["counters"].get("dispatch.whole_fit_fallback.mesh") == 1,
+              f"mesh {name} was not counted as an eager mesh fit")
+    for r in per_rank:
+        check(not r["sequence_problems"],
+              f"rank {r['rank']}: collective sequences differ: {r['sequence_problems']}")
+        check(not r["sanitizer_problems"],
+              f"rank {r['rank']}: the sanitizer found {r['sanitizer_problems']}")
+    check(len({(r["sequence_length"], r["sequence_digest"]) for r in per_rank}) == 1,
+          "the ranks recorded different collective sequences")
+    pairs = r0["sparse lr pairs"]["counters"]
+    check(pairs.get("collective.sparse_allreduce.calls", 0) == MAX_ITER + 1 and
+          r0["sparse lr overlap"]["counters"].get("collective.sparse_allreduce.calls", 0) == 0,
+          "the pair route did not carry exactly the pairs fit's gradient")
+    # -- gates against phase 3's one-rank fits and between the modes
+    gaps = {}
+    one = runs["dense lr"]["model"].coefficient
+    for name in ("dense lr plain", "dense lr overlap"):
+        c = r0[name]["coefficient"]
+        gaps[name] = float(np.max(np.abs(c - one)))
+        check(np.allclose(c, one, **MESH_DENSE_TOL),
+              f"mesh {name} differs from the one-rank fit by {gaps[name]}")
+    gaps["dense overlap vs plain"] = float(np.max(np.abs(
+        r0["dense lr overlap"]["coefficient"] - r0["dense lr plain"]["coefficient"])))
+    check(np.allclose(r0["dense lr overlap"]["coefficient"], r0["dense lr plain"]["coefficient"],
+                      **MESH_DENSE_TOL), "mesh dense overlap differs from plain")
+    plain_c = runs["sparse lr"]["plain_coefficient"]
+    scale = float(np.max(np.abs(plain_c)))
+    for name in ("sparse lr plain", "sparse lr overlap", "sparse lr pairs"):
+        gaps[name] = float(np.max(np.abs(r0[name]["coefficient"] - plain_c)))
+        check(gaps[name] <= 1e-4 * scale, f"mesh {name} differs from the one-rank plain-loss "
+                                          f"fit by {gaps[name]} (gate {1e-4 * scale})")
+    km = runs["kmeans"]["model"]
+    km_scale = float(np.max(np.abs(km.centroids)))
+    for name, ref in (("kmeans plain", km), ("kmeans overlap", None)):
+        want_c = km.centroids if ref is not None else r0["kmeans plain"]["centroids"]
+        want_w = km.weights if ref is not None else r0["kmeans plain"]["weights"]
+        gaps[name] = float(np.max(np.abs(r0[name]["centroids"] - want_c)))
+        moved = float(np.sum(np.abs(r0[name]["weights"] - want_w))) / 2
+        gaps[name + " points moved"] = moved
+        check(gaps[name] <= MESH_KMEANS_SCALE_TOL * km_scale
+              and moved <= MESH_KMEANS_POINT_SHARE * KMEANS_ROWS,
+              f"mesh {name}: centroids {gaps[name]} off, {moved} points in other cells")
+    out["gaps"] = gaps
+    out["staged"] = per_rank[0]["staged"]
+    check(out["staged"].get("collective.staged.p2p", 0) > 0 or not on_card,
+          "the ring's point-to-point on CUDA tensors did not stage through the host")
+    out["sequence_length"] = per_rank[0]["sequence_length"]
+    out["sanitizer"] = per_rank[0]["sanitizer"]
+    out["collectives_checked"] = per_rank[0]["collectives_checked"]
+    # -- (b) a one-rank NCCL world
+    t1 = time.perf_counter()
+    backend = "nccl" if on_card else "gloo"
+    with launcher.World(1, backend=backend, device=device, timeout_s=MESH_JOB_TIMEOUT_S,
+                        collective_timeout_s=MESH_COLLECTIVE_TIMEOUT_S) as world:
+        nccl = world.run(nccl_rank_job, spec)[0]
+    check(nccl["backend"] == backend, f"the one-rank world runs {nccl['backend']}")
+    check(not nccl["staged"], f"the {backend} branch staged through the host: {nccl['staged']}")
+    out["nccl"] = {**nccl, "seconds": time.perf_counter() - t1}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  mesh of {MESH_RANKS} gloo ranks on one card: spawned in {spawn_s:.2f} s, fits and "
+        f"checks {gloo_s - spawn_s:.2f} s; on {card}")
+    for name in mesh_fits():
+        log(f"  mesh {name}: seconds by rank {out['seconds_by_fit'][name]}; launches by rank "
+            f"{[{k: v for k, v in c.items() if v} for c in out['launches'][name]]}; collectives "
+            f"(rank 0) {out['counters'][name]}")
+    log(f"  mesh gaps: {json.dumps(gaps)}")
+    log(f"  mesh peaks by rank (GiB): {[round(p, 3) for p in out['peak_gib']]}; staged through "
+        f"the host (rank 0): {out['staged']}; {out['sequence_length']} collectives a rank, "
+        f"equal on every rank; sanitizer (rank 0) {out['sanitizer']}")
+    log(f"  {backend} one-rank world: {len(nccl['checked'])} collectives held to their "
+        f"definitions on CUDA tensors, none staged, in {out['nccl']['seconds']:.2f} s. It is "
+        "the only run of the NCCL branch until a multi-card check exists; NCCL across cards "
+        "stays unverified" if on_card else "  (the rehearsal runs gloo on the CPU)")
+    return out
 
 
 def lint_phase(card):

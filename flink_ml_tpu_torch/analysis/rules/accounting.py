@@ -17,8 +17,8 @@ the torch calls that copy host data to the card around it:
 A function that calls `account_h2d` accounts its own copies, and is not
 flagged. `x.to(dtype)` is a cast, and a tensor made on the card without
 host data (`torch.zeros(..., device=...)`) moves no bytes: neither is
-flagged. The collective half (`collective-accounting`) waits for
-multi-GPU (ROADMAP A.10).
+flagged. The collective half (`collective-accounting`) waits for the
+port's SPMD rules (ROADMAP A.10c).
 """
 
 from __future__ import annotations

@@ -22,7 +22,12 @@ Reachability follows resolved calls and, for an attribute call, every
 method of that name in the package (an over-approximation). Taint is
 under-approximated: an unknown call launders it, and a value whose device
 cannot be told raises nothing. The suppressions are the port's census of
-its deliberate host syncs.
+its deliberate host syncs. A collective is not a sync to this rule (its
+wait is the backend's, bounded by the world's timeout): the sharded epoch
+loops on a mesh of ranks (`ops/optimizer._sgd_train_sharded`,
+`parallel/overlap.py`, `kmeans._lloyd_train_sharded`) stay eager by
+design and wait on their reductions every epoch, which gloo stages
+through the host (ROADMAP C.28).
 """
 
 from __future__ import annotations

@@ -55,6 +55,9 @@ __all__ = [
     "tracked_condition",
     "record_collective",
     "collective_recording",
+    "active_recorder",
+    "set_process_shard",
+    "compare_rank_sequences",
 ]
 
 
@@ -175,7 +178,7 @@ class Recorder:
         which cannot diverge against itself)."""
         scope = getattr(self._shard_ctx, "scope", None)
         if scope is None:
-            scope = ("trace", "0")
+            scope = _process_shard or ("trace", "0")
         group, shard = scope
         event = (str(op), str(axis), tuple(shape), str(dtype))
         with self._mu:
@@ -414,13 +417,52 @@ _collective_recorder: Optional[Recorder] = None
 
 def record_collective(op: str, axis, shape, dtype) -> None:
     """The collective ledger's funnel: a no-op unless the sanitizer (or a
-    scoped `collective_recording`) is active. Nothing in the port calls it
-    yet; the multi-card slice's collectives will, as the JAX package's
-    `parallel/collectives._account` does."""
+    scoped `collective_recording`) is active. `parallel/collectives._account`
+    calls it for every accounted collective, as the JAX package's does."""
     if not _collectives_on:
         return
-    rec = _collective_recorder if _collective_recorder is not None else recorder
-    rec.record_collective(op, axis, shape, dtype)
+    active_recorder().record_collective(op, axis, shape, dtype)
+
+
+def active_recorder() -> Recorder:
+    """The recorder collectives record into: a scoped
+    `collective_recording`'s, else the process-wide one."""
+    return _collective_recorder if _collective_recorder is not None else recorder
+
+
+#: the (group, shard) a rank of a mesh records under by default
+_process_shard: Optional[Tuple[str, str]] = None
+
+
+def set_process_shard(shard, group: str = "mesh") -> None:
+    """Make (group, shard) this process's default recording scope: a rank of
+    a mesh is one shard of the `mesh` group. None clears it."""
+    global _process_shard
+    _process_shard = None if shard is None else (str(group), str(shard))
+
+
+def compare_rank_sequences(group=None, rec: Optional[Recorder] = None,
+                           scope: str = "mesh") -> List[str]:
+    """Every rank's recorded sequence of `scope` gathered to every rank over
+    the process group `group` (default: the world) with `all_gather_object`
+    (not itself recorded), and their divergences: one message per divergent
+    pair, as `Recorder.collective_divergences` words it. Every rank of the
+    group must call it."""
+    import torch.distributed as dist
+
+    rec = rec if rec is not None else active_recorder()
+    with rec._mu:
+        mine = {shard: list(seq) for shard, seq in
+                rec.collective_sequences.get(scope, {}).items()}
+    gathered: List = [None] * dist.get_world_size(group)
+    dist.all_gather_object(gathered, mine, group=group)
+    merged = Recorder()
+    for rank, shards in enumerate(gathered):
+        if not shards:
+            shards = {str(rank): []}
+        for shard, seq in shards.items():
+            merged.collective_sequences.setdefault(scope, {})[shard] = seq
+    return merged.collective_divergences()
 
 
 class collective_recording:

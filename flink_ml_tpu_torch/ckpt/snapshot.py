@@ -20,7 +20,7 @@ card, one copy into page-locked memory, every dtype kept), accounted as
 one host sync of kind `checkpoint`. The manifest records a sharding-spec
 tag per leaf (`replicated` / `data` / `model` / `host`); on one card
 `stage_section` puts every non-`host` leaf on the caller's device, and the
-tags wait for the multi-card layout (ROADMAP A.10).
+tags wait for the multi-card layout (ROADMAP A.10b).
 
 On disk (version 1): one `snap-<jobkey>.npz` per job key, a JSON
 `manifest` entry (version, job key, epoch, criteria, per-section leaf
@@ -525,7 +525,7 @@ def stage_section(snap: JobSnapshot, name: str, device: Optional[torch.device] =
     in one accounted upload (`parallel.prefetch.stage_to_device`); leaves
     tagged `host` stay numpy. `specs` overrides the stored tags. On one
     card every other tag means the one device: the tags are kept for the
-    multi-card layout (ROADMAP A.10). `category` ledgers the restored
+    multi-card layout (ROADMAP A.10b). `category` ledgers the restored
     residency (obs/memledger.py)."""
     from .. import config
 

@@ -9,8 +9,14 @@ The stream, online, fleet, fusion, flow-control, serving, model-store,
 lifecycle, checkpoint, snapshot and supervisor knobs keep the JAX
 package's names, defaults and environment variables
 (flink_ml_tpu/config.py), as do the program funnel's (`whole_fit`,
-`kernel_cache_size`) and the program bank's (`program_bank_dir`). Its
-collective knobs wait for more than one card (ROADMAP A.10).
+`kernel_cache_size`) and the program bank's (`program_bank_dir`), and the
+1D collective knobs of the data axis (`collective_chunk_bytes` with
+`resolve_chunk_bytes`, `collective_sparse_threshold`, `collective_ring`,
+`collective_overlap` with `collective_overlap_mode`, and the scoped
+`collective_sparse_threshold_mode`; parallel/
+collectives.py, parallel/overlap.py). The 2D ones (`sparse_2d_mode`,
+`fleet_shard_threshold`) wait for the feature-sharded layout (ROADMAP
+A.10b).
 """
 
 from __future__ import annotations
@@ -286,7 +292,45 @@ def recovery_budget_mode(budget: int):
     return _scoped("recovery_budget", max(0, int(budget)))
 
 
+# -- collectives over a mesh of ranks (parallel/collectives.py, overlap.py) ---
+#: bucket size of `all_reduce_sum_chunked`: a gradient is cut into buckets of
+#: about this many bytes, each reduced on its own; None or <= 0 is one bucket
+collective_chunk_bytes: Optional[int] = 4 << 20
+#: the sparse gradient rides the index-value pair exchange when its pair
+#: bytes are at most this fraction of the dense payload (dim * itemsize)
+collective_sparse_threshold: float = 0.5
+#: reduce each bucket by the ring exchange (folded in replica order) rather
+#: than reduce-scatter + all-gather
+collective_ring: bool = False
+#: the SGD and Lloyd loops on a mesh carry the unreduced gradient and reduce
+#: it at the top of the next epoch, issued asynchronously (carry-delayed apply)
+collective_overlap: bool = False
+
+
+def collective_overlap_mode(enabled: bool = True):
+    """Scoped override of `collective_overlap`."""
+    return _scoped("collective_overlap", bool(enabled))
+
+
+def collective_sparse_threshold_mode(threshold: float):
+    """Scoped override of `collective_sparse_threshold`."""
+    return _scoped("collective_sparse_threshold", float(threshold))
+
+
+def resolve_chunk_bytes(chunk_bytes: Optional[int] = None) -> Optional[int]:
+    """The effective bucket size: an explicit argument, else
+    `collective_chunk_bytes`. None or <= 0 is unchunked (one bucket)."""
+    v = chunk_bytes if chunk_bytes is not None else collective_chunk_bytes
+    if v is None or v <= 0:
+        return None
+    return int(v)
+
+
 _env = os.environ.get
+if _env("FLINK_ML_TPU_COLLECTIVE_OVERLAP") in ("1", "true", "on"):
+    collective_overlap = True
+if _env("FLINK_ML_TPU_COLLECTIVE_CHUNK_BYTES"):
+    collective_chunk_bytes = int(_env("FLINK_ML_TPU_COLLECTIVE_CHUNK_BYTES"))
 if _env("FLINK_ML_TPU_HBM_BUDGET_BYTES"):
     hbm_budget_bytes = max(0, int(_env("FLINK_ML_TPU_HBM_BUDGET_BYTES")))
 if _env("FLINK_ML_TPU_TRANSIENT_RETRIES"):

@@ -16,6 +16,13 @@ staged batches on the device, so a batch crosses to the device once:
   order. A key that repeats the one before reuses its batch without a
   lookup or a copy, whatever the budget.
 
+- `data_axis_rows` / `stage_rank_rows`: the data-axis placement of a
+  fit on a mesh of ranks (parallel/mesh.py), where each rank holds only
+  its own rows: the rows its device holds under the JAX package's
+  `(None, data)` batch sharding (`optimizer._layout_batches`), gathered
+  from a whole column on its own device or from a host array before one
+  upload;
+
 - `cache_contents_section` / `restore_cache_contents` (`:88-130`): the
   stream cache's contents as a snapshot section, so a resumed stream fit
   rebuilds its host cache from a sharded snapshot and does not read its
@@ -46,7 +53,8 @@ from ..parallel.prefetch import Prefetcher, Staged
 from ..utils import metrics
 
 __all__ = ["DeviceEpochCache", "CachedEpochLoader", "within_device_budget",
-           "cache_contents_section", "restore_cache_contents"]
+           "cache_contents_section", "restore_cache_contents", "data_axis_rows",
+           "stage_rank_rows"]
 
 _UNSET = object()
 
@@ -174,6 +182,52 @@ class CachedEpochLoader:
         """The device batch of each key, in order. Closing the generator
         early stops the staging worker; a stage error re-raises here."""
         return Prefetcher(self._resolve, self.depth, policy="block").iterate(keys)
+
+
+# ---------------------------------------------------------------------------
+# the data-axis placement (a fit on a mesh of ranks)
+# ---------------------------------------------------------------------------
+
+def data_axis_rows(n: int, batch: int, shards: int, rank: int, batches: int) -> np.ndarray:
+    """The global row of every slot rank `rank` of `shards` holds in the
+    first `batches` batches of the JAX package's batch layout: rows padded
+    to whole batches of `batch`, each batch padded to `b_pad = ceil(batch /
+    shards) * shards` and split over the data axis, so the rank holds slots
+    [rank * b_pad / shards, (rank + 1) * b_pad / shards) of each batch.
+    Returns (batches, b_pad / shards) int64, -1 where the slot is padding."""
+    b_local = -(-int(batch) // shards)
+    slot = rank * b_local + np.arange(b_local)
+    rows = np.arange(batches)[:, None] * int(batch) + slot[None, :]
+    return np.where((slot[None, :] < batch) & (rows < n), rows, -1)
+
+
+def stage_rank_rows(array, rows: np.ndarray, n: int, fill, device, dtype=None):
+    """`array`'s rows `rows` (any shape of global row indices; an index < 0
+    or >= n is a padding slot, filled with `fill`) as one tensor of shape
+    rows.shape + array.shape[1:]. A tensor is gathered on its own device; a
+    host array is gathered on the host and uploaded once to `device`."""
+    import torch
+
+    from ..parallel.prefetch import to_device
+
+    rows = np.asarray(rows, dtype=np.int64)
+    valid = (rows >= 0) & (rows < n)
+    safe = np.where(valid, rows, 0).reshape(-1)
+    tail = tuple(array.shape[1:])
+    if isinstance(array, torch.Tensor):
+        picked = array.index_select(0, to_device(safe, array.device))
+        keep = to_device(valid.reshape(-1), array.device)
+        keep = keep.reshape((-1,) + (1,) * len(tail))
+        out = torch.where(keep, picked, torch.as_tensor(fill, dtype=picked.dtype,
+                                                        device=picked.device))
+        if dtype is not None and out.dtype != dtype:
+            out = out.to(dtype)
+        return out.reshape(rows.shape + tail)
+    host = np.asarray(array)
+    out = np.full((safe.shape[0],) + tail, fill, dtype=host.dtype)
+    flat_valid = valid.reshape(-1)
+    out[flat_valid] = host[safe[flat_valid]]
+    return to_device(out.reshape(rows.shape + tail), device, dtype)
 
 
 # ---------------------------------------------------------------------------

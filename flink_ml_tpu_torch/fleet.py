@@ -51,7 +51,7 @@ shard), `fleet.fits`, `fleet.modelsTrained`, `fleet.examplesTrained`, the
 fleet's memory peak on `hbm.peak.fit` and every member's
 `hbm.peak.fit.member.<i>`, and an `iteration.run` span a fit (mode
 "fleet", "fleet_chunked" with `iteration.chunk` spans, or
-"fleet_stream"). Not yet: the fleet-sharded regime (A.10).
+"fleet_stream"). Not yet: the fleet-sharded regime (ROADMAP A.10b).
 """
 
 from __future__ import annotations
@@ -74,7 +74,8 @@ _LINEAR_KINDS = {
 
 
 def _data_shards() -> int:
-    """The port trains on one device: one data shard (more is A.10)."""
+    """A fleet trains replicated on one rank: one data shard (the
+    fleet-sharded regime over more is ROADMAP A.10b)."""
     return 1
 
 

@@ -7,6 +7,12 @@ reference's LogisticRegression.java:70-114 and
 LogisticRegressionModel.java:64,131). Tensor columns stay on their device;
 host columns become float64 numpy and the SGD engine casts them once to
 its float32 compute dtype as it stages them to `config.device()`.
+
+The fit runs on the default mesh (`parallel.mesh.default_mesh()`, JAX
+`:125-145`): one rank, or every rank of an initialized world, each
+training on its own rows (ops/optimizer.py). A mesh with a `model` axis
+declares the feature-sharded layout, which the JAX package takes for a
+sparse fit; that layout is ROADMAP A.10b and raises here.
 """
 
 from __future__ import annotations
@@ -63,8 +69,11 @@ def run_sgd(params, table, loss_func: LossFunc, weight_col: Optional[str],
     the same coefficients for the same rows. Checkpoint and resume follow
     `config.iteration_checkpoint_dir`, the files named by the stage's
     `checkpoint_job_key`."""
+    from ..parallel import mesh as mesh_lib
     from ..parallel.iteration import checkpoint_job_key
 
+    mesh = mesh_lib.default_mesh()
+    mesh_lib.check_data_parallel(mesh, type(params).__name__)
     ckpt_dir = config.iteration_checkpoint_dir
     optimizer = SGD(
         max_iter=params.get_max_iter(),
@@ -80,7 +89,7 @@ def run_sgd(params, table, loss_func: LossFunc, weight_col: Optional[str],
     if isinstance(table, StreamTable):
         chunks = _stream_chunks(table, params.get_features_col(), params.get_label_col(),
                                 weight_col, validate_binomial)
-        coeff, loss, epochs, _ = optimizer.optimize_stream(None, chunks, loss_func)
+        coeff, loss, epochs, _ = optimizer.optimize_stream(None, chunks, loss_func, mesh=mesh)
         return coeff, loss, epochs
     X, y, w = extract_train_data(
         table, params.get_features_col(), params.get_label_col(), weight_col
@@ -94,12 +103,16 @@ def run_sgd(params, table, loss_func: LossFunc, weight_col: Optional[str],
     if isinstance(X, tuple):  # sparse: train on padded CSR, no densify
         indices, values, dim = X
         X = (indices, values)
+        if mesh_lib.MODEL_AXIS in mesh.axis_names:
+            raise NotImplementedError(
+                f"a sparse {type(params).__name__} fit on a mesh with a {mesh_lib.MODEL_AXIS!r} "
+                "axis (the 2D feature-sharded layout) is not ported yet (ROADMAP A.10b)")
         loss_func = sparse_variant(loss_func.name)
         init_coeff = np.zeros(dim, dtype=np.float64)
     else:
         init_coeff = np.zeros(X.shape[1], dtype=np.float64)
     result = optimizer.optimize_async(
-        init_coeff, X, y, w, loss_func, validate_labels=validate_on_device
+        init_coeff, X, y, w, loss_func, mesh=mesh, validate_labels=validate_on_device
     )
     flag, coeff, criteria, epochs = read_train_result(result)
     _raise_if_invalid(flag)

@@ -2,7 +2,8 @@
 
 Port of flink_ml_tpu/models/classification/linearsvc.py (the reference's
 LinearSVC.java, LinearSVCModel.java:137-173 and LinearSVCModelParams.java:
-36-52). Training runs the one-device SGD engine with the hinge loss and
+36-52). Training runs the SGD engine on the default mesh (one device, or
+every rank of a world on its own rows) with the hinge loss and
 {0, 1} labels; a SparseBatch trains on the sparse kernels and is never
 densified. The prediction thresholds the raw dot, and rawPrediction is
 [dot, -dot].

@@ -2,7 +2,8 @@
 
 Port of flink_ml_tpu/models/classification/logisticregression.py (the
 reference's LogisticRegression.java:60 and LogisticRegressionModel.java:
-64,131-168). Training runs the one-device SGD engine (ops/optimizer.py);
+64,131-168). Training runs the SGD engine (ops/optimizer.py) on the default
+mesh: one device, or every rank of a world on its own rows;
 inference is one matvec (dense) or one sparse row-dot kernel (SparseBatch)
 plus the sigmoid over the whole table.
 

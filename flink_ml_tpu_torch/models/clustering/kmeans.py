@@ -1,4 +1,4 @@
-"""KMeans: Lloyd's algorithm on one device.
+"""KMeans: Lloyd's algorithm on one device or a mesh of ranks.
 
 Port of flink_ml_tpu/models/clustering/kmeans.py
 (the reference's KMeans.java:87-310, KMeansModel.java and
@@ -41,8 +41,20 @@ package's whole Lloyd program).
 A StreamTable fits out of core (`_fit_stream`): the batches are cached
 once in the native data cache and replay every epoch through the device
 epoch cache, one `iteration.epoch` span an epoch; that loop stays eager
-(its per-epoch work is uploads). The JAX package's mesh and
-overlapped-collective hooks wait for more than one card (A.10).
+(its per-epoch work is uploads).
+
+On a mesh of more than one rank (parallel/mesh.py; the JAX package's
+sharded fit, `:298-416`) every rank passes the whole table and fits on
+its own rows: X padded to a multiple of the shards, this rank's block
+(`mesh.shard_batch`, the rows its device holds under the JAX
+`data_sharding`), with unit weights for real rows and 0 for padding, and
+the init rows drawn from the whole X as on one device. Each epoch's cell
+partials (`lloyd_partials`: the weighted `one_hot.T @ X` and counts) are
+all-reduced before the update (`lloyd_update`), so every rank holds the
+same centroids (`_lloyd_train_sharded`); under `config.collective_overlap`
+the reduction is carry-delayed (`parallel.overlap.overlapped_lloyd_train`).
+Those epochs run eagerly (`dispatch.whole_fit_fallback.mesh`, ROADMAP
+C.28). A stream fit over more than one rank is ROADMAP A.10b.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ from ...obs import tracing
 from ...ops.distance import DistanceMeasure
 from ...ops.optimizer import account_whole_fit
 from ...param import IntParam, ParamValidators, StringParam
+from ...parallel import mesh as mesh_lib
 from ...parallel import supervisor
 from ...parallel.iteration import checkpoint_job_key
 from ...parallel.prefetch import DeviceStager, to_device
@@ -159,6 +172,39 @@ def _lloyd_train(X, init_centroids, max_iter: int, measure_name: str):
         centroids = torch.where(
             counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1e-30), centroids
         )
+    return centroids, counts
+
+
+def lloyd_partials(X, weights, centroids, measure_name: str):
+    """One epoch's cell partials over this rank's rows: (sums (k, d), counts
+    (k,)) of the weighted one-hot assignment, `one_hot.T @ X` as the flat
+    fit sums (a padding row, weight 0, adds exact zeros)."""
+    k = centroids.shape[0]
+    assign = DistanceMeasure.get_instance(measure_name).find_closest(X, centroids)
+    one_hot = (assign[:, None] == torch.arange(k, device=X.device)).to(X.dtype) * weights[:, None]
+    return one_hot.T @ X, torch.sum(one_hot, dim=0)
+
+
+def lloyd_update(centroids, sums, counts):
+    """The centroids of reduced partials; an empty cell keeps its centroid."""
+    return torch.where(counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1e-30),
+                       centroids)
+
+
+def _lloyd_train_sharded(mesh, X, weights, init_centroids, max_iter: int, measure_name: str):
+    """maxIter Lloyd epochs on this rank's rows, the partials of every epoch
+    reduced by one all-reduce before the update. Returns (centroids, counts
+    of the last epoch), equal on every rank."""
+    from ...parallel import collectives
+
+    k, d = init_centroids.shape
+    centroids = init_centroids
+    counts = X.new_zeros((k,))
+    for _ in range(int(max_iter)):
+        sums, counts = lloyd_partials(X, weights, centroids, measure_name)
+        summed = collectives.all_reduce_sum(torch.cat([sums.reshape(-1), counts]), mesh=mesh)
+        sums, counts = summed[:k * d].reshape(k, d), summed[k * d:]
+        centroids = lloyd_update(centroids, sums, counts)
     return centroids, counts
 
 
@@ -286,6 +332,14 @@ class KMeans(Estimator, KMeansParams):
         n, k = X.shape[0], self.get_k()
         if n < k:
             raise ValueError(f"Number of points ({n}) is less than k ({k})")
+        mesh = mesh_lib.default_mesh()
+        mesh_lib.check_data_parallel(mesh, "KMeans")
+        if mesh_lib.num_data_shards(mesh) > 1:
+            centroids, counts = self._fit_sharded(mesh, X, n, k)
+            model = KMeansModel()
+            model.centroids, model.weights = _linear.packed_to_host(centroids, counts)
+            update_existing_params(model, self)
+            return model
         X, rows_of = staged_points(X)
         init = rows_of(init_rows(n, k, self.get_seed()))
         if config.whole_fit != "off":
@@ -298,6 +352,30 @@ class KMeans(Estimator, KMeansParams):
         model.centroids, model.weights = _linear.packed_to_host(centroids, counts)
         update_existing_params(model, self)
         return model
+
+    def _fit_sharded(self, mesh, X, n: int, k: int):
+        """The fit on this rank's block of X (the module docstring); returns
+        (centroids, counts) on the rank's device."""
+        from ...parallel import dispatch, overlap
+
+        device = X.device if isinstance(X, torch.Tensor) else config.device()
+        X_local, _ = mesh_lib.shard_batch(mesh, X if isinstance(X, torch.Tensor)
+                                          else np.asarray(X, np.float32))
+        X_local = X_local.to(torch.float32)
+        start, stop = mesh_lib.shard_bounds(n, mesh)
+        weights = to_device(np.arange(start, stop) < n, device, torch.float32)
+        idx = init_rows(n, k, self.get_seed())
+        init = (X.index_select(0, to_device(idx, device)) if isinstance(X, torch.Tensor)
+                else to_device(np.asarray(X)[idx], device)).to(torch.float32)
+        max_iter = int(self.get_max_iter())
+        dispatch.whole_fit_plan(start_epoch=0, max_iter=max_iter,
+                                ranks=mesh_lib.num_data_shards(mesh))
+        mode = "overlap" if config.collective_overlap else "sharded"
+        with tracing.span("iteration.run", mode=mode, epochs=max_iter,
+                          ranks=mesh_lib.num_data_shards(mesh)):
+            train = overlap.overlapped_lloyd_train if config.collective_overlap \
+                else _lloyd_train_sharded
+            return train(mesh, X_local, weights, init, max_iter, self.get_distance_measure())
 
     def _fit_stream(self, stream) -> KMeansModel:
         """Out-of-core Lloyd over a StreamTable (or a ReplayableStreamTable).
@@ -320,6 +398,9 @@ class KMeans(Estimator, KMeansParams):
         draw (section `rng`), keyed by `checkpoint_job_key(self)` with the
         batch count in meta, and a fit resumes from the newest snapshot;
         the `epoch` fault site ticks after each epoch."""
+        if mesh_lib.num_data_shards(mesh_lib.default_mesh()) > 1:
+            raise NotImplementedError(
+                "a stream KMeans fit over more than one rank is not ported yet (ROADMAP A.10b)")
         device = config.device()
         replay = stream if isinstance(stream, ReplayableStreamTable) else ReplayableStreamTable(
             stream, config.datacache_memory_budget_bytes, config.datacache_spill_dir)

@@ -2,7 +2,8 @@
 
 Port of flink_ml_tpu/models/regression/linearregression.py (the
 reference's LinearRegression.java:48 and LinearRegressionModel.java:
-146-160). Training runs the one-device SGD engine with the least-square
+146-160). Training runs the SGD engine on the default mesh (one device, or
+every rank of a world on its own rows) with the least-square
 loss; a SparseBatch trains on the sparse kernels and is never densified.
 The prediction is the raw dot: one matvec (dense) or one sparse row-dot
 kernel (SparseBatch).

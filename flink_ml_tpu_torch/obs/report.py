@@ -4,7 +4,9 @@ Port of flink_ml_tpu/obs/report.py. Consumes the JSONL a run writes under
 `FLINK_ML_TPU_TRACE_FILE` (or the ring's records) and answers where the
 wall time of each pipeline stage and training epoch went, split into
 
-- `collective` — collective funnels (none on one card),
+- `collective` — collective funnels (`collective.host_all_reduce_sum`
+  spans; the wrappers of parallel/collectives.py emit zero-duration
+  `collective.<op>` events, which `collective_stats` counts),
 - `readback`   — device-to-host transfers (the packed readbacks),
 - `compile`    — program captures (utils/lazyjit.py, fused segments),
 - `cache`      — the data caches and the program bank's loads,
@@ -168,8 +170,9 @@ class Trace:
         return out
 
     def collective_stats(self, record: Dict) -> Dict[str, Dict[str, float]]:
-        """Trace-time collective op events under a container: count + bytes
-        per op (zero-duration marks)."""
+        """Collective op events under a container (one per call in the
+        port, one per traced program in the JAX package): count + bytes per
+        op (zero-duration marks)."""
         stats: Dict[str, Dict[str, float]] = {}
         for d in self.descendants(record):
             name = d.get("name", "")

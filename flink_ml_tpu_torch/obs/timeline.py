@@ -65,6 +65,7 @@ LANE_DISPATCH = "dispatch"
 LANE_DEVICE = "device"
 LANE_READBACK = "readback"
 LANE_H2D = "h2d"
+#: a mark per accounted collective call (tracing.account_collective)
 LANE_COLLECTIVE = "collective"
 LANE_FLOW = "flow"
 LANE_SERVING = "serving"

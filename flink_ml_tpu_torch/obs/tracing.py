@@ -21,7 +21,9 @@ global load and one call, no allocation. Completed spans are folded into
 the `span.<name>` timers of `utils.metrics`.
 
 Accounting funnels: `account_readback` (the packed readbacks,
-`utils/packing.py`), `account_host_sync`, `set_dispatch_depth`, and
+`utils/packing.py`), `account_host_sync`, `set_dispatch_depth`,
+`account_collective` (every accounted collective of
+`parallel/collectives.py`), and
 `account_compile`, which the program funnel (utils/lazyjit.py) calls for
 every capture, as the JAX package's compile-event hook
 (`install_jax_hooks`) does for every backend compile: `jit.compiles`, the
@@ -241,6 +243,37 @@ def account_readback(nbytes: int, seconds: float, arrays: int = 1) -> None:
     if _enabled:
         emit_completed("readback", time.perf_counter_ns() - int(seconds * 1e9), seconds,
                        category="readback", bytes=int(nbytes), arrays=arrays)
+
+
+def account_collective(op: str, nbytes: int, chunks: int, axis: str,
+                       dense_equiv_bytes: Optional[int] = None) -> None:
+    """Fold one collective call into the registry (+ a trace event and a
+    mark on the timeline's `collective` lane). The port's wrappers call it
+    once per call (the JAX package's, once per traced program). `nbytes`
+    is the per-participant payload, `chunks` the bucket/leaf count. For a
+    sparse index-value reduction `dense_equiv_bytes` is the payload the
+    densified gradient would have moved; the running
+    `collective.sparse_ratio` gauge (sparse bytes / dense-equivalent bytes)
+    is << 1 when gradient bytes scale with nnz, not dim."""
+    metrics.inc_counter(f"collective.{op}.calls")
+    metrics.inc_counter(f"collective.{op}.bytes", int(nbytes))
+    if chunks > 1:
+        metrics.inc_counter(f"collective.{op}.chunks", int(chunks))
+    if dense_equiv_bytes:
+        metrics.inc_counter("collective.sparse.bytes", int(nbytes))
+        metrics.inc_counter("collective.sparse.dense_equiv_bytes", int(dense_equiv_bytes))
+        metrics.set_gauge(
+            "collective.sparse_ratio",
+            metrics.get_counter("collective.sparse.bytes")
+            / max(metrics.get_counter("collective.sparse.dense_equiv_bytes"), 1))
+    if timeline.enabled():
+        timeline.record_instant(timeline.LANE_COLLECTIVE, f"collective.{op}", bytes=int(nbytes),
+                                axis=axis)
+    if _enabled:
+        attrs = dict(category="collective", bytes=int(nbytes), chunks=int(chunks), axis=axis)
+        if dense_equiv_bytes:
+            attrs["denseEquivBytes"] = int(dense_equiv_bytes)
+        event(f"collective.{op}", **attrs)
 
 
 def account_host_sync(kind: str = "drain", count: int = 1) -> None:

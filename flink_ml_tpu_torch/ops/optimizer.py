@@ -1,4 +1,4 @@
-"""Mini-batch SGD: the training engine for linear models, on one device.
+"""Mini-batch SGD: the training engine for linear models.
 
 Port of the single-device whole fit of flink_ml_tpu/ops/optimizer.py
 (`_sgd_train_flat`, `_optimize_flat_async`; the reference's
@@ -63,8 +63,22 @@ fit resumes from the newest snapshot; the `chunk` (in memory) and `epoch`
 stream snapshot also carries the stream cache's contents, so a resumed
 stream fit does not read its input again.
 
-Feature sharding, overlapped collectives and more than one device are
-ROADMAP A.10 and raise NotImplementedError.
+On a mesh of more than one rank (parallel/mesh.py; the JAX package's
+`optimize_async` over the `data` axis, `:804-917`) every rank runs the
+fit on its own rows: `_batchify` gives a rank exactly the slots its
+device holds in the JAX package's (batches, b_pad, ...) layout (`b_pad`
+the batch padded to a multiple of the shards; only the batches the epochs
+read, as the flat fit stages them), and each epoch of `_sgd_train_sharded`
+reduces the local (gradient, loss, weight) sums with one all-reduce before
+the tol check, so every rank holds the same state. With
+`collective_overlap` (or `config.collective_overlap`) the loop is
+`parallel.overlap.overlapped_sgd_train`'s carry-delayed apply. Those
+epochs run eagerly, not as a captured graph (a gloo collective cannot be
+captured; counted as `dispatch.whole_fit_fallback.mesh`, ROADMAP C.28). A
+one-rank mesh takes the flat route, as in the JAX package. Feature
+sharding (`shard_features`), a mesh fit with `checkpoint_dir` and
+`optimize_stream` on more than one rank are ROADMAP A.10b and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -79,6 +93,7 @@ import torch
 from .. import config
 from ..ckpt import faults
 from ..obs import tracing
+from ..parallel import mesh as mesh_lib
 from ..parallel import supervisor
 from ..parallel.prefetch import to_device
 from ..utils import lazyjit
@@ -367,7 +382,8 @@ def _stage(arr, dtype, device):
 
 @dataclass
 class SGD:
-    """Mini-batch SGD (common/optimizer/SGD.java) on one device."""
+    """Mini-batch SGD (common/optimizer/SGD.java) on one device or a mesh
+    of ranks."""
 
     max_iter: int = 20
     learning_rate: float = 0.1
@@ -382,8 +398,16 @@ class SGD:
     #: the job identity that names the snapshot files
     #: (`parallel.iteration.checkpoint_job_key`); None is the un-keyed file
     checkpoint_key: Optional[str] = None
+    #: the 2D feature-sharded layout (ROADMAP A.10b)
     shard_features: bool = False
+    #: the carry-delayed reduction of parallel/overlap.py on a mesh of more
+    #: than one rank; None follows `config.collective_overlap`
     collective_overlap: Optional[bool] = None
+
+    def _overlap_enabled(self) -> bool:
+        on = (self.collective_overlap if self.collective_overlap is not None
+              else config.collective_overlap)
+        return bool(on) and not self.shard_features and self.checkpoint_dir is None
 
     def optimize(self, init_coeff, X, y, weights, loss_func: LossFunc,
                  mesh=None) -> Tuple[np.ndarray, float, int]:
@@ -401,10 +425,18 @@ class SGD:
 
         X is a dense (n, d) matrix or the sparse (indices, values) pair.
         Host arrays are staged to `config.device()`; tensors stay on their
-        device, and all tensor inputs must share one."""
-        self._check_single_device(mesh)
+        device, and all tensor inputs must share one. `mesh` (default
+        `mesh.default_mesh()`) of more than one rank trains data-parallel:
+        every rank passes the same whole inputs and trains on its rows."""
+        mesh = mesh if mesh is not None else mesh_lib.default_mesh()
+        self._check_mesh(mesh)
         d = int(np.shape(init_coeff)[0])
-        packed = self._optimize_flat_async(init_coeff, X, y, weights, loss_func, validate_labels)
+        if mesh_lib.num_data_shards(mesh) > 1:
+            packed = self._optimize_sharded_async(mesh, init_coeff, X, y, weights, loss_func,
+                                                  validate_labels)
+        else:
+            packed = self._optimize_flat_async(init_coeff, X, y, weights, loss_func,
+                                               validate_labels)
         return ("packed", packed, d, validate_labels)
 
     def optimize_stream(self, init_coeff, chunks, loss_func: LossFunc, mesh=None,
@@ -440,7 +472,12 @@ class SGD:
         from ..native.datacache import DataCache
         from ..parallel.prefetch import DeviceStager
 
-        self._check_single_device(mesh)
+        mesh = mesh if mesh is not None else mesh_lib.default_mesh()
+        self._check_mesh(mesh)
+        if mesh_lib.num_data_shards(mesh) > 1:
+            raise NotImplementedError(
+                "a stream fit over more than one rank (the sharded stream cache) is not ported "
+                "yet (ROADMAP A.10b)")
         device = config.device()
         ckpt, key = self.checkpoint_dir, self.checkpoint_key
         B = int(self.global_batch_size)
@@ -535,13 +572,80 @@ class SGD:
     def _hyper(self, device) -> torch.Tensor:
         return sgd_hyper(self.learning_rate, self.reg, self.elastic_net, self.tol, device)
 
-    def _check_single_device(self, mesh) -> None:
-        if mesh is not None:
-            raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A.10)")
-        if self.shard_features or self.collective_overlap:
+    def _check_mesh(self, mesh) -> None:
+        if self.shard_features:
             raise NotImplementedError(
-                "feature sharding and overlapped collectives are not ported yet (ROADMAP A.10)"
-            )
+                "feature-sharded (tensor-parallel) training is not ported yet (ROADMAP A.10b)")
+        mesh_lib.check_data_parallel(mesh, "SGD")
+        if self.checkpoint_dir is not None and mesh_lib.num_data_shards(mesh) > 1:
+            raise NotImplementedError(
+                "a checkpointed fit over more than one rank is not ported yet (ROADMAP A.10b)")
+
+    def _batchify(self, mesh, X, y, weights):
+        """This rank's rows of the JAX package's batch layout
+        (`_batchify`, `:1570`): rows padded to whole batches of B, each
+        batch padded to `b_pad` (a multiple of the shards) and split over
+        the data axis (`devicecache.data_axis_rows`). Returns (X_b, y_b,
+        w_b, y_all): X_b (sparse: both leaves) and w_b hold the
+        min(num_batches, maxIter) batches the epochs read, (batches,
+        b_local, ...); y_b the same batches' labels; y_all the rank's labels
+        of every batch, for the label check. Padding slots have weight 0,
+        label 0 and (sparse) index -1. Tensors are gathered on their own
+        device, host arrays on the host and then uploaded once."""
+        from ..data.devicecache import data_axis_rows, stage_rank_rows
+
+        first = X[0] if isinstance(X, tuple) else X
+        device = first.device if isinstance(first, torch.Tensor) else config.device()
+        n, B = int(first.shape[0]), int(self.global_batch_size)
+        num_batches = max(1, -(-n // B))
+        shards = mesh_lib.num_data_shards(mesh)
+        rows = data_axis_rows(n, B, shards, mesh.rank, num_batches)
+        touched = rows[:min(num_batches, max(1, int(self.max_iter)))]
+
+        def stage(arr, fill, dtype, which):
+            if isinstance(arr, torch.Tensor) and arr.device != device:
+                raise ValueError(
+                    f"training inputs must share one device, got {arr.device} and {device}")
+            return stage_rank_rows(arr, which, n, fill, device, dtype)
+
+        if isinstance(X, tuple):
+            X_b = (stage(X[0], -1, torch.int32, touched), stage(X[1], 0, COMPUTE_DTYPE, touched))
+        else:
+            X_b = stage(X, 0, COMPUTE_DTYPE, touched)
+        if y is None:
+            y_all = torch.zeros(rows.shape, dtype=COMPUTE_DTYPE, device=device)
+        else:
+            y_all = stage(y, 0, COMPUTE_DTYPE, rows)
+        y_b = y_all[:touched.shape[0]]
+        if weights is None:
+            w_b = to_device(touched >= 0, device, COMPUTE_DTYPE)
+        else:
+            w_b = stage(weights, 0, COMPUTE_DTYPE, touched)
+        return X_b, y_b, w_b, y_all
+
+    def _optimize_sharded_async(self, mesh, init_coeff, X, y, weights, loss_func,
+                                validate_labels):
+        """The fit on this rank's rows (`_batchify`): the plain sharded
+        loop `_sgd_train_sharded`, or with overlap the carry-delayed one.
+        Returns the packed result, on the device, equal on every rank."""
+        from ..obs import memledger
+        from ..parallel import dispatch, overlap
+
+        X_b, y_b, w_b, y_all = self._batchify(mesh, X, y, weights)
+        memledger.track((X_b, y_b, w_b, y_all), "streamSegments")
+        init = _stage(init_coeff, COMPUTE_DTYPE, y_b.device)
+        hyper = self._hyper(y_b.device)
+        max_iter = int(self.max_iter)
+        dispatch.whole_fit_plan(start_epoch=0, max_iter=max_iter,
+                                ranks=mesh_lib.num_data_shards(mesh))
+        mode = "overlap" if self._overlap_enabled() else "sharded"
+        with tracing.span("iteration.run", mode=mode, epochs=max_iter,
+                          ranks=mesh_lib.num_data_shards(mesh)):
+            if self._overlap_enabled():
+                return overlap.overlapped_sgd_train(mesh, X_b, y_b, w_b, y_all, init, loss_func,
+                                                    hyper, max_iter, validate_labels)
+            return _sgd_train_sharded(mesh, X_b, y_b, w_b, y_all, init, loss_func, hyper,
+                                      max_iter, validate_labels)
 
     def _optimize_flat_async(self, init_coeff, X, y, weights, loss_func, validate_labels):
         """Stage the inputs (`stage_flat`) and run `_sgd_train_flat`, or
@@ -600,6 +704,39 @@ class SGD:
                 planned = end
         flag = _binomial_labels_ok(y) if validate_labels else None
         return _finish(state, hyper, flag)
+
+
+def _sgd_train_sharded(mesh, X_b, y_b, w_b, y_all, init_coeff, loss_func, hyper,
+                       max_iter: int, check_labels: bool):
+    """The bounded fit on this rank's rows (`SGD._batchify`): each epoch
+    applies the previous reduced gradient, computes its batch's local
+    (gradient, loss, weight) sums and reduces them with ONE all-reduce of
+    [grad | loss | weight], so the tol mask (`_masked_epoch`'s) and the
+    next update are the same on every rank. Returns the packed result,
+    on the device."""
+    from ..parallel import collectives
+
+    d = init_coeff.shape[0]
+    num_batches = y_b.shape[0]
+    state = _init_state(init_coeff)
+    for e in range(int(max_iter)):
+        k = e % num_batches
+        Xk = tuple(leaf[k] for leaf in X_b) if isinstance(X_b, tuple) else X_b[k]
+        coeff, grad, wsum, epochs, criteria = state
+        live = criteria > hyper[HYPER_TOL]
+        coeff = _update_model(coeff, grad, wsum, hyper)
+        lsum, grad, wsum = loss_func(Xk, y_b[k], w_b[k], coeff)
+        summed = collectives.all_reduce_sum(
+            torch.cat([grad, lsum.reshape(1).to(grad.dtype), wsum.reshape(1).to(grad.dtype)]),
+            mesh=mesh)
+        grad, lsum, wsum = summed[:d], summed[d], summed[d + 1]
+        criteria = (lsum / torch.clamp(wsum, min=1e-30)).to(torch.float32)
+        new = (coeff, grad, wsum, epochs + 1, criteria)
+        state = tuple(torch.where(live, n, o) for n, o in zip(new, state))
+    flag = None
+    if check_labels:
+        flag = collectives.all_reduce_min(_binomial_labels_ok(y_all), mesh=mesh)
+    return _finish(state, hyper, flag)
 
 
 def stage_flat(X, y, weights, batch: int, rows=None):

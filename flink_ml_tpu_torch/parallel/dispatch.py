@@ -1,0 +1,88 @@
+"""Whole-fit eligibility and its fallback accounting.
+
+Port of the part of flink_ml_tpu/parallel/dispatch.py that the sharded
+routes call. Where each function of the JAX module lives in the port:
+
+- `whole_fit_enabled` (JAX `:73`), `account_whole_fit_fallback` (`:114`),
+  `whole_fit_plan` (`:127`): here;
+- `account_whole_fit` (`:99`): `ops.optimizer.account_whole_fit`;
+- `next_boundary`: `parallel.iteration.next_boundary`;
+- `supports_donation` (`:52`): no counterpart; a captured CUDA graph reads
+  its inputs in place (`lazyjit.lazy_jit(borrow=...)`, ROADMAP C.23);
+- `chunk_runner`/`ChunkRunner`, `DrainQueue`, `timed_dispatch`: no
+  counterpart; the port has no drain queue (C.23): a whole fit is one
+  captured graph, and the chunked loops read back once a chunk.
+
+A fit on a mesh of more than one rank is not captured: a gloo collective
+cannot be captured in a CUDA graph, so its epochs run eagerly with the
+reduction between the local steps, counted under the fallback reason
+`mesh` (ROADMAP C.28).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from ..obs import timeline
+from ..utils import metrics
+
+#: why a whole-fit-eligible loop did not run as one program
+#: (`dispatch.whole_fit_fallback.<reason>`): the JAX package's four, and
+#: `mesh`: a fit over more than one rank runs its epochs eagerly
+WHOLE_FIT_FALLBACK_REASONS = (
+    "checkpoint_interval",
+    "device_cache_budget",
+    "ragged_batches",
+    "listener",
+    "mesh",
+)
+
+
+def whole_fit_enabled() -> bool:
+    """Is the whole-fit mode on (`config.whole_fit`)?"""
+    from .. import config
+
+    return config.whole_fit == "auto"
+
+
+def account_whole_fit_fallback(reason: str) -> None:
+    """Count a whole-fit-eligible loop falling back, labelled with why
+    (`dispatch.whole_fit_fallback.<reason>`), with a mark on the timeline's
+    dispatch lane."""
+    metrics.inc_counter("dispatch.whole_fit_fallback")
+    metrics.inc_counter(f"dispatch.whole_fit_fallback.{reason}")
+    if timeline.enabled():
+        timeline.record_instant(timeline.LANE_DISPATCH, "whole_fit.fallback", reason=reason)
+
+
+def whole_fit_plan(*, start_epoch: int, max_iter: int, checkpoint_interval: Optional[int] = None,
+                   data_bytes: Optional[int] = None, uniform_batches: bool = True,
+                   listener: bool = False, ranks: int = 1) -> Tuple[bool, Optional[str]]:
+    """The whole-fit eligibility decision: (take, fallback_reason), with the
+    fallback counted. The JAX package's reasons in its order, then `mesh`
+    for a fit over `ranks` > 1. (False, None), uncounted, when the mode is
+    off."""
+    from .iteration import next_boundary
+
+    if not whole_fit_enabled():
+        return False, None
+    reason = None
+    if listener:
+        reason = "listener"
+    if reason is None and checkpoint_interval is not None:
+        boundary = next_boundary(start_epoch, checkpoint_interval)
+        if boundary is not None and boundary < max_iter:
+            reason = "checkpoint_interval"
+    if reason is None and not uniform_batches:
+        reason = "ragged_batches"
+    if reason is None and data_bytes is not None:
+        from ..data.devicecache import within_device_budget
+
+        if not within_device_budget(data_bytes):
+            reason = "device_cache_budget"
+    if reason is None and ranks > 1:
+        reason = "mesh"
+    if reason is not None:
+        account_whole_fit_fallback(reason)
+        return False, reason
+    return True, None

@@ -12,7 +12,7 @@ of a sharded cut). On one card a host owns no device: "re-forming the mesh
 over the survivors" keeps the one device and rescopes `snapshot_hosts` to
 the live host count, so the device arithmetic of a resumed attempt is the
 unkilled fit's and a resume after a shrink is bit for bit too. Re-forming
-over fewer devices is the multi-card port's (ROADMAP A.10).
+over fewer devices is the multi-card port's (ROADMAP A.10b).
 
 Two independent detectors, because the two failures look different:
 
@@ -205,7 +205,7 @@ class HostBoard:
     def form_mesh(self):
         """The device the next attempt runs on: on one card the survivors
         share the one device (re-forming over fewer devices is ROADMAP
-        A.10)."""
+        A.10b)."""
         from .. import config
 
         return self.device if self.device is not None else config.device()

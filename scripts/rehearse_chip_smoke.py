@@ -120,13 +120,6 @@ def _walk(indices, values, multiplier, coeff):
     return grad, {"mid_walk_flushes": 1, "overflows": 1, "direct_chunks": 0}
 
 
-def _counted(kernel, plain):
-    def call(*args):
-        kernel.launches += 1
-        return plain(*args)
-    return call
-
-
 def stub() -> None:
     """Point chip_smoke at the CPU and stub what needs a card."""
     for name, value in SIZES.items():
@@ -157,10 +150,7 @@ def stub() -> None:
                                 "fleet_grad": sk.fleet_grad_plain})
     cs.profile_run = lambda name, run: run()
     cs.profile_overlap = lambda name, run: (run(), {})[1]
-    sk.sparse_row_dots_plain = _counted(sk.sparse_row_dots, sk.sparse_row_dots_plain)
-    sk.sparse_grad_plain = _counted(sk.sparse_grad, sk.sparse_grad_plain)
-    sk.fleet_row_dots_plain = _counted(sk.fleet_row_dots, sk.fleet_row_dots_plain)
-    sk.fleet_grad_plain = _counted(sk.fleet_grad, sk.fleet_grad_plain)
+    cs.count_plain_launches(sk)
     cs.subprocess = types.SimpleNamespace(run=lambda *args, **kwargs: types.SimpleNamespace(
         stdout="CPU rehearsal, 0.00 W\n"))
 

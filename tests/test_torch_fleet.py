@@ -369,7 +369,7 @@ def test_unported_fleet_paths_raise_naming_their_roadmap_item(both_on_one_device
     """The checkpointed fleet raised naming ROADMAP A.13 until checkpoints
     were ported; it now checkpoints, and a fleet killed at a chunk resumes
     to the unkilled fleet bit for bit (its chunk program replaces the
-    stub). The sharded regime still raises (A.10)."""
+    stub). The sharded regime still raises (A.10b)."""
     from flink_ml_tpu_torch.ckpt import faults
 
     X, y, _ = _dense("lr", seed=19)

@@ -4,8 +4,14 @@
   (each module of the serving, checkpoint and tpulint slices also alone);
 - no module of the port, and neither chip_smoke.py nor
   scripts/torch_kernel_designs.py, scripts/rehearse_chip_smoke.py,
-  scripts/chip_funnel_phase.py, scripts/chip_checkpoint_phase.py nor
-  scripts/chip_host_attribution.py, imports jax or flink_ml_tpu;
+  scripts/chip_funnel_phase.py, scripts/chip_checkpoint_phase.py,
+  scripts/chip_host_attribution.py, scripts/chip_mesh_phase.py,
+  scripts/probe_distributed_backends.py nor the rank jobs of the mesh
+  tests (tests/torch_mesh_jobs.py), imports jax or flink_ml_tpu;
+- each module of the mesh slice alone, and what a spawned rank imports
+  (the launcher's rank entry `_rank_main` resolves its target by module
+  path: the mesh tests' jobs, chip_smoke's phase-16 jobs), pulls in
+  neither;
 - chip_smoke.py fails without a card, and its CPU rehearsal runs through;
 - an entry point that was not asked for the CPU raises without a card,
   rather than falling back to the CPU; that holds for the stages whose work
@@ -34,7 +40,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "flink_ml_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "torch_kernel_designs.py",
     REPO / "scripts" / "rehearse_chip_smoke.py", REPO / "scripts" / "chip_funnel_phase.py",
-    REPO / "scripts" / "chip_checkpoint_phase.py", REPO / "scripts" / "chip_host_attribution.py"]
+    REPO / "scripts" / "chip_checkpoint_phase.py", REPO / "scripts" / "chip_host_attribution.py",
+    REPO / "scripts" / "chip_mesh_phase.py", REPO / "scripts" / "probe_distributed_backends.py",
+    REPO / "tests" / "torch_mesh_jobs.py"]
 
 
 PORT_MODULES = sorted(
@@ -159,6 +167,49 @@ def test_the_analysis_slice_imports_neither_jax_nor_the_jax_package(name):
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert name in PORT_MODULES or name.endswith(("analysis", "rules"))
+
+
+MESH_SLICE = ["flink_ml_tpu_torch.parallel.mesh", "flink_ml_tpu_torch.parallel.collectives",
+              "flink_ml_tpu_torch.parallel.overlap", "flink_ml_tpu_torch.parallel.dispatch",
+              "flink_ml_tpu_torch.parallel.launcher"]
+
+
+@pytest.mark.parametrize("name", MESH_SLICE)
+def test_the_mesh_slice_imports_neither_jax_nor_the_jax_package(name):
+    """Each module of the mesh slice, imported alone in a fresh
+    interpreter, pulls in neither jax nor flink_ml_tpu, and needs no card."""
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({name!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flink_ml_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert name in PORT_MODULES
+
+
+@pytest.mark.parametrize("target", ["torch_mesh_jobs:sgd_fit", "chip_smoke:mesh_rank_job",
+                                    "chip_smoke:nccl_rank_job"])
+def test_what_a_rank_imports_leaves_jax_out(target):
+    """A spawned rank imports its job by module path (launcher.resolve, in
+    `_rank_main`): the mesh tests' jobs and chip_smoke's phase-16 jobs
+    pull in neither jax nor flink_ml_tpu."""
+    code = (
+        "import sys, inspect\n"
+        f"sys.path[:0] = [{str(REPO)!r}, {str(REPO / 'tests')!r}]\n"
+        "from flink_ml_tpu_torch.parallel import launcher\n"
+        "assert 'resolve(path)' in inspect.getsource(launcher._rank_main)\n"
+        f"assert callable(launcher.resolve({target!r}))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flink_ml_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_the_slice_modules_are_checked():

@@ -156,18 +156,30 @@ def test_label_flag_rides_the_packed_result(both_on_one_device):
      ({"collective_overlap": True}, None), ({}, "a mesh")],
 )
 def test_unported_options_raise(both_on_one_device, kwargs, mesh, tmp_path):
-    """The A.10 options raise naming their ROADMAP item. `checkpoint_dir`
-    raised (A.13) until checkpoints were ported; it now checkpoints, and
-    its fit equals the unchecked fit bit for bit."""
+    """What A.10 left raises naming its ROADMAP item: feature sharding
+    (A.10b). `checkpoint_dir` raised (A.13) until checkpoints were ported;
+    it now checkpoints, and its fit equals the unchecked fit bit for bit.
+    `collective_overlap` and a mesh raised until the data axis was ported
+    (A.10a): on a mesh of one rank both take the flat fit, bit for bit
+    (a mesh of ranks is held in tests/test_torch_mesh.py)."""
+    from flink_ml_tpu_torch.parallel import mesh as port_mesh
+
     X, y, _ = _dense(5, 40, 3, False)
+    plain = optimizer.SGD().optimize(np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS)
     if "checkpoint_dir" in kwargs:
         ckpt = optimizer.SGD(checkpoint_dir=str(tmp_path), checkpoint_key="k").optimize(
             np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS, mesh=mesh)
-        plain = optimizer.SGD().optimize(np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS)
         np.testing.assert_array_equal(ckpt[0], plain[0])
         assert ckpt[1:] == plain[1:] and os.listdir(tmp_path) == ["snap-k.npz"]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimizer.SGD(**kwargs).optimize(
-            np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS, mesh=mesh
-        )
+    if "shard_features" in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP A.10b"):
+            optimizer.SGD(**kwargs).optimize(
+                np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS, mesh=mesh)
+        return
+    if mesh == "a mesh":
+        mesh = port_mesh.create_mesh()
+    got = optimizer.SGD(**kwargs).optimize(np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS,
+                                           mesh=mesh)
+    np.testing.assert_array_equal(got[0], plain[0])
+    assert got[1:] == plain[1:]
