@@ -24,8 +24,10 @@ channels) are printed on a `sanitizer` line. Phases:
 2. each kernel against its plain PyTorch version, on seeded inputs with
    -1 padding and indices >= d: at edge shapes, on the index-convention
    probe, at the main path's shapes (the fit batch, 100,000 x 39, the
-   1M-row transform, and one rank's share of the fit batch on phase 16's
-   mesh of 4, 25,000 x 39), on Zipf-skewed indices at the fit batch (values on
+   1M-row transform, one rank's share of the fit batch on phase 16's
+   mesh of 4, 25,000 x 39, and the 2D local scatter of phase 17's 2 x 2
+   mesh, 50,000 x 39 into d = 500,000 with half the slots -1), on
+   Zipf-skewed indices at the fit batch (values on
    a grid of quarters, so the gradient must be exact), on a fit batch
    sliced at an odd row offset (not 16-byte aligned), on a wide row
    (16 x 5000), on a fit batch that overflows the gradient's table (35%
@@ -53,7 +55,10 @@ channels) are printed on a `sanitizer` line. Phases:
    loads) in both, of N solo launches, of the plain version, of one
    library call each (embedding_bag over a (d, N) table, index_add_ of
    (B * nnz, N) rows) and of the row dot's probe (two 16-byte loads a slot
-   from a (d, 8) table);
+   from a (d, 8) table); and at phase 17's shapes (`fleet_mesh_shapes`:
+   N = 2 over the fit batch, the fleet-sharded regime's; N = 8 over
+   25,000 rows, the default regime's on 4 ranks), each timed beside its
+   plain version, a library call and the bound;
 3. the main paths, each run as a user runs it (fit -> transform -> save ->
    load -> transform), with the launch counts reset just before each and
    read just after, at the conf/ configurations: LogisticRegression,
@@ -357,7 +362,39 @@ channels) are printed on a `sanitizer` line. Phases:
    world's group, held to its definition, nothing staged: the only run of
    the NCCL branch until a multi-card check exists. A rank that fails
    fails the run;
-17. a `kernels` JSON line (four kernels), then the result line.
+17. the rest of the multi-device layer (`mesh2d_phase`, A.10b), on phase
+   16's world of four gloo ranks (`mesh2d_rank_job`, under the sanitizer,
+   launch counts reset before and read after each fit on each rank): (a)
+   phase 3's sparse LR through its estimator as a 2D fit on a 2 x 2 and a
+   1 x 4 mesh (`mesh.create_mesh_2d`; coefficient slices over `model`,
+   rows over `data`, the local gradient on `sparse_grad`, no row dot) and
+   with `sparse_2d` "off" on 2 x 2 (the replicated reference: both
+   kernels), each within phase 4's sparse gate of the one-rank plain-loss
+   fit, every rank of a model column holding the same slice and every
+   rank the same model bit for bit, and each axis's wire bytes as reckoned
+   from the shapes (`mesh2d_wire_bytes`); (b) the budget case: the first
+   MESH_BUDGET_ROWS rows at d = 1e6 under a per-rank `hbm_budget_bytes`
+   between the 2D carries (4 d bytes) and the replicated ones (8 d): the
+   2D fit admits and trains, the replicated staging raises
+   HbmBudgetExceeded; (c) phase 10's 8-member sparse fleet on the ranks
+   in the default regime (8 members over a rank's 25,000 rows a batch,
+   each reduced on its own) and the fleet-sharded one (2 members a rank
+   over every row, one gather), each member within phase 10's gate of
+   phase 10's one-rank member, a default-regime member within the sparse
+   gate of its solo fit on the mesh; (d) the stream LR (phase 3's first
+   MAX_ITER batches) and the stream KMeans, each rank caching its rows,
+   against phase 3's one-rank stream fits (MESH_DENSE_TOL; the KMeans gate
+   of phase 16); (e) a checkpointed 2D fit on 2 x 2 killed at a chunk,
+   resumed on 1 x 4 and on this one rank, within the sparse gate of the
+   unkilled fit; then every rank's collective sequence compared by axis
+   group (`sanitizer.compare_rank_sequences(mesh=)`) and the sanitizer's
+   verdict; (f) the supervisor's shrink (`supervisor.supervise_world`): a
+   checkpointed dense LR on 4 ranks in 2 hosts, host 1 dies at a dispatch
+   boundary, the world is relaunched on the 2 survivors, whose resume is
+   held within MESH_DENSE_TOL of phase 3's fit. It prints a `mesh2d` line;
+18. a `kernels` JSON line (four kernels; the fleet kernels with phase 17's
+   shapes in `by_shape`, every kernel's phase-17 launches by path), then
+   the result line.
 """
 
 from __future__ import annotations
@@ -435,6 +472,18 @@ MESH_DENSE_TOL = dict(rtol=2e-5, atol=2e-6)
 #: near-ties flip and move the centroids further each epoch (on an H100:
 #: 3.5e-4 of a scale of ~0.5, 70 points in other cells)
 MESH_KMEANS_SCALE_TOL, MESH_KMEANS_POINT_SHARE = 1e-3, 1e-3
+#: phase 17 on the same ranks: the sparse LR's 2D fits, name -> (data
+#: shards, model shards, config.sparse_2d)
+MESH2D_FITS = {"2d 2x2": (2, 2, "auto"), "2d 1x4": (1, 4, "auto"), "off 2x2": (2, 2, "off")}
+#: phase 17(b): the budget case's rows and batch (the first rows of the
+#: sparse table), so a rank's data stays far below its d-long carries
+MESH_BUDGET_ROWS, MESH_BUDGET_BATCH = 4_096, 1_024
+#: phase 17(e): the checkpointed 2D fit's interval and the drained chunk
+#: its kill fault fires at (a cut at epoch interval x chunk)
+MESH_CKPT_INTERVAL, MESH_CKPT_KILL_CHUNK = 5, 2
+#: phase 17(f): the supervised dense fit's hosts (2 ranks each) and the
+#: dispatch boundary of the dying host's ranks that fires `host.die`
+MESH_SUPERVISED_HOSTS, MESH_SUPERVISED_AFTER = 2, 3
 
 
 def launch_dict(**counts):
@@ -964,6 +1013,17 @@ def kernel_phase(sk, probes, designs, dev):
         run(label, idx, vals, coeff, mult, copies(idx, vals))
         del idx, vals
 
+    # the 2D fit's local scatter on phase 17's 2 x 2 mesh: a data row's batch
+    # (BATCH / 2 rows) with model slice 0's indices made local and every
+    # other slot -1 (about half), into the d / 2 slice
+    d_local = -(-SPARSE_DIM // 2)
+    idx, vals = sparse_batch(gen, BATCH // 2, NNZ, SPARSE_DIM, dev, DEFAULT_MASK_SHARE, 0.0)
+    local = torch.where((idx >= 0) & (idx < d_local), idx, -1).to(torch.int32)
+    mult = torch.randn(BATCH // 2, generator=gen, device=dev)
+    run("2D local scatter (2 x 2)", local, vals, coeff[:d_local].contiguous(), mult,
+        copies(local, vals))
+    del idx, vals, local
+
     idx, vals = zipf_batch(gen, BATCH, NNZ, SPARSE_DIM, dev)
     mult = quarter_grid(gen, (BATCH,), dev, signed=True)
     run("zipf", idx, vals, coeff, mult, copies(idx, vals), exact_grad=True)
@@ -1447,21 +1507,25 @@ def host_columns(seed, rows, fill):
         fill(np.random.default_rng([seed, i]), start, min(start + STREAM_CHUNK, rows))
 
 
-def stream_lr_data():
+def stream_lr_data(rows=None):
     """conf/logisticregression-benchmark.json's table on the host, as the
     stream paths get it: 10M x 100 uniform [0, 1) features, random 0/1
-    labels, uniform weights, float32."""
-    X = np.empty((DENSE_ROWS, DIM), np.float32)
-    y = np.empty(DENSE_ROWS, np.float32)
-    w = np.empty(DENSE_ROWS, np.float32)
+    labels, uniform weights, float32; with `rows`, its first rows only
+    (the same values: each chunk has its own seed, and the chunk that
+    holds the last row is made whole, as in the full table, then cut)."""
+    want = DENSE_ROWS if rows is None else rows
+    rows = min(DENSE_ROWS, -(-want // STREAM_CHUNK) * STREAM_CHUNK)
+    X = np.empty((rows, DIM), np.float32)
+    y = np.empty(rows, np.float32)
+    w = np.empty(rows, np.float32)
 
     def fill(rng, a, b):
         rng.random((b - a, DIM), dtype=np.float32, out=X[a:b])
         y[a:b] = rng.integers(0, 2, b - a)
         rng.random(b - a, dtype=np.float32, out=w[a:b])
 
-    host_columns(STREAM_SEED, DENSE_ROWS, fill)
-    return {"features": X, "label": y, "weight": w}
+    host_columns(STREAM_SEED, rows, fill)
+    return {"features": X[:want], "label": y[:want], "weight": w[:want]}
 
 
 def planted_rows(seed, rows, truth):
@@ -4142,7 +4206,78 @@ def fleet_kernel_phase(sk, probes, designs, dev):
                 for r in by_case if "ms" in r}
     log(f"  fleet_grad's replaced design over the kernel, member-minor and member-major: {speedups}")
     results["fleet_grad"] = {**main, "by_case": by_case, "speedup_over_replaced": speedups}
+    for name, rows in fleet_mesh_shapes(sk, dev).items():
+        results[name]["by_shape"] = rows
     return results
+
+
+def fleet_mesh_shapes(sk, dev):
+    """Both fleet kernels at phase 17's shapes, member-minor: the
+    fleet-sharded regime's (FLEET_MEMBERS / MESH_RANKS members a rank over
+    the whole fit batch) and the default regime's (FLEET_MEMBERS members
+    over a rank's share of it), held to their plain versions and timed
+    beside the plain version, one library call and the bound."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    out = {"fleet_row_dots": [], "fleet_grad": []}
+    for label, members, rows in (
+            ("fleet-sharded regime", FLEET_MEMBERS // MESH_RANKS, BATCH),
+            ("default regime on the mesh", FLEET_MEMBERS, BATCH // MESH_RANKS)):
+        idx, vals = sparse_batch(gen, rows, NNZ, SPARSE_DIM, dev, DEFAULT_MASK_SHARE,
+                                 OUT_OF_RANGE_SHARE)
+        C = torch.randn(members, SPARSE_DIM, generator=gen, device=dev)
+        Cm = C.T.contiguous().T
+        M = torch.randn(members, rows, generator=gen, device=dev)
+        sets = copies(idx, vals)
+        valid = idx >= 0
+        safe = torch.where(valid, idx, 0).clamp(max=SPARSE_DIM - 1)
+        masked_vals = torch.where(valid, vals, 0.0)
+        keep = valid & (idx < SPARSE_DIM)
+        shape = {"case": label, "members": members, "rows": rows, "nnz": NNZ, "d": SPARSE_DIM}
+
+        got, want = sk.fleet_row_dots(idx, vals, Cm), sk.fleet_row_dots_plain(idx, vals, C)
+        err = (got - want).abs()
+        check(torch.allclose(got, want, **ROW_DOTS_TOL),
+              f"fleet_row_dots disagrees at the {label}'s shape: max abs {float(err.max())}")
+        table = Cm.T
+        touched = int(torch.unique(safe[valid]).numel())
+        b_ms, b_by = bound_ms(idx.numel() * 8 + touched * members * 4 + members * rows * 4,
+                              2.0 * members * int(valid.sum()))
+        out["fleet_row_dots"].append({
+            **shape, "max_abs_err": float(err.max()),
+            "ms": cuda_ms(lambda i, v: sk.fleet_row_dots(i, v, Cm), sets),
+            "plain_ms": cuda_ms(lambda i, v: sk.fleet_row_dots_plain(i, v, C), sets, iters=10),
+            "library_ms": cuda_ms(
+                lambda sf, w: torch.nn.functional.embedding_bag(sf, table, per_sample_weights=w,
+                                                                mode="sum"),
+                [(safe, masked_vals)], iters=10),
+            "bound_ms": b_ms, "bound_by": b_by, "probe_ms": None})
+
+        got, want = sk.fleet_grad(idx, vals, M, Cm), sk.fleet_grad_plain(idx, vals, M, C)
+        err = (got - want).abs()
+        check(torch.allclose(got, want, **GRAD_TOL),
+              f"fleet_grad disagrees at the {label}'s shape: max abs {float(err.max())}")
+        flat_idx = torch.where(keep, idx, 0).long().reshape(-1)
+        contrib = torch.where(keep[None], vals[None] * M[:, :, None], 0.0).permute(
+            1, 2, 0).reshape(-1, members)
+        msets = [(i, v, M) for i, v in sets]
+        b_ms, b_by = bound_ms(idx.numel() * 8 + members * rows * 4 + members * SPARSE_DIM * 4,
+                              2.0 * members * int(keep.sum()))
+        out["fleet_grad"].append({
+            **shape, "max_abs_err": float(err.max()),
+            "ms": cuda_ms(lambda i, v, m: sk.fleet_grad(i, v, m, Cm), msets),
+            "plain_ms": cuda_ms(lambda i, v, m: sk.fleet_grad_plain(i, v, m, C), msets, iters=5),
+            "library_ms": cuda_ms(
+                lambda fi, c: torch.zeros((SPARSE_DIM, members), device=dev).index_add_(0, fi, c),
+                [(flat_idx, contrib)], iters=10),
+            "bound_ms": b_ms, "bound_by": b_by, "probe_ms": None})
+        for name in out:
+            r = out[name][-1]
+            log(f"  {name} {label} ({members} x {rows} x {NNZ}, d={SPARSE_DIM}): max_abs_err "
+                f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        del idx, vals, C, Cm, M, sets, contrib
+    return out
 
 
 # the fleet gradient's cases in phase 2: label -> how its gradient is held
@@ -7162,11 +7297,30 @@ def main() -> int:
         "dense LR, the sparse LR (dense and pair routes) and KMeans of phase 3, plain and "
         "overlapped, against the one-rank fits (launch counts reset before and read after "
         "each fit on each rank); then a one-rank NCCL world")
-    mesh = mesh_phase(card, dev, runs)
-    path_s["mesh"] = mesh["seconds"]
+    spec = mesh_spec()
+    t0 = time.perf_counter()
+    with mesh_world(spec) as world:
+        mesh = mesh_phase(card, dev, runs, world, spec, time.perf_counter() - t0)
+        path_s["mesh"] = mesh["seconds"]
+
+        # -- 17. the rest of the multi-device layer (A.10b) --------------------------
+        log(f"phase 17: on the same {MESH_RANKS} gloo ranks: the sparse LR as a 2D fit on 2 x 2 "
+            "and 1 x 4 and the replicated reference on 2 x 2, the budget case, phase 10's "
+            "sparse fleet in both regimes, the stream LR and KMeans on ranks, a 2D cut resumed "
+            "on 1 x 4 and on one rank (launch counts reset before and read after each fit on "
+            "each rank); then the supervisor's shrink of a checkpointed dense fit from 4 ranks "
+            "in 2 hosts to the survivors")
+        mesh2d = mesh2d_phase(card, dev, runs, world, spec, fleet_models)
+    path_s["mesh2d"] = mesh2d["seconds"]
     mesh_launches = {f"mesh {name} (rank 0 of {MESH_RANKS})": counts[0]
                      for name, counts in mesh["launches"].items()}
     for counts in mesh_launches.values():
+        for kernel in launches:
+            launches[kernel] += counts[kernel]
+    mesh2d_launches = {f"mesh2d {name} (rank 0 of {MESH_RANKS})": counts[0]
+                       for name, counts in mesh2d["launches"].items()}
+    mesh2d_launches["mesh2d ckpt resumed on one rank"] = mesh2d["one_rank_launches"]
+    for counts in mesh2d_launches.values():
         for kernel in launches:
             launches[kernel] += counts[kernel]
 
@@ -7197,7 +7351,8 @@ def main() -> int:
                                  **{p: c[name] for p, c in checkpoints["launches"].items()
                                     if c[name]},
                                  **{p: c[name] for p, c in funnel_launches.items() if c[name]},
-                                 **{p: c[name] for p, c in mesh_launches.items() if c[name]}},
+                                 **{p: c[name] for p, c in mesh_launches.items() if c[name]},
+                                 **{p: c[name] for p, c in mesh2d_launches.items() if c[name]}},
             "launches_by_feature_path": {p: r["launches"][name] for p, r in
                                          {**features, **texts, **stat_stages, **slice8}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -7220,7 +7375,8 @@ def main() -> int:
             "launches_by_path": {"sparse lr fleet": fleets["sparse lr fleet"]["launches"][name],
                                  **{p: c[name] for p, c in checkpoints["launches"].items()
                                     if c[name]},
-                                 **{p: c[name] for p, c in funnel_launches.items() if c[name]}},
+                                 **{p: c[name] for p, c in funnel_launches.items() if c[name]},
+                                 **{p: c[name] for p, c in mesh2d_launches.items() if c[name]}},
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "tolerance": r["tolerance"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -7230,6 +7386,7 @@ def main() -> int:
             "replaced_member_major_ms": r["replaced_member_major_ms"], "probe_ms": r["probe_ms"],
             **({"bit_identical_to_solo": r["bit_identical_to_solo"]} if name == "fleet_row_dots"
                else {"by_case": r["by_case"]}),
+            "by_shape": r["by_shape"],
             "shape": [r["members"], r["rows"], r["nnz"], r["d"]],
         })
     log("first calls: " + "; ".join(
@@ -7252,7 +7409,8 @@ def main() -> int:
     log("funnel, bank and traced run: " + json.dumps(funnel, default=str))
     log("tpulint: " + json.dumps(lint))
     log("mesh: " + json.dumps(mesh, default=str))
-    log("seconds by path (phases 3-16): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("mesh2d: " + json.dumps(mesh2d, default=str))
+    log("seconds by path (phases 3-17): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s on {card}")
@@ -7294,6 +7452,9 @@ def count_plain_launches(sk):
             kernel.launches += 1
             return plain(*args)
         return call
+    if getattr(sk, "plain_launches_counted", False):  # once a process
+        return
+    sk.plain_launches_counted = True
     for name in ("sparse_row_dots", "sparse_grad", "fleet_row_dots", "fleet_grad"):
         setattr(sk, f"{name}_plain", counted(getattr(sk, name), getattr(sk, f"{name}_plain")))
 
@@ -7354,7 +7515,7 @@ def collectives_check(mesh, dev, self_send=False):
     want["host_all_reduce_sum"] = (coll.host_all_reduce_sum(mesh, parts),
                                    torch.full((5,), 3.0, device=dev))
     if self_send:
-        want["p2p to itself"] = (coll._exchange(x, mesh, n, [1])[0], x)
+        want["p2p to itself"] = (coll._exchange(x, coll._Axis(n, mesh.group, r), [1])[0], x)
     for label, (got, expect) in want.items():
         check(got.shape == expect.shape and torch.equal(got, expect.to(got.dtype)),
               f"collective {label} on rank {r} over {mesh.group and 'its group'} differs "
@@ -7482,28 +7643,43 @@ def nccl_rank_job(spec):
     return {"backend": dist.get_backend(), "checked": checked, "staged": staged}
 
 
-def mesh_phase(card, dev, runs):
-    """Phase 16: (a) MESH_RANKS gloo ranks on this one card, each under
-    the sanitizer (`mesh_rank_job`), every fit held against phase 3's
-    one-rank fit of the same data, overlap against plain, every rank's
-    collective sequence against the others'; (b) a one-rank NCCL world
-    (`nccl_rank_job`). A rank that fails fails the run. Returns what the
-    output lines print."""
-    from flink_ml_tpu_torch.parallel import launcher
-
-    t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()  # the ranks' tables need the parent's free cache
+def mesh_spec():
+    """What a rank of phases 16-17 gets: its device, whether it counts the
+    plain versions' calls as launches (the rehearsal), and the module's
+    sizes (so the rehearsal's small sizes reach it)."""
     on_card = DEVICE == "cuda"
-    device = "cuda:0" if on_card else "cpu"
-    spec = {"device": device, "count_plain": not on_card,
+    return {"device": "cuda:0" if on_card else "cpu", "count_plain": not on_card,
             "sizes": {name: getattr(sys.modules[__name__], name) for name in (
                 "DENSE_ROWS", "DIM", "SPARSE_ROWS", "SPARSE_DIM", "NNZ", "MAX_ITER", "BATCH",
-                "KMEANS_ROWS", "KMEANS_K", "KMEANS_ITER", "KMEANS_SEED")}}
-    with launcher.World(MESH_RANKS, backend="gloo", device=device, timeout_s=MESH_JOB_TIMEOUT_S,
-                        collective_timeout_s=MESH_COLLECTIVE_TIMEOUT_S, sanitize=True) as world:
-        spawn_s = time.perf_counter() - t0
-        per_rank = world.run(mesh_rank_job, spec)
+                "KMEANS_ROWS", "KMEANS_K", "KMEANS_ITER", "KMEANS_SEED", "STREAM_CHUNK",
+                "KMEANS_CHUNK", "MESH_BUDGET_ROWS", "MESH_BUDGET_BATCH")}}
+
+
+def mesh_world(spec):
+    """Phase 16's world of MESH_RANKS gloo ranks on this card, each under
+    the sanitizer; phase 17 runs on it too."""
+    from flink_ml_tpu_torch.parallel import launcher
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks' tables need the parent's free cache
+    return launcher.World(MESH_RANKS, backend="gloo", device=spec["device"],
+                          timeout_s=MESH_JOB_TIMEOUT_S,
+                          collective_timeout_s=MESH_COLLECTIVE_TIMEOUT_S, sanitize=True)
+
+
+def mesh_phase(card, dev, runs, world, spec, spawn_s):
+    """Phase 16: (a) MESH_RANKS gloo ranks on this one card (`world`, made
+    in `spawn_s` by `mesh_world`), each under the sanitizer
+    (`mesh_rank_job`), every fit held against phase 3's one-rank fit of
+    the same data, overlap against plain, every rank's collective sequence
+    against the others'; (b) a one-rank NCCL world (`nccl_rank_job`). A
+    rank that fails fails the run. Returns what the output lines print."""
+    from flink_ml_tpu_torch.parallel import launcher
+
+    t0 = time.perf_counter() - spawn_s
+    on_card = DEVICE == "cuda"
+    device = spec["device"]
+    per_rank = world.run(mesh_rank_job, spec)
     gloo_s = time.perf_counter() - t0
     r0 = per_rank[0]["fits"]
     out = {"ranks": MESH_RANKS, "spawn_s": spawn_s, "seconds_by_fit": {}, "launches": {},
@@ -7592,6 +7768,489 @@ def mesh_phase(card, dev, runs):
         f"definitions on CUDA tensors, none staged, in {out['nccl']['seconds']:.2f} s. It is "
         "the only run of the NCCL branch until a multi-card check exists; NCCL across cards "
         "stays unverified" if on_card else "  (the rehearsal runs gloo on the CPU)")
+    return out
+
+
+def mesh2d_budget_bytes():
+    """Phase 17(b)'s per-rank budget: the rows a rank of 2 x 2 stages (its
+    half of each touched batch's slots and weights, its labels of every
+    batch) plus 6 * d: above the 2D carries (coefficient and gradient
+    slices of d / 2, 4 * d bytes) and below the replicated ones (8 * d),
+    with 2 * d to spare on each side for the rows' own count."""
+    b_local = -(-MESH_BUDGET_BATCH // 2)
+    batches = -(-MESH_BUDGET_ROWS // MESH_BUDGET_BATCH)
+    touched = min(batches, 2)
+    return touched * b_local * (NNZ * 8 + 8) + batches * b_local * 4 + 6 * SPARSE_DIM
+
+
+def mesh2d_rank_job(spec):
+    """Phase 17 on one rank of phase 16's gloo world: (a) the sparse LR of
+    phase 3 through its estimator on the 2D meshes of MESH2D_FITS; (b) the
+    budget case; (c) phase 10's sparse LR fleet in the default and the
+    fleet-sharded regime; (d) the stream LR (phase 3's first MAX_ITER
+    batches) and the stream KMeans on this rank's rows; (e) a checkpointed
+    2D fit on 2 x 2 killed at a chunk and resumed on 1 x 4. Launch counts
+    reset before and read after each; the collective counters, digests of
+    the model and of this rank's model slice; then this rank's collective
+    sequence against the others' on the 2 x 2 mesh and the sanitizer's
+    verdict. Returns host values only."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    module = sys.modules[__name__]
+    for name, value in spec["sizes"].items():
+        setattr(module, name, value)
+    from flink_ml_tpu_torch import SparseBatch, Table
+    from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.analysis import sanitizer
+    from flink_ml_tpu_torch.ckpt import faults
+    from flink_ml_tpu_torch.fleet import FitFleet
+    from flink_ml_tpu_torch.models.classification import logisticregression
+    from flink_ml_tpu_torch.obs import memledger
+    from flink_ml_tpu_torch.ops import losses, optimizer
+    from flink_ml_tpu_torch.ops import sparsekernels as sk
+    from flink_ml_tpu_torch.parallel import mesh as mesh_lib
+    from flink_ml_tpu_torch.utils import metrics
+
+    rank, dev = dist.get_rank(), torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    if spec["count_plain"]:
+        count_plain_launches(sk)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    meshes = {(nd, nm): mesh_lib.create_mesh_2d(nm) for nd, nm in ((2, 2), (1, 4))}
+    meshes[(4,)] = mesh_lib.create_mesh()
+    out = {"rank": rank, "fits": {}}
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+    def measured(name, fn, shape):
+        if cuda:
+            torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        before = metrics.snapshot()
+        t0 = time.perf_counter()
+        with mesh_lib.use_mesh(meshes[shape]):
+            value, arrays = fn(meshes[shape])
+        if cuda:
+            torch.cuda.synchronize()
+        delta = metrics.snapshot_delta(before, metrics.snapshot())
+        out["fits"][name] = {
+            "seconds": time.perf_counter() - t0, "launches": sk.launch_counts(),
+            "counters": {k: v for k, v in delta["counters"].items()
+                         if k.startswith(("collective.", "dispatch.whole_fit"))},
+            "gauges": {k: v for k, v in metrics.snapshot()["gauges"].items()
+                       if k.startswith("fleet.")},
+            "digest": digest(np.concatenate([np.ravel(a) for a in arrays])),
+            **({"value": value} if rank == 0 else {}), **value.get("always", {})}
+        return value
+
+    s_idx, s_vals, s_y = sparse_data(dev)
+    sparse_table = Table({"features": SparseBatch(SPARSE_DIM, s_idx, s_vals), "label": s_y})
+
+    # (a) the 2D fits through the estimator
+    for name, (nd, nm, mode) in MESH2D_FITS.items():
+        def fit(m, mode=mode, nm=nm):
+            with port_config.sparse_2d_mode(mode):
+                c = np.asarray(estimator(logisticregression.LogisticRegression).fit(
+                    sparse_table).coefficient)
+            d_local = -(-SPARSE_DIM // nm)
+            j = m.axis_index(mesh_lib.MODEL_AXIS)
+            piece = np.pad(c, (0, d_local * nm - SPARSE_DIM))[j * d_local:(j + 1) * d_local]
+            return {"coefficient": c, "always": {"slice_digest": digest(piece)}}, [c]
+        measured(name, fit, (nd, nm))
+
+    # (b) the budget: the 2D fit admits its slices, the replicated one is refused
+    budget = mesh2d_budget_bytes()
+    rows = slice(0, MESH_BUDGET_ROWS)
+    budget_sgd = dict(max_iter=2, global_batch_size=MESH_BUDGET_BATCH, tol=0.0, shard_features=True)
+
+    def budget_fit(m):
+        memledger.reset()
+        token = memledger.mark_peak()
+        with port_config.hbm_budget_mode(budget):
+            c, _, epochs = optimizer.SGD(**budget_sgd).optimize(
+                np.zeros(SPARSE_DIM), (s_idx[rows], s_vals[rows]), s_y[rows], None,
+                losses.SPARSE_BINARY_LOGISTIC_LOSS, mesh=m)
+        return {"epochs": epochs, "finite": bool(np.isfinite(c).all()),
+                "always": {"ledger_peak": memledger.peak_since(token)}}, [c]
+    measured("budget 2d 2x2", budget_fit, (2, 2))
+
+    def refused(m):
+        memledger.reset()
+        try:
+            with port_config.hbm_budget_mode(budget):
+                optimizer.SGD(**budget_sgd).optimize(
+                    np.zeros(SPARSE_DIM), (s_idx[rows], s_vals[rows]), s_y[rows], None,
+                    losses.SPARSE_BINARY_LOGISTIC_LOSS, mesh=m)
+        except memledger.HbmBudgetExceeded as e:
+            return {"always": {"refused_bytes": e.requested_bytes}}, [np.zeros(1)]
+        return {"always": {"refused_bytes": 0}}, [np.zeros(1)]
+    measured("budget replicated 4", refused, (4,))
+    memledger.reset()
+
+    # (c) phase 10's sparse LR fleet in both regimes
+    for name, shard in (("fleet default", None), ("fleet sharded", True)):
+        def fleet(m, shard=shard):
+            models = FitFleet(fleet_members(logisticregression.LogisticRegression),
+                              shard_fleet_axis=shard).fit(sparse_table)
+            coeffs = [np.asarray(mod.coefficient) for mod in models]
+            return {"coefficients": coeffs}, coeffs
+        measured(name, fleet, (4,))
+    # a default-regime member against its solo fit on this mesh (every rank fits)
+    with mesh_lib.use_mesh(meshes[(4,)]):
+        solo = fleet_members(logisticregression.LogisticRegression)[0].fit(sparse_table)
+    if rank == 0:
+        out["fleet member 0 solo"] = np.asarray(solo.coefficient)
+    del sparse_table
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) the stream fits on this rank's rows
+    stream_cols = stream_lr_data(MAX_ITER * BATCH)
+    measured("stream lr", lambda m: (lambda c: ({"coefficient": c}, [c]))(np.asarray(
+        estimator(logisticregression.LogisticRegression, "weight").fit(
+            stream_of(stream_cols, MAX_ITER * BATCH, STREAM_CHUNK)).coefficient)), (4,))
+    del stream_cols
+    km_cols = {"features": kmeans_data(dev).cpu().numpy()}
+
+    def stream_kmeans(m):
+        model = kmeans_estimator().fit(stream_of(km_cols, KMEANS_ROWS, KMEANS_CHUNK))
+        return {"centroids": model.centroids, "weights": model.weights}, [model.centroids]
+    measured("stream kmeans", stream_kmeans, (4,))
+    del km_cols
+
+    # (e) a checkpointed 2D fit on 2 x 2 killed, then resumed on 1 x 4
+    ckpt_sgd = dict(max_iter=MAX_ITER, learning_rate=LEARNING_RATE, global_batch_size=BATCH,
+                    tol=TOL, shard_features=True, checkpoint_dir=spec["ckpt"],
+                    checkpoint_key="mesh2d", checkpoint_interval=MESH_CKPT_INTERVAL)
+
+    def killed(m):
+        try:
+            with faults.inject("chunk", after=MESH_CKPT_KILL_CHUNK):
+                optimizer.SGD(**ckpt_sgd).optimize(np.zeros(SPARSE_DIM), (s_idx, s_vals), s_y,
+                                                   None, losses.SPARSE_BINARY_LOGISTIC_LOSS,
+                                                   mesh=m)
+        except faults.InjectedFault:
+            return {"killed": True}, [np.zeros(1)]
+        return {"killed": False}, [np.zeros(1)]
+    measured("ckpt 2x2 killed", killed, (2, 2))
+
+    # the 2 x 2 cut kept apart for the parent's resume on one rank: the 1 x 4
+    # resume writes cuts of its own after it
+    if rank == 0:
+        import shutil
+
+        shutil.copytree(spec["ckpt"], spec["ckpt"] + "_one_rank")
+    dist.barrier()
+
+    def resumed(m):
+        restores = metrics.get_counter("checkpoint.restore.count")
+        c, _, epochs = optimizer.SGD(**ckpt_sgd).optimize(
+            np.zeros(SPARSE_DIM), (s_idx, s_vals), s_y, None, losses.SPARSE_BINARY_LOGISTIC_LOSS,
+            mesh=m)
+        return {"coefficient": np.asarray(c), "epochs": epochs,
+                "restored": restored_epoch(metrics, restores)}, [np.asarray(c)]
+    measured("ckpt resumed 1x4", resumed, (1, 4))
+    del s_idx, s_vals, s_y
+
+    sequence = sanitizer.recorder.collective_sequences.get("mesh", {}).get(str(rank), [])
+    out.update(
+        sequence_length=len(sequence),
+        sequence_problems=sanitizer.compare_rank_sequences(mesh=meshes[(2, 2)]),
+        sanitizer_problems=sanitizer.recorder.problems(join_timeout=SANITIZER_JOIN_S),
+        sanitizer=sanitizer.recorder.stats(),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0)
+    return out
+
+
+def restored_epoch(metrics, restores_before):
+    """The epoch of the cut the fit just run restored (the
+    `checkpoint.restore.epoch` gauge), 0 when it restored none."""
+    if metrics.get_counter("checkpoint.restore.count") <= restores_before:
+        return 0
+    return int(metrics.get_gauge("checkpoint.restore.epoch"))
+
+
+def mesh2d_expected_launches(name):
+    """A rank's launches in a phase-17 fit: a 2D fit scatters its local
+    gradient with `sparse_grad` an epoch unless its pairs ride the pair
+    exchange (`collectives.sparse_reduce_wins`, whose scatter is not the
+    kernel), and runs no row dot (the forward is a gather and a model-axis
+    reduce); the replicated fit runs both kernels an epoch; the fleets
+    their member-batched kernels an epoch; the killed and the resumed
+    checkpointed fits share the epochs."""
+    from flink_ml_tpu_torch.parallel import collectives
+
+    def grads(batch, nd, nm, epochs):
+        pairs = collectives.sparse_reduce_wins(-(-batch // nd) * NNZ, -(-SPARSE_DIM // nm))
+        return 0 if pairs else epochs
+
+    killed = MESH_CKPT_INTERVAL * MESH_CKPT_KILL_CHUNK
+    per = {"2d 2x2": dict(sparse_grad=grads(BATCH, 2, 2, MAX_ITER)),
+           "2d 1x4": dict(sparse_grad=grads(BATCH, 1, 4, MAX_ITER)),
+           "off 2x2": dict(sparse_row_dots=MAX_ITER, sparse_grad=MAX_ITER),
+           "budget 2d 2x2": dict(sparse_grad=grads(MESH_BUDGET_BATCH, 2, 2, 2)),
+           "fleet default": dict(fleet_row_dots=MAX_ITER, fleet_grad=MAX_ITER),
+           "fleet sharded": dict(fleet_row_dots=MAX_ITER, fleet_grad=MAX_ITER),
+           "ckpt 2x2 killed": dict(sparse_grad=grads(BATCH, 2, 2, killed)),
+           "ckpt resumed 1x4": dict(sparse_grad=grads(BATCH, 1, 4, MAX_ITER - killed))}
+    return launch_dict(**per.get(name, {}))
+
+
+def mesh2d_wire_bytes(nd, nm):
+    """The per-axis wire bytes of one 2D sparse LR fit on an nd x nm mesh,
+    reckoned from the shapes: `model` the (b_local, nnz) active values an
+    epoch and the final gather of [flag | slice | criteria | epochs];
+    `data` the [grad slice | loss | weight] payload an epoch and the
+    label flag's min."""
+    b_local, d_local = -(-BATCH // nd), -(-SPARSE_DIM // nm)
+    return {"model": MAX_ITER * b_local * NNZ * 4 + (d_local + 3) * 4,
+            "data": MAX_ITER * (d_local + 2) * 4 + 4}
+
+
+def mesh_supervised_job(spec, ckpt):
+    """Phase 17(f) on every rank of a supervised world: phase 3's dense LR
+    (10M x 100, weighted) with checkpoints every MESH_CKPT_INTERVAL epochs
+    on the world's data mesh; it restores the newest committed cut. Returns
+    rank 0's coefficient, the epochs, the mesh's shape and the epoch of the
+    cut it restored (0: none)."""
+    import torch.distributed as dist
+
+    module = sys.modules[__name__]
+    for name, value in spec["sizes"].items():
+        setattr(module, name, value)
+    from flink_ml_tpu_torch.ops import losses, optimizer
+    from flink_ml_tpu_torch.ops import sparsekernels as sk
+    from flink_ml_tpu_torch.parallel import mesh as mesh_lib
+    from flink_ml_tpu_torch.utils import metrics
+
+    dev = torch.device(spec["device"])
+    if spec["count_plain"]:
+        count_plain_launches(sk)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)  # phase 3's dense table, in its order
+    X = torch.rand((DENSE_ROWS, DIM), generator=gen, device=dev)
+    y = torch.randint(0, 2, (DENSE_ROWS,), generator=gen, device=dev).to(torch.float32)
+    w = torch.rand((DENSE_ROWS,), generator=gen, device=dev)
+    m = mesh_lib.default_mesh()
+    restores = metrics.get_counter("checkpoint.restore.count")
+    c, _, epochs = optimizer.SGD(
+        max_iter=MAX_ITER, learning_rate=LEARNING_RATE, global_batch_size=BATCH, tol=TOL,
+        checkpoint_dir=ckpt, checkpoint_key="supervised", checkpoint_interval=MESH_CKPT_INTERVAL,
+    ).optimize(np.zeros(DIM), X, y, w, losses.BINARY_LOGISTIC_LOSS, mesh=m)
+    return {"coefficient": np.asarray(c) if dist.get_rank() == 0 else None, "epochs": epochs,
+            "shape": dict(m.shape), "restored": restored_epoch(metrics, restores)}
+
+
+def mesh2d_phase(card, dev, runs, world, spec, fleet_models):
+    """Phase 17 (A.10b) on phase 16's gloo world (`mesh2d_rank_job`), then
+    the supervisor's shrink over ranks (`supervise_world`, its own worlds),
+    every result held to its gate. Returns what the output lines print."""
+    from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.models.classification.logisticregression import LogisticRegression
+    from flink_ml_tpu_torch.ops import losses, optimizer
+    from flink_ml_tpu_torch.ops import sparsekernels as sk
+    from flink_ml_tpu_torch.parallel import supervisor
+    from flink_ml_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh2d_")
+    try:
+        per_rank = world.run(mesh2d_rank_job, {**spec, "ckpt": os.path.join(tmp, "ckpt")})
+        ranks_s = time.perf_counter() - t0
+        out = {"seconds_by_fit": {}, "launches": {}, "counters": {}, "gaps": {},
+               "peak_gib": [r["peak_gib"] for r in per_rank]}
+        r0 = per_rank[0]["fits"]
+        for name in r0:
+            fits = [r["fits"][name] for r in per_rank]
+            check(len({f["digest"] for f in fits}) == 1,
+                  f"mesh2d {name}: the ranks ended with different results")
+            for r, f in zip(per_rank, fits):
+                check(f["launches"] == mesh2d_expected_launches(name),
+                      f"mesh2d {name}: rank {r['rank']} launched {f['launches']}, expected "
+                      f"{mesh2d_expected_launches(name)}")
+            out["seconds_by_fit"][name] = [round(f["seconds"], 4) for f in fits]
+            out["launches"][name] = [f["launches"] for f in fits]
+            out["counters"][name] = r0[name]["counters"]
+        for r in per_rank:
+            check(not r["sequence_problems"],
+                  f"rank {r['rank']}: collective sequences differ: {r['sequence_problems']}")
+            check(not r["sanitizer_problems"],
+                  f"rank {r['rank']}: the sanitizer found {r['sanitizer_problems']}")
+        check(len({r["sequence_length"] for r in per_rank}) == 1,
+              "the ranks recorded collective sequences of different lengths")
+        # (a) every 2D fit against the one-rank plain-loss fit, the slices of a
+        # model column equal, the wire bytes of each axis as the shapes give them
+        plain_c = runs["sparse lr"]["plain_coefficient"]
+        scale = float(np.max(np.abs(plain_c)))
+        for name, (nd, nm, mode) in MESH2D_FITS.items():
+            c = r0[name]["value"]["coefficient"]
+            gap = out["gaps"][name] = max_gap(c, plain_c)
+            check(gap <= 1e-4 * scale, f"mesh2d {name} differs from the one-rank plain-loss "
+                                       f"fit by {gap} (gate {1e-4 * scale})")
+            columns = {}
+            for q, r in enumerate(per_rank):
+                columns.setdefault(q % nm, set()).add(r["fits"][name]["slice_digest"])
+            check(all(len(v) == 1 for v in columns.values()),
+                  f"mesh2d {name}: a model column's ranks hold different slices")
+            wire = {axis: r0[name]["counters"].get(f"collective.axis.{axis}.bytes", 0)
+                    for axis in ("model", "data")}
+            # the replicated reference: rows over all the ranks (C.36), one
+            # reduce of [grad | loss | weight] an epoch and the label flag's
+            want = (mesh2d_wire_bytes(nd, nm) if mode == "auto" else
+                    {"model": 0, "data": MAX_ITER * (SPARSE_DIM + 2) * 4 + 4})
+            check(wire == want, f"mesh2d {name}: wire bytes {wire}, reckoned {want}")
+            out.setdefault("wire_bytes", {})[name] = wire
+            check(r0[name]["counters"].get("dispatch.whole_fit_fallback.mesh") == 1,
+                  f"mesh2d {name} was not counted as an eager mesh fit")
+        # (b) the budget
+        budget = r0["budget 2d 2x2"]
+        check(budget["value"]["epochs"] == 2 and budget["value"]["finite"],
+              f"the 2D fit under the budget did not train: {budget['value']}")
+        for r in per_rank:
+            peak = r["fits"]["budget 2d 2x2"]["ledger_peak"]
+            check(4 * SPARSE_DIM <= peak <= mesh2d_budget_bytes(),
+                  f"rank {r['rank']}: the 2D fit's ledgered peak {peak} is not its slices "
+                  "within the budget")
+            refused = r["fits"]["budget replicated 4"]["refused_bytes"]
+            check(refused >= 8 * SPARSE_DIM,  # both carries in one staging, each leaf aligned
+                  f"rank {r['rank']}: the replicated carries were not refused at admission "
+                  f"({refused} bytes refused)")
+        out["budget"] = {"budget_bytes": mesh2d_budget_bytes(),
+                         "ledger_peak_2d": budget["ledger_peak"],
+                         "refused_bytes": r0["budget replicated 4"]["refused_bytes"]}
+        # (c) the fleets against phase 10's one-rank fleet, a member against
+        # its solo fit on the mesh
+        members = fleet_members(LogisticRegression)
+        for name in ("fleet default", "fleet sharded"):
+            coeffs = r0[name]["value"]["coefficients"]
+            gaps = []
+            for i, (c, ref, est) in enumerate(zip(coeffs, fleet_models["sparse"], members)):
+                l1_step = est.get_learning_rate() * est.get_elastic_net() * est.get_reg()
+                gap = max_gap(c, ref.coefficient)
+                gaps.append(gap)
+                check(gap <= 1e-4 * float(np.max(np.abs(ref.coefficient))) + 2.0 * l1_step,
+                      f"mesh2d {name} member {i} differs from phase 10's member by {gap}")
+            out["gaps"][name] = gaps
+            sharded = 1.0 if name.endswith("sharded") else 0.0
+            check(r0[name]["gauges"].get("fleet.sharded") == sharded,
+                  f"mesh2d {name}: fleet.sharded {r0[name]['gauges']}")
+        check(r0["fleet sharded"]["counters"].get("collective.all_gather.calls") == 1 and
+              not r0["fleet sharded"]["counters"].get("collective.psum.calls"),
+              "the fleet-sharded regime must gather once and never reduce across members")
+        solo = per_rank[0]["fleet member 0 solo"]
+        solo_gap = out["gaps"]["fleet default member 0 vs its solo fit"] = max_gap(
+            r0["fleet default"]["value"]["coefficients"][0], solo)
+        check(solo_gap <= 1e-4 * float(np.max(np.abs(solo))),
+              f"a default-regime member differs from its solo fit on the mesh by {solo_gap}")
+        # (d) the stream fits against the one-rank stream fits
+        one = runs["stream lr"]["model"].coefficient
+        c = r0["stream lr"]["value"]["coefficient"]
+        out["gaps"]["stream lr"] = max_gap(c, one)
+        check(np.allclose(c, one, **MESH_DENSE_TOL),
+              f"mesh2d stream lr differs from the one-rank stream fit by {out['gaps']['stream lr']}")
+        km = runs["stream kmeans"]["model"]
+        got = r0["stream kmeans"]["value"]
+        out["gaps"]["stream kmeans"] = max_gap(got["centroids"], km.centroids)
+        moved = float(np.sum(np.abs(np.asarray(got["weights"]) - km.weights))) / 2
+        check(out["gaps"]["stream kmeans"] <= MESH_KMEANS_SCALE_TOL * float(np.max(np.abs(
+            km.centroids))) and moved <= MESH_KMEANS_POINT_SHARE * KMEANS_ROWS,
+            f"mesh2d stream kmeans: centroids {out['gaps']['stream kmeans']} off, {moved} points "
+            "in other cells")
+        # (e) the 2 x 2 cut resumed on 1 x 4 and, from its copy taken before
+        # that resume wrote cuts of its own, on this one rank: each restores
+        # the killed fit's last cut and trains the epochs after it
+        check(r0["ckpt 2x2 killed"]["value"]["killed"], "the checkpointed 2D fit was not killed")
+        unkilled = r0["2d 2x2"]["value"]["coefficient"]
+        scale2d = float(np.max(np.abs(unkilled)))
+        resumed = r0["ckpt resumed 1x4"]["value"]
+        killed_at = MESH_CKPT_INTERVAL * MESH_CKPT_KILL_CHUNK
+        s_idx, s_vals, s_y = sparse_data(dev)
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        restores = metrics.get_counter("checkpoint.restore.count")
+        one_rank = optimizer.SGD(
+            max_iter=MAX_ITER, learning_rate=LEARNING_RATE, global_batch_size=BATCH, tol=TOL,
+            shard_features=True, checkpoint_dir=os.path.join(tmp, "ckpt_one_rank"),
+            checkpoint_key="mesh2d", checkpoint_interval=MESH_CKPT_INTERVAL,
+        ).optimize(np.zeros(SPARSE_DIM), (s_idx, s_vals), s_y, None,
+                   losses.SPARSE_BINARY_LOGISTIC_LOSS)
+        torch.cuda.synchronize()
+        one_rank_launches = sk.launch_counts()
+        one_rank_restored = restored_epoch(metrics, restores)
+        del s_idx, s_vals, s_y
+        want_one = launch_dict(sparse_row_dots=MAX_ITER - killed_at,
+                               sparse_grad=MAX_ITER - killed_at)
+        check(one_rank_launches == want_one,
+              f"the 2 x 2 cut resumed on one rank launched {one_rank_launches}, expected "
+              f"{want_one}: it did not train the epochs after its cut")
+        out["one_rank_launches"] = one_rank_launches
+        for label, (c, epochs, restored) in (
+                ("resumed on 1x4", (resumed["coefficient"], resumed["epochs"],
+                                    resumed["restored"])),
+                ("resumed on one rank", (one_rank[0], one_rank[2], one_rank_restored))):
+            gap = out["gaps"][f"ckpt {label}"] = max_gap(c, unkilled)
+            check(gap <= 1e-4 * scale2d and epochs == MAX_ITER and restored == killed_at,
+                  f"the 2 x 2 cut {label}: {gap} from the unkilled fit, {epochs} epochs, "
+                  f"restored the cut of epoch {restored} (the killed fit's last: {killed_at})")
+        # (f) the supervisor's shrink over ranks
+        t1 = time.perf_counter()
+        ckpt = os.path.join(tmp, "supervised")
+        res = supervisor.supervise_world(
+            mesh_supervised_job, spec, ckpt, world_size=MESH_RANKS, hosts=MESH_SUPERVISED_HOSTS,
+            fault="host.die.dispatch", after=MESH_SUPERVISED_AFTER, checkpoint_dir=ckpt,
+            job_key="supervised", job_timeout_s=MESH_JOB_TIMEOUT_S,
+            world_kwargs=dict(backend="gloo", device=spec["device"],
+                              timeout_s=MESH_JOB_TIMEOUT_S,
+                              collective_timeout_s=MESH_COLLECTIVE_TIMEOUT_S, sanitize=True))
+        (event,) = res.events
+        check(event.kind == "hostFailure" and event.quarantined and res.hosts == 1 and
+              event.phase == "dispatch" and event.recovery_ms is not None and
+              len(res.value) == MESH_RANKS // MESH_SUPERVISED_HOSTS,
+              f"the supervisor did not shrink to the surviving host: {res.events}, {res.hosts}")
+        # the fault fires at the dispatch of the chunk after the cut of epoch
+        # (after - 1) * interval: the survivors resume there, not from 0
+        last_cut = (MESH_SUPERVISED_AFTER - 1) * MESH_CKPT_INTERVAL
+        for value in res.value:
+            check(value["shape"] == {"data": MESH_RANKS // MESH_SUPERVISED_HOSTS} and
+                  value["epochs"] == MAX_ITER and value["restored"] == last_cut,
+                  f"the resumed world ran {dict(value, coefficient=None)}, expected a resume "
+                  f"from the cut of epoch {last_cut}")
+        value = res.value[0]
+        one = runs["dense lr"]["model"].coefficient
+        out["gaps"]["supervised dense lr after the shrink"] = max_gap(value["coefficient"], one)
+        check(np.allclose(value["coefficient"], one, **MESH_DENSE_TOL),
+              "the dense fit resumed after the shrink differs from the one-rank fit by "
+              f"{out['gaps']['supervised dense lr after the shrink']}")
+        out["supervisor"] = {"seconds": time.perf_counter() - t1, "attempts": res.attempts,
+                             "detection_ms": event.detection_ms,
+                             "recovery_ms": event.recovery_ms, "hosts_after": event.hosts_after,
+                             "restored_epoch": value["restored"]}
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["sequence_length"] = per_rank[0]["sequence_length"]
+    out["sanitizer"] = per_rank[0]["sanitizer"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 17 on the {MESH_RANKS} gloo ranks of phase 16: fits and checks "
+        f"{ranks_s:.2f} s; the supervised shrink {out['supervisor']['seconds']:.2f} s; on {card}")
+    for name in r0:
+        log(f"  mesh2d {name}: seconds by rank {out['seconds_by_fit'][name]}; launches by rank "
+            f"{[{k: v for k, v in c.items() if v} for c in out['launches'][name]]}; collectives "
+            f"(rank 0) {out['counters'][name]}")
+    log(f"  mesh2d gaps: {json.dumps(out['gaps'])}")
+    log(f"  mesh2d wire bytes by axis (rank 0, as reckoned from the shapes): "
+        f"{json.dumps(out['wire_bytes'])}; budget {json.dumps(out['budget'])}")
+    log(f"  mesh2d supervisor: {json.dumps(out['supervisor'])}; peaks by rank (GiB): "
+        f"{[round(p, 3) for p in out['peak_gib']]}; {out['sequence_length']} collectives a rank")
     return out
 
 

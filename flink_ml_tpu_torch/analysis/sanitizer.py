@@ -40,6 +40,8 @@ import sys
 import threading
 from typing import Dict, List, Optional, Set, Tuple
 
+import numpy as np
+
 ENV_FLAG = "FLINK_ML_TPU_SANITIZE"
 
 __all__ = [
@@ -442,12 +444,20 @@ def set_process_shard(shard, group: str = "mesh") -> None:
 
 
 def compare_rank_sequences(group=None, rec: Optional[Recorder] = None,
-                           scope: str = "mesh") -> List[str]:
+                           scope: str = "mesh", mesh=None) -> List[str]:
     """Every rank's recorded sequence of `scope` gathered to every rank over
     the process group `group` (default: the world) with `all_gather_object`
     (not itself recorded), and their divergences: one message per divergent
     pair, as `Recorder.collective_divergences` words it. Every rank of the
-    group must call it."""
+    group must call it.
+
+    On a mesh with more than one axis of size > 1 (`mesh`, a 2D mesh of
+    that world) the ranks of an axis group exchange other payloads than
+    the ranks of another (a `model` group gathers its data row's
+    activations), so the check is: every rank issued the same (op, axis)
+    sequence (group `<scope>/ops`), and within each axis group the ranks
+    issued the same collectives on that axis, payload shapes included
+    (groups `<scope>/<axis><i>`)."""
     import torch.distributed as dist
 
     rec = rec if rec is not None else active_recorder()
@@ -457,11 +467,27 @@ def compare_rank_sequences(group=None, rec: Optional[Recorder] = None,
     gathered: List = [None] * dist.get_world_size(group)
     dist.all_gather_object(gathered, mine, group=group)
     merged = Recorder()
-    for rank, shards in enumerate(gathered):
-        if not shards:
-            shards = {str(rank): []}
-        for shard, seq in shards.items():
-            merged.collective_sequences.setdefault(scope, {})[shard] = seq
+    wide = [] if mesh is None else [a for a in mesh.axis_names if mesh.shape[a] > 1]
+    if len(wide) < 2:
+        for rank, shards in enumerate(gathered):
+            if not shards:
+                shards = {str(rank): []}
+            for shard, seq in shards.items():
+                merged.collective_sequences.setdefault(scope, {})[shard] = seq
+        return merged.collective_divergences()
+    per_rank = [[tuple(e) for seq in (shards or {}).values() for e in seq]
+                for shards in gathered]
+    ops = merged.collective_sequences.setdefault(f"{scope}/ops", {})
+    for rank, seq in enumerate(per_rank):
+        ops[str(rank)] = [(e[0], e[1]) for e in seq]
+    grid = np.arange(mesh.size).reshape(tuple(mesh.shape[a] for a in mesh.axis_names))
+    for a, name in enumerate(mesh.axis_names):
+        if mesh.shape[name] <= 1:
+            continue
+        for i, line in enumerate(np.moveaxis(grid, a, -1).reshape(-1, mesh.shape[name])):
+            lines = merged.collective_sequences.setdefault(f"{scope}/{name}{i}", {})
+            for rank in line:
+                lines[str(int(rank))] = [e for e in per_rank[int(rank)] if e[1] == name]
     return merged.collective_divergences()
 
 

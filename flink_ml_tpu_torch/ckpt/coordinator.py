@@ -40,6 +40,18 @@ stable shards no kept manifest names (`checkpoint.gc`). Stable sections
 
 Transient read faults retry (`snapshot.manifest.read`,
 `snapshot.shard.read`); refusals are decisions and never retry.
+
+Rank cuts (`save_rank_cut`): on a mesh of ranks the hosts are the ranks.
+Rank 0 picks the cut id and broadcasts it; each rank writes one shard file
+(`...c<cut>.host<rank>.npz`) with the parts it owns (a `model`-tagged
+leaf's slice from the ranks of data index 0, a `data`-tagged leaf's
+leading block from the ranks of model index 0, whole leaves from rank 0);
+the ranks gather their digests and layout parts, and rank 0 commits the
+manifest, which every rank waits for. The format is the one above, so a
+rank cut restores with any rank count or factorization, and through the
+JAX package's loader. A rank cut records no whole-leaf crc32: no rank
+holds a sharded leaf's bytes (each shard's crc32 and sha256 prove its
+file, and the layout's coverage check proves the reassembly is whole).
 """
 
 from __future__ import annotations
@@ -76,6 +88,7 @@ __all__ = [
     "purge",
     "shard_axis_for_tag",
     "host_slice_bounds",
+    "save_rank_cut",
 ]
 
 #: meta keys that move from cut to cut of one job: not part of the
@@ -554,6 +567,146 @@ def save_sharded(
     metrics.inc_counter("checkpoint.manifest.count")
     gc_snapshots(path, job_key)
     return target
+
+
+def _rank_part(local: np.ndarray, tag: str, mesh, whole_shape) -> Optional[tuple]:
+    """(array, axis, start, stop) of the part of a leaf this rank writes,
+    or None: the slice of a `model` leaf on a rank of data index 0, the
+    leading block of a `data` leaf on a rank of model index 0, a whole leaf
+    on rank 0 (axis None)."""
+    from ..parallel import mesh as mesh_lib
+
+    axis = shard_axis_for_tag(tag, local.ndim)
+    if axis is None:
+        return (local, None, 0, 0) if mesh.rank == 0 else None
+    other = mesh_lib.DATA_AXIS if tag == "model" else mesh_lib.MODEL_AXIS
+    own = mesh_lib.MODEL_AXIS if tag == "model" else mesh_lib.DATA_AXIS
+    if mesh.axis_index(other) != 0:
+        return None
+    block = local.shape[axis]
+    start = mesh.axis_index(own) * block
+    stop = min(start + block, int(whole_shape[axis]))
+    if stop <= start:
+        return None
+    idx = [slice(None)] * local.ndim
+    idx[axis] = slice(0, stop - start)
+    return np.ascontiguousarray(local[tuple(idx)]), axis, start, stop
+
+
+def save_rank_cut(
+    path: str,
+    job_key: Optional[str],
+    arrays: Dict[str, np.ndarray],
+    manifest_sections: Dict[str, Any],
+    *,
+    mesh,
+    shapes: Dict[str, Sequence[tuple]],
+    epoch: int,
+    criteria: float,
+    meta: Optional[Dict[str, Any]],
+    snapshot_version: int = 1,
+) -> str:
+    """Commit one cut written by every rank of `mesh` (module docstring):
+    `arrays` are this rank's local leaves, `shapes` the whole shapes of a
+    section's leaves (default: a sharded leaf's local shape times its
+    axis). Every rank of the mesh calls it; returns the committed manifest
+    path on every rank. A rank whose shard cannot land aborts the cut on
+    every rank (`SnapshotAborted`, the cut's files removed)."""
+    import torch.distributed as dist
+
+    from .. import config
+    from ..parallel import mesh as mesh_lib
+    from ..parallel import supervisor
+
+    group, rank = mesh.group, mesh.rank
+    root = mesh_lib._group_to_global(group, 0)
+    os.makedirs(path, exist_ok=True)
+    box = [_next_cut(path, job_key) if rank == 0 else None]
+    dist.broadcast_object_list(box, src=root, group=group)
+    cut = int(box[0])
+    file = shard_file(path, job_key, cut, rank)
+    payload: Dict[str, np.ndarray] = {}
+    parts: Dict[str, Dict[str, Any]] = {}
+    for name, section in manifest_sections.items():
+        whole_shapes = shapes.get(name)
+        for i, entry in enumerate(section["leaves"]):
+            key, tag, local = entry["key"], entry["spec"], arrays[entry["key"]]
+            axis = shard_axis_for_tag(tag, local.ndim)
+            if whole_shapes is not None:
+                whole = tuple(int(x) for x in whole_shapes[i])
+            else:
+                whole = list(local.shape)
+                if axis is not None:
+                    n = mesh.shape.get(mesh_lib.MODEL_AXIS if tag == "model"
+                                       else mesh_lib.DATA_AXIS, 1)
+                    whole[axis] *= n
+                whole = tuple(whole)
+            entry["shape"] = list(whole)
+            entry.pop("crc32", None)
+            part = _rank_part(local, tag, mesh, whole)
+            if part is None:
+                continue
+            payload[key], axis, start, stop = part
+            parts[key] = {"shard": os.path.basename(file), "axis": axis}
+            if axis is not None:
+                parts[key].update(start=int(start), stop=int(stop))
+    written: List[str] = []
+    error = None
+    infos: Dict[str, Dict[str, Any]] = {}
+    try:
+        infos = _write_host_shards([file], [payload], deadline_s=config.snapshot_host_deadline_s,
+                                   written=written)
+        for info in infos.values():
+            info["host"] = rank
+    except SnapshotAborted as e:
+        error = f"rank {rank}: {e}"
+    gathered: List[Any] = [None] * mesh.size
+    dist.all_gather_object(gathered, (error, infos, parts), group=group)
+    errors = [g[0] for g in gathered if g[0] is not None]
+    if errors:
+        for victim in written + [_tmp_of(file)]:
+            _remove_quiet(victim)
+        metrics.inc_counter("checkpoint.abort")
+        raise SnapshotAborted("; ".join(errors))
+    outcome: List[Any] = [None]
+    if rank == 0:
+        layout: Dict[str, List[Dict[str, Any]]] = {}
+        shards: Dict[str, Dict[str, Any]] = {}
+        for _, rank_infos, rank_parts in gathered:
+            shards.update(rank_infos)
+            for key, part in rank_parts.items():
+                layout.setdefault(key, []).append(part)
+        for key in layout:
+            layout[key].sort(key=lambda p: p.get("start", 0))
+        manifest = {
+            "formatVersion": SHARDED_FORMAT_VERSION,
+            "version": int(snapshot_version),
+            "jobKey": job_key,
+            "cut": cut,
+            "epoch": int(epoch),
+            "criteria": float(criteria),
+            "hosts": mesh.size,
+            "sections": manifest_sections,
+            "layout": layout,
+            "shards": shards,
+            "meta": meta or {},
+        }
+        target = manifest_file(path, job_key, cut)
+        try:
+            supervisor.pulse_boundary(supervisor.PHASE_COMMIT)
+            atomic_commit(target, lambda tmp: _dump_json(tmp, manifest), site="snapshot.commit")
+            metrics.inc_counter("checkpoint.manifest.count")
+            gc_snapshots(path, job_key)
+            outcome = [("ok", target)]
+        except BaseException as e:
+            outcome = [("error", f"{type(e).__name__}: {e}")]
+            dist.broadcast_object_list(outcome, src=root, group=group)
+            raise
+    dist.broadcast_object_list(outcome, src=root, group=group)
+    status, value = outcome[0]
+    if status != "ok":
+        raise RuntimeError(f"rank 0 could not commit snapshot cut {cut}: {value}")
+    return value
 
 
 def _tmp_of(target: str) -> str:

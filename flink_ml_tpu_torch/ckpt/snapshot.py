@@ -18,9 +18,15 @@ Device leaves of every section are gathered to the host in ONE packed
 copy (`utils.packing.packed_bytes_get`: their bytes concatenated on the
 card, one copy into page-locked memory, every dtype kept), accounted as
 one host sync of kind `checkpoint`. The manifest records a sharding-spec
-tag per leaf (`replicated` / `data` / `model` / `host`); on one card
-`stage_section` puts every non-`host` leaf on the caller's device, and the
-tags wait for the multi-card layout (ROADMAP A.10b).
+tag per leaf (`replicated` / `data` / `model` / `host`). On one card
+`stage_section` puts every non-`host` leaf on the caller's device; with a
+mesh of ranks it stages each leaf's part by its tag (JAX `:511-561`):
+`data` this rank's block of the leading rows, `model` its trailing slice
+(zero-padded to a multiple of the model shards), anything else the whole.
+On a mesh of ranks `save_job_snapshot(mesh=)` writes a rank cut
+(`coordinator.save_rank_cut`): each rank writes the parts it owns, rank 0
+commits the manifest; every rank restores whole leaves, so a cut of one
+rank count or factorization resumes on another.
 
 On disk (version 1): one `snap-<jobkey>.npz` per job key, a JSON
 `manifest` entry (version, job key, epoch, criteria, per-section leaf
@@ -41,7 +47,9 @@ writes.
 
 Obs: `checkpoint.save` / `checkpoint.restore` spans, `checkpoint.bytes`,
 `checkpoint.count`, `checkpoint.restore.count` and
-`checkpoint.digest.mismatch` counters.
+`checkpoint.digest.mismatch` counters; the `checkpoint.restore.epoch`
+gauge (the epoch of the last cut restored, which shows a resumed fit
+started where its cut ended).
 """
 
 from __future__ import annotations
@@ -221,6 +229,8 @@ def save_job_snapshot(
     meta: Optional[Dict[str, Any]] = None,
     hosts: Optional[int] = None,
     stable_sections: Optional[Dict[str, Any]] = None,
+    mesh=None,
+    shapes: Optional[Dict[str, Sequence[tuple]]] = None,
 ) -> Optional[str]:
     """Write a snapshot atomically; returns its path (the npz, or the
     committed manifest of a sharded cut), or None when a sharded cut was
@@ -231,7 +241,13 @@ def save_job_snapshot(
     otherwise the two-phase sharded commit of `ckpt/coordinator.py`.
     `stable_sections` maps section names to zero-argument providers of
     immutable host-leaf tuples (the stream cache's contents), written once
-    per job key and reused by later cuts; the single file ignores it."""
+    per job key and reused by later cuts; the single file ignores it.
+
+    `mesh` of more than one rank: every rank calls this with its own
+    leaves (a 2D carry's `model`-tagged slices, its `data`-tagged member
+    blocks) and the cut is a rank cut (`coordinator.save_rank_cut`);
+    `shapes` gives each section's whole leaf shapes where a sharded leaf
+    was padded (default: the local shape times the axis)."""
     from .. import config
     from ..obs import tracing
     from ..parallel import supervisor
@@ -242,6 +258,21 @@ def save_job_snapshot(
     with tracing.span("checkpoint.save", jobKey=job_key or "", epoch=int(epoch)) as sp:
         arrays, manifest_sections = _gather_sections(sections, specs)
         nbytes = sum(a.nbytes for a in arrays.values())
+        if mesh is not None and mesh.size > 1:
+            sp.set_attr("ranks", mesh.size)
+            try:
+                target = coordinator.save_rank_cut(
+                    path, job_key, arrays, manifest_sections, mesh=mesh, shapes=shapes or {},
+                    epoch=epoch, criteria=criteria, meta=meta,
+                    snapshot_version=SNAPSHOT_VERSION)
+            except coordinator.SnapshotAborted as e:
+                warnings.warn(f"snapshot cut aborted (epoch {epoch}): {e}")
+                sp.set_attr("aborted", True)
+                return None
+            metrics.inc_counter("checkpoint.count")
+            metrics.inc_counter("checkpoint.bytes", nbytes)
+            sp.set_attr("bytes", nbytes)
+            return target
         if n_hosts is not None:
             sp.set_attr("hosts", int(n_hosts))
             stable_specs = {name: tag for name, tag in specs.items()
@@ -373,6 +404,7 @@ def load_job_snapshot(
             if job_key is None:
                 warnings.warn(_UNKEYED_WARNING)
             metrics.inc_counter("checkpoint.restore.count")
+            metrics.set_gauge("checkpoint.restore.epoch", int(snap.epoch))
             sp.set_attr("epoch", int(snap.epoch))
             return snap
 
@@ -431,6 +463,7 @@ def load_job_snapshot(
         if job_key is None:
             warnings.warn(_UNKEYED_WARNING)
         metrics.inc_counter("checkpoint.restore.count")
+        metrics.set_gauge("checkpoint.restore.epoch", int(manifest["epoch"]))
         sp.set_attr("epoch", int(manifest["epoch"]))
         return JobSnapshot(
             job_key=job_key,
@@ -506,6 +539,7 @@ def _load_legacy(path: str, job_key: Optional[str],
     if job_key is None:
         warnings.warn(_UNKEYED_WARNING)
     metrics.inc_counter("checkpoint.restore.count")
+    metrics.set_gauge("checkpoint.restore.epoch", epoch)
     return JobSnapshot(
         job_key=job_key,
         epoch=epoch,
@@ -520,22 +554,33 @@ def _load_legacy(path: str, job_key: Optional[str],
 
 def stage_section(snap: JobSnapshot, name: str, device: Optional[torch.device] = None,
                   specs: Union[None, str, Sequence[str]] = None,
-                  category: Optional[str] = "optimizer"):
-    """A restored section's leaves on `device` (default `config.device()`),
-    in one accounted upload (`parallel.prefetch.stage_to_device`); leaves
-    tagged `host` stay numpy. `specs` overrides the stored tags. On one
-    card every other tag means the one device: the tags are kept for the
-    multi-card layout (ROADMAP A.10b). `category` ledgers the restored
-    residency (obs/memledger.py)."""
+                  category: Optional[str] = "optimizer", mesh=None):
+    """A restored section's leaves on `device` (default: the mesh's device,
+    else `config.device()`), in one accounted upload
+    (`parallel.prefetch.stage_to_device`); leaves tagged `host` stay
+    numpy. `specs` overrides the stored tags. With `mesh`, each leaf is
+    first cut to this rank's part by its tag (`mesh.sharding_for_tag`:
+    `data` the rank's block of the leading rows, `model` its trailing
+    slice zero-padded to a multiple of the model shards, anything else the
+    whole leaf): the elastic re-shard, since the snapshot holds whole host
+    arrays whatever mesh wrote it. Without a mesh every tag means the one
+    device. `category` ledgers the restored residency (obs/memledger.py)."""
     from .. import config
 
     leaves, treedef = tree_flatten(snap.sections[name])
     tags = _normalize_specs(specs if specs is not None else snap.specs.get(name),
                             len(leaves), name)
-    device = device if device is not None else config.device()
+    if device is None:
+        device = mesh.device if mesh is not None else config.device()
     upload = [i for i, tag in enumerate(tags) if tag != "host"]
+    parts = [np.asarray(leaves[i]) for i in upload]
+    if mesh is not None:
+        from ..parallel import mesh as mesh_lib
+
+        parts = [mesh_lib.sharding_for_tag(tags[i], mesh, part.ndim).take(part)
+                 for i, part in zip(upload, parts)]
     staged = list(leaves)
-    for i, t in zip(upload, stage_leaves([leaves[i] for i in upload], device, category)):
+    for i, t in zip(upload, stage_leaves(parts, device, category)):
         staged[i] = t
     return tree_unflatten(treedef, staged)
 

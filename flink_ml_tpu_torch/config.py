@@ -14,9 +14,11 @@ package's names, defaults and environment variables
 `resolve_chunk_bytes`, `collective_sparse_threshold`, `collective_ring`,
 `collective_overlap` with `collective_overlap_mode`, and the scoped
 `collective_sparse_threshold_mode`; parallel/
-collectives.py, parallel/overlap.py). The 2D ones (`sparse_2d_mode`,
-`fleet_shard_threshold`) wait for the feature-sharded layout (ROADMAP
-A.10b).
+collectives.py, parallel/overlap.py), and the 2D ones: `sparse_2d` with
+`sparse_2d_mode` and `FLINK_ML_TPU_SPARSE_2D` (a feature-sharded sparse fit
+on a mesh with a `model` axis takes the 2D programs, or "off" the
+replicated reference), and `fleet_shard_threshold`, the scoped override of
+`fleet_shard_state_bytes` (fleet.py's regime).
 """
 
 from __future__ import annotations
@@ -79,10 +81,14 @@ supervisor_poll_interval_s: float = 0.02
 recovery_budget: int = 2
 
 #: a fleet whose member state (coeff and grad, N x d x 8 bytes; KMeans
-#: N x k x d x 8) exceeds this would shard its member axis over the data
-#: shards; None never decides so by itself. One device is one data shard,
-#: so a fleet here is always replicated (fleet.py)
+#: N x k x d x 8) exceeds this shards its member axis over the data shards
+#: when they divide the fleet (fleet.py); None never decides so by itself
 fleet_shard_state_bytes: Optional[int] = 256 << 20
+
+
+def fleet_shard_threshold(nbytes: Optional[int]):
+    """Scoped override of `fleet_shard_state_bytes` (None = never auto)."""
+    return _scoped("fleet_shard_state_bytes", nbytes)
 
 #: "auto": PipelineModel.transform runs maximal runs of fusable stages as
 #: one fused segment when their input columns are tensors (on the card,
@@ -307,6 +313,21 @@ collective_ring: bool = False
 collective_overlap: bool = False
 
 
+#: "auto": a feature-sharded sparse fit (`SGD(shard_features=True)`, or a
+#: sparse estimator fit on a default mesh with a `model` axis) runs the 2D
+#: programs of parallel/overlap.py (coefficient and optimizer carry as
+#: model-axis slices, gradients reduced over `data` only); "off": the
+#: replicated-coefficient reference fit on the same mesh
+sparse_2d: str = "auto"
+
+
+def sparse_2d_mode(mode: str):
+    """Scoped override of `sparse_2d` ("auto" | "off")."""
+    if mode not in ("auto", "off"):
+        raise ValueError(f"sparse_2d must be 'auto' or 'off', got {mode!r}")
+    return _scoped("sparse_2d", mode)
+
+
 def collective_overlap_mode(enabled: bool = True):
     """Scoped override of `collective_overlap`."""
     return _scoped("collective_overlap", bool(enabled))
@@ -329,6 +350,8 @@ def resolve_chunk_bytes(chunk_bytes: Optional[int] = None) -> Optional[int]:
 _env = os.environ.get
 if _env("FLINK_ML_TPU_COLLECTIVE_OVERLAP") in ("1", "true", "on"):
     collective_overlap = True
+if _env("FLINK_ML_TPU_SPARSE_2D") in ("auto", "off"):
+    sparse_2d = _env("FLINK_ML_TPU_SPARSE_2D")
 if _env("FLINK_ML_TPU_COLLECTIVE_CHUNK_BYTES"):
     collective_chunk_bytes = int(_env("FLINK_ML_TPU_COLLECTIVE_CHUNK_BYTES"))
 if _env("FLINK_ML_TPU_HBM_BUDGET_BYTES"):

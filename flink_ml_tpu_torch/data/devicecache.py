@@ -205,9 +205,12 @@ def stage_rank_rows(array, rows: np.ndarray, n: int, fill, device, dtype=None):
     """`array`'s rows `rows` (any shape of global row indices; an index < 0
     or >= n is a padding slot, filled with `fill`) as one tensor of shape
     rows.shape + array.shape[1:]. A tensor is gathered on its own device; a
-    host array is gathered on the host and uploaded once to `device`."""
+    host array is gathered on the host and uploaded once to `device`, its
+    bytes (this rank's rows only) admitted against `config.hbm_budget_bytes`
+    first (obs/memledger.py)."""
     import torch
 
+    from ..obs import memledger
     from ..parallel.prefetch import to_device
 
     rows = np.asarray(rows, dtype=np.int64)
@@ -227,6 +230,8 @@ def stage_rank_rows(array, rows: np.ndarray, n: int, fill, device, dtype=None):
     out = np.full((safe.shape[0],) + tail, fill, dtype=host.dtype)
     flat_valid = valid.reshape(-1)
     out[flat_valid] = host[safe[flat_valid]]
+    itemsize = out.itemsize if dtype is None else torch.empty((), dtype=dtype).element_size()
+    memledger.admit(out.size * itemsize, "streamSegments")
     return to_device(out.reshape(rows.shape + tail), device, dtype)
 
 

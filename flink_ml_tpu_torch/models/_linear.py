@@ -11,8 +11,10 @@ its float32 compute dtype as it stages them to `config.device()`.
 The fit runs on the default mesh (`parallel.mesh.default_mesh()`, JAX
 `:125-145`): one rank, or every rank of an initialized world, each
 training on its own rows (ops/optimizer.py). A mesh with a `model` axis
-declares the feature-sharded layout, which the JAX package takes for a
-sparse fit; that layout is ROADMAP A.10b and raises here.
+declares the feature-sharded layout: a sparse fit there sets
+`SGD.shard_features` (JAX `:138`) and trains on the 2D loop (coefficient
+slices over `model`, rows over `data`); a dense fit trains over `data`
+with the coefficient replicated, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -73,7 +75,6 @@ def run_sgd(params, table, loss_func: LossFunc, weight_col: Optional[str],
     from ..parallel.iteration import checkpoint_job_key
 
     mesh = mesh_lib.default_mesh()
-    mesh_lib.check_data_parallel(mesh, type(params).__name__)
     ckpt_dir = config.iteration_checkpoint_dir
     optimizer = SGD(
         max_iter=params.get_max_iter(),
@@ -103,11 +104,9 @@ def run_sgd(params, table, loss_func: LossFunc, weight_col: Optional[str],
     if isinstance(X, tuple):  # sparse: train on padded CSR, no densify
         indices, values, dim = X
         X = (indices, values)
-        if mesh_lib.MODEL_AXIS in mesh.axis_names:
-            raise NotImplementedError(
-                f"a sparse {type(params).__name__} fit on a mesh with a {mesh_lib.MODEL_AXIS!r} "
-                "axis (the 2D feature-sharded layout) is not ported yet (ROADMAP A.10b)")
         loss_func = sparse_variant(loss_func.name)
+        # a mesh with a model axis declares the feature-sharded intent
+        optimizer.shard_features = mesh_lib.MODEL_AXIS in mesh.axis_names
         init_coeff = np.zeros(dim, dtype=np.float64)
     else:
         init_coeff = np.zeros(X.shape[1], dtype=np.float64)

@@ -54,7 +54,12 @@ all-reduced before the update (`lloyd_update`), so every rank holds the
 same centroids (`_lloyd_train_sharded`); under `config.collective_overlap`
 the reduction is carry-delayed (`parallel.overlap.overlapped_lloyd_train`).
 Those epochs run eagerly (`dispatch.whole_fit_fallback.mesh`, ROADMAP
-C.28). A stream fit over more than one rank is ROADMAP A.10b.
+C.28). A stream fit on a mesh of ranks stages only this rank's block of
+each replayed batch (padded to a multiple of the shards, padding at weight
+0) and reduces each epoch's summed partials over `data` once, before the
+update. The fleet on a mesh (fleet.py) runs `_lloyd_fleet_sharded` in the
+default regime: each member's partials reduced on their own, the solo
+sharded fit's reduce, so no reduce adds across members.
 """
 
 from __future__ import annotations
@@ -208,6 +213,41 @@ def _lloyd_train_sharded(mesh, X, weights, init_centroids, max_iter: int, measur
     return centroids, counts
 
 
+def _lloyd_fleet_sharded(mesh, X, weights, init_centroids, max_iters, measure_name: str):
+    """N Lloyd fits on this rank's rows (the fleet's default regime on a
+    mesh of ranks): every epoch each member's cell partials (the weighted
+    stacked `one_hot.T @ X` and counts) are all-reduced over `data` on
+    their own, as the solo `_lloyd_train_sharded` reduces them; a member
+    past its own maxIter keeps its centroids and counts. Returns the packed
+    (N, k * d + k) tensor, equal on every rank."""
+    from ...parallel import collectives
+
+    measure = DistanceMeasure.get_instance(measure_name)
+    members, k, d = init_centroids.shape
+    n = X.shape[0]
+    labels = torch.arange(k, device=X.device)
+    limits = to_device(tuple(int(m) for m in max_iters), X.device, torch.int32)
+    centroids = init_centroids
+    counts = X.new_zeros((members, k))
+    for e in range(max((int(m) for m in max_iters), default=0)):
+        stacked = centroids.reshape(members * k, d)
+        assign = torch.argmin(measure.pairwise(X, stacked).reshape(n, members, k), dim=2)
+        one_hot = (assign[:, :, None] == labels).to(X.dtype) * weights[:, None, None]
+        sums = (one_hot.reshape(n, members * k).T @ X).reshape(members, k, d)
+        cell = torch.sum(one_hot, dim=0)
+        reduced = [collectives.all_reduce_sum(torch.cat([sums[m].reshape(-1), cell[m]]),
+                                              mesh=mesh) for m in range(members)]
+        sums = torch.stack([r[:k * d] for r in reduced]).reshape(members, k, d)
+        new_counts = torch.stack([r[k * d:] for r in reduced])
+        new_centroids = torch.where(
+            new_counts[..., None] > 0, sums / torch.clamp(new_counts[..., None], min=1e-30),
+            centroids)
+        live = e < limits
+        centroids = torch.where(live[:, None, None], new_centroids, centroids)
+        counts = torch.where(live[:, None], new_counts, counts)
+    return torch.cat([centroids.reshape(members, k * d), counts], dim=1)
+
+
 def _lloyd_fleet_train(X, init_centroids, max_iters, measure_name: str):
     """N Lloyd fits over one shared X (n, d), the member axis written out
     (the JAX package's `_lloyd_fleet_train_impl` vmaps `_lloyd_train_impl`):
@@ -333,8 +373,7 @@ class KMeans(Estimator, KMeansParams):
         if n < k:
             raise ValueError(f"Number of points ({n}) is less than k ({k})")
         mesh = mesh_lib.default_mesh()
-        mesh_lib.check_data_parallel(mesh, "KMeans")
-        if mesh_lib.num_data_shards(mesh) > 1:
+        if mesh.size > 1:
             centroids, counts = self._fit_sharded(mesh, X, n, k)
             model = KMeansModel()
             model.centroids, model.weights = _linear.packed_to_host(centroids, counts)
@@ -368,8 +407,7 @@ class KMeans(Estimator, KMeansParams):
         init = (X.index_select(0, to_device(idx, device)) if isinstance(X, torch.Tensor)
                 else to_device(np.asarray(X)[idx], device)).to(torch.float32)
         max_iter = int(self.get_max_iter())
-        dispatch.whole_fit_plan(start_epoch=0, max_iter=max_iter,
-                                ranks=mesh_lib.num_data_shards(mesh))
+        dispatch.whole_fit_plan(start_epoch=0, max_iter=max_iter, ranks=mesh.size)
         mode = "overlap" if config.collective_overlap else "sharded"
         with tracing.span("iteration.run", mode=mode, epochs=max_iter,
                           ranks=mesh_lib.num_data_shards(mesh)):
@@ -397,20 +435,24 @@ class KMeans(Estimator, KMeansParams):
         (centroids, counts) and the host generator's state after the init
         draw (section `rng`), keyed by `checkpoint_job_key(self)` with the
         batch count in meta, and a fit resumes from the newest snapshot;
-        the `epoch` fault site ticks after each epoch."""
-        if mesh_lib.num_data_shards(mesh_lib.default_mesh()) > 1:
-            raise NotImplementedError(
-                "a stream KMeans fit over more than one rank is not ported yet (ROADMAP A.10b)")
-        device = config.device()
+        the `epoch` fault site ticks after each epoch.
+
+        On a mesh of ranks (module docstring) a rank stages its block of
+        each batch and reduces each epoch's partials over `data`; its cuts
+        are rank cuts."""
+        mesh = mesh_lib.default_mesh()
+        device = mesh.device if mesh.size > 1 else config.device()
         replay = stream if isinstance(stream, ReplayableStreamTable) else ReplayableStreamTable(
             stream, config.datacache_memory_budget_bytes, config.datacache_spill_dir)
         try:
-            return self._lloyd_stream(replay, device)
+            return self._lloyd_stream(replay, device, mesh if mesh.size > 1 else None)
         finally:
             if replay is not stream:
                 replay.close()
 
-    def _lloyd_stream(self, replay, device) -> KMeansModel:
+    def _lloyd_stream(self, replay, device, mesh=None) -> KMeansModel:
+        from ...parallel import collectives
+
         col, k = self.get_features_col(), self.get_k()
         batch_rows = replay.batch_rows()  # pass 0: cache and count
         n = int(np.sum(batch_rows, dtype=np.int64))
@@ -430,7 +472,13 @@ class KMeans(Estimator, KMeansParams):
         stager = DeviceStager(device, torch.float32)
 
         def stage(bi):
-            return stager(as_dense_matrix(replay.batch(bi, [col]).column(col)))
+            X = as_dense_matrix(replay.batch(bi, [col]).column(col))
+            if mesh is None:
+                return stager(X)
+            X = np.asarray(X, np.float32)  # this rank's block, its padding at weight 0
+            start, stop = mesh_lib.shard_bounds(X.shape[0], mesh)
+            return stager((mesh_lib.data_sharding(mesh, 2).take(X),
+                           (np.arange(start, stop) < X.shape[0]).astype(np.float32)))
 
         measure = DistanceMeasure.get_instance(self.get_distance_measure())
         labels = torch.arange(k, device=device)
@@ -446,7 +494,8 @@ class KMeans(Estimator, KMeansParams):
                 ckpt_dir, job_key, templates={"model": (init, np.zeros(k, np.float32))},
                 expect_meta={"numBatches": nb})
             if snap is not None:
-                centroids, counts = _snapshot.stage_section(snap, "model", device=device)
+                centroids, counts = _snapshot.stage_section(snap, "model", device=device,
+                                                            mesh=mesh)
                 start = snap.epoch
                 if "rng" in snap.sections:
                     keys, pos = snap.sections["rng"]
@@ -466,10 +515,19 @@ class KMeans(Estimator, KMeansParams):
                     counts = centroids.new_zeros((k,))
                     for _ in range(nb):
                         X = next(batches)
+                        if mesh is not None:
+                            X, w = X
                         one_hot = (measure.find_closest(X, centroids)[:, None] == labels).to(
                             X.dtype)
+                        if mesh is not None:
+                            one_hot = one_hot * w[:, None]
                         sums = sums + one_hot.T @ X
                         counts = counts + torch.sum(one_hot, dim=0)
+                    if mesh is not None:
+                        summed = collectives.all_reduce_sum(
+                            torch.cat([sums.reshape(-1), counts]), mesh=mesh)
+                        sums, counts = summed[:sums.numel()].reshape(sums.shape), \
+                            summed[sums.numel():]
                     centroids = torch.where(
                         counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1e-30),
                         centroids
@@ -477,7 +535,8 @@ class KMeans(Estimator, KMeansParams):
                     if ckpt_dir is not None and (epoch + 1) % interval == 0:
                         _snapshot.save_job_snapshot(
                             ckpt_dir, job_key, {"model": (centroids, counts), "rng": rng_section()},
-                            epoch=epoch + 1, specs={"rng": "host"}, meta={"numBatches": nb})
+                            epoch=epoch + 1, specs={"rng": "host"}, meta={"numBatches": nb},
+                            mesh=mesh)
                     faults.tick("epoch")
         finally:
             batches.close()

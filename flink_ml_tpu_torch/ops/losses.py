@@ -23,6 +23,11 @@ forms over X[None] (`fleet_dense_dot`, `fleet_dense_grad`); sparse, the
 member-batched kernels `fleet_row_dots` and `fleet_grad`, which read each
 slot once for all members. The pointwise forms broadcast over the member
 axis as they are.
+
+A feature-sharded (2D) fit (parallel/overlap.py `sgd2d_*`) trains on the
+2D losses (`feature_sharded_variant`, JAX `:198-275`), called with the
+mesh as a fifth argument: coeff is this rank's model-axis slice, the batch
+its data-axis rows with global feature indices.
 """
 
 from __future__ import annotations
@@ -139,6 +144,94 @@ def sparse_variant(name: str) -> LossFunc:
     return SPARSE_VARIANTS[name]
 
 
+def _feature_sharded(pointwise, grad):
+    """Padded-CSR loss for the 2D `(data, model)` mesh: (X, y, w, coeff,
+    mesh) -> (loss_sum, grad (d_local,), weight_sum), with coeff this
+    rank's slice [lo, lo + d_local) (lo = model index * d_local) and X this
+    rank's batch rows, global feature indices.
+
+    Forward: each rank gathers the active coefficients it owns (0 for a
+    slot it does not own or padding), and one `all_reduce_sum` over
+    `model` of the (B, nnz) gathered values assembles every active
+    coefficient, since exactly one rank owns each slot (0 + x == x
+    exactly). Wire bytes over `model` are B * nnz * 4: the (d,) vector
+    never crosses. This is a plain gather, as in the JAX body (no Pallas
+    kernel runs there).
+
+    Gradient: the local scatter into this rank's slice runs the gradient
+    `grad` (the `sparse_grad` kernel, or its plain version) on local
+    indices, `idx - lo` where owned and -1 elsewhere, which it drops as
+    padding. The JAX body scatters +0.0 into slot 0 for every slot it does
+    not own; the kernel adds nothing there (x + 0.0 differs from x only in
+    the sign of a zero), so the two are held allclose. The sum then
+    reduces over `data` alone: the SparCML pair exchange when
+    `sparse_reduce_wins(rows * nnz, d_local)` (whose scatter adds in a
+    fixed order, C.30), else the dense payload [grad | loss | weight] in
+    one all-reduce, the reduce the 1D sharded fit runs, so a one-model-
+    shard 2D fit equals it bit for bit at any rank count (the JAX package
+    reduces the dense payload chunked, which XLA's replica-ordered psum
+    makes the same bits; gloo's chunked reduce is not, ROADMAP C.26). The
+    kernel is allowed there (C.30): the data-axis reduce that follows gives
+    every rank of a model column one result."""
+
+    def fn(X, y, w, coeff, mesh=None) -> LossOut:
+        from ..parallel import collectives
+        from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+        indices, values = X
+        d_local = coeff.shape[0]
+        lo = collectives.axis_index(MODEL_AXIS, mesh) * d_local
+        valid = indices >= 0
+        vals = torch.where(valid, values.to(coeff.dtype), 0.0)
+        owned = valid & (indices >= lo) & (indices < lo + d_local)
+        local = torch.where(owned, indices - lo, -1).to(torch.int32)
+        gathered = torch.where(owned, coeff[torch.clamp(local, min=0).long()], 0.0)
+        active = collectives.all_reduce_sum(gathered, MODEL_AXIS, mesh)
+        loss, multiplier = pointwise(torch.sum(vals * active, dim=1), y, w)
+        lsum, wsum = torch.sum(loss), torch.sum(w).to(loss.dtype)
+        rows, nnz = indices.shape
+        if collectives.sparse_reduce_wins(rows * nnz, d_local, itemsize=vals.element_size()):
+            g = collectives.sparse_all_reduce_sum(local, vals * multiplier[:, None], d_local,
+                                                  DATA_AXIS, mesh)
+            sums = collectives.all_reduce_sum(torch.stack([lsum, wsum]), DATA_AXIS, mesh)
+            return sums[0], g, sums[1].to(w.dtype)
+        g_local = grad(local, vals, multiplier, coeff)
+        summed = collectives.all_reduce_sum(
+            torch.cat([g_local, lsum.reshape(1).to(g_local.dtype),
+                       wsum.reshape(1).to(g_local.dtype)]), DATA_AXIS, mesh)
+        return summed[d_local], summed[:d_local], summed[d_local + 1].to(w.dtype)
+
+    return fn
+
+
+def _feature_sharded_variants(prefix, grad):
+    return {
+        base.name: LossFunc(prefix + base.name + "_2d", _feature_sharded(base.pointwise, grad),
+                            base.pointwise)
+        for base in (BINARY_LOGISTIC_LOSS, HINGE_LOSS, LEAST_SQUARE_LOSS)
+    }
+
+
+#: dense loss name -> its 2D loss: the local scatter on the `sparse_grad`
+#: kernel (CPU: its plain version), and on the plain version on any device
+_FEATURE_SHARDED = _feature_sharded_variants("sparse_", sparsekernels.sparse_grad)
+_PLAIN_FEATURE_SHARDED = _feature_sharded_variants("plain_sparse_",
+                                                   sparsekernels.sparse_grad_plain)
+FEATURE_SHARDED_BINARY_LOGISTIC_LOSS = _FEATURE_SHARDED[BINARY_LOGISTIC_LOSS.name]
+FEATURE_SHARDED_HINGE_LOSS = _FEATURE_SHARDED[HINGE_LOSS.name]
+FEATURE_SHARDED_LEAST_SQUARE_LOSS = _FEATURE_SHARDED[LEAST_SQUARE_LOSS.name]
+#: sparse (and plain sparse) loss name -> its 2D feature-sharded variant
+FEATURE_SHARDED_VARIANTS = {
+    **{SPARSE_VARIANTS[name].name: loss for name, loss in _FEATURE_SHARDED.items()},
+    **{PLAIN_SPARSE_VARIANTS[name].name: loss for name, loss in _PLAIN_FEATURE_SHARDED.items()},
+}
+
+
+def feature_sharded_variant(loss_func: LossFunc) -> LossFunc:
+    """The 2D `(data, model)` LossFunc of a sparse loss."""
+    return FEATURE_SHARDED_VARIANTS[loss_func.name]
+
+
 def fleet_dense_dot(X, coeff):
     """Per-member row dots X[B, d] . coeff[N, d] -> [N, B]: `dense_dot`'s
     reduce form with a leading member axis."""
@@ -195,6 +288,7 @@ BY_NAME = {
     loss.name: loss
     for group in ((BINARY_LOGISTIC_LOSS, HINGE_LOSS, LEAST_SQUARE_LOSS),
                   SPARSE_VARIANTS.values(), PLAIN_SPARSE_VARIANTS.values(),
+                  FEATURE_SHARDED_VARIANTS.values(),
                   FLEET_VARIANTS.values(), PLAIN_FLEET_VARIANTS.values())
     for loss in group
 }

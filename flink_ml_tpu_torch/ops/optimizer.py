@@ -75,10 +75,29 @@ the tol check, so every rank holds the same state. With
 `parallel.overlap.overlapped_sgd_train`'s carry-delayed apply. Those
 epochs run eagerly, not as a captured graph (a gloo collective cannot be
 captured; counted as `dispatch.whole_fit_fallback.mesh`, ROADMAP C.28). A
-one-rank mesh takes the flat route, as in the JAX package. Feature
-sharding (`shard_features`), a mesh fit with `checkpoint_dir` and
-`optimize_stream` on more than one rank are ROADMAP A.10b and raise
-NotImplementedError.
+one-rank mesh takes the flat route, as in the JAX package.
+
+Feature sharding (`shard_features`, JAX `:718-770`): a sparse fit on a
+mesh with a `model` axis under `config.sparse_2d == "auto"` (`_use_2d`)
+runs the 2D loop of parallel/overlap.py: `d` zero-padded to a multiple of
+the model shards, the coefficient and gradient carries staged as this
+rank's model-axis slice straight from the host (`_stage_2d_carry`, through
+the admitted funnel under `optimizer`), the batches over `data`, and one
+`packed2d` readback of the slices gathered over `model`. Every other
+feature-sharded fit (dense, a mesh without a model axis, or `sparse_2d`
+"off") is the replicated-coefficient fit over `data`, its carries staged
+through the same funnel, so a budget below one replicated carry refuses
+it (`HbmBudgetExceeded`) where the 2D fit trains.
+
+A checkpointed fit on a mesh of ranks (`_optimize_mesh_with_checkpoints`)
+runs the sharded or 2D epochs in chunks that end at the boundaries, and
+every rank writes its part of each cut (`snapshot.save_job_snapshot(mesh=)`:
+the `model`-tagged slices of a 2D carry, the replicated leaves on rank 0);
+a resume stages the newest cut onto this mesh by tag
+(`snapshot.stage_section(mesh=)`), so a cut of one factorization or rank
+count resumes on another. `optimize_stream` on a mesh of ranks caches
+only this rank's rows of every batch (`ingest_stream(shards=, rank=)`) and
+reduces each epoch's sums over `data`.
 """
 
 from __future__ import annotations
@@ -197,12 +216,13 @@ def _pack_train_result(coeff, criteria, epochs, flag=None):
     return torch.cat(parts)
 
 
-def _init_state(init_coeff):
-    """(coeff, grad, wsum, epochs, criteria) before the first epoch."""
+def _init_state(init_coeff, grad=None):
+    """(coeff, grad, wsum, epochs, criteria) before the first epoch; `grad`
+    is a staged zero gradient carry, else one is made."""
     device = init_coeff.device
     return (
         init_coeff,
-        torch.zeros_like(init_coeff),
+        torch.zeros_like(init_coeff) if grad is None else grad,
         torch.zeros((), dtype=init_coeff.dtype, device=device),
         torch.zeros((), dtype=torch.int32, device=device),
         torch.full((), float("inf"), dtype=torch.float32, device=device),
@@ -270,12 +290,13 @@ def _carry_template(d: int):
     return (np.zeros(d, np.float32), np.zeros(d, np.float32), np.float32(0.0), np.int32(0))
 
 
-def _resumed_state(snap, device):
+def _resumed_state(snap, device, mesh=None, specs=None):
     """The fit state (coeff, grad, wsum, epochs, criteria) of a restored
-    snapshot, on `device` in one copy."""
+    snapshot, on `device` in one copy; with `mesh`, each leaf staged onto
+    this rank by its tag (`specs` over the stored ones)."""
     from ..ckpt.snapshot import stage_section
 
-    coeff, grad, wsum, _ = stage_section(snap, "model", device=device)
+    coeff, grad, wsum, _ = stage_section(snap, "model", device=device, mesh=mesh, specs=specs)
     return (coeff, grad, wsum,
             to_device(snap.epoch, device, torch.int32),
             to_device(snap.criteria, device, torch.float32))
@@ -303,10 +324,12 @@ class StreamLayout(NamedTuple):
         return self.w_offset + self.batch
 
     def views(self, flat):
-        """(X, y, w) views of a flat segment (numpy or torch)."""
+        """(X, y, w) views of a flat segment (numpy or torch), or of a stack
+        of segments (..., size) as (..., B, d), (..., B), (..., B)."""
         B, d = self.batch, self.d
-        return (flat[: B * d].reshape(B, d), flat[self.y_offset : self.y_offset + B],
-                flat[self.w_offset : self.w_offset + B])
+        return (flat[..., : B * d].reshape(*flat.shape[:-1], B, d),
+                flat[..., self.y_offset : self.y_offset + B],
+                flat[..., self.w_offset : self.w_offset + B])
 
 
 BLOCK_ALIGN = 64
@@ -316,21 +339,42 @@ def _round_up(n: int) -> int:
     return -(-n // BLOCK_ALIGN) * BLOCK_ALIGN
 
 
-def ingest_stream(chunks: Iterable, batch: int, cache) -> Tuple[List[int], StreamLayout]:
+def ingest_stream(chunks: Iterable, batch: int, cache, shards: int = 1,
+                  rank: int = 0) -> Tuple[List[int], StreamLayout]:
     """One pass over host (X, y, w) chunks into `cache`: rows are re-cut
     into `batch`-row batches, the remainder carried from chunk to chunk, and
     each batch is appended as one packed float32 segment (`StreamLayout`).
     A missing w is 1; the last partial batch is padded with weight-0 rows.
-    Returns (segment ids, layout)."""
+    With `shards` > 1 a segment holds only this rank's slots of its batch
+    (the batch padded to a multiple of the shards, `rank`'s block of
+    b_pad / shards rows, padding at weight 0): the rows its device holds
+    in the JAX package's data-sharded stream cache. Returns (segment ids,
+    layout)."""
     segs: List[int] = []
-    layout = flat = None
+    layout = flat = local = None
     filled = 0
+    b_local = -(-int(batch) // int(shards))
+    slots = rank * b_local + np.arange(b_local)
+    kept = slots[slots < batch]
+
+    def emit():
+        if local is None:
+            segs.append(cache.append_array(flat))
+            return
+        Xl, yl, wl = local_layout.views(local)
+        local[:] = 0.0
+        Xl[:kept.size], yl[:kept.size], wl[:kept.size] = Xb[kept], yb[kept], wb[kept]
+        segs.append(cache.append_array(local))
+
     for X, y, w in chunks:
         X = np.asarray(X)
         if layout is None:
             layout = StreamLayout(int(batch), int(X.shape[1]))
             flat = np.zeros(layout.size, np.float32)
             Xb, yb, wb = layout.views(flat)
+            if shards > 1:
+                local_layout = StreamLayout(b_local, int(X.shape[1]))
+                local = np.zeros(local_layout.size, np.float32)
         elif X.shape[1] != layout.d:
             raise ValueError(f"stream chunk has {X.shape[1]} features, expected {layout.d}")
         n, off = X.shape[0], 0
@@ -342,14 +386,14 @@ def ingest_stream(chunks: Iterable, batch: int, cache) -> Tuple[List[int], Strea
             filled += take
             off += take
             if filled == batch:
-                segs.append(cache.append_array(flat))
+                emit()
                 filled = 0
     if filled:
         Xb[filled:], yb[filled:], wb[filled:] = 0.0, 0.0, 0.0
-        segs.append(cache.append_array(flat))
+        emit()
     if not segs:
         raise ValueError("optimize_stream received an empty stream")
-    return segs, layout
+    return segs, (layout if local is None else local_layout)
 
 
 def unpack_train_result(host: np.ndarray, d: int, has_flag: bool = False):
@@ -362,7 +406,16 @@ def unpack_train_result(host: np.ndarray, d: int, has_flag: bool = False):
 
 def read_train_result(async_result):
     """Bring an `optimize_async` result to the host in one transfer.
-    Returns (flag_or_None, coeff[:d], criteria, epochs)."""
+    Returns (flag_or_None, coeff[:d], criteria, epochs). A 2D fit's
+    ("packed2d", pack, d, has_flag, model_shards, d_local) reads its
+    gathered slices (`overlap.sgd2d_unpack_host`)."""
+    if async_result[0] == "packed2d":
+        from ..parallel.overlap import sgd2d_unpack_host
+
+        _, packed, d, has_flag, nm, d_local = async_result
+        (host,) = packed_device_get(packed, sync_kind="fit")
+        coeff, criteria, epochs, flag = sgd2d_unpack_host(host, nm, d_local, has_flag)
+        return flag, coeff[:d], criteria, epochs
     _, packed, d, has_flag = async_result
     (host,) = packed_device_get(packed, sync_kind="fit")
     return unpack_train_result(host, d, has_flag=has_flag)
@@ -398,7 +451,8 @@ class SGD:
     #: the job identity that names the snapshot files
     #: (`parallel.iteration.checkpoint_job_key`); None is the un-keyed file
     checkpoint_key: Optional[str] = None
-    #: the 2D feature-sharded layout (ROADMAP A.10b)
+    #: also shard the feature dimension over the mesh's `model` axis: the
+    #: 2D layout of a wide sparse model (`_use_2d`)
     shard_features: bool = False
     #: the carry-delayed reduction of parallel/overlap.py on a mesh of more
     #: than one rank; None follows `config.collective_overlap`
@@ -427,17 +481,77 @@ class SGD:
         Host arrays are staged to `config.device()`; tensors stay on their
         device, and all tensor inputs must share one. `mesh` (default
         `mesh.default_mesh()`) of more than one rank trains data-parallel:
-        every rank passes the same whole inputs and trains on its rows."""
+        every rank passes the same whole inputs and trains on its rows. On a
+        mesh with a model axis a feature-sharded sparse fit trains 2D
+        (`_use_2d`); any other fit splits its rows over every rank
+        (`mesh.flatten`)."""
         mesh = mesh if mesh is not None else mesh_lib.default_mesh()
-        self._check_mesh(mesh)
         d = int(np.shape(init_coeff)[0])
-        if mesh_lib.num_data_shards(mesh) > 1:
-            packed = self._optimize_sharded_async(mesh, init_coeff, X, y, weights, loss_func,
-                                                  validate_labels)
-        else:
+        if mesh.size <= 1:
             packed = self._optimize_flat_async(init_coeff, X, y, weights, loss_func,
                                                validate_labels)
+        elif self._use_2d(mesh, loss_func) and isinstance(X, tuple):
+            return self._optimize_2d_async(mesh, init_coeff, X, y, weights, loss_func,
+                                           validate_labels)
+        else:  # the coefficient whole on every rank: rows over the whole world
+            packed = self._optimize_sharded_async(mesh_lib.flatten(mesh), init_coeff, X, y,
+                                                  weights, loss_func, validate_labels)
         return ("packed", packed, d, validate_labels)
+
+    def _use_2d(self, mesh, loss_func: LossFunc) -> bool:
+        """Route this fit through the 2D loop (parallel/overlap.py
+        `sgd2d_*`)? A feature-sharded SPARSE fit on a mesh with a model
+        axis, under `config.sparse_2d == "auto"`; "off" keeps the
+        replicated-coefficient fit, the reference the 2D fit is held to. A
+        one-shard model axis still routes 2D (its model collectives are
+        identities), which makes the one-shard parity testable."""
+        from .losses import FEATURE_SHARDED_VARIANTS
+
+        return (self.shard_features and loss_func.name in FEATURE_SHARDED_VARIANTS
+                and config.sparse_2d == "auto" and mesh_lib.MODEL_AXIS in mesh.axis_names)
+
+    def _stage_2d_carry(self, mesh, init_coeff, d_pad: int, device):
+        """The coefficient and the zero gradient carry staged DIRECTLY as
+        this rank's model-axis slices (d_pad / m each), through the
+        admitted funnel under `optimizer`: a (d,) carry never exists
+        replicated on the device (JAX `_stage_2d_grad`)."""
+        from ..parallel.prefetch import stage_to_device
+
+        init = _host_coeff(init_coeff)
+        init = np.pad(init, (0, d_pad - init.shape[0]))
+        return stage_to_device((init, np.zeros(d_pad, np.float32)), device,
+                               category="optimizer", sharding=mesh_lib.model_sharding(mesh)).wait()
+
+    def _optimize_2d_async(self, mesh, init_coeff, X, y, weights, loss_func, validate_labels):
+        """The 2D fit on this rank's rows and model slice; returns the
+        ("packed2d", pack, d, has_flag, model_shards, d_local) handle.
+        Padded coefficients start 0, get zero gradients and stay 0."""
+        from ..obs import memledger
+        from ..parallel import dispatch, overlap
+
+        nm = mesh_lib.num_model_shards(mesh)
+        d = int(np.shape(init_coeff)[0])
+        d_pad = -(-d // nm) * nm
+        X_b, y_b, w_b, y_all = self._batchify(mesh, X, y, weights)
+        memledger.track((X_b, y_b, w_b, y_all), "streamSegments")
+        device = y_b.device
+        state = _init_state(*self._stage_2d_carry(mesh, init_coeff, d_pad, device))
+        hyper = self._hyper(device)
+        max_iter = int(self.max_iter)
+        dispatch.whole_fit_plan(start_epoch=0, max_iter=max_iter, ranks=mesh.size)
+        with tracing.span("iteration.run", mode="2d", epochs=max_iter, ranks=mesh.size,
+                          modelShards=nm):
+            if self.checkpoint_dir is not None:
+                packed = self._optimize_mesh_with_checkpoints(
+                    mesh, y_all, state, validate_labels, d,
+                    epochs=lambda st, a, b: overlap.sgd2d_chunk(mesh, X_b, y_b, w_b, st,
+                                                                 loss_func, hyper, a, b),
+                    finish=lambda st, flag: overlap.sgd2d_finish(mesh, st, hyper, flag),
+                    specs=("model", "model", "replicated", "replicated"))
+            else:
+                _, packed = overlap.sgd2d_whole_fit(mesh, X_b, y_b, w_b, state, loss_func,
+                                                    hyper, max_iter, y_all, validate_labels)
+        return ("packed2d", packed, d, validate_labels, nm, d_pad // nm)
 
     def optimize_stream(self, init_coeff, chunks, loss_func: LossFunc, mesh=None,
                         memory_budget_bytes: Optional[int] = None,
@@ -472,13 +586,14 @@ class SGD:
         from ..native.datacache import DataCache
         from ..parallel.prefetch import DeviceStager
 
-        mesh = mesh if mesh is not None else mesh_lib.default_mesh()
-        self._check_mesh(mesh)
-        if mesh_lib.num_data_shards(mesh) > 1:
+        if self.shard_features:
             raise NotImplementedError(
-                "a stream fit over more than one rank (the sharded stream cache) is not ported "
-                "yet (ROADMAP A.10b)")
-        device = config.device()
+                "feature-sharded (tensor-parallel) training requires the in-memory path; "
+                "stream mode is data-parallel only")
+        mesh = mesh_lib.flatten(mesh if mesh is not None else mesh_lib.default_mesh())
+        shards = mesh_lib.num_data_shards(mesh)
+        ranked = mesh.size > 1
+        device = mesh.device if ranked else config.device()
         ckpt, key = self.checkpoint_dir, self.checkpoint_key
         B = int(self.global_batch_size)
         cache = DataCache(
@@ -489,20 +604,22 @@ class SGD:
         try:
             t0 = time.perf_counter()
             restored = peek = None
-            if ckpt is not None and config.snapshot_cache_contents:
+            # a rank's cache holds only its rows: a resume on ranks ingests again
+            if ckpt is not None and config.snapshot_cache_contents and not ranked:
                 peek = _snapshot.load_job_snapshot(ckpt, key, expect_meta={"globalBatchSize": B})
                 if peek is not None and "dim" in peek.meta:
                     restored = restore_cache_contents(peek, cache, StreamLayout(B, int(peek.meta["dim"])))
             if restored is not None:
                 segs, layout = restored
             else:
-                segs, layout = ingest_stream(chunks, B, cache)
+                segs, layout = ingest_stream(chunks, B, cache, shards,
+                                             mesh.axis_index(mesh_lib.DATA_AXIS))
             ingest_s = time.perf_counter() - t0
             d, nb = layout.d, len(segs)
             meta = {"numSegments": nb, "globalBatchSize": B, "dim": int(d)}
             stable, stable_specs = None, {}
             if ckpt is not None and config.snapshot_hosts is not None \
-                    and config.snapshot_cache_contents:
+                    and config.snapshot_cache_contents and not ranked:
                 # read before the loader's worker starts: the cache is serial
                 contents = cache_contents_section(cache, segs, layout)
                 stable, stable_specs = {"cache": lambda: contents}, {"cache": "data"}
@@ -523,7 +640,8 @@ class SGD:
                 snap = _snapshot.conform(peek, templates, meta) if restored is not None else \
                     _snapshot.load_job_snapshot(ckpt, key, templates=templates, expect_meta=meta)
                 if snap is not None:
-                    state, start = _resumed_state(snap, device), snap.epoch
+                    state = _resumed_state(snap, device, mesh if ranked else None)
+                    start = snap.epoch
             # tpulint: disable=host-sync-leak -- a resumed fit reads its cut once (eager loop)
             stopped = ckpt is not None and start > 0 and float(state[4]) <= self.tol
             hyper = self._hyper(device)
@@ -536,11 +654,16 @@ class SGD:
                     with tracing.span("iteration.epoch", epoch=p, mode="stream"):
                         supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
                         Xk, yk, wk = next(batches)
-                        state = _masked_epoch(Xk, yk, wk, state, loss_func, hyper)
+                        if ranked:
+                            state = _sharded_masked_epoch(mesh, Xk, yk, wk, state, loss_func,
+                                                          hyper)
+                        else:
+                            state = _masked_epoch(Xk, yk, wk, state, loss_func, hyper)
                         if ckpt is not None and (p + 1) % interval == 0:
                             stopped = self._drain_and_snapshot(
                                 state, p + 1, meta={**meta, "cacheCursor": (p + 1) % nb},
-                                specs=stable_specs or None, stable_sections=stable)
+                                specs=stable_specs or None, stable_sections=stable,
+                                mesh=mesh if ranked else None)
                         faults.tick("epoch")
             finally:
                 batches.close()
@@ -553,10 +676,11 @@ class SGD:
         return coeff, criteria, epochs, stats
 
     def _drain_and_snapshot(self, state, end: int, meta, specs=None,
-                            stable_sections=None) -> bool:
+                            stable_sections=None, mesh=None, shapes=None) -> bool:
         """A checkpointed chunk's drain: read (epoch, criteria) back, and
-        when the fit reached `end` (a boundary) snapshot its carry.
-        Returns whether the tol stop fired."""
+        when the fit reached `end` (a boundary) snapshot its carry (on a
+        mesh of ranks every rank writes its part of the cut; `shapes` the
+        carry leaves' whole shapes). Returns whether the tol stop fired."""
         from ..ckpt import snapshot as _snapshot
 
         supervisor.pulse_boundary(supervisor.PHASE_COLLECTIVE)
@@ -566,20 +690,12 @@ class SGD:
             _snapshot.save_job_snapshot(
                 self.checkpoint_dir, self.checkpoint_key, {"model": state[:4]},
                 epoch=e_act, criteria=crit, specs=specs, meta=meta,
-                stable_sections=stable_sections)
+                stable_sections=stable_sections, mesh=mesh,
+                shapes=None if shapes is None else {"model": shapes})
         return crit <= self.tol
 
     def _hyper(self, device) -> torch.Tensor:
         return sgd_hyper(self.learning_rate, self.reg, self.elastic_net, self.tol, device)
-
-    def _check_mesh(self, mesh) -> None:
-        if self.shard_features:
-            raise NotImplementedError(
-                "feature-sharded (tensor-parallel) training is not ported yet (ROADMAP A.10b)")
-        mesh_lib.check_data_parallel(mesh, "SGD")
-        if self.checkpoint_dir is not None and mesh_lib.num_data_shards(mesh) > 1:
-            raise NotImplementedError(
-                "a checkpointed fit over more than one rank is not ported yet (ROADMAP A.10b)")
 
     def _batchify(self, mesh, X, y, weights):
         """This rank's rows of the JAX package's batch layout
@@ -599,7 +715,7 @@ class SGD:
         n, B = int(first.shape[0]), int(self.global_batch_size)
         num_batches = max(1, -(-n // B))
         shards = mesh_lib.num_data_shards(mesh)
-        rows = data_axis_rows(n, B, shards, mesh.rank, num_batches)
+        rows = data_axis_rows(n, B, shards, mesh.axis_index(mesh_lib.DATA_AXIS), num_batches)
         touched = rows[:min(num_batches, max(1, int(self.max_iter)))]
 
         def stage(arr, fill, dtype, which):
@@ -626,26 +742,84 @@ class SGD:
     def _optimize_sharded_async(self, mesh, init_coeff, X, y, weights, loss_func,
                                 validate_labels):
         """The fit on this rank's rows (`_batchify`): the plain sharded
-        loop `_sgd_train_sharded`, or with overlap the carry-delayed one.
+        loop `_sgd_train_sharded`, with overlap the carry-delayed one, with
+        `checkpoint_dir` the sharded epochs in chunks. A feature-sharded
+        fit stages its replicated carries through the admitted funnel.
         Returns the packed result, on the device, equal on every rank."""
         from ..obs import memledger
         from ..parallel import dispatch, overlap
+        from ..parallel.prefetch import stage_to_device
 
         X_b, y_b, w_b, y_all = self._batchify(mesh, X, y, weights)
         memledger.track((X_b, y_b, w_b, y_all), "streamSegments")
-        init = _stage(init_coeff, COMPUTE_DTYPE, y_b.device)
-        hyper = self._hyper(y_b.device)
+        device = y_b.device
+        grad = None
+        if self.shard_features:  # the replicated layout: a whole (d,) carry on every rank
+            d = int(np.shape(init_coeff)[0])
+            init, grad = stage_to_device(
+                (_host_coeff(init_coeff), np.zeros(d, np.float32)), device,
+                category="optimizer").wait()
+        else:
+            init = _stage(init_coeff, COMPUTE_DTYPE, device)
+        hyper = self._hyper(device)
         max_iter = int(self.max_iter)
-        dispatch.whole_fit_plan(start_epoch=0, max_iter=max_iter,
-                                ranks=mesh_lib.num_data_shards(mesh))
-        mode = "overlap" if self._overlap_enabled() else "sharded"
+        dispatch.whole_fit_plan(start_epoch=0, max_iter=max_iter, ranks=mesh.size)
+        overlapped = self._overlap_enabled()
+        mode = "overlap" if overlapped else "sharded"
         with tracing.span("iteration.run", mode=mode, epochs=max_iter,
                           ranks=mesh_lib.num_data_shards(mesh)):
-            if self._overlap_enabled():
+            if self.checkpoint_dir is not None:
+                return self._optimize_mesh_with_checkpoints(
+                    mesh, y_all, _init_state(init, grad), validate_labels, init.shape[0],
+                    epochs=lambda st, a, b: _sharded_epochs(mesh, X_b, y_b, w_b, st, loss_func,
+                                                            hyper, a, b),
+                    finish=lambda st, flag: _finish(st, hyper, flag), specs="replicated")
+            if overlapped:
                 return overlap.overlapped_sgd_train(mesh, X_b, y_b, w_b, y_all, init, loss_func,
                                                     hyper, max_iter, validate_labels)
             return _sgd_train_sharded(mesh, X_b, y_b, w_b, y_all, init, loss_func, hyper,
-                                      max_iter, validate_labels)
+                                      max_iter, validate_labels, grad=grad)
+
+    def _optimize_mesh_with_checkpoints(self, mesh, y_all, state, validate_labels, d: int,
+                                        epochs, finish, specs):
+        """The checkpointed fit on a mesh of ranks: `epochs(state, start,
+        end)` (the sharded or 2D epochs) in chunks that end at the
+        checkpoint boundaries, one (epoch, criteria) readback a chunk, a cut
+        at each boundary that every rank writes its part of (`specs` the
+        carry's tags; leaves of `d` coefficients whole, however sharded),
+        and a resume from the newest cut staged onto this mesh by tag, so a
+        cut of any rank count or factorization resumes here (meta
+        `numBatches`, `globalBatchSize`: another batch layout is refused).
+        Returns `finish(state, flag)`: the packed result, on the device."""
+        from ..ckpt import snapshot as _snapshot
+        from ..parallel import collectives
+
+        B = int(self.global_batch_size)
+        meta = {"numBatches": int(y_all.shape[0]), "globalBatchSize": B}
+        shapes = [(d,), (d,), (), ()]
+        planned = 0
+        snap = _snapshot.load_job_snapshot(
+            self.checkpoint_dir, self.checkpoint_key,
+            templates={"model": _carry_template(d)}, expect_meta=meta)
+        if snap is not None:
+            state, planned = _resumed_state(snap, y_all.device, mesh, specs), snap.epoch
+        stopped = planned > 0 and snap.criteria <= self.tol
+        interval, max_iter = max(1, int(self.checkpoint_interval)), int(self.max_iter)
+        with tracing.span("iteration.run", mode="chunked", chunk=interval, depth=1,
+                          ranks=mesh.size):
+            while planned < max_iter and not stopped:
+                end = min((planned // interval + 1) * interval, max_iter)
+                with tracing.span("iteration.chunk", epoch=planned, end=end):
+                    supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
+                    state = epochs(state, planned, end)
+                stopped = self._drain_and_snapshot(state, end, meta, specs={"model": specs},
+                                                   mesh=mesh, shapes=shapes)
+                faults.tick("chunk")
+                planned = end
+        flag = None
+        if validate_labels:
+            flag = collectives.all_reduce_min(_binomial_labels_ok(y_all), mesh=mesh)
+        return finish(state, flag)
 
     def _optimize_flat_async(self, init_coeff, X, y, weights, loss_func, validate_labels):
         """Stage the inputs (`stage_flat`) and run `_sgd_train_flat`, or
@@ -706,37 +880,59 @@ class SGD:
         return _finish(state, hyper, flag)
 
 
-def _sgd_train_sharded(mesh, X_b, y_b, w_b, y_all, init_coeff, loss_func, hyper,
-                       max_iter: int, check_labels: bool):
-    """The bounded fit on this rank's rows (`SGD._batchify`): each epoch
-    applies the previous reduced gradient, computes its batch's local
-    (gradient, loss, weight) sums and reduces them with ONE all-reduce of
-    [grad | loss | weight], so the tol mask (`_masked_epoch`'s) and the
-    next update are the same on every rank. Returns the packed result,
-    on the device."""
+def _sharded_masked_epoch(mesh, Xk, yk, wk, state, loss_func, hyper):
+    """One epoch on this rank's rows of its batch: apply the previous
+    reduced gradient, compute the batch's local (gradient, loss, weight)
+    sums and reduce them over `data` with ONE all-reduce of [grad | loss |
+    weight], so the tol mask (`_masked_epoch`'s) and the next update are
+    the same on every rank."""
     from ..parallel import collectives
 
-    d = init_coeff.shape[0]
+    coeff, grad, wsum, epochs, criteria = state
+    d = coeff.shape[0]
+    live = criteria > hyper[HYPER_TOL]
+    coeff = _update_model(coeff, grad, wsum, hyper)
+    lsum, grad, wsum = loss_func(Xk, yk, wk, coeff)
+    summed = collectives.all_reduce_sum(
+        torch.cat([grad, lsum.reshape(1).to(grad.dtype), wsum.reshape(1).to(grad.dtype)]),
+        mesh=mesh)
+    grad, lsum, wsum = summed[:d], summed[d], summed[d + 1]
+    criteria_new = (lsum / torch.clamp(wsum, min=1e-30)).to(torch.float32)
+    new = (coeff, grad, wsum, epochs + 1, criteria_new)
+    return tuple(torch.where(live, n, o) for n, o in zip(new, state))
+
+
+def _sharded_epochs(mesh, X_b, y_b, w_b, state, loss_func, hyper, start: int, end: int):
+    """Epochs [start, end) of the sharded fit on this rank's
+    (batches, b_local, ...) rows: epoch e trains batch e mod num_batches."""
     num_batches = y_b.shape[0]
-    state = _init_state(init_coeff)
-    for e in range(int(max_iter)):
+    for e in range(int(start), int(end)):
         k = e % num_batches
         Xk = tuple(leaf[k] for leaf in X_b) if isinstance(X_b, tuple) else X_b[k]
-        coeff, grad, wsum, epochs, criteria = state
-        live = criteria > hyper[HYPER_TOL]
-        coeff = _update_model(coeff, grad, wsum, hyper)
-        lsum, grad, wsum = loss_func(Xk, y_b[k], w_b[k], coeff)
-        summed = collectives.all_reduce_sum(
-            torch.cat([grad, lsum.reshape(1).to(grad.dtype), wsum.reshape(1).to(grad.dtype)]),
-            mesh=mesh)
-        grad, lsum, wsum = summed[:d], summed[d], summed[d + 1]
-        criteria = (lsum / torch.clamp(wsum, min=1e-30)).to(torch.float32)
-        new = (coeff, grad, wsum, epochs + 1, criteria)
-        state = tuple(torch.where(live, n, o) for n, o in zip(new, state))
+        state = _sharded_masked_epoch(mesh, Xk, y_b[k], w_b[k], state, loss_func, hyper)
+    return state
+
+
+def _sgd_train_sharded(mesh, X_b, y_b, w_b, y_all, init_coeff, loss_func, hyper,
+                       max_iter: int, check_labels: bool, grad=None):
+    """The bounded fit on this rank's rows (`SGD._batchify`): maxIter
+    `_sharded_masked_epoch`s, then the final update. Returns the packed
+    result, on the device, equal on every rank."""
+    from ..parallel import collectives
+
+    state = _sharded_epochs(mesh, X_b, y_b, w_b, _init_state(init_coeff, grad), loss_func,
+                            hyper, 0, max_iter)
     flag = None
     if check_labels:
         flag = collectives.all_reduce_min(_binomial_labels_ok(y_all), mesh=mesh)
     return _finish(state, hyper, flag)
+
+
+def _host_coeff(init_coeff) -> np.ndarray:
+    """An initial coefficient as a float32 host array."""
+    if isinstance(init_coeff, torch.Tensor):
+        return init_coeff.detach().cpu().numpy().astype(np.float32)
+    return np.asarray(init_coeff, np.float32)
 
 
 def stage_flat(X, y, weights, batch: int, rows=None):
@@ -905,6 +1101,59 @@ def _fleet_member_finish(state, hyper: FleetHyper, flag=None):
     if flag is not None:
         parts.insert(0, flag.reshape(1, 1).expand(coeff.shape[0], 1))
     return torch.cat(parts, dim=1)
+
+
+def _fleet_sharded_masked_epoch(mesh, Xk, yk, wk, state, loss_func, hyper: FleetHyper,
+                                max_iter):
+    """`_fleet_masked_epoch` on this rank's rows of its batch (the default
+    regime on a mesh of ranks): every member's local (gradient, loss,
+    weight) sums reduce over `data` by the member's own all-reduce of
+    [grad | loss | weight], the solo sharded epoch's reduce
+    (`_sharded_masked_epoch`), so a member equals its solo fit on the same
+    mesh bit for bit where the local sums do. No reduce adds across
+    members. The gradient keeps coeff's layout (member-minor for the
+    kernels)."""
+    from ..parallel import collectives
+
+    coeff, grad, wsum, epochs, criteria = state
+    members, d = coeff.shape
+    live = (criteria > hyper.packed[:, 1]) & (epochs < max_iter)
+    new_coeff = _fleet_update(coeff, grad, wsum, hyper)
+    lsum, g, w_sum = loss_func(Xk, yk, wk, new_coeff)
+    grads, sums = [], []
+    for m in range(members):
+        summed = collectives.all_reduce_sum(
+            torch.cat([g[m], lsum[m].reshape(1).to(g.dtype), w_sum.reshape(1).to(g.dtype)]),
+            mesh=mesh)
+        grads.append(summed[:d])
+        sums.append(summed[d:])
+    member_minor = members > 1 and coeff.stride(0) == 1
+    new_grad = torch.stack(grads, dim=1).T if member_minor else torch.stack(grads)
+    sums = torch.stack(sums)
+    new_wsum = sums[:, 1]
+    new_criteria = (sums[:, 0] / torch.clamp(new_wsum, min=1e-30)).to(torch.float32)
+    rows = live[:, None]
+    return (
+        torch.where(rows, new_coeff, coeff),
+        torch.where(rows, new_grad, grad),
+        torch.where(live, new_wsum, wsum),
+        torch.where(live, epochs + 1, epochs),
+        torch.where(live, new_criteria, criteria),
+    )
+
+
+def _sgd_fleet_sharded_chunk(mesh, X_b, y_b, w_b, state, loss_func, hyper: FleetHyper,
+                             start: int, end: int):
+    """Epochs [start, end) of the default-regime fleet on a mesh of ranks,
+    over this rank's (batches, b_local, ...) rows (`SGD._batchify`)."""
+    num_batches = y_b.shape[0]
+    max_iter = hyper.max_iter
+    for e in range(int(start), int(end)):
+        k = e % num_batches
+        Xk = tuple(leaf[k] for leaf in X_b) if isinstance(X_b, tuple) else X_b[k]
+        state = _fleet_sharded_masked_epoch(mesh, Xk, y_b[k], w_b[k], state, loss_func, hyper,
+                                            max_iter)
+    return state
 
 
 def _sgd_fleet_chunk(X, y, w, state, loss_func, hyper: FleetHyper, batch: int, n: int,

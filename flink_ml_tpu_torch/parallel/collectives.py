@@ -19,6 +19,11 @@ to map.
   epochs counts E reductions where the JAX package counts one program's
   (ROADMAP C.29).
 - `axis_wire_bytes` (`:140`), `axis_size` (`:157`), `axis_index` (`:402`);
+  every wrapper takes `axis_name`: on a 2D mesh (mesh.create_mesh_2d) it
+  runs over the axis's sub-group (`Mesh.axis_group`: this rank's data row
+  for `model`, its model column for `data`), and the counters, the
+  `collective.sparse_ratio.<axis>` gauge and the sanitizer's ledger keep
+  the axes apart;
 - `all_reduce_sum/mean/max/min` (`:168-192`), `all_gather` (`:194`),
   `reduce_scatter` (`:202`), `ppermute_ring` (`:207`);
 - the chunked reduce `all_reduce_sum_chunked` (`:274`): leaves grouped by
@@ -66,7 +71,7 @@ never staged.
 from __future__ import annotations
 
 import datetime
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,9 +85,6 @@ from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, default_mesh  # noqa: F401  (MODE
 #: the collectives gloo runs on CUDA tensors by itself; the gloo branch stages
 #: every other one through pinned host tensors (see the module docstring)
 GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather", "reduce_scatter"})
-
-_A10B = "ROADMAP A.10b"
-
 
 # ---------------------------------------------------------------------------
 # accounting
@@ -160,28 +162,33 @@ def axis_wire_bytes(snapshot_delta: Optional[dict] = None) -> Dict[str, int]:
 # the mesh axis and its process group
 # ---------------------------------------------------------------------------
 
-def _axis(mesh: Optional[Mesh], axis_name: str) -> Tuple[Mesh, int]:
-    """(mesh, participants) of `axis_name`; only the data axis reduces."""
+class _Axis(NamedTuple):
+    """One mesh axis as this rank reduces over it: the participant count,
+    the process group (None for an axis of one) and this rank's index."""
+
+    n: int
+    group: Any
+    index: int
+
+
+def _axis(mesh: Optional[Mesh], axis_name: str) -> _Axis:
+    """`axis_name` of `mesh` (default: the default mesh): on a 2D mesh the
+    sub-group of this rank's data row (`model`) or model column (`data`)."""
     mesh = mesh if mesh is not None else default_mesh()
     if axis_name not in mesh.axis_names:
         raise ValueError(f"axis {axis_name!r} is not an axis of {mesh}")
     n = int(mesh.shape[axis_name])
-    others = [a for a in mesh.axis_names if a != axis_name and mesh.shape[a] > 1]
-    if n > 1 and (axis_name != DATA_AXIS or others):
-        raise NotImplementedError(
-            f"a collective over {axis_name!r} on {mesh} (a 2D mesh) is not ported yet ({_A10B})")
-    return mesh, n
+    return _Axis(n, mesh.axis_group(axis_name), mesh.axis_index(axis_name) if n > 1 else 0)
 
 
 def axis_size(axis_name: str = DATA_AXIS, mesh: Optional[Mesh] = None) -> int:
     """The participant count of a mesh axis."""
-    return _axis(mesh, axis_name)[1]
+    return _axis(mesh, axis_name).n
 
 
 def axis_index(axis_name: str = DATA_AXIS, mesh: Optional[Mesh] = None) -> int:
     """This rank's index on a mesh axis."""
-    mesh, n = _axis(mesh, axis_name)
-    return mesh.rank if n > 1 else 0
+    return _axis(mesh, axis_name).index
 
 
 def _staged(group, tensors: Sequence[torch.Tensor], op: str) -> bool:
@@ -283,13 +290,13 @@ def _reduce_scatter_flat(t: torch.Tensor, n: int, group, async_op: bool = False)
     return _finish(Pending([pending], lambda: out), async_op)
 
 
-def _exchange(t: torch.Tensor, mesh: Mesh, n: int, shifts: Sequence[int],
-              async_op: bool = False):
-    """Send `t` to rank + s and receive from rank - s, for every shift s,
-    all issued at once. Returns [the tensor received over each shift]."""
+def _exchange(t: torch.Tensor, ax: _Axis, shifts: Sequence[int], async_op: bool = False):
+    """Send `t` to index + s and receive from index - s on the axis, for
+    every shift s, all issued at once. Returns [the tensor received over
+    each shift]."""
     import torch.distributed as dist
 
-    group, rank = mesh.group, mesh.rank
+    group, rank, n = ax.group, ax.index, ax.n
     src = t.contiguous()
     recvs = [torch.empty_like(src) for _ in shifts]
     if not recvs:
@@ -345,50 +352,51 @@ def all_reduce_sum(x, axis_name: str = DATA_AXIS, mesh: Optional[Mesh] = None):
     """MPI-style all-reduce-sum of a (nested) tensor structure: every rank
     gets the sum, as the backend's own all-reduce computes it (the JAX
     package's `lax.psum`; DataStreamUtils.allReduceSum of the reference)."""
-    mesh, n = _axis(mesh, axis_name)
+    ax = _axis(mesh, axis_name)
     _account("psum", x, axis_name)
-    if mesh.group is None:
+    if ax.group is None:
         return x
-    return _tree_map(lambda t: _all_reduce(t, _reduce_op("sum"), mesh.group), x)
+    return _tree_map(lambda t: _all_reduce(t, _reduce_op("sum"), ax.group), x)
 
 
 def all_reduce_mean(x, axis_name: str = DATA_AXIS, mesh: Optional[Mesh] = None):
     """The all-reduce-sum over the participant count (`lax.pmean`)."""
-    mesh, n = _axis(mesh, axis_name)
+    ax = _axis(mesh, axis_name)
     _account("pmean", x, axis_name)
-    if mesh.group is None:
+    if ax.group is None:
         return x
-    return _tree_map(lambda t: _all_reduce(t, _reduce_op("sum"), mesh.group) / n, x)
+    return _tree_map(lambda t: _all_reduce(t, _reduce_op("sum"), ax.group) / ax.n, x)
 
 
 def all_reduce_max(x, axis_name: str = DATA_AXIS, mesh: Optional[Mesh] = None):
-    mesh, n = _axis(mesh, axis_name)
+    ax = _axis(mesh, axis_name)
     _account("pmax", x, axis_name)
-    if mesh.group is None:
+    if ax.group is None:
         return x
-    return _tree_map(lambda t: _all_reduce(t, _reduce_op("max"), mesh.group), x)
+    return _tree_map(lambda t: _all_reduce(t, _reduce_op("max"), ax.group), x)
 
 
 def all_reduce_min(x, axis_name: str = DATA_AXIS, mesh: Optional[Mesh] = None):
-    mesh, n = _axis(mesh, axis_name)
+    ax = _axis(mesh, axis_name)
     _account("pmin", x, axis_name)
-    if mesh.group is None:
+    if ax.group is None:
         return x
-    return _tree_map(lambda t: _all_reduce(t, _reduce_op("min"), mesh.group), x)
+    return _tree_map(lambda t: _all_reduce(t, _reduce_op("min"), ax.group), x)
 
 
 def all_gather(x, axis_name: str = DATA_AXIS, axis: int = 0, tiled: bool = True,
                mesh: Optional[Mesh] = None):
     """Every rank's tensor on every rank, in rank order: concatenated along
     `axis` when `tiled`, else stacked on a new `axis` (`lax.all_gather`)."""
-    mesh, n = _axis(mesh, axis_name)
+    ax = _axis(mesh, axis_name)
+    n = ax.n
     _account("all_gather", x, axis_name)
 
     def gather(t):
-        if mesh.group is None:
+        if ax.group is None:
             return t if tiled else t.unsqueeze(axis)
         moved = torch.movedim(t, axis, 0)
-        flat = _all_gather_flat(moved, n, mesh.group)
+        flat = _all_gather_flat(moved, n, ax.group)
         stacked = flat.reshape((n,) + tuple(moved.shape))
         if tiled:
             return torch.movedim(stacked.reshape((n * moved.shape[0],) + tuple(moved.shape[1:])),
@@ -401,17 +409,18 @@ def reduce_scatter(x, axis_name: str = DATA_AXIS, scatter_dimension: int = 0,
                    mesh: Optional[Mesh] = None):
     """This rank's block of the sum along `scatter_dimension`, which must
     divide by the participant count (`lax.psum_scatter(tiled=True)`)."""
-    mesh, n = _axis(mesh, axis_name)
+    ax = _axis(mesh, axis_name)
+    n = ax.n
     _account("psum_scatter", x, axis_name)
 
     def scatter(t):
-        if mesh.group is None:
+        if ax.group is None:
             return t
         if t.shape[scatter_dimension] % n:
             raise ValueError(f"reduce_scatter: dimension {scatter_dimension} of "
                              f"{tuple(t.shape)} does not divide over {n} ranks")
         moved = torch.movedim(t, scatter_dimension, 0)
-        block = _reduce_scatter_flat(moved, n, mesh.group)
+        block = _reduce_scatter_flat(moved, n, ax.group)
         return torch.movedim(block.reshape((moved.shape[0] // n,) + tuple(moved.shape[1:])),
                              0, scatter_dimension)
     return _tree_map(scatter, x)
@@ -419,50 +428,51 @@ def reduce_scatter(x, axis_name: str = DATA_AXIS, scatter_dimension: int = 0,
 
 def ppermute_ring(x, axis_name: str = DATA_AXIS, shift: int = 1, mesh: Optional[Mesh] = None):
     """Ring shift: rank i's tensor goes to rank (i + shift) mod n."""
-    mesh, n = _axis(mesh, axis_name)
+    ax = _axis(mesh, axis_name)
     _account("ppermute", x, axis_name)
-    if mesh.group is None:
+    if ax.group is None:
         return x
-    if shift % n == 0:
+    if shift % ax.n == 0:
         return _tree_map(lambda t: t.clone(), x)
-    return _tree_map(lambda t: _exchange(t, mesh, n, [shift])[0], x)
+    return _tree_map(lambda t: _exchange(t, ax, [shift])[0], x)
 
 
 # ---------------------------------------------------------------------------
 # bucketed / ring all-reduce (the chunked AllReduceImpl analogue)
 # ---------------------------------------------------------------------------
 
-def _reduce_bucket_rs_ag(vec: torch.Tensor, mesh: Mesh, n: int, async_op: bool = False):
+def _reduce_bucket_rs_ag(vec: torch.Tensor, ax: _Axis, async_op: bool = False):
     """One bucket by reduce-scatter + all-gather: zero-padded to a multiple
     of n for the scatter, the padding sliced off after the gather. With
     `async_op` the reduce-scatter is issued now and the gather runs at
     `result()`."""
-    m = vec.shape[0]
+    m, n = vec.shape[0], ax.n
     pad = (-m) % n
     if pad:
         vec = torch.cat([vec, vec.new_zeros((pad,))])
-    scattered = _reduce_scatter_flat(vec, n, mesh.group, async_op=async_op)
+    scattered = _reduce_scatter_flat(vec, n, ax.group, async_op=async_op)
 
     def gather(block):
-        out = _all_gather_flat(block, n, mesh.group)
+        out = _all_gather_flat(block, n, ax.group)
         return out[:m] if pad else out
     if async_op:
         return Pending([scattered], lambda: gather(scattered.result()))
     return gather(scattered)
 
 
-def _reduce_bucket_ring(vec: torch.Tensor, mesh: Mesh, n: int, async_op: bool = False):
+def _reduce_bucket_ring(vec: torch.Tensor, ax: _Axis, async_op: bool = False):
     """One bucket by the ring exchange: over the shifts 1..n-1 every rank's
     contribution reaches every other rank, and each rank folds the n
     contributions in replica order (0..n-1, left-associated), as the JAX
     ring folds its arrivals."""
-    recvs = _exchange(vec, mesh, n, list(range(1, n)), async_op=async_op)
+    n = ax.n
+    recvs = _exchange(vec, ax, list(range(1, n)), async_op=async_op)
 
     def fold(arrived):
-        # arrived[s - 1] is the contribution of replica (rank - s) mod n
-        by_replica = {mesh.rank: vec}
+        # arrived[s - 1] is the contribution of replica (index - s) mod n
+        by_replica = {ax.index: vec}
         for s, t in enumerate(arrived, start=1):
-            by_replica[(mesh.rank - s) % n] = t
+            by_replica[(ax.index - s) % n] = t
         acc = by_replica[0]
         for r in range(1, n):
             acc = acc + by_replica[r]
@@ -512,9 +522,9 @@ def all_reduce_sum_chunked(x, axis_name: str = DATA_AXIS, chunk_bytes: Optional[
     chunk_bytes = config.resolve_chunk_bytes(chunk_bytes)
     if ring is None:
         ring = config.collective_ring
-    mesh, n = _axis(mesh, axis_name)
+    ax = _axis(mesh, axis_name)
     leaves, rebuild = _flatten(x)
-    if not leaves or mesh.group is None:
+    if not leaves or ax.group is None:
         _account("chunked", x, axis_name, chunks=len(leaves))
         return Pending([], lambda: x) if async_op else x
 
@@ -528,7 +538,7 @@ def all_reduce_sum_chunked(x, axis_name: str = DATA_AXIS, chunk_bytes: Optional[
         sizes = _bucket_sizes(flat.shape[0], flat.element_size(), chunk_bytes)
         parts, off = [], 0
         for size in sizes:
-            parts.append(reduce_bucket(flat[off:off + size], mesh, n, async_op=async_op))
+            parts.append(reduce_bucket(flat[off:off + size], ax, async_op=async_op))
             off += size
         issued.append((idxs, parts))
     _account("chunked", x, axis_name, chunks=sum(len(parts) for _, parts in issued))
@@ -578,14 +588,15 @@ def sparse_all_reduce_sum(indices, values, dim: int, axis_name: str = DATA_AXIS,
     partial (`scatter_pairs`) and folds the partials in replica order, the
     association of the dense route. With `async_op` the gathers are issued
     and a `Pending` returned."""
-    mesh, n = _axis(mesh, axis_name)
+    ax = _axis(mesh, axis_name)
+    n = ax.n
     _account("sparse_allreduce", (indices, values), axis_name, chunks=1,
              dense_equiv_bytes=int(dim) * values.element_size())
-    if mesh.group is None:
+    if ax.group is None:
         out = scatter_pairs(indices, values, dim)
         return Pending([], lambda: out) if async_op else out
-    gi = _all_gather_flat(indices, n, mesh.group, async_op=async_op)
-    gv = _all_gather_flat(values, n, mesh.group, async_op=async_op)
+    gi = _all_gather_flat(indices, n, ax.group, async_op=async_op)
+    gv = _all_gather_flat(values, n, ax.group, async_op=async_op)
 
     def combine(flat_i, flat_v):
         gi_r, gv_r = flat_i.reshape(n, -1), flat_v.reshape(n, -1)

@@ -27,14 +27,17 @@ from ..obs import timeline
 from ..utils import metrics
 
 #: why a whole-fit-eligible loop did not run as one program
-#: (`dispatch.whole_fit_fallback.<reason>`): the JAX package's four, and
-#: `mesh`: a fit over more than one rank runs its epochs eagerly
+#: (`dispatch.whole_fit_fallback.<reason>`): the JAX package's four, `mesh`
+#: (a fit over more than one rank runs its epochs eagerly) and
+#: `fleet_overlap` (a fleet fit in a process tuned for the overlap loops,
+#: which cannot host the member axis; JAX fleet.py:264-267)
 WHOLE_FIT_FALLBACK_REASONS = (
     "checkpoint_interval",
     "device_cache_budget",
     "ragged_batches",
     "listener",
     "mesh",
+    "fleet_overlap",
 )
 
 

@@ -22,10 +22,19 @@ Nothing waits without a bound. Every collective of a rank raises after
 `collective_timeout_s` (the process group's timeout), every job after
 `timeout_s` (the world is then closed and `TimeoutError` raised), and a
 rank's exception comes back with its traceback as a `RankError` (the
-other ranks get 5 s more to report; a rank process that dies without a
-result is an error too). A world whose rank failed or timed out is
-closed: it runs no further job. `close()` joins every rank (bounded) and
-kills one that does not exit.
+other ranks get 5 s more to report, unless every rank still owing a
+result is dead; a rank process that dies without a result is an error
+too). A world whose rank failed or timed out is closed: it runs no
+further job, and it keeps what a supervisor reads of the failure: `deaths` (the ranks that exited on their own with a failure
+status, each with its code and when it was seen), `failed_at` (when the
+first failure was seen) and `silent` (the ranks that gave no result).
+`close()` joins every rank (bounded) and kills one that does not exit.
+
+`World(R, model_shards=m)` lays the world out as the 2D mesh (R / m) x m
+(`mesh.create_mesh_2d`): every rank creates every axis sub-group right
+after it joins, in one order, and makes that mesh its default; a job then
+runs on it without knowing the layout. `model_shards=None` keeps the 1D
+`data` mesh.
 
 Each rank runs `torch.set_num_threads(threads)` (default 1), so R ranks on
 a shared machine do not oversubscribe its cores, and, with `sanitize`,
@@ -42,7 +51,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -77,7 +86,7 @@ def resolve(path: str) -> Callable:
 
 def _rank_main(rank: int, world_size: int, init_method: str, backend: Optional[str],
                device: Optional[str], collective_timeout_s: float, threads: int,
-               sanitize: bool, jobs, results) -> None:
+               sanitize: bool, model_shards: Optional[int], jobs, results) -> None:
     """A rank: join the world, then run each job until the None sentinel."""
     torch.set_num_threads(int(threads))
     from .. import config
@@ -94,6 +103,8 @@ def _rank_main(rank: int, world_size: int, init_method: str, backend: Optional[s
         mesh_lib.init_distributed(init_method, world_size=world_size, rank=rank,
                                   backend=backend, device=device,
                                   timeout_s=collective_timeout_s)
+        if model_shards is not None:
+            mesh_lib.set_default_mesh(mesh_lib.create_mesh_2d(model_shards))
     except BaseException:  # the parent raises it as the world's first failure
         results.put((None, rank, "error", traceback.format_exc()))
         return
@@ -122,10 +133,22 @@ class World:
     def __init__(self, world_size: int, backend: Optional[str] = None,
                  device: Optional[str] = None, timeout_s: float = 600.0,
                  collective_timeout_s: float = mesh_lib.DEFAULT_TIMEOUT_S,
-                 threads: int = 1, sanitize: bool = False):
+                 threads: int = 1, sanitize: bool = False,
+                 model_shards: Optional[int] = None):
         self.world_size = int(world_size)
+        if model_shards is not None and self.world_size % int(model_shards):
+            raise ValueError(f"model_shards={model_shards} does not divide {world_size} ranks")
+        self.model_shards = None if model_shards is None else int(model_shards)
         self.timeout_s = float(timeout_s)
         self.broken: Optional[str] = None
+        #: rank -> (exit code, wall time first seen) of each rank process that
+        #: ended on its own with a failure status, before the world closed it
+        self.deaths: Dict[int, Tuple[int, float]] = {}
+        #: the wall time (`time.time()`) the failed job's first failure was
+        #: seen (a rank's error, a rank's death or the timeout), and the ranks
+        #: that gave that job no result
+        self.failed_at: Optional[float] = None
+        self.silent: List[int] = []
         self._closed = False
         ctx = torch.multiprocessing.get_context("spawn")
         self._dir = tempfile.mkdtemp(prefix="flink_ml_tpu_torch_world_")
@@ -138,7 +161,7 @@ class World:
                         args=(r, self.world_size, init, backend,
                               None if device is None else str(device),
                               float(collective_timeout_s), threads, sanitize,
-                              self._jobs[r], self._results))
+                              self.model_shards, self._jobs[r], self._results))
             for r in range(self.world_size)]
         for proc in self._procs:
             proc.start()
@@ -157,13 +180,17 @@ class World:
         deadline = time.monotonic() + timeout_s
         while len(seen) < self.world_size:
             left = deadline - time.monotonic()
-            dead = [p.name for p in self._procs if not p.is_alive() and p.exitcode not in (0,)]
+            self._note_deaths()
+            if errors and set(range(self.world_size)) - seen <= set(self.deaths):
+                break  # every rank still owing a result is dead
             try:
                 got_id, rank, status, value = self._results.get(
-                    timeout=max(0.05, min(left, 1.0)))
+                    timeout=max(0.05, min(left, 0.25)))
             except queue_mod.Empty:
-                if dead and not errors:
+                if self.deaths and not errors:
+                    dead = [self._procs[r].name for r in sorted(self.deaths)]
                     errors[-1] = f"rank process(es) {dead} exited without a result"
+                    self.failed_at = min(t for _, t in self.deaths.values())
                 if errors or left <= 0:
                     break
                 continue
@@ -174,10 +201,16 @@ class World:
                 out[rank] = value
             else:
                 errors[rank] = value
+                if self.failed_at is None:
+                    self.failed_at = time.time()
                 deadline = min(deadline, time.monotonic() + 5.0)
         if errors or len(seen) < self.world_size:
+            self._note_deaths()
+            if self.failed_at is None:
+                self.failed_at = time.time()
+            self.silent = sorted(set(range(self.world_size)) - seen)
             self.broken = "a rank failed" if errors else "a job timed out"
-            self.close()
+            self.close(join_s=5.0)
             if errors:
                 first = min(errors)
                 raise RankError(f"rank {first} failed:\n{errors[first]}"
@@ -185,6 +218,15 @@ class World:
             raise TimeoutError(f"ranks {sorted(set(range(self.world_size)) - seen)} gave no "
                                f"result within {timeout_s} s")
         return out
+
+    def _note_deaths(self) -> None:
+        """Record each rank process that has ended on its own with a
+        failure status (any nonzero exit code, a signal included) in
+        `deaths`."""
+        now = time.time()
+        for r, proc in enumerate(self._procs):
+            if r not in self.deaths and not proc.is_alive() and proc.exitcode not in (0, None):
+                self.deaths[r] = (int(proc.exitcode), now)
 
     def run(self, target: Target, *args, timeout_s: Optional[float] = None) -> List[Any]:
         """Run `target(*args)` on every rank; every rank's result."""

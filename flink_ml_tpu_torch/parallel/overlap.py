@@ -31,8 +31,22 @@ row dot runs a hand kernel on that route.
 Like the JAX loops, both run every epoch to maxIter under the device-side
 tol mask (no host sync to stop), so every rank issues the same collectives
 in the same order. `clear_program_cache` exists for the JAX API: nothing
-is compiled here. The 2D feature-sharded programs (`sgd2d_*`, JAX
-`:262-363`) are ROADMAP A.10b.
+is compiled here.
+
+The 2D feature-sharded loop (`sgd2d_whole_fit`, `sgd2d_chunk`,
+`sgd2d_unpack_host`; JAX `:262-363`): on a `(data, model)` mesh the
+coefficient and gradient carries are this rank's model-axis slice
+(d_local,), the batches its data-axis rows, and each epoch is the sharded
+loop's masked epoch over the 2D loss (`ops.losses.feature_sharded_variant`:
+active coefficients assembled over `model`, the gradient reduced over
+`data` only). Every rank runs maxIter epochs, so all issue the same
+collectives; the fit ends with the final update of the materialized carry
+(the JAX body pins it with an optimization barrier), and its result is
+this rank's block [flag?, coeff_slice, criteria, epochs], gathered over
+`model` into the (m * block,) pack that `sgd2d_unpack_host` reads (one
+readback; the JAX package reads its model-sharded pack the same way). A
+2D fit over more than one rank is never captured (ROADMAP C.28,
+`dispatch.whole_fit_fallback.mesh`); a one-rank mesh takes the flat fit.
 """
 
 from __future__ import annotations
@@ -176,8 +190,73 @@ def overlapped_lloyd_train(mesh, X, weights, init_centroids, max_iter: int, meas
     return lloyd_update(centroids, sums, counts), counts
 
 
+def sgd2d_chunk(mesh, X_b, y_b, w_b, state, loss_func, hyper, start: int, end: int):
+    """Epochs [start, end) of the 2D fit under the device-side tol mask:
+    the contract of the sharded loop's epochs, on the carry
+    (coeff_slice, grad_slice, wsum, epochs, criteria). `X_b` is this rank's
+    (batches, b_local, nnz) rows of the batches the epochs read; the
+    checkpointed loop runs it chunk by chunk, the whole fit once."""
+    from ..ops import losses
+    from ..ops import optimizer as opt
+
+    loss2d = losses.feature_sharded_variant(loss_func)
+    num_batches = y_b.shape[0]
+    for e in range(int(start), int(end)):
+        k = e % num_batches
+        coeff, grad, wsum, epochs, criteria = state
+        live = criteria > hyper[opt.HYPER_TOL]
+        coeff = opt._update_model(coeff, grad, wsum, hyper)
+        lsum, grad, wsum = loss2d.fn((X_b[0][k], X_b[1][k]), y_b[k], w_b[k], coeff, mesh)
+        new = (coeff, grad, wsum, epochs + 1,
+               (lsum / torch.clamp(wsum, min=1e-30)).to(torch.float32))
+        state = tuple(torch.where(live, n, o) for n, o in zip(new, state))
+    return state
+
+
+def sgd2d_finish(mesh, state, hyper, flag=None):
+    """The final update of the materialized carry and the result: this
+    rank's block [flag?, coeff_slice, criteria, epochs], gathered over
+    `model` into the (m * block,) pack, equal on every rank."""
+    from ..ops import optimizer as opt
+
+    coeff, grad, wsum, epochs, criteria = state
+    block = opt._pack_train_result(opt._update_model(coeff, grad, wsum, hyper), criteria,
+                                   epochs, flag)
+    return collectives.all_gather(block, mesh_lib.MODEL_AXIS, mesh=mesh)
+
+
+def sgd2d_whole_fit(mesh, X_b, y_b, w_b, state, loss_func, hyper, max_iter: int,
+                    y_all=None, check_labels: bool = False, start: int = 0):
+    """The whole 2D fit: epochs [start, maxIter) of `sgd2d_chunk`, then
+    `sgd2d_finish`. Returns (state, pack); with `check_labels` the {0,1}
+    label flag of every rank's labels (`y_all`, min-reduced over `data`)
+    rides each block."""
+    from ..ops import optimizer as opt
+
+    state = sgd2d_chunk(mesh, X_b, y_b, w_b, state, loss_func, hyper, start, max_iter)
+    flag = None
+    if check_labels:
+        flag = collectives.all_reduce_min(opt._binomial_labels_ok(y_all), mesh=mesh)
+    return state, sgd2d_finish(mesh, state, hyper, flag)
+
+
+def sgd2d_unpack_host(host, num_model_shards: int, d_local: int, has_flag: bool):
+    """Host-side inverse of the 2D pack: (m * block,) with block = [flag?,
+    coeff_slice, criteria, epochs]. The scalars are the same in every
+    block; block 0's are read. Returns (coeff, criteria, epochs, flag?)."""
+    block = d_local + 2 + (1 if has_flag else 0)
+    blocks = np.asarray(host).reshape(num_model_shards, block)
+    off = 1 if has_flag else 0
+    coeff = np.concatenate([blocks[s, off:off + d_local] for s in range(num_model_shards)])
+    criteria = float(blocks[0, off + d_local])
+    epochs = int(blocks[0, off + d_local + 1])
+    flag = float(blocks[0, 0]) if has_flag else None
+    return coeff, criteria, epochs, flag
+
+
 def fleet_overlap_supported() -> bool:
-    """Whether a fleet fit rides these loops: no, as in the JAX package
-    (a fleet trains on the plain member-batched programs); the
-    `fleet_overlap` downgrade accounting is ROADMAP A.10b."""
+    """Whether a fleet fit rides these loops: no, as in the JAX package. A
+    fleet trains on its member-batched loops, and `FitFleet.fit` counts the
+    downgrade of an overlap-tuned process as
+    `dispatch.whole_fit_fallback.fleet_overlap`."""
     return False

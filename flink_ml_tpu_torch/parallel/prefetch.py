@@ -195,9 +195,23 @@ class DeviceStager:
 
 
 def stage_to_device(tree, device: Optional[torch.device] = None,
-                    dtype: Optional[torch.dtype] = None, category: Optional[str] = None) -> Staged:
+                    dtype: Optional[torch.dtype] = None, category: Optional[str] = None,
+                    sharding=None) -> Staged:
     """Stage one tree through a one-slot `DeviceStager`. A loop that stages
-    many batches keeps one stager, so its pinned buffers are reused."""
+    many batches keeps one stager, so its pinned buffers are reused.
+
+    `sharding` (a `mesh.RankSharding`, or one per leaf) stages only this
+    rank's block of each host leaf (`RankSharding.take`: a `data`-,
+    `model`- or `fleet`-tagged upload), so the budget admission and the
+    ledger charge that block's bytes, as the JAX package charges a
+    sharded array's per-device shard."""
+    if sharding is not None:
+        leaves = _leaves(tree)
+        per_leaf = sharding if isinstance(sharding, (list, tuple)) and not hasattr(
+            sharding, "spec") else [sharding] * len(leaves)
+        tree = _rebuild(tree, iter([
+            s.take(leaf if isinstance(leaf, torch.Tensor) else np.asarray(leaf))
+            for s, leaf in zip(per_leaf, leaves)]))
     return DeviceStager(device, dtype, slots=1)(tree, category)
 
 

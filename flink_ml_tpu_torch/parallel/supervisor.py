@@ -7,12 +7,42 @@ worker thread under a host-health protocol; a detected failure aborts the
 attempt, cancels the in-flight snapshot cut, and re-runs the fit, which
 restores its newest committed cut, within `config.recovery_budget`.
 
-The hosts are the simulated hosts of `config.snapshot_hosts` (the shards
-of a sharded cut). On one card a host owns no device: "re-forming the mesh
-over the survivors" keeps the one device and rescopes `snapshot_hosts` to
-the live host count, so the device arithmetic of a resumed attempt is the
-unkilled fit's and a resume after a shrink is bit for bit too. Re-forming
-over fewer devices is the multi-card port's (ROADMAP A.10b).
+The hosts of `supervise` are the simulated hosts of `config.snapshot_hosts`
+(the shards of a sharded cut). In one process a host owns no device:
+"re-forming the mesh over the survivors" keeps the one device and rescopes
+`snapshot_hosts` to the live host count, so the device arithmetic of a
+resumed attempt is the unkilled fit's and a resume after a shrink is bit
+for bit too.
+
+The shrink over ranks (`supervise_world`): a world of R ranks
+(parallel/launcher.py) in H hosts, a host being a contiguous group of
+ranks (`mesh.host_groups`, so on a 2D mesh built for H hosts it owns whole
+data rows). Every rank runs a checkpointed fit that restores its newest
+committed cut. A dead host is a host a rank process of which exited on
+its own with a failure status, whatever its code (`World.deaths`: the
+injected `host.die` ends its ranks with `os._exit`, a kill or the out-of-
+memory killer with a signal); its peers' collectives then fail, and the
+world's job raises. A hung host is one whose ranks gave the failed job no
+result while none died (`World.silent`, or the host whose injected
+`host.hang` fired): it blocks at its boundary and its peers' collectives
+time out (the world's `collective_timeout_s`). Any other failure is the
+fit's own and is raised. On either the supervisor closes the world (the
+hung ranks are killed), sweeps the cut in flight, quarantines the host
+(`shrink`) or keeps it (`readmit`), and launches a new world of the
+surviving rank count, which resumes from the newest committed cut, each
+leaf re-sharded onto the new mesh by `snapshot.stage_section`. Each rank
+stamps the wall time of its boundaries and of a fired fault in a file of
+the supervisor's, so an event's `detection_ms` runs from the fault (a
+fired fault's stamp, else a death as the launcher saw it, else the hung
+host's last boundary) to the first failure the launcher saw, and its
+`recovery_ms` from that failure to the first boundary of the relaunched
+world. The shrink
+is a relaunch, not a `torch.distributed.new_group` over the survivors: a
+new group needs every rank of the old world to call `new_group`, the dead
+ones too, and a gloo group with a dead member hangs each collective until
+its timeout. A readmit resume runs the same rank count, so it equals the
+unkilled fit bit for bit; a shrink resume reduces over fewer ranks, so it
+is held allclose (the JAX package's tests/test_supervisor.py:1-12).
 
 Two independent detectors, because the two failures look different:
 
@@ -48,6 +78,8 @@ gauges; `supervisor.hostFailure`, `supervisor.collectiveHang`,
 
 from __future__ import annotations
 
+import shutil
+import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
@@ -68,6 +100,7 @@ __all__ = [
     "HostBoard",
     "SupervisorContext",
     "supervise",
+    "supervise_world",
     "pulse_boundary",
     "note_progress",
     "active",
@@ -155,6 +188,8 @@ class FailureEvent:
     recovery_ms: Optional[float] = None  # detected -> resumed fit's 1st progress
     quarantined: bool = False
     hosts_after: int = 0
+    #: `supervise_world`: the wall time the failure was seen
+    detected_at: Optional[float] = field(default=None, repr=False)
 
 
 @dataclass
@@ -203,12 +238,17 @@ class HostBoard:
         return len(self.live())
 
     def form_mesh(self):
-        """The device the next attempt runs on: on one card the survivors
-        share the one device (re-forming over fewer devices is ROADMAP
-        A.10b)."""
+        """The device the next attempt of `supervise` runs on: in one
+        process the survivors share the one device (`supervise_world`
+        re-forms over fewer ranks by relaunching)."""
         from .. import config
 
         return self.device if self.device is not None else config.device()
+
+    def live_ranks(self) -> List[int]:
+        """The ranks (of the first world) of every live host, in host order:
+        the ranks a relaunched world runs, renumbered from 0 in this order."""
+        return [r for h in self.live() for r in self.groups[h]]
 
     # -- failure simulation hooks (called from the FIT thread) ---------------
     def mark_dead(self, host: int, phase: str) -> None:
@@ -423,6 +463,8 @@ def pulse_boundary(phase: str) -> None:
     ctx = active()
     if ctx is not None:
         ctx.boundary(phase)
+    elif _rank_marks is not None:
+        _rank_boundary(phase)
 
 
 def note_progress(wall_s: Optional[float] = None) -> None:
@@ -646,3 +688,216 @@ def supervise(
                 hosts=board.live_count(),
                 swept=swept,
             )
+
+
+# ---------------------------------------------------------------------------
+# supervise_world: the shrink over the ranks of a world
+# ---------------------------------------------------------------------------
+
+#: the exit status of a rank whose injected `host.die` fired
+DIE_EXIT_CODE = 75
+
+#: this rank's stamp file while it runs a `supervise_world` job, else None
+_rank_marks: Optional[str] = None
+
+
+def _stamp(kind: str) -> None:
+    """Append "kind wall-time" to this rank's stamp file."""
+    with open(_rank_marks, "a") as f:
+        f.write(f"{kind} {time.time()!r}\n")
+
+
+def _rank_boundary(phase: str) -> None:
+    """A boundary of a rank under `supervise_world`: stamped; a fired
+    `host.die` ends this process (a dead host); a fired `host.hang` blocks
+    it until the supervisor kills it (a hung host), each stamped first.
+    Only the victim host's ranks arm a plan, so elsewhere the ticks cost
+    one global load."""
+    import os
+
+    _stamp("boundary")
+    try:
+        faults.tick("host.die")
+        faults.tick(f"host.die.{phase}")
+    except faults.InjectedFault:
+        _stamp("fault")
+        os._exit(DIE_EXIT_CODE)
+    try:
+        faults.tick("host.hang")
+        faults.tick(f"host.hang.{phase}")
+    except faults.InjectedFault:
+        _stamp("fault")
+        metrics.inc_counter("supervisor.stall")
+        while True:
+            time.sleep(0.5)
+
+
+def supervised_rank(path: str, args, plan) -> Any:
+    """A rank's attempt of `supervise_world`: run the job at `path` with
+    `args`, stamping its boundaries in the file `plan["marks"]` names for
+    this attempt and rank, with the fault of `plan` (site, after, victim
+    ranks), if any, armed on the victim ranks."""
+    global _rank_marks
+    import os
+
+    import torch.distributed as dist
+
+    from .launcher import resolve
+
+    rank = dist.get_rank()
+    _rank_marks = os.path.join(plan["marks"], f"{plan['attempt']}.{rank}")
+    try:
+        if plan.get("site") is not None and rank in plan["ranks"]:
+            with faults.inject(plan["site"], after=plan["after"]):
+                return resolve(path)(*args)
+        return resolve(path)(*args)
+    finally:
+        _rank_marks = None
+
+
+def _read_stamps(marks: str, attempt: int, ranks: int) -> List[Dict[str, List[float]]]:
+    """Every rank's stamps of an attempt: kind -> wall times, in order."""
+    import os
+
+    out: List[Dict[str, List[float]]] = []
+    for r in range(ranks):
+        got: Dict[str, List[float]] = {}
+        path = os.path.join(marks, f"{attempt}.{r}")
+        if os.path.exists(path):
+            with open(path) as f:
+                for line in f:
+                    kind, _, t = line.partition(" ")
+                    got.setdefault(kind, []).append(float(t))
+        out.append(got)
+    return out
+
+
+def _classify(world, stamps, host_of) -> Optional[tuple]:
+    """(kind, host, fault wall time) of a failed attempt, or None when it
+    is the fit's own failure: a host with a rank that died on its own
+    (`world.deaths`, any code) failed; else a host whose fault fired, or the
+    one host whose ranks gave no result (`world.silent`), hung."""
+    if world.deaths:
+        first = min(world.deaths, key=lambda r: world.deaths[r][1])
+        host = host_of(first)
+        ranks = [r for r in range(len(stamps)) if host_of(r) == host]
+        fired = [t for r in ranks for t in stamps[r].get("fault", [])]
+        seen = [world.deaths[r][1] for r in ranks if r in world.deaths]
+        return "hostFailure", host, min(fired or seen)
+    fired = [r for r, st in enumerate(stamps) if st.get("fault")]
+    hosts = {host_of(r) for r in (fired or world.silent)}
+    if len(hosts) != 1:
+        return None
+    (host,) = hosts
+    ranks = [r for r in range(len(stamps)) if host_of(r) == host]
+    times = [t for r in ranks for t in stamps[r].get("fault", [])] or \
+        [stamps[r]["boundary"][-1] for r in ranks if stamps[r].get("boundary")]
+    return "collectiveHang", host, min(times) if times else world.failed_at
+
+
+def supervise_world(
+    target,
+    *args,
+    world_size: int,
+    hosts: int,
+    fault: Optional[str] = None,
+    after: int = 1,
+    victim_host: Optional[int] = None,
+    on_failure: str = "shrink",
+    on_hang: str = "readmit",
+    checkpoint_dir: Optional[str] = None,
+    job_key: Optional[str] = None,
+    recovery_budget: Optional[int] = None,
+    world_kwargs: Optional[Dict[str, Any]] = None,
+    job_timeout_s: Optional[float] = None,
+) -> SupervisedResult:
+    """Run the checkpointed fit `target(*args)` (a launcher target: it
+    restores its newest committed cut on entry) on every rank of a world of
+    `world_size` ranks in `hosts` hosts, and recover from a host's death or
+    hang (module docstring). `fault` ("host.die.dispatch", "host.hang.
+    collective", ...) is armed on the first attempt's ranks of
+    `victim_host` (default the last host), firing at their `after`-th
+    boundary. `world_kwargs` go to `launcher.World` (its `model_shards`
+    must divide every attempt's rank count). Returns the SupervisedResult
+    whose value is every rank's result of the successful attempt and whose
+    `hosts` is the live host count."""
+    from .. import config
+    from . import launcher
+    from . import mesh as mesh_lib
+
+    if on_hang not in ("readmit", "shrink"):
+        raise ValueError(f"unknown on_hang policy {on_hang!r}")
+    if on_failure not in ("readmit", "shrink"):
+        raise ValueError(f"unknown on_failure policy {on_failure!r}")
+    budget = config.recovery_budget if recovery_budget is None else int(recovery_budget)
+    board = HostBoard(hosts)
+    board.groups = mesh_lib.host_groups(mesh_lib.Mesh(("data",), (world_size,)), hosts)
+    path = launcher.target_path(target)
+    events: List[FailureEvent] = []
+    attempt = 0
+    marks = tempfile.mkdtemp(prefix="flink_ml_tpu_torch_supervise_")
+    try:
+        while True:
+            attempt += 1
+            ranks = board.live_ranks()
+            metrics.set_gauge("supervisor.hosts", board.live_count())
+            plan: Dict[str, Any] = {"marks": marks, "attempt": attempt}
+            if attempt == 1 and fault is not None:
+                live = board.live()
+                victim = victim_host if victim_host in live else live[-1]
+                plan.update(site=fault, after=int(after),
+                            ranks=[ranks.index(r) for r in board.groups[victim]])
+            world = launcher.World(len(ranks), **(world_kwargs or {}))
+            try:
+                values = world.run(supervised_rank, path, args, plan, timeout_s=job_timeout_s)
+            except (launcher.RankError, TimeoutError) as e:
+                failure = e
+            else:
+                world.close()
+                _note_recovery(events, _read_stamps(marks, attempt, len(ranks)))
+                return SupervisedResult(value=values, attempts=attempt, events=events,
+                                        hosts=board.live_count(), device=len(ranks))
+            finally:
+                world.close(join_s=5.0)
+            stamps = _read_stamps(marks, attempt, len(ranks))
+            _note_recovery(events, stamps)
+
+            def host_of(r, ranks=ranks):
+                return next(h for h, g in enumerate(board.groups) if ranks[r] in g)
+            found = _classify(world, stamps, host_of)
+            if found is None:  # no host failed or hung: the fit itself failed
+                raise failure
+            kind, host, fault_at = found
+            fired = any(st.get("fault") for r, st in enumerate(stamps) if host_of(r) == host)
+            phase = fault.split(".")[2] if fired and fault and fault.count(".") >= 2 else None
+            detection_ms = max(0.0, (world.failed_at - fault_at) * 1000.0)
+            metrics.inc_counter(f"supervisor.{kind}")
+            metrics.set_gauge("supervisor.detectionMs", detection_ms)
+            policy = on_failure if kind == "hostFailure" else on_hang
+            quarantined = policy == "shrink"
+            if quarantined:
+                board.quarantine(int(host))
+            _sweep_in_flight_cut(checkpoint_dir, job_key)
+            events.append(FailureEvent(kind=kind, host=host, phase=phase,
+                                       detection_ms=detection_ms, quarantined=quarantined,
+                                       hosts_after=board.live_count(),
+                                       detected_at=world.failed_at))
+            if len(events) > budget or not board.live():
+                raise RecoveryBudgetExhausted(events) from failure
+            metrics.inc_counter("supervisor.recovery")
+            if timeline.enabled():
+                timeline.record_instant(timeline.LANE_SUPERVISOR, "supervisor.recover",
+                                        attempt=attempt, hosts=board.live_count())
+    finally:
+        shutil.rmtree(marks, ignore_errors=True)
+
+
+def _note_recovery(events: List[FailureEvent], stamps) -> None:
+    """The last event's `recovery_ms`, from its detection to the first
+    boundary any rank of the next attempt stamped, once there is one."""
+    if not events or events[-1].recovery_ms is not None:
+        return
+    first = [st["boundary"][0] for st in stamps if st.get("boundary")]
+    if first:
+        events[-1].recovery_ms = max(0.0, (min(first) - events[-1].detected_at) * 1000.0)
+        metrics.set_gauge("supervisor.recoveryMs", events[-1].recovery_ms)

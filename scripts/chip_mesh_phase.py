@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's phase 16 (data-parallel training over a mesh of ranks)
-alone on the card.
+"""chip_smoke.py's phases 16 and 17 (the multi-device layer over a mesh of
+ranks) alone on the card, after phase 2's kernel cases.
 
     python3 scripts/chip_mesh_phase.py      # from the repository root
 
-It builds the sparse kernels, fits phase 3's dense LR, sparse LR and
-KMeans on one rank from the same seeds (the references phase 16 holds the
-mesh fits to, with the sparse LR's plain-loss fit of phase 4), and runs
-`chip_smoke.mesh_phase`, which prints each fit and exits non-zero on a
-failed gate. About two minutes on an H100."""
+It builds the kernels, runs phase 2 (`kernel_phase`, `fleet_kernel_phase`:
+every kernel against its plain version, timed, phase 17's shapes
+included), fits on one rank from the same seeds what phases 16 and 17
+hold the mesh fits to (phase 3's dense LR, sparse LR with phase 4's
+plain-loss fit, KMeans, stream LR and stream KMeans, and phase 10's sparse
+fleet), and runs `chip_smoke.mesh_phase` and `chip_smoke.mesh2d_phase` on
+one gloo world, which print each fit and exit non-zero on a failed gate.
+About four minutes on an H100."""
 import os
 import subprocess
 import sys
@@ -37,8 +40,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    cuda_build.load_all(("sparse_kernels",))
+    cuda_build.load_all(("sparse_kernels", "probes", "designs"))
     sk.build()
+    probes, designs = cs.load_probes(cuda_build), cs.load_designs(cuda_build, sk)
+    cs.kernel_phase(sk, probes, designs, dev)
+    cs.fleet_kernel_phase(sk, probes, designs, dev)
+    cs.log(f"phase 2 in {time.perf_counter() - t_start:.1f} s")
     runs = {}
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -56,12 +63,32 @@ def main() -> int:
                                  global_batch_size=cs.BATCH, tol=cs.TOL).optimize(
             np.zeros(cs.SPARSE_DIM), (s_idx, s_vals), s_y, None,
             losses.PLAIN_SPARSE_VARIANTS["binary_logistic"])[0]}
-    del s_idx, s_vals, s_y
-    runs["kmeans"] = {"model": cs.kmeans_estimator().fit(Table({"features": cs.kmeans_data(dev)}))}
+    from flink_ml_tpu_torch.fleet import FitFleet
+
+    sparse_table = Table({"features": SparseBatch(cs.SPARSE_DIM, s_idx, s_vals), "label": s_y})
+    fleet_models = {"sparse": FitFleet(cs.fleet_members(logisticregression.LogisticRegression))
+                    .fit(sparse_table)}
+    del s_idx, s_vals, s_y, sparse_table
+    km_X = cs.kmeans_data(dev)
+    runs["kmeans"] = {"model": cs.kmeans_estimator().fit(Table({"features": km_X}))}
+    km_cols = {"features": km_X.cpu().numpy()}
+    del km_X
+    runs["stream kmeans"] = {"model": cs.kmeans_estimator().fit(
+        cs.stream_of(km_cols, cs.KMEANS_ROWS, cs.KMEANS_CHUNK))}
+    stream_cols = cs.stream_lr_data(cs.MAX_ITER * cs.BATCH)
+    runs["stream lr"] = {"model": cs.estimator(logisticregression.LogisticRegression, "weight")
+                         .fit(cs.stream_of(stream_cols, cs.MAX_ITER * cs.BATCH, cs.STREAM_CHUNK))}
+    del km_cols, stream_cols
     torch.cuda.synchronize()
     cs.log(f"one-rank references in {time.perf_counter() - t_start:.1f} s ({card})")
-    result = cs.mesh_phase(card, dev, runs)
-    cs.log(f"phase 16 {result['seconds']:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+    spec = cs.mesh_spec()
+    t0 = time.perf_counter()
+    with cs.mesh_world(spec) as world:
+        result = cs.mesh_phase(card, dev, runs, world, spec, time.perf_counter() - t0)
+        cs.log(f"phase 16 {result['seconds']:.1f} s")
+        mesh2d = cs.mesh2d_phase(card, dev, runs, world, spec, fleet_models)
+    cs.log("mesh2d: " + __import__("json").dumps(mesh2d, default=str))
+    cs.log(f"phase 17 {mesh2d['seconds']:.1f} s; total {time.perf_counter() - t_start:.1f} s")
     print(card)
     return 0
 

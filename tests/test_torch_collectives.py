@@ -304,7 +304,13 @@ class TestAccounting:
         m = mesh.Mesh(("data", "model"), (1, 2))
         import torch
 
-        with pytest.raises(NotImplementedError, match="A.10b"):
+        # the 2D layout is ported: over a world a model-axis collective runs
+        # (tests/test_torch_mesh2d.py); a hand-made mesh of ranks without one
+        # is refused, and an axis of one is the identity
+        with pytest.raises(ValueError, match="no process group"):
             coll.all_reduce_sum(torch.zeros(2), axis_name="model", mesh=m)
+        x = torch.arange(2.0)
+        assert coll.all_reduce_sum(x, axis_name="model", mesh=mesh.Mesh(("data", "model"),
+                                                                        (1, 1))) is x
         with pytest.raises(ValueError, match="not an axis"):
             coll.all_reduce_sum(torch.zeros(2), axis_name="fleet", mesh=mesh.Mesh(("data",), (1,)))

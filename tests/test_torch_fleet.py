@@ -369,7 +369,9 @@ def test_unported_fleet_paths_raise_naming_their_roadmap_item(both_on_one_device
     """The checkpointed fleet raised naming ROADMAP A.13 until checkpoints
     were ported; it now checkpoints, and a fleet killed at a chunk resumes
     to the unkilled fleet bit for bit (its chunk program replaces the
-    stub). The sharded regime still raises (A.10b)."""
+    stub). The sharded regime raised (A.10b) until it was ported; on one
+    device it cannot shard, and forbidding it is the default regime (the
+    regimes on ranks: tests/test_torch_fleet_mesh.py)."""
     from flink_ml_tpu_torch.ckpt import faults
 
     X, y, _ = _dense("lr", seed=19)

@@ -7,11 +7,12 @@
   scripts/chip_funnel_phase.py, scripts/chip_checkpoint_phase.py,
   scripts/chip_host_attribution.py, scripts/chip_mesh_phase.py,
   scripts/probe_distributed_backends.py nor the rank jobs of the mesh
-  tests (tests/torch_mesh_jobs.py), imports jax or flink_ml_tpu;
+  tests (tests/torch_mesh_jobs.py, tests/torch_mesh2d_jobs.py), imports
+  jax or flink_ml_tpu;
 - each module of the mesh slice alone, and what a spawned rank imports
   (the launcher's rank entry `_rank_main` resolves its target by module
-  path: the mesh tests' jobs, chip_smoke's phase-16 jobs), pulls in
-  neither;
+  path: the mesh tests' jobs, chip_smoke's phase-16 and phase-17 jobs,
+  the supervisor's rank entry), pulls in neither;
 - chip_smoke.py fails without a card, and its CPU rehearsal runs through;
 - an entry point that was not asked for the CPU raises without a card,
   rather than falling back to the CPU; that holds for the stages whose work
@@ -42,7 +43,7 @@ PORT_FILES = sorted((REPO / "flink_ml_tpu_torch").rglob("*.py")) + [
     REPO / "scripts" / "rehearse_chip_smoke.py", REPO / "scripts" / "chip_funnel_phase.py",
     REPO / "scripts" / "chip_checkpoint_phase.py", REPO / "scripts" / "chip_host_attribution.py",
     REPO / "scripts" / "chip_mesh_phase.py", REPO / "scripts" / "probe_distributed_backends.py",
-    REPO / "tests" / "torch_mesh_jobs.py"]
+    REPO / "tests" / "torch_mesh_jobs.py", REPO / "tests" / "torch_mesh2d_jobs.py"]
 
 
 PORT_MODULES = sorted(
@@ -192,11 +193,15 @@ def test_the_mesh_slice_imports_neither_jax_nor_the_jax_package(name):
 
 
 @pytest.mark.parametrize("target", ["torch_mesh_jobs:sgd_fit", "chip_smoke:mesh_rank_job",
-                                    "chip_smoke:nccl_rank_job"])
+                                    "chip_smoke:nccl_rank_job", "torch_mesh2d_jobs:sparse_fit",
+                                    "torch_mesh2d_jobs:fleet_fit", "chip_smoke:mesh2d_rank_job",
+                                    "chip_smoke:mesh_supervised_job",
+                                    "flink_ml_tpu_torch.parallel.supervisor:supervised_rank"])
 def test_what_a_rank_imports_leaves_jax_out(target):
     """A spawned rank imports its job by module path (launcher.resolve, in
-    `_rank_main`): the mesh tests' jobs and chip_smoke's phase-16 jobs
-    pull in neither jax nor flink_ml_tpu."""
+    `_rank_main`): the mesh tests' jobs, chip_smoke's phase-16 and
+    phase-17 jobs and the supervisor's rank entry pull in neither jax nor
+    flink_ml_tpu."""
     code = (
         "import sys, inspect\n"
         f"sys.path[:0] = [{str(REPO)!r}, {str(REPO / 'tests')!r}]\n"

@@ -172,16 +172,22 @@ class TestMesh:
         np.testing.assert_array_equal(got.numpy(), [[2.0, 3.0], [8.0, 9.0]])
 
     def test_the_2d_layout_and_the_fleet_regime_wait_for_a10b(self):
-        for fn in (mesh.create_mesh_2d, mesh.model_sharding, mesh.data_model_sharding,
-                   mesh.fleet_sharding, mesh.host_groups, mesh.form_mesh_over,
-                   mesh.shard_axis_for_tag):
-            with pytest.raises(NotImplementedError, match="A.10b"):
-                fn(mesh.default_mesh())
-        one = mesh.Mesh(("data",), (1,))
-        assert mesh.fleet_axis_shardable(one, 8) is jax_mesh.fleet_axis_shardable(
-            _jax_mesh(1), 8) is False
-        with pytest.raises(NotImplementedError, match="A.10b"):
-            mesh.fleet_axis_shardable(mesh.Mesh(("data",), (2,)), 8)
+        """They waited for A.10b until it was ported: without a world the
+        2D mesh is one rank, the shardings are a rank's blocks, and the
+        fleet rule is the JAX package's at any rank count (the 2D layout is
+        held on ranks in tests/test_torch_mesh2d.py)."""
+        one = mesh.create_mesh_2d(1)
+        assert one.shape == {"data": 1, "model": 1} and one.group is None
+        with pytest.raises(ValueError, match="does not divide"):
+            mesh.create_mesh_2d(2)
+        assert mesh.model_sharding(mesh.default_mesh()).spec == ()
+        assert mesh.data_model_sharding(one).spec == ("data", "model")
+        assert mesh.fleet_sharding(one).spec == ("data", None)
+        assert mesh.host_groups(one, 1) == [[0]]
+        assert mesh.shard_axis_for_tag("model", 2) == 1
+        for shards, members in ((1, 8), (2, 8), (2, 3), (4, 8)):
+            assert mesh.fleet_axis_shardable(mesh.Mesh(("data",), (shards,)), members) is \
+                jax_mesh.fleet_axis_shardable(_jax_mesh(shards), members)
 
 
 class TestBackendRule:
@@ -246,38 +252,47 @@ class TestDispatch:
 
 
 class TestWhatWaitsForA10b:
-    """Options that A.10b ports raise naming it, before any collective."""
+    """Options that waited for A.10b raised naming it until it was ported;
+    on one rank they now take the flat fit, and a hand-made mesh of ranks
+    with no world behind it is refused before any collective."""
 
     def test_a_model_axis_is_refused_by_the_estimators(self, on_cpu):
         X = np.random.default_rng(0).random((20, 3))
         y = (X[:, 0] > 0.5).astype(float)
-        for shape in ((1, 2), (1, 1)):
-            with mesh.use_mesh(mesh.Mesh(("data", "model"), shape)):
-                sparse = Table({"features": SparseBatch(3, np.zeros((20, 1), np.int32),
-                                                        np.ones((20, 1))), "label": y})
-                with pytest.raises(NotImplementedError, match="A.10b"):
-                    LogisticRegression().fit(sparse)
-                if shape == (1, 2):
-                    with pytest.raises(NotImplementedError, match="A.10b"):
-                        LogisticRegression().fit(Table({"features": X, "label": y}))
-                    with pytest.raises(NotImplementedError, match="A.10b"):
-                        KMeans().set_k(2).fit(Table({"features": X}))
+        idx = np.tile(np.arange(3, dtype=np.int32), (20, 1))
+        sparse = Table({"features": SparseBatch(3, idx, X), "label": y})
+        flat = LogisticRegression().fit(sparse).coefficient
+        with mesh.use_mesh(mesh.Mesh(("data", "model"), (1, 1))):
+            np.testing.assert_array_equal(LogisticRegression().fit(sparse).coefficient, flat)
+            KMeans().set_k(2).fit(Table({"features": X}))
+        centroids = KMeans().set_k(2).fit(Table({"features": X})).centroids
+        with mesh.use_mesh(mesh.Mesh(("data", "model"), (1, 2))):
+            # the sparse fit splits its features over `model`, and a dense
+            # fit splits its rows over both ranks (C.36): each needs the group
+            with pytest.raises(ValueError, match="no process group"):
+                LogisticRegression().fit(sparse)
+            with pytest.raises(ValueError, match="no process group"):
+                LogisticRegression().fit(Table({"features": X, "label": y}))
+            # KMeans reduces over `data` only (one shard here)
+            np.testing.assert_array_equal(
+                KMeans().set_k(2).fit(Table({"features": X})).centroids, centroids)
 
     def test_sharded_stream_checkpoint_and_feature_sharding(self, on_cpu, tmp_path):
         two = mesh.Mesh(("data",), (2,))
         X = np.random.default_rng(1).random((40, 3))
         y = (X[:, 0] > 0.5).astype(float)
-        with pytest.raises(NotImplementedError, match="A.10b"):
+        plain = optimizer.SGD().optimize(np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS)
+        with pytest.raises(ValueError, match="no process group"):
             optimizer.SGD(checkpoint_dir=str(tmp_path)).optimize(
                 np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS, mesh=two)
-        with pytest.raises(NotImplementedError, match="A.10b"):
-            optimizer.SGD(shard_features=True).optimize(
-                np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS)
-        with pytest.raises(NotImplementedError, match="A.10b"):
+        featured = optimizer.SGD(shard_features=True).optimize(
+            np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS)
+        np.testing.assert_array_equal(featured[0], plain[0])
+        with pytest.raises(ValueError, match="no process group"):
             optimizer.SGD().optimize_stream(None, iter([(X, y, None)]),
                                             losses.BINARY_LOGISTIC_LOSS, mesh=two)
         with mesh.use_mesh(two):
-            with pytest.raises(NotImplementedError, match="A.10b"):
+            with pytest.raises(ValueError, match="no process group"):
                 KMeans().set_k(2).fit(StreamTable.from_batches([Table({"features": X})]))
 
     def test_a_rank_imports_its_target_by_module_path(self):

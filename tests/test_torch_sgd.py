@@ -156,8 +156,9 @@ def test_label_flag_rides_the_packed_result(both_on_one_device):
      ({"collective_overlap": True}, None), ({}, "a mesh")],
 )
 def test_unported_options_raise(both_on_one_device, kwargs, mesh, tmp_path):
-    """What A.10 left raises naming its ROADMAP item: feature sharding
-    (A.10b). `checkpoint_dir` raised (A.13) until checkpoints were ported;
+    """Feature sharding raised naming A.10b until it was ported; on one
+    rank it now takes the flat fit, bit for bit (the 2D layout on ranks is
+    held in tests/test_torch_mesh2d.py). `checkpoint_dir` raised (A.13) until checkpoints were ported;
     it now checkpoints, and its fit equals the unchecked fit bit for bit.
     `collective_overlap` and a mesh raised until the data axis was ported
     (A.10a): on a mesh of one rank both take the flat fit, bit for bit
@@ -173,9 +174,10 @@ def test_unported_options_raise(both_on_one_device, kwargs, mesh, tmp_path):
         assert ckpt[1:] == plain[1:] and os.listdir(tmp_path) == ["snap-k.npz"]
         return
     if "shard_features" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10b"):
-            optimizer.SGD(**kwargs).optimize(
-                np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS, mesh=mesh)
+        got = optimizer.SGD(**kwargs).optimize(
+            np.zeros(3), X, y, None, losses.BINARY_LOGISTIC_LOSS, mesh=mesh)
+        np.testing.assert_array_equal(got[0], plain[0])
+        assert got[1:] == plain[1:]
         return
     if mesh == "a mesh":
         mesh = port_mesh.create_mesh()
