@@ -330,9 +330,14 @@ channels) are printed on a `sanitizer` line. Phases:
    profiler pass since phase 5: its idle share);
 15. the port's tpulint (`python -m flink_ml_tpu_torch.analysis
    --no-cache`) over this checkout, a cold lint in a fresh process (the
-   coverage gates import the package where CUDA is present): its 13
+   coverage gates import the package where CUDA is present): its 20
    rules must run and it must exit 0; its wall and its census of
-   suppressed findings by rule are printed;
+   suppressed findings by rule are printed. Then the interpretation gate
+   (`analysis/spmd.py`): the SPMD interpreter must reach every per-rank
+   loop phases 16-17 run (`spmd.RANKED_LOOPS`), each with collective
+   events and a resolved operand at one call site or more; the count of
+   ranked bodies and of events by kind are printed (phases 16-17 compare
+   every rank's recorded collective sequence: the runtime half);
 16. data-parallel training over a mesh of ranks (`mesh_phase`, A.10a):
    (a) MESH_RANKS (4) gloo ranks sharing this card, started by
    `flink_ml_tpu_torch.parallel.launcher.World` (spawned processes; each
@@ -437,7 +442,7 @@ DEVICE = "cuda"
 #: seconds the sanitizer's verdict waits for each registered worker to end
 SANITIZER_JOIN_S = 30.0
 #: the port's tpulint: its rules, and the seconds phase 15 allows it
-LINT_RULES = 13
+LINT_RULES = 20
 LINT_TIMEOUT_S = 600
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -7290,7 +7295,7 @@ def main() -> int:
     log("phase 15: the port's tpulint over this checkout, in a fresh process with no summary "
         "cache")
     lint = lint_phase(card)
-    path_s["tpulint"] = lint["seconds"]
+    path_s["tpulint"] = lint["seconds"] + lint["gate_seconds"]
 
     # -- 16. data-parallel training over a mesh of ranks -------------------------------
     log(f"phase 16: {MESH_RANKS} gloo ranks sharing the card, each under the sanitizer: the "
@@ -8257,11 +8262,16 @@ def mesh2d_phase(card, dev, runs, world, spec, fleet_models):
 def lint_phase(card):
     """Phase 15: `python -m flink_ml_tpu_torch.analysis --no-cache` over
     this checkout in a fresh process (a cold lint). The registry must hold
-    LINT_RULES rules and the lint exit 0 with no finding left; returns its
-    wall, its census of suppressed findings by rule and the rules."""
+    LINT_RULES rules and the lint exit 0 with no finding left. Then the
+    interpretation gate: the SPMD interpreter (analysis/spmd.py) over the
+    checkout must reach every per-rank loop phases 16-17 run
+    (`spmd.RANKED_LOOPS`), each with collective events and a collective
+    whose operand it resolved at one call site or more, so the mesh rules
+    did not quietly give up on them. Returns the lint's wall, the gate's,
+    the census of suppressed findings by rule, the rules and the gate."""
     import subprocess as sp
 
-    from flink_ml_tpu_torch.analysis import engine
+    from flink_ml_tpu_torch.analysis import engine, spmd
 
     rules = [rule.id for rule in engine.all_rules()]
     check(len(rules) == LINT_RULES, f"tpulint has {len(rules)} rules, not {LINT_RULES}: {rules}")
@@ -8281,8 +8291,22 @@ def lint_phase(card):
     log(f"  tpulint: {len(rules)} rules, exit 0 in {seconds:.2f} s (a fresh process, no "
         f"cache), {len(report['suppressed'])} suppressed findings: {dict(sorted(census.items()))}; "
         f"on {card}")
-    return {"seconds": seconds, "rules": rules, "suppressed": len(report["suppressed"]),
-            "census": dict(sorted(census.items()))}
+    t0 = time.perf_counter()
+    project = engine.Project.load(root=here)
+    gate = spmd.gate(project)
+    interp = spmd.interpretation(project)
+    gate_seconds = time.perf_counter() - t0
+    missed = {name: row for name, row in gate.items() if not all(row)}
+    check(not missed, "the SPMD interpretation missed per-rank loops (bindings, collectives, "
+                      f"resolved): {missed}")
+    log(f"  spmd gate: {len(interp.bodies)} ranked bodies interpreted; all {len(gate)} per-rank "
+        f"loops of phases 16-17 reached with collectives and a resolved operand, in "
+        f"{gate_seconds:.2f} s; events by kind {interp.counts()}")
+    for name, (bindings, collectives, _) in gate.items():
+        log(f"    {name}: {bindings} call-site binding(s), up to {collectives} collective(s)")
+    return {"seconds": seconds, "gate_seconds": gate_seconds, "rules": rules,
+            "suppressed": len(report["suppressed"]), "census": dict(sorted(census.items())),
+            "bodies": len(interp.bodies), "events": interp.counts(), "gate": gate}
 
 
 def profile_run(name, run):

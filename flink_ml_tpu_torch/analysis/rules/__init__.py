@@ -5,13 +5,19 @@ from . import (  # noqa: F401
     accounting,
     channelprotocol,
     coverage,
+    divergence,
+    donation,
     flowcontrol,
     hostsync,
     lockorder,
     memledger,
+    meshaxis,
+    precision,
     residentprogram,
     retrace,
     servepath,
+    shardingtags,
     snapshotcommit,
+    specconsistency,
     untimedwait,
 )

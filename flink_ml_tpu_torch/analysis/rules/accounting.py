@@ -1,8 +1,18 @@
-"""upload-accounting: a raw host-to-device copy in models and ops.
+"""Accounting gates: raw collectives and raw uploads in models and ops.
 
-Port of the upload half of flink_ml_tpu/analysis/rules/accounting.py. A
-byte that reaches the card without being counted makes every figure that
-sums uploads wrong. The port's accounted stager is parallel/prefetch.py:
+Port of flink_ml_tpu/analysis/rules/accounting.py. A byte that moves
+without being counted makes every figure that sums bytes wrong.
+
+collective-accounting: every collective a model or op issues rides the
+accounted wrappers of parallel/collectives.py, which count
+`collective.<op>.*` and `collective.axis.<axis>.*` and feed the
+sanitizer's sequence ledger. The rule flags, in `models/` and `ops/`, a
+raw `torch.distributed` collective (`dist.all_reduce(...)`,
+`torch.distributed.all_gather(...)`, the point-to-point and object
+collectives too: the table is `analysis.spmd.DIST_COLLECTIVES`); a
+docstring or comment that names one is not code.
+
+upload-accounting: The port's accounted stager is parallel/prefetch.py:
 `stage_to_device` and `DeviceStager` (`:192`, `:103`) copy through pinned
 buffers and count `h2d.count`/`h2d.bytes`, and `account_h2d` (`:199`)
 counts a copy made elsewhere. The rule flags, in `models/` and `ops/`,
@@ -17,8 +27,7 @@ the torch calls that copy host data to the card around it:
 A function that calls `account_h2d` accounts its own copies, and is not
 flagged. `x.to(dtype)` is a cast, and a tensor made on the card without
 host data (`torch.zeros(..., device=...)`) moves no bytes: neither is
-flagged. The collective half (`collective-accounting`) waits for the
-port's SPMD rules (ROADMAP A.10c).
+flagged.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from __future__ import annotations
 import ast
 from typing import Iterable, Optional
 
+from .. import spmd
 from ..callgraph import device_like
 from ..engine import PACKAGE, Finding, Rule, register
 from ..source import SourceModule, dotted_name
@@ -121,3 +131,34 @@ class UploadAccountingRule(Rule):
                          "stager (use parallel.prefetch.stage_to_device, or count the copy "
                          "with account_h2d)"),
                 data=(primitive,))
+
+
+@register
+class CollectiveAccountingRule(Rule):
+    id = "collective-accounting"
+    title = "raw torch.distributed collective bypasses the accounted wrappers"
+    rationale = (
+        "Every collective a model or op dispatches must ride the accounted "
+        "wrappers in parallel/collectives.py: that is what keeps the "
+        "`collective.*` counters an exhaustive answer to 'what traffic does "
+        "this fit move', and the sanitizer's per-rank sequence ledger "
+        "complete. A raw `dist.all_reduce` runs fine and vanishes from both."
+    )
+    example = "dist.all_reduce(grad)  # use collectives.all_reduce_sum(grad, DATA_AXIS, mesh)"
+    scope = (f"{PACKAGE}/models", f"{PACKAGE}/ops")
+
+    def check_module(self, project, module: SourceModule) -> Iterable[Finding]:
+        if module.tree is None:
+            return
+        aliases = spmd._dist_aliases(module.tree)
+        for node in ast.walk(module.tree):
+            if not isinstance(node, ast.Call):
+                continue
+            primitive = spmd._dist_name(node.func, aliases)
+            if primitive in spmd.DIST_COLLECTIVES:
+                yield Finding(
+                    path=module.path, line=node.lineno, rule=self.id,
+                    message=(f"torch.distributed.{primitive}(...) bypasses the accounted "
+                             "collective wrappers (use flink_ml_tpu_torch.parallel."
+                             "collectives instead)"),
+                    data=(primitive,))

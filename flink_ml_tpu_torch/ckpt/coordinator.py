@@ -668,7 +668,10 @@ def save_rank_cut(
             _remove_quiet(victim)
         metrics.inc_counter("checkpoint.abort")
         raise SnapshotAborted("; ".join(errors))
+    # rank 0 commits; every rank then reaches the one outcome broadcast, and
+    # rank 0 re-raises a commit failure only after it
     outcome: List[Any] = [None]
+    failure: Optional[BaseException] = None
     if rank == 0:
         layout: Dict[str, List[Dict[str, Any]]] = {}
         shards: Dict[str, Dict[str, Any]] = {}
@@ -700,9 +703,10 @@ def save_rank_cut(
             outcome = [("ok", target)]
         except BaseException as e:
             outcome = [("error", f"{type(e).__name__}: {e}")]
-            dist.broadcast_object_list(outcome, src=root, group=group)
-            raise
+            failure = e
     dist.broadcast_object_list(outcome, src=root, group=group)
+    if failure is not None:
+        raise failure
     status, value = outcome[0]
     if status != "ok":
         raise RuntimeError(f"rank 0 could not commit snapshot cut {cut}: {value}")

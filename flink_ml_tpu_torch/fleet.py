@@ -135,6 +135,30 @@ def _require_same(estimators, getter: str, what: str):
     return values[0]
 
 
+def _stream_segments(chunks, b: int, d: int, device, slots=None):
+    """A stream's equal (X, y, w) chunks as packed [X | y | w] segments
+    (`optimizer.StreamLayout`), stacked on `device` once. With `slots`
+    (this rank's rows of each batch) a segment holds those rows, padding
+    rows at weight 0. Returns (layout, segments)."""
+    from .ops import optimizer
+
+    layout = optimizer.StreamLayout(b if slots is None else slots.size, d)
+    segments = torch.empty((len(chunks), layout.size), dtype=optimizer.COMPUTE_DTYPE,
+                           device=device)
+    flat = np.zeros(layout.size, np.float32)
+    Xv, yv, wv = layout.views(flat)
+    for i, (X, y, w) in enumerate(chunks):
+        w = np.ones(b, np.float32) if w is None else w
+        if slots is not None:
+            keep = slots[slots < b]
+            flat[:] = 0.0
+            Xv[:keep.size], yv[:keep.size], wv[:keep.size] = X[keep], y[keep], w[keep]
+        else:
+            Xv[:], yv[:], wv[:] = X, y, w
+        segments[i].copy_(torch.from_numpy(flat))
+    return layout, segments
+
+
 class FitFleet:
     """Train N same-class estimators as one fleet: `FitFleet([e1..eN])
     .fit(table)` returns N fitted models, each the model `ei.fit(table)`
@@ -506,44 +530,37 @@ class FitFleet:
         (b, d) = next(iter(shapes))
         device = mesh.device if mesh.size > 1 else config.device()
         sharded = self._decide_sharded(mesh, state_bytes=2 * len(self.estimators) * d * 4)
-        replicated_on_ranks = mesh.size > 1 and not sharded
-        lo, hi = self._own(mesh, sharded)
-        rows = rows[lo:hi]
-        gmax = int(max(r[0] for r in rows))
-        slots = None
-        if replicated_on_ranks:  # this rank's rows of each batch
+        # each regime reads only its own members: every member in the default
+        # regime on ranks, this rank's block (every member on one rank) else
+        if mesh.size > 1 and not sharded:  # this rank's rows of each batch
             start, stop = mesh_lib.shard_bounds(int(b), mesh)
-            slots = np.arange(start, stop)
-        layout = optimizer.StreamLayout(int(b) if slots is None else slots.size, int(d))
-        segments = torch.empty((len(chunks), layout.size), dtype=optimizer.COMPUTE_DTYPE,
-                               device=device)
-        flat = np.zeros(layout.size, np.float32)
-        Xv, yv, wv = layout.views(flat)
-        for i, (X, y, w) in enumerate(chunks):
-            w = np.ones(int(b), np.float32) if w is None else w
-            if slots is not None:
-                keep = slots[slots < b]
-                flat[:] = 0.0
-                Xv[:keep.size], yv[:keep.size], wv[:keep.size] = X[keep], y[keep], w[keep]
-            else:
-                Xv[:], yv[:], wv[:] = X, y, w
-            segments[i].copy_(torch.from_numpy(flat))
-        del chunks
-        state = self._stage_fleet_state(mesh, len(rows), d, sharded, device)
-        hyper = optimizer.fleet_hyper(rows, device)
-        with tracing.span("iteration.run", mode="fleet_stream", epochs=gmax,
-                          fleet=len(self.estimators)):
-            if replicated_on_ranks:
+            layout, segments = _stream_segments(chunks, int(b), int(d), device,
+                                                np.arange(start, stop))
+            del chunks
+            state = self._stage_fleet_state(mesh, len(rows), d, False, device)
+            hyper = optimizer.fleet_hyper(rows, device)
+            gmax = int(max(r[0] for r in rows))
+            with tracing.span("iteration.run", mode="fleet_stream", epochs=gmax,
+                              fleet=len(self.estimators)):
                 X_b, y_b, w_b = layout.views(segments)
                 state = optimizer._sgd_fleet_sharded_chunk(mesh, X_b, y_b, w_b, state,
                                                            loss_func, hyper, 0, gmax)
-                packed = optimizer._sgd_fleet_final(state, hyper)
-            else:
+                (host,) = _linear.packed_to_host(optimizer._sgd_fleet_final(state, hyper))
+        else:
+            lo, hi = self._own(mesh, sharded)
+            rows = rows[lo:hi]
+            layout, segments = _stream_segments(chunks, int(b), int(d), device)
+            del chunks
+            state = self._stage_fleet_state(mesh, len(rows), d, sharded, device)
+            hyper = optimizer.fleet_hyper(rows, device)
+            gmax = int(max(r[0] for r in rows))
+            with tracing.span("iteration.run", mode="fleet_stream", epochs=gmax,
+                              fleet=len(self.estimators)):
                 packed = optimizer._sgd_fleet_stream_whole_fit(
                     segments, layout, state, loss_func, hyper, gmax)
-            if sharded:
-                packed = collectives.all_gather(packed, mesh=mesh)
-            (host,) = _linear.packed_to_host(packed)
+                if sharded:
+                    packed = collectives.all_gather(packed, mesh=mesh)
+                (host,) = _linear.packed_to_host(packed)
         _, coeffs, criteria, epochs = optimizer.unpack_fleet_train_result(host, d)
         metrics.inc_counter("fleet.examplesTrained", int(np.sum(epochs)) * int(b))
         return self._linear_models(coeffs), criteria, epochs
@@ -584,11 +601,9 @@ class FitFleet:
             raise ValueError(f"Number of points ({n}) is less than k ({k})")
         mesh = mesh_lib.flatten(mesh_lib.default_mesh())
         sharded = self._decide_sharded(mesh, state_bytes=2 * len(ests) * k * d * 4)
-        lo, hi = self._own(mesh, sharded)
-        mine = ests[lo:hi]
-        max_iters = [int(e.get_max_iter()) for e in mine]
-        if mesh.size > 1 and not sharded:
-            init_idx = np.stack([km.init_rows(n, k, e.get_seed()) for e in mine])
+        if mesh.size > 1 and not sharded:  # every member on this rank's rows
+            max_iters = [int(e.get_max_iter()) for e in ests]
+            init_idx = np.stack([km.init_rows(n, k, e.get_seed()) for e in ests])
             device = X.device if isinstance(X, torch.Tensor) else mesh.device
             X_local, _ = mesh_lib.shard_batch(mesh, X if isinstance(X, torch.Tensor)
                                               else np.asarray(X, np.float32))
@@ -598,13 +613,16 @@ class FitFleet:
             inits = (X.index_select(0, to_device(init_idx.reshape(-1), device))
                      if isinstance(X, torch.Tensor) else
                      to_device(np.asarray(X, np.float32)[init_idx.reshape(-1)], device))
-            inits = inits.to(torch.float32).reshape(len(mine), k, d)
+            inits = inits.to(torch.float32).reshape(len(ests), k, d)
             dispatch.whole_fit_plan(start_epoch=0, max_iter=max(max_iters), ranks=mesh.size)
             with tracing.span("iteration.run", mode="fleet_sharded", epochs=max(max_iters),
                               fleet=len(ests), ranks=mesh.size):
                 packed = km._lloyd_fleet_sharded(mesh, X_local, weights, inits, max_iters,
                                                  measure)
-        else:
+        else:  # this rank's members (every member on one rank) on every row
+            lo, hi = self._own(mesh, sharded)
+            mine = ests[lo:hi]
+            max_iters = [int(e.get_max_iter()) for e in mine]
             X, rows_of = km.staged_points(X)
             inits = torch.stack([rows_of(km.init_rows(n, k, e.get_seed())) for e in mine])
             if config.whole_fit != "off":

@@ -673,6 +673,7 @@ class SGD:
         finally:
             cache.close()
         _, coeff, criteria, epochs = unpack_train_result(host, d)
+        # tpulint: disable=spec-consistency -- stats: this rank's own cache, per rank by design
         return coeff, criteria, epochs, stats
 
     def _drain_and_snapshot(self, state, end: int, meta, specs=None,

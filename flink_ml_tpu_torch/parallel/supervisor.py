@@ -831,7 +831,8 @@ def supervise_world(
         raise ValueError(f"unknown on_failure policy {on_failure!r}")
     budget = config.recovery_budget if recovery_budget is None else int(recovery_budget)
     board = HostBoard(hosts)
-    board.groups = mesh_lib.host_groups(mesh_lib.Mesh(("data",), (world_size,)), hosts)
+    board.groups = mesh_lib.host_groups(mesh_lib.Mesh((mesh_lib.DATA_AXIS,), (world_size,)),
+                                   hosts)
     path = launcher.target_path(target)
     events: List[FailureEvent] = []
     attempt = 0

@@ -146,7 +146,14 @@ ANALYSIS_SLICE = ["flink_ml_tpu_torch.analysis", "flink_ml_tpu_torch.analysis.__
                   "flink_ml_tpu_torch.analysis.rules.flowcontrol",
                   "flink_ml_tpu_torch.analysis.rules.lockorder",
                   "flink_ml_tpu_torch.analysis.rules.snapshotcommit",
-                  "flink_ml_tpu_torch.analysis.rules.untimedwait"]
+                  "flink_ml_tpu_torch.analysis.rules.untimedwait",
+                  "flink_ml_tpu_torch.analysis.spmd",
+                  "flink_ml_tpu_torch.analysis.rules.divergence",
+                  "flink_ml_tpu_torch.analysis.rules.donation",
+                  "flink_ml_tpu_torch.analysis.rules.meshaxis",
+                  "flink_ml_tpu_torch.analysis.rules.precision",
+                  "flink_ml_tpu_torch.analysis.rules.shardingtags",
+                  "flink_ml_tpu_torch.analysis.rules.specconsistency"]
 
 
 @pytest.mark.parametrize("name", ANALYSIS_SLICE)
@@ -159,7 +166,7 @@ def test_the_analysis_slice_imports_neither_jax_nor_the_jax_package(name):
         "import sys, importlib\n"
         f"importlib.import_module({name!r})\n"
         "from flink_ml_tpu_torch.analysis import engine\n"
-        "assert len(engine.all_rules()) == 13\n"
+        "assert len(engine.all_rules()) == 20\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flink_ml_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -15,10 +15,11 @@ package's (flink_ml_tpu/analysis/).
   suppression carries a `-- reason`, and a warm summary cache gives the
   findings of a cold run (the full lint runs once, in a module fixture);
 - the CLI, `python -m flink_ml_tpu_torch.analysis`: `--list-rules` shows
-  exactly the thirteen rules and `unused-suppression`, the exit codes,
-  and `--format json`.
+  exactly the JAX package's twenty rules and `unused-suppression`, the
+  exit codes, and `--format json`.
 
-The two coverage gates are held in tests/test_torch_tpulint_coverage.py.
+The two coverage gates are held in tests/test_torch_tpulint_coverage.py,
+the seven SPMD rules (analysis/spmd.py) in tests/test_torch_tpulint_spmd.py.
 """
 
 import json
@@ -40,7 +41,10 @@ REPO = Path(__file__).resolve().parent.parent
 TEXT_RULES = ["host-sync-leak", "resident-program", "retrace-hazard", "serve-path-trace",
               "unledgered-residency", "upload-accounting", "channel-protocol", "lock-order",
               "snapshot-commit", "unbounded-queue", "untimed-wait"]
-RULES = sorted(TEXT_RULES + ["checkpoint-coverage", "fusion-coverage"])
+#: the rules over the SPMD interpreter (tests/test_torch_tpulint_spmd.py)
+SPMD_RULES = ["collective-accounting", "collective-divergence", "donation-after-use",
+              "mesh-axis", "precision-determinism", "sharding-tags", "spec-consistency"]
+RULES = sorted(TEXT_RULES + SPMD_RULES + ["checkpoint-coverage", "fusion-coverage"])
 
 
 def _tree(root, package, files):
@@ -1350,10 +1354,13 @@ def test_the_cache_file_is_the_ports_own():
 # ---------------------------------------------------------------------------
 
 def test_list_rules_shows_the_thirteen_rules(capsys):
+    """All twenty rules now (the name is the thirteen-rule test's): exactly
+    the JAX package's rule ids, and `unused-suppression`."""
     assert cli.main(["--list-rules"]) == 0
     listed = [line.split(":")[0] for line in capsys.readouterr().out.splitlines()
               if line and not line.startswith(" ")]
     assert listed == RULES + ["unused-suppression"]
+    assert len(RULES) == 20 and RULES == sorted(r.id for r in jax_engine.all_rules())
 
 
 def test_cli_exit_codes_and_json(tmp_path, capsys):
