@@ -397,9 +397,23 @@ channels) are printed on a `sanitizer` line. Phases:
    checkpointed dense LR on 4 ranks in 2 hosts, host 1 dies at a dispatch
    boundary, the world is relaunched on the 2 survivors, whose resume is
    held within MESH_DENSE_TOL of phase 3's fit. It prints a `mesh2d` line;
-18. a `kernels` JSON line (four kernels; the fleet kernels with phase 17's
-   shapes in `by_shape`, every kernel's phase-17 launches by path), then
-   the result line.
+18. the JAX package's examples on the port (`examples_phase`, A.18): one
+   child process (`examples_child`) runs every `examples/*.py` in sorted
+   order on the card, each rewritten from `flink_ml_tpu` to
+   `flink_ml_tpu_torch` (`example_source`; the one unused `import jax`
+   line of pipeline_serving_example.py is dropped, as this machine has no
+   JAX, and a literal `/tmp/` path moves under a directory of the child's
+   own, made in its TMPDIR and removed after), in-process with
+   `__name__ == "__main__"` and its asserts active, with no device request (the card), under the runtime sanitizer. It
+   fails the run if an example raises or prints nothing, if the sanitizer
+   reports a problem, or if sparse_wide_lr_example.py launches no
+   `sparse_row_dots` or no `sparse_grad` (counts reset before each example
+   and read after). It prints each example's seconds, the launches of
+   each example that made any and the multi-tenant store's stats line,
+   and an `examples` line;
+19. a `kernels` JSON line (four kernels; the fleet kernels with phase 17's
+   shapes in `by_shape`, every kernel's phase-17 and phase-18 launches by
+   path), then the result line.
 """
 
 from __future__ import annotations
@@ -444,6 +458,15 @@ SANITIZER_JOIN_S = 30.0
 #: the port's tpulint: its rules, and the seconds phase 15 allows it
 LINT_RULES = 20
 LINT_TIMEOUT_S = 600
+#: phase 18: the examples directory, the seconds its child may take, and
+#: per example the one line its rewrite drops (an import the port's run
+#: does not use and this machine cannot satisfy)
+EXAMPLES_DIR = "examples"
+EXAMPLES_TIMEOUT_S = 600
+EXAMPLE_DROPPED_LINES = {"pipeline_serving_example.py": "import jax"}
+#: the example whose fit must launch both solo kernels on the card
+SPARSE_EXAMPLE = "sparse_wide_lr_example.py"
+MULTI_TENANT_EXAMPLE = "multi_tenant_serving_example.py"
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -7329,6 +7352,18 @@ def main() -> int:
         for kernel in launches:
             launches[kernel] += counts[kernel]
 
+    # -- 18. the JAX package's examples on the port ------------------------------
+    log("phase 18: every examples/*.py rewritten to the port, in one child process on the "
+        "card under the sanitizer (launch counts reset before and read after each example)")
+    torch.cuda.empty_cache()
+    examples = examples_phase(card)
+    path_s["examples"] = examples["seconds"]
+    example_launches = {f"example {name}": r["launches"]
+                        for name, r in examples["examples"].items() if any(r["launches"].values())}
+    for counts in example_launches.values():
+        for kernel in launches:
+            launches[kernel] += counts[kernel]
+
     # -- output -----------------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
@@ -7357,7 +7392,8 @@ def main() -> int:
                                     if c[name]},
                                  **{p: c[name] for p, c in funnel_launches.items() if c[name]},
                                  **{p: c[name] for p, c in mesh_launches.items() if c[name]},
-                                 **{p: c[name] for p, c in mesh2d_launches.items() if c[name]}},
+                                 **{p: c[name] for p, c in mesh2d_launches.items() if c[name]},
+                                 **{p: c[name] for p, c in example_launches.items() if c[name]}},
             "launches_by_feature_path": {p: r["launches"][name] for p, r in
                                          {**features, **texts, **stat_stages, **slice8}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -7381,7 +7417,8 @@ def main() -> int:
                                  **{p: c[name] for p, c in checkpoints["launches"].items()
                                     if c[name]},
                                  **{p: c[name] for p, c in funnel_launches.items() if c[name]},
-                                 **{p: c[name] for p, c in mesh2d_launches.items() if c[name]}},
+                                 **{p: c[name] for p, c in mesh2d_launches.items() if c[name]},
+                                 **{p: c[name] for p, c in example_launches.items() if c[name]}},
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "tolerance": r["tolerance"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -7415,7 +7452,8 @@ def main() -> int:
     log("tpulint: " + json.dumps(lint))
     log("mesh: " + json.dumps(mesh, default=str))
     log("mesh2d: " + json.dumps(mesh2d, default=str))
-    log("seconds by path (phases 3-17): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("examples: " + json.dumps(examples))
+    log("seconds by path (phases 3-18): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s on {card}")
@@ -8307,6 +8345,132 @@ def lint_phase(card):
     return {"seconds": seconds, "gate_seconds": gate_seconds, "rules": rules,
             "suppressed": len(report["suppressed"]), "census": dict(sorted(census.items())),
             "bodies": len(interp.bodies), "events": interp.counts(), "gate": gate}
+
+
+def example_source(path, tmp):
+    """An example's source on the port: `flink_ml_tpu` rewritten to
+    `flink_ml_tpu_torch`, each literal `/tmp/` path moved under the
+    directory `tmp`, and the line EXAMPLE_DROPPED_LINES names for it
+    (which must be there, once) dropped."""
+    with open(path) as f:
+        text = re.sub(r"\bflink_ml_tpu\b", "flink_ml_tpu_torch", f.read())
+    text = re.sub(r"(?<=[\"'])/tmp/", f"{tmp}/", text)
+    check("/tmp/" not in text.replace(f"{tmp}/", ""), f"{path} keeps a /tmp/ path")
+    dropped = EXAMPLE_DROPPED_LINES.get(os.path.basename(path))
+    if dropped is None:
+        return text
+    lines = text.split("\n")
+    check(lines.count(dropped) == 1, f"{path} holds {lines.count(dropped)} lines {dropped!r}")
+    lines.remove(dropped)
+    return "\n".join(lines)
+
+
+def examples_child(spec_json: str) -> int:
+    """Phase 18's child process: each example of spec["examples"] in turn,
+    rewritten (`example_source`), in this process with `__name__ ==
+    "__main__"`, under the sanitizer; on the card with no device request,
+    in the CPU rehearsal (spec["device"] "cpu") under `use_device("cpu")`,
+    with each plain version's call counted as its kernel's launch. Prints
+    one `example {json}` line an example (its seconds, stdout, launches and
+    error, if any), then one `sanitizer {json}` line."""
+    import contextlib
+    import io
+    import shutil
+    import traceback
+
+    from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.analysis import sanitizer
+    from flink_ml_tpu_torch.ops import sparsekernels as sk
+
+    spec = json.loads(spec_json)
+    on_cpu = spec["device"] == "cpu"
+    if on_cpu:
+        count_plain_launches(sk)
+    sanitizer.enable(register_atexit=False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    for path in spec["examples"]:
+        name = os.path.basename(path)
+        out, error = io.StringIO(), None
+        code = compile(example_source(path, tmp), path, "exec")
+        place = port_config.use_device("cpu") if on_cpu else contextlib.nullcontext()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with place, contextlib.redirect_stdout(out):
+                exec(code, {"__name__": "__main__", "__file__": path})
+            if not on_cpu:
+                torch.cuda.synchronize()
+        except BaseException:  # noqa: B902 -- an example's failure is reported, not raised
+            error = traceback.format_exc()
+        seconds = time.perf_counter() - t0
+        print("example " + json.dumps({"name": name, "seconds": seconds, "stdout": out.getvalue(),
+                                       "launches": sk.launch_counts(), "error": error}),
+              flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    problems = sanitizer.recorder.problems(join_timeout=SANITIZER_JOIN_S)
+    print("sanitizer " + json.dumps({"problems": problems, "stats": sanitizer.recorder.stats()}),
+          flush=True)
+    sanitizer.mark_exit_checked()
+    return 0
+
+
+def examples_phase(card):
+    """Phase 18: every examples/*.py on the port in one child process
+    (`examples_child`), on the card, under the sanitizer. Fails if an
+    example raises or prints nothing, if the sanitizer reports a problem,
+    or if SPARSE_EXAMPLE launches no `sparse_row_dots` or no
+    `sparse_grad`. Returns the phase's seconds, each example's seconds,
+    output lines and launches, the multi-tenant store's stats line and the
+    sanitizer's stats."""
+    import subprocess as sp
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(os.path.join(here, EXAMPLES_DIR, n)
+                   for n in os.listdir(os.path.join(here, EXAMPLES_DIR)) if n.endswith(".py"))
+    check(len(paths) >= 38, f"phase 18 found {len(paths)} examples, expected 38 or more")
+    spec = json.dumps({"examples": paths, "device": DEVICE})
+    t0 = time.perf_counter()
+    proc = sp.run([sys.executable, "-c",
+                   "import sys, chip_smoke; sys.exit(chip_smoke.examples_child(sys.argv[1]))", spec],
+                  cwd=here, capture_output=True, text=True, timeout=EXAMPLES_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the examples' child exited {proc.returncode}: "
+                                f"{proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+    results, verdict = {}, None
+    for line in proc.stdout.splitlines():
+        if line.startswith("example {"):
+            r = json.loads(line[len("example "):])
+            results[r["name"]] = r
+        elif line.startswith("sanitizer {"):
+            verdict = json.loads(line[len("sanitizer "):])
+    names = [os.path.basename(p) for p in paths]
+    check(list(results) == names, f"phase 18 ran {list(results)}, expected {names}")
+    failed = {n: r["error"] for n, r in results.items() if r["error"]}
+    check(not failed, "examples raised on the port: " + "; ".join(
+        f"{n}: {e[-1500:]}" for n, e in failed.items()))
+    silent = [n for n, r in results.items() if not r["stdout"].strip()]
+    check(not silent, f"examples printed nothing: {silent}")
+    check(verdict is not None, "the examples' child printed no sanitizer verdict")
+    check(not verdict["problems"], f"the sanitizer found {len(verdict['problems'])} problem(s) "
+                                   "in the examples: " + "; ".join(verdict["problems"]))
+    sparse = results[SPARSE_EXAMPLE]["launches"]
+    check(sparse["sparse_row_dots"] > 0 and sparse["sparse_grad"] > 0,
+          f"{SPARSE_EXAMPLE} launched {sparse}: both solo kernels must run")
+    for n, r in results.items():
+        made = {k: v for k, v in r["launches"].items() if v}
+        log(f"  {n}: {r['seconds']:.3f} s, {len(r['stdout'].strip().splitlines())} line(s)"
+            + (f"; launches {made}" if made else ""))
+    store_line = next((line for line in results[MULTI_TENANT_EXAMPLE]["stdout"].splitlines()
+                       if "store stats" in line), "")
+    log(f"  {MULTI_TENANT_EXAMPLE}: {store_line}")
+    log(f"  sanitizer (the examples' child): {json.dumps(verdict['stats'])}")
+    log(f"  phase 18: {len(results)} examples green in {seconds:.2f} s (the child's wall, its "
+        f"start included; the examples {sum(r['seconds'] for r in results.values()):.2f} s) on "
+        f"{card}")
+    return {"seconds": seconds,
+            "examples": {n: {"seconds": r["seconds"], "lines": len(r["stdout"].strip().splitlines()),
+                             "launches": r["launches"]} for n, r in results.items()},
+            "store_stats": store_line, "sanitizer": verdict["stats"]}
 
 
 def profile_run(name, run):

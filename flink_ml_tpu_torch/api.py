@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .param import WithParams
-from .table import SparseBatch, Table
+from .table import SparseBatch, Table, host_readable
 
 
 class KernelContext:
@@ -91,9 +91,12 @@ class HostConstants:
     offset aligned to `ALIGN` bytes, the buffer page-locked once it is
     uploaded to a card. `upload` puts the tree on a device with one
     asynchronous copy on the current stream, ledgered under `model`
-    (obs/memledger.py) while the uploaded tensors live: dropping them frees
-    them at once. A stage keeps its HostConstants across uploads, so paging
-    a model in costs one host-to-device copy."""
+    (obs/memledger.py) while the uploaded tensors live: each leaf counts
+    its `ALIGN`-byte slot, so the ledger holds the `nbytes` the upload
+    allocates, and dropping the tensors frees them at once. The leaves are
+    `HostReadable`: numpy reads them on the card as it reads the JAX
+    package's device constants. A stage keeps its HostConstants across
+    uploads, so paging a model in costs one host-to-device copy."""
 
     #: the offset alignment of each leaf in the buffer
     ALIGN = 256
@@ -136,9 +139,10 @@ class HostConstants:
         out.copy_(self.buffer, non_blocking=True)
         prefetch.account_h2d(sum(spec[1] for spec in self.specs), arrays=len(self.specs),
                              seconds=time.perf_counter() - t0)
-        tensors = [out[off:off + nbytes].view(dtype).view(shape)
+        tensors = [host_readable(out[off:off + nbytes].view(dtype).view(shape))
                    for off, nbytes, dtype, shape in self.specs]
-        return memledger.track(_map_leaves(self.layout, tensors.__getitem__), "model")
+        return memledger.track(_map_leaves(self.layout, tensors.__getitem__), "model",
+                               align=self.ALIGN)
 
 
 def upload_constants(tree, device: torch.device):
@@ -158,6 +162,11 @@ class Stage(WithParams, abc.ABC):
 
         instrument_stage_methods(cls)
         _instrument_model_publication(cls)
+
+    #: a data-placement hint for loaders and generators: True when the
+    #: stage's work is host work by nature (string rendering, an O(n^2)
+    #: host linkage), so its inputs are best made on the host
+    prefers_host_input: bool = False
 
     def save(self, path: str) -> None:
         from .utils import read_write

@@ -259,11 +259,11 @@ def restore_cache_contents(snap, cache, layout):
     section = snap.sections.get("cache")
     if section is None:
         return None
-    flat = np.zeros(layout.size, np.float32)
+    flat = np.zeros(layout.size, layout.dtype)
     Xv, yv, wv = layout.views(flat)
     segs = []
     for arr in section:
-        arr = np.asarray(arr, np.float32)
+        arr = np.asarray(arr, layout.dtype)
         if arr.shape != (layout.batch, layout.d + 2):
             return None
         Xv[:], yv[:], wv[:] = arr[:, :layout.d], arr[:, layout.d], arr[:, layout.d + 1]

@@ -311,7 +311,8 @@ class FitFleet:
             return self._fit_linear_stream(mesh, table, loss_func, rows, features_col,
                                            label_col, weight_col, validate)
 
-        X, y, w = _linear.extract_train_data(table, features_col, label_col, weight_col)
+        X, y, w = _linear.extract_train_data(table, features_col, label_col, weight_col,
+                                             keep_sparse=True)
         validate_on_device = False
         if validate:
             if isinstance(y, torch.Tensor):

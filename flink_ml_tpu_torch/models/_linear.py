@@ -40,11 +40,13 @@ def extract_train_data(
     features_col: str,
     label_col: Optional[str],
     weight_col: Optional[str],
+    keep_sparse: bool = False,
 ) -> Tuple[object, Optional[object], Optional[object]]:
-    """A SparseBatch features column stays sparse and is returned as the
-    (indices, values, dim) triple the SGD engine trains on natively."""
+    """With `keep_sparse`, a SparseBatch features column stays sparse and
+    is returned as the (indices, values, dim) triple the SGD engine trains
+    on natively; without it, it is densified, as in the JAX package."""
     col = table.column(features_col)
-    if isinstance(col, SparseBatch):
+    if keep_sparse and isinstance(col, SparseBatch):
         X = (col.indices, col.values, col.size)
     else:
         X = as_dense_matrix(col, allow_device=True)
@@ -93,7 +95,7 @@ def run_sgd(params, table, loss_func: LossFunc, weight_col: Optional[str],
         coeff, loss, epochs, _ = optimizer.optimize_stream(None, chunks, loss_func, mesh=mesh)
         return coeff, loss, epochs
     X, y, w = extract_train_data(
-        table, params.get_features_col(), params.get_label_col(), weight_col
+        table, params.get_features_col(), params.get_label_col(), weight_col, keep_sparse=True
     )
     validate_on_device = False
     if validate_binomial:
@@ -119,13 +121,14 @@ def run_sgd(params, table, loss_func: LossFunc, weight_col: Optional[str],
 
 
 def _stream_chunks(stream, features_col, label_col, weight_col, validate_binomial):
-    """Host (X, y, w) chunks from a StreamTable's Tables, dense (a sparse
-    column is densified, as the JAX package's stream path does); labels are
-    validated chunk by chunk when asked."""
+    """Host (X, y, w) chunks from a StreamTable's Tables, dense: a sparse
+    column is densified (`extract_train_data` without `keep_sparse`), as
+    the JAX package's stream path does; labels are validated chunk by
+    chunk when asked."""
     for batch in stream:
-        X = _host(as_dense_matrix(batch.column(features_col), allow_device=True))
-        y = _host(batch.column(label_col)).astype(np.float64, copy=False)
-        w = None if weight_col is None else _host(batch.column(weight_col))
+        X, y, w = extract_train_data(batch, features_col, label_col, weight_col)
+        X, y = _host(X), _host(y).astype(np.float64, copy=False)
+        w = None if w is None else _host(w)
         if validate_binomial:
             validate_binomial_labels(y)
         yield X, y, w

@@ -99,6 +99,7 @@ class FeatureHasherParams(HasInputCols, HasCategoricalCols, HasOutputCol, HasNum
 class FeatureHasher(Transformer, FeatureHasherParams):
     fusable = False
     fusable_reason = "murmur-hashes 'col=value' strings rendered on host (prefers_host_input)"
+    prefers_host_input = True
 
     def transform(self, *inputs: Table) -> List[Table]:
         config.device()  # an entry point: no silent CPU without a request

@@ -4,7 +4,8 @@ The C++ sources under `native/src/` (host code, shared with the JAX
 package) are each compiled alone with g++ into `flink_ml_tpu_torch/_build/`
 at first use, and rebuilt when the source is newer than the library:
 
-- `datacache.cc`, the spillable data cache (`load`, `native/datacache.py`);
+- `datacache.cc`, the spillable data cache and the delimited-number
+  parser (`load`, `native/datacache.py`);
 - `hashkernels.cc`, the hashing-trick kernels of FeatureHasher
   (`load_hashkernels`, `native/hashkernels.py`), built with the JAX
   package's `-ffp-contract=off` and with `<version>` included first: the
@@ -20,7 +21,8 @@ at first use, and rebuilt when the source is newer than the library:
   loop's arithmetic.
 
 A failed build raises with the compiler's output: the port has no silent
-pure-Python fallback.
+pure-Python fallback. `available()` and `has_symbol(name)` ask without
+raising, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -89,6 +91,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dc_spilled_segments.argtypes = [p]
     lib.dc_spilled_bytes.restype = u64
     lib.dc_spilled_bytes.argtypes = [p]
+    lib.dc_parse_csv_doubles.restype = long_
+    lib.dc_parse_csv_doubles.argtypes = [ctypes.c_char_p, u64, p, u64]
 
 
 def _declare_hashkernels(lib: ctypes.CDLL) -> None:
@@ -141,3 +145,26 @@ def load_agglomerative() -> ctypes.CDLL:
             _declare_agglomerative(lib)
             _libs[AGG_LIBRARY] = lib
         return lib
+
+
+def available() -> bool:
+    """True when the data cache library builds and loads."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
+def has_symbol(name: str) -> bool:
+    """True when one of the native libraries exports `name` (each built
+    first if it is missing or older than its source; one that does not
+    build exports nothing)."""
+    for loader in (load, load_hashkernels, load_agglomerative):
+        try:
+            lib = loader()
+        except (OSError, RuntimeError):
+            continue
+        if hasattr(lib, name):
+            return True
+    return False

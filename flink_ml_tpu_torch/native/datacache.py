@@ -7,6 +7,9 @@ DataCacheWriter.java, ReplayOperator.java:125-246):
 - `DataCache` appends host arrays as segments, in memory until the budget
   is spent, then to a spill file; a segment reads back into a new array or
   straight into a caller's buffer (a pinned staging buffer, say);
+- `parse_csv_doubles` parses delimited numeric text into float64 with
+  the library's strtod loop (`dc_parse_csv_doubles`), as the JAX
+  package's does when its library loads;
 - `ReplayableStreamTable` caches a one-shot stream of Tables on its first
   pass so that every later pass replays it. A partly consumed pass still
   leaves later passes complete: each pass replays what is cached, then goes
@@ -20,8 +23,8 @@ the JAX package's names: `datacache.append`, `datacache.appendBytes`,
 `datacache.hit` / `datacache.miss` (a read of an in-memory or a spilled
 segment), `datacache.readBytes`, `datacache.evict` and a `cache.evict`
 event (category `cache`) for a segment that spilled. The JAX package's
-pure-Python cache is not ported: the library builds at first use or the
-cache raises.
+pure-Python cache and number parser are not ported: the library builds
+at first use or the call raises.
 """
 
 from __future__ import annotations
@@ -151,6 +154,20 @@ class DataCache:
     def close(self) -> None:
         """Free the segments and remove the spill file; idempotent."""
         self._finalizer()
+
+
+def parse_csv_doubles(text: str, expected: Optional[int] = None) -> np.ndarray:
+    """The numbers of delimited text (`,`, `;`, blanks and line ends) as
+    float64, each token read with strtod and a token with no number
+    skipped; at most `expected` values (default: as many as the text can
+    hold)."""
+    raw = text.encode()
+    max_out = expected if expected is not None else max(1, len(raw) // 2 + 1)
+    out = np.empty(max_out, dtype=np.float64)
+    n = _load_native().dc_parse_csv_doubles(
+        raw, ctypes.c_uint64(len(raw)), out.ctypes.data_as(ctypes.c_void_p),
+        ctypes.c_uint64(max_out))
+    return out[:n]
 
 
 class ReplayableStreamTable:

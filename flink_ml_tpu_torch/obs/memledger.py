@@ -229,10 +229,12 @@ def _leaf_tensors(tree) -> Iterable[torch.Tensor]:
         yield from _leaf_tensors((tree.indices, tree.values))
 
 
-def track(tree, category: str, site: Optional[str] = None):
+def track(tree, category: str, site: Optional[str] = None, align: int = 1):
     """Ledger every tensor leaf of `tree` under `category`, releasing each
     entry when its tensor object dies. A tensor already tracked counts
-    once. Returns `tree`."""
+    once. A leaf counts its bytes rounded up to `align`: the slot it holds
+    in a buffer whose leaves start at multiples of `align` bytes
+    (`api.HostConstants`). Returns `tree`."""
     if site is None:
         site = _call_site()
     for t in _leaf_tensors(tree):
@@ -240,8 +242,8 @@ def track(tree, category: str, site: Optional[str] = None):
         with _locked():
             if key in _tracked_ids:
                 continue
-        handle = register(category, t.numel() * t.element_size(), shape=tuple(t.shape),
-                          dtype=str(t.dtype), site=site)
+        nbytes = -(-t.numel() * t.element_size() // align) * align
+        handle = register(category, nbytes, shape=tuple(t.shape), dtype=str(t.dtype), site=site)
         with _locked():
             _tracked_ids[key] = handle
         weakref.finalize(t, _release_tracked, key, handle)

@@ -43,11 +43,16 @@ LossOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 class LossFunc(NamedTuple):
     """A batched loss: name + callable(X, y, w, coeff) -> (loss_sum,
-    grad_sum, weight_sum); `pointwise` is its per-row form."""
+    grad_sum, weight_sum); `pointwise` is its per-row form. `sparse` marks
+    the padded-CSR (indices, values) input layout, the JAX package's
+    fourth field: the optimizer reads it where the JAX one does (the 2D
+    route, `SGD._use_2d`); the fleet losses take either layout and decide
+    by the batch's type, so they keep the default."""
 
     name: str
     fn: Callable[..., LossOut]
-    pointwise: Callable
+    pointwise: Callable = None
+    sparse: bool = False
 
     def __call__(self, X, y, w, coeff) -> LossOut:
         return self.fn(X, y, w, coeff)
@@ -125,7 +130,7 @@ LEAST_SQUARE_LOSS = LossFunc(
 def _sparse_variants(prefix, row_dots, grad):
     return {
         base.name: LossFunc(prefix + base.name, _sparse(base.pointwise, row_dots, grad),
-                            base.pointwise)
+                            base.pointwise, True)
         for base in (BINARY_LOGISTIC_LOSS, HINGE_LOSS, LEAST_SQUARE_LOSS)
     }
 
@@ -133,6 +138,8 @@ def _sparse_variants(prefix, row_dots, grad):
 #: dense loss name -> its padded-CSR loss on the kernels (CPU: plain versions)
 SPARSE_VARIANTS = _sparse_variants("sparse_", sparse_dot, sparsekernels.sparse_grad)
 SPARSE_BINARY_LOGISTIC_LOSS = SPARSE_VARIANTS[BINARY_LOGISTIC_LOSS.name]
+SPARSE_HINGE_LOSS = SPARSE_VARIANTS[HINGE_LOSS.name]
+SPARSE_LEAST_SQUARE_LOSS = SPARSE_VARIANTS[LEAST_SQUARE_LOSS.name]
 #: dense loss name -> its padded-CSR loss on the plain versions, on any device
 PLAIN_SPARSE_VARIANTS = _sparse_variants(
     "plain_sparse_", sparsekernels.sparse_row_dots_plain, sparsekernels.sparse_grad_plain
@@ -207,7 +214,7 @@ def _feature_sharded(pointwise, grad):
 def _feature_sharded_variants(prefix, grad):
     return {
         base.name: LossFunc(prefix + base.name + "_2d", _feature_sharded(base.pointwise, grad),
-                            base.pointwise)
+                            base.pointwise, True)
         for base in (BINARY_LOGISTIC_LOSS, HINGE_LOSS, LEAST_SQUARE_LOSS)
     }
 
@@ -312,3 +319,7 @@ def predict_raw(X, coeff):
     (LogisticRegressionModel.java:131). A float32 matmul on the card follows
     `torch.backends.cuda.matmul.allow_tf32`, which PyTorch leaves False."""
     return X @ coeff
+
+
+def sigmoid(z):
+    return 1.0 / (1.0 + torch.exp(-z))

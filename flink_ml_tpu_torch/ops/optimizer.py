@@ -104,7 +104,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Iterable, List, NamedTuple, Optional, Tuple
+from typing import Any, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,10 +117,37 @@ from ..parallel import supervisor
 from ..parallel.prefetch import to_device
 from ..utils import lazyjit
 from ..utils.packing import packed_device_get
-from .losses import LossFunc
+from .losses import FEATURE_SHARDED_VARIANTS, LossFunc
 
-#: the fit's compute dtype: host float64 columns are cast to it once, at staging
+#: the default compute dtype (`SGD.dtype`): host float64 columns are cast
+#: to the fit's dtype once, at staging. The fleet programs, whose
+#: estimators carry no dtype, train at it.
 COMPUTE_DTYPE = torch.float32
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """`dtype` (a torch or numpy dtype, or its name) as a floating torch
+    dtype."""
+    if not isinstance(dtype, torch.dtype):
+        dtype = torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+    if not dtype.is_floating_point:
+        raise TypeError(f"SGD.dtype must be a floating dtype, got {dtype}")
+    return dtype
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def check_sparse_dtype(X, dtype: torch.dtype) -> None:
+    """A padded-CSR fit trains in float32 only: the sparse kernels, like
+    the JAX package's Pallas kernels, take float32 values (ROADMAP C.40).
+    Raised on every device; nothing falls back to the plain version."""
+    if isinstance(X, tuple) and dtype != torch.float32:
+        raise TypeError(
+            f"SGD(dtype={dtype}) cannot train padded-CSR (sparse) features: the sparse "
+            "kernels sparse_row_dots and sparse_grad take float32 values; use "
+            "dtype=float32, or densify the features")
 
 
 def _prox_step(coeff, reg, elastic_net, learning_rate):
@@ -158,14 +185,15 @@ def regularize(coeff, reg, elastic_net, learning_rate):
 HYPER_LR, HYPER_REG, HYPER_EN, HYPER_TOL, HYPER_L1, HYPER_L2 = range(6)
 
 
-def sgd_hyper(learning_rate, reg, elastic_net, tol, device) -> torch.Tensor:
-    """The fit's hyperparameters as one float32 device vector [lr, reg,
-    elasticNet, tol, elasticNet * reg, (1 - elasticNet) * reg], the
-    products formed in float64 as the host-scalar `_prox_step` forms them
-    before they scale a tensor."""
+def sgd_hyper(learning_rate, reg, elastic_net, tol, device,
+              dtype: torch.dtype = COMPUTE_DTYPE) -> torch.Tensor:
+    """The fit's hyperparameters as one device vector of the fit's dtype
+    [lr, reg, elasticNet, tol, elasticNet * reg, (1 - elasticNet) * reg],
+    the products formed in float64 as the host-scalar `_prox_step` forms
+    them before they scale a tensor."""
     lr, reg, en, tol = float(learning_rate), float(reg), float(elastic_net), float(tol)
     rows = np.asarray([lr, reg, en, tol, en * reg, (1.0 - en) * reg], np.float64)
-    return to_device(rows.astype(np.float32), device)
+    return to_device(rows.astype(_numpy_dtype(dtype)), device)
 
 
 def _hyper_prox_step(coeff, hyper):
@@ -207,12 +235,13 @@ def _slice_rows(X, start, rows):
 
 
 def _pack_train_result(coeff, criteria, epochs, flag=None):
-    """(flag?, coeff, criteria, epochs) as ONE flat vector, so the host
-    reads everything back in a single transfer. float32 holds the epoch
-    count exactly."""
-    parts = [coeff, criteria.reshape(1), epochs.reshape(1).to(COMPUTE_DTYPE)]
+    """(flag?, coeff, criteria, epochs) as ONE flat vector of the
+    coefficient's dtype, at least float32, so the host reads everything
+    back in a single transfer. float32 holds the epoch count exactly."""
+    dt = torch.promote_types(coeff.dtype, torch.float32)
+    parts = [coeff.to(dt), criteria.reshape(1).to(dt), epochs.reshape(1).to(dt)]
     if flag is not None:
-        parts.insert(0, flag.reshape(1))
+        parts.insert(0, flag.reshape(1).to(dt))
     return torch.cat(parts)
 
 
@@ -284,10 +313,11 @@ def _sgd_train_flat(X, y, w, init_coeff, hyper, loss_func, batch, n, max_iter, c
     return _finish(state, hyper, flag)
 
 
-def _carry_template(d: int):
+def _carry_template(d: int, dtype: torch.dtype = COMPUTE_DTYPE):
     """The snapshot template of the SGD carry (coeff, grad, wsum, epoch):
     the JAX package's leaves and dtypes."""
-    return (np.zeros(d, np.float32), np.zeros(d, np.float32), np.float32(0.0), np.int32(0))
+    dt = _numpy_dtype(dtype)
+    return (np.zeros(d, dt), np.zeros(d, dt), dt.type(0.0), np.int32(0))
 
 
 def _resumed_state(snap, device, mesh=None, specs=None):
@@ -303,13 +333,15 @@ def _resumed_state(snap, device, mesh=None, specs=None):
 
 
 class StreamLayout(NamedTuple):
-    """Where one packed stream segment keeps its parts: a flat float32
-    array of the blocks X (batch x d, row-major), y (batch) and w (batch),
-    each starting at a multiple of BLOCK_ALIGN elements, so every part is a
-    contiguous, aligned view of the segment on the device too."""
+    """Where one packed stream segment keeps its parts: a flat array of
+    the fit's dtype (numpy) holding the blocks X (batch x d, row-major), y
+    (batch) and w (batch), each starting at a multiple of BLOCK_ALIGN
+    elements, so every part is a contiguous, aligned view of the segment
+    on the device too."""
 
     batch: int
     d: int
+    dtype: np.dtype = np.dtype(np.float32)
 
     @property
     def y_offset(self) -> int:
@@ -340,10 +372,11 @@ def _round_up(n: int) -> int:
 
 
 def ingest_stream(chunks: Iterable, batch: int, cache, shards: int = 1,
-                  rank: int = 0) -> Tuple[List[int], StreamLayout]:
+                  rank: int = 0, dtype: torch.dtype = COMPUTE_DTYPE
+                  ) -> Tuple[List[int], StreamLayout]:
     """One pass over host (X, y, w) chunks into `cache`: rows are re-cut
     into `batch`-row batches, the remainder carried from chunk to chunk, and
-    each batch is appended as one packed float32 segment (`StreamLayout`).
+    each batch is appended as one packed segment of `dtype` (`StreamLayout`).
     A missing w is 1; the last partial batch is padded with weight-0 rows.
     With `shards` > 1 a segment holds only this rank's slots of its batch
     (the batch padded to a multiple of the shards, `rank`'s block of
@@ -366,15 +399,16 @@ def ingest_stream(chunks: Iterable, batch: int, cache, shards: int = 1,
         Xl[:kept.size], yl[:kept.size], wl[:kept.size] = Xb[kept], yb[kept], wb[kept]
         segs.append(cache.append_array(local))
 
+    dt = _numpy_dtype(dtype)
     for X, y, w in chunks:
         X = np.asarray(X)
         if layout is None:
-            layout = StreamLayout(int(batch), int(X.shape[1]))
-            flat = np.zeros(layout.size, np.float32)
+            layout = StreamLayout(int(batch), int(X.shape[1]), dt)
+            flat = np.zeros(layout.size, dt)
             Xb, yb, wb = layout.views(flat)
             if shards > 1:
-                local_layout = StreamLayout(b_local, int(X.shape[1]))
-                local = np.zeros(local_layout.size, np.float32)
+                local_layout = StreamLayout(b_local, int(X.shape[1]), dt)
+                local = np.zeros(local_layout.size, dt)
         elif X.shape[1] != layout.d:
             raise ValueError(f"stream chunk has {X.shape[1]} features, expected {layout.d}")
         n, off = X.shape[0], 0
@@ -444,6 +478,11 @@ class SGD:
     tol: float = 1e-6
     reg: float = 0.0
     elastic_net: float = 0.0
+    #: the fit's compute dtype (torch, numpy or a name; `compute_dtype`):
+    #: float32 by default; float64 trains a dense fit in double precision,
+    #: as the JAX package does under x64 (ROADMAP C.11). A padded-CSR fit
+    #: is float32 only (`check_sparse_dtype`, C.40)
+    dtype: Any = torch.float32
     #: snapshot the fit here every `checkpoint_interval` epochs and resume
     #: from the newest snapshot; None is no checkpointing
     checkpoint_dir: Optional[str] = None
@@ -457,6 +496,10 @@ class SGD:
     #: the carry-delayed reduction of parallel/overlap.py on a mesh of more
     #: than one rank; None follows `config.collective_overlap`
     collective_overlap: Optional[bool] = None
+
+    @property
+    def _dtype(self) -> torch.dtype:
+        return compute_dtype(self.dtype)
 
     def _overlap_enabled(self) -> bool:
         on = (self.collective_overlap if self.collective_overlap is not None
@@ -487,6 +530,7 @@ class SGD:
         (`mesh.flatten`)."""
         mesh = mesh if mesh is not None else mesh_lib.default_mesh()
         d = int(np.shape(init_coeff)[0])
+        check_sparse_dtype(X, self._dtype)
         if mesh.size <= 1:
             packed = self._optimize_flat_async(init_coeff, X, y, weights, loss_func,
                                                validate_labels)
@@ -504,11 +548,17 @@ class SGD:
         axis, under `config.sparse_2d == "auto"`; "off" keeps the
         replicated-coefficient fit, the reference the 2D fit is held to. A
         one-shard model axis still routes 2D (its model collectives are
-        identities), which makes the one-shard parity testable."""
-        from .losses import FEATURE_SHARDED_VARIANTS
-
-        return (self.shard_features and loss_func.name in FEATURE_SHARDED_VARIANTS
-                and config.sparse_2d == "auto" and mesh_lib.MODEL_AXIS in mesh.axis_names)
+        identities), which makes the one-shard parity testable. A sparse
+        loss is one that `LossFunc.sparse` marks, as in the JAX package; one
+        with no 2D form (a user's own, or a 2D loss itself) raises
+        ValueError rather than train replicated."""
+        use = (self.shard_features and loss_func.sparse
+               and config.sparse_2d == "auto" and mesh_lib.MODEL_AXIS in mesh.axis_names)
+        if use and loss_func.name not in FEATURE_SHARDED_VARIANTS:
+            raise ValueError(
+                f"shard_features: the sparse loss {loss_func.name!r} has no feature-sharded "
+                f"(2D) form; the 2D fit runs {sorted(FEATURE_SHARDED_VARIANTS)}")
+        return use
 
     def _stage_2d_carry(self, mesh, init_coeff, d_pad: int, device):
         """The coefficient and the zero gradient carry staged DIRECTLY as
@@ -594,6 +644,7 @@ class SGD:
         shards = mesh_lib.num_data_shards(mesh)
         ranked = mesh.size > 1
         device = mesh.device if ranked else config.device()
+        dtype = self._dtype
         ckpt, key = self.checkpoint_dir, self.checkpoint_key
         B = int(self.global_batch_size)
         cache = DataCache(
@@ -608,12 +659,13 @@ class SGD:
             if ckpt is not None and config.snapshot_cache_contents and not ranked:
                 peek = _snapshot.load_job_snapshot(ckpt, key, expect_meta={"globalBatchSize": B})
                 if peek is not None and "dim" in peek.meta:
-                    restored = restore_cache_contents(peek, cache, StreamLayout(B, int(peek.meta["dim"])))
+                    restored = restore_cache_contents(
+                        peek, cache, StreamLayout(B, int(peek.meta["dim"]), _numpy_dtype(dtype)))
             if restored is not None:
                 segs, layout = restored
             else:
                 segs, layout = ingest_stream(chunks, B, cache, shards,
-                                             mesh.axis_index(mesh_lib.DATA_AXIS))
+                                             mesh.axis_index(mesh_lib.DATA_AXIS), dtype)
             ingest_s = time.perf_counter() - t0
             d, nb = layout.d, len(segs)
             meta = {"numSegments": nb, "globalBatchSize": B, "dim": int(d)}
@@ -624,18 +676,18 @@ class SGD:
                 contents = cache_contents_section(cache, segs, layout)
                 stable, stable_specs = {"cache": lambda: contents}, {"cache": "data"}
             stager = DeviceStager(device)
-            seg_bytes = layout.size * 4
+            seg_bytes = layout.size * layout.dtype.itemsize
 
             def fetch(k):
                 staged = stager.stage(seg_bytes, lambda host: cache.read_into(segs[k], host.numpy()))
-                staged.value = layout.views(staged.value.view(torch.float32))
+                staged.value = layout.views(staged.value.view(dtype))
                 return staged
 
             init = np.zeros(d) if init_coeff is None else init_coeff
-            state = _init_state(_stage(init, COMPUTE_DTYPE, device))
+            state = _init_state(_stage(init, dtype, device))
             start, interval = 0, max(1, int(self.checkpoint_interval))
             if ckpt is not None:
-                templates = {"model": _carry_template(d)}
+                templates = {"model": _carry_template(d, dtype)}
                 # the cache came from `peek`: its model is the same cut's
                 snap = _snapshot.conform(peek, templates, meta) if restored is not None else \
                     _snapshot.load_job_snapshot(ckpt, key, templates=templates, expect_meta=meta)
@@ -696,7 +748,8 @@ class SGD:
         return crit <= self.tol
 
     def _hyper(self, device) -> torch.Tensor:
-        return sgd_hyper(self.learning_rate, self.reg, self.elastic_net, self.tol, device)
+        return sgd_hyper(self.learning_rate, self.reg, self.elastic_net, self.tol, device,
+                         self._dtype)
 
     def _batchify(self, mesh, X, y, weights):
         """This rank's rows of the JAX package's batch layout
@@ -725,19 +778,20 @@ class SGD:
                     f"training inputs must share one device, got {arr.device} and {device}")
             return stage_rank_rows(arr, which, n, fill, device, dtype)
 
+        dt = self._dtype
         if isinstance(X, tuple):
-            X_b = (stage(X[0], -1, torch.int32, touched), stage(X[1], 0, COMPUTE_DTYPE, touched))
+            X_b = (stage(X[0], -1, torch.int32, touched), stage(X[1], 0, dt, touched))
         else:
-            X_b = stage(X, 0, COMPUTE_DTYPE, touched)
+            X_b = stage(X, 0, dt, touched)
         if y is None:
-            y_all = torch.zeros(rows.shape, dtype=COMPUTE_DTYPE, device=device)
+            y_all = torch.zeros(rows.shape, dtype=dt, device=device)
         else:
-            y_all = stage(y, 0, COMPUTE_DTYPE, rows)
+            y_all = stage(y, 0, dt, rows)
         y_b = y_all[:touched.shape[0]]
         if weights is None:
-            w_b = to_device(touched >= 0, device, COMPUTE_DTYPE)
+            w_b = to_device(touched >= 0, device, dt)
         else:
-            w_b = stage(weights, 0, COMPUTE_DTYPE, touched)
+            w_b = stage(weights, 0, dt, touched)
         return X_b, y_b, w_b, y_all
 
     def _optimize_sharded_async(self, mesh, init_coeff, X, y, weights, loss_func,
@@ -757,11 +811,12 @@ class SGD:
         grad = None
         if self.shard_features:  # the replicated layout: a whole (d,) carry on every rank
             d = int(np.shape(init_coeff)[0])
+            dt = _numpy_dtype(self._dtype)
             init, grad = stage_to_device(
-                (_host_coeff(init_coeff), np.zeros(d, np.float32)), device,
+                (_host_coeff(init_coeff, dt), np.zeros(d, dt)), device,
                 category="optimizer").wait()
         else:
-            init = _stage(init_coeff, COMPUTE_DTYPE, device)
+            init = _stage(init_coeff, self._dtype, device)
         hyper = self._hyper(device)
         max_iter = int(self.max_iter)
         dispatch.whole_fit_plan(start_epoch=0, max_iter=max_iter, ranks=mesh.size)
@@ -801,7 +856,7 @@ class SGD:
         planned = 0
         snap = _snapshot.load_job_snapshot(
             self.checkpoint_dir, self.checkpoint_key,
-            templates={"model": _carry_template(d)}, expect_meta=meta)
+            templates={"model": _carry_template(d, self._dtype)}, expect_meta=meta)
         if snap is not None:
             state, planned = _resumed_state(snap, y_all.device, mesh, specs), snap.epoch
         stopped = planned > 0 and snap.criteria <= self.tol
@@ -827,17 +882,17 @@ class SGD:
         the checkpointed chunks."""
         from ..obs import memledger
 
-        B = int(self.global_batch_size)
+        B, dtype = int(self.global_batch_size), self._dtype
         if self.checkpoint_dir is not None:
-            X_f, y_f, w_f, n = lazyjit.materialize(stage_flat(X, y, weights, B))
+            X_f, y_f, w_f, n = lazyjit.materialize(stage_flat(X, y, weights, B, dtype=dtype))
             memledger.track((X_f, y_f, w_f), "streamSegments")
-            init = _stage(init_coeff, COMPUTE_DTYPE, y_f.device)
+            init = _stage(init_coeff, dtype, y_f.device)
             return self._optimize_with_checkpoints(X_f, y_f, w_f, n, init, loss_func,
                                                    validate_labels, self._hyper(y_f.device))
         max_iter = int(self.max_iter)
         X_f, y_f, w_f, n = stage_flat(X, y, weights, B,
-                                      rows=lambda nb: _touched_rows(nb, B, max_iter))
-        init = _stage(init_coeff, COMPUTE_DTYPE, y_f.device)
+                                      rows=lambda nb: _touched_rows(nb, B, max_iter), dtype=dtype)
+        init = _stage(init_coeff, dtype, y_f.device)
         if config.whole_fit == "off":
             return _sgd_train_flat(X_f, y_f, w_f, init, self._hyper(y_f.device), loss_func, B, n,
                                    max_iter, validate_labels)
@@ -863,7 +918,7 @@ class SGD:
         planned = 0
         snap = _snapshot.load_job_snapshot(
             self.checkpoint_dir, self.checkpoint_key,
-            templates={"model": _carry_template(d)}, expect_meta=meta)
+            templates={"model": _carry_template(d, init.dtype)}, expect_meta=meta)
         if snap is not None:
             state, planned = _resumed_state(snap, y.device), snap.epoch
         stopped = planned > 0 and snap.criteria <= self.tol
@@ -929,15 +984,16 @@ def _sgd_train_sharded(mesh, X_b, y_b, w_b, y_all, init_coeff, loss_func, hyper,
     return _finish(state, hyper, flag)
 
 
-def _host_coeff(init_coeff) -> np.ndarray:
-    """An initial coefficient as a float32 host array."""
+def _host_coeff(init_coeff, dtype=np.float32) -> np.ndarray:
+    """An initial coefficient as a host array of `dtype`."""
     if isinstance(init_coeff, torch.Tensor):
-        return init_coeff.detach().cpu().numpy().astype(np.float32)
-    return np.asarray(init_coeff, np.float32)
+        return init_coeff.detach().cpu().numpy().astype(dtype)
+    return np.asarray(init_coeff, dtype)
 
 
-def stage_flat(X, y, weights, batch: int, rows=None):
-    """The flat fit's inputs on one device: host arrays staged to
+def stage_flat(X, y, weights, batch: int, rows=None, dtype: torch.dtype = COMPUTE_DTYPE):
+    """The flat fit's inputs on one device, X's values, y and w in
+    `dtype`: host arrays staged to
     `config.device()`, tensors kept on theirs; rows padded to a multiple
     of `batch` (the only case that copies a device input), sparse padding
     rows with index -1. Returns (X, y, w or None, true row count).
@@ -969,14 +1025,14 @@ def stage_flat(X, y, weights, batch: int, rows=None):
         return lazyjit.Feed(src, shape, dtype, device, fill)
 
     if isinstance(X, tuple):
-        X_f = (staged(X[0], torch.int32, -1, True), staged(X[1], COMPUTE_DTYPE, 0, True))
+        X_f = (staged(X[0], torch.int32, -1, True), staged(X[1], dtype, 0, True))
     else:
-        X_f = staged(X, COMPUTE_DTYPE, 0, True)
+        X_f = staged(X, dtype, 0, True)
     if y is not None:
-        y_f = staged(y, COMPUTE_DTYPE, 0, False)
+        y_f = staged(y, dtype, 0, False)
     else:
-        y_f = torch.zeros((n_pad,), dtype=COMPUTE_DTYPE, device=device)
-    w_f = None if weights is None else staged(weights, COMPUTE_DTYPE, 0, True)
+        y_f = torch.zeros((n_pad,), dtype=dtype, device=device)
+    w_f = None if weights is None else staged(weights, dtype, 0, True)
     return X_f, y_f, w_f, n
 
 
@@ -1098,7 +1154,7 @@ def _fleet_member_finish(state, hyper: FleetHyper, flag=None):
     once for the shared labels) goes into every row."""
     coeff, grad, wsum, epochs, criteria = state
     coeff = _fleet_update(coeff, grad, wsum, hyper)
-    parts = [coeff, criteria[:, None], epochs[:, None].to(COMPUTE_DTYPE)]
+    parts = [coeff, criteria[:, None], epochs[:, None].to(coeff.dtype)]
     if flag is not None:
         parts.insert(0, flag.reshape(1, 1).expand(coeff.shape[0], 1))
     return torch.cat(parts, dim=1)
@@ -1173,7 +1229,7 @@ def _sgd_fleet_chunk(X, y, w, state, loss_func, hyper: FleetHyper, batch: int, n
         if w is not None:
             wk = w[begin : begin + batch]
         else:
-            wk = (torch.arange(begin, begin + batch, device=y.device) < n).to(COMPUTE_DTYPE)
+            wk = (torch.arange(begin, begin + batch, device=y.device) < n).to(state[0].dtype)
         state = _fleet_masked_epoch(Xk, yk, wk, state, loss_func, hyper, max_iter)
     return state
 

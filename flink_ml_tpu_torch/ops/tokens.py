@@ -132,6 +132,25 @@ def gather_map(ids: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, lut[torch.where(valid, ids, 0).long()], -1)
 
 
+def lut_preimage(lut, num_terms: int) -> Optional[torch.Tensor]:
+    """pre[v] = the unique dictionary id d with lut[d] == v, -2 if none,
+    as int32 on the lut's device (a host lut: the CPU); None if the lut is
+    not injective on its non-negative range (hash collisions, e.g. HashingTF
+    buckets) or maps outside the `num_terms` output vocabulary. The JAX
+    package's gather-free count form reads it; the port maps with a gather
+    (the module docstring), so none of its paths calls it."""
+    lut = lut if isinstance(lut, torch.Tensor) else torch.from_numpy(np.asarray(lut))
+    valid = lut >= 0
+    targets = lut[valid].long()
+    if targets.numel() and int(targets.max()) >= num_terms:
+        return None
+    if torch.unique(targets).numel() != targets.numel():
+        return None
+    pre = torch.full((int(num_terms),), -2, dtype=torch.int32, device=lut.device)
+    pre[targets] = torch.nonzero(valid).flatten().to(torch.int32)
+    return pre
+
+
 def term_runs_width(k: int, num_terms: Optional[int]) -> int:
     """The JAX package's padded width of a term-count batch: min(k, V) in
     its dense-count form (V <= DENSE_COUNT_MAX_TERMS, (k + 1) * V < 2^31),

@@ -99,7 +99,10 @@ def sgd_use_sparse_pairs(X_b, d: int, mesh: mesh_lib.Mesh) -> bool:
     (> 1 data shard) and this rank's pair bytes beat the threshold. `X_b`
     is this rank's batch layout (indices (batches, b_local, nnz), values):
     a rank's pairs are b_local x nnz, the JAX package's b_pad / shards x
-    nnz."""
+    nnz. The layout decides, where the JAX package's `_local_pieces` reads
+    `loss_func.sparse` (`:78`): the function takes the batch alone, as the
+    JAX one of the same name does, and a sparse loss is only ever given
+    padded-CSR batches."""
     if not isinstance(X_b, tuple) or mesh_lib.num_data_shards(mesh) <= 1:
         return False
     _, b_local, nnz = X_b[0].shape
@@ -134,6 +137,8 @@ def overlapped_sgd_train(mesh, X_b, y_b, w_b, y_all, init_coeff, loss_func, hype
     rows = y_b.shape[1]
     nnz = X_b[0].shape[-1] if isinstance(X_b, tuple) else 0
     coeff = init_coeff
+    # the loss and weight sums reduce in the fit's dtype, float32 at least
+    sum_dtype = torch.promote_types(coeff.dtype, torch.float32)
     wsum = coeff.new_zeros(())
     epochs = torch.zeros((), dtype=torch.int32, device=coeff.device)
     criteria = torch.full((), float("inf"), dtype=torch.float32, device=coeff.device)
@@ -149,9 +154,9 @@ def overlapped_sgd_train(mesh, X_b, y_b, w_b, y_all, init_coeff, loss_func, hype
         lsum, new_g, wsum_local = _local_pieces(Xk, y_b[k], w_b[k], new_coeff, loss_func,
                                                 sparse_pairs)
         sums = collectives.all_reduce_sum(
-            torch.stack([lsum.to(torch.float32), wsum_local.to(torch.float32)]), mesh=mesh)
+            torch.stack([lsum.to(sum_dtype), wsum_local.to(sum_dtype)]), mesh=mesh)
         new_wsum = sums[1].to(coeff.dtype)
-        new_criteria = sums[0] / torch.clamp(sums[1], min=1e-30)
+        new_criteria = (sums[0] / torch.clamp(sums[1], min=1e-30)).to(torch.float32)
         coeff = torch.where(live, new_coeff, coeff)
         wsum = torch.where(live, new_wsum, wsum)
         epochs = torch.where(live, epochs + 1, epochs)

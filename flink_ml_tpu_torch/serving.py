@@ -84,7 +84,7 @@ from .ckpt import faults
 from .obs import hist, memledger, timeline, tracing
 from .parallel.prefetch import DeviceStager, next_bucket, pad_rows, slice_rows
 from .pipeline import Pending, PipelineModel
-from .table import SparseBatch, Table
+from .table import SparseBatch, Table, host_readable
 from .utils import metrics
 
 __all__ = [
@@ -476,7 +476,9 @@ class MicroBatchServer:
 
     def _finish(self, out: Table, readback: _Readback, n: int) -> Table:
         """Retire one batch: wait on its readback (its one host sync), then
-        cut the padding off. The guard outcome feeds the lifecycle."""
+        cut the padding off. The guard outcome feeds the lifecycle. Tensor
+        columns come out `HostReadable`, so numpy reads a served column on
+        the card as it reads the JAX server's device arrays."""
         t0 = time.perf_counter()
         memledger.release(readback.ledger)
         try:
@@ -493,11 +495,15 @@ class MicroBatchServer:
                                          int(dt * 1e9))
         if self.lifecycle is not None:
             self.lifecycle.record_serve_ok()
+        if out.num_rows == n:  # one Table at most: the read columns and the views
+            updates = dict(host) if host else {}
+            updates.update({name: host_readable(out.column(name)) for name in out.column_names
+                            if name not in updates and isinstance(out.column(name), torch.Tensor)})
+            return out.with_columns(updates) if updates else out
         if host:
             out = out.with_columns(host)
-        if out.num_rows == n:
-            return out
-        return Table({name: slice_rows(out.column(name), n) for name in out.column_names})
+        return Table({name: host_readable(slice_rows(out.column(name), n))
+                      for name in out.column_names})
 
     def _release(self, window: flow.BoundedChannel) -> None:
         """Early-exit cleanup: drop every batch still in flight (its staged

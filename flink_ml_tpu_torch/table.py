@@ -23,8 +23,9 @@ import torch
 
 from .linalg import DenseVector, SparseVector, Vector
 
-__all__ = ["Table", "SparseBatch", "StreamTable", "DictTokenMatrix", "as_dense_matrix",
-           "as_sparse_batch", "global_batches", "rows_to_sparse_batch"]
+__all__ = ["Table", "SparseBatch", "StreamTable", "DictTokenMatrix", "HostReadable",
+           "as_dense_matrix", "as_sparse_batch", "global_batches", "host_readable",
+           "rows_to_sparse_batch"]
 
 
 class DictTokenMatrix:
@@ -153,6 +154,31 @@ def global_batches(stream, columns: Sequence[Callable], batch_size: int) -> Iter
             if buffered == batch_size:
                 yield tuple(pieces)
                 pieces, buffered = [[] for _ in columns], 0
+
+
+class HostReadable(torch.Tensor):
+    """A tensor that numpy reads on any device, as it reads a jax.Array:
+    `np.asarray` copies it to the host (the caller's readback and sync). It
+    is a view of the tensor it wraps (`host_readable`), no copy, and an op
+    on it gives a plain tensor. The port hands these out where the JAX
+    package's users read device arrays with numpy: served columns and
+    uploaded model constants (ROADMAP C.41)."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    def __array__(self, dtype=None, copy=None):
+        host = _to_numpy(self)
+        return host if dtype is None else host.astype(dtype, copy=False)
+
+    def __deepcopy__(self, memo):
+        return host_readable(self.as_subclass(torch.Tensor).clone())
+
+
+def host_readable(col):
+    """A tensor as a HostReadable view of it; any other column as it is."""
+    if isinstance(col, torch.Tensor) and not isinstance(col, HostReadable):
+        return col.as_subclass(HostReadable)
+    return col
 
 
 def _to_numpy(x) -> np.ndarray:

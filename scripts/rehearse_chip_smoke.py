@@ -18,7 +18,9 @@ capture (a CUDA graph exists only on the card), so each call counts its
 launches as a replay does there. Phase 14's whole fits run through the
 program funnel's CPU path (a new signature counted as a capture, the
 function run eagerly), and its bank children are real child processes
-on the CPU (no stub reaches them; the CPU banks no fused segment). It catches
+on the CPU (no stub reaches them; the CPU banks no fused segment), as is
+phase 18's examples child (under `use_device("cpu")`, each call of a
+kernel's plain version counted as a launch). It catches
 a broken path, check or output line before a chip run; every number it
 prints is a CPU number and none stands for the card's.
 """

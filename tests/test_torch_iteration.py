@@ -83,6 +83,51 @@ def test_native_build_failure_raises_with_the_compiler_output(tmp_path, monkeypa
         native.load()
 
 
+PARSE_TEXTS = [
+    "1.5, 2.25\n-3e2; 4,abc,5.5",
+    "\t0.1 0.2\r\n0.30000000000000004;;1e-320,-0.0,+7,.5,8.,nan,-inf,1e400",
+    "",
+    "x, y, ,",
+    ",".join(repr(v) for v in np.random.default_rng(3).standard_normal(2000)),
+]
+
+
+@pytest.mark.parametrize("text", PARSE_TEXTS, ids=range(len(PARSE_TEXTS)))
+@pytest.mark.parametrize("expected", [None, 3])
+def test_parse_csv_doubles_gives_the_jax_values_on_the_same_bytes(text, expected):
+    """`native.datacache.parse_csv_doubles` runs the library's strtod loop,
+    as the JAX package's does when its library loads: the same float64
+    values, bit for bit, with the same cap at `expected` (ROADMAP C.38)."""
+    from flink_ml_tpu.native import datacache as jax_datacache
+    from flink_ml_tpu_torch.native.datacache import parse_csv_doubles
+
+    got = parse_csv_doubles(text, expected)
+    want = jax_datacache.parse_csv_doubles(text, expected)
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got.view(np.uint64), want.view(np.uint64))
+
+
+def test_native_available_and_has_symbol_as_jax():
+    """`native.available()` and `native.has_symbol(name)` answer without
+    raising, over the port's own libraries (ROADMAP C.38)."""
+    from flink_ml_tpu import native as jax_native
+
+    assert native.available() is True is jax_native.available()
+    for name in ("dc_parse_csv_doubles", "dc_append", "fh_combine", "agg_cluster"):
+        assert native.has_symbol(name) is True is jax_native.has_symbol(name)
+    assert native.has_symbol("no_such_symbol") is False is jax_native.has_symbol("no_such_symbol")
+
+
+def test_native_available_is_false_when_the_build_fails(tmp_path, monkeypatch):
+    broken = tmp_path / "broken.cc"
+    broken.write_text("int main( {\n")
+    monkeypatch.setattr(native, "SOURCE", broken)
+    monkeypatch.setattr(native, "LIBRARY", tmp_path / "_build" / "libbroken.so")
+    monkeypatch.setattr(native, "_lib", None)
+    assert native.available() is False
+    assert native.has_symbol("fh_combine") is True  # another library still answers
+
+
 def _tables():
     rng = np.random.default_rng(0)
     out = []

@@ -222,3 +222,31 @@ def test_model_data_round_trip(both_on_one_device, tmp_path, kind):
     model.save(str(tmp_path / "model"))
     reloaded = cls.load(str(tmp_path / "model"))
     np.testing.assert_array_equal(reloaded.coefficient, model.coefficient)
+
+
+@pytest.mark.parametrize("keep_sparse", [None, False, True])
+def test_extract_train_data_keeps_sparse_only_when_asked(both_on_one_device, keep_sparse):
+    """`extract_train_data(..., keep_sparse=False)` has the JAX package's
+    parameter and default: a SparseBatch column is densified unless the
+    caller keeps it sparse, as the bounded fits and the fleet do (ROADMAP
+    C.38); the stream fit densifies, as the JAX stream path does."""
+    from flink_ml_tpu.models import _linear as jax_linear
+    from flink_ml_tpu_torch.models import _linear as port_linear
+
+    indices, values, y = _sparse("svc", seed=3, n=20)
+    indices[indices >= SPARSE_D] = -1  # densifying needs indices in range
+    kwargs = {} if keep_sparse is None else {"keep_sparse": keep_sparse}
+    got = port_linear.extract_train_data(
+        Table({"f": SparseBatch(SPARSE_D, indices, values), "y": y}), "f", "y", None, **kwargs)
+    want = jax_linear.extract_train_data(
+        JaxTable({"f": JaxSparseBatch(SPARSE_D, indices, values), "y": y}), "f", "y", None,
+        **kwargs)
+    np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+    assert got[2] is None and want[2] is None
+    if keep_sparse:
+        assert isinstance(got[0], tuple) and got[0][2] == want[0][2] == SPARSE_D
+        for g, w in zip(got[0][:2], want[0][:2]):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    else:
+        assert not isinstance(got[0], tuple) and got[0].shape == (20, SPARSE_D)
+        np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))

@@ -189,6 +189,25 @@ class TestShardings:
         assert not sgd._use_2d(mesh.Mesh(("data",), (4,)), losses.SPARSE_BINARY_LOGISTIC_LOSS)
         assert not optimizer.SGD()._use_2d(m2, losses.SPARSE_BINARY_LOGISTIC_LOSS)
 
+    @pytest.mark.parametrize("kind", ["user", "2d"])
+    def test_a_sparse_loss_with_no_2d_form_raises(self, kind):
+        """A loss marked sparse that has no feature-sharded form (a user's
+        four-field LossFunc, or a 2D loss given as the fit's loss) raises a
+        ValueError naming it on a data x model mesh; off that mesh, or
+        without `shard_features`, it routes as before."""
+        base = losses.SPARSE_BINARY_LOGISTIC_LOSS
+        loss = (losses.LossFunc("my_sparse", base.fn, base.pointwise, True) if kind == "user"
+                else losses.feature_sharded_variant(base))
+        assert loss.sparse and loss.name not in losses.FEATURE_SHARDED_VARIANTS
+        m2 = mesh.Mesh(("data", "model"), (2, 2))
+        with pytest.raises(ValueError, match=f"{loss.name!r} has no feature-sharded"):
+            optimizer.SGD(max_iter=2, shard_features=True)._use_2d(m2, loss)
+        assert not optimizer.SGD(max_iter=2)._use_2d(m2, loss)
+        assert not optimizer.SGD(max_iter=2, shard_features=True)._use_2d(
+            mesh.Mesh(("data",), (4,)), loss)
+        with config.sparse_2d_mode("off"):
+            assert not optimizer.SGD(max_iter=2, shard_features=True)._use_2d(m2, loss)
+
     def test_the_2d_knobs_as_jax(self, monkeypatch):
         assert config.sparse_2d == jax_config.sparse_2d == "auto"
         with pytest.raises(ValueError, match="'auto' or 'off'"):

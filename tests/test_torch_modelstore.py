@@ -30,7 +30,9 @@ from flink_ml_tpu.parallel import mesh as mesh_lib
 from flink_ml_tpu.pipeline import PipelineModel as JaxPipelineModel
 from flink_ml_tpu.utils import metrics as jax_metrics
 from flink_ml_tpu_torch import SparseBatch, Table, config
+from flink_ml_tpu_torch import api as port_api
 from flink_ml_tpu_torch import pipeline as port_pipeline
+from flink_ml_tpu_torch import table as port_table
 from flink_ml_tpu_torch.data import modelstore as port_store
 from flink_ml_tpu_torch.lifecycle import ModelLifecycle
 from flink_ml_tpu_torch.models.classification import logisticregression as port_lr
@@ -160,7 +162,8 @@ def test_registry_estimate_and_errors():
 def test_estimate_bounds_the_uploaded_bytes(model):
     """`_host_nbytes` is at least what `device_constants()` ledgers and what
     its upload allocates (each leaf in its host dtype, the staging
-    buffer's alignment), whatever the constants' dtypes."""
+    buffer's alignment), whatever the constants' dtypes; the ledger counts
+    the whole buffer, each leaf's aligned slot (ROADMAP C.39)."""
     p = PKGS["port"]
     if model == "scaler_f64":
         stage = _scaler(p, 1, d=37)
@@ -175,10 +178,12 @@ def test_estimate_bounds_the_uploaded_bytes(model):
     consts = stage.device_constants(torch.device("cpu"))
     leaves = port_pipeline._tree_leaves(consts)
     ledgered = port_ledger.tracked_nbytes(consts)
-    assert ledgered == sum(t.numel() * t.element_size() for t in leaves) > 0
+    align = port_api.HostConstants.ALIGN
+    assert ledgered == sum(-(-t.numel() * t.element_size() // align) * align
+                           for t in leaves) > 0
     buffer = leaves[0].untyped_storage().nbytes()
     assert all(t.untyped_storage().data_ptr() == leaves[0].untyped_storage().data_ptr() for t in leaves)
-    assert est >= buffer >= ledgered
+    assert est >= buffer == ledgered
 
 
 def test_page_out_releases_ledger_at_once():
@@ -360,3 +365,59 @@ def test_concurrent_acquires_keep_the_budget_and_the_ledger():
     assert stats["resident"] <= 3
     store.check_ledger_parity()
     assert port_ledger.live_bytes("model") == stats["bytes"]
+
+
+@pytest.mark.parametrize("tree", ["olr_64", "odd_leaves", "aligned_leaves", "empty_leaf"])
+def test_upload_ledgers_what_it_allocates(tree):
+    """`HostConstants.upload` ledgers the buffer it allocates, each leaf its
+    ALIGN-byte slot: the ledgered bytes equal `HostConstants.nbytes` and
+    the allocation, and drop to 0 when the tensors die (ROADMAP C.39)."""
+    rng = np.random.default_rng(4)
+    trees = {
+        "olr_64": {"coefficient": rng.standard_normal(64).astype(np.float32),
+                   "version": np.int32(3)},
+        "odd_leaves": (rng.standard_normal(7), np.arange(3, dtype=np.int64), np.float32(1.5)),
+        "aligned_leaves": [rng.standard_normal(32), rng.standard_normal(64).astype(np.float32)],
+        "empty_leaf": {"a": np.zeros(0, np.float32), "b": rng.standard_normal(5)},
+    }
+    constants = port_api.HostConstants(trees[tree])
+    base = port_ledger.live_bytes("model")
+    uploaded = constants.upload(torch.device("cpu"))
+    leaves = port_pipeline._tree_leaves(uploaded)
+    assert port_ledger.tracked_nbytes(uploaded) == constants.nbytes
+    assert port_ledger.live_bytes("model") - base == constants.nbytes
+    assert leaves[0].untyped_storage().nbytes() == constants.nbytes
+    assert constants.nbytes % port_api.HostConstants.ALIGN == 0
+    for leaf in leaves:  # numpy reads them on any device (ROADMAP C.41)
+        assert type(leaf) is port_table.HostReadable
+        np.asarray(leaf)
+    del uploaded, leaves, leaf
+    assert port_ledger.live_bytes("model") == base
+
+
+def test_paging_keeps_ledger_parity_at_the_estimate():
+    """The store's residency is the ledger's and, for a model whose upload
+    fills its 512-byte block, its estimate: a budget of 2.3 estimates holds
+    two 64-wide OnlineLogisticRegression models and pages the third, with
+    `check_ledger_parity` through every page-out and page-in (the
+    multi-tenant example's sizing, ROADMAP C.39)."""
+    p = PKGS["port"]
+    models = {k: p.PM([_olr(p, d=64, version=i)]) for i, k in enumerate("abc")}
+    probe = port_store.ModelStore(budget_bytes=None)
+    probe.register("a", models["a"])
+    est = probe.estimated_nbytes("a")
+    probe.unregister("a")
+    assert est == 512
+    store = port_store.ModelStore(budget_bytes=int(est * 2.3))
+    for k, m in models.items():
+        store.register(k, m)
+    base = port_ledger.live_bytes("model")
+    for k in "abcabca":
+        store.acquire(k)
+        store.check_ledger_parity()
+        assert store.stats["bytes"] == est * store.stats["resident"]
+        assert port_ledger.live_bytes("model") - base == store.stats["bytes"] <= store.budget_bytes
+    assert store.stats["evictions"] == 5 and store.stats["resident"] == 2
+    store.page_out("a")
+    store.check_ledger_parity()
+    assert port_ledger.live_bytes("model") - base == store.stats["bytes"] == est

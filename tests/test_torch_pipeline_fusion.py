@@ -454,6 +454,28 @@ def test_every_kernel_stage_is_covered():
             assert not cls.fusable and cls.fusable_reason.strip(), cls.__name__
 
 
+def test_prefers_host_input_matches_jax():
+    """Every concrete stage class of the JAX package has its port
+    counterpart, with the same `prefers_host_input` placement hint (True
+    on AgglomerativeClustering and FeatureHasher, the `Stage` default
+    False elsewhere; ROADMAP C.38)."""
+    from flink_ml_tpu.analysis.rules.coverage import _iter_operator_classes
+    from flink_ml_tpu_torch.api import Stage
+
+    assert Stage.prefers_host_input is False
+    hosts = set()
+    jax_classes = list(_iter_operator_classes("Stage"))
+    assert len(jax_classes) > 50
+    for jax_cls in jax_classes:
+        module = importlib.import_module(
+            jax_cls.__module__.replace("flink_ml_tpu", "flink_ml_tpu_torch", 1))
+        port_cls = getattr(module, jax_cls.__name__)
+        assert port_cls.prefers_host_input is jax_cls.prefers_host_input, jax_cls.__name__
+        if port_cls.prefers_host_input:
+            hosts.add(port_cls.__name__)
+    assert hosts == {"AgglomerativeClustering", "FeatureHasher"}
+
+
 # ---------------------------------------------------------------------------
 # the contracts
 # ---------------------------------------------------------------------------

@@ -180,6 +180,30 @@ def test_dense_pipeline_served_equal_jax_and_eager(mode):
         np.testing.assert_array_max_ulp(g, eager.numpy(), maxulp=MAX_ULP)
 
 
+@pytest.mark.parametrize("mode", ["pull", "request"])
+def test_served_tensor_columns_are_host_readable(mode):
+    """Numpy reads a served column on any device, as it reads the JAX
+    server's device arrays (ROADMAP C.41): the served tensor columns are
+    `HostReadable` views, in the pull loop and for an unsliced push
+    result."""
+    from flink_ml_tpu_torch.table import HostReadable
+
+    arrays = _dense([8, 8])
+    pm = _scaler_pipeline(PORT)
+    tables = [Table({"features": torch.as_tensor(a)}) for a in arrays]
+    if mode == "pull":
+        served = list(MicroBatchServer(pm, in_flight=2, buckets=(8,)).serve(tables))
+    else:
+        server = MicroBatchServer(pm, in_flight=2, buckets=(8,), admission=16, batching=mode)
+        seqs, results = _push(server, tables)
+        served = [results[s].table for s in seqs]
+    for out, a in zip(served, arrays):
+        for name in out.column_names:
+            assert type(out.column(name)) is HostReadable, name
+        want = pm.transform(Table({"features": torch.as_tensor(a)}))[0].column("norm").numpy()
+        np.testing.assert_array_equal(np.asarray(out.column("norm")), want)
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_sparse_lr_served_equal_jax_and_eager(mode):
     arrays = _sparse([5, 11, 1, 7, 3, 9])

@@ -270,3 +270,28 @@ def test_lsh_takes_as_sparse_batch_from_table():
     from flink_ml_tpu_torch.models.feature import lsh
 
     assert lsh.as_sparse_batch is table.as_sparse_batch
+
+
+def test_host_readable_is_a_view_numpy_reads():
+    """`HostReadable` (ROADMAP C.41): numpy reads it through a host copy,
+    as it reads a jax.Array on any device; it shares the wrapped tensor's
+    memory; an op on it gives a plain tensor; it deep-copies and pickles
+    as itself."""
+    import copy
+    import pickle
+
+    from flink_ml_tpu_torch.table import HostReadable, host_readable
+
+    base = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    col = host_readable(base)
+    assert type(col) is HostReadable and host_readable(col) is col
+    assert col.data_ptr() == base.data_ptr()
+    np.testing.assert_array_equal(np.asarray(col), base.numpy())
+    assert np.asarray(col, np.float64).dtype == np.float64
+    for derived in (col * 2, col[0], col.view(3, 2), col.sum(), torch.cat([col, col])):
+        assert type(derived) is torch.Tensor
+    for copied in (copy.deepcopy(col), pickle.loads(pickle.dumps(col))):
+        assert type(copied) is HostReadable and torch.equal(copied, base)
+    assert copy.deepcopy(col).data_ptr() != base.data_ptr()
+    not_tensors = (np.zeros(3), SparseBatch(4, np.zeros((1, 1), np.int32), np.ones((1, 1))))
+    assert all(host_readable(c) is c for c in not_tensors)

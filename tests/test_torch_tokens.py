@@ -119,6 +119,24 @@ def test_map_term_runs_chunked_matches_jax(num_terms, thr, binary, lut_form):
     assert got[0].shape[1] == (min(16, num_terms) if num_terms <= 512 else 16)
 
 
+@pytest.mark.parametrize("lut,num_terms", [
+    ([0, 1, 1], 4), ([0, 5], 4), ([-1, 2, 0], 3), ([3, -1, 0, 1], 5), ([], 3),
+    (list(np.random.default_rng(9).permutation(300)[:200]), 300),
+])
+@pytest.mark.parametrize("form", ["numpy", "tensor"])
+def test_lut_preimage_matches_jax(lut, num_terms, form):
+    """pre[v] is the one dictionary id mapped to v, -2 for none; None for a
+    lut that collides or maps outside the vocabulary (ROADMAP C.38)."""
+    host = np.asarray(lut, np.int32)
+    want = jax_tokens.lut_preimage(host, num_terms)
+    got = port_tokens.lut_preimage(host if form == "numpy" else torch.from_numpy(host), num_terms)
+    if want is None:
+        assert got is None
+        return
+    assert got.dtype == torch.int32 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_map_term_runs_takes_host_ids_a_chunk_at_a_time():
     ids = _ids(seed=6)
     lut = np.arange(40, dtype=np.int32)
