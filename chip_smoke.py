@@ -411,9 +411,34 @@ channels) are printed on a `sanitizer` line. Phases:
    and read after). It prints each example's seconds, the launches of
    each example that made any and the multi-tenant store's stats line,
    and an `examples` line;
-19. a `kernels` JSON line (four kernels; the fleet kernels with phase 17's
-   shapes in `by_shape`, every kernel's phase-17 and phase-18 launches by
-   path), then the result line.
+19. the port's benchmark CLI (`benchmark_phase`, A.3a): one child process
+   (`benchmark_child`) runs `python -m flink_ml_tpu_torch.benchmark
+   <config> --output-file <file>` (by runpy, as `-m` runs it) over
+   conf/benchmark-demo.json (8 entries) and every conf/*-benchmark.json
+   (36 files, 36 entries), each entry at its own shape (10M x 100 for the
+   linear fits, 100M rows for SQLTransformer, 1M x 100 for KMeans, ...),
+   then the demo again and one demo entry under `--profile-dir`, on the
+   card with no device request, under the sanitizer. It fails the run if
+   an entry raises; if its result keys are not `runner.RESULT_KEYS` (the
+   JAX runner's, which tests/test_torch_benchmark.py pins); if its
+   inputRecordNum is not its generator's numValues, or its
+   outputRecordNum not `bench_output_rows` (the relation the CPU test
+   pins); if a column of a device-born generator at or above
+   DEVICE_GEN_THRESHOLD rows lies off the card, or a prefers_host_input
+   stage's input on it; if a config leaves more than BENCH_LEFT_BYTES
+   allocated after it (its tables and model freed before the next); if an
+   entry launches a kernel (no conf/ entry is sparse); if a device-born
+   table of each of the demo's generators differs from its twin of the
+   same seed; if scripts/bench_diff.py over the two demo runs exits 2 (its
+   table is printed, not gated: host-bound entries spread between runs);
+   if the profile run writes no trace file; if the sanitizer reports a
+   problem, or if the child imported JAX. It prints each entry's
+   totalTimeMs, phaseTimesMs, inputThroughput, peakHbmBytes, hostSyncCount
+   and gapCount, each config's seconds, bytes left and allocator peak, and
+   a `benchmark` line;
+20. a `kernels` JSON line (four kernels; the fleet kernels with phase 17's
+   shapes in `by_shape`, every kernel's phase-17, phase-18 and phase-19
+   launches by path), then the result line.
 """
 
 from __future__ import annotations
@@ -467,6 +492,17 @@ EXAMPLE_DROPPED_LINES = {"pipeline_serving_example.py": "import jax"}
 #: the example whose fit must launch both solo kernels on the card
 SPARSE_EXAMPLE = "sparse_wide_lr_example.py"
 MULTI_TENANT_EXAMPLE = "multi_tenant_serving_example.py"
+#: phase 19: the benchmark configs (the demo, then every
+#: `*-benchmark.json`), the seconds the child may take, the entry that
+#: also runs under `--profile-dir`, and a cap on `numValues` (None on the
+#: card: every entry at its own shape; the CPU rehearsal sets one)
+BENCH_CONF_DIR, BENCH_DEMO = "conf", "benchmark-demo.json"
+BENCH_TIMEOUT_S = 900
+BENCH_PROFILE_ENTRY = "Bucketizer-1"
+BENCH_MAX_ROWS = None
+#: a config's tables and model are freed before the next config: the
+#: bytes it may leave allocated on the card (its captured fit's graph)
+BENCH_LEFT_BYTES = 1 << 30
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -7364,7 +7400,19 @@ def main() -> int:
         for kernel in launches:
             launches[kernel] += counts[kernel]
 
-    # -- output -----------------------------------------------------------------
+    # -- 19. the port's benchmark CLI over conf/ -------------------------------------
+    log("phase 19: python -m flink_ml_tpu_torch.benchmark over conf/benchmark-demo.json and "
+        "every conf/*-benchmark.json at their own shapes, in one child process on the card "
+        "under the sanitizer (launch counts reset before and read after each config)")
+    torch.cuda.empty_cache()
+    bench = benchmark_phase(card)
+    path_s["benchmark"] = bench["seconds"]
+    bench_launches = {"benchmark (phase 19)": bench["launches"]}
+    for counts in bench_launches.values():
+        for kernel in launches:
+            launches[kernel] += counts[kernel]
+
+    # -- 20. output ----------------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
         "sparse_grad": "flink_ml_tpu/ops/sparsekernels.py:107",
@@ -7393,7 +7441,8 @@ def main() -> int:
                                  **{p: c[name] for p, c in funnel_launches.items() if c[name]},
                                  **{p: c[name] for p, c in mesh_launches.items() if c[name]},
                                  **{p: c[name] for p, c in mesh2d_launches.items() if c[name]},
-                                 **{p: c[name] for p, c in example_launches.items() if c[name]}},
+                                 **{p: c[name] for p, c in example_launches.items() if c[name]},
+                                 **{p: c[name] for p, c in bench_launches.items()}},
             "launches_by_feature_path": {p: r["launches"][name] for p, r in
                                          {**features, **texts, **stat_stages, **slice8}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -7418,7 +7467,8 @@ def main() -> int:
                                     if c[name]},
                                  **{p: c[name] for p, c in funnel_launches.items() if c[name]},
                                  **{p: c[name] for p, c in mesh2d_launches.items() if c[name]},
-                                 **{p: c[name] for p, c in example_launches.items() if c[name]}},
+                                 **{p: c[name] for p, c in example_launches.items() if c[name]},
+                                 **{p: c[name] for p, c in bench_launches.items()}},
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "tolerance": r["tolerance"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -7453,7 +7503,8 @@ def main() -> int:
     log("mesh: " + json.dumps(mesh, default=str))
     log("mesh2d: " + json.dumps(mesh2d, default=str))
     log("examples: " + json.dumps(examples))
-    log("seconds by path (phases 3-18): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("benchmark: " + json.dumps(bench))
+    log("seconds by path (phases 3-19): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s on {card}")
@@ -8471,6 +8522,338 @@ def examples_phase(card):
             "examples": {n: {"seconds": r["seconds"], "lines": len(r["stdout"].strip().splitlines()),
                              "launches": r["launches"]} for n, r in results.items()},
             "store_stats": store_line, "sanitizer": verdict["stats"]}
+
+
+def bench_configs(tmp):
+    """Phase 19's config files, in order: the demo, every
+    `conf/*-benchmark.json` (sorted), the demo again (for bench_diff) and
+    BENCH_PROFILE_ENTRY alone (for `--profile-dir`), as (label, path).
+    With BENCH_MAX_ROWS set, each is a copy under `tmp` with `numValues`
+    capped; the profile entry is always a copy of its one entry."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    conf = os.path.join(here, BENCH_CONF_DIR)
+    names = [BENCH_DEMO] + sorted(n for n in os.listdir(conf) if n.endswith("-benchmark.json"))
+    out = []
+    for label, name in [(n, n) for n in names] + [("demo again", BENCH_DEMO)]:
+        path = os.path.join(conf, name)
+        if BENCH_MAX_ROWS is not None:
+            path = capped_config(path, os.path.join(tmp, f"{len(out)}-{name}"))
+        out.append((label, path))
+    from flink_ml_tpu_torch.benchmark import runner
+
+    demo = runner.load_config(out[0][1])
+    profile = os.path.join(tmp, "profile-entry.json")
+    with open(profile, "w") as f:
+        json.dump({"version": 1, BENCH_PROFILE_ENTRY: demo[BENCH_PROFILE_ENTRY]}, f)
+    out.append(("profile", profile))
+    return out
+
+
+def capped_config(path, dest):
+    """A copy of the config at `path` with every generator's numValues at
+    most BENCH_MAX_ROWS (the CPU rehearsal's sizes)."""
+    from flink_ml_tpu_torch.benchmark import runner
+
+    cfg = runner.load_config(path)
+    for name, entry in cfg.items():
+        if name == "version":
+            continue
+        for key in ("inputData", "modelData"):
+            pm = entry.get(key, {}).get("paramMap", {})
+            if "numValues" in pm:
+                pm["numValues"] = min(pm["numValues"], BENCH_MAX_ROWS)
+    with open(dest, "w") as f:
+        json.dump(cfg, f)
+    return dest
+
+
+def table_placement(tables):
+    """Where each column of generated `tables` lies: its device type for a
+    tensor (a DictTokenMatrix's ids), "host" for anything else."""
+    from flink_ml_tpu_torch.table import DictTokenMatrix
+
+    cols = []
+    for t in tables:
+        for name in t.column_names:
+            col = t.column(name)
+            arr = col.ids if isinstance(col, DictTokenMatrix) else col
+            cols.append({"name": name, "rows": int(t.num_rows),
+                         "where": arr.device.type if isinstance(arr, torch.Tensor) else "host"})
+    return cols
+
+
+def benchmark_child(spec_json: str) -> int:
+    """Phase 19's child process: `python -m flink_ml_tpu_torch.benchmark
+    <config> --output-file <file>` (`--profile-dir` for the last) run in
+    this process by runpy, as `-m` runs it, once for each of
+    spec["configs"], under the sanitizer; on the card with no device
+    request, in the CPU rehearsal under `use_device("cpu")`. Each
+    generated table's placement is recorded (`table_placement`, with the
+    runner's prefer-host flag) through the runner's `instantiate_generator`.
+    Prints one `bench {json}` line a config (its results, placements,
+    seconds, launches, bytes left allocated and allocator peak), a
+    `determinism {json}` line (each device-born generator's table twice
+    from one seed), a `benchdiff {json}` line (scripts/bench_diff.py over
+    the two demo runs) and a `sanitizer {json}` line."""
+    import contextlib
+    import gc
+    import io
+    import runpy
+    import shutil
+
+    from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.analysis import sanitizer
+    from flink_ml_tpu_torch.benchmark import datagenerator, runner
+    from flink_ml_tpu_torch.ops import sparsekernels as sk
+
+    spec = json.loads(spec_json)
+    on_cpu = spec["device"] == "cpu"
+    if on_cpu:
+        count_plain_launches(sk)
+    sanitizer.enable(register_atexit=False)
+    placed = []
+    resolve = runner.instantiate_generator
+
+    def recorded(gen_spec):
+        gen = resolve(gen_spec)
+        make = gen.get_data
+
+        def get_data():
+            tables = make()
+            placed.append({"generator": gen_spec["className"].rsplit(".", 1)[1],
+                           "preferHost": datagenerator._prefer_host,
+                           "columns": table_placement(tables)})
+            return tables
+        gen.get_data = get_data
+        return gen
+    runner.instantiate_generator = recorded
+
+    def place():
+        return port_config.use_device("cpu") if on_cpu else contextlib.nullcontext()
+
+    def allocated():
+        gc.collect()
+        if on_cpu:
+            return 0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    configs = bench_configs(tmp)
+    base = allocated()
+    outputs = {}
+    for i, (label, path) in enumerate(configs):
+        out_file = os.path.join(tmp, f"{i}.results.json")
+        argv = [path, "--output-file", out_file]
+        if label == "profile":
+            argv += ["--profile-dir", os.path.join(tmp, "profile")]
+        placed.clear()
+        sk.reset_launch_counts()
+        if not on_cpu:
+            torch.cuda.reset_peak_memory_stats()
+        printed, error = io.StringIO(), None
+        t0 = time.perf_counter()
+        saved = sys.argv
+        sys.argv = ["flink_ml_tpu_torch.benchmark"] + argv
+        try:
+            with place(), contextlib.redirect_stdout(printed):
+                runpy.run_module("flink_ml_tpu_torch.benchmark", run_name="__main__")
+        except Exception:  # a config's failure is reported, not raised
+            import traceback
+
+            error = traceback.format_exc()
+        finally:
+            sys.argv = saved
+        seconds = time.perf_counter() - t0
+        outputs[label] = out_file
+        entries = runner.load_config(path)
+        results = {}
+        if error is None:
+            with open(out_file) as f:
+                results = json.load(f)
+        trace_files = []
+        if label == "profile":
+            for root, _, files in os.walk(os.path.join(tmp, "profile")):
+                trace_files += [os.path.join(root, n) for n in files]
+        print("bench " + json.dumps({
+            "label": label, "entries": {n: e for n, e in entries.items() if n != "version"},
+            "results": results, "placed": list(placed), "seconds": seconds,
+            "launches": sk.launch_counts(), "error": error,
+            "leftBytes": allocated() - base,
+            "peakBytes": 0 if on_cpu else torch.cuda.max_memory_allocated(),
+            "printed": printed.getvalue()[-2000:], "traceFiles": len(trace_files)}), flush=True)
+
+    # each device-born generator, twice from one seed (the demo's shapes)
+    demo = runner.load_config(configs[0][1])
+    same = {}
+    with place():
+        for name in ("KMeans-1", "LogisticRegression-1", "NaiveBayes-1", "HashingTF-1",
+                     "Bucketizer-1"):
+            gen_spec = demo[name]["inputData"]
+            first, second = resolve(gen_spec).get_data(), resolve(gen_spec).get_data()
+            equal, where = True, set()
+            for a, b in zip(first, second):
+                for col in a.column_names:
+                    x, y = a.column(col), b.column(col)
+                    x, y = getattr(x, "ids", x), getattr(y, "ids", y)
+                    where.add(x.device.type if isinstance(x, torch.Tensor) else "host")
+                    equal = equal and isinstance(x, torch.Tensor) and torch.equal(x, y)
+            same[name] = {"generator": gen_spec["className"].rsplit(".", 1)[1],
+                          "equal": bool(equal), "where": sorted(where)}
+            del first, second
+    print("determinism " + json.dumps(same), flush=True)
+
+    import subprocess as sp
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    diff = sp.run([sys.executable, os.path.join(here, "scripts", "bench_diff.py"),
+                   outputs[BENCH_DEMO], outputs["demo again"]],
+                  capture_output=True, text=True, timeout=120)
+    print("benchdiff " + json.dumps({"rc": diff.returncode, "stdout": diff.stdout,
+                                     "stderr": diff.stderr[-2000:]}), flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    problems = sanitizer.recorder.problems(join_timeout=SANITIZER_JOIN_S)
+    jax_loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                                      "flink_ml_tpu"))
+    print("sanitizer " + json.dumps({"problems": problems, "stats": sanitizer.recorder.stats(),
+                                     "jaxModules": jax_loaded}), flush=True)
+    sanitizer.mark_exit_checked()
+    return 0
+
+
+def benchmark_phase(card):
+    """Phase 19: the port's benchmark CLI over the demo and every
+    `conf/*-benchmark.json`, at their own shapes, in one child process
+    (`benchmark_child`) on the card under the sanitizer. Fails if an entry
+    raises, if its result keys are not `runner.RESULT_KEYS`, if its
+    inputRecordNum is not its generator's numValues or its
+    outputRecordNum not `bench_output_rows`, if a numeric or token column
+    of a device generator at or above DEVICE_GEN_THRESHOLD rows lies off
+    the device (or on it, for a `prefers_host_input` stage), if a config
+    leaves more than BENCH_LEFT_BYTES allocated, if an entry launches a
+    kernel (no `conf/` entry is sparse), if a device-born table differs
+    from its twin of the same seed, if bench_diff exits 2, if the profile
+    run writes no trace file, if the sanitizer reports a problem or if the
+    child imported JAX. Returns the phase's seconds, each entry's numbers
+    and the checks' verdicts."""
+    import subprocess as sp
+
+    from flink_ml_tpu_torch.benchmark import datagenerator, runner
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = json.dumps({"device": DEVICE})
+    t0 = time.perf_counter()
+    proc = sp.run([sys.executable, "-c",
+                   "import sys, chip_smoke; chip_smoke.BENCH_MAX_ROWS = "
+                   f"{BENCH_MAX_ROWS!r}; sys.exit(chip_smoke.benchmark_child(sys.argv[1]))",
+                   spec], cwd=here, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the benchmark child exited {proc.returncode}: "
+                                f"{proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+    runs, same, diff, verdict = [], None, None, None
+    for line in proc.stdout.splitlines():
+        if line.startswith("bench {"):
+            runs.append(json.loads(line[len("bench "):]))
+        elif line.startswith("determinism {"):
+            same = json.loads(line[len("determinism "):])
+        elif line.startswith("benchdiff {"):
+            diff = json.loads(line[len("benchdiff "):])
+        elif line.startswith("sanitizer {"):
+            verdict = json.loads(line[len("sanitizer "):])
+    configs = sorted(n for n in os.listdir(os.path.join(here, BENCH_CONF_DIR))
+                     if n.endswith("-benchmark.json"))
+    labels = [BENCH_DEMO] + configs + ["demo again", "profile"]
+    check([r["label"] for r in runs] == labels,
+          f"phase 19 ran {[r['label'] for r in runs]}, expected {labels}")
+    failed = {r["label"]: r["error"] for r in runs if r["error"]}
+    check(not failed, "benchmark configs raised on the port: " + "; ".join(
+        f"{n}: {e[-1500:]}" for n, e in failed.items()))
+    threshold = datagenerator.DEVICE_GEN_THRESHOLD
+    device_born = ("DenseVectorGenerator", "DoubleGenerator", "LabeledPointWithWeightGenerator",
+                   "RandomStringArrayGenerator")
+    entries = {}
+    for r in runs:
+        names = list(r["entries"])
+        check(list(r["results"]) == names, f"{r['label']}: results for {list(r['results'])}, "
+                                           f"expected {names}")
+        check(len(r["placed"]) == len(names), f"{r['label']}: {len(r['placed'])} generated "
+                                              f"tables for {len(names)} entries")
+        check(not any(r["launches"].values()), f"{r['label']} launched {r['launches']}: no "
+                                               "conf/ entry is sparse")
+        check(r["leftBytes"] <= BENCH_LEFT_BYTES,
+              f"{r['label']} left {r['leftBytes']} bytes allocated after its entries")
+        for (name, entry), placed in zip(r["entries"].items(), r["placed"]):
+            res = r["results"][name]["results"]
+            check(r["results"][name]["stage"] == entry["stage"], f"{name}: the stage echoed")
+            check(set(res) == runner.RESULT_KEYS,
+                  f"{name}: result keys {sorted(set(res) ^ runner.RESULT_KEYS)} differ")
+            n = int(entry["inputData"]["paramMap"].get("numValues", 10))
+            check(res["inputRecordNum"] == n, f"{name}: inputRecordNum {res['inputRecordNum']} "
+                                              f"against numValues {n}")
+            want = bench_output_rows(entry, n)
+            check(res["outputRecordNum"] == want,
+                  f"{name}: outputRecordNum {res['outputRecordNum']}, expected {want}")
+            where = {c["where"] for c in placed["columns"]}
+            if placed["preferHost"]:
+                check(where == {"host"}, f"{name}: a prefers_host_input stage got {where}")
+            elif placed["generator"] in device_born and n >= threshold:
+                check(where == {torch.device(DEVICE).type},
+                      f"{name}: {placed['generator']} at {n} rows placed {where}")
+            if r["label"] in ("demo again", "profile"):
+                continue
+            entries[name] = {
+                "config": r["label"], "totalTimeMs": res["totalTimeMs"],
+                "phaseTimesMs": res["phaseTimesMs"], "inputThroughput": res["inputThroughput"],
+                "peakHbmBytes": res["peakHbmBytes"], "hostSyncCount": res["hostSyncCount"],
+                "gapCount": res["gapCount"], "hostDispatchMs": res["hostDispatchMs"],
+                "inputRecordNum": n, "outputRecordNum": res["outputRecordNum"],
+                "placement": sorted(where), "preferHost": placed["preferHost"]}
+    check(len(entries) == 44, f"phase 19 ran {len(entries)} entries, expected 44")
+    check(runs[-1]["traceFiles"] > 0, "--profile-dir wrote no trace file")
+    check(same is not None and all(v["equal"] for v in same.values())
+          and all(v["where"] == [torch.device(DEVICE).type] for v in same.values()),
+          f"device-born tables from one seed differ or lie off the device: {same}")
+    check(diff is not None and diff["rc"] in (0, 1),
+          f"bench_diff over the two demo runs exited {diff and diff['rc']}: {diff}")
+    check(verdict is not None, "the benchmark child printed no sanitizer verdict")
+    check(not verdict["problems"], f"the sanitizer found {len(verdict['problems'])} problem(s) "
+                                   "in the benchmark child: " + "; ".join(verdict["problems"]))
+    check(not verdict["jaxModules"], f"the benchmark child imported {verdict['jaxModules']}")
+    for name, e in entries.items():
+        phases = ", ".join(f"{k} {v:.3f}" for k, v in e["phaseTimesMs"].items())
+        log(f"  {name} ({e['config']}): totalTimeMs {e['totalTimeMs']:.3f} [{phases}], "
+            f"inputThroughput {e['inputThroughput']:.1f} rec/s, peakHbmBytes "
+            f"{e['peakHbmBytes']}, hostSyncCount {e['hostSyncCount']}, gapCount "
+            f"{e['gapCount']} ({e['hostDispatchMs']:.3f} ms), {e['inputRecordNum']} -> "
+            f"{e['outputRecordNum']} rows, tables on {e['placement']}")
+    for r in runs:
+        log(f"  {r['label']}: {r['seconds']:.2f} s, left {r['leftBytes'] / 2**20:.1f} MiB, "
+            f"allocator peak {r['peakBytes'] / 2**30:.2f} GiB")
+    log("  determinism: " + json.dumps(same))
+    shown = [line for line in diff["stdout"].splitlines()
+             if re.search(r"totalTimeMs|Throughput|regression|compared metrics", line)]
+    log(f"  bench_diff demo against demo again (exit {diff['rc']}; not a gate: host-bound "
+        "entries spread between runs; its time and throughput rows):\n" + "\n".join(
+            "    " + line for line in shown))
+    log(f"  sanitizer (the benchmark child): {json.dumps(verdict['stats'])}")
+    log(f"  phase 19: {len(entries)} entries of {len(runs) - 2} configs green in {seconds:.2f} s "
+        f"(the child's wall, its start included; the entries "
+        f"{sum(e['totalTimeMs'] for e in entries.values()) / 1e3:.2f} s of totalTimeMs) on {card}")
+    return {"seconds": seconds, "entries": entries,
+            "configs": {r["label"]: {"seconds": r["seconds"], "leftBytes": r["leftBytes"],
+                                     "peakBytes": r["peakBytes"]} for r in runs},
+            "determinism": same, "bench_diff_rc": diff["rc"], "sanitizer": verdict["stats"],
+            "launches": launch_dict()}
+
+
+def bench_output_rows(entry, n):
+    """The rows a `conf/` entry's transform gives for n input rows (the
+    relation tests/test_torch_benchmark.py pins on both packages): n, and
+    for AgglomerativeClustering its merge table's n - numClusters rows
+    besides."""
+    if entry["stage"]["className"].rsplit(".", 1)[1] == "AgglomerativeClustering":
+        return n + n - int(entry["stage"].get("paramMap", {}).get("numClusters", 2))
+    return n
 
 
 def profile_run(name, run):

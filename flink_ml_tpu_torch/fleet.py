@@ -86,6 +86,7 @@ import numpy as np
 import torch
 
 from . import config
+from .parallel import dispatch
 
 __all__ = ["FitFleet", "fleet_model_arrays"]
 
@@ -258,7 +259,7 @@ class FitFleet:
         linear estimators); returns the N fitted models in the estimators'
         order."""
         from .obs import memledger
-        from .parallel import dispatch, overlap
+        from .parallel import overlap
         from .utils import metrics
 
         n = len(self.estimators)
@@ -372,14 +373,16 @@ class FitFleet:
                 mesh if sharded else None, state, rows, gmax_all, int(y_f.shape[0]) // gbs,
                 gbs, d, sparse, sharded, lambda st, a, b: optimizer._sgd_fleet_chunk(
                     X_f, y_f, w_f, st, loss_func, hyper, gbs, n, a, b))
-            packed = optimizer._sgd_fleet_final(state, hyper)
+            with dispatch.timed_dispatch("_sgd_fleet_final", start=gmax, end=gmax):
+                packed = optimizer._sgd_fleet_final(state, hyper)
             if validate_on_device:
                 flag = optimizer._binomial_labels_ok(y_f).reshape(1, 1)
                 packed = torch.cat([flag.expand(packed.shape[0], 1), packed], dim=1)
         else:
             if config.whole_fit != "off":
                 optimizer.account_whole_fit("fleet")
-            with tracing.span("iteration.run", mode="fleet", epochs=gmax, fleet=len(rows)):
+            with tracing.span("iteration.run", mode="fleet", epochs=gmax, fleet=len(rows)), \
+                    dispatch.timed_dispatch("_sgd_fleet_whole_fit", start=0, end=gmax):
                 packed = optimizer._sgd_fleet_whole_fit(
                     X_f, y_f, w_f, state, loss_func, hyper, gmax, gbs, n, validate_on_device)
         if sharded:
@@ -395,7 +398,7 @@ class FitFleet:
         from .models import _linear
         from .obs import memledger, tracing
         from .ops import optimizer
-        from .parallel import collectives, dispatch
+        from .parallel import collectives
 
         gmax = int(max(r[0] for r in rows))
         template = optimizer.SGD(global_batch_size=gbs, max_iter=gmax)
@@ -412,11 +415,14 @@ class FitFleet:
         if config.iteration_checkpoint_dir is not None:
             state = self._run_checkpointed(mesh, state, rows, gmax, int(y_all.shape[0]), gbs, d,
                                            sparse, False, chunk)
-        else:
+            with dispatch.timed_dispatch("_sgd_fleet_final", start=gmax, end=gmax):
+                packed = optimizer._sgd_fleet_final(state, hyper)
+        else:  # the whole fit's epochs and its final update: one launch
             with tracing.span("iteration.run", mode="fleet_sharded", epochs=gmax,
-                              fleet=len(rows), ranks=mesh.size):
+                              fleet=len(rows), ranks=mesh.size), \
+                    dispatch.timed_dispatch("fleet_sharded_fit", start=0, end=gmax):
                 state = chunk(state, 0, gmax)
-        packed = optimizer._sgd_fleet_final(state, hyper)
+                packed = optimizer._sgd_fleet_final(state, hyper)
         if validate_on_device:
             flag = collectives.all_reduce_min(optimizer._binomial_labels_ok(y_all), mesh=mesh)
             packed = torch.cat([flag.reshape(1, 1).expand(packed.shape[0], 1), packed], dim=1)
@@ -464,7 +470,8 @@ class FitFleet:
                 end = min((planned // interval + 1) * interval, gmax)
                 with tracing.span("iteration.chunk", epoch=planned, end=end):
                     supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
-                    state = chunk(state, planned, end)
+                    with dispatch.timed_dispatch("fleet_chunk", start=planned, end=end):
+                        state = chunk(state, planned, end)
                 supervisor.pulse_boundary(supervisor.PHASE_COLLECTIVE)
                 e_m, c_m = packed_device_get(state[3], state[4], sync_kind="drain")
                 if end % interval == 0:
@@ -544,9 +551,11 @@ class FitFleet:
             with tracing.span("iteration.run", mode="fleet_stream", epochs=gmax,
                               fleet=len(self.estimators)):
                 X_b, y_b, w_b = layout.views(segments)
-                state = optimizer._sgd_fleet_sharded_chunk(mesh, X_b, y_b, w_b, state,
-                                                           loss_func, hyper, 0, gmax)
-                (host,) = _linear.packed_to_host(optimizer._sgd_fleet_final(state, hyper))
+                with dispatch.timed_dispatch("fleet_stream_fit", start=0, end=gmax):
+                    state = optimizer._sgd_fleet_sharded_chunk(mesh, X_b, y_b, w_b, state,
+                                                               loss_func, hyper, 0, gmax)
+                    packed = optimizer._sgd_fleet_final(state, hyper)
+                (host,) = _linear.packed_to_host(packed)
         else:
             lo, hi = self._own(mesh, sharded)
             rows = rows[lo:hi]
@@ -557,8 +566,9 @@ class FitFleet:
             gmax = int(max(r[0] for r in rows))
             with tracing.span("iteration.run", mode="fleet_stream", epochs=gmax,
                               fleet=len(self.estimators)):
-                packed = optimizer._sgd_fleet_stream_whole_fit(
-                    segments, layout, state, loss_func, hyper, gmax)
+                with dispatch.timed_dispatch("_sgd_fleet_stream_whole_fit", start=0, end=gmax):
+                    packed = optimizer._sgd_fleet_stream_whole_fit(
+                        segments, layout, state, loss_func, hyper, gmax)
                 if sharded:
                     packed = collectives.all_gather(packed, mesh=mesh)
                 (host,) = _linear.packed_to_host(packed)
@@ -580,7 +590,7 @@ class FitFleet:
         from .models.clustering import kmeans as km
         from .obs import tracing
         from .ops import optimizer
-        from .parallel import collectives, dispatch
+        from .parallel import collectives
         from .parallel import mesh as mesh_lib
         from .parallel.prefetch import to_device
         from .table import StreamTable, as_dense_matrix
@@ -618,8 +628,10 @@ class FitFleet:
             dispatch.whole_fit_plan(start_epoch=0, max_iter=max(max_iters), ranks=mesh.size)
             with tracing.span("iteration.run", mode="fleet_sharded", epochs=max(max_iters),
                               fleet=len(ests), ranks=mesh.size):
-                packed = km._lloyd_fleet_sharded(mesh, X_local, weights, inits, max_iters,
-                                                 measure)
+                with dispatch.timed_dispatch("_lloyd_fleet_sharded", start=0,
+                                             end=max(max_iters)):
+                    packed = km._lloyd_fleet_sharded(mesh, X_local, weights, inits, max_iters,
+                                                     measure)
         else:  # this rank's members (every member on one rank) on every row
             lo, hi = self._own(mesh, sharded)
             mine = ests[lo:hi]
@@ -630,7 +642,9 @@ class FitFleet:
                 optimizer.account_whole_fit("fleet")
             with tracing.span("iteration.run", mode="fleet", epochs=max(max_iters),
                               fleet=len(ests)):
-                packed = km._lloyd_fleet_train(X, inits, max_iters, measure)
+                with dispatch.timed_dispatch("_lloyd_fleet_train", start=0,
+                                             end=max(max_iters)):
+                    packed = km._lloyd_fleet_train(X, inits, max_iters, measure)
             if sharded:
                 packed = collectives.all_gather(packed, mesh=mesh)
         (host,) = _linear.packed_to_host(packed)

@@ -88,7 +88,7 @@ from ...ops.distance import DistanceMeasure
 from ...ops.optimizer import account_whole_fit
 from ...param import IntParam, ParamValidators, StringParam
 from ...parallel import mesh as mesh_lib
-from ...parallel import supervisor
+from ...parallel import dispatch, supervisor
 from ...parallel.iteration import checkpoint_job_key
 from ...parallel.prefetch import DeviceStager, to_device
 from ...table import Table, as_dense_matrix
@@ -383,10 +383,10 @@ class KMeans(Estimator, KMeansParams):
         init = rows_of(init_rows(n, k, self.get_seed()))
         if config.whole_fit != "off":
             account_whole_fit("lloyd")
-        with tracing.span("iteration.run", mode="device", epochs=self.get_max_iter()):
-            centroids, counts = _lloyd_train(
-                X, init, int(self.get_max_iter()), self.get_distance_measure()
-            )
+        max_iter = int(self.get_max_iter())
+        with tracing.span("iteration.run", mode="device", epochs=max_iter), \
+                dispatch.timed_dispatch("_lloyd_train", start=0, end=max_iter):
+            centroids, counts = _lloyd_train(X, init, max_iter, self.get_distance_measure())
         model = KMeansModel()
         model.centroids, model.weights = _linear.packed_to_host(centroids, counts)
         update_existing_params(model, self)
@@ -395,7 +395,7 @@ class KMeans(Estimator, KMeansParams):
     def _fit_sharded(self, mesh, X, n: int, k: int):
         """The fit on this rank's block of X (the module docstring); returns
         (centroids, counts) on the rank's device."""
-        from ...parallel import dispatch, overlap
+        from ...parallel import overlap
 
         device = X.device if isinstance(X, torch.Tensor) else config.device()
         X_local, _ = mesh_lib.shard_batch(mesh, X if isinstance(X, torch.Tensor)
@@ -413,7 +413,8 @@ class KMeans(Estimator, KMeansParams):
                           ranks=mesh_lib.num_data_shards(mesh)):
             train = overlap.overlapped_lloyd_train if config.collective_overlap \
                 else _lloyd_train_sharded
-            return train(mesh, X_local, weights, init, max_iter, self.get_distance_measure())
+            with dispatch.timed_dispatch(train.__name__, start=0, end=max_iter):
+                return train(mesh, X_local, weights, init, max_iter, self.get_distance_measure())
 
     def _fit_stream(self, stream) -> KMeansModel:
         """Out-of-core Lloyd over a StreamTable (or a ReplayableStreamTable).
@@ -511,27 +512,30 @@ class KMeans(Estimator, KMeansParams):
             for epoch in range(start, max_iter):
                 with tracing.span("iteration.epoch", epoch=epoch, mode="stream"):
                     supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
-                    sums = centroids.new_zeros(centroids.shape)
-                    counts = centroids.new_zeros((k,))
-                    for _ in range(nb):
-                        X = next(batches)
+                    # the eager loop's launch a stream epoch (ROADMAP C.44)
+                    with dispatch.timed_dispatch("lloyd_stream_epoch", start=epoch,
+                                                 end=epoch + 1):
+                        sums = centroids.new_zeros(centroids.shape)
+                        counts = centroids.new_zeros((k,))
+                        for _ in range(nb):
+                            X = next(batches)
+                            if mesh is not None:
+                                X, w = X
+                            one_hot = (measure.find_closest(X, centroids)[:, None]
+                                       == labels).to(X.dtype)
+                            if mesh is not None:
+                                one_hot = one_hot * w[:, None]
+                            sums = sums + one_hot.T @ X
+                            counts = counts + torch.sum(one_hot, dim=0)
                         if mesh is not None:
-                            X, w = X
-                        one_hot = (measure.find_closest(X, centroids)[:, None] == labels).to(
-                            X.dtype)
-                        if mesh is not None:
-                            one_hot = one_hot * w[:, None]
-                        sums = sums + one_hot.T @ X
-                        counts = counts + torch.sum(one_hot, dim=0)
-                    if mesh is not None:
-                        summed = collectives.all_reduce_sum(
-                            torch.cat([sums.reshape(-1), counts]), mesh=mesh)
-                        sums, counts = summed[:sums.numel()].reshape(sums.shape), \
-                            summed[sums.numel():]
-                    centroids = torch.where(
-                        counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1e-30),
-                        centroids
-                    )
+                            summed = collectives.all_reduce_sum(
+                                torch.cat([sums.reshape(-1), counts]), mesh=mesh)
+                            sums, counts = summed[:sums.numel()].reshape(sums.shape), \
+                                summed[sums.numel():]
+                        centroids = torch.where(
+                            counts[:, None] > 0, sums / torch.clamp(counts[:, None], min=1e-30),
+                            centroids
+                        )
                     if ckpt_dir is not None and (epoch + 1) % interval == 0:
                         _snapshot.save_job_snapshot(
                             ckpt_dir, job_key, {"model": (centroids, counts), "rng": rng_section()},

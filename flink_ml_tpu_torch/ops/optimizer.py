@@ -599,8 +599,9 @@ class SGD:
                     finish=lambda st, flag: overlap.sgd2d_finish(mesh, st, hyper, flag),
                     specs=("model", "model", "replicated", "replicated"))
             else:
-                _, packed = overlap.sgd2d_whole_fit(mesh, X_b, y_b, w_b, state, loss_func,
-                                                    hyper, max_iter, y_all, validate_labels)
+                with dispatch.timed_dispatch("sgd2d_whole_fit", start=0, end=max_iter):
+                    _, packed = overlap.sgd2d_whole_fit(mesh, X_b, y_b, w_b, state, loss_func,
+                                                        hyper, max_iter, y_all, validate_labels)
         return ("packed2d", packed, d, validate_labels, nm, d_pad // nm)
 
     def optimize_stream(self, init_coeff, chunks, loss_func: LossFunc, mesh=None,
@@ -634,6 +635,7 @@ class SGD:
         from ..data.devicecache import (CachedEpochLoader, cache_contents_section,
                                         restore_cache_contents)
         from ..native.datacache import DataCache
+        from ..parallel import dispatch
         from ..parallel.prefetch import DeviceStager
 
         if self.shard_features:
@@ -706,11 +708,13 @@ class SGD:
                     with tracing.span("iteration.epoch", epoch=p, mode="stream"):
                         supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
                         Xk, yk, wk = next(batches)
-                        if ranked:
-                            state = _sharded_masked_epoch(mesh, Xk, yk, wk, state, loss_func,
-                                                          hyper)
-                        else:
-                            state = _masked_epoch(Xk, yk, wk, state, loss_func, hyper)
+                        # the eager loop's launch a stream epoch (ROADMAP C.44)
+                        with dispatch.timed_dispatch("stream_epoch", start=p, end=p + 1):
+                            if ranked:
+                                state = _sharded_masked_epoch(mesh, Xk, yk, wk, state,
+                                                              loss_func, hyper)
+                            else:
+                                state = _masked_epoch(Xk, yk, wk, state, loss_func, hyper)
                         if ckpt is not None and (p + 1) % interval == 0:
                             stopped = self._drain_and_snapshot(
                                 state, p + 1, meta={**meta, "cacheCursor": (p + 1) % nb},
@@ -831,10 +835,13 @@ class SGD:
                                                             hyper, a, b),
                     finish=lambda st, flag: _finish(st, hyper, flag), specs="replicated")
             if overlapped:
-                return overlap.overlapped_sgd_train(mesh, X_b, y_b, w_b, y_all, init, loss_func,
-                                                    hyper, max_iter, validate_labels)
-            return _sgd_train_sharded(mesh, X_b, y_b, w_b, y_all, init, loss_func, hyper,
-                                      max_iter, validate_labels, grad=grad)
+                with dispatch.timed_dispatch("overlapped_sgd_train", start=0, end=max_iter):
+                    return overlap.overlapped_sgd_train(mesh, X_b, y_b, w_b, y_all, init,
+                                                        loss_func, hyper, max_iter,
+                                                        validate_labels)
+            with dispatch.timed_dispatch("_sgd_train_sharded", start=0, end=max_iter):
+                return _sgd_train_sharded(mesh, X_b, y_b, w_b, y_all, init, loss_func, hyper,
+                                          max_iter, validate_labels, grad=grad)
 
     def _optimize_mesh_with_checkpoints(self, mesh, y_all, state, validate_labels, d: int,
                                         epochs, finish, specs):
@@ -848,7 +855,7 @@ class SGD:
         `numBatches`, `globalBatchSize`: another batch layout is refused).
         Returns `finish(state, flag)`: the packed result, on the device."""
         from ..ckpt import snapshot as _snapshot
-        from ..parallel import collectives
+        from ..parallel import collectives, dispatch
 
         B = int(self.global_batch_size)
         meta = {"numBatches": int(y_all.shape[0]), "globalBatchSize": B}
@@ -867,7 +874,8 @@ class SGD:
                 end = min((planned // interval + 1) * interval, max_iter)
                 with tracing.span("iteration.chunk", epoch=planned, end=end):
                     supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
-                    state = epochs(state, planned, end)
+                    with dispatch.timed_dispatch("mesh_epochs", start=planned, end=end):
+                        state = epochs(state, planned, end)
                 stopped = self._drain_and_snapshot(state, end, meta, specs={"model": specs},
                                                    mesh=mesh, shapes=shapes)
                 faults.tick("chunk")
@@ -881,6 +889,7 @@ class SGD:
         """Stage the inputs (`stage_flat`) and run `_sgd_train_flat`, or
         the checkpointed chunks."""
         from ..obs import memledger
+        from ..parallel import dispatch
 
         B, dtype = int(self.global_batch_size), self._dtype
         if self.checkpoint_dir is not None:
@@ -893,11 +902,13 @@ class SGD:
         X_f, y_f, w_f, n = stage_flat(X, y, weights, B,
                                       rows=lambda nb: _touched_rows(nb, B, max_iter), dtype=dtype)
         init = _stage(init_coeff, dtype, y_f.device)
+        launch = dispatch.timed_dispatch("_sgd_train_flat", start=0, end=max_iter)
         if config.whole_fit == "off":
-            return _sgd_train_flat(X_f, y_f, w_f, init, self._hyper(y_f.device), loss_func, B, n,
-                                   max_iter, validate_labels)
+            with launch:
+                return _sgd_train_flat(X_f, y_f, w_f, init, self._hyper(y_f.device), loss_func,
+                                       B, n, max_iter, validate_labels)
         account_whole_fit("sgd")
-        with tracing.span("iteration.run", mode="whole_fit", epochs=max_iter):
+        with tracing.span("iteration.run", mode="whole_fit", epochs=max_iter), launch:
             return _sgd_train_flat(X_f, y_f, w_f, init, self._hyper(y_f.device), loss_func, B, n,
                                    max_iter, validate_labels)
 
@@ -911,6 +922,7 @@ class SGD:
         whose tol fires inside a chunk stops there, as the masked whole fit
         does. Returns the whole fit's packed result, on the device."""
         from ..ckpt import snapshot as _snapshot
+        from ..parallel import dispatch
 
         B, d = int(self.global_batch_size), int(init.shape[0])
         meta = {"numBatches": int(y.shape[0]) // B, "globalBatchSize": B}
@@ -928,7 +940,8 @@ class SGD:
                 end = min((planned // interval + 1) * interval, max_iter)
                 with tracing.span("iteration.chunk", epoch=planned, end=end):
                     supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
-                    state = _sgd_epochs(X, y, w, state, loss_func, B, n, planned, end, hyper)
+                    with dispatch.timed_dispatch("_sgd_epochs", start=planned, end=end):
+                        state = _sgd_epochs(X, y, w, state, loss_func, B, n, planned, end, hyper)
                 stopped = self._drain_and_snapshot(state, end, meta)
                 faults.tick("chunk")
                 planned = end

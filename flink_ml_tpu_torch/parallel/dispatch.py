@@ -1,17 +1,17 @@
-"""Whole-fit eligibility and its fallback accounting.
+"""Whole-fit eligibility, its fallback accounting and the timed launch.
 
-Port of the part of flink_ml_tpu/parallel/dispatch.py that the sharded
-routes call. Where each function of the JAX module lives in the port:
+Port of the part of flink_ml_tpu/parallel/dispatch.py that the fits
+call. Where each function of the JAX module lives in the port:
 
 - `whole_fit_enabled` (JAX `:73`), `account_whole_fit_fallback` (`:114`),
-  `whole_fit_plan` (`:127`): here;
+  `whole_fit_plan` (`:127`), `timed_dispatch` (`:231`): here;
 - `account_whole_fit` (`:99`): `ops.optimizer.account_whole_fit`;
 - `next_boundary`: `parallel.iteration.next_boundary`;
 - `supports_donation` (`:52`): no counterpart; a captured CUDA graph reads
   its inputs in place (`lazyjit.lazy_jit(borrow=...)`, ROADMAP C.23);
-- `chunk_runner`/`ChunkRunner`, `DrainQueue`, `timed_dispatch`: no
-  counterpart; the port has no drain queue (C.23): a whole fit is one
-  captured graph, and the chunked loops read back once a chunk.
+- `chunk_runner`/`ChunkRunner`, `DrainQueue`: no counterpart; the port
+  has no drain queue (C.23): a whole fit is one captured graph, and the
+  chunked loops read back once a chunk.
 
 A fit on a mesh of more than one rank is not captured: a gloo collective
 cannot be captured in a CUDA graph, so its epochs run eagerly with the
@@ -21,6 +21,8 @@ reduction between the local steps, counted under the fallback reason
 
 from __future__ import annotations
 
+import time
+from contextlib import contextmanager
 from typing import Optional, Tuple
 
 from ..obs import timeline
@@ -89,3 +91,31 @@ def whole_fit_plan(*, start_epoch: int, max_iter: int, checkpoint_interval: Opti
         account_whole_fit_fallback(reason)
         return False, reason
     return True, None
+
+
+
+@contextmanager
+def timed_dispatch(kernel: str, start: Optional[int] = None, end: Optional[int] = None):
+    """Time the block as one launch: the host's part of it goes into the
+    `iteration.dispatch` timer (the benchmark's `hostDispatchMs`; its count
+    is `gapCount`) and, with the timeline on, onto the dispatch lane as a
+    `dispatch.chunk` event naming `kernel` and the planned epoch range
+    [start, end), which `timeline.dispatch_attribution` splits by. Each
+    site of the JAX package's `timed_dispatch` (a wrapper there; a block
+    here, so the call stays in sight of the SPMD interpreter) has its
+    counterpart: a whole fit through the program funnel is one launch, as
+    there; a loop that stays eager in the port (a checkpointed chunk, a
+    stream epoch) is one launch a chunk or epoch (ROADMAP C.44). On the
+    card this times the enqueue and whatever the block waits for; on the
+    CPU the whole computation."""
+    t0 = time.perf_counter_ns()
+    yield
+    dur_ns = time.perf_counter_ns() - t0
+    metrics.record_time("iteration.dispatch", dur_ns / 1e9)
+    if timeline.enabled():
+        attrs = {"kernel": kernel}
+        if start is not None:
+            attrs["start"] = int(start)
+        if end is not None:
+            attrs["end"] = int(end)
+        timeline.record_complete(timeline.LANE_DISPATCH, "dispatch.chunk", t0, dur_ns, **attrs)

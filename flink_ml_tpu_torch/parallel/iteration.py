@@ -56,7 +56,7 @@ from .. import config
 from ..ckpt import faults
 from ..obs import tracing
 from ..utils import metrics
-from . import supervisor
+from . import dispatch, supervisor
 
 BodyFn = Callable[[Any, int], Tuple[Any, torch.Tensor]]
 
@@ -266,8 +266,9 @@ def _iterate_checkpointed(body, init_carry, max_iter, tol, checkpoint_dir, inter
             end = min(next_boundary(planned, interval), max_iter, planned + chunk)
             with tracing.span("iteration.chunk", epoch=planned, end=end):
                 supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
-                carry, epochs, criteria = _masked_epochs(body, carry, epochs, criteria, planned,
-                                                         end, tol_value)
+                with dispatch.timed_dispatch("iteration_chunk", start=planned, end=end):
+                    carry, epochs, criteria = _masked_epochs(body, carry, epochs, criteria,
+                                                             planned, end, tol_value)
             supervisor.pulse_boundary(supervisor.PHASE_COLLECTIVE)
             e_act, crit = packed_device_get(epochs, criteria, sync_kind="drain")
             e_act, crit = int(e_act), float(crit)
@@ -298,7 +299,8 @@ def _iterate_host_driven(body, init_carry, max_iter, tol, listener, checkpoint_d
         while epoch < max_iter and (tol is None or criteria > tol):
             with tracing.span("iteration.epoch", epoch=epoch):
                 supervisor.pulse_boundary(supervisor.PHASE_DISPATCH)
-                carry, crit = body(carry, epoch)
+                with dispatch.timed_dispatch("iteration_epoch", start=epoch, end=epoch + 1):
+                    carry, crit = body(carry, epoch)
                 epoch += 1
                 supervisor.pulse_boundary(supervisor.PHASE_COLLECTIVE)
                 criteria = float(crit)

@@ -558,7 +558,6 @@ class _Kernel:
             self.warmed_bank = bank
             bank.warm_load_kernel(self)
         device = leaves[0].device if leaves else torch.device("cpu")
-        start_ns = time.perf_counter_ns()
         with self.cache.lock:
             entry = self.cache.get(key)
             if entry is None and key[1]:
@@ -581,12 +580,6 @@ class _Kernel:
                 self.cache.put(key, entry)
                 if key[1]:
                     self.homes[sig] = key[1]
-        from ..obs import timeline
-
-        if timeline.enabled():  # the host's part of the call: copies in, launch or capture
-            timeline.record_complete(timeline.LANE_DISPATCH, "dispatch.chunk", start_ns,
-                                     time.perf_counter_ns() - start_ns,
-                                     kernel=self.kernel_id or self.fn.__name__)
         if bank is not None and self.kernel_id is not None:
             bank.offer_signature(self.kernel_id, sig, leaves, statics)
         return result

@@ -20,7 +20,10 @@ program funnel's CPU path (a new signature counted as a capture, the
 function run eagerly), and its bank children are real child processes
 on the CPU (no stub reaches them; the CPU banks no fused segment), as is
 phase 18's examples child (under `use_device("cpu")`, each call of a
-kernel's plain version counted as a launch). It catches
+kernel's plain version counted as a launch), and phase 19's benchmark
+child, which runs copies of the configs with `numValues` capped at
+BENCH_MAX_ROWS (above the generators' device threshold, so their
+tables are torch tensors on the CPU). It catches
 a broken path, check or output line before a chip run; every number it
 prints is a CPU number and none stands for the card's.
 """
@@ -57,7 +60,7 @@ SIZES = dict(
     AGG_COUNT_WINDOW=50, SQL_ROWS=200_000, SQL_WHERE_SHAPE=(50_000, 100), SQL_GROUP_ROWS=5_000,
     SQL_SAMPLE_ROWS=2_000, LSH_ROWS=40_000, LSH_JOIN_ROWS=300, WINDOW_ROWS=40_000, WINDOW_COUNT=500,
     SERVE_REQUESTS=400, SERVE_MAX_ROWS=64, SERVE_BUCKETS=(8, 32, 64, 128), ONLINE_REQUESTS=200,
-    LIFECYCLE_CANARY_ROWS=32, MESH_BUDGET_ROWS=128, MESH_BUDGET_BATCH=32,
+    LIFECYCLE_CANARY_ROWS=32, MESH_BUDGET_ROWS=128, MESH_BUDGET_BATCH=32, BENCH_MAX_ROWS=2_048,
 )
 #: below 8 of the small stream segments, so the spill twin spills
 CACHE_BUDGET = 200 << 10

@@ -6,9 +6,12 @@
   scripts/torch_kernel_designs.py, scripts/rehearse_chip_smoke.py,
   scripts/chip_funnel_phase.py, scripts/chip_checkpoint_phase.py,
   scripts/chip_host_attribution.py, scripts/chip_mesh_phase.py,
-  scripts/probe_distributed_backends.py nor the rank jobs of the mesh
+  scripts/probe_distributed_backends.py, scripts/chip_benchmark_phase.py
+  nor the rank jobs of the mesh
   tests (tests/torch_mesh_jobs.py, tests/torch_mesh2d_jobs.py), imports
   jax or flink_ml_tpu;
+- each module of the benchmark CLI alone, and a config naming the JAX
+  package's generator resolves to the port's;
 - each module of the mesh slice alone, and what a spawned rank imports
   (the launcher's rank entry `_rank_main` resolves its target by module
   path: the mesh tests' jobs, chip_smoke's phase-16 and phase-17 jobs,
@@ -43,6 +46,7 @@ PORT_FILES = sorted((REPO / "flink_ml_tpu_torch").rglob("*.py")) + [
     REPO / "scripts" / "rehearse_chip_smoke.py", REPO / "scripts" / "chip_funnel_phase.py",
     REPO / "scripts" / "chip_checkpoint_phase.py", REPO / "scripts" / "chip_host_attribution.py",
     REPO / "scripts" / "chip_mesh_phase.py", REPO / "scripts" / "probe_distributed_backends.py",
+    REPO / "scripts" / "chip_benchmark_phase.py",
     REPO / "tests" / "torch_mesh_jobs.py", REPO / "tests" / "torch_mesh2d_jobs.py"]
 
 
@@ -197,6 +201,49 @@ def test_the_mesh_slice_imports_neither_jax_nor_the_jax_package(name):
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert name in PORT_MODULES
+
+
+BENCHMARK_SLICE = ["flink_ml_tpu_torch.benchmark", "flink_ml_tpu_torch.benchmark.__main__",
+                   "flink_ml_tpu_torch.benchmark.runner",
+                   "flink_ml_tpu_torch.benchmark.datagenerator"]
+
+
+@pytest.mark.parametrize("name", BENCHMARK_SLICE)
+def test_the_benchmark_slice_imports_neither_jax_nor_the_jax_package(name):
+    """Each module of the benchmark CLI, imported alone in a fresh
+    interpreter (`__main__` with no arguments prints its usage), pulls in
+    neither jax nor flink_ml_tpu, and needs no card."""
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({name!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flink_ml_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert name in PORT_MODULES or name == "flink_ml_tpu_torch.benchmark"
+
+
+def test_a_jax_generator_name_resolves_to_the_port():
+    """A config naming the JAX package's generator module gets the port's
+    class, and nothing of JAX or the JAX package is imported for it."""
+    code = (
+        "import sys\n"
+        "from flink_ml_tpu_torch.benchmark import datagenerator, runner\n"
+        "gen = runner.instantiate_generator({'className': "
+        "'flink_ml_tpu.benchmark.datagenerator.DenseVectorGenerator', "
+        "'paramMap': {'vectorDim': 4}})\n"
+        "assert type(gen) is datagenerator.DenseVectorGenerator, type(gen)\n"
+        "assert gen.get_vector_dim() == 4\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flink_ml_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("target", ["torch_mesh_jobs:sgd_fit", "chip_smoke:mesh_rank_job",
