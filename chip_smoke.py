@@ -436,9 +436,35 @@ channels) are printed on a `sanitizer` line. Phases:
    totalTimeMs, phaseTimesMs, inputThroughput, peakHbmBytes, hostSyncCount
    and gapCount, each config's seconds, bytes left and allocator peak, and
    a `benchmark` line;
-20. a `kernels` JSON line (four kernels; the fleet kernels with phase 17's
-   shapes in `by_shape`, every kernel's phase-17, phase-18 and phase-19
-   launches by path), then the result line.
+20. the repo's operator tools on the port (`tools_phase`, A.19): it logs
+   whether this machine has JAX at all (`importlib.util.find_spec`), then
+   runs each step as its own fresh `python` process under the sanitizer
+   (`FLINK_ML_TPU_SANITIZE=1`; each must end with its clean verdict) and
+   `-X importtime` (none may import jax, jaxlib or flink_ml_tpu):
+   (a) a child (`traced_fit_child`) with `FLINK_ML_TPU_TRACE_FILE` and
+   `FLINK_ML_TPU_TIMELINE_FILE` set fits phase 3's sparse LR (1M x 39, d
+   1e6, maxIter 20, globalBatchSize 100,000) through the public
+   LogisticRegression, transforms, saves, loads and transforms again;
+   its launches must equal phase 3's for the same path, its coefficients
+   lie within phase 4's sparse gate of the plain-loss fit and its
+   transform within ROW_DOTS_TOL of the plain row dots. Then
+   scripts/torch_obs_report.py over its trace, as text and as `--format
+   json` (the fit and the transform of LogisticRegression among the
+   stages, nothing dropped), and scripts/torch_obs_timeline.py `-o ...
+   --attribution --json` over its events (the attribution's parts sum to
+   its window within 1e-6 ms; the whole fit is one dispatch); (b)
+   scripts/torch_smoke_fit_timeline.py (56 epochs chunked in 7 cycles,
+   whole in 1, the typed budget rejection), and torch_obs_timeline.py
+   over both of its dumps; (c) scripts/torch_coldstart_smoke.py
+   populate, serve, baseline: serve exits 0 and its `outSha` equals
+   baseline's; (d) scripts/torch_make_reference_fixture.py `--out` a
+   directory of its own, byte for byte the committed
+   tests/fixtures/reference_*, and scripts/torch_gen_operator_docs.py
+   `--out` a file, byte for byte docs/torch_operators.md. It prints each
+   process's seconds, the cold-start walls and a `tools` line;
+21. a `kernels` JSON line (four kernels; the fleet kernels with phase 17's
+   shapes in `by_shape`, every kernel's phase-17 to phase-20 launches by
+   path), then the result line.
 """
 
 from __future__ import annotations
@@ -503,6 +529,8 @@ BENCH_MAX_ROWS = None
 #: a config's tables and model are freed before the next config: the
 #: bytes it may leave allocated on the card (its captured fit's graph)
 BENCH_LEFT_BYTES = 1 << 30
+#: phase 20: the seconds each of its processes may take
+TOOLS_TIMEOUT_S = 300
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -1975,7 +2003,7 @@ def table_api_check(sk, dense_table, sparse_table, sparse_model):
         check(same_column(fused_cols[col], eager.column(col)),
               f"the fused sparse LR transform of head({HEAD_ROWS}) differs from eager in {col}")
     launches = sk.launch_counts()
-    check(graphed > 0 or DEVICE != "cuda",  # the CPU captures no graph
+    check(graphed > 0,  # on the CPU an entry with no graph, stamped alike
           f"the fused transform of head({HEAD_ROWS}) captured or replayed no graph")
     check(launches == launch_dict(sparse_row_dots=2),
           f"the fused and eager transforms of head({HEAD_ROWS}) launched {launches}")
@@ -4982,8 +5010,8 @@ def fused_path(sk, name, pm, table, gauges, launches_per_call):
     check(_fused_gauges() == gauges, f"{name}: plan gauges {_fused_gauges()}, expected {gauges}")
     memory = graph_memory(pm)
     captures = _counter("jit.traces") - traces
-    # a CUDA graph a segment on the card; the CPU composes the kernels with no capture
-    check(captures == (gauges[0] if DEVICE == "cuda" else 0),
+    # a CUDA graph a segment on the card; the CPU counts a new signature alike
+    check(captures == gauges[0],
           f"{name}: {captures} captures on the first call")
     sk.reset_launch_counts()
     replay, replay_ms = synced(lambda: pm.transform(table)[0])
@@ -5049,7 +5077,7 @@ def check_second_signature(pm, X_all, w_all, rows):
     traces = _counter("jit.traces")
     pm.transform(table)
     after = graph_memory(pm)
-    check(_counter("jit.traces") == traces + (DEVICE == "cuda"),
+    check(_counter("jit.traces") == traces + 1,
           "guarded pipeline: a second signature not captured")
     replay, eager = pm.transform(table)[0], _eager(pm, table)
     for col in eager.column_names:
@@ -5627,7 +5655,7 @@ def serving_phase(sk, dev, sparse_models, sparse_table, online, online_trace, de
     log(f"  warmup: {warmed['programs']:.0f} (tenant x bucket) programs in "
         f"{warmed['warmupMs']:.1f} ms, {warmed['captures']:.0f} captures (one a bucket: the "
         f"tenants share their architecture's graphs)")
-    check(warmed["captures"] == (len(SERVE_BUCKETS) if DEVICE == "cuda" else 0),
+    check(warmed["captures"] == len(SERVE_BUCKETS),
           f"warmup captured {warmed['captures']} graphs")
 
     runs = {}
@@ -6753,7 +6781,7 @@ def bank_leg(tmp):
     path = os.path.join(tmp, "bank")
     fill = run_bank_child(path, populate=True)
     fresh = run_bank_child(path)
-    segments = len(SERVE_BUCKETS) if DEVICE == "cuda" else 0  # the CPU captures no segment
+    segments = len(SERVE_BUCKETS)  # on the CPU a segment's signature is banked all the same
     log(f"  bank: ProgramBank.populate drove {fill['populated']} of {fill['programs']} programs "
         f"({BANK_TENANTS} tenants' warmups and the sparse fit) in {fill['populate_ms']:.1f} ms with "
         f"{fill['populate_captures']} captures, filling {fill['entries']:.0f} entries; a fresh "
@@ -7412,7 +7440,20 @@ def main() -> int:
         for kernel in launches:
             launches[kernel] += counts[kernel]
 
-    # -- 20. output ----------------------------------------------------------------
+    # -- 20. the operator tools --------------------------------------------------------
+    log("phase 20: the repo's operator tools on the port, each step a fresh process under the "
+        "sanitizer: a traced sparse LR fit (launch counts reset before and read after), the "
+        "trace report and timeline over it, the fit-timeline smoke, the cold-start smoke "
+        "(populate, serve, baseline), the fixture and operator-doc writers")
+    torch.cuda.empty_cache()
+    tools = tools_phase(card, runs)
+    path_s["operator tools"] = tools["seconds"]
+    tools_launches = {"tools traced sparse lr (phase 20)": tools["launches"]}
+    for counts in tools_launches.values():
+        for kernel in launches:
+            launches[kernel] += counts[kernel]
+
+    # -- 21. output ----------------------------------------------------------------
     sources = {
         "sparse_row_dots": "flink_ml_tpu/ops/sparsekernels.py:96",
         "sparse_grad": "flink_ml_tpu/ops/sparsekernels.py:107",
@@ -7442,7 +7483,8 @@ def main() -> int:
                                  **{p: c[name] for p, c in mesh_launches.items() if c[name]},
                                  **{p: c[name] for p, c in mesh2d_launches.items() if c[name]},
                                  **{p: c[name] for p, c in example_launches.items() if c[name]},
-                                 **{p: c[name] for p, c in bench_launches.items()}},
+                                 **{p: c[name] for p, c in bench_launches.items()},
+                                 **{p: c[name] for p, c in tools_launches.items()}},
             "launches_by_feature_path": {p: r["launches"][name] for p, r in
                                          {**features, **texts, **stat_stages, **slice8}.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -7468,7 +7510,8 @@ def main() -> int:
                                  **{p: c[name] for p, c in funnel_launches.items() if c[name]},
                                  **{p: c[name] for p, c in mesh2d_launches.items() if c[name]},
                                  **{p: c[name] for p, c in example_launches.items() if c[name]},
-                                 **{p: c[name] for p, c in bench_launches.items()}},
+                                 **{p: c[name] for p, c in bench_launches.items()},
+                                 **{p: c[name] for p, c in tools_launches.items()}},
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "tolerance": r["tolerance"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -7504,7 +7547,8 @@ def main() -> int:
     log("mesh2d: " + json.dumps(mesh2d, default=str))
     log("examples: " + json.dumps(examples))
     log("benchmark: " + json.dumps(bench))
-    log("seconds by path (phases 3-19): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
+    log("tools: " + json.dumps(tools))
+    log("seconds by path (phases 3-20): " + "; ".join(f"{n} {t:.2f}" for n, t in path_s.items()))
     log(f"kmeans points within the 1e-4 margin: {kmeans_margin}; build {build_s:.2f} s, "
         f"peak memory {high_water:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s on {card}")
@@ -8425,6 +8469,7 @@ def examples_child(spec_json: str) -> int:
     one `example {json}` line an example (its seconds, stdout, launches and
     error, if any), then one `sanitizer {json}` line."""
     import contextlib
+    import gc
     import io
     import shutil
     import traceback
@@ -8443,17 +8488,24 @@ def examples_child(spec_json: str) -> int:
         name = os.path.basename(path)
         out, error = io.StringIO(), None
         code = compile(example_source(path, tmp), path, "exec")
+        namespace = {"__name__": "__main__", "__file__": path}
         place = port_config.use_device("cpu") if on_cpu else contextlib.nullcontext()
         sk.reset_launch_counts()
         t0 = time.perf_counter()
         try:
             with place, contextlib.redirect_stdout(out):
-                exec(code, {"__name__": "__main__", "__file__": path})
+                exec(code, namespace)
             if not on_cpu:
                 torch.cuda.synchronize()
         except BaseException:  # noqa: B902 -- an example's failure is reported, not raised
             error = traceback.format_exc()
         seconds = time.perf_counter() - t0
+        # the functions an example defines hold its globals in a cycle, and
+        # with them what it left open (a model whose version stream it read
+        # in part keeps its ingest pump): free them now, as the end of the
+        # script would, not whenever the cycle collector next runs
+        namespace.clear()
+        gc.collect()
         print("example " + json.dumps({"name": name, "seconds": seconds, "stdout": out.getvalue(),
                                        "launches": sk.launch_counts(), "error": error}),
               flush=True)
@@ -8854,6 +8906,315 @@ def bench_output_rows(entry, n):
     if entry["stage"]["className"].rsplit(".", 1)[1] == "AgglomerativeClustering":
         return n + n - int(entry["stage"].get("paramMap", {}).get("numClusters", 2))
     return n
+
+
+# -- phase 20: the repo's operator tools on the port -----------------------------------
+#: the tools of scripts/ that phase 20 runs, each the port's counterpart of
+#: a JAX script of the same name without `torch_`
+TOOL_SCRIPTS = ("torch_obs_report.py", "torch_obs_timeline.py", "torch_smoke_fit_timeline.py",
+                "torch_coldstart_smoke.py", "torch_make_reference_fixture.py",
+                "torch_gen_operator_docs.py")
+#: how a CPU rehearsal runs a tool: the script as `__main__` under
+#: `use_device("cpu")` (the tools take no device flag, as the JAX ones)
+CPU_TOOL_RUNNER = ("import runpy, sys\n"
+                   "from flink_ml_tpu_torch import config\n"
+                   "sys.argv = sys.argv[1:]\n"
+                   "with config.use_device('cpu'):\n"
+                   "    runpy.run_path(sys.argv[0], run_name='__main__')\n")
+SANITIZER_CLEAN = "FLINK_ML_TPU_SANITIZE: clean"
+
+
+def traced_fit_child(spec_json: str) -> int:
+    """Phase 20(a)'s child: phase 3's sparse LR through the public
+    LogisticRegression (fit, transform, save, load, transform) at
+    spec's sizes, with the trace and timeline sinks its parent set in the
+    environment; on the card with no device request, in the CPU rehearsal
+    under `use_device("cpu")` with each plain version's call counted as its
+    kernel's launch. Writes the coefficients to spec["coefficient"] and
+    prints one `traced {json}` line: the launches, the first calls' times
+    and the transform's largest distance from the plain row dots."""
+    import contextlib
+    import shutil
+
+    spec = json.loads(spec_json)
+    for name in ("SPARSE_ROWS", "SPARSE_DIM", "NNZ", "MAX_ITER", "BATCH"):
+        globals()[name] = spec[name]  # the parent's sizes (the rehearsal's are small)
+    from flink_ml_tpu_torch import SparseBatch, Table
+    from flink_ml_tpu_torch import config as port_config
+    from flink_ml_tpu_torch.api import Stage
+    from flink_ml_tpu_torch.models.classification import logisticregression
+    from flink_ml_tpu_torch.ops import sparsekernels as sk
+
+    on_cpu = spec["device"] == "cpu"
+    if on_cpu:
+        count_plain_launches(sk)
+
+    def sync():
+        if not on_cpu:
+            torch.cuda.synchronize()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_traced_")
+    with port_config.use_device("cpu") if on_cpu else contextlib.nullcontext():
+        dev = torch.device(spec["device"])
+        s_idx, s_vals, s_y = sparse_data(dev)
+        table = Table({"features": SparseBatch(SPARSE_DIM, s_idx, s_vals), "label": s_y})
+        sync()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        model = estimator(logisticregression.LogisticRegression).fit(table)
+        sync()
+        fit_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out = model.transform(table)[0]
+        sync()
+        transform_ms = (time.perf_counter() - t0) * 1e3
+        path = os.path.join(tmp, "model")
+        model.save(path)
+        again = Stage.load(path).transform(table)[0]
+        sync()
+        launches = sk.launch_counts()
+        coeff = torch.as_tensor(model.coefficient, device=dev)
+        raw = out.column("rawPrediction")
+        want = logisticregression._predict_from_dot(sk.sparse_row_dots_plain(s_idx, s_vals,
+                                                                              coeff))[1]
+        err = float((raw - want).abs().max())
+        close = bool(torch.allclose(raw, want, **ROW_DOTS_TOL))
+        reloaded = bool(torch.equal(again.column("rawPrediction"), raw))
+        shape_ok = tuple(raw.shape) == tuple(want.shape) and bool(torch.isfinite(raw).all())
+    np.save(spec["coefficient"], np.asarray(model.coefficient))
+    shutil.rmtree(tmp, ignore_errors=True)
+    print("traced " + json.dumps({"launches": launches, "fit_ms": fit_ms,
+                                  "transform_ms": transform_ms, "transform_max_abs_err": err,
+                                  "transform_close": close, "reload_equal": reloaded,
+                                  "shape_ok": shape_ok}), flush=True)
+    return 0
+
+
+def tool_command(script, args):
+    """scripts/<script> with `args` as a user runs it on the card, or (the
+    CPU rehearsal) the same script as `__main__` under `use_device("cpu")`."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "scripts", script)
+    if DEVICE == "cuda":
+        return [sys.executable, path, *args]
+    return [sys.executable, "-c", CPU_TOOL_RUNNER, path, *args]
+
+
+def imported_jax(stderr):
+    """The modules of jax, jaxlib or flink_ml_tpu in a `python -X
+    importtime` process's stderr (each import's line ends in its name)."""
+    names = (line.rsplit("|", 1)[1].strip() for line in stderr.splitlines()
+             if line.startswith("import time:") and "|" in line)
+    return sorted({n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flink_ml_tpu")})
+
+
+def run_step(label, cmd, card, env=None, expect_rc=0):
+    """One fresh process of phase 20 from the checkout's root, under the
+    sanitizer (`FLINK_ML_TPU_SANITIZE=1`, so it ends with status 66 on a
+    violation, else with its clean verdict on stderr) and `-X importtime`
+    (each module it imports named on stderr). Fails the run on another
+    exit status than `expect_rc`, a missing verdict, or an import of jax
+    or the JAX package, which the machine with the card may have
+    installed. Returns its stdout, stderr and seconds."""
+    import subprocess as sp
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    child_env = {**os.environ, **(env or {}), "FLINK_ML_TPU_SANITIZE": "1"}
+    t0 = time.perf_counter()
+    proc = sp.run([cmd[0], "-X", "importtime", *cmd[1:]], cwd=here, env=child_env,
+                  capture_output=True, text=True, timeout=TOOLS_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    stderr = "\n".join(line for line in proc.stderr.splitlines()
+                       if not line.startswith("import time:"))
+    check(proc.returncode == expect_rc, f"phase 20 {label} exited {proc.returncode}, expected "
+                                        f"{expect_rc}: {proc.stdout[-3000:]} {stderr[-3000:]}")
+    check(SANITIZER_CLEAN in stderr, f"phase 20 {label}: no clean sanitizer verdict: "
+                                     f"{stderr[-2000:]}")
+    jax_modules = imported_jax(proc.stderr)
+    check(not jax_modules, f"phase 20 {label} imported {jax_modules[:10]}")
+    log(f"  {label}: {seconds:.2f} s (exit {proc.returncode}, no jax module imported) on {card}")
+    return {"stdout": proc.stdout, "stderr": stderr, "seconds": seconds}
+
+
+def same_tree(got, want, names):
+    """The relative paths under `want`'s `names` whose bytes `got` lacks or
+    differs in (both directions)."""
+    def files(root):
+        out = {}
+        for name in names:
+            for base, _, found in os.walk(os.path.join(root, name)):
+                for f in found:
+                    full = os.path.join(base, f)
+                    with open(full, "rb") as fh:
+                        out[os.path.relpath(full, root)] = fh.read()
+        return out
+    a, b = files(got), files(want)
+    return sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+
+
+def tools_phase(card, runs):
+    """Phase 20: the operator tools of scripts/ on the port, each step a
+    fresh process under the sanitizer (`run_step`). The steps on the card
+    run one at a time: the traced fit, the fit-timeline smoke, then the
+    cold-start smoke's three processes alone (their walls are reported);
+    the steps that need no card (the report, the timelines, the writers)
+    run beside the first two. Fails if a step exits otherwise than its JAX
+    counterpart would on success, if a sanitizer verdict is missing, if
+    the traced fit's launches differ from phase 3's for the same path or
+    its results from phase 4's references, if the report drops a record or
+    lacks the fit or the transform, if the attribution's parts miss its
+    window or the whole fit is not one dispatch, if the fit-timeline
+    smoke's cycles are not 7 and 1, if the cold-start serve traced or
+    compiled or its output differs from the baseline's, or if a writer's
+    output differs from the committed files. Returns the phase's seconds,
+    the launches and each step's numbers."""
+    import importlib.util
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flink_ml_tpu_torch.ops import sparsekernels as sk
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    jax_absent = importlib.util.find_spec("jax") is None
+    log(f"  importlib.util.find_spec('jax') is None: {jax_absent} (this machine "
+        f"{'has no' if jax_absent else 'has a'} JAX; each process below is held to import "
+        "none of it)")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    steps = {}
+    trace, events = os.path.join(tmp, "trace.jsonl"), os.path.join(tmp, "events.jsonl")
+    fixtures, doc = os.path.join(tmp, "fixtures"), os.path.join(tmp, "torch_operators.md")
+    chrome = os.path.join(tmp, "fit.timeline.json")
+    def tool(label, script, args):
+        return run_step(label, tool_command(script, args), card)
+
+    with ThreadPoolExecutor(max_workers=4) as beside:
+        # (d) the writers: no card needed, no JAX either
+        writers = {
+            "fixtures": beside.submit(tool, "torch_make_reference_fixture.py",
+                                      "torch_make_reference_fixture.py", ["--out", fixtures]),
+            "docs": beside.submit(tool, "torch_gen_operator_docs.py",
+                                  "torch_gen_operator_docs.py", ["--out", doc])}
+
+        # (a) a traced fit, then the report and the timeline over it
+        coeff_path = os.path.join(tmp, "coefficient.npy")
+        spec = json.dumps({"device": DEVICE, "SPARSE_ROWS": SPARSE_ROWS,
+                           "SPARSE_DIM": SPARSE_DIM, "NNZ": NNZ, "MAX_ITER": MAX_ITER,
+                           "BATCH": BATCH, "coefficient": coeff_path})
+        step = run_step("traced sparse LR child", [
+            sys.executable, "-c",
+            "import sys, chip_smoke; sys.exit(chip_smoke.traced_fit_child(sys.argv[1]))", spec],
+            card, env={"FLINK_ML_TPU_TRACE_FILE": trace, "FLINK_ML_TPU_TIMELINE_FILE": events})
+        readers = {
+            "text": beside.submit(tool, "torch_obs_report.py (text)", "torch_obs_report.py",
+                                  [trace]),
+            "json": beside.submit(tool, "torch_obs_report.py --format json",
+                                  "torch_obs_report.py", [trace, "--format", "json"]),
+            "timeline": beside.submit(tool, "torch_obs_timeline.py --attribution --json",
+                                      "torch_obs_timeline.py",
+                                      [events, "-o", chrome, "--attribution", "--json"])}
+
+        # (b) the fit-timeline smoke, and both of its dumps rendered
+        dump = os.path.join(tmp, "smoke.jsonl")
+        smoke = tool("torch_smoke_fit_timeline.py", "torch_smoke_fit_timeline.py", [dump])
+        renders = {name: beside.submit(tool, f"torch_obs_timeline.py {name}",
+                                       "torch_obs_timeline.py",
+                                       [os.path.join(tmp, name), "-o",
+                                        os.path.join(tmp, name + ".timeline.json")])
+                   for name in ("smoke.jsonl", "smoke-wholefit.jsonl")}
+        writers = {k: f.result() for k, f in writers.items()}
+        readers = {k: f.result() for k, f in readers.items()}
+        rendered = {k: f.result()["stdout"].strip() for k, f in renders.items()}
+
+    lines = [line for line in step["stdout"].splitlines() if line.startswith("traced {")]
+    check(len(lines) == 1, f"the traced child printed {len(lines)} result lines")
+    traced = json.loads(lines[0][len("traced "):])
+    want_launches = runs["sparse lr"]["launches"]
+    check(traced["launches"] == want_launches,
+          f"the traced sparse LR launched {traced['launches']}, phase 3 {want_launches}")
+    plain = runs["sparse lr"]["plain_coefficient"]
+    coeff_err = float(np.max(np.abs(np.load(coeff_path) - plain)))
+    scale = float(np.max(np.abs(plain)))
+    check(coeff_err <= 1e-4 * scale, f"the traced fit's coefficients lie {coeff_err} from the "
+                                     f"plain-loss fit (scale {scale})")
+    check(traced["shape_ok"] and traced["transform_close"] and traced["reload_equal"],
+          f"the traced transform: {traced}")
+    steps["traced fit"] = {**traced, "seconds": step["seconds"], "coeff_max_abs_err": coeff_err}
+    log(f"  traced sparse LR: fit {traced['fit_ms']:.1f} ms, transform "
+        f"{traced['transform_ms']:.1f} ms (first calls, the trace and timeline sinks on); launches "
+        f"{traced['launches']} (phase 3: {want_launches}); coefficients {coeff_err:.3g} from the "
+        f"plain-loss fit (scale {scale:.3g}), transform {traced['transform_max_abs_err']:.3g} from "
+        f"the plain row dots, on {card}")
+
+    stage_names = ("LogisticRegression.fit", "LogisticRegressionModel.transform")
+    text, as_json, tl = readers["text"], readers["json"], readers["timeline"]
+    check("dropped" not in text["stderr"], f"the report dropped records: {text['stderr'][-1000:]}")
+    check(all(n in text["stdout"] for n in stage_names),
+          f"the text report lacks {stage_names}: {text['stdout'][-2000:]}")
+    check("dropped" not in as_json["stderr"], "the JSON report dropped records")
+    labels = [st["label"] for st in json.loads(as_json["stdout"])["stages"]]
+    check(all(n in labels for n in stage_names), f"the JSON report's stages are {labels}")
+    check("dropped" not in tl["stderr"] and "skipped" not in tl["stderr"],
+          f"the timeline dropped events: {tl['stderr'][-1000:]}")
+    attr = json.loads(tl["stdout"][tl["stdout"].index("{"):])
+    parts = sum(attr[k] for k in ("dispatchMs", "deviceMs", "readbackMs", "idleGapMs"))
+    check(abs(parts - attr["windowMs"]) <= 1e-6, f"attribution parts {parts} ms against window "
+                                                 f"{attr['windowMs']} ms")
+    check(attr["gapCount"] == 1, f"the whole fit showed {attr['gapCount']} dispatches")
+    with open(chrome) as f:
+        chrome_events = len(json.load(f)["traceEvents"])
+    steps["report"] = {"stages": labels, "seconds": text["seconds"] + as_json["seconds"]}
+    steps["timeline"] = {"attribution": {k: attr[k] for k in (
+        "windowMs", "gapCount", "dispatchMs", "deviceMs", "readbackMs", "idleGapMs")},
+        "chromeEvents": chrome_events, "seconds": tl["seconds"]}
+    log(f"  report stages {labels}; timeline {chrome_events} trace events, attribution "
+        + ", ".join(f"{k} {attr[k]:.3f}" for k in ("windowMs", "dispatchMs", "deviceMs",
+                                                   "readbackMs", "idleGapMs"))
+        + f" ms over {attr['gapCount']} dispatch(es), on {card}")
+
+    for want in ("smoke fit (chunked): 56 epochs", "over 7 chunks",
+                 "smoke fit (whole-fit): 56 epochs", "over 1 chunks",
+                 "budget probe: clean typed rejection"):
+        check(want in smoke["stdout"], f"the fit-timeline smoke printed no {want!r}: "
+                                       f"{smoke['stdout'][-2000:]}")
+    steps["fit timeline smoke"] = {"stdout": smoke["stdout"].strip().splitlines(),
+                                   "rendered": rendered, "seconds": smoke["seconds"]}
+
+    committed = os.path.join(here, "tests", "fixtures")
+    names = sorted(n for n in os.listdir(committed) if n.startswith("reference_"))
+    check(sorted(os.listdir(fixtures)) == names,
+          f"the fixture writer wrote {sorted(os.listdir(fixtures))}, committed {names}")
+    differ = same_tree(fixtures, committed, names)
+    check(not differ, f"the fixture writer's files differ from the committed ones: {differ}")
+    with open(doc, "rb") as f, open(os.path.join(here, "docs", "torch_operators.md"), "rb") as g:
+        check(f.read() == g.read(), "docs/torch_operators.md is not what the writer writes")
+    steps["writers"] = {"fixture dirs": len(names), "docs": writers["docs"]["stdout"].strip(),
+                        "seconds": writers["fixtures"]["seconds"] + writers["docs"]["seconds"]}
+
+    # (c) the cold-start smoke: populate, serve, baseline, each a fresh process, alone
+    bank = os.path.join(tmp, "bank")
+    cold = {}
+    for mode in ("populate", "serve", "baseline"):
+        out = tool(f"torch_coldstart_smoke.py {mode}", "torch_coldstart_smoke.py", [bank, mode])
+        cold[mode] = {**json.loads(out["stdout"].strip().splitlines()[-1]),
+                      "seconds": out["seconds"]}
+    serve, base = cold["serve"], cold["baseline"]
+    check(serve["serveTraceCount"] == 0 and serve["serveCompileCount"] == 0
+          and serve["bankHits"] > 0 and serve["bankLoads"] > 0, f"cold-start serve: {serve}")
+    check(serve["outSha"] == base["outSha"],
+          f"cold-start serve's output {serve['outSha']} is not the baseline's {base['outSha']}")
+    steps["coldstart"] = cold
+    for mode in ("serve", "baseline"):
+        log(f"  cold start {mode}: coldStartMs {cold[mode]['coldStartMs']:.3f}, firstServeMs "
+            f"{cold[mode]['firstServeMs']:.3f}, traces {cold[mode]['serveTraceCount']:.0f}, "
+            f"compiles {cold[mode]['serveCompileCount']:.0f}, bank hits "
+            f"{cold[mode]['bankHits']:.0f}, loads {cold[mode]['bankLoads']:.0f} "
+            f"({cold[mode]['bankLoadMs']:.3f} ms), on {card}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 20: {len(TOOL_SCRIPTS)} tools green in {seconds:.2f} s on {card}")
+    return {"seconds": seconds, "jax_absent": jax_absent, "steps": steps,
+            "launches": {k: traced["launches"][k] for k in sk.launch_counts()}}
 
 
 def profile_run(name, run):

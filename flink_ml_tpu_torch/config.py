@@ -18,7 +18,17 @@ collectives.py, parallel/overlap.py), and the 2D ones: `sparse_2d` with
 `sparse_2d_mode` and `FLINK_ML_TPU_SPARSE_2D` (a feature-sharded sparse fit
 on a mesh with a `model` axis takes the 2D programs, or "off" the
 replicated reference), and `fleet_shard_threshold`, the scoped override of
-`fleet_shard_state_bytes` (fleet.py's regime).
+`fleet_shard_state_bytes` (fleet.py's regime). The stream fit's staging
+knobs `device_cache_bytes` and `input_prefetch_depth` read
+`FLINK_ML_TPU_DEVICE_CACHE_BYTES` and `FLINK_ML_TPU_INPUT_PREFETCH_DEPTH`
+as the JAX package reads them.
+
+Two of the JAX package's environment variables are not read, as what they
+choose does not exist here: `FLINK_ML_TPU_USE_PALLAS_SPARSE` picks Pallas
+over XLA for the sparse products, and the port runs its CUDA kernels on
+the card always; `FLINK_ML_TPU_COMPILATION_CACHE_DIR` turns on XLA's
+persistent compilation cache, and the port compiles no XLA programs (its
+program bank, `program_bank_dir`, stands alone: compilebank.py).
 """
 
 from __future__ import annotations
@@ -354,6 +364,10 @@ if _env("FLINK_ML_TPU_SPARSE_2D") in ("auto", "off"):
     sparse_2d = _env("FLINK_ML_TPU_SPARSE_2D")
 if _env("FLINK_ML_TPU_COLLECTIVE_CHUNK_BYTES"):
     collective_chunk_bytes = int(_env("FLINK_ML_TPU_COLLECTIVE_CHUNK_BYTES"))
+if _env("FLINK_ML_TPU_DEVICE_CACHE_BYTES"):
+    device_cache_bytes = int(_env("FLINK_ML_TPU_DEVICE_CACHE_BYTES"))
+if _env("FLINK_ML_TPU_INPUT_PREFETCH_DEPTH"):
+    input_prefetch_depth = int(_env("FLINK_ML_TPU_INPUT_PREFETCH_DEPTH"))
 if _env("FLINK_ML_TPU_HBM_BUDGET_BYTES"):
     hbm_budget_bytes = max(0, int(_env("FLINK_ML_TPU_HBM_BUDGET_BYTES")))
 if _env("FLINK_ML_TPU_TRANSIENT_RETRIES"):

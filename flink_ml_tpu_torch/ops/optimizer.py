@@ -1011,11 +1011,18 @@ def stage_flat(X, y, weights, batch: int, rows=None, dtype: torch.dtype = COMPUT
     of `batch` (the only case that copies a device input), sparse padding
     rows with index -1. Returns (X, y, w or None, true row count).
 
+    Each host array is budget-admitted (`memledger.admit`, category None)
+    before its Feed exists, as the JAX package admits each upload of its
+    flat fit: a fit past `config.hbm_budget_bytes` raises
+    HbmBudgetExceeded before anything is copied.
+
     An input that needs a copy (an upload, a cast, padding) comes back as
     a `lazyjit.Feed`, which the program funnel writes straight into its
     graph's buffer; `lazyjit.materialize` makes the tensors for an eager
     caller. `rows(num_batches)`, if given, cuts X and w to the rows the
     fit reads (y stays whole: the label check reads it all)."""
+    from ..obs import memledger
+
     first = X[0] if isinstance(X, tuple) else X
     device = first.device if isinstance(first, torch.Tensor) else config.device()
     n = int(first.shape[0])
@@ -1035,6 +1042,7 @@ def stage_flat(X, y, weights, batch: int, rows=None, dtype: torch.dtype = COMPUT
             return src
         if not isinstance(src, torch.Tensor):
             src = np.asarray(src)
+            memledger.admit(int(np.prod(shape, dtype=np.int64)) * dtype.itemsize)
         return lazyjit.Feed(src, shape, dtype, device, fill)
 
     if isinstance(X, tuple):

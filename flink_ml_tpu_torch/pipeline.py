@@ -35,7 +35,9 @@ banked under `bank_kernel_id()` with its guard messages, and a fresh
 process captures them at the segment's first call (`_warm_load`).
 Spans: `pipeline.stage` (each stage slot of `Pipeline.fit`, each eager
 transform), `pipeline.segment` (each fused segment).
-On the CPU a segment calls its kernels in turn. The plan is the JAX
+On the CPU a segment calls its kernels in turn; a new signature is
+counted, banked and warm-loaded as the card's capture is (an entry with
+no graph). The plan is the JAX
 package's: a segment is vetoed as a whole when
 a column is host data, or is a SparseBatch that a stage's kernel does not
 take, so the BASELINE pipeline (OneHotEncoder feeds VectorAssembler
@@ -344,16 +346,11 @@ class FusedSegment:
         # version it was dispatched with, however many swaps land meanwhile
         device = feed_device(feed)
         consts_list = [stage.device_constants(device) for stage in self.stages]
-        if device.type == "cuda":
-            if device.index in (None, torch.cuda.current_device()):
+        if device.type == "cuda" and device.index not in (None, torch.cuda.current_device()):
+            with torch.cuda.device(device):
                 out, messages, guard_vec = self._run_captured(consts_list, feed)
-            else:
-                with torch.cuda.device(device):
-                    out, messages, guard_vec = self._run_captured(consts_list, feed)
         else:
-            cols, ctx = self.run_kernels(consts_list, feed)
-            out = {n: v for n, v in cols.items() if feed.get(n) is not v}
-            messages, guard_vec = tuple(ctx.guards), ctx.packed(device)
+            out, messages, guard_vec = self._run_captured(consts_list, feed)
         if messages:
             pending.append((messages, guard_vec))
         return table.with_columns(out)
@@ -361,6 +358,12 @@ class FusedSegment:
     def _run_captured(self, consts_list, feed: Dict[str, Any]):
         with self.graphs.lock:
             return self._replay_or_capture(consts_list, feed)
+
+    def _run_eager(self, consts_list, feed: Dict[str, Any]):
+        """The kernels in turn: (new columns, guard messages, guard vector)."""
+        cols, ctx = self.run_kernels(consts_list, feed)
+        out = {n: v for n, v in cols.items() if feed.get(n) is not v}
+        return out, tuple(ctx.guards), ctx.packed(feed_device(feed))
 
     def bank_kernel_id(self) -> Optional[str]:
         """The segment's process-restart-stable identity in the program
@@ -391,6 +394,9 @@ class FusedSegment:
             if bank is not None and entry.banked:
                 bank.count_hit()
                 tracing.event("bank.hit", kernel=kernel_id, category="cache")
+            if entry.graph is None:  # the CPU: no graph to replay
+                entry.replay()
+                return self._run_eager(consts_list, feed)
             return entry.run(consts_list, feed)
         if bank is not None:
             bank.count_miss()
@@ -398,10 +404,8 @@ class FusedSegment:
         # launches; nvcc builds and library handles made outside capture),
         # then captures the same kernels for the calls after it
         start = time.perf_counter()
-        cols, ctx = self.run_kernels(consts_list, feed)
-        out = {n: v for n, v in cols.items() if feed.get(n) is not v}
-        result = (out, tuple(ctx.guards), ctx.packed(feed_device(feed)))
-        entry = self._capture(consts_list, feed)
+        result = self._run_eager(consts_list, feed)
+        entry = self._capture(consts_list, feed, result[1])
         lazyjit.account_capture(time.perf_counter() - start, kernel_id or "pipeline.FusedSegment")
         if kernel_id is not None:
             bank.offer(compilebank.signature_digest(kernel_id, sig), {
@@ -411,10 +415,20 @@ class FusedSegment:
                 "extras": {"guards": list(entry.messages)}})
         return result
 
-    def _capture(self, consts_list, feed: Dict[str, Any]) -> _CapturedSegment:
+    def _capture(self, consts_list, feed: Dict[str, Any], messages) -> lazyjit.Captured:
+        """Capture the signature's graph on the card. On the CPU no graph
+        exists: the entry stands for the signature alone (`messages` its
+        guards), counted, banked and evicted as a graph is, and every call
+        of it runs the kernels in turn (lazyjit's CPU contract)."""
         device = feed_device(feed)
-        self.graphs.make_room(lazyjit.free_bytes(device), _bytes(_tree_leaves(feed)))
-        entry = _CapturedSegment(self, consts_list, feed, self.graphs)
+        if device.type != "cuda":
+            self.graphs.make_room(None)
+            entry = lazyjit.Captured(None, {})
+            entry.messages = tuple(messages)
+            entry.kept_bytes = _bytes(_tree_leaves(feed))
+        else:
+            self.graphs.make_room(lazyjit.free_bytes(device), _bytes(_tree_leaves(feed)))
+            entry = _CapturedSegment(self, consts_list, feed, self.graphs)
         self.graphs.put(_signature(feed, consts_list), entry)
         return entry
 
@@ -432,8 +446,8 @@ class FusedSegment:
             if compilebank.signature_digest(kernel_id, sig) not in \
                     {s for s, _ in bank.entries_for(kernel_id)}:
                 raise ValueError("its constants' shapes differ from the served model's")
-            self.run_kernels(consts_list, feed)  # the warm-up
-            captured = self._capture(consts_list, feed)
+            _, messages, _ = self._run_eager(consts_list, feed)  # the warm-up
+            captured = self._capture(consts_list, feed, messages)
             captured.banked = True
             guards = (entry.get("extras") or {}).get("guards")
             if guards is not None and list(captured.messages) != list(guards):

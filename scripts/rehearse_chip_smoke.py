@@ -13,17 +13,19 @@ gradient's walk counters (`sparse_grad_walk`) are the plain gradient
 with the counts the table-overflow case asks for (the CPU has no walk),
 and each call of a kernel's plain version counts as a launch, as the
 kernel's does on the card. The fused transforms of phase 11 run on CPU
-tensors, where a fused segment calls its stages' kernels in turn with no
-capture (a CUDA graph exists only on the card), so each call counts its
-launches as a replay does there. Phase 14's whole fits run through the
-program funnel's CPU path (a new signature counted as a capture, the
-function run eagerly), and its bank children are real child processes
-on the CPU (no stub reaches them; the CPU banks no fused segment), as is
-phase 18's examples child (under `use_device("cpu")`, each call of a
-kernel's plain version counted as a launch), and phase 19's benchmark
+tensors, where a fused segment calls its stages' kernels in turn (a CUDA
+graph exists only on the card; a new signature is counted and banked as
+a capture), so each call counts its launches as a replay does there.
+Phase 14's whole fits run through the program funnel's CPU path (a new
+signature counted as a capture, the function run eagerly), and its bank
+children are real child processes on the CPU (no stub reaches them), as
+is phase 18's examples child (under `use_device("cpu")`, each call of a
+kernel's plain version counted as a launch), phase 19's benchmark
 child, which runs copies of the configs with `numValues` capped at
 BENCH_MAX_ROWS (above the generators' device threshold, so their
-tables are torch tensors on the CPU). It catches
+tables are torch tensors on the CPU), and each process of phase 20: the
+traced fit's child at the cut sparse sizes and every operator tool, run
+as its `__main__` under `use_device("cpu")`. It catches
 a broken path, check or output line before a chip run; every number it
 prints is a CPU number and none stands for the card's.
 """

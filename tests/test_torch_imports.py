@@ -6,8 +6,9 @@
   scripts/torch_kernel_designs.py, scripts/rehearse_chip_smoke.py,
   scripts/chip_funnel_phase.py, scripts/chip_checkpoint_phase.py,
   scripts/chip_host_attribution.py, scripts/chip_mesh_phase.py,
-  scripts/probe_distributed_backends.py, scripts/chip_benchmark_phase.py
-  nor the rank jobs of the mesh
+  scripts/probe_distributed_backends.py, scripts/chip_benchmark_phase.py,
+  scripts/chip_tools_phase.py, the operator tools scripts/torch_*.py (each also runs with jax and
+  flink_ml_tpu poisoned: tests/test_torch_tools.py) nor the rank jobs of the mesh
   tests (tests/torch_mesh_jobs.py, tests/torch_mesh2d_jobs.py), imports
   jax or flink_ml_tpu;
 - each module of the benchmark CLI alone, and a config naming the JAX
@@ -41,12 +42,17 @@ from flink_ml_tpu_torch.models.classification.logisticregression import (
 )
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+#: the operator tools (A.19): the port's counterparts of the JAX scripts
+TOOL_SCRIPTS = ["torch_coldstart_smoke.py", "torch_gen_operator_docs.py",
+                "torch_make_reference_fixture.py", "torch_obs_report.py",
+                "torch_obs_timeline.py", "torch_smoke_fit_timeline.py"]
 PORT_FILES = sorted((REPO / "flink_ml_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "torch_kernel_designs.py",
     REPO / "scripts" / "rehearse_chip_smoke.py", REPO / "scripts" / "chip_funnel_phase.py",
     REPO / "scripts" / "chip_checkpoint_phase.py", REPO / "scripts" / "chip_host_attribution.py",
     REPO / "scripts" / "chip_mesh_phase.py", REPO / "scripts" / "probe_distributed_backends.py",
-    REPO / "scripts" / "chip_benchmark_phase.py",
+    REPO / "scripts" / "chip_benchmark_phase.py", REPO / "scripts" / "chip_tools_phase.py",
+    *(REPO / "scripts" / name for name in TOOL_SCRIPTS),
     REPO / "tests" / "torch_mesh_jobs.py", REPO / "tests" / "torch_mesh2d_jobs.py"]
 
 
@@ -269,6 +275,15 @@ def test_what_a_rank_imports_leaves_jax_out(target):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_operator_tools_are_checked():
+    """Every scripts/torch_*.py is parsed below: the six tools, each beside
+    the JAX script it ports, and the kernel-design script."""
+    scripts = {p for p in PORT_FILES if p.parent == REPO / "scripts"}
+    assert set((REPO / "scripts").glob("torch_*.py")) <= scripts
+    for name in TOOL_SCRIPTS:
+        assert (REPO / "scripts" / name[len("torch_"):]).exists()
 
 
 def test_the_slice_modules_are_checked():
