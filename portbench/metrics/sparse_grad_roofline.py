@@ -1,0 +1,10 @@
+"""sparse_grad_roofline: `sparse_grad_kernel`'s share of its roofline at
+the fit's batch, from the traced slice. Layer: kernels. Sparse fit cells."""
+
+from portbench.metrics._kernel import fit_batch, roofline
+
+
+def read(run):
+    if run.request != "fit" or "nnz" not in run.cell.config["data"]:
+        return None
+    return roofline(run, "sparse_grad_kernel", "sparse_grad", fit_batch(run))
