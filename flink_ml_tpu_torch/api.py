@@ -3,7 +3,8 @@
 Port of flink_ml_tpu/api.py (the reference's api/Stage.java,
 AlgoOperator.java, Transformer.java, Model.java, Estimator.java). Every
 concrete stage's own `fit`/`transform` runs under a `stage.fit` /
-`stage.transform` span and every fit under a per-fit memory watermark
+`stage.transform` phase (an always-on timer; a span under tracing) and
+every fit under a per-fit memory watermark
 (`obs.tracing.instrument_stage_methods`, applied in
 `Stage.__init_subclass__` as the JAX package's `api.py:53` applies it).
 Save/load keeps the reference's directory layout: `{path}/metadata` JSON
@@ -32,6 +33,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .obs import tracing
 from .param import WithParams
 from .table import SparseBatch, Table, host_readable
 
@@ -157,10 +159,8 @@ class Stage(WithParams, abc.ABC):
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
         # every concrete fit/transform runs under a `stage.fit` /
-        # `stage.transform` span (obs/tracing.py)
-        from .obs.tracing import instrument_stage_methods
-
-        instrument_stage_methods(cls)
+        # `stage.transform` phase (obs/tracing.py)
+        tracing.instrument_stage_methods(cls)
         _instrument_model_publication(cls)
 
     #: a data-placement hint for loaders and generators: True when the
@@ -320,7 +320,9 @@ class AlgoOperator(Stage):
         are (`kernel_takes`), maps each input column to one it takes: a
         host column staged to `config.device()`, a tensor SparseBatch
         densified on its device. The outputs of a transform of host input
-        come back as host arrays (`_outputs_on_host`, `_host_outputs`)."""
+        come back as host arrays (`_outputs_on_host`, `_host_outputs`). The
+        kernel's time on the card goes into the `transform.device` timer
+        (`tracing.device_timed`)."""
         from .pipeline import _drain_guards, feed_device
 
         cols = {name: table.column(name) for name in self.kernel_input_cols()}
@@ -329,7 +331,9 @@ class AlgoOperator(Stage):
             cols = {name: stage(col) for name, col in cols.items()}
         device = feed_device(cols)
         ctx = KernelContext()
-        out = self.transform_kernel(self.device_constants(device), dict(cols), ctx)
+        consts = self.device_constants(device)
+        with tracing.device_timed("transform.device", device):
+            out = self.transform_kernel(consts, dict(cols), ctx)
         if ctx.guards:
             _drain_guards([(tuple(ctx.guards), ctx.packed(device))])
         out = {n: v for n, v in out.items() if cols.get(n) is not v}

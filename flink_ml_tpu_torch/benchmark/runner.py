@@ -181,9 +181,9 @@ def run_benchmark(name: str, entry: Dict) -> Dict:
         "outputThroughput": num_output * 1000.0 / elapsed_ms if elapsed_ms else 0.0,
         "phaseTimesMs": {k: v * 1000.0 for k, v in phases.items()},
         # blocking host syncs this entry paid, and the in-flight depth of
-        # its pipelined loops
+        # its pipelined loops: 0, the port has no drain queue (ROADMAP C.23)
         "hostSyncCount": int(counters.get("iteration.host_sync", 0)),
-        "dispatchDepth": int(gauges.get("iteration.dispatch_depth", 0)),
+        "dispatchDepth": 0,
         # fits run as one program, and fits that fell back to chunks
         "wholeFitCount": int(counters.get("dispatch.whole_fit", 0)),
         "wholeFitFallbacks": int(counters.get("dispatch.whole_fit_fallback", 0)),

@@ -117,7 +117,13 @@ def tree_flatten(tree) -> Tuple[List[Any], Any]:
         leaves.append(node)
         return ("leaf",)
 
-    return leaves, walk(tree)
+    try:
+        return leaves, walk(tree)
+    finally:
+        # a closure that calls itself is a reference cycle, which would keep
+        # the leaves alive until the garbage collector runs: emptying its
+        # cell breaks it
+        del walk
 
 
 def tree_unflatten(treedef, leaves):
@@ -137,7 +143,10 @@ def tree_unflatten(treedef, leaves):
         children = [build(c) for c in d[1]]
         return tuple(children) if kind == "tuple" else children
 
-    return build(treedef)
+    try:
+        return build(treedef)
+    finally:
+        del build  # the cycle, as in `tree_flatten`
 
 
 @dataclass

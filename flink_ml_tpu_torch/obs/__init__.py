@@ -6,8 +6,12 @@ cache, without a profiler pass:
 
 - `tracing` — `span(name, **attrs)`: nested spans with monotonic
   timestamps, emitted as JSONL (`FLINK_ML_TPU_TRACE_FILE`) or into a ring
-  (`FLINK_ML_TPU_TRACE_RING`) and folded into `metrics.snapshot()`; with
-  no sink the no-op path is one global load and one call;
+  (`FLINK_ML_TPU_TRACE_RING`), folded into `metrics.snapshot()`, and
+  `record_function` ranges while torch.profiler records; with no sink and
+  no profiler the no-op path is two global loads and one call.
+  `timed(name)`: a phase always timed into the `<name>` timer (a fit's and
+  a transform's phases); `device_timed(name, device)`: the card's time on
+  a block from CUDA events, folded without blocking;
 - `timeline` — the flight recorder: a bounded ring of begin/end events
   with thread and logical-stream lanes (`FLINK_ML_TPU_TIMELINE_RING`,
   `FLINK_ML_TPU_TIMELINE_FILE`), exported as Chrome/Perfetto trace-event
@@ -29,6 +33,5 @@ from .tracing import (  # noqa: F401
     drain_ring,
     enabled,
     event,
-    set_dispatch_depth,
     span,
 )

@@ -15,13 +15,27 @@ Sinks (either or both, process-wide):
 - ring buffer: `FLINK_ML_TPU_TRACE_RING=<n>` (or `configure(ring_size=n)`);
   `drain_ring()` returns and clears it.
 
-The timeline flight recorder (timeline.py) counts as a sink too. With no
-sink configured `span()` returns a shared no-op context manager: one
-global load and one call, no allocation. Completed spans are folded into
-the `span.<name>` timers of `utils.metrics`.
+The timeline flight recorder (timeline.py) counts as a sink too. While
+torch.profiler records, every span is also a `record_function` range, so
+the profiler's trace carries the program's phases as `user_annotation`
+events on its own clock. With no sink configured and no profiler
+recording, `span()` returns a shared no-op context manager: two global
+loads and one call, no allocation. Completed spans are folded into the
+`span.<name>` timers of `utils.metrics`.
+
+`timed(name)` is a phase that is always timed: its host time goes into
+the `<name>` timer whatever the sinks, and it is a span (with no
+`span.<name>` sample) and a profiler range when those are on. The
+phases of a fit and a transform: `stage.fit` / `stage.transform`
+(`instrument_stage_methods`), `sgd.stage` (ops/optimizer.py),
+`iteration.dispatch` (parallel/dispatch.py), `readback.wait` and
+`readback.copy` (utils/packing.py). `device_timed(name, device)` times
+the card's part of a block with a pair of CUDA events, folded into the
+`<name>` timer once the card has passed the second (`replay.device`,
+`transform.device`), on a sample of the calls; nothing about it blocks.
 
 Accounting funnels: `account_readback` (the packed readbacks,
-`utils/packing.py`), `account_host_sync`, `set_dispatch_depth`,
+`utils/packing.py`), `account_host_sync`,
 `account_collective` (every accounted collective of
 `parallel/collectives.py`), and
 `account_compile`, which the program funnel (utils/lazyjit.py) calls for
@@ -30,7 +44,7 @@ every capture, as the JAX package's compile-event hook
 `jit.compile` timer, the `jit.compileMs` histogram and a
 `compile`-category span. `instrument_stage_methods` wraps every stage's
 own `fit`/`transform` (api.Stage.__init_subclass__) in a `stage.fit` /
-`stage.transform` span, and every fit in `memledger.fit_peak_scope`.
+`stage.transform` phase, and every fit in `memledger.fit_peak_scope`.
 """
 
 from __future__ import annotations
@@ -43,6 +57,9 @@ import threading
 import time
 from collections import deque
 from typing import Any, Dict, Optional
+
+import torch
+from torch.autograd import profiler as _profiler
 
 from ..utils import metrics
 from . import timeline
@@ -134,12 +151,42 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
-class Span:
-    __slots__ = ("name", "attrs", "span_id", "parent_id", "_start_ns", "_token")
+def _open_range(name: str):
+    """A `record_function` range entered while torch.profiler records
+    (one read of the profiler's module flag); None otherwise."""
+    if not _profiler._is_profiler_enabled:
+        return None
+    rf = _profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
-    def __init__(self, name: str, attrs: Dict[str, Any]):
+
+class _Range(_NoopSpan):
+    """A span that is a profiler range alone: tracing off, profiler on."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._range = _open_range(self.name)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        return False
+
+
+class Span:
+    __slots__ = ("name", "attrs", "span_id", "parent_id", "_start_ns", "_token", "_range",
+                 "_timer")
+
+    def __init__(self, name: str, attrs: Dict[str, Any], timer: bool = True):
         self.name = name
         self.attrs = attrs
+        self._timer = timer
 
     def set_attr(self, key: str, value) -> None:
         self.attrs[key] = value
@@ -151,16 +198,20 @@ class Span:
         self._token = _current.set(self)
         if timeline.enabled():
             timeline.record_begin(timeline.host_lane(), self.name, ref=self.span_id)
+        self._range = _open_range(self.name)
         self._start_ns = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         end_ns = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         _current.reset(self._token)
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
         dur_ns = end_ns - self._start_ns
-        metrics.record_time("span." + self.name, dur_ns / 1e9)
+        if self._timer:
+            metrics.record_time("span." + self.name, dur_ns / 1e9)
         if timeline.enabled():
             timeline.record_end(timeline.host_lane(), self.name, ref=self.span_id, **self.attrs)
         _emit({
@@ -175,11 +226,52 @@ class Span:
 
 
 def span(name: str, **attrs):
-    """Context manager timing a named region nested under the current span;
-    the shared no-op object when no sink is configured."""
-    if not _enabled:
-        return _NOOP
-    return Span(name, attrs)
+    """Context manager timing a named region nested under the current span
+    (and a profiler range while torch.profiler records); the shared no-op
+    object when no sink is configured and the profiler is off."""
+    if _enabled:
+        return Span(name, attrs)
+    if _profiler._is_profiler_enabled:
+        return _Range(name)
+    return _NOOP
+
+
+class _Timed:
+    """An always-timed phase (`timed`): after the block, `start_ns` and
+    `dur_ns` hold its host time."""
+
+    __slots__ = ("name", "_inner", "start_ns", "dur_ns")
+
+    def __init__(self, name: str, attrs: Dict[str, Any]):
+        self.name = name
+        if _enabled:
+            self._inner = Span(name, attrs, timer=False)
+        elif _profiler._is_profiler_enabled:
+            self._inner = _Range(name)
+        else:
+            self._inner = _NOOP
+
+    @property
+    def seconds(self) -> float:
+        return self.dur_ns / 1e9
+
+    def __enter__(self):
+        self._inner.__enter__()
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.dur_ns = time.perf_counter_ns() - self.start_ns
+        metrics.record_time(self.name, self.dur_ns / 1e9)
+        return self._inner.__exit__(exc_type, exc, tb)
+
+
+def timed(name: str, **attrs) -> _Timed:
+    """A phase whose host time always goes into the `<name>` timer of
+    `utils.metrics`; with a sink configured it is also a span (its time
+    not doubled into `span.<name>`), and while torch.profiler records a
+    `record_function` range."""
+    return _Timed(name, attrs)
 
 
 def event(name: str, **attrs) -> None:
@@ -286,11 +378,6 @@ def account_host_sync(kind: str = "drain", count: int = 1) -> None:
         timeline.record_instant(timeline.host_lane(), f"host_sync.{kind}")
 
 
-def set_dispatch_depth(depth: int) -> None:
-    """Record the in-flight dispatch depth a pipelined loop ran at."""
-    metrics.set_gauge("iteration.dispatch_depth", depth)
-
-
 def account_compile(seconds: float, **attrs) -> None:
     """One program capture (utils/lazyjit.py, pipeline.FusedSegment): the
     counterpart of a backend compile. `jit.compiles`, the `jit.compile`
@@ -307,6 +394,115 @@ def account_compile(seconds: float, **attrs) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the card's time from CUDA events
+# ---------------------------------------------------------------------------
+
+#: event pairs the card has not passed yet, at most; a record beyond it
+#: drops the oldest (`device_timer.dropped`)
+DEVICE_PENDING = 64
+#: a timer records a pair on one of this many of its calls: an event
+#: recorded while the card is idle, as it is when a transform starts after
+#: the last one was waited for, delays the work behind it by ~40 us on an
+#: H100, 1-2% of a 10M-row transform; sampled, the cost is a sixteenth
+DEVICE_SAMPLE_EVERY = 16
+_device_lock = threading.Lock()
+#: timer name -> its calls so far, for the sampling
+_device_calls: Dict[str, int] = {}
+#: (timer name, device index, start event, end event), oldest first
+_device_pending: deque = deque(maxlen=DEVICE_PENDING)
+#: device index -> timing events free for reuse
+_event_pool: Dict[int, list] = {}
+
+
+def _new_event():
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _fold_passed() -> None:
+    """Fold the pending pairs the card has passed, oldest first, into their
+    timers, and pool their events. Holds `_device_lock`."""
+    while _device_pending:
+        name, index, start, end = _device_pending[0]
+        if not end.query():
+            return
+        _device_pending.popleft()
+        metrics.record_time(name, start.elapsed_time(end) / 1e3)
+        _event_pool.setdefault(index, []).extend((start, end))
+
+
+def poll_device_timers() -> None:
+    """Fold the event pairs the card has passed; never waits for one."""
+    if _device_pending:
+        with _device_lock:
+            _fold_passed()
+
+
+class _DeviceTimed:
+    __slots__ = ("name", "device", "_index", "_stream", "_start")
+
+    def __init__(self, name: str, device):
+        self.name = name
+        self.device = device
+
+    def _take(self):
+        pool = _event_pool.get(self._index)
+        return pool.pop() if pool else _new_event()
+
+    def __enter__(self):
+        self._start = None
+        device = self.device
+        if device is not None and device.type != "cuda":
+            return self
+        calls = _device_calls.get(self.name, 0)
+        _device_calls[self.name] = calls + 1
+        if calls % DEVICE_SAMPLE_EVERY:
+            return self
+        if _profiler._is_profiler_enabled or torch.cuda.is_current_stream_capturing():
+            return self
+        index = device.index if device is not None and device.index is not None \
+            else torch.cuda.current_device()
+        self._stream = torch.cuda.current_stream(index)
+        with _device_lock:
+            self._index = index
+            start = self._take()
+            start.record(self._stream)
+        self._start = start
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        start = self._start
+        if start is None:
+            return False
+        with _device_lock:
+            if exc_type is not None:
+                _event_pool.setdefault(self._index, []).append(start)
+                return False
+            end = self._take()
+            end.record(self._stream)
+            if len(_device_pending) == _device_pending.maxlen:  # the append drops the oldest
+                metrics.inc_counter("device_timer.dropped")
+            _device_pending.append((self.name, self._index, start, end))
+            # folded here, while the card runs the work just enqueued, not
+            # before it, where the card would wait for the host
+            _fold_passed()
+        return False
+
+
+def device_timed(name: str, device=None) -> _DeviceTimed:
+    """The card's time on the work the block enqueues on the current
+    stream of `device` (None: the current card), from a pair of timing
+    events folded into the `<name>` timer once the card has passed the
+    second (`poll_device_timers`, also run after each pair's second
+    record); one call in `DEVICE_SAMPLE_EVERY` of each timer records a
+    pair, so the timer's total over its count is the mean of a sample.
+    Nothing blocks: no synchronize, no `elapsed_time` of an event not yet
+    passed. Nothing is recorded off the card, while the stream is being
+    captured, or while torch.profiler records (its trace times the card
+    itself, and the events would stretch the gaps it measures)."""
+    return _DeviceTimed(name, device)
+
+
+# ---------------------------------------------------------------------------
 # automatic stage instrumentation (api.Stage.__init_subclass__)
 # ---------------------------------------------------------------------------
 
@@ -315,19 +511,16 @@ def _wrap_stage_method(fn, op: str):
 
     from . import memledger
 
+    name = "stage." + op
+
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
         if op == "fit":
             # the per-fit memory watermark (hbm.peak.fit): always on, like
             # the metrics registry
-            with memledger.fit_peak_scope():
-                if not _enabled:
-                    return fn(self, *args, **kwargs)
-                with Span("stage." + op, {"stage": type(self).__name__}):
-                    return fn(self, *args, **kwargs)
-        if not _enabled:
-            return fn(self, *args, **kwargs)
-        with Span("stage." + op, {"stage": type(self).__name__}):
+            with _Timed(name, {"stage": type(self).__name__}), memledger.fit_peak_scope():
+                return fn(self, *args, **kwargs)
+        with _Timed(name, {"stage": type(self).__name__}):
             return fn(self, *args, **kwargs)
 
     wrapper._obs_instrumented = True
@@ -336,10 +529,10 @@ def _wrap_stage_method(fn, op: str):
 
 def instrument_stage_methods(cls) -> None:
     """Wrap a Stage subclass's `fit`/`transform` in `stage.fit` /
-    `stage.transform` spans: its own, or one it takes from a mixin that is
+    `stage.transform` phases (`timed`): its own, or one it takes from a mixin that is
     not a Stage (the port's linear models take `transform` from one).
     Definitions already wrapped are left alone, so each call produces
-    exactly one span."""
+    exactly one sample and span."""
     for op in ("fit", "transform"):
         fn = cls.__dict__.get(op, getattr(cls, op, None))
         if fn is None or not callable(fn):

@@ -886,22 +886,26 @@ class SGD:
         return finish(state, flag)
 
     def _optimize_flat_async(self, init_coeff, X, y, weights, loss_func, validate_labels):
-        """Stage the inputs (`stage_flat`) and run `_sgd_train_flat`, or
-        the checkpointed chunks."""
+        """Stage the inputs (`stage_flat`, the initial coefficient's cast and
+        upload: the `sgd.stage` phase) and run `_sgd_train_flat`, or the
+        checkpointed chunks."""
         from ..obs import memledger
         from ..parallel import dispatch
 
         B, dtype = int(self.global_batch_size), self._dtype
         if self.checkpoint_dir is not None:
-            X_f, y_f, w_f, n = lazyjit.materialize(stage_flat(X, y, weights, B, dtype=dtype))
-            memledger.track((X_f, y_f, w_f), "streamSegments")
-            init = _stage(init_coeff, dtype, y_f.device)
+            with tracing.timed("sgd.stage"):
+                X_f, y_f, w_f, n = lazyjit.materialize(stage_flat(X, y, weights, B, dtype=dtype))
+                memledger.track((X_f, y_f, w_f), "streamSegments")
+                init = _stage(init_coeff, dtype, y_f.device)
             return self._optimize_with_checkpoints(X_f, y_f, w_f, n, init, loss_func,
                                                    validate_labels, self._hyper(y_f.device))
         max_iter = int(self.max_iter)
-        X_f, y_f, w_f, n = stage_flat(X, y, weights, B,
-                                      rows=lambda nb: _touched_rows(nb, B, max_iter), dtype=dtype)
-        init = _stage(init_coeff, dtype, y_f.device)
+        with tracing.timed("sgd.stage"):
+            X_f, y_f, w_f, n = stage_flat(X, y, weights, B,
+                                          rows=lambda nb: _touched_rows(nb, B, max_iter),
+                                          dtype=dtype)
+            init = _stage(init_coeff, dtype, y_f.device)
         launch = dispatch.timed_dispatch("_sgd_train_flat", start=0, end=max_iter)
         if config.whole_fit == "off":
             with launch:

@@ -21,11 +21,10 @@ reduction between the local steps, counted under the fallback reason
 
 from __future__ import annotations
 
-import time
 from contextlib import contextmanager
 from typing import Optional, Tuple
 
-from ..obs import timeline
+from ..obs import timeline, tracing
 from ..utils import metrics
 
 #: why a whole-fit-eligible loop did not run as one program
@@ -98,24 +97,24 @@ def whole_fit_plan(*, start_epoch: int, max_iter: int, checkpoint_interval: Opti
 def timed_dispatch(kernel: str, start: Optional[int] = None, end: Optional[int] = None):
     """Time the block as one launch: the host's part of it goes into the
     `iteration.dispatch` timer (the benchmark's `hostDispatchMs`; its count
-    is `gapCount`) and, with the timeline on, onto the dispatch lane as a
-    `dispatch.chunk` event naming `kernel` and the planned epoch range
-    [start, end), which `timeline.dispatch_attribution` splits by. Each
-    site of the JAX package's `timed_dispatch` (a wrapper there; a block
-    here, so the call stays in sight of the SPMD interpreter) has its
-    counterpart: a whole fit through the program funnel is one launch, as
-    there; a loop that stays eager in the port (a checkpointed chunk, a
-    stream epoch) is one launch a chunk or epoch (ROADMAP C.44). On the
-    card this times the enqueue and whatever the block waits for; on the
-    CPU the whole computation."""
-    t0 = time.perf_counter_ns()
-    yield
-    dur_ns = time.perf_counter_ns() - t0
-    metrics.record_time("iteration.dispatch", dur_ns / 1e9)
+    is `gapCount`) as an always-timed phase (`tracing.timed`: a span and
+    a profiler range when those are on) and, with the timeline on, onto
+    the dispatch lane as a `dispatch.chunk` event naming `kernel` and the
+    planned epoch range [start, end), which `timeline.dispatch_attribution`
+    splits by. Each site of the JAX package's `timed_dispatch` (a wrapper
+    there; a block here, so the call stays in sight of the SPMD
+    interpreter) has its counterpart: a whole fit through the program
+    funnel is one launch, as there; a loop that stays eager in the port (a
+    checkpointed chunk, a stream epoch) is one launch a chunk or epoch
+    (ROADMAP C.44). On the card this times the enqueue and whatever the
+    block waits for; on the CPU the whole computation."""
+    with tracing.timed("iteration.dispatch") as phase:
+        yield
     if timeline.enabled():
         attrs = {"kernel": kernel}
         if start is not None:
             attrs["start"] = int(start)
         if end is not None:
             attrs["end"] = int(end)
-        timeline.record_complete(timeline.LANE_DISPATCH, "dispatch.chunk", t0, dur_ns, **attrs)
+        timeline.record_complete(timeline.LANE_DISPATCH, "dispatch.chunk", phase.start_ns,
+                                 phase.dur_ns, **attrs)

@@ -82,6 +82,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..obs import tracing
+
 #: held by every capture, and by CUDA work on other threads that must not
 #: run inside one (a lifecycle's canary and publication)
 capture_lock = threading.RLock()
@@ -166,7 +168,13 @@ def flatten(node) -> Tuple[List[Any], Any]:
             return ("D", tuple((k, walk(n[k])) for k in sorted(n, key=repr)))
         return ("V", n)
 
-    return leaves, walk(node)
+    try:
+        return leaves, walk(node)
+    finally:
+        # a closure that calls itself is a reference cycle, which would keep
+        # the leaves (a fit's staged inputs) alive until the garbage collector
+        # runs: emptying its cell breaks it
+        del walk
 
 
 def unflatten(structure, leaves) -> Any:
@@ -185,7 +193,10 @@ def unflatten(structure, leaves) -> Any:
             return {k: build(c) for k, c in s[1]}
         return s[1]
 
-    return build(structure)
+    try:
+        return build(structure)
+    finally:
+        del build  # the cycle, as in `flatten`
 
 
 def _structure_token(s) -> str:
@@ -324,9 +335,12 @@ class Captured:
         self.banked = False
 
     def replay(self) -> None:
+        """Replay the graph, its time on the card into the `replay.device`
+        timer (`tracing.device_timed`)."""
         self.stamp = next(_stamps)
         if self.graph is not None:
-            self.graph.replay()
+            with tracing.device_timed("replay.device"):
+                self.graph.replay()
             for kernel, n in self.launches.items():
                 kernel.launches += n
 

@@ -12,15 +12,25 @@ Port of flink_ml_tpu/utils/metrics.py (`:35-114`), with its names:
 
 Everything is a plain module-level registry: `snapshot()` returns a copy,
 `snapshot_delta` the activity between two snapshots, `reset()` clears.
+A timer keeps its count, its total and its last sample, not every
+sample: the always-on phase timers (obs/tracing.py `timed`) add one
+sample a request for the life of a serving process. The total is kept as
+Python's `sum` of the samples would give it (Neumaier's compensated sum),
+so `snapshot()` and `timer_totals()` read as a list of every sample
+would.
 """
 
 from __future__ import annotations
 
+import math
+import threading
 import time
 from contextlib import contextmanager
 from typing import Dict, List
 
-_timers: Dict[str, List[float]] = {}
+#: name -> [count, running sum, its compensation, last sample]
+_timers: Dict[str, List] = {}
+_timers_lock = threading.Lock()
 _gauges: Dict[str, float] = {}
 _counters: Dict[str, int] = {}
 
@@ -32,11 +42,30 @@ def timed(name: str):
     try:
         yield
     finally:
-        _timers.setdefault(name, []).append(time.perf_counter() - start)
+        record_time(name, time.perf_counter() - start)
 
 
 def record_time(name: str, seconds: float) -> None:
-    _timers.setdefault(name, []).append(seconds)
+    with _timers_lock:
+        timer = _timers.get(name)
+        if timer is None:
+            _timers[name] = [1, seconds, 0.0, seconds]
+            return
+        total = timer[1]
+        new = total + seconds
+        if abs(total) >= abs(seconds):
+            timer[2] += (total - new) + seconds
+        else:
+            timer[2] += (seconds - new) + total
+        timer[0], timer[1], timer[3] = timer[0] + 1, new, seconds
+
+
+def _total(timer: List) -> float:
+    """The timer's samples summed as `sum` sums a list of floats."""
+    total, compensation = timer[1], timer[2]
+    if compensation and math.isfinite(compensation):
+        total += compensation
+    return total
 
 
 def set_gauge(name: str, value: float) -> None:
@@ -57,17 +86,18 @@ def get_counter(name: str, default: int = 0) -> int:
 
 def timer_totals() -> Dict[str, float]:
     """Total seconds per phase."""
-    return {k: float(sum(v)) for k, v in _timers.items()}
+    with _timers_lock:
+        return {k: float(_total(v)) for k, v in _timers.items()}
 
 
 def snapshot() -> Dict[str, Dict]:
     """A copyable view of every metric: per-phase {count, totalMs, lastMs},
     gauges, counters."""
+    with _timers_lock:
+        timers = {k: {"count": v[0], "totalMs": _total(v) * 1000.0, "lastMs": v[3] * 1000.0}
+                  for k, v in _timers.items()}
     return {
-        "timers": {
-            k: {"count": len(v), "totalMs": sum(v) * 1000.0, "lastMs": v[-1] * 1000.0}
-            for k, v in _timers.items()
-        },
+        "timers": timers,
         "gauges": dict(_gauges),
         "counters": dict(_counters),
     }
@@ -96,7 +126,8 @@ def snapshot_delta(before: Dict[str, Dict], after: Dict[str, Dict]) -> Dict[str,
 
 
 def reset() -> None:
-    _timers.clear()
+    with _timers_lock:
+        _timers.clear()
     _gauges.clear()
     _counters.clear()
 

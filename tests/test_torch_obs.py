@@ -11,10 +11,11 @@ package's, on the same inputs.
 - exporters: the same snapshots give the same JSON and Prometheus text,
   the same collisions and the same benchmark-entry gauges;
 - tracing: the JSONL file sink's schema, `event`, `current_span`,
-  `add_attr`, `emit_completed`, `set_dispatch_depth`, the no-op path, one
-  span per instrumented call; a small LogisticRegression fit and transform
-  under the ring give the JAX package's spans, attributes and parent
-  chains (the capture spans' count aside: XLA compiles other programs);
+  `add_attr`, `emit_completed`, the no-op path, one span per
+  instrumented call; a small LogisticRegression fit and transform under
+  the ring give the JAX package's spans, attributes and parent chains
+  (the capture spans' count aside: XLA compiles other programs; the
+  port's own phase spans apart, which the JAX package does not have);
 - the device epoch cache keeps the ledger's `batchCache` equal to its own
   bytes through hits, misses, replacements and evictions.
 """
@@ -288,11 +289,9 @@ def test_jsonl_sink_and_the_span_api(tmp_path):
             with pytest.raises(KeyError):
                 with tracing.span("failing"):
                     raise KeyError("x")
-        tracing.set_dispatch_depth(3)
     finally:
         tracing.configure()
     assert tracing.current_span() is None and not tracing.enabled()
-    assert metrics.get_gauge("iteration.dispatch_depth") == 3
     records = [json.loads(line) for line in open(path)]
     assert all(set(r) == {"name", "spanId", "parentId", "startUs", "durUs", "attrs"}
                for r in records)
@@ -341,6 +340,10 @@ def _chains(records, skip=()):
     return plain, compiles
 
 
+#: the port's phase spans inside a fit and a transform (`tracing.timed`)
+PORT_PHASES = ("sgd.stage", "iteration.dispatch", "readback.wait", "readback.copy")
+
+
 def test_fit_and_transform_spans_match_jax():
     rng = np.random.default_rng(8)
     feats = rng.standard_normal((72, 4))  # a shape no other test fits
@@ -359,11 +362,15 @@ def test_fit_and_transform_spans_match_jax():
             tr.configure()
         # the port's whole fit runs in the `iteration.run` span (mode
         # whole_fit) of the JAX package's batched whole fit; its flat path
-        # has none (ROADMAP C.23)
-        runs[pkg] = _chains(ring, skip=("iteration.run",) if pkg == "port" else ())
+        # has none (ROADMAP C.23). The port's phases (`tracing.timed`) are
+        # spans of its own.
+        runs[pkg] = _chains(ring, skip=("iteration.run",) + PORT_PHASES if pkg == "port"
+                            else ())
         if pkg == "port":
             assert [r["attrs"] for r in ring if r["name"] == "iteration.run"] == [
                 {"mode": "whole_fit", "epochs": 3}]
+            assert sorted(r["name"] for r in ring if r["name"] in PORT_PHASES) == sorted(
+                PORT_PHASES + ("readback.wait", "readback.copy"))
     assert runs["port"][0] == runs["jax"][0]
     assert runs["port"][1] and runs["port"][1] <= runs["jax"][1]
 
