@@ -14,7 +14,8 @@ channel fails the run; its stats (acquisitions, locks, edges, workers,
 channels) are printed on a `sanitizer` line. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); the build of
-   `flink_ml_tpu_torch/csrc/sparse_kernels.cu`, of the floor probes
+   `flink_ml_tpu_torch/csrc/sparse_kernels.cu`, of the SGD engine's epoch
+   kernels `csrc/sgd_epoch.cu`, of the floor probes
    `csrc/probes.cu` and of the replaced designs `csrc/designs.cu`, one
    nvcc each, started together; the registers of each kernel (cuobjdump
    -res-usage) and a look at the SASS: no kernel adds with ATOMG;
@@ -58,7 +59,14 @@ channels) are printed on a `sanitizer` line. Phases:
    from a (d, 8) table); and at phase 17's shapes (`fleet_mesh_shapes`:
    N = 2 over the fit batch, the fleet-sharded regime's; N = 8 over
    25,000 rows, the default regime's on 4 ranks), each timed beside its
-   plain version, a library call and the bound;
+   plain version, a library call and the bound; then the SGD engine's
+   epoch kernels (`csrc/sgd_epoch.cu`, `sgd_epoch_phase`): the update at
+   d = 1e6 and d = 100 against its op sequence bit for bit (live, dead,
+   wsum 0, no mask), the pointwise pass of each form over the fit batch
+   with random weights and with the `row < n` weights of a ragged batch (its
+   multiplier within one ulp, its sums within 1e-5 of torch.sum's, its
+   tail the body's), each timed beside its bytes' bound and its plain
+   version;
 3. the main paths, each run as a user runs it (fit -> transform -> save ->
    load -> transform), with the launch counts reset just before each and
    read just after, at the conf/ configurations: LogisticRegression,
@@ -545,6 +553,12 @@ LOSS_REL_TOL = 1e-3
 DEFAULT_MASK_SHARE, OUT_OF_RANGE_SHARE = 0.05, 0.001
 #: the kernels whose launches the paths count (flink_ml_tpu_torch/ops/sparsekernels.py KERNELS)
 KERNEL_NAMES = ("sparse_row_dots", "sparse_grad", "fleet_row_dots", "fleet_grad")
+#: the SGD engine's epoch kernels (ops/sgdkernels.py): the pointwise
+#: kernel's multiplier against its plain version's (exp and log1p compiled
+#: apart round alike or one ulp apart)
+SGD_MULT_ULPS = 1
+#: its sums against torch.sum's: float32 sums of BATCH terms in two orders
+SGD_SUM_REL_TOL = 1e-5
 #: phase 16: gloo ranks sharing the card, and the bounds of a job and of
 #: each collective (seconds)
 MESH_RANKS = 4
@@ -1177,6 +1191,82 @@ def kernel_phase(sk, probes, designs, dev):
         f"{float((sk.sparse_grad(idx, vals, mult, text_coeff).double() - exact).abs().max()):.3g} "
         f"(kernel), {float((sk.sparse_grad_plain(idx, vals, mult, text_coeff).double() - exact).abs().max()):.3g} "
         f"(plain); largest |g| {float(exact.abs().max()):.4g}")
+    return results
+
+
+def ulp_gap(a, b) -> int:
+    """The most float32 ulps between two tensors' elements."""
+    def key(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((key(a) - key(b)).abs().max()) if a.numel() else 0
+
+
+def sgd_epoch_phase(dev):
+    """The SGD engine's two epoch kernels (csrc/sgd_epoch.cu) against their
+    plain versions at the fits' shapes, in float32: the update over d =
+    SPARSE_DIM and d = DIM bit for bit, live, dead, at wsum 0 and without
+    the mask; the pointwise pass of each form over the BATCH rows, with
+    random weights and with the `row < n` weights of a ragged batch, its
+    multiplier within SGD_MULT_ULPS ulp, its sums within SGD_SUM_REL_TOL of
+    torch.sum's and its tail as the body forms it from the kernel's sums.
+    Each is timed warm (the fit finds its operands in L2) beside the
+    least time its bytes allow and its plain version. Returns the times."""
+    from flink_ml_tpu_torch.ops import losses, optimizer
+    from flink_ml_tpu_torch.ops import sgdkernels as sg
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    hyper = optimizer.sgd_hyper(LEARNING_RATE, 1e-3, 0.5, TOL, dev)
+    live, dead = torch.full((), 0.5, device=dev), torch.zeros((), device=dev)
+    wsum = torch.full((), float(BATCH), device=dev)
+    results = {}
+    for d in (SPARSE_DIM, DIM):
+        coeff = torch.randn(d, generator=gen, device=dev)
+        grad = torch.randn(d, generator=gen, device=dev)
+        for label, ws, crit in (("live", wsum, live), ("dead", wsum, dead),
+                                ("wsum 0", torch.zeros((), device=dev), live),
+                                ("no mask", wsum, None)):
+            check(torch.equal(sg.sgd_update(coeff, grad, ws, hyper, crit),
+                              sg.sgd_update_plain(coeff, grad, ws, hyper, crit)),
+                  f"sgd_update at d = {d} ({label}) is not the op sequence bit for bit")
+        args = [(coeff, grad, wsum, hyper, live)]
+        kernel, plain = cuda_ms(sg.sgd_update, args), cuda_ms(sg.sgd_update_plain, args)
+        bound, by = bound_ms(12 * d, 7 * d)
+        results[f"sgd_update d={d}"] = {"kernel_ms": kernel, "plain_ms": plain,
+                                        "bound_ms": bound}
+        log(f"  sgd_update d = {d}: {kernel:.4f} ms (plain {plain:.4f}; bound {bound:.4f} by "
+            f"{by}, {100 * bound / kernel:.1f}%)")
+    tail = sg.EpochTail(hyper, wsum, torch.full((), 3, dtype=torch.int32, device=dev), live)
+    dot = 3 * torch.randn(BATCH, generator=gen, device=dev)
+    ragged = (torch.arange(BATCH, device=dev) < BATCH // 3).to(torch.float32)
+    for form, fn in zip(sg.FORMS, (losses._logistic_pointwise, losses._hinge_pointwise,
+                                   losses._least_square_pointwise)):
+        y = (torch.randn(BATCH, generator=gen, device=dev) if form == "least_square" else
+             torch.randint(0, 2, (BATCH,), generator=gen, device=dev).to(torch.float32))
+        for label, wk in (("weights", torch.rand(BATCH, generator=gen, device=dev)),
+                          ("ragged", ragged)):
+            got = sg.sgd_pointwise(form, fn, dot, y, wk, tail)
+            loss, mult = fn(dot, y, wk)
+            gap = ulp_gap(got.mult, mult)
+            check(gap <= SGD_MULT_ULPS, f"sgd_pointwise {form} ({label}): multiplier {gap} ulp off")
+            for name, a, b in (("loss", got.lsum, torch.sum(loss)),
+                               ("weight", got.wsum, torch.sum(wk))):
+                rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+                check(rel <= SGD_SUM_REL_TOL, f"sgd_pointwise {form} ({label}): {name} sum {rel:.3g} off")
+            crit = (got.lsum / torch.clamp(got.wsum, min=1e-30)).float()
+            check(bool(got.tail.live) and int(got.tail.epoch) == 4
+                  and torch.equal(got.tail.criteria, crit) and torch.equal(got.tail.wsum, got.wsum),
+                  f"sgd_pointwise {form} ({label}): the tail is not the body's")
+            args = [(form, fn, dot, y, wk, tail)]
+            kernel = cuda_ms(sg.sgd_pointwise, args)
+            plain = cuda_ms(lambda f, *a: sg.sgd_pointwise_plain(*a), args)
+            bound, by = bound_ms(16 * BATCH, 12 * BATCH)
+            results[f"sgd_pointwise {form} {label}"] = {"kernel_ms": kernel, "plain_ms": plain,
+                                                        "bound_ms": bound}
+            log(f"  sgd_pointwise {form} ({label}) {BATCH} rows: {kernel:.4f} ms (plain "
+                f"{plain:.4f}; bound {bound:.4f} by {by}, {100 * bound / kernel:.1f}%); "
+                f"multiplier {gap} ulp off")
     return results
 
 
@@ -7069,7 +7159,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} ({card}), allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
-    cuda_sources = ("sparse_kernels", "probes", "designs")
+    cuda_sources = ("sparse_kernels", "sgd_epoch", "probes", "designs")
     cuda_build.load_all(cuda_sources)
     sk.build()
     build_s = time.perf_counter() - t0
@@ -7087,6 +7177,8 @@ def main() -> int:
     edge_phase(sk, dev)
     kernel_results = kernel_phase(sk, probes, designs, dev)
     fleet_kernel_results = fleet_kernel_phase(sk, probes, designs, dev)
+    log("phase 2: the SGD engine's epoch kernels vs plain versions")
+    sgd_epoch_phase(dev)
 
     # -- 3. the main path -------------------------------------------------
     log("phase 3: main paths (launch counts reset before and read after each)")

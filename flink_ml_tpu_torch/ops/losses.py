@@ -36,7 +36,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-from . import sparsekernels
+from . import sgdkernels, sparsekernels
 
 LossOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -93,12 +93,44 @@ def dense_grad(X, multiplier):
     return torch.sum(X * multiplier[..., None], dim=-2)
 
 
-def _dense(pointwise):
-    def fn(X, y, w, coeff) -> LossOut:
-        loss, multiplier = pointwise(dense_dot(X, coeff), y, w)
-        return torch.sum(loss), dense_grad(X, multiplier), torch.sum(w)
+#: the pointwise forms by their kernel's name (ops/sgdkernels.py FORMS)
+_FORMS = {_logistic_pointwise: "logistic", _hinge_pointwise: "hinge",
+          _least_square_pointwise: "least_square"}
 
+
+def _layout(pointwise, dot_of, grad_of):
+    """A batched loss of the pointwise form `pointwise` on a layout:
+    `dot_of(X, coeff)` the row dots, `grad_of(X, mult, coeff)` the
+    gradient. Between them the pointwise pass (`sgdkernels.sgd_pointwise`:
+    the kernel on the card, the op sequence on the CPU) gives the
+    multiplier and the loss and weight sums.
+
+    The returned fn carries `fn.epoch(X, y, w, coeff, tail)`, the
+    single-card body's call (`losses.epoch_fn`): the same pass handed the
+    body's state, which writes the epoch's tail too; it returns
+    (`sgdkernels.Pointwise`, grad)."""
+    form = _FORMS[pointwise]
+
+    def epoch(X, y, w, coeff, tail=None):
+        out = sgdkernels.sgd_pointwise(form, pointwise, dot_of(X, coeff), y, w, tail)
+        return out, grad_of(X, out.mult, coeff)
+
+    def fn(X, y, w, coeff) -> LossOut:
+        out, grad = epoch(X, y, w, coeff)
+        return out.lsum, grad, out.wsum
+
+    fn.epoch = epoch
     return fn
+
+
+def epoch_fn(loss_func: LossFunc):
+    """The loss's call that takes the single-card body's state
+    (`_layout`'s `fn.epoch`), or None for a loss of another make."""
+    return getattr(loss_func.fn, "epoch", None)
+
+
+def _dense(pointwise):
+    return _layout(pointwise, dense_dot, lambda X, mult, coeff: dense_grad(X, mult))
 
 
 #: masked padded-CSR row dots (-1 indices are padding, indices >= d are
@@ -109,13 +141,8 @@ sparse_dot = sparsekernels.sparse_row_dots
 def _sparse(pointwise, row_dots, grad):
     """Padded-CSR batched loss: X = (indices[B, k] int32 with -1 padding,
     values[B, k]); the per-row dot is `row_dots` and the gradient `grad`."""
-
-    def fn(X, y, w, coeff) -> LossOut:
-        indices, values = X
-        loss, multiplier = pointwise(row_dots(indices, values, coeff), y, w)
-        return torch.sum(loss), grad(indices, values, multiplier, coeff), torch.sum(w)
-
-    return fn
+    return _layout(pointwise, lambda X, coeff: row_dots(*X, coeff),
+                   lambda X, mult, coeff: grad(*X, mult, coeff))
 
 
 BINARY_LOGISTIC_LOSS = LossFunc(

@@ -117,7 +117,10 @@ from ..parallel import supervisor
 from ..parallel.prefetch import to_device
 from ..utils import lazyjit
 from ..utils.packing import packed_device_get
+from . import losses, sgdkernels
 from .losses import FEATURE_SHARDED_VARIANTS, LossFunc
+#: the rows of `sgd_hyper` (the epoch kernels read them by the same rows)
+from .sgdkernels import HYPER_EN, HYPER_L1, HYPER_L2, HYPER_LR, HYPER_REG, HYPER_TOL  # noqa: F401
 
 #: the default compute dtype (`SGD.dtype`): host float64 columns are cast
 #: to the fit's dtype once, at staging. The fleet programs, whose
@@ -181,10 +184,6 @@ def regularize(coeff, reg, elastic_net, learning_rate):
     return new_coeff, loss
 
 
-#: the rows of `sgd_hyper`
-HYPER_LR, HYPER_REG, HYPER_EN, HYPER_TOL, HYPER_L1, HYPER_L2 = range(6)
-
-
 def sgd_hyper(learning_rate, reg, elastic_net, tol, device,
               dtype: torch.dtype = COMPUTE_DTYPE) -> torch.Tensor:
     """The fit's hyperparameters as one device vector of the fit's dtype
@@ -196,36 +195,20 @@ def sgd_hyper(learning_rate, reg, elastic_net, tol, device,
     return to_device(rows.astype(_numpy_dtype(dtype)), device)
 
 
-def _hyper_prox_step(coeff, hyper):
-    """`_prox_step` with the hyperparameters as device operands: the same
-    products, and coeff kept exactly where reg is 0."""
-    step = hyper[HYPER_LR] * (hyper[HYPER_L1] * torch.sign(coeff) + hyper[HYPER_L2] * coeff)
-    return torch.where(hyper[HYPER_REG] > 0.0, coeff - step, coeff)
-
-
-def _update_model(coeff, grad, wsum, hyper):
-    """coeff -= lr / wsum * grad, then the proximal step, only where
-    wsum > 0 (a device-side select: no host sync). `lr / t` is
-    `t.reciprocal() * lr`, as torch computes it for a host lr."""
-    updated = coeff - (torch.reciprocal(torch.clamp(wsum, min=1e-30)) * hyper[HYPER_LR]) * grad
-    updated = _hyper_prox_step(updated, hyper)
-    return torch.where(wsum > 0, updated, coeff)
+def _update_model(coeff, grad, wsum, hyper, criteria=None):
+    """coeff -= lr / wsum * grad, then the proximal step (`_prox_step` with
+    the hyperparameters as device operands, coeff kept exactly where reg
+    is 0), only where wsum > 0 and, given the state's criteria, only in a
+    live epoch (criteria > tol): device-side selects, no host sync. One
+    kernel on the card, the op sequence on the CPU (`sgdkernels.sgd_update`);
+    every body's update goes through here."""
+    return sgdkernels.sgd_update(coeff, grad, wsum, hyper, criteria)
 
 
 def _binomial_labels_ok(y):
     """{0,1} label validity flag (LogisticRegression.java:78-87), carried in
     the fit's packed readback. Padding rows have label 0 and pass."""
     return torch.all((y == 0.0) | (y == 1.0)).to(torch.float32)
-
-
-def _epoch_step(Xk, yk, wk, carry, loss_func, hyper):
-    """One epoch: apply the previous gradient, compute the next on this
-    epoch's batch. Returns (carry, criteria)."""
-    coeff, grad, wsum, epoch = carry
-    coeff = _update_model(coeff, grad, wsum, hyper)
-    lsum, grad, wsum = loss_func(Xk, yk, wk, coeff)
-    criteria = (lsum / torch.clamp(wsum, min=1e-30)).to(torch.float32)
-    return (coeff, grad, wsum, epoch + 1), criteria
 
 
 def _slice_rows(X, start, rows):
@@ -258,13 +241,41 @@ def _init_state(init_coeff, grad=None):
     )
 
 
+def _epoch_step(Xk, yk, wk, state, loss_func, hyper):
+    """One epoch under the device-side tol mask: apply the previous
+    gradient, compute the next on this epoch's batch, with
+    `criteria = loss_sum / max(weight_sum, 1e-30)`; once the state's
+    criteria are <= tol (the epoch is dead), the state is kept as it was.
+    Returns ((coeff, grad, wsum, epoch), criteria).
+
+    A loss of ops/losses.py's dense or sparse layout (`losses.epoch_fn`)
+    hands the state to its pointwise pass, which writes the epoch's tail
+    under the mask itself: on the card the epoch is the update kernel, the
+    row dots, the pointwise kernel, the gradient and one select of the
+    gradient. Any other loss's outputs are selected here."""
+    coeff, grad, wsum, epoch, criteria = state
+    new_coeff = _update_model(coeff, grad, wsum, hyper, criteria)
+    epoch_fn = losses.epoch_fn(loss_func)
+    if epoch_fn is not None:
+        out, new_grad = epoch_fn(Xk, yk, wk, new_coeff,
+                                 sgdkernels.EpochTail(hyper, wsum, epoch, criteria))
+        tail = out.tail
+        return (new_coeff, torch.where(tail.live, new_grad, grad), tail.wsum,
+                tail.epoch), tail.criteria
+    live = criteria > hyper[HYPER_TOL]
+    lsum, new_grad, new_wsum = loss_func(Xk, yk, wk, new_coeff)
+    new_criteria = (lsum / torch.clamp(new_wsum, min=1e-30)).to(torch.float32)
+    new = (new_grad, new_wsum, epoch + 1, new_criteria)
+    *carry, criteria = (torch.where(live, n, o) for n, o in zip(new, state[1:]))
+    return (new_coeff, *carry), criteria
+
+
 def _masked_epoch(Xk, yk, wk, state, loss_func, hyper):
-    """`_epoch_step` under the device-side tol mask: once the criteria are
-    <= tol, the state is kept as it was. While the fit is live, the device
-    epoch count equals the host's epoch index, so the host knows the batch."""
-    live = state[4] > hyper[HYPER_TOL]
-    carry, criteria = _epoch_step(Xk, yk, wk, state[:4], loss_func, hyper)
-    return tuple(torch.where(live, new, old) for new, old in zip((*carry, criteria), state))
+    """`_epoch_step` on the state (coeff, grad, wsum, epochs, criteria):
+    the next state. While the fit is live, the device epoch count equals
+    the host's epoch index, so the host knows the batch."""
+    carry, criteria = _epoch_step(Xk, yk, wk, state, loss_func, hyper)
+    return (*carry[:4], criteria)
 
 
 def _finish(state, hyper, flag=None):
@@ -274,23 +285,30 @@ def _finish(state, hyper, flag=None):
     return _pack_train_result(coeff, criteria, epochs, flag)
 
 
+def _row_weights(rows: int, n: int, dtype, device):
+    """The weights of the rows [0, rows) without a weight column: `row < n`,
+    so padding is inert. Made once a run of epochs (a fill and the padding's
+    zeros), each epoch's batch a view of it."""
+    w = torch.ones(rows, dtype=dtype, device=device)
+    w[n:] = 0.0
+    return w
+
+
 def _sgd_epochs(X, y, w, state, loss_func, batch, n, start, end, hyper):
     """Epochs [start, end) of the bounded fit on flat, batch-padded device
     tensors: epoch e trains the row slice of batch e mod num_batches (of
     y's rows: X and w may hold only the batches the epochs read); `w`
-    None synthesizes `row < n` weights. The whole fit is this from 0 to
-    maxIter; a checkpointed fit runs it chunk by chunk."""
+    None takes the weights `row < n` (`_row_weights`). The whole fit is
+    this from 0 to maxIter; a checkpointed fit runs it chunk by chunk."""
     num_batches = y.shape[0] // batch
-    device = y.device
+    if w is None:
+        first = X[0] if isinstance(X, tuple) else X
+        w = _row_weights(first.shape[0], n, state[0].dtype, y.device)
     for e in range(start, end):
         begin = (e % num_batches) * batch
         Xk = _slice_rows(X, begin, batch)
         yk = y[begin : begin + batch]
-        if w is not None:
-            wk = w[begin : begin + batch]
-        else:
-            wk = (torch.arange(begin, begin + batch, device=device) < n).to(state[0].dtype)
-        state = _masked_epoch(Xk, yk, wk, state, loss_func, hyper)
+        state = _masked_epoch(Xk, yk, w[begin : begin + batch], state, loss_func, hyper)
     return state
 
 

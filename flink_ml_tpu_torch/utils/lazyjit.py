@@ -321,10 +321,10 @@ def capture_stream():
 
 class Captured:
     """One captured graph: the graph, the launches each replay adds to the
-    sparse kernels' counts, the bytes the capture left allocated in its
-    pool (`pool_bytes`, measured) and the bytes it keeps between replays
-    (set by its owner). `stamp` orders the graphs of every cache by last
-    use."""
+    hand kernels' counts (ops/sparsekernels.py, ops/sgdkernels.py), the
+    bytes the capture left allocated in its pool (`pool_bytes`, measured)
+    and the bytes it keeps between replays (set by its owner). `stamp`
+    orders the graphs of every cache by last use."""
 
     def __init__(self, graph, launches: Dict[Any, int], pool_bytes: int = 0):
         self.graph = graph
@@ -351,10 +351,11 @@ def capture(pool, body: Callable[[], Any]) -> Tuple[Captured, Any]:
     wrappers count launches on the host, so the capture's counted launches
     move from the count to each replay. Returns (Captured with the bytes
     the capture left allocated in the pool, body's outputs in the pool)."""
-    from ..ops import sparsekernels
+    from ..ops import sgdkernels, sparsekernels
 
+    kernels = sparsekernels.KERNELS + sgdkernels.KERNELS
     graph = torch.cuda.CUDAGraph()
-    before = sparsekernels.launch_counts()
+    before = {k: k.launches for k in kernels}
     stream = capture_stream()
     with capture_lock:
         pool_before, _ = allocated_blocks(pool)
@@ -362,8 +363,7 @@ def capture(pool, body: Callable[[], Any]) -> Tuple[Captured, Any]:
                               capture_error_mode="thread_local"):
             out = body()
         pool_bytes = allocated_blocks(pool)[0] - pool_before
-    after = sparsekernels.launch_counts()
-    launches = {k: after[k.__name__] - before[k.__name__] for k in sparsekernels.KERNELS}
+    launches = {k: k.launches - before[k] for k in kernels}
     for kernel, n in launches.items():
         kernel.launches -= n
     return Captured(graph, launches, pool_bytes), out

@@ -7,7 +7,8 @@
   scripts/chip_funnel_phase.py, scripts/chip_checkpoint_phase.py,
   scripts/chip_host_attribution.py, scripts/chip_mesh_phase.py,
   scripts/probe_distributed_backends.py, scripts/chip_benchmark_phase.py,
-  scripts/chip_tools_phase.py, the operator tools scripts/torch_*.py (each also runs with jax and
+  scripts/chip_tools_phase.py, scripts/chip_sgd_epoch_phase.py (and the card's tests it runs,
+  tests/test_torch_sgd_fused.py), the operator tools scripts/torch_*.py (each also runs with jax and
   flink_ml_tpu poisoned: tests/test_torch_tools.py) nor the rank jobs of the mesh
   tests (tests/torch_mesh_jobs.py, tests/torch_mesh2d_jobs.py), imports
   jax or flink_ml_tpu;
@@ -52,6 +53,7 @@ PORT_FILES = sorted((REPO / "flink_ml_tpu_torch").rglob("*.py")) + [
     REPO / "scripts" / "chip_checkpoint_phase.py", REPO / "scripts" / "chip_host_attribution.py",
     REPO / "scripts" / "chip_mesh_phase.py", REPO / "scripts" / "probe_distributed_backends.py",
     REPO / "scripts" / "chip_benchmark_phase.py", REPO / "scripts" / "chip_tools_phase.py",
+    REPO / "scripts" / "chip_sgd_epoch_phase.py", REPO / "tests" / "test_torch_sgd_fused.py",
     *(REPO / "scripts" / name for name in TOOL_SCRIPTS),
     REPO / "tests" / "torch_mesh_jobs.py", REPO / "tests" / "torch_mesh2d_jobs.py"]
 
